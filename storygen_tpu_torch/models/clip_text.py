@@ -1,0 +1,102 @@
+"""CLIP ViT-L/14 text encoder as a plain nn.Module (token ids in,
+last_hidden_state out).
+
+Counterpart of storygen_tpu/models/clip_text.py: 12 pre-LN layers,
+quick_gelu, causal self-attention (masked, so on the plain attention path),
+final LayerNorm. Parameter names follow transformers' CLIPTextModel
+(`text_model.embeddings...`, `text_model.encoder.layers.{i}...`).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from storygen_tpu.configs import CLIPTextConfig
+from storygen_tpu_torch.models.attention import LayerNorm
+from storygen_tpu_torch.ops.attention import multi_head_attention
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+class CLIPAttention(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        d = cfg.hidden_size
+        self.heads = cfg.num_attention_heads
+        self.q_proj = nn.Linear(d, d)
+        self.k_proj = nn.Linear(d, d)
+        self.v_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, d)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        out = multi_head_attention(self.q_proj(x), self.k_proj(x),
+                                   self.v_proj(x), self.heads, mask=mask)
+        return self.out_proj(out)
+
+
+class CLIPMLP(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(quick_gelu(self.fc1(x)))
+
+
+class CLIPEncoderLayer(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.layer_norm1 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+        self.self_attn = CLIPAttention(cfg)
+        self.layer_norm2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+        self.mlp = CLIPMLP(cfg)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        x = x + self.self_attn(self.layer_norm1(x), mask)
+        return x + self.mlp(self.layer_norm2(x))
+
+
+class CLIPEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embedding = nn.Embedding(cfg.max_position_embeddings,
+                                               cfg.hidden_size)
+
+
+class CLIPEncoder(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.layers = nn.ModuleList([CLIPEncoderLayer(cfg)
+                                     for _ in range(cfg.num_hidden_layers)])
+
+
+class CLIPTextTransformer(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.embeddings = CLIPEmbeddings(cfg)
+        self.encoder = CLIPEncoder(cfg)
+        self.final_layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+
+
+class CLIPTextModel(nn.Module):
+    def __init__(self, config: CLIPTextConfig = CLIPTextConfig()):
+        super().__init__()
+        self.config = config
+        self.text_model = CLIPTextTransformer(config)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """input_ids (B, S) -> last_hidden_state (B, S, hidden)."""
+        tm = self.text_model
+        s = input_ids.shape[1]
+        positions = torch.arange(s, device=input_ids.device)[None]
+        x = (tm.embeddings.token_embedding(input_ids)
+             + tm.embeddings.position_embedding(positions))
+        causal = torch.ones((s, s), dtype=torch.bool,
+                            device=input_ids.device).tril()[None, None]
+        for layer in tm.encoder.layers:
+            x = layer(x, causal)
+        return tm.final_layer_norm(x)

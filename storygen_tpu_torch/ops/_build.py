@@ -1,0 +1,107 @@
+"""Build and load the CUDA kernels in `csrc/`.
+
+All `csrc/*.cu` files are compiled by ONE `nvcc` call into a shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds),
+placed under `build/storygen_tpu_torch/<hash>/` at the repository root and
+keyed by a hash of the sources and flags. It is loaded with `ctypes`; every
+pointer and the stream are passed as `c_void_p`. The build runs at the first
+kernel launch, never at import. A missing `nvcc` or a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import List, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "storygen_tpu_torch"
+LIB_NAME = "libstorygen_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+# C signature of every exported launcher; each returns a cudaError_t.
+SIGNATURES = {
+    # q, k, v, o, B, H, Sq, Skv, D, q/k/v batch and row strides, scale, stream
+    "sg_flash_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _L, _L, _L, _L, _L, _L, _F, _P),
+    # proj, w, bias, out, M, N, E, stream
+    "sg_geglu_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # x, w9, bias, bias batch stride, residual, out, B, H, W, Cin, Cout, stream
+    "sg_conv3x3": (_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None  # wall time of this process's build
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
+
+
+def source_hash(srcs: List[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def lib_path(srcs: List[Path]) -> Path:
+    return BUILD_ROOT / source_hash(srcs) / LIB_NAME
+
+
+def nvcc_command(nvcc: str, srcs: List[Path], out: Path) -> List[str]:
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, srcs)]
+
+
+def load() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs = sources()
+        out = lib_path(srcs)
+        if not out.exists():
+            import time
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+            cmd = nvcc_command(find_nvcc(), srcs, tmp)
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{proc.stderr}")
+            os.replace(tmp, out)
+            build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(out))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launcher."""
+    if err != 0:
+        raise RuntimeError(f"{name} failed with cudaError_t {err}")

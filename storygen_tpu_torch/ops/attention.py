@@ -1,0 +1,31 @@
+"""Multi-head attention over projected (B, S, H*D) tensors.
+
+Counterpart of storygen_tpu/ops/attention.py. Unmasked attention (every
+UNet CrossAttention: attn1, attn2 and attn3) goes to the flash kernel
+(`ops/flash_attention.py`); masked attention (CLIP's causal mask) stays on
+the plain path, as it stays on XLA in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from storygen_tpu_torch.ops import route
+from storygen_tpu_torch.ops.flash_attention import (  # noqa: F401
+    flash_attention, flash_attention_plain, merge_heads, plain_attention,
+    split_heads)
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         num_heads: int,
+                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, Sq, H*D), k/v (B, Skv, H*D) -> (B, Sq, H*D)."""
+    scale = (q.shape[-1] // num_heads) ** -0.5
+    if mask is not None:
+        out = plain_attention(split_heads(q, num_heads),
+                              split_heads(k, num_heads),
+                              split_heads(v, num_heads), scale, mask)
+        return merge_heads(out)
+    fn = route(flash_attention, flash_attention_plain)
+    return fn(q, k, v, num_heads, scale)
