@@ -4,17 +4,28 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It takes no arguments and runs three phases, all of which must pass:
-  kernels  builds the three CUDA kernels from storygen_tpu_torch/csrc/ and
+It takes no arguments and runs four phases, all of which must pass:
+  kernels  builds the seven CUDA kernels from storygen_tpu_torch/csrc/ and
            holds each against its plain PyTorch version at the 512 px
-           shapes of the main path, with CUDA-event times for both;
+           shapes of the main paths (serving and stage-2 training), with
+           CUDA-event times for the kernel, its plain version and, where one
+           PyTorch call computes the same function, that call (timed only,
+           as a yardstick; the port never calls it), beside the kernel's
+           bound;
   models   one full-width UNet image-cycle pass (512 px, 3 refs) and one
            512 px VAE encode and decode, kernel path against the plain
-           path on the card, compared before any clamp;
+           path on the card, compared before any clamp; and one full-width
+           stage-2 main pass (B2, 512 px, 3 refs under a ref mask) whose
+           loss and attn3 gradients are compared the same way;
   story    a 4-prompt auto-regressive `generate_story` at 512x512 with the
            full-width SD-1.5 + VLCM UNet, VAE and CLIP text encoder (seeded
            random weights and token ids), checking the frames and that
-           every kernel ran on the main path.
+           every serving kernel ran on that path;
+  train    `train("stage2", ...)` at 512 px, batch 4, 3 refs, bf16,
+           gradient checkpointing, 2 micro-steps per optimizer step, 3
+           optimizer steps on seeded synthetic batches, checking finite
+           losses, that every attn3 parameter moved and nothing else did,
+           and that every kernel ran on that path.
 
 There is no CPU branch: without a CUDA device the script exits non-zero
 before printing any result. The last line is the JSON status object.
@@ -22,6 +33,7 @@ before printing any result. The last line is the JSON status object.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -30,15 +42,57 @@ import time
 # the same kernels at the same shapes, so fewer steps cut time, not coverage.
 STORY_STEPS = 10
 
-# Kernel outputs are bf16; the oracle is the plain version in fp32 on the
-# same bf16 inputs. Output rounding alone is 2^-9 relative, and each kernel
-# rounds one operand to bf16 inside (P in attention, the gated product in
-# GEGLU); 1e-2 of the largest reference magnitude leaves a 4-5x margin.
+# Kernel outputs are bf16 (lse fp32); the oracle is the plain version in
+# fp32 on the same bf16 inputs. Output rounding alone is 2^-9 relative, and
+# each kernel rounds one operand to bf16 inside (P in attention and in dV,
+# dS in dQ and dK, the gated product in GEGLU); 1e-2 of the largest
+# reference magnitude leaves a 4-5x margin.
 KERNEL_RTOL = 1e-2
 # Whole-model kernel path vs plain path, both bf16 end to end: the two
 # differ by bf16 rounding at every site of ~70 UNet (~30 VAE) layers; a
-# wrong kernel gives O(1). Bound on the relative L2 error of the output.
+# wrong kernel gives O(1). Bound on the relative L2 error of the output,
+# and of the stage-2 loss.
 MODEL_REL_L2 = 5e-2
+# The stage-2 attn3 gradients, kernel path vs plain path: the backward runs
+# through as many bf16 sites again, so the bound is twice the forward's;
+# it holds for the gradient of every attn3 tensor, so a wrong backward at
+# any one level (d40, d80 or d160) fails it.
+GRAD_REL_L2 = 1e-1
+
+# The H100 SXM's dense bf16 tensor-core rate and HBM rate (NVIDIA's data
+# sheet), for each kernel's bound.
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+# attn3's per-batch keep table over its 3 reference spans (newest last)
+KEEP = [[0, 0, 1], [0, 1, 1], [1, 1, 1], [0, 0, 1]]
+# a table whose first row keeps no span (never drawn in training)
+NONE_KEPT = [[0, 0, 0], [0, 1, 1]]
+
+KERNEL_META = {
+    "flash_fwd": {
+        "route": "cuda", "source": "storygen_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "storygen_tpu/ops/pallas_attention.py:124"},
+    "flash_fwd_masked": {
+        "route": "cuda", "source": "storygen_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "storygen_tpu/ops/pallas_attention.py:157"},
+    "flash_lse": {
+        "route": "cuda", "source": "storygen_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "storygen_tpu/ops/pallas_attention.py:526"},
+    "flash_dq": {
+        "route": "cuda", "source": "storygen_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "storygen_tpu/ops/pallas_attention.py:558"},
+    "flash_dkv": {
+        "route": "cuda", "source": "storygen_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "storygen_tpu/ops/pallas_attention.py:593"},
+    "geglu_matmul": {
+        "route": "cuda", "source": "storygen_tpu_torch/csrc/geglu_matmul.cu",
+        "replaces": "storygen_tpu/ops/pallas_geglu.py:50"},
+    "conv3x3": {
+        "route": "cuda", "source": "storygen_tpu_torch/csrc/conv3x3.cu",
+        "replaces": "storygen_tpu/ops/pallas_conv.py:61"},
+}
+SERVING_KERNELS = ("flash_fwd", "geglu_matmul", "conv3x3")
 
 
 def nvidia_smi_line() -> str:
@@ -46,6 +100,24 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def wrappers() -> dict:
+    """Every kernel's wrapper, whose `.launches` counts its launches."""
+    from storygen_tpu_torch.ops import conv, flash_attention as fa, geglu
+    return {"flash_fwd": fa.flash_fwd, "flash_fwd_masked": fa.flash_fwd_masked,
+            "flash_lse": fa.flash_lse, "flash_dq": fa.flash_dq,
+            "flash_dkv": fa.flash_dkv, "geglu_matmul": geglu.geglu_matmul,
+            "conv3x3": conv.conv3x3}
+
+
+def reset_launches() -> None:
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: w.launches for k, w in wrappers().items()}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -63,11 +135,147 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_cases(dev):
-    """(kernel name, case label, kernel call, plain call on bf16, fp32
-    oracle) at the main path's 512 px shapes."""
+def bound_ms(flops: float, nbytes: float):
+    """The least time for the work: (ms, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+class Case:
+    """One kernel at one shape: the kernel call, its plain version on the
+    same bf16 inputs, the fp32 oracle, an optional library call, and the
+    operations and bytes the function needs (unpadded shapes, kept spans
+    only, each input read once and each output written once)."""
+
+    def __init__(self, name, label, kern, plain, oracle, library, flops,
+                 nbytes):
+        self.name, self.label = name, label
+        self.kern, self.plain, self.oracle = kern, plain, oracle
+        self.library, self.flops, self.nbytes = library, flops, nbytes
+
+
+def _attn_cases(dev, rnd):
+    """F and M forward cases, and the L/DQ/DKV backward cases."""
     import torch
-    from storygen_tpu_torch.ops import conv, flash_attention as fa, geglu
+    import torch.nn.functional as F
+    from storygen_tpu_torch.ops import flash_attention as fa
+    from storygen_tpu_torch.ops.flash_attention import split_heads
+
+    def sdpa_mask(keep, skv):
+        return None if keep is None else fa.keep_to_mask(keep, skv)
+
+    def kept_rows(keep, b, skv):
+        if keep is None:
+            return b * skv
+        return int(keep.sum().item()) * (skv // keep.shape[1])
+
+    cases = []
+    fwd = [("attn1 L1", 6, 4096, 4096, 40, None),
+           ("attn3 L1", 3, 4096, 12288, 40, None),
+           ("attn3 L2", 3, 1024, 3072, 80, None),
+           ("attn3 L3", 3, 256, 768, 160, None),
+           ("attn1 mid", 6, 64, 64, 160, None),
+           ("attn2 L1", 3, 4096, 77, 40, None),
+           ("ragged", 2, 1000, 333, 40, None),
+           ("masked attn3 L1", 4, 4096, 12288, 40, KEEP),
+           ("masked attn3 L2", 4, 1024, 3072, 80, KEEP),
+           ("masked attn3 L3", 4, 256, 768, 160, KEEP),
+           ("masked attn3 mid", 4, 64, 192, 160, KEEP),
+           # a row that keeps no ref: output 0, as the plain version's
+           ("masked none kept", 2, 256, 768, 80, NONE_KEPT)]
+    for label, b, sq, skv, d, table in fwd:
+        q, k, v = rnd(b, sq, 8 * d), rnd(b, skv, 8 * d), rnd(b, skv, 8 * d)
+        sc = d ** -0.5
+        masked = table is not None
+        keep = (torch.tensor(table, dtype=torch.bool, device=dev)
+                if masked else None)
+        rows = kept_rows(keep, b, skv)
+        flops = 4.0 * 8 * sq * rows * d
+        nbytes = 2.0 * 8 * d * (2 * b * sq + 2 * rows)
+        mask = sdpa_mask(keep, skv)
+        name = "flash_fwd_masked" if masked else "flash_fwd"
+        kern = ((lambda q=q, k=k, v=v, sc=sc, keep=keep:
+                 fa.flash_fwd_masked(q, k, v, 8, sc, keep)) if masked else
+                (lambda q=q, k=k, v=v, sc=sc: fa.flash_fwd(q, k, v, 8, sc)))
+        cases.append(Case(
+            name, f"{label} B{b} {sq}x{skv} d{d}", kern,
+            lambda q=q, k=k, v=v, sc=sc, keep=keep: fa.flash_attention_plain(
+                q, k, v, 8, sc, keep),
+            lambda q=q, k=k, v=v, sc=sc, keep=keep: fa.flash_attention_plain(
+                q.float(), k.float(), v.float(), 8, sc, keep),
+            lambda q=q, k=k, v=v, sc=sc, mask=mask:
+                F.scaled_dot_product_attention(
+                    split_heads(q, 8), split_heads(k, 8), split_heads(v, 8),
+                    attn_mask=mask, scale=sc),
+            flops, nbytes))
+
+    bwd = [("attn1 L1", 4, 4096, 4096, 40, None),
+           ("masked attn3 L1", 4, 4096, 12288, 40, KEEP),
+           ("attn2 L1", 4, 4096, 77, 40, None),
+           ("masked attn3 L3", 4, 256, 768, 160, KEEP),
+           ("attn1 mid", 4, 64, 64, 160, None),
+           ("masked none kept", 2, 256, 768, 80, NONE_KEPT)]
+    for label, b, sq, skv, d, table in bwd:
+        q, k, v = rnd(b, sq, 8 * d), rnd(b, skv, 8 * d), rnd(b, skv, 8 * d)
+        dout = rnd(b, sq, 8 * d)
+        sc = d ** -0.5
+        keep = (torch.tensor(table, dtype=torch.bool, device=dev)
+                if table is not None else None)
+        rows = kept_rows(keep, b, skv)
+        with torch.no_grad():
+            out = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                           8, sc, keep).to(q.dtype)
+            delta = fa.attention_delta(out, dout, 8)
+            lse = fa.flash_lse_plain(q.float(), k.float(), 8, sc, keep)
+        mask = sdpa_mask(keep, skv)
+
+        def sdpa_fwd_bwd(q=q, k=k, v=v, dout=dout, sc=sc, mask=mask):
+            qh, kh, vh = (split_heads(t, 8).detach().requires_grad_()
+                          for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                               scale=sc)
+            o.backward(split_heads(dout, 8))
+
+        tag = f"{label} B{b} {sq}x{skv} d{d}"
+        qb, kvb = 2.0 * b * sq * 8 * d, 2.0 * rows * 8 * d  # bf16 bytes
+        kv_out = 2.0 * b * skv * 8 * d  # dK or dV, every row written
+        rowb = 4.0 * b * 8 * sq  # an fp32 (B, H, Sq) row of scalars
+        mm = 2.0 * 8 * sq * rows * d  # one (Sq x kept Skv x D) product
+        args = (q, k, v, dout, lse, delta)
+        f32 = tuple(t.float() for t in (q, k, v, dout)) + (lse, delta)
+        cases += [
+            Case("flash_lse", tag,
+                 lambda q=q, k=k, sc=sc, keep=keep: fa.flash_lse(
+                     q, k, 8, sc, keep),
+                 lambda q=q, k=k, sc=sc, keep=keep: fa.flash_lse_plain(
+                     q, k, 8, sc, keep),
+                 lambda lse=lse: lse, sdpa_fwd_bwd, mm, qb + kvb + rowb),
+            Case("flash_dq", tag,
+                 lambda a=args, sc=sc, keep=keep: fa.flash_dq(
+                     *a, 8, sc, keep),
+                 lambda a=args, sc=sc, keep=keep: fa.flash_dq_plain(
+                     *a, 8, sc, keep),
+                 lambda a=f32, sc=sc, keep=keep: fa.flash_dq_plain(
+                     *a, 8, sc, keep),
+                 sdpa_fwd_bwd, 3 * mm, 3 * qb + 2 * kvb + 2 * rowb),
+            Case("flash_dkv", tag,
+                 lambda a=args, sc=sc, keep=keep: fa.flash_dkv(
+                     *a, 8, sc, keep),
+                 lambda a=args, sc=sc, keep=keep: fa.flash_dkv_plain(
+                     *a, 8, sc, keep),
+                 lambda a=f32, sc=sc, keep=keep: fa.flash_dkv_plain(
+                     *a, 8, sc, keep),
+                 sdpa_fwd_bwd, 4 * mm,
+                 2 * qb + 2 * kvb + 2 * kv_out + 2 * rowb)]
+    return cases
+
+
+def kernel_cases(dev):
+    """Every kernel at the main paths' 512 px shapes."""
+    import torch
+    import torch.nn.functional as F
+    from storygen_tpu_torch.ops import conv, geglu
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -75,32 +283,18 @@ def kernel_cases(dev):
         return (torch.randn(shape, generator=g, device=dev) * s).to(
             torch.bfloat16)
 
-    cases = []
-    attn = [("attn1 L1", 6, 4096, 4096, 40), ("attn3 L1", 3, 4096, 12288, 40),
-            ("attn3 L2", 3, 1024, 3072, 80), ("attn3 L3", 3, 256, 768, 160),
-            ("attn1 mid", 6, 64, 64, 160), ("attn2 L1", 3, 4096, 77, 40),
-            ("ragged", 2, 1000, 333, 40)]
-    for label, b, sq, skv, d in attn:
-        q, k, v = rnd(b, sq, 8 * d), rnd(b, skv, 8 * d), rnd(b, skv, 8 * d)
-        sc = d ** -0.5
-        cases.append(("flash_attention", f"{label} B{b} {sq}x{skv} d{d}",
-                      lambda q=q, k=k, v=v, sc=sc: fa.flash_attention(
-                          q, k, v, 8, sc),
-                      lambda q=q, k=k, v=v, sc=sc: fa.flash_attention_plain(
-                          q, k, v, 8, sc),
-                      lambda q=q, k=k, v=v, sc=sc: fa.flash_attention_plain(
-                          q.float(), k.float(), v.float(), 8, sc)))
+    cases = _attn_cases(dev, rnd)
     for label, m, n, e in [("L1 ff", 3 * 4096, 1280, 320),
                            ("L2 ref ff", 6 * 1024, 2560, 640),
                            ("mid ff", 192, 5120, 1280)]:
         p, w, bias = rnd(m, 2 * n), rnd(e, n, s=n ** -0.5), rnd(e)
-        cases.append(("geglu_matmul", f"{label} ({m}, 2x{n})->{e}",
-                      lambda p=p, w=w, bias=bias: geglu.geglu_matmul(
-                          p, w, bias),
-                      lambda p=p, w=w, bias=bias: geglu.geglu_matmul_plain(
-                          p, w, bias),
-                      lambda p=p, w=w, bias=bias: geglu.geglu_matmul_plain(
-                          p.float(), w.float(), bias.float())))
+        cases.append(Case(
+            "geglu_matmul", f"{label} ({m}, 2x{n})->{e}",
+            lambda p=p, w=w, bias=bias: geglu.geglu_matmul(p, w, bias),
+            lambda p=p, w=w, bias=bias: geglu.geglu_matmul_plain(p, w, bias),
+            lambda p=p, w=w, bias=bias: geglu.geglu_matmul_plain(
+                p.float(), w.float(), bias.float()),
+            None, 2.0 * m * n * e, 2.0 * (2 * m * n + e * n + m * e)))
     for label, b, hw, cin, cout, bias_b, res in [
             ("UNet up L1 (B,C) bias", 3, 64, 960, 320, True, False),
             ("UNet L1 residual", 3, 64, 320, 320, False, True),
@@ -113,29 +307,31 @@ def kernel_cases(dev):
         bias = torch.randn((b, cout) if bias_b else (cout,), generator=g,
                            device=dev)
         r = rnd(b, hw, hw, cout) if res else None
-        cases.append(("conv3x3",
-                      f"{label} B{b} {hw}x{hw} {cin}->{cout}",
-                      lambda x=x, w9=w9, bias=bias, r=r: conv.conv3x3(
-                          x, w9, bias, r),
-                      lambda x=x, w9=w9, bias=bias, r=r: conv.conv3x3_plain(
-                          x, w9, bias, r),
-                      lambda x=x, w9=w9, bias=bias, r=r: conv.conv3x3_plain(
-                          x.float(), w9.float(), bias,
-                          None if r is None else r.float())))
+        # the yardstick: cuDNN's channels_last bf16 convolution (with the
+        # (Cout) bias; the per-batch bias and the residual are not in it)
+        x_cl = x.permute(0, 3, 1, 2)
+        w_cl = w9.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        b_lib = None if bias_b else bias.to(torch.bfloat16)
+        pix = b * hw * hw
+        cases.append(Case(
+            "conv3x3", f"{label} B{b} {hw}x{hw} {cin}->{cout}",
+            lambda x=x, w9=w9, bias=bias, r=r: conv.conv3x3(x, w9, bias, r),
+            lambda x=x, w9=w9, bias=bias, r=r: conv.conv3x3_plain(
+                x, w9, bias, r),
+            lambda x=x, w9=w9, bias=bias, r=r: conv.conv3x3_plain(
+                x.float(), w9.float(), bias,
+                None if r is None else r.float()),
+            lambda x=x_cl, w=w_cl, bb=b_lib: F.conv2d(x, w, bb, padding=1),
+            2.0 * pix * 9 * cin * cout,
+            2.0 * (pix * cin + 9 * cin * cout + pix * cout * (2 if res
+                                                               else 1))
+            + 4.0 * bias.numel()))
     return cases
 
 
-KERNEL_META = {
-    "flash_attention": {
-        "route": "cuda", "source": "storygen_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "storygen_tpu/ops/pallas_attention.py:124"},
-    "geglu_matmul": {
-        "route": "cuda", "source": "storygen_tpu_torch/csrc/geglu_matmul.cu",
-        "replaces": "storygen_tpu/ops/pallas_geglu.py:50"},
-    "conv3x3": {
-        "route": "cuda", "source": "storygen_tpu_torch/csrc/conv3x3.cu",
-        "replaces": "storygen_tpu/ops/pallas_conv.py:61"},
-}
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
 
 
 def phase_kernels(dev, card: str, results: dict) -> bool:
@@ -143,31 +339,62 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     ok = True
-    for name, label, kern, plain, oracle in kernel_cases(dev):
-        out = kern().float()
-        ref = oracle().float()
+    library_ms = {}  # the backward's three kernels share one yardstick
+    for c in kernel_cases(dev):
+        with torch.no_grad():
+            outs = [o.float() for o in _as_tuple(c.kern())]
+            refs = [o.float() for o in _as_tuple(c.oracle())]
         torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        bound = KERNEL_RTOL * ref.abs().max().item()
-        finite = bool(torch.isfinite(out).all().item())
-        good = finite and err <= bound
-        ms = cuda_ms(kern, 10)
-        plain_ms = cuda_ms(plain, 3)
+        checks = []  # (error, bound, passed) of each output
+        for o, r in zip(outs, refs):
+            if o.shape != r.shape:
+                checks.append((float("inf"), 0.0, False))
+                continue
+            # equal entries agree, infinite ones too (the -inf lse of a row
+            # that keeps no ref); every other entry must be finite and near
+            same = o == r
+            e = torch.where(same, 0.0, (o - r).abs()).max().item()
+            bd = KERNEL_RTOL * r[torch.isfinite(r)].abs().max().item()
+            fin = bool((torch.isfinite(o) | same).all().item())
+            checks.append((e, bd, fin and e <= bd))
+        del outs, refs
+        good = all(x[2] for x in checks)
+        # report the output that is furthest from its bound
+        err, bound, _ = max(checks, key=lambda x: (not x[2],
+                                                   x[0] / max(x[1], 1e-30)))
+        with torch.no_grad():
+            ms = cuda_ms(c.kern, 10)
+            plain_ms = cuda_ms(c.plain, 3)
+        lib_ms = None
+        if c.library is not None:
+            if c.library not in library_ms:
+                library_ms[c.library] = cuda_ms(c.library, 5)
+            lib_ms = library_ms[c.library]
+        b_ms, b_by = bound_ms(c.flops, c.nbytes)
         ok &= good
-        print(f"kernel {name:16s} {label:40s} max_abs_err {err:.3e} "
+        lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"kernel {c.name:16s} {c.label:38s} max_abs_err {err:.3e} "
               f"(bound {bound:.3e}) {'ok' if good else 'FAIL'}  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  [{card}]",
-              flush=True)
-        r = results.setdefault(name, {"name": name, **KERNEL_META[name],
-                                      "launches": 0, "max_abs_err": 0.0,
-                                      "ms": 0.0, "plain_ms": 0.0,
-                                      "cases": []})
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  "
+              f"bound {b_ms:.4f} ms ({b_by})  [{card}]", flush=True)
+        r = results.setdefault(c.name, {
+            "name": c.name, **KERNEL_META[c.name], "launches": 0,
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "bound_by": b_by, "library_ms": None, "cases": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
-        r["cases"].append({"case": label, "max_abs_err": err, "bound": bound,
-                           "ms": ms, "plain_ms": plain_ms})
-        del out, ref
+        r["bound_ms"] += b_ms
+        if lib_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
+        r["cases"].append({"case": c.label, "max_abs_err": err,
+                           "bound": bound, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "library_ms": lib_ms})
+    for r in results.values():  # the bound of the kernel's summed cases
+        r["bound_by"] = max(r["cases"], key=lambda x: x["bound_ms"])[
+            "bound_by"]
+    torch.cuda.empty_cache()
     return ok
 
 
@@ -175,7 +402,8 @@ def full_width_models(dev):
     """SD-1.5 + VLCM UNet, VAE and CLIP ViT-L/14 text encoder at their
     published widths, bf16, seeded random weights."""
     import torch
-    from storygen_tpu.configs import CLIPTextConfig, UNetConfig, VAEConfig
+    from storygen_tpu_torch.configs import (CLIPTextConfig, UNetConfig,
+                                            VAEConfig)
     from storygen_tpu_torch.models.clip_text import CLIPTextModel
     from storygen_tpu_torch.models.init import init_random_
     from storygen_tpu_torch.models.unet import UNet2DConditionModel
@@ -231,10 +459,79 @@ def kernel_vs_plain(label: str, fn, shape, card: str) -> bool:
     return ok
 
 
+def stage2_grads_vs_plain(unet, dev, card: str) -> bool:
+    """One stage-2 main pass at B2, 512 px, 3 refs under KEEP's first two
+    rows, masked MSE: loss and every attn3 gradient, kernel path against
+    plain path (gradient checkpointing on, as in training)."""
+    import torch
+    from storygen_tpu_torch import ops
+    from storygen_tpu_torch.training import optim
+    from storygen_tpu_torch.training.losses import downsample_mask, masked_mse
+    unet.gradient_checkpointing = True
+    trainable = optim.partition_params(unet, optim.STAGE_PREDICATES["stage2"])
+    for p in trainable.values():
+        p.data = p.data.float()
+    g = torch.Generator(device=dev).manual_seed(12)
+    n, b = 3, 2
+    with torch.no_grad():
+        refs = torch.randn((n * b, 64, 64, 4), generator=g, device=dev)
+        rtext = torch.randn((n * b, 77, 768), generator=g, device=dev)
+        t_ref = torch.tensor([150, 20] * n, device=dev) * torch.arange(
+            n, 0, -1, device=dev).repeat_interleave(b)
+        _, raw = unet(refs, t_ref, rtext)
+        ctx = {k: v.reshape((n, b) + v.shape[1:]).transpose(0, 1)
+               .reshape(b, n * v.shape[1], v.shape[2])
+               for k, v in raw.items()}
+    x = torch.randn((b, 64, 64, 4), generator=g, device=dev)
+    noise = torch.randn((b, 64, 64, 4), generator=g, device=dev)
+    text = torch.randn((b, 77, 768), generator=g, device=dev)
+    t = torch.tensor([500, 80], device=dev)
+    keep = torch.tensor(KEEP[:b], dtype=torch.bool, device=dev)
+    lmask = downsample_mask((torch.rand((b, 512, 512, 1), generator=g,
+                                        device=dev) > 0.8).float())
+    names = list(trainable)
+
+    def run():
+        pred, _ = unet(x, t, text, ctx, keep)
+        loss = masked_mse(pred, noise, lmask)
+        grads = torch.autograd.grad(loss, [trainable[k] for k in names])
+        return loss.detach().float(), [gr.float() for gr in grads]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_k, grads_k = run()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with ops.plain_path():
+        loss_p, grads_p = run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rel_loss = (abs(loss_k - loss_p) / abs(loss_p)).item()
+    per = [((a - p).norm() / p.norm()).item()
+           for a, p in zip(grads_k, grads_p)]
+    flat_k, flat_p = (torch.cat([x.flatten() for x in gs])
+                      for gs in (grads_k, grads_p))
+    rel_all = ((flat_k - flat_p).norm() / flat_p.norm()).item()
+    worst = max(range(len(per)), key=per.__getitem__)
+    finite = bool(torch.isfinite(flat_k).all().item()) and bool(
+        torch.isfinite(loss_k).item())
+    ok = (finite and rel_loss <= MODEL_REL_L2 and max(per) <= GRAD_REL_L2
+          and len(names) == 16 * 5)
+    print(f"stage-2 main pass B2 512px 3 refs masked: loss kernel "
+          f"{loss_k.item():.6f} plain {loss_p.item():.6f} rel "
+          f"{rel_loss:.3e} (bound {MODEL_REL_L2:.0e}); {len(names)} attn3 "
+          f"grads rel L2 all {rel_all:.3e}, worst {per[worst]:.3e} at "
+          f"{names[worst]} (bound {GRAD_REL_L2:.0e}) "
+          f"{'ok' if ok else 'FAIL'}; kernel path {1e3 * (t1 - t0):.1f} ms,"
+          f" plain path {1e3 * (t2 - t1):.1f} ms (first calls) [{card}]",
+          flush=True)
+    return ok
+
+
 def phase_models(dev, card: str) -> bool:
     """One image-cycle UNet pass (3-row CFG batch, 3 refs at 64x64
     latents), one 512 px VAE encode and one decode, each on the kernel path
-    against the plain path on the same inputs."""
+    against the plain path on the same inputs; then the stage-2 pass."""
     import torch
     from storygen_tpu_torch.pipeline import StoryGenSampler
     unet, vae, _ = full_width_models(dev)
@@ -258,7 +555,9 @@ def phase_models(dev, card: str) -> bool:
                           card)
     ok &= kernel_vs_plain("vae decode B1 64x64 latents (before the clamp)",
                           lambda: vae.decode(z), (1, 512, 512, 3), card)
-    del unet, vae, raw, ctx
+    del vae, raw, ctx
+    ok &= stage2_grads_vs_plain(unet, dev, card)
+    del unet
     torch.cuda.empty_cache()
     return ok
 
@@ -269,12 +568,18 @@ PROMPTS = ("A little fox finds a glowing lantern in the snowy forest.",
            "The fox and the owl share the lantern light in a warm den.")
 
 
+def record_launches(results: dict, launches: dict, key: str) -> None:
+    for k, n in launches.items():
+        r = results.setdefault(k, {"name": k, **KERNEL_META[k]})
+        r[key] = n
+
+
 def phase_story(dev, card: str, results: dict) -> bool:
-    """The main path: a 4-prompt generate_story at 512x512, DDIM, guidance
-    7.5 / image guidance 3.5, frames 2-4 conditioned on up to 3 refs."""
+    """The serving path: a 4-prompt generate_story at 512x512, DDIM,
+    guidance 7.5 / image guidance 3.5, frames 2-4 conditioned on up to 3
+    refs."""
     import numpy as np
     import torch
-    from storygen_tpu_torch.ops import conv, flash_attention as fa, geglu
     from storygen_tpu_torch.pipeline import StoryGenPipeline
     unet, vae, clip = full_width_models(dev)
     pipe = StoryGenPipeline(unet, vae, clip, token_ids, device=dev)
@@ -288,12 +593,9 @@ def phase_story(dev, card: str, results: dict) -> bool:
         return img
 
     pipe.sampler.decode = timed_decode
-    wrappers = {"flash_attention": fa.flash_attention,
-                "geglu_matmul": geglu.geglu_matmul, "conv3x3": conv.conv3x3}
-    for w in wrappers.values():
-        w.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    reset_launches()
     t0 = time.perf_counter()
     frames = pipe.generate_story(list(PROMPTS),
                                  num_inference_steps=STORY_STEPS,
@@ -301,7 +603,7 @@ def phase_story(dev, card: str, results: dict) -> bool:
                                  image_guidance_scale=3.5, seed=0)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = read_launches()
     per_frame = np.diff([t0] + marks)
     ok = len(frames) == len(PROMPTS)
     for i, f in enumerate(frames):
@@ -311,18 +613,77 @@ def phase_story(dev, card: str, results: dict) -> bool:
         print(f"frame {i + 1}: shape {f.shape} range [{f.min():.3f}, "
               f"{f.max():.3f}] mean {f.mean():.3f} "
               f"{'ok' if good else 'FAIL'}")
-    for k, n in launches.items():
-        ok &= n > 0
-        if k in results:
-            results[k]["launches"] = n
-        else:
-            results[k] = {"name": k, **KERNEL_META[k], "launches": n}
+    ok &= all(launches[k] > 0 for k in SERVING_KERNELS)
+    record_launches(results, launches, "launches_story")
     print(f"story: {len(frames)} frames 512x512, DDIM-{STORY_STEPS}, "
           f"refs up to 3, "
           f"bf16: total {total:.2f} s, per frame "
           f"{', '.join(f'{s:.2f}' for s in per_frame)} s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
-    print(f"main-path launches: {json.dumps(launches)}", flush=True)
+    print(f"story-path launches: {json.dumps(launches)}", flush=True)
+    del pipe, unet, vae, clip
+    torch.cuda.empty_cache()
+    return ok
+
+
+TRAIN_BATCH, TRAIN_GA, TRAIN_STEPS = 4, 2, 3
+
+
+def phase_train(dev, card: str, results: dict) -> bool:
+    """The training path: `train("stage2", ...)` through the trainer, on
+    seeded synthetic StorySalon-layout batches made up front."""
+    import math
+
+    import torch
+    from storygen_tpu_torch.configs import TrainConfig
+    from storygen_tpu_torch.data.loader import SyntheticStoryDataset
+    from storygen_tpu_torch.training import trainer
+    logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_train")
+    cfg = TrainConfig(logdir=logdir, train_steps=TRAIN_STEPS,
+                      train_batch_size=TRAIN_BATCH,
+                      gradient_accumulation_steps=TRAIN_GA, seed=0,
+                      mixed_precision="bf16", remat=True)
+    synth = SyntheticStoryDataset(2 * TRAIN_BATCH, size=512, seed=5)
+    dataset = [synth[i] for i in range(len(synth))]  # made before the run
+    bundle = trainer.build_models(cfg, dev)
+    before = {f"{m}.{n}": p.detach().clone()
+              for m in ("unet", "vae", "text_encoder")
+              for n, p in bundle[m].named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launches()
+    state = trainer.train("stage2", cfg, dataset, device=dev,
+                          models_bundle=bundle)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    after = {f"{m}.{n}": p.detach()
+             for m in ("unet", "vae", "text_encoder")
+             for n, p in bundle[m].named_parameters()}
+    moved = {k for k in before
+             if not torch.equal(after[k].float(), before[k].float())}
+    attn3 = {k for k in before if k.startswith("unet.") and "attn3" in k}
+    finite = all(math.isfinite(x) for x in state.losses)
+    n_micro = TRAIN_STEPS * TRAIN_GA
+    ok = (finite and len(state.losses) == n_micro and moved == attn3
+          and len(attn3) == 16 * 5 and all(n > 0 for n in launches.values())
+          and state.optimizer.count == TRAIN_STEPS)
+    record_launches(results, launches, "launches")
+    steady = state.micro_seconds[1:]
+    ms = 1e3 * sum(steady) / len(steady)
+    print(f"train stage2: {TRAIN_STEPS} optimizer steps x {TRAIN_GA} "
+          f"micro-steps, batch {TRAIN_BATCH}, 512 px, 3 refs, bf16, "
+          f"gradient checkpointing; losses "
+          f"{', '.join(f'{x:.4f}' for x in state.losses)}; "
+          f"{len(moved & attn3)}/{len(attn3)} attn3 tensors moved, "
+          f"{len(moved - attn3)} other tensors moved; "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    print(f"train: first micro-step {1e3 * state.micro_seconds[0]:.1f} ms, "
+          f"then {ms:.1f} ms per micro-step "
+          f"({', '.join(f'{1e3 * s:.1f}' for s in steady)}), "
+          f"{1e3 * TRAIN_BATCH / ms:.3f} samples/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
+    print(f"train-path launches: {json.dumps(launches)}", flush=True)
     return ok
 
 
@@ -348,16 +709,17 @@ def main() -> int:
 
     results: dict = {}
     failed = []
-    if not phase_kernels(dev, card, results):
-        failed.append("kernels")
-    if not phase_models(dev, card):
-        failed.append("models")
-    if not phase_story(dev, card, results):
-        failed.append("story")
+    for name, phase in (("kernels", phase_kernels), ("models", phase_models),
+                        ("story", phase_story), ("train", phase_train)):
+        t0 = time.perf_counter()
+        args = (dev, card) if phase is phase_models else (dev, card, results)
+        if not phase(*args):
+            failed.append(name)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     if failed:
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": list(results.values())}))
+    print(json.dumps({"kernels": [results[k] for k in KERNEL_META]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

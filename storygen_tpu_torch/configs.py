@@ -1,0 +1,136 @@
+"""Typed configuration of the port: the model, scheduler and training
+settings it reads.
+
+The port's own copy of the dataclasses of storygen_tpu/configs.py, with
+the same field names and defaults, so a configuration written for the JAX
+package reads here unchanged. `TrainConfig` keeps only the fields that
+`training/` reads; the TPU mesh and Pallas variant knobs have no
+counterpart. Defaults are the SD-1.5 + VLCM operating point.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class UNetConfig:
+    """SD-1.5 UNet + the VLCM image cross-attention (attn3)."""
+    sample_size: int = 64  # latent H=W (512 px / 8)
+    in_channels: int = 4
+    out_channels: int = 4
+    down_block_types: Tuple[str, ...] = (
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+        "DownBlock2D",
+    )
+    mid_block_type: Optional[str] = "UNetMidBlock2DCrossAttn"
+    up_block_types: Tuple[str, ...] = (
+        "UpBlock2D",
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+    )
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 768
+    # diffusers' name; SD-1.5 uses it as the number of heads
+    attention_head_dim: int = 8
+    norm_num_groups: int = 32
+    norm_eps: float = 1e-5
+    flip_sin_to_cos: bool = True
+    freq_shift: int = 0
+    downsample_padding: int = 1
+    mid_block_scale_factor: float = 1.0
+    act_fn: str = "silu"
+    use_linear_projection: bool = False
+    conv_in_kernel: int = 3
+    conv_out_kernel: int = 3
+
+    @property
+    def num_heads(self) -> int:
+        return self.attention_head_dim
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+@dataclass(frozen=True)
+class VAEConfig:
+    """AutoencoderKL (SD-1.5 vae/config.json)."""
+    in_channels: int = 3
+    out_channels: int = 3
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    latent_channels: int = 4
+    norm_num_groups: int = 32
+    sample_size: int = 512
+    act_fn: str = "silu"
+    scaling_factor: float = 0.18215
+
+    @property
+    def downscale_factor(self) -> int:
+        return 2 ** (len(self.block_out_channels) - 1)
+
+
+@dataclass(frozen=True)
+class CLIPTextConfig:
+    """CLIP ViT-L/14 text encoder (text_config of CLIP/config.json)."""
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    max_position_embeddings: int = 77
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"
+    bos_token_id: int = 49406
+    eos_token_id: int = 49407
+    pad_token_id: int = 49407
+
+
+@dataclass(frozen=True)
+class SchedulerConfig:
+    """Noise schedule (SD-1.5 scheduler/scheduler_config.json)."""
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    beta_schedule: str = "scaled_linear"
+    set_alpha_to_one: bool = False
+    steps_offset: int = 1
+    clip_sample: bool = False
+    prediction_type: str = "epsilon"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The training fields of the reference's config/*.yml that the port's
+    trainer reads (names and defaults as in the JAX package)."""
+    logdir: str = "./logs/"
+    train_steps: int = 50000
+    train_batch_size: int = 12
+    gradient_accumulation_steps: int = 8
+    seed: int = 6666
+    mixed_precision: str = "bf16"  # "fp16" is read as bf16
+    learning_rate: float = 1e-5
+    scale_lr: bool = False
+    lr_scheduler: str = "constant"
+    lr_warmup_steps: int = 0
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 0.01
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 1.0
+    num_ref_frames: int = 3
+    # gradient checkpointing per UNet block
+    remat: bool = True
+
+    def __post_init__(self):
+        if self.mixed_precision not in ("bf16", "fp16", "fp32", "no"):
+            raise ValueError(
+                f"mixed_precision={self.mixed_precision!r}; expected "
+                "'bf16', 'fp16' (read as bf16), 'fp32' or 'no'")
+        if self.lr_scheduler not in ("constant", "linear", "cosine"):
+            raise ValueError(f"lr_scheduler={self.lr_scheduler!r}")

@@ -25,6 +25,17 @@
 // their logits as -inf. Q, K and V are read straight from the projections'
 // (B, S, H*D) layout through batch and row strides (so a split k|v view
 // needs no copy), and O is written as (B, Sq, H*D): the head merge is free.
+//
+// The masked instantiation (kernel M) replaces the masked variants
+// (_bnd2_masked_kernel, _bnd_masked_kernel, _online_t_masked_kernel,
+// _masked_kernel): the kv is N equal reference spans and `keep` (B, N)
+// says which spans a batch row may attend to. Every span is a multiple of
+// BK, so a flag holds for a whole K/V tile and a dropped tile is skipped
+// before it is loaded. The first tile a row sees may then be any kept one,
+// so the recurrence no longer relies on column 0 of the first tile: a row
+// whose running max is still -inf takes alpha = 0 instead of
+// exp2(-inf - -inf), and a row that kept no tile at all (never the case in
+// training, where the newest reference is always kept) writes zeros.
 // Simple first: no cp.async pipelining, wgmma or TMA yet.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,12 +85,13 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-template <int DP>
+template <int DP, bool MASKED>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int H,
                  int Sq, int Skv, int D, long long qb, long long qr,
                  long long kb, long long kr, long long vb, long long vr,
+                 const int* __restrict__ keep, int nref, int span,
                  float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem[];
   using L = Smem<DP>;
@@ -108,6 +120,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   for (int k0 = 0; k0 < Skv; k0 += BK) {
+    // block-uniform: every thread skips the same tiles
+    if (MASKED && !keep[b * nref + k0 / span]) continue;
     load_tile<DP, BK>(Ks, kbase, kr, k0, Skv, D);
     load_tile<DP, BK>(Vs, vbase, vr, k0, Skv, D);
     __syncthreads();
@@ -145,14 +159,17 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int off = 16; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_old = Ms[row];
-      const float m_new = fmaxf(m_old, mx);  // finite: column 0 is valid
+      // finite: every processed tile holds at least column 0
+      const float m_new = fmaxf(m_old, mx);
       const float p0 = exp2f(s0 - m_new);
       const float p1 = exp2f(s1 - m_new);
       float sum = p0 + p1;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = exp2f(m_old - m_new);
+      // the row's first processed tile: nothing to rescale (and never
+      // exp2(-inf - -inf))
+      const float alpha = m_old == -INFINITY ? 0.f : exp2f(m_old - m_new);
       Ps[row * BK + lane] = __float2bfloat16(p0);
       Ps[row * BK + lane + 32] = __float2bfloat16(p1);
       for (int c = lane; c < DP; c += 32) Os[row * DP + c] *= alpha;
@@ -189,46 +206,56 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int idx = threadIdx.x; idx < BQ * D; idx += NTHREADS) {
     const int r = idx / D, c = idx % D;
     const int gr = q0 + r;
-    if (gr < Sq)
+    if (gr < Sq)  // Ls = 0: the row kept no tile and attends to nothing
       o[((long long)b * Sq + gr) * ors + (long long)h * D + c] =
-          __float2bfloat16(Os[r * DP + c] / Ls[r]);
+          __float2bfloat16(Ls[r] > 0.f ? Os[r * DP + c] / Ls[r] : 0.f);
   }
 }
 
-template <int DP>
+template <int DP, bool MASKED>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                    int B, int H, int Sq, int Skv, int D, long long qb,
                    long long qr, long long kb, long long kr, long long vb,
-                   long long vr, float scale_log2, cudaStream_t stream) {
+                   long long vr, const int* keep, int nref, int span,
+                   float scale_log2, cudaStream_t stream) {
   constexpr int bytes = Smem<DP>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_fwd_kernel<DP, MASKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<DP><<<grid, NTHREADS, bytes, stream>>>(
-      q, k, v, o, H, Sq, Skv, D, qb, qr, kb, kr, vb, vr, scale_log2);
+  flash_fwd_kernel<DP, MASKED><<<grid, NTHREADS, bytes, stream>>>(
+      q, k, v, o, H, Sq, Skv, D, qb, qr, kb, kr, vb, vr, keep, nref, span,
+      scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// keep == nullptr: kernel F; otherwise kernel M with keep (B, nref) int32
+// and every span of `span` kv rows a multiple of BK (checked by the caller).
 extern "C" int sg_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, int B, int H, int Sq, int Skv, int D,
                             long long qb, long long qr, long long kb,
                             long long kr, long long vb, long long vr,
+                            const void* keep, int nref, int span,
                             float scale, void* stream) {
   const float sl2 = scale * 1.4426950408889634f;  // scale * log2(e)
   const bf16* Q = static_cast<const bf16*>(q);
   const bf16* K = static_cast<const bf16*>(k);
   const bf16* V = static_cast<const bf16*>(v);
   bf16* O = static_cast<bf16*>(o);
+  const int* KEEP = static_cast<const int*>(keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (KEEP != nullptr && (span <= 0 || span % BK || nref * span != Skv))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int dp = (D + 15) / 16 * 16;
-#define SG_CASE(N)                                                       \
-  case N:                                                                \
-    return launch<N>(Q, K, V, O, B, H, Sq, Skv, D, qb, qr, kb, kr, vb, vr, \
-                     sl2, s);
+#define SG_CASE(N)                                                          \
+  case N:                                                                   \
+    return KEEP ? launch<N, true>(Q, K, V, O, B, H, Sq, Skv, D, qb, qr, kb,  \
+                                  kr, vb, vr, KEEP, nref, span, sl2, s)     \
+                : launch<N, false>(Q, K, V, O, B, H, Sq, Skv, D, qb, qr, kb, \
+                                   kr, vb, vr, nullptr, 1, 1, sl2, s);
   // The UNet's head dims: 40 (padded to 48), 80 and 160.
   switch (dp) {
     SG_CASE(48)

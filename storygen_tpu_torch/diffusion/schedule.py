@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from storygen_tpu.configs import SchedulerConfig
+from storygen_tpu_torch.configs import SchedulerConfig
 
 
 @dataclass(frozen=True)

@@ -2,8 +2,10 @@
 cross-attention and the GEGLU feed-forward.
 
 Counterpart of storygen_tpu/models/attention.py. Every CrossAttention runs
-through the flash kernel and every FeedForward through the fused GEGLU
-kernel; projections stay plain matmuls.
+through the flash kernels and every FeedForward through the fused GEGLU
+kernel, forward and backward; projections stay plain matmuls. attn3 takes
+an optional `ref_mask` (B, N refs) that drops reference frames from its kv
+(the JAX `image_ref_mask`, stage-2 training's random 1-3 refs).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch.nn.functional as F
 from storygen_tpu_torch.models.layers import Conv1x1, GroupNorm
 from storygen_tpu_torch.ops import route
 from storygen_tpu_torch.ops.attention import multi_head_attention
-from storygen_tpu_torch.ops.geglu import geglu_matmul, geglu_matmul_plain
+from storygen_tpu_torch.ops.geglu import GegluMatmulFn, geglu_matmul_plain
 
 
 class LayerNorm(nn.Module):
@@ -34,6 +36,13 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """`layer` applied in x's dtype: a trained projection keeps fp32
+    parameters while the model computes in bf16."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
 class CrossAttention(nn.Module):
     """q/k/v projections without bias, output projection with bias."""
 
@@ -49,11 +58,13 @@ class CrossAttention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
     def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context: Optional[torch.Tensor] = None,
+                ref_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         context = x if context is None else context
-        out = multi_head_attention(self.to_q(x), self.to_k(context),
-                                   self.to_v(context), self.heads)
-        return self.to_out[0](out)
+        out = multi_head_attention(
+            _linear(x, self.to_q), _linear(context, self.to_k),
+            _linear(context, self.to_v), self.heads, ref_mask=ref_mask)
+        return _linear(out, self.to_out[0])
 
 
 class GEGLU(nn.Module):
@@ -76,7 +87,7 @@ class FeedForward(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         proj = self.net[0].proj(x)
         out_lin = self.net[2]
-        fn = route(geglu_matmul, geglu_matmul_plain)
+        fn = route(GegluMatmulFn.apply, geglu_matmul_plain)
         out = fn(proj.reshape(-1, proj.shape[-1]), out_lin.weight,
                  out_lin.bias)
         return out.reshape(*x.shape[:-1], out.shape[-1])
@@ -99,13 +110,15 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, h: torch.Tensor, text: torch.Tensor,
-                image: Optional[torch.Tensor] = None
+                image: Optional[torch.Tensor] = None,
+                ref_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`ref_mask` (B, N) keeps reference frames of `image`'s kv."""
         h = self.attn1(self.norm1(h)) + h
         tap = h
         h_t = self.attn2(self.norm2(h), text) + h
         if image is not None:
-            h = h_t + (self.attn3(self.norm4(h), image) + h)
+            h = h_t + (self.attn3(self.norm4(h), image, ref_mask) + h)
         else:
             h = h_t
         h = self.ff(self.norm3(h)) + h
@@ -127,10 +140,11 @@ class Transformer2DModel(nn.Module):
         self.proj_out = Conv1x1(inner, in_channels)
 
     def forward(self, x: torch.Tensor, text: torch.Tensor,
-                image: Optional[torch.Tensor] = None
+                image: Optional[torch.Tensor] = None,
+                ref_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         b, hh, ww, _ = x.shape
         h = self.proj_in(self.norm(x))
         h, tap = self.transformer_blocks[0](
-            h.reshape(b, hh * ww, -1), text, image)
+            h.reshape(b, hh * ww, -1), text, image, ref_mask)
         return self.proj_out(h.reshape(b, hh, ww, -1)) + x, tap

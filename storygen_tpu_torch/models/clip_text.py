@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from storygen_tpu.configs import CLIPTextConfig
+from storygen_tpu_torch.configs import CLIPTextConfig
 from storygen_tpu_torch.models.attention import LayerNorm
 from storygen_tpu_torch.ops.attention import multi_head_attention
 

@@ -16,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from storygen_tpu_torch.ops import route
-from storygen_tpu_torch.ops.conv import conv3x3, conv3x3_plain, pack_weight
+from storygen_tpu_torch.ops.conv import Conv3x3Fn, conv3x3_plain, pack_weight
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -86,8 +86,11 @@ class Conv1x1(nn.Module):
 
 
 class Conv3x3(nn.Module):
-    """3x3 stride-1 SAME convolution through the conv kernel. The packed
-    (9, Cin, Cout) weight is cached and rebuilt when the weight changes."""
+    """3x3 stride-1 SAME convolution through the conv kernel. While no
+    gradient can flow to the weight (it does not require grad, or grad
+    mode is off), the packed (9, Cin, Cout) weight is cached and rebuilt
+    when the weight changes; otherwise it is packed at every call,
+    differentiably."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -98,10 +101,11 @@ class Conv3x3(nn.Module):
 
     def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
         w = self.weight
+        if w.requires_grad and torch.is_grad_enabled():
+            return pack_weight(w, dtype)
         key = (w.data_ptr(), w._version, w.device, dtype)
         if self._packed_key != key:
-            with torch.no_grad():
-                self._packed = pack_weight(w, dtype)
+            self._packed = pack_weight(w.detach(), dtype)
             self._packed_key = key
         return self._packed
 
@@ -113,7 +117,7 @@ class Conv3x3(nn.Module):
         bias = self.bias.float()
         if extra_bias is not None:
             bias = bias[None] + extra_bias.float()
-        fn = route(conv3x3, conv3x3_plain)
+        fn = route(Conv3x3Fn.apply, conv3x3_plain)
         return fn(x.contiguous(), self.packed_weight(x.dtype), bias,
                   None if residual is None else residual.contiguous())
 

@@ -3,8 +3,10 @@
 Counterpart of storygen_tpu/models/unet.py and unet_blocks.py. One forward
 serves both cycles: with `image_context=None` it collects the 16 post-attn1
 taps (the reference cycle), with a dict it feeds each block's entry to attn3
-(the image cycle). Keys derive from the block index: down_{1..3}_{1,2},
-mid, up_{1..3}_{1..3}.
+(the image cycle), under an optional per-reference `ref_mask`. Keys derive
+from the block index: down_{1..3}_{1,2}, mid, up_{1..3}_{1..3}. With
+`gradient_checkpointing` each down, mid and up block runs under
+torch.utils.checkpoint when grad is enabled (the JAX `remat`).
 """
 from __future__ import annotations
 
@@ -12,8 +14,9 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
-from storygen_tpu.configs import UNetConfig
+from storygen_tpu_torch.configs import UNetConfig
 from storygen_tpu_torch.models.attention import Transformer2DModel
 from storygen_tpu_torch.models.layers import (Conv3x3, Downsample2D,
                                               GroupNorm, ResnetBlock2D,
@@ -57,21 +60,22 @@ class DownBlock(nn.Module):
             self.downsamplers = nn.ModuleList([Downsample2D(cout)])
 
     def forward(self, h, temb, text, ctx: Optional[Context],
-                collected: Context) -> Tuple[torch.Tensor, List]:
-        states = []
+                ref_mask: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, List, Context]:
+        states, taps = [], {}
         for i, resnet in enumerate(self.resnets):
             h = resnet(h, temb)
             if hasattr(self, "attentions"):
                 key = down_block_key(self.idx, i)
                 h, tap = self.attentions[i](
-                    h, text, None if ctx is None else ctx[key])
+                    h, text, None if ctx is None else ctx[key], ref_mask)
                 if ctx is None:
-                    collected[key] = tap
+                    taps[key] = tap
             states.append(h)
         if hasattr(self, "downsamplers"):
             h = self.downsamplers[0](h)
             states.append(h)
-        return h, states
+        return h, states, taps
 
 
 class MidBlock(nn.Module):
@@ -88,13 +92,12 @@ class MidBlock(nn.Module):
             g)])
 
     def forward(self, h, temb, text, ctx: Optional[Context],
-                collected: Context) -> torch.Tensor:
+                ref_mask: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, Context]:
         h = self.resnets[0](h, temb)
         h, tap = self.attentions[0](h, text, None if ctx is None
-                                    else ctx["mid"])
-        if ctx is None:
-            collected["mid"] = tap
-        return self.resnets[1](h, temb)
+                                    else ctx["mid"], ref_mask)
+        return self.resnets[1](h, temb), {"mid": tap} if ctx is None else {}
 
 
 class UpBlock(nn.Module):
@@ -119,18 +122,20 @@ class UpBlock(nn.Module):
             self.upsamplers = nn.ModuleList([Upsample2D(cout)])
 
     def forward(self, h, skips: List[torch.Tensor], temb, text,
-                ctx: Optional[Context], collected: Context) -> torch.Tensor:
+                ctx: Optional[Context], ref_mask: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, Context]:
+        taps = {}
         for i, resnet in enumerate(self.resnets):
             h = resnet(torch.cat([h, skips[-(i + 1)]], dim=-1), temb)
             if hasattr(self, "attentions"):
                 key = up_block_key(self.idx, i)
                 h, tap = self.attentions[i](
-                    h, text, None if ctx is None else ctx[key])
+                    h, text, None if ctx is None else ctx[key], ref_mask)
                 if ctx is None:
-                    collected[key] = tap
+                    taps[key] = tap
         if hasattr(self, "upsamplers"):
             h = self.upsamplers[0](h)
-        return h
+        return h, taps
 
 
 class UNet2DConditionModel(nn.Module):
@@ -174,13 +179,22 @@ class UNet2DConditionModel(nn.Module):
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch[0],
                                        cfg.norm_eps, act="silu")
         self.conv_out = Conv3x3(ch[0], cfg.out_channels)
+        self.gradient_checkpointing = False
+
+    def _block(self, blk: nn.Module, *args):
+        if self.gradient_checkpointing and torch.is_grad_enabled():
+            return checkpoint(blk, *args, use_reentrant=False)
+        return blk(*args)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
-                image_context: Optional[Context] = None
+                image_context: Optional[Context] = None,
+                ref_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Context]:
         """sample (B, H, W, 4) NHWC, timesteps () or (B,), text (B, 77, D),
-        image_context None (collect) or {key: (B, S*n_refs, C)} (consume).
+        image_context None (collect) or {key: (B, S*n_refs, C)} (consume),
+        ref_mask None or (B, n_refs) bool: the reference frames attn3 may
+        attend to (used only with an image context).
         Returns (eps (B, H, W, 4), collected context)."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
@@ -192,16 +206,24 @@ class UNet2DConditionModel(nn.Module):
                                        cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(t_emb.to(dtype))
         text = encoder_hidden_states.to(dtype)
+        if image_context is None:
+            ref_mask = None
         h = self.conv_in(sample.to(dtype))
         collected: Context = {}
         states = [h]
         for blk in self.down_blocks:
-            h, st = blk(h, temb, text, image_context, collected)
+            h, st, taps = self._block(blk, h, temb, text, image_context,
+                                      ref_mask)
             states += st
-        h = self.mid_block(h, temb, text, image_context, collected)
+            collected.update(taps)
+        h, taps = self._block(self.mid_block, h, temb, text, image_context,
+                              ref_mask)
+        collected.update(taps)
         n_layers = cfg.layers_per_block + 1
         for blk in self.up_blocks:
             skips, states = states[-n_layers:], states[:-n_layers]
-            h = blk(h, skips, temb, text, image_context, collected)
+            h, taps = self._block(blk, h, skips, temb, text, image_context,
+                                  ref_mask)
+            collected.update(taps)
         h = self.conv_out(self.conv_norm_out(h))
         return h, collected

@@ -12,7 +12,7 @@ from typing import NamedTuple
 import torch
 import torch.nn as nn
 
-from storygen_tpu.configs import VAEConfig
+from storygen_tpu_torch.configs import VAEConfig
 from storygen_tpu_torch.models.layers import (Conv1x1, Conv3x3, Downsample2D,
                                               GroupNorm, ResnetBlock2D,
                                               Upsample2D)

@@ -1,11 +1,13 @@
 """Build and load the CUDA kernels in `csrc/`.
 
-All `csrc/*.cu` files are compiled by ONE `nvcc` call into a shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds),
-placed under `build/storygen_tpu_torch/<hash>/` at the repository root and
-keyed by a hash of the sources and flags. It is loaded with `ctypes`; every
-pointer and the stream are passed as `c_void_p`. The build runs at the first
-kernel launch, never at import. A missing `nvcc` or a failed build raises.
+Every `csrc/*.cu` file is compiled by its own `nvcc` process, all started
+together, into an object file; one more `nvcc` call links them into a
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds). The library is placed under
+`build/storygen_tpu_torch/<hash>/` at the repository root, keyed by a hash
+of the sources and flags, and loaded with `ctypes`; every pointer and the
+stream are passed as `c_void_p`. The build runs at the first kernel launch,
+never at import. A missing `nvcc` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -22,17 +24,30 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "storygen_tpu_torch"
 LIB_NAME = "libstorygen_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signature of every exported launcher; each returns a cudaError_t.
+# `keep` is a (B, nref) int32 table or NULL, `span` the kv rows per ref.
 SIGNATURES = {
-    # q, k, v, o, B, H, Sq, Skv, D, q/k/v batch and row strides, scale, stream
+    # q, k, v, o, B, H, Sq, Skv, D, q/k/v batch and row strides,
+    # keep, nref, span, scale, stream
     "sg_flash_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _L, _L, _L, _L, _L, _L, _F, _P),
+                     _L, _L, _L, _L, _L, _L, _P, _I, _I, _F, _P),
+    # q, k, lse, B, H, Sq, Skv, D, q/k strides, keep, nref, span, scale,
+    # stream
+    "sg_flash_lse": (_P, _P, _P, _I, _I, _I, _I, _I,
+                     _L, _L, _L, _L, _P, _I, _I, _F, _P),
+    # q, k, v, dout, lse, delta, dq, B, H, Sq, Skv, D, q/k/v strides,
+    # keep, nref, span, scale, stream
+    "sg_flash_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                    _L, _L, _L, _L, _L, _L, _P, _I, _I, _F, _P),
+    # q, k, v, dout, lse, delta, dk, dv, then as sg_flash_dq
+    "sg_flash_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _L, _L, _L, _L, _L, _L, _P, _I, _I, _F, _P),
     # proj, w, bias, out, M, N, E, stream
     "sg_geglu_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
     # x, w9, bias, bias batch stride, residual, out, B, H, W, Cin, Cout, stream
@@ -68,8 +83,28 @@ def lib_path(srcs: List[Path]) -> Path:
     return BUILD_ROOT / source_hash(srcs) / LIB_NAME
 
 
-def nvcc_command(nvcc: str, srcs: List[Path], out: Path) -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, srcs)]
+def compile_command(nvcc: str, src: Path, obj: Path) -> List[str]:
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(nvcc: str, objs: List[Path], out: Path) -> List[str]:
+    return [nvcc, "-shared", "-o", str(out), *map(str, objs)]
+
+
+def _run_all(cmds: List[List[str]]) -> None:
+    """Run the commands in parallel; raise with the first failure's
+    stderr once all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load() -> ctypes.CDLL:
@@ -83,14 +118,17 @@ def load() -> ctypes.CDLL:
         if not out.exists():
             import time
             out.parent.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-            cmd = nvcc_command(find_nvcc(), srcs, tmp)
+            nvcc = find_nvcc()
+            tag = f"{os.getpid()}.tmp"
+            objs = [out.with_name(f"{s.stem}.{tag}.o") for s in srcs]
+            tmp = out.with_name(f"{LIB_NAME}.{tag}")
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                                   f"{' '.join(cmd)}\n{proc.stderr}")
+            _run_all([compile_command(nvcc, s, o)
+                      for s, o in zip(srcs, objs)])
+            _run_all([link_command(nvcc, objs, tmp)])
             os.replace(tmp, out)
+            for o in objs:
+                o.unlink()
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(out))
         for name, argtypes in SIGNATURES.items():

@@ -1,10 +1,13 @@
-"""3x3 stride-1 SAME convolution over NHWC: wrapper of `csrc/conv3x3.cu`
-and its plain PyTorch version.
+"""3x3 stride-1 SAME convolution over NHWC: wrapper of `csrc/conv3x3.cu`,
+its plain PyTorch version, and the differentiable `Conv3x3Fn`.
 
 Replaces `_kernel` (fused=False) of storygen_tpu/ops/pallas_conv.py
 (reached through `halo_conv` / `conv3x3`): fp32 accumulation, a (Cout) or
 per-batch (B, Cout) fp32 bias, and an optional residual added in the
 epilogue. Weights come packed as (9, Cin, Cout), tap-major (3*dy + dx).
+The backward follows `_conv3x3_bwd` of the JAX module: the input gradient
+reuses kernel C on the spatially flipped, in/out-transposed weight; the
+weight and bias gradients are plain.
 """
 from __future__ import annotations
 
@@ -93,3 +96,51 @@ def conv3x3(x: torch.Tensor, w9: torch.Tensor, bias: torch.Tensor,
 
 
 conv3x3.launches = 0
+
+
+def flip_weight(w9: torch.Tensor) -> torch.Tensor:
+    """(9, Cin, Cout) -> the (9, Cout, Cin) weight whose SAME convolution
+    of the output cotangent is the input gradient: tap 3*dy + dx takes the
+    in/out-transposed tap 3*(2-dy) + (2-dx)."""
+    return w9.flip(0).transpose(1, 2).contiguous()
+
+
+def conv3x3_dweight_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """(9, Cin, Cout) fp32 weight gradient: per tap, the shifted input
+    slice contracted with g over (B, H, W)."""
+    b, h, w, cin = x.shape
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    gf = g.float().reshape(b * h * w, -1)
+    return torch.stack([
+        xp[:, dy:dy + h, dx:dx + w, :].reshape(b * h * w, cin).t() @ gf
+        for dy in range(3) for dx in range(3)])
+
+
+class Conv3x3Fn(torch.autograd.Function):
+    """Forward kernel C (`conv3x3`); backward: dx by kernel C on the
+    flipped weight, dw and dbias plain, the residual's gradient g. A
+    gradient that is not needed is not computed."""
+
+    @staticmethod
+    def forward(ctx, x, w9, bias, residual):
+        out = conv3x3(x, w9, bias, residual)
+        ctx.save_for_backward(x, w9)
+        ctx.bias_shape, ctx.bias_dtype = bias.shape, bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w9 = ctx.saved_tensors
+        g = g.contiguous()
+        need_x, need_w, need_b, need_r = ctx.needs_input_grad
+        dx = dw = db = None
+        if need_x:
+            zero = torch.zeros(x.shape[-1], dtype=torch.float32,
+                               device=g.device)
+            dx = conv3x3(g, flip_weight(w9), zero).to(x.dtype)
+        if need_w:
+            dw = conv3x3_dweight_plain(x, g).to(w9.dtype)
+        if need_b:
+            dims = (1, 2) if len(ctx.bias_shape) == 2 else (0, 1, 2)
+            db = g.float().sum(dims).to(ctx.bias_dtype)
+        return dx, dw, db, g if need_r else None

@@ -1,22 +1,35 @@
-"""Flash-attention forward: wrapper of `csrc/flash_fwd.cu` and its plain
-PyTorch version.
+"""Flash attention, forward and backward: wrappers of `csrc/flash_fwd.cu`
+and `csrc/flash_bwd.cu`, their plain PyTorch versions, and the
+differentiable `flash_attention`.
 
-Replaces the forward kernels of storygen_tpu/ops/pallas_attention.py
+Replaces storygen_tpu/ops/pallas_attention.py. The forward kernels
 (`_bnd2_kernel`, `_bnd_kernel`, `_online_t_kernel`, `_flash_kernel`, all
-reached through `_flash_core`). Inputs are the projections' own layout:
-q (B, Sq, H*D), k/v (B, Skv, H*D), each with a contiguous last dimension
-(a k|v split view is taken as it is); the output is (B, Sq, H*D).
+reached through `_flash_core`) become kernel F (`flash_fwd`), their masked
+variants kernel M (`flash_fwd_masked`); the backward (`_core_bwd` ->
+`_pallas_bwd_with_out`) becomes kernels L (`flash_lse`), DQ (`flash_dq`) and
+DKV (`flash_dkv`), tied together by `FlashAttentionFn`.
+
+Inputs are the projections' own layout: q (B, Sq, H*D), k/v (B, Skv, H*D),
+each with a contiguous last dimension (a k|v split view is taken as it is);
+outputs and gradients are (B, S, H*D). `keep` (B, N) marks which of the N
+equal kv spans (attn3's reference frames) each batch row may attend to; a
+row that keeps no span attends to nothing and its output is 0.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+version for CPU tensors; it counts its launches in `<wrapper>.launches`.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from storygen_tpu_torch.ops import _build
 
-# 16-padded head dims the kernel is instantiated for: the UNet's 40, 80, 160
+# 16-padded head dims the kernels are instantiated for: the UNet's 40, 80, 160
 _PADDED_D = (48, 80, 160)
+# rows of a K/V tile: every reference span must be a multiple of it
+_BK = 64
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -31,31 +44,96 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
+def keep_to_mask(keep: torch.Tensor, skv: int) -> torch.Tensor:
+    """(B, N) keep flags over N equal kv spans -> (B, 1, 1, Skv) bool."""
+    n = keep.shape[1]
+    return keep.bool().repeat_interleave(skv // n, dim=1)[:, None, None, :]
+
+
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over (B, H, S, D) with an fp32 softmax; `mask` is a
-    broadcastable boolean (True = keep). Probabilities are cast to the
-    input dtype before the value product (storygen_tpu xla_attention)."""
+    broadcastable boolean (True = keep), and a row with no kept key gives
+    0. Probabilities are cast to the input dtype before the value product
+    (storygen_tpu xla_attention)."""
     dtype = q.dtype
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
         logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1).to(dtype)
-    return torch.matmul(probs.float(), v.float()).to(dtype)
+    probs = torch.softmax(logits, dim=-1)
+    if mask is not None:
+        probs = probs.masked_fill(~mask, 0.0)
+    return torch.matmul(probs.to(dtype).float(), v.float()).to(dtype)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          num_heads: int, scale: float) -> torch.Tensor:
+                          num_heads: int, scale: float,
+                          keep: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Exact softmax(q k^T * scale) v per head, fp32 softmax and fp32
-    accumulation, result in q's dtype."""
+    accumulation, result in q's dtype; differentiable by autograd."""
+    mask = None if keep is None else keep_to_mask(keep, k.shape[1])
     out = plain_attention(split_heads(q, num_heads),
                           split_heads(k, num_heads),
-                          split_heads(v, num_heads), scale)
+                          split_heads(v, num_heads), scale, mask)
     return merge_heads(out)
 
 
-def _check(q, k, v, num_heads):
+def _logits(q, k, num_heads, scale, keep):
+    """fp32 (B, H, Sq, Skv) logits with dropped spans at -inf, and the kept
+    mask (None without `keep`)."""
+    s = torch.matmul(split_heads(q, num_heads).float(),
+                     split_heads(k, num_heads).float().transpose(-1, -2))
+    s = s * scale
+    if keep is None:
+        return s, None
+    mask = keep_to_mask(keep, k.shape[1])
+    return s.masked_fill(~mask, float("-inf")), mask
+
+
+def flash_lse_plain(q, k, num_heads: int, scale: float,
+                    keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row logsumexp of the scaled logits over the kept keys, (B, H, Sq)
+    fp32; -inf for a row that keeps no key."""
+    s, _ = _logits(q, k, num_heads, scale, keep)
+    return torch.logsumexp(s, dim=-1)
+
+
+def _probs_and_ds(q, k, v, dout, lse, delta, num_heads, scale, keep):
+    """P = exp(s - lse) (0 where dropped) and dS = P (dO V^T - delta),
+    both rounded to q's dtype as the kernels round their operands."""
+    s, mask = _logits(q, k, num_heads, scale, keep)
+    p = torch.exp(s - lse[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros_like(p))
+    dp = torch.matmul(split_heads(dout, num_heads).float(),
+                      split_heads(v, num_heads).float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None])
+    return p.to(q.dtype).float(), ds.to(q.dtype).float()
+
+
+def flash_dq_plain(q, k, v, dout, lse, delta, num_heads: int, scale: float,
+                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dQ = scale * dS K, (B, Sq, H*D) in q's dtype."""
+    _, ds = _probs_and_ds(q, k, v, dout, lse, delta, num_heads, scale, keep)
+    dq = torch.matmul(ds, split_heads(k, num_heads).float()) * scale
+    return merge_heads(dq).to(q.dtype)
+
+
+def flash_dkv_plain(q, k, v, dout, lse, delta, num_heads: int, scale: float,
+                    keep: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK = scale * dS^T Q and dV = P^T dO, (B, Skv, H*D) in k's dtype."""
+    p, ds = _probs_and_ds(q, k, v, dout, lse, delta, num_heads, scale, keep)
+    dk = torch.matmul(ds.transpose(-1, -2),
+                      split_heads(q, num_heads).float()) * scale
+    dv = torch.matmul(p.transpose(-1, -2),
+                      split_heads(dout, num_heads).float())
+    return merge_heads(dk).to(k.dtype), merge_heads(dv).to(v.dtype)
+
+
+def _check(q, k, v, num_heads, keep=None):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("q, k, v must be (B, S, H*D)")
     b, _, hd = q.shape
@@ -68,15 +146,21 @@ def _check(q, k, v, num_heads):
         raise ValueError("q, k, v must be on one device")
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError("q, k, v must share a dtype")
+    if keep is not None:
+        if keep.dim() != 2 or keep.shape[0] != b:
+            raise ValueError(f"keep must be (B={b}, N), got "
+                             f"{tuple(keep.shape)}")
+        if k.shape[1] % keep.shape[1]:
+            raise ValueError(f"Skv={k.shape[1]} does not split into "
+                             f"{keep.shape[1]} equal spans")
+        if keep.device != q.device:
+            raise ValueError("keep must be on the device of q")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    num_heads: int, scale: float) -> torch.Tensor:
-    """Fused attention; launches the CUDA kernel for CUDA tensors and runs
-    the plain version for CPU tensors."""
-    _check(q, k, v, num_heads)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, num_heads, scale)
+def _cuda_args(q, k, v, num_heads, keep, extra=()):
+    """Validate the CUDA operands of a launch; returns (B, Sq, Skv, D, the
+    launcher's (keep pointer, nref, span) arguments, the int32 keep table
+    that pointer refers to)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype != torch.bfloat16:
@@ -86,24 +170,188 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = hd // num_heads
     if d % 8 or (d + 15) // 16 * 16 not in _PADDED_D:
         raise ValueError(f"unsupported head dim {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v)) + tuple(extra):
         if (t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) % 8
                 or t.data_ptr() % 16):
             raise ValueError(f"{name} needs a contiguous last dim and "
                              "16-byte aligned rows")
-    out = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
-    if out.numel() == 0 or skv == 0:
+    if b * sq == 0 or skv == 0:
         raise ValueError("empty attention")
-    lib = _build.load()
-    err = lib.sg_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, num_heads, sq, skv, d,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "sg_flash_fwd")
-    flash_attention.launches += 1
+    if keep is None:
+        return b, sq, skv, d, (None, 1, 1), None
+    nref = keep.shape[1]
+    span = skv // nref
+    if span % _BK:
+        raise ValueError(f"reference span {span} is not a multiple of {_BK}")
+    keep32 = keep.to(torch.int32).contiguous()
+    return b, sq, skv, d, (keep32.data_ptr(), nref, span), keep32
+
+
+def _strides(*ts):
+    out = []
+    for t in ts:
+        out += [t.stride(0), t.stride(1)]
     return out
 
 
-flash_attention.launches = 0
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_fwd(q, k, v, num_heads, scale, keep):
+    b, sq, skv, d, kargs, keep32 = _cuda_args(q, k, v, num_heads, keep)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    err = _build.load().sg_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, num_heads, sq, skv, d, *_strides(q, k, v), *kargs, float(scale),
+        _stream(q))
+    _build.check(err, "sg_flash_fwd")
+    return out
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              num_heads: int, scale: float) -> torch.Tensor:
+    """Kernel F: unmasked forward, (B, Sq, H*D)."""
+    _check(q, k, v, num_heads)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, num_heads, scale)
+    out = _launch_fwd(q, k, v, num_heads, scale, None)
+    flash_fwd.launches += 1
+    return out
+
+
+def flash_fwd_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     num_heads: int, scale: float,
+                     keep: torch.Tensor) -> torch.Tensor:
+    """Kernel M: forward over the kept reference spans only."""
+    _check(q, k, v, num_heads, keep)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, num_heads, scale, keep)
+    out = _launch_fwd(q, k, v, num_heads, scale, keep)
+    flash_fwd_masked.launches += 1
+    return out
+
+
+def flash_lse(q: torch.Tensor, k: torch.Tensor, num_heads: int,
+              scale: float, keep: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """Kernel L: the forward's row logsumexp, (B, H, Sq) fp32."""
+    _check(q, k, k, num_heads, keep)
+    if q.device.type == "cpu":
+        return flash_lse_plain(q, k, num_heads, scale, keep)
+    b, sq, skv, d, kargs, keep32 = _cuda_args(q, k, k, num_heads, keep)
+    lse = torch.empty((b, num_heads, sq), dtype=torch.float32,
+                      device=q.device)
+    err = _build.load().sg_flash_lse(
+        q.data_ptr(), k.data_ptr(), lse.data_ptr(), b, num_heads, sq, skv,
+        d, *_strides(q, k), *kargs, float(scale), _stream(q))
+    _build.check(err, "sg_flash_lse")
+    flash_lse.launches += 1
+    return lse
+
+
+def _check_grad_inputs(q, dout, lse, delta, num_heads):
+    b, sq, _ = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError("dout must match q in shape and dtype")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, num_heads, sq) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({b}, {num_heads}, {sq}) fp32")
+        if t.device != q.device:
+            raise ValueError(f"{name} must be on the device of q")
+    if q.device.type == "cuda" and not (dout.is_contiguous()
+                                        and lse.is_contiguous()
+                                        and delta.is_contiguous()):
+        raise ValueError("dout, lse and delta must be contiguous")
+
+
+def flash_dq(q, k, v, dout, lse, delta, num_heads: int, scale: float,
+             keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel DQ: dQ (B, Sq, H*D) from dout (B, Sq, H*D), lse and
+    delta = rowsum(dout * out) (B, H, Sq) fp32."""
+    _check(q, k, v, num_heads, keep)
+    _check_grad_inputs(q, dout, lse, delta, num_heads)
+    if q.device.type == "cpu":
+        return flash_dq_plain(q, k, v, dout, lse, delta, num_heads, scale,
+                              keep)
+    b, sq, skv, d, kargs, keep32 = _cuda_args(q, k, v, num_heads, keep,
+                                              (("dout", dout),))
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    err = _build.load().sg_flash_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, num_heads, sq,
+        skv, d, *_strides(q, k, v), *kargs, float(scale), _stream(q))
+    _build.check(err, "sg_flash_dq")
+    flash_dq.launches += 1
+    return dq
+
+
+def flash_dkv(q, k, v, dout, lse, delta, num_heads: int, scale: float,
+              keep: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel DKV: dK, dV (B, Skv, H*D) from the inputs of `flash_dq`."""
+    _check(q, k, v, num_heads, keep)
+    _check_grad_inputs(q, dout, lse, delta, num_heads)
+    if q.device.type == "cpu":
+        return flash_dkv_plain(q, k, v, dout, lse, delta, num_heads, scale,
+                               keep)
+    b, sq, skv, d, kargs, keep32 = _cuda_args(q, k, v, num_heads, keep,
+                                              (("dout", dout),))
+    dk = torch.empty((b, skv, k.shape[2]), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    err = _build.load().sg_flash_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+        num_heads, sq, skv, d, *_strides(q, k, v), *kargs, float(scale),
+        _stream(q))
+    _build.check(err, "sg_flash_dkv")
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+for _w in (flash_fwd, flash_fwd_masked, flash_lse, flash_dq, flash_dkv):
+    _w.launches = 0
+
+
+def attention_delta(out: torch.Tensor, dout: torch.Tensor,
+                    num_heads: int) -> torch.Tensor:
+    """delta = rowsum(dout * out) per head in fp32, (B, H, Sq)."""
+    b, sq, hd = out.shape
+    prod = dout.float() * out.float()
+    return prod.reshape(b, sq, num_heads, hd // num_heads).sum(-1) \
+        .transpose(1, 2).contiguous()
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Forward F (or M with `keep`); backward delta in fp32 torch, then L,
+    DQ and DKV. Saves q, k, v, the output and `keep`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, keep, num_heads: int, scale: float):
+        out = (flash_fwd(q, k, v, num_heads, scale) if keep is None
+               else flash_fwd_masked(q, k, v, num_heads, scale, keep))
+        ctx.save_for_backward(q, k, v, out, keep)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, keep = ctx.saved_tensors
+        h, scale = ctx.num_heads, ctx.scale
+        dout = dout.contiguous()
+        delta = attention_delta(out, dout, h)
+        lse = flash_lse(q, k, h, scale, keep)
+        dq = dk = dv = None
+        if ctx.needs_input_grad[0]:
+            dq = flash_dq(q, k, v, dout, lse, delta, h, scale, keep)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dk, dv = flash_dkv(q, k, v, dout, lse, delta, h, scale, keep)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    num_heads: int, scale: float,
+                    keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable fused attention through the kernels above (their
+    plain versions for CPU tensors)."""
+    return FlashAttentionFn.apply(q, k, v, keep, num_heads, scale)

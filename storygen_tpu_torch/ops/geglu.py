@@ -1,13 +1,17 @@
-"""Fused GEGLU -> output GEMM: wrapper of `csrc/geglu_matmul.cu` and its
-plain PyTorch version.
+"""Fused GEGLU -> output GEMM: wrapper of `csrc/geglu_matmul.cu`, its
+plain PyTorch version, and the differentiable `GegluMatmulFn`.
 
 Replaces `_geglu_kernel` of storygen_tpu/ops/pallas_geglu.py (reached
 through `geglu_matmul`). From the packed projection proj (M, 2N) =
 [value | gate] it computes (value * gelu_erf(gate)) @ weight.T + bias, where
 weight is the nn.Linear weight (E, N); the gated product never reaches
-memory in the kernel.
+memory in the kernel. The backward is plain fp32 torch (`_bwd` of the JAX
+module, which runs in XLA outside any Pallas kernel).
 """
 from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,3 +70,48 @@ def geglu_matmul(proj: torch.Tensor, weight: torch.Tensor,
 
 
 geglu_matmul.launches = 0
+
+
+def geglu_matmul_bwd_plain(proj: torch.Tensor, weight: torch.Tensor,
+                           g: torch.Tensor, need_dproj: bool = True,
+                           need_dw: bool = True, need_db: bool = True
+                           ) -> Tuple[Optional[torch.Tensor], ...]:
+    """(dproj, dweight, dbias) of the GEGLU GEMM for the output cotangent g
+    (M, E), in fp32 from the saved proj and weight; a gradient not asked
+    for is None. dproj is in proj's dtype, dweight in weight's, dbias
+    fp32."""
+    n = proj.shape[-1] // 2
+    value, gate = proj[:, :n].float(), proj[:, n:].float()
+    cdf = 0.5 * (1.0 + torch.erf(gate * 2.0 ** -0.5))
+    act = gate * cdf  # gelu(gate)
+    gf = g.float()
+    dproj = dw = db = None
+    if need_dw:
+        dw = (gf.t() @ (value * act)).to(weight.dtype)
+    if need_db:
+        db = gf.sum(0)
+    if need_dproj:
+        dgated = gf @ weight.float()
+        pdf = torch.exp(-0.5 * gate * gate) / math.sqrt(2.0 * math.pi)
+        dproj = torch.cat([dgated * act, dgated * value * (cdf + gate * pdf)],
+                          dim=1).to(proj.dtype)
+    return dproj, dw, db
+
+
+class GegluMatmulFn(torch.autograd.Function):
+    """Forward kernel G (`geglu_matmul`); plain fp32 backward that skips
+    the weight and bias gradients when they are not needed."""
+
+    @staticmethod
+    def forward(ctx, proj, weight, bias):
+        out = geglu_matmul(proj, weight, bias)
+        ctx.save_for_backward(proj, weight)
+        ctx.bias_dtype = bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        proj, weight = ctx.saved_tensors
+        dproj, dw, db = geglu_matmul_bwd_plain(proj, weight, g,
+                                               *ctx.needs_input_grad)
+        return dproj, dw, None if db is None else db.to(ctx.bias_dtype)

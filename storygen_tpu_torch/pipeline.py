@@ -19,7 +19,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from storygen_tpu.configs import SchedulerConfig
+from storygen_tpu_torch.configs import SchedulerConfig
 from storygen_tpu_torch.diffusion import schedule as S
 
 STAGES = ("no", "auto-regressive")

@@ -1,0 +1,136 @@
+"""Trainable-subset selection, learning-rate schedules and the optimizer.
+
+Counterpart of storygen_tpu/training/optim.py. Freezing is by parameter
+name: `partition_params` sets `requires_grad` from the stage's predicate and
+returns the trainable parameters, so gradients and optimizer state exist for
+those alone. The optimizer is the JAX package's
+`chain(clip_by_global_norm, adamw)` under `MultiSteps`, with optax's
+semantics, in plain fp32 torch (the JAX package leaves it to XLA, so no
+kernel is involved):
+
+- accumulation: the k micro-step gradients are averaged (a running mean);
+  the parameters move once every k micro-steps;
+- clipping: global norm over all trainable gradients; the gradients are
+  left as they are below `max_grad_norm`, else scaled by max_norm / norm;
+- AdamW: bias-corrected moments, eps outside the square root, decoupled
+  weight decay on every trainable parameter, and the learning rate of the
+  schedule at the number of updates made so far (0 for the first).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Iterable
+
+import torch
+import torch.nn as nn
+
+from storygen_tpu_torch.configs import TrainConfig
+
+# stage1 finetunes self-attention only; stage2/COCO the VLCM image
+# cross-attention only (reference train_StorySalon_stage{1,2}.py and
+# train_COCO.py)
+STAGE_PREDICATES: Dict[str, Callable[[str], bool]] = {
+    "stage1": lambda name: "attn1" in name,
+    "stage2": lambda name: "attn3" in name,
+    "coco": lambda name: "attn3" in name,
+}
+
+
+def partition_params(module: nn.Module, predicate: Callable[[str], bool]
+                     ) -> Dict[str, nn.Parameter]:
+    """Freeze every parameter whose dotted name fails `predicate`; return
+    the others, by name, with requires_grad set."""
+    trainable = {}
+    for name, p in module.named_parameters():
+        keep = predicate(name)
+        p.requires_grad_(keep)
+        if keep:
+            trainable[name] = p
+    if not trainable:
+        raise ValueError("the predicate selects no parameter")
+    return trainable
+
+
+def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """Learning rate as a function of the optimizer update count (optax's
+    linear / cosine / warmup-then-constant schedules)."""
+    lr = cfg.learning_rate
+    if cfg.scale_lr:
+        lr = lr * cfg.gradient_accumulation_steps * cfg.train_batch_size
+    if cfg.lr_scheduler == "constant":
+        warm = cfg.lr_warmup_steps
+        if not warm:
+            return lambda step: lr
+        return lambda step: lr * min(step, warm) / warm
+    if cfg.lr_scheduler == "linear":
+        n = cfg.train_steps
+        return lambda step: lr * (1.0 - min(max(step, 0), n) / n)
+    if cfg.lr_scheduler == "cosine":
+        n = cfg.train_steps
+        return lambda step: lr * 0.5 * (1.0 + math.cos(math.pi * min(step, n)
+                                                       / n))
+    raise ValueError(cfg.lr_scheduler)
+
+
+def lr_at(cfg: TrainConfig, opt_step: int) -> float:
+    """Learning rate in effect at optimizer step `opt_step` (for logging)."""
+    return float(make_schedule(cfg)(opt_step))
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors, fp32."""
+    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+
+
+class AdamW:
+    """clip-by-global-norm -> AdamW -> k-step gradient accumulation over a
+    {name: parameter} dict; all state in fp32 on the parameters' device."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], cfg: TrainConfig):
+        self.params = params
+        self.schedule = make_schedule(cfg)
+        self.b1, self.b2 = cfg.adam_beta1, cfg.adam_beta2
+        self.eps, self.weight_decay = cfg.adam_epsilon, cfg.adam_weight_decay
+        self.max_norm = cfg.max_grad_norm
+        self.every_k = max(cfg.gradient_accumulation_steps, 1)
+        zeros = {n: torch.zeros_like(p, dtype=torch.float32)
+                 for n, p in params.items()}
+        self.mu = {n: z.clone() for n, z in zeros.items()}
+        self.nu = {n: z.clone() for n, z in zeros.items()}
+        self.acc = zeros
+        self.count = 0       # optimizer updates made
+        self.mini_step = 0   # micro-steps accumulated since the last update
+
+    @torch.no_grad()
+    def update(self, grads: Dict[str, torch.Tensor]) -> bool:
+        """Accumulate one micro-step's gradients; every k-th call apply
+        the update to the parameters in place. Returns whether it did."""
+        n_acc = self.mini_step
+        for name, g in grads.items():
+            acc = self.acc[name]
+            acc.add_((g.float() - acc) / (n_acc + 1))
+        if n_acc < self.every_k - 1:
+            self.mini_step += 1
+            return False
+        self._apply(self.acc)
+        for acc in self.acc.values():
+            acc.zero_()
+        self.mini_step = 0
+        return True
+
+    def _apply(self, grads: Dict[str, torch.Tensor]) -> None:
+        norm = global_norm(grads.values())
+        below = norm < self.max_norm
+        lr = self.schedule(self.count)
+        self.count += 1
+        c1 = 1.0 - self.b1 ** self.count
+        c2 = 1.0 - self.b2 ** self.count
+        for name, p in self.params.items():
+            g = grads[name]
+            g = torch.where(below, g, g / norm * self.max_norm)
+            mu, nu = self.mu[name], self.nu[name]
+            mu.mul_(self.b1).add_((1.0 - self.b1) * g)
+            nu.mul_(self.b2).add_((1.0 - self.b2) * g * g)
+            upd = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+            upd = upd + self.weight_decay * p.float()
+            p.copy_((p.float() - lr * upd).to(p.dtype))

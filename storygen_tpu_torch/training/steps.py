@@ -1,0 +1,161 @@
+"""Training steps for the three StoryGen regimes.
+
+Counterpart of storygen_tpu/training/steps.py:
+- stage1 (style pretrain): single-frame denoising, trainable attn1, masked
+  MSE;
+- stage2 (VLCM): reference-cycle features of 3 earlier frames, a random
+  1-3 of them used, trainable attn3, masked MSE;
+- COCO: 3 entity-segment refs, equal ref noise (no decay), unmasked MSE.
+
+As in the JAX step, the frozen encoders and the reference cycle run once,
+batched over the N refs, without a graph (`torch.no_grad`, the JAX
+`stop_gradient`): every parameter they use is frozen, so no gradient flows
+there. Only the main UNet pass is differentiated. The "random number of
+refs" is a per-sample (B, N) keep mask over attn3's fixed (B, N*S) kv.
+
+Random draws come from one `torch.Generator`, in a fixed order: the latent
+posterior noise, the noise, t, the ref posterior noise, the ref noise and
+the ref mask. Each can be injected instead (`draws`), so that two
+implementations can be fed the same random numbers. The precomputed-latent
+mode of the JAX step is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from storygen_tpu_torch.diffusion import schedule as S
+from storygen_tpu_torch.training.losses import downsample_mask, masked_mse
+from storygen_tpu_torch.training.optim import AdamW, global_norm
+
+DRAW_KEYS = ("posterior_noise", "noise", "t", "ref_posterior_noise",
+             "ref_noise", "ref_mask")
+
+
+def sample_ref_mask(generator: torch.Generator, batch: int, num_refs: int,
+                    probs=(0.3, 0.3, 0.4)) -> torch.Tensor:
+    """Per-sample (B, N) bool mask keeping the newest k refs: ref i is kept
+    when i >= k0, with k0 drawn from {0, .., N-1} with `probs` (3 refs with
+    p 0.3, 2 with 0.3, 1 with 0.4 for N = 3). The newest ref (index N-1)
+    is always kept."""
+    dev = generator.device
+    p = torch.tensor(probs, dtype=torch.float32, device=dev)
+    if p.shape[0] != num_refs:
+        raise ValueError(f"{num_refs} refs need {num_refs} probabilities")
+    k0 = torch.multinomial(p, batch, replacement=True, generator=generator)
+    return torch.arange(num_refs, device=dev)[None, :] >= k0[:, None]
+
+
+def make_train_step(unet, vae, text_encoder, sched: S.NoiseSchedule,
+                    optimizer: AdamW, *, stage: str = "stage2",
+                    num_refs: int = 3, ref_noise_decay: bool = True,
+                    use_mask: bool = True,
+                    num_train_timesteps: int = 1000) -> Callable:
+    """Build the train step of a stage.
+
+    stage: 'stage1' (no refs) | 'stage2' | 'coco'.
+    ref_noise_decay: noise ref i at ref_t * (N - i) (stage2) instead of a
+      flat ref_t (COCO).
+    use_mask: masked MSE over the inpainting mask.
+
+    The step takes a batch of tensors on the models' device:
+      image (B, H, W, 3) in [-1, 1]; mask (B, H, W, 1) in [0, 1] (if
+      use_mask); input_ids (B, 77); ref_images (N, B, H, W, 3) and
+      ref_input_ids (N, B, 77) (stages with refs);
+    a generator on that device, and optionally `draws`, a dict of tensors
+    under DRAW_KEYS that replace the generator's draws. It differentiates
+    the loss, hands the gradients to the optimizer and returns
+    {"loss", "grad_norm"} (fp32 scalars; grad_norm is the micro-step
+    gradient's global norm before clipping).
+    """
+    if stage not in ("stage1", "stage2", "coco"):
+        raise ValueError(f"unknown stage {stage!r}")
+    use_refs = stage != "stage1"
+    sf = vae.config.scaling_factor
+    down = vae.config.downscale_factor
+    lat_ch = vae.config.latent_channels
+
+    def draw(batch, generator, given):
+        b, hh, ww = batch["image"].shape[:3]
+        lat = (b, hh // down, ww // down, lat_ch)
+        dev = batch["image"].device
+        out = {}
+
+        def put(key, fn):
+            out[key] = (given[key].to(dev) if key in given else fn())
+
+        def normal(shape):
+            return lambda: torch.randn(shape, generator=generator,
+                                       device=dev)
+
+        put("posterior_noise", normal(lat))
+        put("noise", normal(lat))
+        put("t", lambda: torch.randint(0, num_train_timesteps, (b,),
+                                       generator=generator, device=dev))
+        if use_refs:
+            put("ref_posterior_noise", normal((num_refs * b,) + lat[1:]))
+            put("ref_noise", normal(lat))
+            if stage == "stage2":
+                put("ref_mask", lambda: sample_ref_mask(generator, b,
+                                                        num_refs))
+        return out
+
+    def step(batch: Dict[str, torch.Tensor], generator: torch.Generator,
+             draws: Optional[Dict[str, torch.Tensor]] = None
+             ) -> Dict[str, torch.Tensor]:
+        unknown = set(draws or {}) - set(DRAW_KEYS)
+        if unknown:
+            raise ValueError(f"unknown draws {sorted(unknown)}; expected "
+                             f"some of {DRAW_KEYS}")
+        d = draw(batch, generator, draws or {})
+        t = d["t"].long()
+        with torch.no_grad():
+            latents = vae.encode(batch["image"]).sample(
+                d["posterior_noise"].float()) * sf
+            b = latents.shape[0]
+            text = text_encoder(batch["input_ids"])
+            noisy = S.add_noise(sched, latents, d["noise"].float(), t)
+            ctx = ref_mask = None
+            if use_refs:
+                n = num_refs
+                refs = batch["ref_images"]
+                dist = vae.encode(refs.reshape((n * b,) + refs.shape[2:]))
+                z = dist.sample(d["ref_posterior_noise"].float()) * sf
+                ref_lat = z.reshape((n, b) + z.shape[1:])
+                ref_t = t // 10
+                if ref_noise_decay:
+                    factors = torch.arange(n, 0, -1, device=t.device)
+                    ref_ts = ref_t[None, :] * factors[:, None]  # (N, B)
+                else:
+                    ref_ts = ref_t[None, :].expand(n, b)
+                noisy_refs = S.add_noise(sched, ref_lat,
+                                         d["ref_noise"].float()[None],
+                                         ref_ts)
+                prev_text = text_encoder(
+                    batch["ref_input_ids"].reshape(n * b, -1))
+                _, raw = unet(noisy_refs.reshape((n * b,)
+                                                 + ref_lat.shape[2:]),
+                              ref_ts.reshape(-1), prev_text)
+                # (N*B, S, C) -> (B, N*S, C): refs concatenated along kv
+                ctx = {k: v.reshape((n, b) + v.shape[1:]).transpose(0, 1)
+                       .reshape(b, n * v.shape[1], v.shape[2])
+                       for k, v in raw.items()}
+                if stage == "stage2":
+                    ref_mask = d["ref_mask"].bool()
+            latent_mask = (downsample_mask(batch["mask"], down) if use_mask
+                           else None)
+
+        # the differentiated main pass
+        pred, _ = unet(noisy, t, text, ctx, ref_mask)
+        loss = masked_mse(pred, d["noise"], latent_mask)
+        params = optimizer.params
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(params.items(), grads)}
+        norm = global_norm(grads.values())
+        optimizer.update(grads)
+        return {"loss": loss.detach(), "grad_norm": norm}
+
+    return step

@@ -1,6 +1,7 @@
-"""Guards of the port that need no GPU: it never imports JAX or Flax, its
-build names sm_90a and a build/ output, and its kernel modules call no
-library kernel in place of their own."""
+"""Guards of the port that need no GPU: it never imports JAX, Flax or the
+JAX package, its build names sm_90a and a build/ output, its kernel
+modules call no library kernel in place of their own, and its entry points
+refuse to run without a card unless the caller asks for the CPU."""
 import os
 import re
 import subprocess
@@ -8,8 +9,11 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
+from storygen_tpu_torch.configs import TrainConfig
 from storygen_tpu_torch.ops import _build
+from storygen_tpu_torch.training import trainer
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "storygen_tpu_torch"
@@ -25,8 +29,14 @@ def test_port_imports_no_jax_or_flax():
         "storygen_tpu_torch.checkpoint.convert\n"
         "import storygen_tpu_torch.ops.attention, "
         "storygen_tpu_torch.ops.conv, storygen_tpu_torch.ops.geglu\n"
+        "import storygen_tpu_torch.configs, storygen_tpu_torch.data.loader\n"
+        "import storygen_tpu_torch.training.losses, "
+        "storygen_tpu_torch.training.optim\n"
+        "import storygen_tpu_torch.training.steps, "
+        "storygen_tpu_torch.training.trainer\n"
+        "import storygen_tpu_torch.utils.logging\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax'))\n"
+        "('jax', 'jaxlib', 'flax', 'storygen_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -37,36 +47,54 @@ def test_port_imports_no_jax_or_flax():
 
 
 def test_port_sources_never_import_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|jaxlib)\b", re.M)
-    for p in PORT.rglob("*.py"):
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|jaxlib|storygen_tpu)(\.|\s|$)",
+        re.M)
+    for p in list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
         assert not pat.search(p.read_text()), p
-    smoke = (REPO / "chip_smoke.py").read_text()
-    assert not pat.search(smoke)
-    assert not re.search(r"\bstorygen_tpu\.(?!configs\b)", smoke)
 
 
 def test_nvcc_command_targets_sm90a_into_build_dir():
     srcs = _build.sources()
-    assert {p.name for p in srcs} == {"flash_fwd.cu", "geglu_matmul.cu",
-                                      "conv3x3.cu"}
+    assert {p.name for p in srcs} == {"flash_fwd.cu", "flash_bwd.cu",
+                                      "geglu_matmul.cu", "conv3x3.cu"}
     out = _build.lib_path(srcs)
-    cmd = _build.nvcc_command("/usr/local/cuda/bin/nvcc", srcs, out)
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
-    assert {"-O3", "-shared", "-Xcompiler", "-fPIC"} <= set(cmd)
-    assert cmd[cmd.index("-o") + 1] == str(out)
+    nvcc = "/usr/local/cuda/bin/nvcc"
+    for src in srcs:
+        obj = out.with_name(src.stem + ".o")
+        cmd = _build.compile_command(nvcc, src, obj)
+        assert cmd[cmd.index("-gencode") + 1] == \
+            "arch=compute_90a,code=sm_90a"
+        assert {"-O3", "-c", "-Xcompiler", "-fPIC"} <= set(cmd)
+        assert cmd[cmd.index("-o") + 1] == str(obj) and cmd[-1] == str(src)
+    objs = [out.with_name(s.stem + ".o") for s in srcs]
+    link = _build.link_command(nvcc, objs, out)
+    assert "-shared" in link and link[link.index("-o") + 1] == str(out)
+    assert all(str(o) in link for o in objs)
     assert out.parent.parent == REPO / "build" / "storygen_tpu_torch"
-    assert all(str(s) in cmd for s in srcs)
     # the hash keys the build on the sources
     assert len(out.parent.name) == 16
     assert _build.source_hash(srcs) == out.parent.name
 
 
-@pytest.mark.parametrize("name", ["flash_attention.py", "geglu.py",
-                                  "conv.py", "_build.py"])
+@pytest.mark.parametrize("name", [
+    "flash_attention.py", "geglu.py", "conv.py", "_build.py", "attention.py",
+    "flash_fwd.cu", "flash_bwd.cu", "geglu_matmul.cu", "conv3x3.cu"])
 def test_kernel_modules_call_no_library_kernel(name):
-    src = (PORT / "ops" / name).read_text()
+    src = (PORT / ("ops" if name.endswith(".py") else "csrc") / name
+           ).read_text()
     for banned in ("scaled_dot_product_attention", "torch.compile",
                    "cpp_extension", "flash_attn", "xformers", "triton.ops",
-                   "cudnn"):
-        assert banned not in src, (name, banned)
+                   "cudnn", "cublas", "cutlass"):
+        assert banned not in src.lower(), (name, banned)
+
+
+def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch,
+                                                       tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TrainConfig(logdir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.build_models(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.train("stage2", cfg, dataset=[])
+    assert trainer.resolve_device("cpu") == torch.device("cpu")

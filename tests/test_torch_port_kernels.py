@@ -28,9 +28,9 @@ def test_flash_attention(sq, skv, d, variant):
     def seq(x):  # (B, H, S, D) -> the port's (B, S, H*D)
         return t(x).transpose(1, 2).reshape(b, x.shape[2], h * d)
 
-    before = fa.flash_attention.launches
+    before = fa.flash_fwd.launches
     out = fa.flash_attention(seq(q), seq(k), seq(v), h, d ** -0.5)
-    assert fa.flash_attention.launches == before  # CPU: plain version
+    assert fa.flash_fwd.launches == before  # CPU: plain version
     assert_close(ref, out.reshape(b, sq, h, d).transpose(1, 2))
 
 
