@@ -4,28 +4,39 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It takes no arguments and runs four phases, all of which must pass:
-  kernels  builds the seven CUDA kernels from storygen_tpu_torch/csrc/ and
-           holds each against its plain PyTorch version at the 512 px
-           shapes of the main paths (serving and stage-2 training), with
-           CUDA-event times for the kernel, its plain version and, where one
-           PyTorch call computes the same function, that call (timed only,
-           as a yardstick; the port never calls it), beside the kernel's
-           bound;
-  models   one full-width UNet image-cycle pass (512 px, 3 refs) and one
-           512 px VAE encode and decode, kernel path against the plain
-           path on the card, compared before any clamp; and one full-width
-           stage-2 main pass (B2, 512 px, 3 refs under a ref mask) whose
-           loss and attn3 gradients are compared the same way;
-  story    a 4-prompt auto-regressive `generate_story` at 512x512 with the
-           full-width SD-1.5 + VLCM UNet, VAE and CLIP text encoder (seeded
-           random weights and token ids), checking the frames and that
-           every serving kernel ran on that path;
-  train    `train("stage2", ...)` at 512 px, batch 4, 3 refs, bf16,
-           gradient checkpointing, 2 micro-steps per optimizer step, 3
-           optimizer steps on seeded synthetic batches, checking finite
-           losses, that every attn3 parameter moved and nothing else did,
-           and that every kernel ran on that path.
+It takes no arguments and runs six phases, all of which must pass. The
+serving and training paths run in the default conv configuration and in
+the fused-conv one (`ConvKernels(fused_prologue=True, strided=True)`: every
+resnet conv on kernel P with its GroupNorm + SiLU as prologue, every 3x3
+stride-2 conv on kernel D):
+  kernels      builds the nine CUDA kernels from storygen_tpu_torch/csrc/
+               and holds each against its plain PyTorch version at the
+               512 px shapes of the main paths (serving and stage-2
+               training), and P also against kernel C run on the prologue
+               already applied, with CUDA-event times for the kernel, its
+               plain version and, where one PyTorch call computes the same
+               function, that call (timed only, as a yardstick; the port
+               never calls it), beside the kernel's bound;
+  models       in each configuration: one full-width UNet image-cycle pass
+               (512 px, 3 refs) and one 512 px VAE encode and decode,
+               kernel path against the plain path on the card, compared
+               before any clamp; and one full-width stage-2 main pass (B2,
+               512 px, 3 refs under a ref mask) whose loss and attn3
+               gradients are compared the same way;
+  story        a 4-prompt auto-regressive `generate_story` at 512x512 with
+               the full-width SD-1.5 + VLCM UNet, VAE and CLIP text encoder
+               (seeded random weights and token ids), checking the frames,
+               that every serving kernel ran on that path, and P and D not;
+  train        `train("stage2", ...)` at 512 px, batch 4, 3 refs, bf16,
+               gradient checkpointing, 2 micro-steps per optimizer step, 3
+               optimizer steps on seeded synthetic batches, checking finite
+               losses, that every attn3 parameter moved and nothing else
+               did, that the seven kernels of the default configuration ran
+               on that path, and P and D not;
+  story_fused  a 2-prompt story in the fused configuration: every serving
+               kernel, P and D ran;
+  train_fused  1 optimizer step of 2 micro-steps in the fused
+               configuration: all nine kernels ran.
 
 There is no CPU branch: without a CUDA device the script exits non-zero
 before printing any result. The last line is the JSON status object.
@@ -59,6 +70,13 @@ MODEL_REL_L2 = 5e-2
 # any one level (d40, d80 or d160) fails it.
 GRAD_REL_L2 = 1e-1
 
+# Kernel P against kernel C on P's prologue applied beforehand: both run
+# the same tap loop on the same bf16 slab, so they differ only where the
+# prologue's fp32 arithmetic (expf, the division) rounds one activation to
+# the neighbouring bf16 value, which moves an output by about 2^-8 of one
+# tap's term; 1e-3 of the largest output magnitude bounds a few such flips.
+P_VS_C_RTOL = 1e-3
+
 # The H100 SXM's dense bf16 tensor-core rate and HBM rate (NVIDIA's data
 # sheet), for each kernel's bound.
 PEAK_FLOPS = 989e12
@@ -91,8 +109,24 @@ KERNEL_META = {
     "conv3x3": {
         "route": "cuda", "source": "storygen_tpu_torch/csrc/conv3x3.cu",
         "replaces": "storygen_tpu/ops/pallas_conv.py:61"},
+    # _kernel with fused=True, its pallas_call at :295 via gnconv3x3 :527
+    "gnconv3x3": {
+        "route": "cuda", "source": "storygen_tpu_torch/csrc/conv3x3.cu",
+        "replaces": "storygen_tpu/ops/pallas_conv.py:61"},
+    "downconv3x3": {
+        "route": "cuda", "source": "storygen_tpu_torch/csrc/downconv3x3.cu",
+        "replaces": "storygen_tpu/ops/pallas_conv.py:312"},
 }
 SERVING_KERNELS = ("flash_fwd", "geglu_matmul", "conv3x3")
+FUSED_KERNELS = ("gnconv3x3", "downconv3x3")
+# what each path must launch (> 0); every other kernel of the nine is
+# held to 0 on the default-configuration paths
+PATH_KERNELS = {
+    "story": SERVING_KERNELS,
+    "train": tuple(k for k in KERNEL_META if k not in FUSED_KERNELS),
+    "story_fused": SERVING_KERNELS + FUSED_KERNELS,
+    "train_fused": tuple(KERNEL_META),
+}
 
 
 def nvidia_smi_line() -> str:
@@ -104,11 +138,13 @@ def nvidia_smi_line() -> str:
 
 def wrappers() -> dict:
     """Every kernel's wrapper, whose `.launches` counts its launches."""
-    from storygen_tpu_torch.ops import conv, flash_attention as fa, geglu
+    from storygen_tpu_torch.ops import (conv, downconv, flash_attention as fa,
+                                        geglu)
     return {"flash_fwd": fa.flash_fwd, "flash_fwd_masked": fa.flash_fwd_masked,
             "flash_lse": fa.flash_lse, "flash_dq": fa.flash_dq,
             "flash_dkv": fa.flash_dkv, "geglu_matmul": geglu.geglu_matmul,
-            "conv3x3": conv.conv3x3}
+            "conv3x3": conv.conv3x3, "gnconv3x3": conv.gnconv3x3,
+            "downconv3x3": downconv.downconv3x3}
 
 
 def reset_launches() -> None:
@@ -146,13 +182,16 @@ class Case:
     """One kernel at one shape: the kernel call, its plain version on the
     same bf16 inputs, the fp32 oracle, an optional library call, and the
     operations and bytes the function needs (unpadded shapes, kept spans
-    only, each input read once and each output written once)."""
+    only, each input read once and each output written once). `twin`, if
+    given, is a second reference that the kernel must match within
+    P_VS_C_RTOL (kernel C on P's prologue applied beforehand)."""
 
     def __init__(self, name, label, kern, plain, oracle, library, flops,
-                 nbytes):
+                 nbytes, twin=None):
         self.name, self.label = name, label
         self.kern, self.plain, self.oracle = kern, plain, oracle
         self.library, self.flops, self.nbytes = library, flops, nbytes
+        self.twin = twin
 
 
 def _attn_cases(dev, rnd):
@@ -327,6 +366,80 @@ def kernel_cases(dev):
             2.0 * (pix * cin + 9 * cin * cout + pix * cout * (2 if res
                                                                else 1))
             + 4.0 * bias.numel()))
+    return cases + _fused_conv_cases(dev, g, rnd)
+
+
+def _fused_conv_cases(dev, g, rnd):
+    """P (with and without the residual, (Cout) or (B, Cout) bias) and D
+    (pad 1 and the VAE's (0, 1)), each with a ragged case: a width that is
+    not a multiple of the 16-column tile."""
+    import torch
+    import torch.nn.functional as F
+    from storygen_tpu_torch.ops import conv, downconv
+    cases = []
+    for label, b, h, w, cin, cout, bias_b, res in [
+            ("UNet L1 + residual", 3, 64, 64, 320, 320, False, True),
+            ("UNet up L1 (B,C) bias", 3, 64, 64, 960, 320, True, False),
+            ("VAE dec 512px + residual", 1, 512, 512, 128, 128, False, True),
+            ("VAE enc 512px", 3, 512, 512, 128, 128, False, False),
+            ("ragged (B,C) bias + residual", 2, 40, 24, 320, 320, True,
+             True)]:
+        x = rnd(b, h, w, cin)
+        w9 = rnd(9, cin, cout, s=(9 * cin) ** -0.5)
+        bias = torch.randn((b, cout) if bias_b else (cout,), generator=g,
+                           device=dev)
+        a = torch.rand((b, cin), generator=g, device=dev) + 0.5
+        sh = torch.randn((b, cin), generator=g, device=dev)
+        r = rnd(b, h, w, cout) if res else None
+        with torch.no_grad():
+            act = conv.silu_affine(x, a, sh).to(x.dtype)
+        pix = b * h * w
+        cases.append(Case(
+            "gnconv3x3", f"{label} B{b} {h}x{w} {cin}->{cout}",
+            lambda x=x, w9=w9, bias=bias, a=a, sh=sh, r=r: conv.gnconv3x3(
+                x, w9, bias, a, sh, r),
+            lambda x=x, w9=w9, bias=bias, a=a, sh=sh, r=r:
+                conv.gnconv3x3_plain(x, w9, bias, a, sh, r),
+            lambda x=x, w9=w9, bias=bias, a=a, sh=sh, r=r:
+                conv.gnconv3x3_plain(x.float(), w9.float(), bias, a, sh,
+                                     None if r is None else r.float()),
+            None, 2.0 * pix * 9 * cin * cout,
+            2.0 * (pix * cin + 9 * cin * cout + pix * cout * (2 if res
+                                                               else 1))
+            + 4.0 * (bias.numel() + 2 * b * cin),
+            twin=lambda act=act, w9=w9, bias=bias, r=r: conv.conv3x3(
+                act, w9, bias, r)))
+    for label, b, h, w, cin, cout, pad in [
+            ("UNet L1", 3, 64, 64, 320, 320, (1, 1, 1, 1)),
+            ("VAE enc 512px", 3, 512, 512, 128, 128, (0, 1, 0, 1)),
+            ("VAE enc 128px", 3, 128, 128, 512, 512, (0, 1, 0, 1)),
+            ("ragged", 2, 45, 37, 96, 160, (0, 1, 0, 1))]:
+        x = rnd(b, h, w, cin)
+        w9 = rnd(9, cin, cout, s=(9 * cin) ** -0.5)
+        bias = torch.randn((cout,), generator=g, device=dev)
+        ho, wo = downconv.out_size(h, w, pad)
+        # the yardstick: cuDNN's channels_last bf16 stride-2 convolution;
+        # an asymmetric pad is applied to its input beforehand
+        t, bo, le, ri = pad
+        x_cl = F.pad(x.permute(0, 3, 1, 2), (le, ri, t, bo)).contiguous(
+            memory_format=torch.channels_last)
+        w_cl = w9.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        pix = b * ho * wo
+        cases.append(Case(
+            "downconv3x3",
+            f"{label} B{b} {h}x{w}->{ho}x{wo} {cin}->{cout} pad {pad}",
+            lambda x=x, w9=w9, bias=bias, pad=pad: downconv.downconv3x3(
+                x, w9, bias, pad),
+            lambda x=x, w9=w9, bias=bias, pad=pad:
+                downconv.downconv3x3_plain(x, w9, bias, pad),
+            lambda x=x, w9=w9, bias=bias, pad=pad:
+                downconv.downconv3x3_plain(x.float(), w9.float(), bias, pad),
+            lambda x=x_cl, w=w_cl, bb=bias.to(torch.bfloat16): F.conv2d(
+                x, w, bb, stride=2),
+            2.0 * pix * 9 * cin * cout,
+            2.0 * (b * h * w * cin + 9 * cin * cout + pix * cout)
+            + 4.0 * cout))
     return cases
 
 
@@ -344,7 +457,17 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
         with torch.no_grad():
             outs = [o.float() for o in _as_tuple(c.kern())]
             refs = [o.float() for o in _as_tuple(c.oracle())]
+            twin = None if c.twin is None else c.twin().float()
         torch.cuda.synchronize()
+        twin_line, twin_err = "", None
+        if twin is not None:
+            twin_err = (outs[0] - twin).abs().max().item()
+            twin_bd = P_VS_C_RTOL * twin.abs().max().item()
+            twin_ok = twin_err <= twin_bd
+            ok &= twin_ok
+            twin_line = (f" vs C on the applied prologue {twin_err:.3e} "
+                         f"(bound {twin_bd:.3e}) "
+                         f"{'ok' if twin_ok else 'FAIL'};")
         checks = []  # (error, bound, passed) of each output
         for o, r in zip(outs, refs):
             if o.shape != r.shape:
@@ -357,7 +480,7 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
             bd = KERNEL_RTOL * r[torch.isfinite(r)].abs().max().item()
             fin = bool((torch.isfinite(o) | same).all().item())
             checks.append((e, bd, fin and e <= bd))
-        del outs, refs
+        del outs, refs, twin
         good = all(x[2] for x in checks)
         # report the output that is furthest from its bound
         err, bound, _ = max(checks, key=lambda x: (not x[2],
@@ -374,7 +497,7 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
         ok &= good
         lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"kernel {c.name:16s} {c.label:38s} max_abs_err {err:.3e} "
-              f"(bound {bound:.3e}) {'ok' if good else 'FAIL'}  "
+              f"(bound {bound:.3e}) {'ok' if good else 'FAIL'};{twin_line}  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  "
               f"bound {b_ms:.4f} ms ({b_by})  [{card}]", flush=True)
         r = results.setdefault(c.name, {
@@ -382,6 +505,9 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "bound_by": b_by, "library_ms": None, "cases": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        if twin_err is not None:
+            r["max_abs_err_vs_c"] = max(r.get("max_abs_err_vs_c", 0.0),
+                                        twin_err)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["bound_ms"] += b_ms
@@ -390,7 +516,8 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
         r["cases"].append({"case": c.label, "max_abs_err": err,
                            "bound": bound, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": b_ms, "bound_by": b_by,
-                           "library_ms": lib_ms})
+                           "library_ms": lib_ms,
+                           "max_abs_err_vs_c": twin_err})
     for r in results.values():  # the bound of the kernel's summed cases
         r["bound_by"] = max(r["cases"], key=lambda x: x["bound_ms"])[
             "bound_by"]
@@ -398,25 +525,35 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
     return ok
 
 
-def full_width_models(dev):
+def conv_kernels(config: str):
+    """The conv configuration of a phase: "default" or "fused"."""
+    from storygen_tpu_torch.configs import ConvKernels
+    return {"default": ConvKernels(),
+            "fused": ConvKernels(fused_prologue=True, strided=True)}[config]
+
+
+def full_width_models(dev, conv=None):
     """SD-1.5 + VLCM UNet, VAE and CLIP ViT-L/14 text encoder at their
-    published widths, bf16, seeded random weights."""
+    published widths, bf16, seeded random weights; `conv`
+    (configs.ConvKernels, the default one if None) picks the kernels of the
+    UNet's and the VAE's convs. The weights do not depend on it."""
     import torch
-    from storygen_tpu_torch.configs import (CLIPTextConfig, UNetConfig,
-                                            VAEConfig)
+    from storygen_tpu_torch.configs import (CLIPTextConfig, ConvKernels,
+                                            UNetConfig, VAEConfig)
     from storygen_tpu_torch.models.clip_text import CLIPTextModel
     from storygen_tpu_torch.models.init import init_random_
     from storygen_tpu_torch.models.unet import UNet2DConditionModel
     from storygen_tpu_torch.models.vae import AutoencoderKL
+    conv = conv or ConvKernels()
 
-    def make(cls, cfg, seed):
+    def make(cls, seed, *args):
         with torch.device(dev):  # allocate on the card, skip CPU init
-            module = cls(cfg)
+            module = cls(*args)
         return init_random_(module.to(torch.bfloat16), seed).eval()
 
-    return (make(UNet2DConditionModel, UNetConfig(), 1),
-            make(AutoencoderKL, VAEConfig(), 2),
-            make(CLIPTextModel, CLIPTextConfig(), 3))
+    return (make(UNet2DConditionModel, 1, UNetConfig(), conv),
+            make(AutoencoderKL, 2, VAEConfig(), conv),
+            make(CLIPTextModel, 3, CLIPTextConfig()))
 
 
 def token_ids(prompts):
@@ -459,7 +596,7 @@ def kernel_vs_plain(label: str, fn, shape, card: str) -> bool:
     return ok
 
 
-def stage2_grads_vs_plain(unet, dev, card: str) -> bool:
+def stage2_grads_vs_plain(unet, dev, card: str, config: str) -> bool:
     """One stage-2 main pass at B2, 512 px, 3 refs under KEEP's first two
     rows, masked MSE: loss and every attn3 gradient, kernel path against
     plain path (gradient checkpointing on, as in training)."""
@@ -517,7 +654,7 @@ def stage2_grads_vs_plain(unet, dev, card: str) -> bool:
         torch.isfinite(loss_k).item())
     ok = (finite and rel_loss <= MODEL_REL_L2 and max(per) <= GRAD_REL_L2
           and len(names) == 16 * 5)
-    print(f"stage-2 main pass B2 512px 3 refs masked: loss kernel "
+    print(f"[{config}] stage-2 main pass B2 512px 3 refs masked: loss kernel "
           f"{loss_k.item():.6f} plain {loss_p.item():.6f} rel "
           f"{rel_loss:.3e} (bound {MODEL_REL_L2:.0e}); {len(names)} attn3 "
           f"grads rel L2 all {rel_all:.3e}, worst {per[worst]:.3e} at "
@@ -529,12 +666,20 @@ def stage2_grads_vs_plain(unet, dev, card: str) -> bool:
 
 
 def phase_models(dev, card: str) -> bool:
-    """One image-cycle UNet pass (3-row CFG batch, 3 refs at 64x64
-    latents), one 512 px VAE encode and one decode, each on the kernel path
-    against the plain path on the same inputs; then the stage-2 pass."""
+    """In each conv configuration: one image-cycle UNet pass (3-row CFG
+    batch, 3 refs at 64x64 latents), one 512 px VAE encode and one decode,
+    each on the kernel path against the plain path on the same inputs; then
+    the stage-2 pass."""
+    ok = True
+    for config in ("default", "fused"):
+        ok &= models_vs_plain(dev, card, config)
+    return ok
+
+
+def models_vs_plain(dev, card: str, config: str) -> bool:
     import torch
     from storygen_tpu_torch.pipeline import StoryGenSampler
-    unet, vae, _ = full_width_models(dev)
+    unet, vae, _ = full_width_models(dev, conv_kernels(config))
     g = torch.Generator(device=dev).manual_seed(11)
     n, b = 3, 1
     refs = torch.randn((n * 2 * b, 64, 64, 4), generator=g, device=dev)
@@ -547,16 +692,17 @@ def phase_models(dev, card: str) -> bool:
     with torch.no_grad():
         _, raw = unet(refs, t_ref, rtext)
         ctx = {k: StoryGenSampler._expand(v, n, b) for k, v in raw.items()}
-    ok = kernel_vs_plain("unet image cycle B3 64x64 3 refs",
+    ok = kernel_vs_plain(f"[{config}] unet image cycle B3 64x64 3 refs",
                          lambda: unet(x, 481, text, ctx)[0], (3, 64, 64, 4),
                          card)
-    ok &= kernel_vs_plain("vae encode B1 512x512 (posterior mean)",
-                          lambda: vae.encode(image).mean, (1, 64, 64, 4),
-                          card)
-    ok &= kernel_vs_plain("vae decode B1 64x64 latents (before the clamp)",
-                          lambda: vae.decode(z), (1, 512, 512, 3), card)
+    ok &= kernel_vs_plain(f"[{config}] vae encode B1 512x512 (posterior "
+                          "mean)", lambda: vae.encode(image).mean,
+                          (1, 64, 64, 4), card)
+    ok &= kernel_vs_plain(f"[{config}] vae decode B1 64x64 latents (before "
+                          "the clamp)", lambda: vae.decode(z),
+                          (1, 512, 512, 3), card)
     del vae, raw, ctx
-    ok &= stage2_grads_vs_plain(unet, dev, card)
+    ok &= stage2_grads_vs_plain(unet, dev, card, config)
     del unet
     torch.cuda.empty_cache()
     return ok
@@ -568,20 +714,33 @@ PROMPTS = ("A little fox finds a glowing lantern in the snowy forest.",
            "The fox and the owl share the lantern light in a warm den.")
 
 
-def record_launches(results: dict, launches: dict, key: str) -> None:
+def record_launches(results: dict, launches: dict, path: str) -> bool:
+    """Keep the launches of one path's run; True if every kernel the path
+    must run launched and every other kernel did not. "launches" itself is
+    the fused training path's count, the one path that runs all nine."""
     for k, n in launches.items():
         r = results.setdefault(k, {"name": k, **KERNEL_META[k]})
-        r[key] = n
+        r.setdefault("launches_by_path", {})[path] = n
+        if path == "train_fused":
+            r["launches"] = n
+    want = PATH_KERNELS[path]
+    good = all((n > 0) == (k in want) for k, n in launches.items())
+    print(f"{path}-path launches: {json.dumps(launches)} "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    return good
 
 
-def phase_story(dev, card: str, results: dict) -> bool:
-    """The serving path: a 4-prompt generate_story at 512x512, DDIM,
-    guidance 7.5 / image guidance 3.5, frames 2-4 conditioned on up to 3
-    refs."""
+def phase_story(dev, card: str, results: dict,
+                config: str = "default") -> bool:
+    """The serving path: a generate_story at 512x512, DDIM, guidance 7.5 /
+    image guidance 3.5, frames after the first conditioned on up to 3 refs:
+    4 prompts in the default configuration, 2 in the fused one."""
     import numpy as np
     import torch
     from storygen_tpu_torch.pipeline import StoryGenPipeline
-    unet, vae, clip = full_width_models(dev)
+    prompts = PROMPTS if config == "default" else PROMPTS[:2]
+    path = "story" if config == "default" else "story_fused"
+    unet, vae, clip = full_width_models(dev, conv_kernels(config))
     pipe = StoryGenPipeline(unet, vae, clip, token_ids, device=dev)
     marks = []
     decode = pipe.sampler.decode
@@ -597,7 +756,7 @@ def phase_story(dev, card: str, results: dict) -> bool:
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    frames = pipe.generate_story(list(PROMPTS),
+    frames = pipe.generate_story(list(prompts),
                                  num_inference_steps=STORY_STEPS,
                                  height=512, width=512, guidance_scale=7.5,
                                  image_guidance_scale=3.5, seed=0)
@@ -605,7 +764,7 @@ def phase_story(dev, card: str, results: dict) -> bool:
     total = time.perf_counter() - t0
     launches = read_launches()
     per_frame = np.diff([t0] + marks)
-    ok = len(frames) == len(PROMPTS)
+    ok = len(frames) == len(prompts)
     for i, f in enumerate(frames):
         good = (f.shape == (512, 512, 3) and bool(np.isfinite(f).all())
                 and f.min() >= 0.0 and f.max() <= 1.0)
@@ -613,23 +772,24 @@ def phase_story(dev, card: str, results: dict) -> bool:
         print(f"frame {i + 1}: shape {f.shape} range [{f.min():.3f}, "
               f"{f.max():.3f}] mean {f.mean():.3f} "
               f"{'ok' if good else 'FAIL'}")
-    ok &= all(launches[k] > 0 for k in SERVING_KERNELS)
-    record_launches(results, launches, "launches_story")
-    print(f"story: {len(frames)} frames 512x512, DDIM-{STORY_STEPS}, "
+    print(f"{path}: {len(frames)} frames 512x512, DDIM-{STORY_STEPS}, "
           f"refs up to 3, "
           f"bf16: total {total:.2f} s, per frame "
           f"{', '.join(f'{s:.2f}' for s in per_frame)} s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
-    print(f"story-path launches: {json.dumps(launches)}", flush=True)
+    ok &= record_launches(results, launches, path)
     del pipe, unet, vae, clip
     torch.cuda.empty_cache()
     return ok
 
 
-TRAIN_BATCH, TRAIN_GA, TRAIN_STEPS = 4, 2, 3
+TRAIN_BATCH, TRAIN_GA = 4, 2
+# optimizer steps of the train phase in each configuration
+TRAIN_STEPS = {"default": 3, "fused": 1}
 
 
-def phase_train(dev, card: str, results: dict) -> bool:
+def phase_train(dev, card: str, results: dict,
+                config: str = "default") -> bool:
     """The training path: `train("stage2", ...)` through the trainer, on
     seeded synthetic StorySalon-layout batches made up front."""
     import math
@@ -638,15 +798,17 @@ def phase_train(dev, card: str, results: dict) -> bool:
     from storygen_tpu_torch.configs import TrainConfig
     from storygen_tpu_torch.data.loader import SyntheticStoryDataset
     from storygen_tpu_torch.training import trainer
+    path = "train" if config == "default" else "train_fused"
+    steps = TRAIN_STEPS[config]
     logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "build", "chip_smoke_train")
-    cfg = TrainConfig(logdir=logdir, train_steps=TRAIN_STEPS,
+                          "build", f"chip_smoke_{path}")
+    cfg = TrainConfig(logdir=logdir, train_steps=steps,
                       train_batch_size=TRAIN_BATCH,
                       gradient_accumulation_steps=TRAIN_GA, seed=0,
                       mixed_precision="bf16", remat=True)
     synth = SyntheticStoryDataset(2 * TRAIN_BATCH, size=512, seed=5)
     dataset = [synth[i] for i in range(len(synth))]  # made before the run
-    bundle = trainer.build_models(cfg, dev)
+    bundle = trainer.build_models(cfg, dev, conv=conv_kernels(config))
     before = {f"{m}.{n}": p.detach().clone()
               for m in ("unet", "vae", "text_encoder")
               for n, p in bundle[m].named_parameters()}
@@ -664,26 +826,26 @@ def phase_train(dev, card: str, results: dict) -> bool:
              if not torch.equal(after[k].float(), before[k].float())}
     attn3 = {k for k in before if k.startswith("unet.") and "attn3" in k}
     finite = all(math.isfinite(x) for x in state.losses)
-    n_micro = TRAIN_STEPS * TRAIN_GA
+    n_micro = steps * TRAIN_GA
     ok = (finite and len(state.losses) == n_micro and moved == attn3
-          and len(attn3) == 16 * 5 and all(n > 0 for n in launches.values())
-          and state.optimizer.count == TRAIN_STEPS)
-    record_launches(results, launches, "launches")
+          and len(attn3) == 16 * 5 and state.optimizer.count == steps)
     steady = state.micro_seconds[1:]
     ms = 1e3 * sum(steady) / len(steady)
-    print(f"train stage2: {TRAIN_STEPS} optimizer steps x {TRAIN_GA} "
+    print(f"{path} stage2: {steps} optimizer steps x {TRAIN_GA} "
           f"micro-steps, batch {TRAIN_BATCH}, 512 px, 3 refs, bf16, "
           f"gradient checkpointing; losses "
           f"{', '.join(f'{x:.4f}' for x in state.losses)}; "
           f"{len(moved & attn3)}/{len(attn3)} attn3 tensors moved, "
           f"{len(moved - attn3)} other tensors moved; "
           f"{'ok' if ok else 'FAIL'}", flush=True)
-    print(f"train: first micro-step {1e3 * state.micro_seconds[0]:.1f} ms, "
-          f"then {ms:.1f} ms per micro-step "
+    print(f"{path}: first micro-step {1e3 * state.micro_seconds[0]:.1f} ms,"
+          f" then {ms:.1f} ms per micro-step "
           f"({', '.join(f'{1e3 * s:.1f}' for s in steady)}), "
           f"{1e3 * TRAIN_BATCH / ms:.3f} samples/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
-    print(f"train-path launches: {json.dumps(launches)}", flush=True)
+    ok &= record_launches(results, launches, path)
+    del state, bundle, before, after
+    torch.cuda.empty_cache()
     return ok
 
 
@@ -709,11 +871,15 @@ def main() -> int:
 
     results: dict = {}
     failed = []
-    for name, phase in (("kernels", phase_kernels), ("models", phase_models),
-                        ("story", phase_story), ("train", phase_train)):
+    for name, phase in (
+            ("kernels", lambda: phase_kernels(dev, card, results)),
+            ("models", lambda: phase_models(dev, card)),
+            ("story", lambda: phase_story(dev, card, results)),
+            ("train", lambda: phase_train(dev, card, results)),
+            ("story_fused", lambda: phase_story(dev, card, results, "fused")),
+            ("train_fused", lambda: phase_train(dev, card, results, "fused"))):
         t0 = time.perf_counter()
-        args = (dev, card) if phase is phase_models else (dev, card, results)
-        if not phase(*args):
+        if not phase():
             failed.append(name)
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     if failed:

@@ -1,5 +1,8 @@
 """Times one story frame and one stage-2 training micro-step of the
-PyTorch/CUDA port on the card, and profiles where their device time goes.
+PyTorch/CUDA port on the card, in the default and in the fused-conv
+configuration (`ConvKernels(fused_prologue=True, strided=True)`: resnet
+convs on kernel P, stride-2 convs on kernel D), and profiles where their
+device time goes.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -11,19 +14,23 @@ full-width SD-1.5 + VLCM UNet, VAE and CLIP text encoder of
 `chip_smoke.py` (seeded random weights and token ids). The micro-step is
 the training operating point of `chip_smoke.py`: stage 2, 512 px, batch
 4, 3 refs, bf16, gradient checkpointing, 2 micro-steps per optimizer step,
-on one seeded synthetic batch. It prints
+on one seeded synthetic batch. Both configurations are built side by
+side (the same seeded weights) and timed in turns, default, fused, fused,
+default, so that a drift of the card's clock or of its host falls on both.
+It prints
 
-  - the wall time of two DDIM-50 frames after a DDIM-2 warm-up, and
-    frames/s from their median;
-  - for a DDIM-4 frame: its wall time without and with `torch.profiler`,
-    the device's busy time under the profiler (the union of the card's
-    kernel and copy intervals), the device's idle share against each wall
-    time, and device time by kernel, largest first;
-  - the wall time of 4 micro-steps after 2 warm-ups, and the same profile
-    of 2 micro-steps (one that accumulates, one that updates).
+  - for each configuration, the wall time of two DDIM-50 frames after a
+    DDIM-2 warm-up, and frames/s from their median;
+  - for a DDIM-4 frame of each: its wall time without and with
+    `torch.profiler`, the device's busy time under the profiler (the union
+    of the card's kernel and copy intervals), the device's idle share
+    against each wall time, and device time by kernel, largest first;
+  - for each, the wall time of 4 micro-steps after 2 warm-ups, and the
+    same profile of 2 micro-steps (one that accumulates, one that updates).
 
-The full kernel tables go to chiprun_out/profile_port.txt and
-chiprun_out/profile_train.txt. Every frame time includes the refs' VAE
+The full kernel tables go to chiprun_out/profile_port.txt,
+profile_train.txt (default) and profile_port_fused.txt,
+profile_train_fused.txt. Every frame time includes the refs' VAE
 encodes, the text encodes and the decode; every micro-step the VAE
 encodes, text encodes, the reference UNet pass, the main pass, its
 backward and the optimizer. Without a CUDA device the script exits
@@ -40,53 +47,83 @@ import time
 HEADLINE_STEPS = 50
 PROFILE_STEPS = 4
 TOP = 24
+CONFIGS = ("default", "fused")
+SUFFIX = {"default": "", "fused": "_fused"}
 
 
 def main() -> int:
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from storygen_tpu_torch.pipeline import StoryGenPipeline, frame_generator
-
     dev = torch.device("cuda", 0)
     card = cs.nvidia_smi_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    unet, vae, clip = cs.full_width_models(dev)
-    pipe = StoryGenPipeline(unet, vae, clip, cs.token_ids, device=dev)
+    return 0 if story_frames(dev, card) and train_micro_steps(dev, card) \
+        else 1
+
+
+def in_turns(run, label: str, card: str, unit: str, scale: float) -> dict:
+    """Times run(config) twice per configuration, in the order default,
+    fused, fused, default, and prints each configuration's times."""
+    times = {c: [] for c in CONFIGS}
+    for config in CONFIGS + CONFIGS[::-1]:
+        times[config].append(run(config))
+    for config in CONFIGS:
+        med = statistics.median(times[config])
+        print(f"[{config}] {label}: "
+              f"{', '.join(f'{scale * t:.3f}' for t in times[config])} "
+              f"{unit}; median {scale * med:.3f} {unit} [{card}]",
+              flush=True)
+    return times
+
+
+def story_frames(dev, card: str) -> bool:
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from storygen_tpu_torch.pipeline import StoryGenPipeline, frame_generator
+    pipes = {}
+    for config in CONFIGS:
+        unet, vae, clip = cs.full_width_models(dev, cs.conv_kernels(config))
+        pipes[config] = StoryGenPipeline(unet, vae, clip, cs.token_ids,
+                                         device=dev)
     refs = np.random.RandomState(0).rand(3, 1, 512, 512, 3).astype(np.float32)
     prev = [[p] for p in cs.PROMPTS[:3]]
 
-    def frame(steps: int) -> float:
+    def frame(config: str, steps: int) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        img = pipe(stage="auto-regressive", prompt=[cs.PROMPTS[3]],
-                   image_prompt=refs, prev_prompt=prev,
-                   num_inference_steps=steps, guidance_scale=7.5,
-                   image_guidance_scale=3.5,
-                   generator=frame_generator(dev, 0, 3))
+        img = pipes[config](stage="auto-regressive", prompt=[cs.PROMPTS[3]],
+                            image_prompt=refs, prev_prompt=prev,
+                            num_inference_steps=steps, guidance_scale=7.5,
+                            image_guidance_scale=3.5,
+                            generator=frame_generator(dev, 0, 3))
         torch.cuda.synchronize()
         assert img.shape == (1, 512, 512, 3) and np.isfinite(img).all()
         return time.perf_counter() - t0
 
-    frame(2)
-    times = [frame(HEADLINE_STEPS) for _ in range(2)]
-    med = statistics.median(times)
-    print(f"DDIM-{HEADLINE_STEPS} auto-regressive frame, 3 refs, 512 px, "
-          f"bf16: {', '.join(f'{t:.3f}' for t in times)} s; median "
-          f"{med:.3f} s = {1 / med:.4f} frames/s [{card}]", flush=True)
+    for config in CONFIGS:
+        frame(config, 2)
+    times = in_turns(lambda c: frame(c, HEADLINE_STEPS),
+                     f"DDIM-{HEADLINE_STEPS} auto-regressive frame, 3 refs, "
+                     "512 px, bf16", card, "s", 1.0)
+    for config in CONFIGS:
+        print(f"[{config}] {1 / statistics.median(times[config]):.4f} "
+              f"frames/s [{card}]")
 
     # The profiler's host-side tracing slows the host, not the card: the
     # idle share is taken against the same frame's wall time unprofiled.
-    wall = frame(PROFILE_STEPS)
-    if not report(f"DDIM-{PROFILE_STEPS} frame", lambda: frame(PROFILE_STEPS),
-                  wall, card, "profile_port.txt"):
-        return 1
-    del pipe, unet, vae, clip
+    ok = True
+    for config in CONFIGS:
+        wall = frame(config, PROFILE_STEPS)
+        ok &= report(f"[{config}] DDIM-{PROFILE_STEPS} frame",
+                     lambda: frame(config, PROFILE_STEPS), wall, card,
+                     f"profile_port{SUFFIX[config]}.txt")
+    del pipes
     torch.cuda.empty_cache()
-    return 0 if train_micro_steps(dev, card) else 1
+    return ok
 
 
 def report(label: str, run, wall: float, card: str, out_name: str) -> bool:
@@ -138,34 +175,42 @@ def train_micro_steps(dev, card: str) -> bool:
     from storygen_tpu_torch.training import trainer
     cfg = TrainConfig(train_batch_size=cs.TRAIN_BATCH,
                       gradient_accumulation_steps=cs.TRAIN_GA, seed=0)
-    bundle = trainer.build_models(cfg, dev)
-    step, _ = trainer.make_stage_step("stage2", cfg, bundle, dev)
+    step = {}
+    for config in CONFIGS:
+        bundle = trainer.build_models(cfg, dev, conv=cs.conv_kernels(config))
+        step[config], _ = trainer.make_stage_step("stage2", cfg, bundle, dev)
     ds = SyntheticStoryDataset(cs.TRAIN_BATCH, size=512, seed=5)
     batch = trainer.to_device(collate([ds[i] for i in range(len(ds))]), dev)
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def micro(n: int) -> float:
+    def micro(config: str, n: int) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            loss = step(batch, gen)["loss"]
+            loss = step[config](batch, gen)["loss"]
         torch.cuda.synchronize()
         assert torch.isfinite(loss).item()
         return time.perf_counter() - t0
 
-    micro(2)
+    for config in CONFIGS:
+        micro(config, 2)
     torch.cuda.reset_peak_memory_stats()
-    times = [micro(1) for _ in range(4)]
-    print(f"stage-2 micro-step, batch {cs.TRAIN_BATCH}, 512 px, 3 refs, "
-          f"bf16, gradient checkpointing: "
-          f"{', '.join(f'{1e3 * t:.1f}' for t in times)} ms; median "
-          f"{1e3 * statistics.median(times):.1f} ms = "
-          f"{cs.TRAIN_BATCH / statistics.median(times):.3f} samples/s; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
-          f"[{card}]", flush=True)
-    wall = micro(2)
-    return report("2 stage-2 micro-steps", lambda: micro(2), wall, card,
-                  "profile_train.txt")
+    times = in_turns(lambda c: micro(c, 1),
+                     f"stage-2 micro-step, batch {cs.TRAIN_BATCH}, 512 px, "
+                     "3 refs, bf16, gradient checkpointing", card, "ms", 1e3)
+    for config in CONFIGS:
+        print(f"[{config}] {cs.TRAIN_BATCH / statistics.median(times[config]):.3f}"
+              f" samples/s [{card}]")
+    print(f"peak memory of both configurations' models and steps "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]",
+          flush=True)
+    ok = True
+    for config in CONFIGS:
+        wall = micro(config, 2)
+        ok &= report(f"[{config}] 2 stage-2 micro-steps",
+                     lambda: micro(config, 2), wall, card,
+                     f"profile_train{SUFFIX[config]}.txt")
+    return ok
 
 
 if __name__ == "__main__":

@@ -92,6 +92,23 @@ class CLIPTextConfig:
 
 
 @dataclass(frozen=True)
+class ConvKernels:
+    """Which kernels the UNet's and the VAE's convolutions take; the
+    counterpart of the JAX package's STORYGEN_HALO_FUSED and
+    STORYGEN_HALO_DOWN switches (storygen_tpu/ops/shift_conv.py), off by
+    default as there.
+
+    fused_prologue: every resnet conv takes its GroupNorm + SiLU as the
+      prologue of kernel P instead of a separate GroupNorm pass before
+      kernel C.
+    strided: every 3x3 stride-2 conv (the UNet's and the VAE encoder's
+      downsamplers) runs kernel D instead of F.conv2d.
+    Parameter names and shapes do not depend on it."""
+    fused_prologue: bool = False
+    strided: bool = False
+
+
+@dataclass(frozen=True)
 class SchedulerConfig:
     """Noise schedule (SD-1.5 scheduler/scheduler_config.json)."""
     num_train_timesteps: int = 1000

@@ -25,6 +25,18 @@
 // conv_out) are zero-padded inside shared memory; the epilogue masks the
 // image and channel edges. Simple first: no cp.async pipelining, wgmma or
 // TMA yet, and weights are re-read from L2 by every pixel tile.
+//
+// Kernel P, the instantiation with PRO = true, replaces the same _kernel with
+// fused=True (reached through gnconv3x3 / gnconvres3x3): the folded
+// GroupNorm affine and SiLU of the resnet, act = bf16(silu(x * a[b, ci] +
+// s[b, ci])) with a and s fp32 (B, Cin), is applied where the halo slab is
+// loaded, so the normalised tensor never exists in device memory. Only
+// elements inside the image and below Cin get the prologue: the SAME border
+// and the channel padding stay exactly 0, since silu(s) != 0 (the JAX kernel
+// masks its border for the same reason). x * a and + s round separately and
+// silu is z / (1 + exp(-z)), as PyTorch computes them, so act rounds to bf16
+// at the point the unfused GroupNorm casts its result. Each of the grid's
+// Cout blocks recomputes the prologue of its slab.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -50,9 +62,35 @@ constexpr int SMEM_BYTES = SLAB_BYTES + W_BYTES;        // 58752
 static_assert(NWARPS * 16 * LDC * 4 <= W_BYTES, "staging must fit");
 static_assert(SLAB_BYTES % 128 == 0, "weight tile alignment");
 
+// silu(v * a + s) in fp32, each step rounded as PyTorch's eager ops round it
+__device__ __forceinline__ float silu_affine(float v, float a, float s) {
+  const float z = __fadd_rn(__fmul_rn(v, a), s);
+  return z / (1.f + expf(-z));
+}
+
+// the prologue of 8 consecutive channels held as one 16-byte load
+__device__ __forceinline__ uint4 prologue8(uint4 v, const float* a,
+                                           const float* s) {
+  union {
+    uint4 u;
+    __nv_bfloat162 h[4];
+  } p;
+  p.u = v;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(p.h[i]);
+    p.h[i] = __floats2bfloat162_rn(silu_affine(f.x, a[2 * i], s[2 * i]),
+                                   silu_affine(f.y, a[2 * i + 1],
+                                               s[2 * i + 1]));
+  }
+  return p.u;
+}
+
+template <bool PRO>
 __global__ void __launch_bounds__(NTHREADS)
 conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w9,
                const float* __restrict__ bias, long long bias_bstride,
+               const float* __restrict__ pa, const float* __restrict__ ps,
                const bf16* __restrict__ res, bf16* __restrict__ out, int H,
                int W, int Cin, int Cout) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -65,6 +103,8 @@ conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w9,
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bf16* xb = x + (long long)b * H * W * Cin;
+  const float* ab = PRO ? pa + (long long)b * Cin : nullptr;
+  const float* sb = PRO ? ps + (long long)b * Cin : nullptr;
   const bool cin_vec = (Cin % 8) == 0;
   const bool cout_vec = (Cout % 8) == 0;
 
@@ -79,9 +119,11 @@ conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w9,
         const int p = idx / (CK / 8), cc = (idx % (CK / 8)) * 8;
         const int gy = y0 - 1 + p / SW, gx = x0 - 1 + p % SW, ci = c0 + cc;
         uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W && ci < Cin)
+        if (gy >= 0 && gy < H && gx >= 0 && gx < W && ci < Cin) {
           val = *reinterpret_cast<const uint4*>(
               xb + ((long long)gy * W + gx) * Cin + ci);
+          if (PRO) val = prologue8(val, ab + ci, sb + ci);
+        }
         *reinterpret_cast<uint4*>(slab + p * CKS + cc) = val;
       }
     } else {
@@ -89,8 +131,12 @@ conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w9,
         const int p = idx / CK, cc = idx % CK;
         const int gy = y0 - 1 + p / SW, gx = x0 - 1 + p % SW, ci = c0 + cc;
         bf16 val = __float2bfloat16(0.f);
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W && ci < Cin)
+        if (gy >= 0 && gy < H && gx >= 0 && gx < W && ci < Cin) {
           val = xb[((long long)gy * W + gx) * Cin + ci];
+          if (PRO)
+            val = __float2bfloat16(
+                silu_affine(__bfloat162float(val), ab[ci], sb[ci]));
+        }
         slab[p * CKS + cc] = val;
       }
     }
@@ -159,23 +205,44 @@ conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w9,
   }
 }
 
-}  // namespace
-
-extern "C" int sg_conv3x3(const void* x, const void* w9, const void* bias,
-                          long long bias_bstride, const void* residual,
-                          void* out, int B, int H, int W, int Cin, int Cout,
-                          void* stream) {
+template <bool PRO>
+int launch(const void* x, const void* w9, const void* bias,
+           long long bias_bstride, const void* a, const void* s,
+           const void* residual, void* out, int B, int H, int W, int Cin,
+           int Cout, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv3x3_kernel<PRO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = ((W + TW - 1) / TW) * ((H + TH - 1) / TH);
   dim3 grid(tiles, (Cout + CBN - 1) / CBN, B);
-  conv3x3_kernel<<<grid, NTHREADS, SMEM_BYTES,
-                   static_cast<cudaStream_t>(stream)>>>(
+  conv3x3_kernel<PRO><<<grid, NTHREADS, SMEM_BYTES,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w9),
       static_cast<const float*>(bias), bias_bstride,
+      static_cast<const float*>(a), static_cast<const float*>(s),
       static_cast<const bf16*>(residual), static_cast<bf16*>(out), H, W, Cin,
       Cout);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// kernel C
+extern "C" int sg_conv3x3(const void* x, const void* w9, const void* bias,
+                          long long bias_bstride, const void* residual,
+                          void* out, int B, int H, int W, int Cin, int Cout,
+                          void* stream) {
+  return launch<false>(x, w9, bias, bias_bstride, nullptr, nullptr, residual,
+                       out, B, H, W, Cin, Cout, stream);
+}
+
+// kernel P: a and s are fp32 (B, Cin)
+extern "C" int sg_gnconv3x3(const void* x, const void* w9, const void* bias,
+                            long long bias_bstride, const void* a,
+                            const void* s, const void* residual, void* out,
+                            int B, int H, int W, int Cin, int Cout,
+                            void* stream) {
+  return launch<true>(x, w9, bias, bias_bstride, a, s, residual, out, B, H, W,
+                      Cin, Cout, stream);
 }

@@ -3,20 +3,28 @@
 Counterpart of storygen_tpu/models/layers.py. Parameter names and shapes
 are the diffusers ones (OIHW conv weights, (out, in) linear weights), so a
 diffusers state dict loads directly. Every 3x3 stride-1 convolution runs
-through the conv kernel (`ops/conv.py`); stride-2 convolutions use
-F.conv2d, as the JAX package uses XLA's convolution there.
+through kernel C (`ops/conv.py`); stride-2 convolutions use F.conv2d, as
+the JAX package uses XLA's convolution there. In the fused-conv
+configuration (`configs.ConvKernels`) a resnet's convs take their
+GroupNorm + SiLU as kernel P's prologue, and stride-2 convolutions run
+kernel D (`ops/downconv.py`).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from storygen_tpu_torch.ops import route
-from storygen_tpu_torch.ops.conv import Conv3x3Fn, conv3x3_plain, pack_weight
+from storygen_tpu_torch.ops.conv import (Conv3x3Fn, GnConv3x3Fn,
+                                         conv3x3_plain, gnconv3x3_plain,
+                                         pack_weight)
+from storygen_tpu_torch.ops.downconv import DownConv3x3Fn, downconv3x3_plain
+
+Prologue = Tuple[torch.Tensor, torch.Tensor]
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -72,6 +80,20 @@ class GroupNorm(nn.Module):
             y = F.silu(y)
         return y.to(x.dtype)
 
+    def fold(self, x: torch.Tensor) -> Prologue:
+        """The normalisation folded with the affine into per-(batch,
+        channel) fp32 (a, s), differentiable, so that forward(x) is x * a +
+        s (then the act); the consumer applies it (kernel P's prologue).
+        Counterpart of the JAX GroupNorm's fold_affine=True."""
+        b, c = x.shape[0], x.shape[-1]
+        g = self.num_groups
+        var, mean = torch.var_mean(x.float().reshape(b, -1, g, c // g),
+                                   dim=(1, 3), correction=0)       # (B, g)
+        a = (torch.rsqrt(var + self.eps).repeat_interleave(c // g, dim=1)
+             * self.weight.float())
+        s = self.bias.float() - mean.repeat_interleave(c // g, dim=1) * a
+        return a, s
+
 
 class Conv1x1(nn.Module):
     """1x1 convolution over the channel axis (diffusers Conv2d(k=1))."""
@@ -85,12 +107,12 @@ class Conv1x1(nn.Module):
         return F.linear(x, self.weight[:, :, 0, 0], self.bias)
 
 
-class Conv3x3(nn.Module):
-    """3x3 stride-1 SAME convolution through the conv kernel. While no
-    gradient can flow to the weight (it does not require grad, or grad
-    mode is off), the packed (9, Cin, Cout) weight is cached and rebuilt
-    when the weight changes; otherwise it is packed at every call,
-    differentiably."""
+class _Packed3x3(nn.Module):
+    """A 3x3 conv's OIHW weight and bias, and the weight packed as
+    (9, Cin, Cout) for the kernels. While no gradient can flow to the
+    weight (it does not require grad, or grad mode is off), the packed
+    weight is cached and rebuilt when the weight changes; otherwise it is
+    packed at every call, differentiably."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -109,30 +131,46 @@ class Conv3x3(nn.Module):
             self._packed_key = key
         return self._packed
 
+
+class Conv3x3(_Packed3x3):
+    """3x3 stride-1 SAME convolution through kernel C, or through kernel P
+    when given a prologue."""
+
     def forward(self, x: torch.Tensor,
                 extra_bias: Optional[torch.Tensor] = None,
-                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                residual: Optional[torch.Tensor] = None,
+                prologue: Optional[Prologue] = None) -> torch.Tensor:
         """`extra_bias` (B, Cout) is added with the bias (the resnet temb
-        term); `residual` (B, H, W, Cout) is added to the output."""
+        term); `residual` (B, H, W, Cout) is added to the output;
+        `prologue` (a, s), each (B, Cin) fp32, applies silu(x * a + s) to
+        the input first (a folded GroupNorm + SiLU)."""
         bias = self.bias.float()
         if extra_bias is not None:
             bias = bias[None] + extra_bias.float()
-        fn = route(Conv3x3Fn.apply, conv3x3_plain)
-        return fn(x.contiguous(), self.packed_weight(x.dtype), bias,
-                  None if residual is None else residual.contiguous())
+        w9 = self.packed_weight(x.dtype)
+        res = None if residual is None else residual.contiguous()
+        if prologue is None:
+            fn = route(Conv3x3Fn.apply, conv3x3_plain)
+            return fn(x.contiguous(), w9, bias, res)
+        a, s = prologue
+        fn = route(GnConv3x3Fn.apply, gnconv3x3_plain)
+        return fn(x.contiguous(), w9, bias, a, s, res)
 
 
-class StridedConv(nn.Module):
-    """3x3 stride-2 convolution (F.conv2d) with explicit (top, bottom,
-    left, right) zero padding over NHWC."""
+class StridedConv(_Packed3x3):
+    """3x3 stride-2 convolution with explicit (top, bottom, left, right)
+    zero padding over NHWC: F.conv2d, or kernel D with `strided`."""
 
-    def __init__(self, cin: int, cout: int, pad=(1, 1, 1, 1)):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
-        self.bias = nn.Parameter(torch.zeros(cout))
-        self.pad = pad
+    def __init__(self, cin: int, cout: int, pad=(1, 1, 1, 1),
+                 strided: bool = False):
+        super().__init__(cin, cout)
+        self.pad, self.strided = pad, strided
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.strided:
+            fn = route(DownConv3x3Fn.apply, downconv3x3_plain)
+            return fn(x.contiguous(), self.packed_weight(x.dtype),
+                      self.bias.float(), self.pad)
         t, bo, le, ri = self.pad
         xc = F.pad(x.permute(0, 3, 1, 2), (le, ri, t, bo))
         y = F.conv2d(xc, self.weight, self.bias, stride=2)
@@ -141,11 +179,15 @@ class StridedConv(nn.Module):
 
 class ResnetBlock2D(nn.Module):
     """GN -> SiLU -> conv1 (+temb) -> GN -> SiLU -> conv2 (+ shortcut).
-    With temb_channels=None it is the VAE's resnet (no time embedding)."""
+    With temb_channels=None it is the VAE's resnet (no time embedding).
+    With `fused_prologue` each GN + SiLU is folded into (a, s) and applied
+    by its conv's prologue (kernel P), as the JAX ResnetBlock2D does."""
 
     def __init__(self, cin: int, cout: int, groups: int, eps: float,
-                 temb_channels: Optional[int] = None):
+                 temb_channels: Optional[int] = None,
+                 fused_prologue: bool = False):
         super().__init__()
+        self.fused_prologue = fused_prologue
         self.norm1 = GroupNorm(groups, cin, eps, act="silu")
         self.conv1 = Conv3x3(cin, cout)
         if temb_channels is not None:
@@ -160,17 +202,22 @@ class ResnetBlock2D(nn.Module):
         extra = None
         if temb is not None:
             extra = self.time_emb_proj(F.silu(temb))
-        h = self.conv1(self.norm1(x), extra_bias=extra)
         skip = self.conv_shortcut(x) if hasattr(self, "conv_shortcut") else x
+        if self.fused_prologue:
+            h = self.conv1(x, extra_bias=extra, prologue=self.norm1.fold(x))
+            return self.conv2(h, residual=skip, prologue=self.norm2.fold(h))
+        h = self.conv1(self.norm1(x), extra_bias=extra)
         return self.conv2(self.norm2(h), residual=skip)
 
 
 class Downsample2D(nn.Module):
-    """Stride-2 3x3 conv with padding 1 (UNet), held as `.conv`."""
+    """Stride-2 3x3 conv, padding (1, 1, 1, 1) in the UNet and (0, 1, 0, 1)
+    in the VAE encoder, held as `.conv`; kernel D with `strided`."""
 
-    def __init__(self, channels: int, pad=(1, 1, 1, 1)):
+    def __init__(self, channels: int, pad=(1, 1, 1, 1),
+                 strided: bool = False):
         super().__init__()
-        self.conv = StridedConv(channels, channels, pad)
+        self.conv = StridedConv(channels, channels, pad, strided)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)

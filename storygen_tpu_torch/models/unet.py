@@ -6,7 +6,8 @@ taps (the reference cycle), with a dict it feeds each block's entry to attn3
 (the image cycle), under an optional per-reference `ref_mask`. Keys derive
 from the block index: down_{1..3}_{1,2}, mid, up_{1..3}_{1..3}. With
 `gradient_checkpointing` each down, mid and up block runs under
-torch.utils.checkpoint when grad is enabled (the JAX `remat`).
+torch.utils.checkpoint when grad is enabled (the JAX `remat`). `conv`
+(configs.ConvKernels) picks the kernels of every resnet and downsampler.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from storygen_tpu_torch.configs import UNetConfig
+from storygen_tpu_torch.configs import ConvKernels, UNetConfig
 from storygen_tpu_torch.models.attention import Transformer2DModel
 from storygen_tpu_torch.models.layers import (Conv3x3, Downsample2D,
                                               GroupNorm, ResnetBlock2D,
@@ -43,13 +44,14 @@ class DownBlock(nn.Module):
     CrossAttnDownBlock2D and DownBlock2D."""
 
     def __init__(self, cfg: UNetConfig, idx: int, cin: int, cout: int,
-                 cross: bool, add_downsample: bool):
+                 cross: bool, add_downsample: bool, conv: ConvKernels):
         super().__init__()
         self.idx = idx
         temb = cfg.time_embed_dim
         g, eps = cfg.norm_num_groups, cfg.norm_eps
         self.resnets = nn.ModuleList([
-            ResnetBlock2D(cin if i == 0 else cout, cout, g, eps, temb)
+            ResnetBlock2D(cin if i == 0 else cout, cout, g, eps, temb,
+                          conv.fused_prologue)
             for i in range(cfg.layers_per_block)])
         if cross:
             self.attentions = nn.ModuleList([
@@ -57,7 +59,8 @@ class DownBlock(nn.Module):
                                    cfg.cross_attention_dim, g)
                 for _ in range(cfg.layers_per_block)])
         if add_downsample:
-            self.downsamplers = nn.ModuleList([Downsample2D(cout)])
+            self.downsamplers = nn.ModuleList([
+                Downsample2D(cout, strided=conv.strided)])
 
     def forward(self, h, temb, text, ctx: Optional[Context],
                 ref_mask: Optional[torch.Tensor]
@@ -81,12 +84,13 @@ class DownBlock(nn.Module):
 class MidBlock(nn.Module):
     """Resnet -> Transformer2D -> Resnet (UNetMidBlock2DCrossAttn)."""
 
-    def __init__(self, cfg: UNetConfig, ch: int):
+    def __init__(self, cfg: UNetConfig, ch: int, conv: ConvKernels):
         super().__init__()
         temb = cfg.time_embed_dim
         g, eps = cfg.norm_num_groups, cfg.norm_eps
-        self.resnets = nn.ModuleList([ResnetBlock2D(ch, ch, g, eps, temb)
-                                      for _ in range(2)])
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(ch, ch, g, eps, temb, conv.fused_prologue)
+            for _ in range(2)])
         self.attentions = nn.ModuleList([Transformer2DModel(
             cfg.num_heads, ch // cfg.num_heads, ch, cfg.cross_attention_dim,
             g)])
@@ -105,14 +109,16 @@ class UpBlock(nn.Module):
     both CrossAttnUpBlock2D and UpBlock2D."""
 
     def __init__(self, cfg: UNetConfig, idx: int, prev_ch: int, cout: int,
-                 skip_chs: List[int], cross: bool, add_upsample: bool):
+                 skip_chs: List[int], cross: bool, add_upsample: bool,
+                 conv: ConvKernels):
         super().__init__()
         self.idx = idx
         temb = cfg.time_embed_dim
         g, eps = cfg.norm_num_groups, cfg.norm_eps
         self.resnets = nn.ModuleList([
             ResnetBlock2D((prev_ch if i == 0 else cout) + skip_chs[i], cout,
-                          g, eps, temb) for i in range(len(skip_chs))])
+                          g, eps, temb, conv.fused_prologue)
+            for i in range(len(skip_chs))])
         if cross:
             self.attentions = nn.ModuleList([
                 Transformer2DModel(cfg.num_heads, cout // cfg.num_heads, cout,
@@ -139,7 +145,8 @@ class UpBlock(nn.Module):
 
 
 class UNet2DConditionModel(nn.Module):
-    def __init__(self, config: UNetConfig = UNetConfig()):
+    def __init__(self, config: UNetConfig = UNetConfig(),
+                 conv: ConvKernels = ConvKernels()):
         super().__init__()
         cfg = self.config = config
         if cfg.mid_block_type != "UNetMidBlock2DCrossAttn":
@@ -159,9 +166,9 @@ class UNet2DConditionModel(nn.Module):
             last = i == n - 1
             self.down_blocks.append(DownBlock(
                 cfg, i, cin, ch[i], kind == "CrossAttnDownBlock2D",
-                not last))
+                not last, conv))
             skip_chs += [ch[i]] * (cfg.layers_per_block + (0 if last else 1))
-        self.mid_block = MidBlock(cfg, ch[-1])
+        self.mid_block = MidBlock(cfg, ch[-1], conv)
         self.up_blocks = nn.ModuleList()
         rev = list(reversed(ch))
         prev = ch[-1]
@@ -174,7 +181,7 @@ class UNet2DConditionModel(nn.Module):
             # consumed last-first: resnet i takes skips[-(i + 1)]
             self.up_blocks.append(UpBlock(
                 cfg, i, prev, rev[i], list(reversed(skips)),
-                kind == "CrossAttnUpBlock2D", i != n - 1))
+                kind == "CrossAttnUpBlock2D", i != n - 1, conv))
             prev = rev[i]
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch[0],
                                        cfg.norm_eps, act="silu")

@@ -4,6 +4,8 @@ Counterpart of storygen_tpu/models/vae.py. The encoder's downsample convs
 pad (0, 1) bottom/right before a stride-2 valid conv, as diffusers does; the
 decoder's upsample is nearest 2x then a 3x3 conv. The mid block's
 single-head attention stays plain (an einsum chain in the JAX package).
+`conv` (configs.ConvKernels) picks the kernels of every resnet and of the
+encoder's downsamplers.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import NamedTuple
 import torch
 import torch.nn as nn
 
-from storygen_tpu_torch.configs import VAEConfig
+from storygen_tpu_torch.configs import ConvKernels, VAEConfig
 from storygen_tpu_torch.models.layers import (Conv1x1, Conv3x3, Downsample2D,
                                               GroupNorm, ResnetBlock2D,
                                               Upsample2D)
@@ -41,10 +43,12 @@ class VAEAttentionBlock(nn.Module):
 
 
 class VAEMidBlock(nn.Module):
-    def __init__(self, ch: int, groups: int):
+    def __init__(self, ch: int, groups: int, conv: ConvKernels):
         super().__init__()
-        self.resnets = nn.ModuleList([ResnetBlock2D(ch, ch, groups, 1e-6)
-                                      for _ in range(2)])
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(ch, ch, groups, 1e-6,
+                          fused_prologue=conv.fused_prologue)
+            for _ in range(2)])
         self.attentions = nn.ModuleList([VAEAttentionBlock(ch, groups)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -55,14 +59,15 @@ class VAEMidBlock(nn.Module):
 
 class DownEncoderBlock2D(nn.Module):
     def __init__(self, cin: int, cout: int, layers: int, groups: int,
-                 add_downsample: bool):
+                 add_downsample: bool, conv: ConvKernels):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock2D(cin if i == 0 else cout, cout, groups, 1e-6)
+            ResnetBlock2D(cin if i == 0 else cout, cout, groups, 1e-6,
+                          fused_prologue=conv.fused_prologue)
             for i in range(layers)])
         if add_downsample:
             self.downsamplers = nn.ModuleList([
-                Downsample2D(cout, pad=(0, 1, 0, 1))])
+                Downsample2D(cout, pad=(0, 1, 0, 1), strided=conv.strided)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for r in self.resnets:
@@ -74,10 +79,11 @@ class DownEncoderBlock2D(nn.Module):
 
 class UpDecoderBlock2D(nn.Module):
     def __init__(self, cin: int, cout: int, layers: int, groups: int,
-                 add_upsample: bool):
+                 add_upsample: bool, conv: ConvKernels):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock2D(cin if i == 0 else cout, cout, groups, 1e-6)
+            ResnetBlock2D(cin if i == 0 else cout, cout, groups, 1e-6,
+                          fused_prologue=conv.fused_prologue)
             for i in range(layers)])
         if add_upsample:
             self.upsamplers = nn.ModuleList([Upsample2D(cout)])
@@ -91,15 +97,16 @@ class UpDecoderBlock2D(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg: VAEConfig):
+    def __init__(self, cfg: VAEConfig, conv: ConvKernels):
         super().__init__()
         ch, g = cfg.block_out_channels, cfg.norm_num_groups
         self.conv_in = Conv3x3(cfg.in_channels, ch[0])
         self.down_blocks = nn.ModuleList([
             DownEncoderBlock2D(ch[0] if i == 0 else ch[i - 1], c,
-                               cfg.layers_per_block, g, i != len(ch) - 1)
+                               cfg.layers_per_block, g, i != len(ch) - 1,
+                               conv)
             for i, c in enumerate(ch)])
-        self.mid_block = VAEMidBlock(ch[-1], g)
+        self.mid_block = VAEMidBlock(ch[-1], g, conv)
         self.conv_norm_out = GroupNorm(g, ch[-1], 1e-6, act="silu")
         self.conv_out = Conv3x3(ch[-1], 2 * cfg.latent_channels)
 
@@ -112,14 +119,15 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: VAEConfig):
+    def __init__(self, cfg: VAEConfig, conv: ConvKernels):
         super().__init__()
         rev, g = list(reversed(cfg.block_out_channels)), cfg.norm_num_groups
         self.conv_in = Conv3x3(cfg.latent_channels, rev[0])
-        self.mid_block = VAEMidBlock(rev[0], g)
+        self.mid_block = VAEMidBlock(rev[0], g, conv)
         self.up_blocks = nn.ModuleList([
             UpDecoderBlock2D(rev[0] if i == 0 else rev[i - 1], c,
-                             cfg.layers_per_block + 1, g, i != len(rev) - 1)
+                             cfg.layers_per_block + 1, g, i != len(rev) - 1,
+                             conv)
             for i, c in enumerate(rev)])
         self.conv_norm_out = GroupNorm(g, rev[-1], 1e-6, act="silu")
         self.conv_out = Conv3x3(rev[-1], cfg.out_channels)
@@ -144,11 +152,12 @@ class AutoencoderKL(nn.Module):
     """encode: (B, H, W, 3) -> DiagonalGaussian over (B, H/8, W/8, 4) in
     fp32; decode: latents -> image. The 0.18215 scaling is the caller's."""
 
-    def __init__(self, config: VAEConfig = VAEConfig()):
+    def __init__(self, config: VAEConfig = VAEConfig(),
+                 conv: ConvKernels = ConvKernels()):
         super().__init__()
         self.config = config
-        self.encoder = Encoder(config)
-        self.decoder = Decoder(config)
+        self.encoder = Encoder(config, conv)
+        self.decoder = Decoder(config, conv)
         self.quant_conv = Conv1x1(2 * config.latent_channels,
                                   2 * config.latent_channels)
         self.post_quant_conv = Conv1x1(config.latent_channels,

@@ -1,13 +1,21 @@
-"""3x3 stride-1 SAME convolution over NHWC: wrapper of `csrc/conv3x3.cu`,
-its plain PyTorch version, and the differentiable `Conv3x3Fn`.
+"""3x3 stride-1 SAME convolution over NHWC: the wrappers of the two
+instantiations of `csrc/conv3x3.cu`, their plain PyTorch versions, and the
+differentiable `Conv3x3Fn` and `GnConv3x3Fn`.
 
-Replaces `_kernel` (fused=False) of storygen_tpu/ops/pallas_conv.py
-(reached through `halo_conv` / `conv3x3`): fp32 accumulation, a (Cout) or
-per-batch (B, Cout) fp32 bias, and an optional residual added in the
-epilogue. Weights come packed as (9, Cin, Cout), tap-major (3*dy + dx).
-The backward follows `_conv3x3_bwd` of the JAX module: the input gradient
-reuses kernel C on the spatially flipped, in/out-transposed weight; the
-weight and bias gradients are plain.
+Kernel C (`conv3x3`) replaces `_kernel` (fused=False) of
+storygen_tpu/ops/pallas_conv.py (reached through `halo_conv` / `conv3x3`):
+fp32 accumulation, a (Cout) or per-batch (B, Cout) fp32 bias, and an
+optional residual added in the epilogue. Weights come packed as
+(9, Cin, Cout), tap-major (3*dy + dx). Kernel P (`gnconv3x3`) replaces the
+same `_kernel` with fused=True (reached through `gnconv3x3` /
+`gnconvres3x3`): kernel C on silu(x * a + s), the resnet's folded GroupNorm
+and SiLU, applied where the kernel loads its input (border kept 0).
+
+The backward of C follows `_conv3x3_bwd` of the JAX module: the input
+gradient reuses kernel C on the spatially flipped, in/out-transposed
+weight; the weight and bias gradients are plain. That of P follows
+`_gnconv3x3_bwd`: it recomputes the prologue in fp32, takes the gradient
+of the activation from kernel C, and the rest plain.
 """
 from __future__ import annotations
 
@@ -40,6 +48,24 @@ def conv3x3_plain(x: torch.Tensor, w9: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
+def silu_affine(x: torch.Tensor, a: torch.Tensor,
+                s: torch.Tensor) -> torch.Tensor:
+    """P's prologue in fp32: silu(x * a + s), a and s (B, Cin) broadcast over
+    (B, H, W, Cin)."""
+    z = x.float() * a.float()[:, None, None, :] + s.float()[:, None, None, :]
+    return F.silu(z)
+
+
+def gnconv3x3_plain(x: torch.Tensor, w9: torch.Tensor, bias: torch.Tensor,
+                    a: torch.Tensor, s: torch.Tensor,
+                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The prologue in fp32, rounded to x's dtype (where the unfused
+    GroupNorm casts its result and the kernel rounds its slab), then
+    `conv3x3_plain`."""
+    return conv3x3_plain(silu_affine(x, a, s).to(x.dtype), w9, bias,
+                         residual)
+
+
 def _check(x, w9, bias, residual):
     if x.dim() != 4 or w9.dim() != 3 or w9.shape[0] != 9:
         raise ValueError("x must be (B, H, W, Cin) and w9 (9, Cin, Cout)")
@@ -60,14 +86,9 @@ def _check(x, w9, bias, residual):
         raise ValueError("all operands must be on one device")
 
 
-def conv3x3(x: torch.Tensor, w9: torch.Tensor, bias: torch.Tensor,
-            residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (B, H, W, Cin), w9 (9, Cin, Cout), bias (Cout) or (B, Cout),
-    residual (B, H, W, Cout) or None -> (B, H, W, Cout). Launches the CUDA
-    kernel for CUDA tensors and runs the plain version for CPU tensors."""
-    _check(x, w9, bias, residual)
-    if x.device.type == "cpu":
-        return conv3x3_plain(x, w9, bias, residual)
+def check_kernel_operands(x, w9, residual=None):
+    """What the conv kernels (C, P and D) take on the card: bf16,
+    contiguous, 16-byte aligned x, w9 and residual, and no empty extent."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     ops = [x, w9] + ([] if residual is None else [residual])
@@ -77,25 +98,65 @@ def conv3x3(x: torch.Tensor, w9: torch.Tensor, bias: torch.Tensor,
         raise ValueError("x, w9 and residual must be contiguous")
     if any(t.data_ptr() % 16 for t in ops):
         raise ValueError("x, w9 and residual must be 16-byte aligned")
+    if x.numel() == 0 or w9.shape[2] == 0:
+        raise ValueError("empty convolution")
+
+
+def _launch(name: str, x, w9, bias, residual, *affine) -> torch.Tensor:
+    """Launch `name` (sg_conv3x3, or sg_gnconv3x3 with its fp32 (a, s)) on
+    checked operands; the bias and a, s go to the kernel as fp32."""
+    check_kernel_operands(x, w9, residual)
     b, h, w, cin = x.shape
     cout = w9.shape[2]
-    if x.numel() == 0 or cout == 0:
-        raise ValueError("empty convolution")
     bias32 = bias.float().contiguous()
+    affine32 = [t.float().contiguous() for t in affine]
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    lib = _build.load()
-    err = lib.sg_conv3x3(
+    err = getattr(_build.load(), name)(
         x.data_ptr(), w9.data_ptr(), bias32.data_ptr(),
-        cout if bias.dim() == 2 else 0,
+        cout if bias.dim() == 2 else 0, *(t.data_ptr() for t in affine32),
         None if residual is None else residual.data_ptr(),
         out.data_ptr(), b, h, w, cin, cout,
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "sg_conv3x3")
+    _build.check(err, name)
+    return out
+
+
+def conv3x3(x: torch.Tensor, w9: torch.Tensor, bias: torch.Tensor,
+            residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B, H, W, Cin), w9 (9, Cin, Cout), bias (Cout) or (B, Cout),
+    residual (B, H, W, Cout) or None -> (B, H, W, Cout). Launches kernel C
+    for CUDA tensors and runs the plain version for CPU tensors."""
+    _check(x, w9, bias, residual)
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w9, bias, residual)
+    out = _launch("sg_conv3x3", x, w9, bias, residual)
     conv3x3.launches += 1
     return out
 
 
 conv3x3.launches = 0
+
+
+def gnconv3x3(x: torch.Tensor, w9: torch.Tensor, bias: torch.Tensor,
+              a: torch.Tensor, s: torch.Tensor,
+              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """conv3x3(silu(x * a + s)) + bias (+ residual): x (B, H, W, Cin), a
+    and s (B, Cin), the rest as `conv3x3`. Launches kernel P for CUDA
+    tensors and runs the plain version for CPU tensors."""
+    _check(x, w9, bias, residual)
+    if tuple(a.shape) != (x.shape[0], x.shape[3]) or a.shape != s.shape:
+        raise ValueError(f"a and s must be {(x.shape[0], x.shape[3])}, got "
+                         f"{tuple(a.shape)} and {tuple(s.shape)}")
+    if a.device != x.device or s.device != x.device:
+        raise ValueError("all operands must be on one device")
+    if x.device.type == "cpu":
+        return gnconv3x3_plain(x, w9, bias, a, s, residual)
+    out = _launch("sg_gnconv3x3", x, w9, bias, residual, a, s)
+    gnconv3x3.launches += 1
+    return out
+
+
+gnconv3x3.launches = 0
 
 
 def flip_weight(w9: torch.Tensor) -> torch.Tensor:
@@ -144,3 +205,46 @@ class Conv3x3Fn(torch.autograd.Function):
             dims = (1, 2) if len(ctx.bias_shape) == 2 else (0, 1, 2)
             db = g.float().sum(dims).to(ctx.bias_dtype)
         return dx, dw, db, g if need_r else None
+
+
+class GnConv3x3Fn(torch.autograd.Function):
+    """Forward kernel P (`gnconv3x3`). Backward as `_gnconv3x3_bwd`: the
+    prologue recomputed in fp32 from the saved x, a and s (the activation is
+    not saved); dact by kernel C on the flipped weight; then dz = dact *
+    silu'(z), dx = dz * a, da = sum(dz * x), ds = sum(dz), dw plain on the
+    activation, dbias, and the residual's gradient g. A gradient that is
+    not needed is not computed."""
+
+    @staticmethod
+    def forward(ctx, x, w9, bias, a, s, residual):
+        out = gnconv3x3(x, w9, bias, a, s, residual)
+        ctx.save_for_backward(x, w9, a, s)
+        ctx.bias_shape, ctx.bias_dtype = bias.shape, bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w9, a, s = ctx.saved_tensors
+        g = g.contiguous()
+        need_x, need_w, need_b, need_a, need_s, need_r = ctx.needs_input_grad
+        dx = dw = db = da = ds = None
+        a4, s4 = a.float()[:, None, None, :], s.float()[:, None, None, :]
+        z = x.float() * a4 + s4
+        sig = torch.sigmoid(z)
+        if need_x or need_a or need_s:
+            zero = torch.zeros(x.shape[-1], dtype=torch.float32,
+                               device=g.device)
+            dact = conv3x3(g, flip_weight(w9), zero)
+            dz = dact.float() * (sig * (1.0 + z * (1.0 - sig)))
+            if need_x:
+                dx = (dz * a4).to(x.dtype)
+            if need_a:
+                da = (dz * x.float()).sum((1, 2)).to(a.dtype)
+            if need_s:
+                ds = dz.sum((1, 2)).to(s.dtype)
+        if need_w:
+            dw = conv3x3_dweight_plain((z * sig).to(x.dtype), g).to(w9.dtype)
+        if need_b:
+            dims = (1, 2) if len(ctx.bias_shape) == 2 else (0, 1, 2)
+            db = g.float().sum(dims).to(ctx.bias_dtype)
+        return dx, dw, db, da, ds, g if need_r else None

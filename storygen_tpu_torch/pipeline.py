@@ -6,7 +6,9 @@ Counterpart of storygen_tpu/pipeline.py for stage "no" and
 step with the exact CFG-row dedup, the image-cycle pass, the DDIM update,
 VAE encode of the history frames and VAE decode. The UNet, VAE and CLIP run
 in their parameters' dtype; the schedule, the CFG combine and the DDIM
-update run in fp32.
+update run in fp32. `device=None` means the card (a RuntimeError without
+one); the models must already lie on the device the sampler and the
+pipeline run on.
 
 Not ported yet: stage "multi-image-condition", the other samplers, eta > 0,
 `ref_feature_interval > 1`, negative prompts, `normalize_refs`,
@@ -21,6 +23,7 @@ import torch
 
 from storygen_tpu_torch.configs import SchedulerConfig
 from storygen_tpu_torch.diffusion import schedule as S
+from storygen_tpu_torch.utils.device import require_on, resolve_device
 
 STAGES = ("no", "auto-regressive")
 
@@ -41,10 +44,12 @@ def frame_generator(device, seed: int, frame: int) -> torch.Generator:
 class StoryGenSampler:
     def __init__(self, unet, vae, sched_cfg: SchedulerConfig = SchedulerConfig(),
                  device=None):
+        self.device = resolve_device(device)
+        require_on(self.device, unet=unet, vae=vae)
         self.unet = unet
         self.vae = vae
         self.sched_cfg = sched_cfg
-        self.schedule = S.make_schedule(sched_cfg, device=device)
+        self.schedule = S.make_schedule(sched_cfg, device=self.device)
 
     def encode_ref_latents(self, images: torch.Tensor,
                            noise: torch.Tensor) -> torch.Tensor:
@@ -143,8 +148,8 @@ class StoryGenPipeline:
                  tokenizer: Callable[[List[str]], object],
                  sched_cfg: SchedulerConfig = SchedulerConfig(),
                  device=None):
-        self.device = torch.device(device) if device is not None \
-            else next(unet.parameters()).device
+        self.device = resolve_device(device)
+        require_on(self.device, text_encoder=text_encoder)
         self.sampler = StoryGenSampler(unet, vae, sched_cfg, self.device)
         self.vae = vae
         self.text_encoder = text_encoder

@@ -20,11 +20,13 @@ from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
-from storygen_tpu_torch.configs import (CLIPTextConfig, SchedulerConfig,
-                                        TrainConfig, UNetConfig, VAEConfig)
+from storygen_tpu_torch.configs import (CLIPTextConfig, ConvKernels,
+                                        SchedulerConfig, TrainConfig,
+                                        UNetConfig, VAEConfig)
 from storygen_tpu_torch.data.loader import batches
 from storygen_tpu_torch.diffusion import schedule as S
 from storygen_tpu_torch.training import optim, steps
+from storygen_tpu_torch.utils.device import require_on, resolve_device
 from storygen_tpu_torch.utils.logging import MetricLogger
 
 
@@ -36,25 +38,15 @@ class TrainState(NamedTuple):
     micro_seconds: List[float]          # wall time of each micro-step
 
 
-def resolve_device(device=None) -> torch.device:
-    """None means the card. A CUDA device without CUDA raises; the CPU is
-    used only when asked for."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass device='cpu' to run on the "
-                           "CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
 def build_models(cfg: TrainConfig, device="cuda",
                  unet_config: UNetConfig = UNetConfig(),
                  vae_config: VAEConfig = VAEConfig(),
-                 clip_config: CLIPTextConfig = CLIPTextConfig()) -> dict:
+                 clip_config: CLIPTextConfig = CLIPTextConfig(),
+                 conv: ConvKernels = ConvKernels()) -> dict:
     """UNet, VAE and CLIP text encoder with seeded random weights in the
-    config's dtype, allocated on `device`; the UNet checkpoints each block
-    under `cfg.remat`."""
+    config's dtype, allocated on `device`, the UNet's and the VAE's convs
+    on the kernels `conv` picks; the UNet checkpoints each block under
+    `cfg.remat`."""
     from storygen_tpu_torch.models.clip_text import CLIPTextModel
     from storygen_tpu_torch.models.init import init_random_
     from storygen_tpu_torch.models.unet import UNet2DConditionModel
@@ -64,15 +56,16 @@ def build_models(cfg: TrainConfig, device="cuda",
     dtype = (torch.bfloat16 if cfg.mixed_precision in ("bf16", "fp16")
              else torch.float32)
 
-    def make(cls, mcfg, seed):
+    def make(cls, seed, *args):
         with torch.device(dev):
-            module = cls(mcfg)
+            module = cls(*args)
         return init_random_(module.to(dtype), seed)
 
-    unet = make(UNet2DConditionModel, unet_config, cfg.seed)
+    unet = make(UNet2DConditionModel, cfg.seed, unet_config, conv)
     unet.gradient_checkpointing = cfg.remat
-    return dict(unet=unet, vae=make(AutoencoderKL, vae_config, cfg.seed + 1),
-                text_encoder=make(CLIPTextModel, clip_config, cfg.seed + 2),
+    return dict(unet=unet,
+                vae=make(AutoencoderKL, cfg.seed + 1, vae_config, conv),
+                text_encoder=make(CLIPTextModel, cfg.seed + 2, clip_config),
                 scheduler_config=SchedulerConfig())
 
 
@@ -127,6 +120,7 @@ def train(stage: str = "stage2", config: Optional[TrainConfig] = None,
         json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
 
     bundle = models_bundle or build_models(cfg, dev)
+    require_on(dev, **{k: bundle[k] for k in ("unet", "vae", "text_encoder")})
     step_fn, opt = make_stage_step(stage, cfg, bundle, dev)
 
     logger = MetricLogger(cfg.logdir)

@@ -1,7 +1,8 @@
 """Guards of the port that need no GPU: it never imports JAX, Flax or the
 JAX package, its build names sm_90a and a build/ output, its kernel
 modules call no library kernel in place of their own, and its entry points
-refuse to run without a card unless the caller asks for the CPU."""
+(training and serving) refuse to run without a card unless the caller asks
+for the CPU, and never move models behind the caller's back."""
 import os
 import re
 import subprocess
@@ -11,8 +12,13 @@ from pathlib import Path
 import pytest
 import torch
 
-from storygen_tpu_torch.configs import TrainConfig
+from storygen_tpu_torch.configs import (CLIPTextConfig, TrainConfig,
+                                        UNetConfig, VAEConfig)
+from storygen_tpu_torch.models.clip_text import CLIPTextModel
+from storygen_tpu_torch.models.unet import UNet2DConditionModel
+from storygen_tpu_torch.models.vae import AutoencoderKL
 from storygen_tpu_torch.ops import _build
+from storygen_tpu_torch.pipeline import StoryGenPipeline, StoryGenSampler
 from storygen_tpu_torch.training import trainer
 
 REPO = Path(__file__).resolve().parent.parent
@@ -29,6 +35,8 @@ def test_port_imports_no_jax_or_flax():
         "storygen_tpu_torch.checkpoint.convert\n"
         "import storygen_tpu_torch.ops.attention, "
         "storygen_tpu_torch.ops.conv, storygen_tpu_torch.ops.geglu\n"
+        "import storygen_tpu_torch.ops.downconv, "
+        "storygen_tpu_torch.utils.device\n"
         "import storygen_tpu_torch.configs, storygen_tpu_torch.data.loader\n"
         "import storygen_tpu_torch.training.losses, "
         "storygen_tpu_torch.training.optim\n"
@@ -57,7 +65,8 @@ def test_port_sources_never_import_jax():
 def test_nvcc_command_targets_sm90a_into_build_dir():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"flash_fwd.cu", "flash_bwd.cu",
-                                      "geglu_matmul.cu", "conv3x3.cu"}
+                                      "geglu_matmul.cu", "conv3x3.cu",
+                                      "downconv3x3.cu"}
     out = _build.lib_path(srcs)
     nvcc = "/usr/local/cuda/bin/nvcc"
     for src in srcs:
@@ -79,7 +88,8 @@ def test_nvcc_command_targets_sm90a_into_build_dir():
 
 @pytest.mark.parametrize("name", [
     "flash_attention.py", "geglu.py", "conv.py", "_build.py", "attention.py",
-    "flash_fwd.cu", "flash_bwd.cu", "geglu_matmul.cu", "conv3x3.cu"])
+    "downconv.py", "flash_fwd.cu", "flash_bwd.cu", "geglu_matmul.cu",
+    "conv3x3.cu", "downconv3x3.cu"])
 def test_kernel_modules_call_no_library_kernel(name):
     src = (PORT / ("ops" if name.endswith(".py") else "csrc") / name
            ).read_text()
@@ -98,3 +108,36 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trainer.train("stage2", cfg, dataset=[])
     assert trainer.resolve_device("cpu") == torch.device("cpu")
+    # serving: the models are built on the CPU, as nn.Modules are by default
+    unet, vae, clip = _tiny_serving_models()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StoryGenPipeline(unet, vae, clip, lambda p: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StoryGenSampler(unet, vae)
+    pipe = StoryGenPipeline(unet, vae, clip, lambda p: None, device="cpu")
+    assert pipe.device == pipe.sampler.device == torch.device("cpu")
+
+
+def test_entry_points_refuse_models_elsewhere():
+    """A model that is not on the device asked for raises; it is not
+    moved."""
+    unet, vae, clip = _tiny_serving_models()
+    with torch.device("meta"):
+        meta_vae = type(vae)(vae.config)
+    with pytest.raises(ValueError, match="vae has parameters on"):
+        StoryGenPipeline(unet, meta_vae, clip, lambda p: None, device="cpu")
+    with pytest.raises(ValueError, match="vae has parameters on"):
+        StoryGenSampler(unet, meta_vae, device="cpu")
+    assert next(meta_vae.parameters()).is_meta
+
+
+def _tiny_serving_models():
+    unet = UNet2DConditionModel(UNetConfig(
+        block_out_channels=(8, 8, 8, 8), attention_head_dim=2,
+        norm_num_groups=2, cross_attention_dim=8))
+    vae = AutoencoderKL(VAEConfig(block_out_channels=(4, 4, 4, 4),
+                                  layers_per_block=1, norm_num_groups=2))
+    clip = CLIPTextModel(CLIPTextConfig(
+        num_hidden_layers=1, hidden_size=8, intermediate_size=16,
+        num_attention_heads=2))
+    return unet, vae, clip

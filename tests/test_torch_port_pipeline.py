@@ -53,7 +53,8 @@ def test_sampler_and_decode_match_jax():
     img_j = js.decode(vp, out_j)
 
     ts = TSampler(load(TUNet(UNET_CFG), up),
-                  load(TVAE(VAE_CFG), vp, key_rewrites=VAE_REWRITES))
+                  load(TVAE(VAE_CFG), vp, key_rewrites=VAE_REWRITES),
+                  device="cpu")
     out_t = ts.sample(*map(t, (lat0, tu, tc, refs, zero, prev_u, prev_c,
                                noise)), g_txt, g_img,
                       stage="auto-regressive", num_inference_steps=steps)
@@ -72,7 +73,7 @@ def test_generate_story_runs_on_cpu():
     clip = init_random_(TCLIP(CLIPTextConfig(
         num_hidden_layers=2, hidden_size=24, intermediate_size=48,
         num_attention_heads=4)), 3)
-    pipe = StoryGenPipeline(unet, vae, clip, _tokenizer)
+    pipe = StoryGenPipeline(unet, vae, clip, _tokenizer, device="cpu")
     frames = pipe.generate_story(["a fox", "the fox runs", "it sleeps"],
                                  num_inference_steps=2, height=64, width=64,
                                  seed=7)

@@ -4,8 +4,10 @@ same draws (recomputed here from the JAX step's
 `jax.random.split(rng, 6)` keys, the ref mask through
 `steps._sample_ref_mask`), with the same weights (the port's seeded random
 init carried into the JAX trees by storygen_tpu/checkpoint/hf_import.py).
-Loss, grad_norm and every updated attn3 parameter agree at fp32 tolerance.
-Then the port's trainer end to end on the CPU for each stage."""
+Loss, grad_norm and every updated attn3 parameter agree at fp32 tolerance,
+for the port in both conv configurations (configs.ConvKernels: the default
+and the fused one, each from the same seeded weights, against the one JAX
+step). Then the port's trainer end to end on the CPU for each stage."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,8 +27,9 @@ from storygen_tpu.models.vae import AutoencoderKL as JVAE
 from storygen_tpu.training import optim as j_optim
 from storygen_tpu.training import steps as j_steps
 from storygen_tpu_torch.checkpoint.convert import jax_to_state_dict
-from storygen_tpu_torch.configs import (CLIPTextConfig, SchedulerConfig,
-                                        TrainConfig, UNetConfig, VAEConfig)
+from storygen_tpu_torch.configs import (CLIPTextConfig, ConvKernels,
+                                        SchedulerConfig, TrainConfig,
+                                        UNetConfig, VAEConfig)
 from storygen_tpu_torch.data.loader import SyntheticStoryDataset
 from storygen_tpu_torch.diffusion import schedule as S
 from storygen_tpu_torch.training import optim, steps, trainer
@@ -50,10 +53,11 @@ TRAIN = dict(gradient_accumulation_steps=1, learning_rate=1e-3,
              adam_epsilon=1e-4)
 
 
-def _port_models(seed=0):
+def _port_models(seed=0, conv=ConvKernels()):
     cfg = TrainConfig(mixed_precision="fp32", seed=seed)
     return trainer.build_models(cfg, "cpu", UNetConfig(**UNET),
-                                VAEConfig(**VAE), CLIPTextConfig(**CLIP))
+                                VAEConfig(**VAE), CLIPTextConfig(**CLIP),
+                                conv)
 
 
 def _jax_params(module, sd, convert, *init_args):
@@ -115,23 +119,28 @@ def test_stage2_step_matches_jax():
         "ref_mask": j_steps._sample_ref_mask(ks[5], B, N),
     }
     draws = {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
-
-    # the port's step
-    trainable = optim.partition_params(unet, optim.STAGE_PREDICATES["stage2"])
-    opt = optim.AdamW(trainable, TrainConfig(**TRAIN))
-    port_step = steps.make_train_step(unet, vae, clip,
-                                      S.make_schedule(SchedulerConfig()), opt,
-                                      stage="stage2")
-    out = port_step({k: torch.from_numpy(v) for k, v in batch.items()},
-                    torch.Generator().manual_seed(0), draws)
-
-    assert_close(metrics["loss"], out["loss"], msg="loss")
-    assert_close(metrics["grad_norm"], out["grad_norm"], msg="grad_norm")
     merged = j_optim.merge_params(new_state.trainable, j_frozen)
     updated = jax_to_state_dict(np_tree(merged))
-    assert len(trainable) == 16 * 5
-    for name, p in trainable.items():
-        assert_close(updated[name], p, atol=1e-6, rtol=1e-5, msg=name)
+
+    # the port's step, in both conv configurations from the same weights
+    fused = _port_models(conv=ConvKernels(True, True))
+    for name, b in (("default", bundle), ("fused", fused)):
+        trainable = optim.partition_params(b["unet"],
+                                           optim.STAGE_PREDICATES["stage2"])
+        opt = optim.AdamW(trainable, TrainConfig(**TRAIN))
+        port_step = steps.make_train_step(
+            b["unet"], b["vae"], b["text_encoder"],
+            S.make_schedule(SchedulerConfig()), opt, stage="stage2")
+        out = port_step({k: torch.from_numpy(v) for k, v in batch.items()},
+                        torch.Generator().manual_seed(0), draws)
+
+        assert_close(metrics["loss"], out["loss"], msg=f"{name} loss")
+        assert_close(metrics["grad_norm"], out["grad_norm"],
+                     msg=f"{name} grad_norm")
+        assert len(trainable) == 16 * 5
+        for k, p in trainable.items():
+            assert_close(updated[k], p, atol=1e-6, rtol=1e-5,
+                         msg=f"{name} {k}")
 
 
 @pytest.mark.parametrize("stage", ["stage1", "stage2", "coco"])
