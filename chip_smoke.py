@@ -4,7 +4,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It takes no arguments and runs six phases, all of which must pass. The
+It takes no arguments and runs seven phases, all of which must pass. The
 serving and training paths run in the default conv configuration and in
 the fused-conv one (`ConvKernels(fused_prologue=True, strided=True)`: every
 resnet conv on kernel P with its GroupNorm + SiLU as prologue, every 3x3
@@ -36,7 +36,17 @@ stride-2 conv on kernel D):
   story_fused  a 2-prompt story in the fused configuration: every serving
                kernel, P and D ran;
   train_fused  1 optimizer step of 2 micro-steps in the fused
-               configuration: all nine kernels ran.
+               configuration: all nine kernels ran;
+  studies      the attention studies' kernels (S1-S4, csrc/study_*.cu):
+               drives every ported study entry point
+               (storygen_tpu_torch/studies/) at one of its own UNet shapes,
+               checking that it launched each of the eleven study wrappers
+               and kernel F (its baseline) and nothing else; then holds
+               each wrapper's instantiations against its plain version on
+               the same inputs at the studies' full-width shapes (attn3 L1,
+               attn1 L1, attn3 L2, attn3 L3), with kernel, plain, library
+               (SDPA, for the functions that compute attention) and bound
+               times. The six earlier paths launch no study kernel.
 
 There is no CPU branch: without a CUDA device the script exits non-zero
 before printing any result. The last line is the JSON status object.
@@ -78,9 +88,15 @@ GRAD_REL_L2 = 1e-1
 P_VS_C_RTOL = 1e-3
 
 # The H100 SXM's dense bf16 tensor-core rate and HBM rate (NVIDIA's data
-# sheet), for each kernel's bound.
+# sheet), for each kernel's bound; int8 tensor-core work runs at twice the
+# bf16 rate (1,979 TOPS dense).
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+PEAK_INT8 = 1979e12
+# The int8 study's column sum: exact int32 sums per K/V tile, accumulated
+# in fp32 across tiles, against the exact (float64) plain sum; at attn3 L1
+# its rounding is about 1e-7 of the largest sum.
+INT8_SUM_RTOL = 1e-6
 
 # attn3's per-batch keep table over its 3 reference spans (newest last)
 KEEP = [[0, 0, 1], [0, 1, 1], [1, 1, 1], [0, 0, 1]]
@@ -117,15 +133,40 @@ KERNEL_META = {
         "route": "cuda", "source": "storygen_tpu_torch/csrc/downconv3x3.cu",
         "replaces": "storygen_tpu/ops/pallas_conv.py:312"},
 }
+# the serving and training paths' nine kernels
+PORT_KERNELS = tuple(KERNEL_META)
+STUDY_SOURCES = {"online": "storygen_tpu_torch/csrc/study_online.cu",
+                 "bounded": "storygen_tpu_torch/csrc/study_bounded.cu",
+                 "qk": "storygen_tpu_torch/csrc/study_qk.cu",
+                 "int8": "storygen_tpu_torch/csrc/study_int8.cu"}
+# each study wrapper: its kernel's source and the Pallas kernel it replaces
+for _name, _src, _line in (
+        ("variant_attention", "online", "bench_attn_variants.py:40"),
+        ("t_attention", "online", "bench_attn_v2.py:51"),
+        ("tb_attention", "bounded", "bench_attn_v2.py:112"),
+        ("bounded_attention", "bounded", "bench_attn_scan.py:110"),
+        ("bounded_multi_attention", "bounded", "bench_attn_scan.py:204"),
+        ("ablate_attention", "bounded", "bench_attn_ablate.py:37"),
+        ("bnd2_attention", "bounded", "bench_attn_bnd2.py:31"),
+        ("mh_attention", "bounded", "bench_attn_multihead.py:30"),
+        ("qk_only", "qk", "bench_attn_int8.py:48"),
+        ("full_int8", "int8", "bench_attn_int8.py:90"),
+        # the same _full_int8_kernel, its pallas_call in the epilogue study
+        ("int8_attn_from_quant", "int8", "bench_attn_int8_epilogue.py:86")):
+    KERNEL_META[_name] = {"route": "cuda", "source": STUDY_SOURCES[_src],
+                          "replaces": f"scripts/studies/{_line}"}
+STUDY_KERNELS = tuple(k for k in KERNEL_META if k not in PORT_KERNELS)
 SERVING_KERNELS = ("flash_fwd", "geglu_matmul", "conv3x3")
 FUSED_KERNELS = ("gnconv3x3", "downconv3x3")
-# what each path must launch (> 0); every other kernel of the nine is
-# held to 0 on the default-configuration paths
+# what each path must launch (> 0); every other kernel is held to 0 (the
+# study kernels on every serving and training path)
 PATH_KERNELS = {
     "story": SERVING_KERNELS,
-    "train": tuple(k for k in KERNEL_META if k not in FUSED_KERNELS),
+    "train": tuple(k for k in PORT_KERNELS if k not in FUSED_KERNELS),
     "story_fused": SERVING_KERNELS + FUSED_KERNELS,
-    "train_fused": tuple(KERNEL_META),
+    "train_fused": PORT_KERNELS,
+    # the study entry points, with kernel F as their baseline
+    "studies": STUDY_KERNELS + ("flash_fwd",),
 }
 
 
@@ -139,12 +180,15 @@ def nvidia_smi_line() -> str:
 def wrappers() -> dict:
     """Every kernel's wrapper, whose `.launches` counts its launches."""
     from storygen_tpu_torch.ops import (conv, downconv, flash_attention as fa,
-                                        geglu)
-    return {"flash_fwd": fa.flash_fwd, "flash_fwd_masked": fa.flash_fwd_masked,
-            "flash_lse": fa.flash_lse, "flash_dq": fa.flash_dq,
-            "flash_dkv": fa.flash_dkv, "geglu_matmul": geglu.geglu_matmul,
-            "conv3x3": conv.conv3x3, "gnconv3x3": conv.gnconv3x3,
-            "downconv3x3": downconv.downconv3x3}
+                                        geglu, study_attention, study_int8)
+    out = {"flash_fwd": fa.flash_fwd, "flash_fwd_masked": fa.flash_fwd_masked,
+           "flash_lse": fa.flash_lse, "flash_dq": fa.flash_dq,
+           "flash_dkv": fa.flash_dkv, "geglu_matmul": geglu.geglu_matmul,
+           "conv3x3": conv.conv3x3, "gnconv3x3": conv.gnconv3x3,
+           "downconv3x3": downconv.downconv3x3}
+    for w in study_attention.WRAPPERS + study_int8.WRAPPERS:
+        out[w.__name__] = w
+    return out
 
 
 def reset_launches() -> None:
@@ -717,11 +761,13 @@ PROMPTS = ("A little fox finds a glowing lantern in the snowy forest.",
 def record_launches(results: dict, launches: dict, path: str) -> bool:
     """Keep the launches of one path's run; True if every kernel the path
     must run launched and every other kernel did not. "launches" itself is
-    the fused training path's count, the one path that runs all nine."""
+    the fused training path's count, the one path that runs all nine
+    serving and training kernels, and the studies path's for the study
+    kernels."""
     for k, n in launches.items():
         r = results.setdefault(k, {"name": k, **KERNEL_META[k]})
         r.setdefault("launches_by_path", {})[path] = n
-        if path == "train_fused":
+        if path == ("studies" if k in STUDY_KERNELS else "train_fused"):
             r["launches"] = n
     want = PATH_KERNELS[path]
     good = all((n > 0) == (k in want) for k, n in launches.items())
@@ -848,6 +894,222 @@ def phase_train(dev, card: str, results: dict,
     torch.cuda.empty_cache()
     return ok
 
+# the study phase's full-width shapes: (B, H, Sq, Skv, d)
+STUDY_SHAPES = {"attn3 L1": (3, 8, 4096, 12288, 40),
+                "attn1 L1": (6, 8, 4096, 4096, 40),
+                "attn3 L2": (3, 8, 1024, 3072, 80),
+                "attn3 L3": (3, 8, 256, 768, 160)}
+
+
+def study_path() -> None:
+    """Drives every ported study entry point once, on the card, at one of
+    that study's own UNet shapes, 2 timed calls per candidate."""
+    from storygen_tpu_torch.studies import (bench_attn_ablate,
+                                            bench_attn_bnd2, bench_attn_int8,
+                                            bench_attn_int8_epilogue,
+                                            bench_attn_multihead,
+                                            bench_attn_scan, bench_attn_v2,
+                                            bench_attn_variants)
+    for run, shape in (
+            (bench_attn_variants.main, "attn1_L1_main"),
+            (bench_attn_v2.main, "attn3_L2"),
+            (bench_attn_scan.main, "attn3_L2"),
+            (bench_attn_scan.main_bounded, "attn3_L2"),
+            (bench_attn_scan.main_pair, "attn3_L2"),
+            (bench_attn_ablate.main, "attn1_L1_ref"),
+            (bench_attn_bnd2.main, "attn3_L2"),
+            (bench_attn_multihead.main, "attn3_L2"),
+            (bench_attn_int8.main, "attn1_L1_ref"),
+            (bench_attn_int8_epilogue.main, "attn1_L1")):
+        run(shapes=[shape], iters=2)
+
+
+def study_cases(dev):
+    """Each study wrapper at the studies' full-width shapes, over the knobs
+    its study sweeps: (Case, rtol). The oracle is the wrapper's plain
+    version on the same inputs; the library call is SDPA where the function
+    computes attention."""
+    import torch
+    from storygen_tpu_torch.ops import study_attention as sa, study_int8 as si
+    from storygen_tpu_torch.studies import common
+    from storygen_tpu_torch.studies.bench_attn_int8 import int8_study_inputs
+    inputs = {}
+
+    def qkv(shape):
+        if shape not in inputs:
+            inputs[shape] = common.qkv(dev, *STUDY_SHAPES[shape], seed=4)
+        return inputs[shape]
+
+    def tag(shape, **kw):
+        b, _, sq, skv, d = STUDY_SHAPES[shape]
+        return (f"{shape} B{b} {sq}x{skv} d{d} "
+                + " ".join(f"{k}={v}" for k, v in kw.items()))
+
+    cases = []
+    for w, shape, kw in (
+            (sa.variant_attention, "attn3 L1",
+             dict(bq=64, bk=64, fold_scale=False, use_exp2=False)),
+            (sa.variant_attention, "attn3 L1",
+             dict(bq=128, bk=64, fold_scale=True, use_exp2=True)),
+            (sa.variant_attention, "attn1 L1",
+             dict(bq=128, bk=128, fold_scale=True, use_exp2=True,
+                  split2=True)),
+            (sa.variant_attention, "attn3 L2",
+             dict(bq=128, bk=64, fold_scale=True, use_exp2=False)),
+            (sa.t_attention, "attn3 L2", dict(bq=64, bk=128)),
+            (sa.t_attention, "attn3 L3", dict(bq=64, bk=64, use_exp2=True)),
+            (sa.tb_attention, "attn3 L1", dict(bq=128, bk=64)),
+            (sa.tb_attention, "attn1 L1", dict(bq=64, bk=64)),
+            (sa.tb_attention, "attn3 L2", dict(bq=64, bk=128)),
+            (sa.tb_attention, "attn3 L3", dict(bq=128, bk=128)),
+            (sa.bounded_attention, "attn3 L1", dict(bq=128, bk=64)),
+            (sa.bounded_attention, "attn3 L2", dict(bq=64, bk=64)),
+            (sa.bounded_multi_attention, "attn3 L1",
+             dict(bq=128, bk=64, sub=2)),
+            (sa.bounded_multi_attention, "attn3 L2",
+             dict(bq=64, bk=64, sub=4)),
+            (sa.ablate_attention, "attn3 L1",
+             dict(bq=64, bk=64, do_exp=False, do_pv=False)),
+            (sa.ablate_attention, "attn3 L1",
+             dict(bq=64, bk=64, do_exp=True, do_pv=False)),
+            (sa.ablate_attention, "attn3 L1",
+             dict(bq=64, bk=64, do_exp=False, do_pv=True)),
+            (sa.ablate_attention, "attn1 L1",
+             dict(bq=128, bk=128, do_exp=True, do_pv=True, halves=2)),
+            (sa.bnd2_attention, "attn3 L1", dict(bq=128, bk=64)),
+            (sa.bnd2_attention, "attn3 L2", dict(bq=128, bk=128)),
+            (sa.mh_attention, "attn3 L3", dict(g=2)),
+            (sa.mh_attention, "attn3 L2", dict(g=4)),
+            (sa.mh_attention, "attn1 L1", dict(g=8))):
+        q, k, v = qkv(shape)
+        b, h, sq, skv, d = STUDY_SHAPES[shape]
+        sm = d ** -0.5
+        n = float(b * h * sq * skv * d)
+        pv = kw.get("do_pv", True)
+        attention = pv and kw.get("do_exp", True)
+        cases.append((Case(
+            w.__name__, tag(shape, **kw),
+            lambda w=w, q=q, k=k, v=v, sm=sm, kw=kw: w(q, k, v, sm_scale=sm,
+                                                       **kw),
+            lambda w=w, q=q, k=k, v=v, sm=sm, kw=kw: w.plain(
+                q, k, v, sm_scale=sm, **kw), None,
+            (lambda q=q, k=k, v=v, sm=sm: common.sdpa(q, k, v, sm))
+            if attention else None,
+            (4.0 if pv else 2.0) * n,
+            2.0 * (2 * b * h * sq * d + 2 * b * h * skv * d)), KERNEL_RTOL))
+
+    # int8 work counted at the bf16 rate it is equivalent to
+    i8 = PEAK_FLOPS / PEAK_INT8
+    q, k, v = qkv("attn3 L1")
+    b, h, sq, skv, d = STUDY_SHAPES["attn3 L1"]
+    n = float(b * h * sq * skv * d)
+    q_t, kf, q_t8, k8 = int8_study_inputs(q, k)
+    for int8, qt_, k_ in ((True, q_t8, k8), (False, q_t, kf)):
+        kw = dict(bq=128, bk=64, int8=int8)
+        eb = 1.0 if int8 else 2.0
+        cases.append((Case(
+            "qk_only", tag("attn3 L1", **kw),
+            lambda a=qt_, c=k_, kw=kw: si.qk_only(a, c, **kw),
+            lambda a=qt_, c=k_, kw=kw: si.qk_only.plain(a, c, **kw), None,
+            None, 2.0 * n * (i8 if int8 else 1.0),
+            eb * b * h * d * (sq + skv) + 4.0 * b * h * sq),
+            INT8_SUM_RTOL if int8 else KERNEL_RTOL))
+    for shape, kw in (("attn3 L1", dict(bq=128, bk=64)),
+                      ("attn1 L1", dict(bq=64, bk=64))):
+        q, k, v = qkv(shape)
+        b, h, sq, skv, d = STUDY_SHAPES[shape]
+        sm, n = d ** -0.5, float(b * h * sq * skv * d)
+        cases.append((Case(
+            "full_int8", tag(shape, **kw),
+            lambda q=q, k=k, v=v, sm=sm, kw=kw: si.full_int8(
+                q, k, v, sm_scale=sm, **kw),
+            lambda q=q, k=k, v=v, sm=sm, kw=kw: si.full_int8.plain(
+                q, k, v, sm_scale=sm, **kw), None,
+            lambda q=q, k=k, v=v, sm=sm: common.sdpa(q, k, v, sm),
+            2.0 * n * i8 + 2.0 * n,
+            2.0 * (2 * b * h * sq * d + 2 * b * h * skv * d)), KERNEL_RTOL))
+    q, k, v = qkv("attn3 L1")
+    b, h, sq, skv, d = STUDY_SHAPES["attn3 L1"]
+    sm, n = d ** -0.5, float(b * h * sq * skv * d)
+    q8, sqr = si.quant_rows(q)
+    k8, skr = si.quant_rows(k)
+    args = (q8, sqr, k8, skr, v)
+    kw = dict(bq=128, bk=128)
+    cases.append((Case(
+        "int8_attn_from_quant", tag("attn3 L1", **kw),
+        lambda a=args, kw=kw: si.int8_attn_from_quant(*a, sm_scale=sm, **kw),
+        lambda a=args, kw=kw: si.int8_attn_from_quant.plain(
+            *a, sm_scale=sm, **kw), None,
+        lambda: common.sdpa(q, k, v, sm), 2.0 * n * i8 + 2.0 * n,
+        b * h * d * (sq + skv) + 4.0 * b * h * (sq + skv)
+        + 2.0 * (b * h * skv * d + b * h * sq * d)), KERNEL_RTOL))
+    return cases
+
+
+def phase_studies(dev, card: str, results: dict) -> bool:
+    """The study path's launches, then every study case: kernel against
+    its plain version on the same inputs, with times."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    reset_launches()
+    study_path()
+    torch.cuda.synchronize()
+    ok = record_launches(results, read_launches(), "studies")
+    torch.cuda.empty_cache()
+    library_ms = {}
+    for c, rtol in study_cases(dev):
+        with torch.no_grad():
+            out = c.kern().float()
+            ref = c.plain().float()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        bound = rtol * ref.abs().max().item()
+        good = (out.shape == ref.shape and err <= bound
+                and bool(torch.isfinite(out).all().item()))
+        ok &= good
+        del out, ref
+        with torch.no_grad():
+            ms = cuda_ms(c.kern, 10)
+            plain_ms = cuda_ms(c.plain, 3)
+            lib_ms = None
+            if c.library is not None:
+                key = (c.label.split(" ")[0], c.label.split(" ")[1])
+                if key not in library_ms:
+                    library_ms[key] = cuda_ms(c.library, 5)
+                lib_ms = library_ms[key]
+        b_ms, b_by = bound_ms(c.flops, c.nbytes)
+        lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"study {c.name:23s} {c.label:58s} max_abs_err {err:.3e} "
+              f"(bound {bound:.3e}) {'ok' if good else 'FAIL'};  kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  bound "
+              f"{b_ms:.4f} ms ({b_by})  [{card}]", flush=True)
+        r = results.setdefault(c.name, {"name": c.name, **KERNEL_META[c.name]})
+        for key, val in (("max_abs_err", 0.0), ("ms", 0.0), ("plain_ms", 0.0),
+                         ("bound_ms", 0.0), ("library_ms", None),
+                         ("cases", [])):
+            r.setdefault(key, val)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["bound_ms"] += b_ms
+        if lib_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
+        r["cases"].append({"case": c.label, "max_abs_err": err,
+                           "bound": bound, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "library_ms": lib_ms})
+        r["bound_by"] = max(r["cases"], key=lambda x: x["bound_ms"])[
+            "bound_by"]
+    # the summed cases have a library time only if each case has one (the
+    # ablated modes compute no attention)
+    for name in STUDY_KERNELS:
+        r = results[name]
+        if any(x["library_ms"] is None for x in r["cases"]):
+            r["library_ms"] = None
+    torch.cuda.empty_cache()
+    return ok
+
 
 def main() -> int:
     import torch
@@ -877,7 +1139,8 @@ def main() -> int:
             ("story", lambda: phase_story(dev, card, results)),
             ("train", lambda: phase_train(dev, card, results)),
             ("story_fused", lambda: phase_story(dev, card, results, "fused")),
-            ("train_fused", lambda: phase_train(dev, card, results, "fused"))):
+            ("train_fused", lambda: phase_train(dev, card, results, "fused")),
+            ("studies", lambda: phase_studies(dev, card, results))):
         t0 = time.perf_counter()
         if not phase():
             failed.append(name)

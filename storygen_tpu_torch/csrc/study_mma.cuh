@@ -1,0 +1,318 @@
+// Shared building blocks of the attention-study kernels (study_online.cu,
+// study_bounded.cu, study_qk.cu, study_int8.cu): tile copies from HBM into
+// shared memory, ldmatrix fragment loads and the mma.sync tensor-core
+// products, for sm_90a.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k32): in a warp, lane =
+// 4 * grp + tq. A 16 x 8 fp32 (or int32) accumulator tile holds, per lane,
+// c[0], c[1] at row grp, columns 2 tq and 2 tq + 1, and c[2], c[3] at row
+// grp + 8, the same columns. Two neighbouring accumulator tiles of S (kv
+// columns 16 kk .. 16 kk + 15) are, packed to bf16 pairs, exactly the A
+// fragment of the next product P V over those 16 kv rows, so P never leaves
+// the registers.
+#pragma once
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sg_study {
+
+typedef __nv_bfloat16 bf16;
+
+__host__ __device__ constexpr int align128(int x) {
+  return (x + 127) / 128 * 128;
+}
+
+// Row pitch in bytes of a shared tile whose rows hold `row_bytes` bytes (a
+// multiple of 16): an odd number of 16-byte units, so the eight rows one
+// ldmatrix reads fall in eight different bank groups.
+__host__ __device__ constexpr int pitch_bytes(int row_bytes) {
+  return (row_bytes / 16) % 2 ? row_bytes : row_bytes + 16;
+}
+
+// Copy rows [row0, row0 + rows) of a row-major matrix (row stride `rs`
+// bytes, `wb` valid bytes per row, wb a multiple of CHUNK) into a shared
+// tile of `tile_bytes` bytes per row (pitch `pitch`); bytes past wb become
+// zero. CHUNK is 16 where every row starts 16-byte aligned, 8 for the
+// 40-byte int8 rows of d = 40.
+template <int CHUNK>
+__device__ __forceinline__ void copy_rows(unsigned char* dst, int pitch,
+                                          const unsigned char* src,
+                                          long long rs, int row0, int rows,
+                                          int wb, int tile_bytes, int tid,
+                                          int nthreads) {
+  const int cpr = tile_bytes / CHUNK;
+  for (int idx = tid; idx < rows * cpr; idx += nthreads) {
+    const int r = idx / cpr, c = (idx % cpr) * CHUNK;
+    unsigned char* d = dst + r * pitch + c;
+    if (CHUNK == 16) {
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (c < wb)
+        val = *reinterpret_cast<const uint4*>(src + (row0 + r) * rs + c);
+      *reinterpret_cast<uint4*>(d) = val;
+    } else {
+      uint2 val = make_uint2(0u, 0u);
+      if (c < wb)
+        val = *reinterpret_cast<const uint2*>(src + (row0 + r) * rs + c);
+      *reinterpret_cast<uint2*>(d) = val;
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
+// c += a b, bf16 inputs, fp32 accumulation, m16n8k16
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b, int8 inputs, int32 accumulation, m16n8k32
+__device__ __forceinline__ void mma_s8_k32(int (&c)[4], const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b, int8 inputs, int32 accumulation, m16n8k16 (the tail of d = 40)
+__device__ __forceinline__ void mma_s8_k16(int (&c)[4], uint32_t a0,
+                                           uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragments (bf16, 16 rows x DP columns) of a warp's 16 rows that
+// start at `rows` (pitch in bytes): one x4 ldmatrix per 16-column k step.
+template <int KS>
+__device__ __forceinline__ void load_a_bf16(uint32_t (&a)[KS][4],
+                                            const unsigned char* rows,
+                                            int pitch, int lane) {
+  const unsigned char* p =
+      rows + (lane % 8 + 8 * ((lane / 8) % 2)) * pitch + 16 * (lane / 16);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) ldsm_x4(a[kk], p + 32 * kk);
+}
+
+// S (16 x 8 NT tiles) += A K^T for a warp's A fragments against NT * 8
+// K rows starting at `krows` (bf16, pitch in bytes): B fragments come from
+// K's rows as stored (col-major B), two n tiles per x4 ldmatrix.
+template <int KS, int NT>
+__device__ __forceinline__ void qk_bf16(float (&s)[NT][4],
+                                        const uint32_t (&a)[KS][4],
+                                        const unsigned char* krows, int pitch,
+                                        int lane) {
+  const unsigned char* p =
+      krows + (lane % 8 + 8 * (lane / 16)) * pitch + 16 * ((lane / 8) % 2);
+#pragma unroll
+  for (int j = 0; j < NT; j += 2) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t b[4];
+      ldsm_x4(b, p + j * 8 * pitch + 32 * kk);
+      mma_bf16(s[j], a[kk], b[0], b[1]);
+      mma_bf16(s[j + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// O (16 x 8 * DT tiles) += P V for a warp: P's A fragment for kv rows
+// 16 kk .. 16 kk + 15 is built from S tiles 2 kk and 2 kk + 1 (already
+// rounded to bf16 pairs in `p`), V's B fragments come from V's rows with a
+// transposing ldmatrix, two d tiles per x4.
+template <int KT, int DT>
+__device__ __forceinline__ void pv_bf16(float (&o)[DT][4],
+                                        const uint32_t (&p)[KT][4],
+                                        const unsigned char* vrows, int pitch,
+                                        int lane) {
+  const unsigned char* q =
+      vrows + (lane % 8 + 8 * ((lane / 8) % 2)) * pitch + 16 * (lane / 16);
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+#pragma unroll
+    for (int dt = 0; dt < DT; dt += 2) {
+      uint32_t b[4];
+      ldsm_x4_t(b, q + kk * 16 * pitch + dt * 16);
+      mma_bf16(o[dt], p[kk], b[0], b[1]);
+      mma_bf16(o[dt + 1], p[kk], b[2], b[3]);
+    }
+  }
+}
+
+// int8 A fragments of a warp's 16 rows of DPB bytes (a multiple of 16):
+// a[kk] for each 32-byte k step (m16n8k32), and for a 16-byte tail
+// (m16n8k16) a[DPB / 32][0..1].
+template <int DPB>
+__device__ __forceinline__ void load_a_s8(uint32_t (&a)[(DPB + 31) / 32][4],
+                                          const unsigned char* rows,
+                                          int pitch, int lane) {
+  const unsigned char* p =
+      rows + (lane % 8 + 8 * ((lane / 8) % 2)) * pitch + 16 * (lane / 16);
+#pragma unroll
+  for (int kk = 0; kk < DPB / 32; ++kk) ldsm_x4(a[kk], p + 32 * kk);
+  if constexpr (DPB % 32 != 0) {
+    uint32_t t[2];
+    ldsm_x2(t, rows + (lane % 8 + 8 * ((lane / 8) % 2)) * pitch +
+                   32 * (DPB / 32));
+    a[DPB / 32][0] = t[0];
+    a[DPB / 32][1] = t[1];
+  }
+}
+
+// S (int32, NT tiles of 16 x 8) += A K^T for int8 A fragments against
+// NT * 8 int8 K rows of DPB bytes starting at `krows`.
+template <int DPB, int NT>
+__device__ __forceinline__ void qk_s8(int (&s)[NT][4],
+                                      const uint32_t (&a)[(DPB + 31) / 32][4],
+                                      const unsigned char* krows, int pitch,
+                                      int lane) {
+  const unsigned char* p =
+      krows + (lane % 8 + 8 * (lane / 16)) * pitch + 16 * ((lane / 8) % 2);
+#pragma unroll
+  for (int j = 0; j < NT; j += 2) {
+#pragma unroll
+    for (int kk = 0; kk < DPB / 32; ++kk) {
+      uint32_t b[4];
+      ldsm_x4(b, p + j * 8 * pitch + 32 * kk);
+      mma_s8_k32(s[j], a[kk], b[0], b[1]);
+      mma_s8_k32(s[j + 1], a[kk], b[2], b[3]);
+    }
+  }
+  if constexpr (DPB % 32 != 0) {
+    const unsigned char* t = krows + (lane % 8 + 8 * (lane / 8)) * pitch +
+                             32 * (DPB / 32);
+#pragma unroll
+    for (int j = 0; j < NT; j += 4) {
+      uint32_t b[4];
+      ldsm_x4(b, t + j * 8 * pitch);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mma_s8_k16(s[j + i], a[DPB / 32][0], a[DPB / 32][1], b[i]);
+    }
+  }
+}
+
+// Round the probabilities of S tiles (NT = 2 KT) to the bf16 A fragments of
+// the P V product.
+template <int NT>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[NT / 2][4],
+                                       const float (&s)[NT][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    p[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    p[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    p[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    p[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+}
+
+// Sum over the four lanes of a quad (one accumulator row).
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
+}
+
+__device__ __forceinline__ int quad_sum(int x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  return x;
+}
+
+// The value at accumulator column `col` of this lane's two rows (grp and
+// grp + 8), from the lane of the quad that holds it.
+template <int DT>
+__device__ __forceinline__ void column_of(const float (&o)[DT][4], int col,
+                                          int lane, float& r0, float& r1) {
+  float x0 = 0.f, x1 = 0.f;
+  const int e = col % 2;
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+    if (j == col / 8) {
+      x0 = e ? o[j][1] : o[j][0];
+      x1 = e ? o[j][3] : o[j][2];
+    }
+  const int src = (lane & ~3) | ((col % 8) / 2);
+  r0 = __shfl_sync(0xffffffffu, x0, src);
+  r1 = __shfl_sync(0xffffffffu, x1, src);
+}
+
+// Write a warp's 16 output rows (row0 = first row, out rows of d bf16):
+// row grp gets o[.][0..1] / den0, row grp + 8 gets o[.][2..3] / den1.
+template <int DT>
+__device__ __forceinline__ void store_rows(bf16* out, long long row0, int d,
+                                           const float (&o)[DT][4], float den0,
+                                           float den1, int lane) {
+  const int grp = lane / 4, tq = lane % 4;
+  bf16* r0 = out + (row0 + grp) * d;
+  bf16* r1 = out + (row0 + grp + 8) * d;
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    const int c = 8 * j + 2 * tq;
+    if (c < d) {
+      *reinterpret_cast<uint32_t*>(r0 + c) =
+          pack_bf16(o[j][0] / den0, o[j][1] / den0);
+      *reinterpret_cast<uint32_t*>(r1 + c) =
+          pack_bf16(o[j][2] / den1, o[j][3] / den1);
+    }
+  }
+}
+
+// Write the same value into all d columns of a warp's rows grp and grp + 8.
+__device__ __forceinline__ void store_broadcast(bf16* out, long long row0,
+                                                int d, float v0, float v1,
+                                                int lane) {
+  const int grp = lane / 4, tq = lane % 4;
+  bf16* r0 = out + (row0 + grp) * d;
+  bf16* r1 = out + (row0 + grp + 8) * d;
+  for (int c = 2 * tq; c < d; c += 8) {
+    *reinterpret_cast<uint32_t*>(r0 + c) = pack_bf16(v0, v0);
+    *reinterpret_cast<uint32_t*>(r1 + c) = pack_bf16(v1, v1);
+  }
+}
+
+}  // namespace sg_study

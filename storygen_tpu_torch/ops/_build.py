@@ -5,7 +5,8 @@ together, into an object file; one more `nvcc` call links them into a
 shared library with a plain C interface (no PyTorch headers, so the build
 takes seconds). The library is placed under
 `build/storygen_tpu_torch/<hash>/` at the repository root, keyed by a hash
-of the sources and flags, and loaded with `ctypes`; every pointer and the
+of the flags, the sources and the `csrc/*.cuh` headers they include, and
+loaded with `ctypes`; every pointer and the
 stream are passed as `c_void_p`. The build runs at the first kernel launch,
 never at import. A missing `nvcc` or a failed build raises.
 """
@@ -58,6 +59,19 @@ SIGNATURES = {
     # x, w9, bias, out, B, H, W, Cin, Cout, Ho, Wo, pad top, pad left, stream
     "sg_downconv3x3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P),
+    # the attention studies (ops/study_attention.py, ops/study_int8.py):
+    # q, k, v, out, BH, Sq, Skv, d, mode, bq, bk, halves, scale, stream
+    "sg_study_online": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                        _P),
+    # q, k, v, bound, out, BH, Sq, Skv, W, d, kind, bq, bk, sub, halves, g,
+    # guard, stream
+    "sg_study_bounded": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _F, _P),
+    # q_t, k, out, BH, Sq, Skv, D, int8, bq, bk, stream
+    "sg_study_qk": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q8, k8, v_ext, sq, sk, bnd, out, BH, Sq, Skv, D, W, bq, bk, stream
+    "sg_study_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P),
 }
 
 _lock = threading.Lock()
@@ -69,6 +83,11 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    """The headers the sources include (`#include "x.cuh"`)."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def find_nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
@@ -78,8 +97,10 @@ def find_nvcc() -> str:
 
 
 def source_hash(srcs: List[Path]) -> str:
+    """Hash of the flags, the sources and every shared header, so that
+    editing a header rebuilds the library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in list(srcs) + headers():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

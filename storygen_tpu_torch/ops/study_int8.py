@@ -1,0 +1,188 @@
+"""The int8 attention studies: wrappers of `csrc/study_qk.cu` (kernel S3)
+and `csrc/study_int8.cu` (kernel S4), their plain PyTorch versions, and the
+per-row absmax quantisation the studies run on the host.
+
+Replaces the Pallas kernels of scripts/studies/:
+  qk_only               bench_attn_int8.py _qk_kernel                S3
+  full_int8             bench_attn_int8.py _full_int8_kernel         S4
+  int8_attn_from_quant  bench_attn_int8_epilogue.py, the same kernel S4
+
+`qk_only` takes the study's q_t (BH, D, Sq) and k (BH, Skv, D), int8 or
+bf16, and returns (BH, 1, Sq) fp32: the kv sum of q k^T per query. The
+attention functions take (B, H, S, D) and return (B, H, Sq, D) in v's
+dtype. `bq` and `bk` are the card's tile rows (64 or 128). Each wrapper
+launches its kernel for CUDA tensors and runs its plain version for CPU
+tensors, counting launches in `<wrapper>.launches` (`<wrapper>.plain` runs
+the plain version on any device); an instantiation that is not built
+raises ValueError on either device. The plain versions take
+the int8 product exactly (in float64, exact at these magnitudes).
+"""
+from __future__ import annotations
+
+import torch
+
+from storygen_tpu_torch.ops import _build
+from storygen_tpu_torch.ops.study_attention import (LOG2E, TILES,
+                                                    check_tiles, cuda_stream,
+                                                    kernel_wrapper, pad8,
+                                                    pad16)
+
+# the instantiations of csrc/study_qk.cu: (int8, padded D, bq, bk) ...
+QK_BUILT = frozenset((i8, 48, bq, bk) for i8 in (0, 1) for bq in TILES
+                     for bk in TILES)
+# ... and of csrc/study_int8.cu: (padded D, padded D + 1, bq, bk)
+INT8_BUILT = frozenset((48, 48, bq, bk) for bq in TILES for bk in TILES)
+
+
+def quant_rows(x: torch.Tensor):
+    """Per-row absmax int8 over the last dim, in fp32 in the study's order:
+    round(x / amax * 127) with amax = max|x| + 1e-12 (round half to even,
+    as jnp.round). Returns (int8 tensor, fp32 scales amax / 127)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True) + 1e-12
+    return torch.round(xf / amax * 127.0).to(torch.int8), amax[..., 0] / 127.0
+
+
+def quant_heads(y: torch.Tensor, h: int, d: int):
+    """(R, H*D) projection output -> int8 (R, H, D) and fp32 scales (R, H):
+    quant_rows over each head's d-wide segment."""
+    return quant_rows(y.reshape(y.shape[0], h, d))
+
+
+# ------------------------------------------------------------------ qk_only
+def qk_only_plain(q_t: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """sum_kv (k q_t), exact in float64, as (BH, 1, Sq) fp32."""
+    s = torch.matmul(k.double(), q_t.double())  # (BH, Skv, Sq)
+    return s.sum(dim=1, keepdim=True).float()
+
+
+@kernel_wrapper
+def qk_only(wrapper, plain, q_t: torch.Tensor, k: torch.Tensor, *, bq: int,
+            bk: int, int8: bool) -> torch.Tensor:
+    """S3: the bare q k^T with a kv sum, int8 x int8 -> int32 (int8) or
+    bf16 -> fp32."""
+    if q_t.dim() != 3 or k.dim() != 3:
+        raise ValueError("q_t must be (BH, D, Sq) and k (BH, Skv, D)")
+    bh, d, sq = q_t.shape
+    skv = k.shape[1]
+    if k.shape[0] != bh or k.shape[2] != d:
+        raise ValueError(f"shape mismatch q_t {tuple(q_t.shape)} k "
+                         f"{tuple(k.shape)}")
+    want = torch.int8 if int8 else torch.bfloat16
+    if q_t.dtype != want or k.dtype != want:
+        raise ValueError(f"int8={int8} takes {want}, got {q_t.dtype}, "
+                         f"{k.dtype}")
+    if q_t.device != k.device:
+        raise ValueError("q_t and k must be on one device")
+    check_tiles(bq, bk)
+    if sq % bq or skv % bk or d % 8:
+        raise ValueError(f"Sq={sq} must divide by bq={bq}, Skv={skv} by "
+                         f"bk={bk}, D={d} by 8")
+    key = (int(int8), pad16(d), bq, bk)
+    if key not in QK_BUILT:
+        raise ValueError(f"qk_only: instantiation {key} is not built")
+    if plain or q_t.device.type == "cpu":
+        return qk_only_plain(q_t, k)
+    if q_t.device.type != "cuda":
+        raise ValueError(f"unsupported device {q_t.device}")
+    qc, kc = q_t.contiguous(), k.contiguous()
+    out = torch.empty((bh, 1, sq), dtype=torch.float32, device=q_t.device)
+    err = _build.load().sg_study_qk(qc.data_ptr(), kc.data_ptr(),
+                                    out.data_ptr(), bh, sq, skv, d,
+                                    int(int8), bq, bk, cuda_stream(q_t))
+    _build.check(err, "sg_study_qk")
+    wrapper.launches += 1
+    return out
+
+
+# ------------------------------------------------------- int8 attention
+def int8_bound(q8, sq_row, k8, sk_row) -> torch.Tensor:
+    """|q_d| max_j |k_d,j| of the dequantised rows (fp32, (B, H, Sq)); sq_row
+    already carries scale * log2(e)."""
+    qd = q8.float() * sq_row[..., None]
+    kd = k8.float() * sk_row[..., None]
+    kmax = torch.sqrt((kd * kd).sum(-1)).amax(dim=2, keepdim=True)
+    return torch.sqrt((qd * qd).sum(-1)) * kmax
+
+
+def v_ones(v: torch.Tensor) -> torch.Tensor:
+    """[v, 1] zero-padded to a multiple of 8 columns."""
+    b, h, skv, d = v.shape
+    ve = v.new_zeros((b, h, skv, pad8(d + 1)))
+    ve[..., :d] = v
+    ve[..., d] = 1
+    return ve
+
+
+def int8_attn_plain(q8, k8, v_ext, sq_row, sk_row, bound, d: int
+                    ) -> torch.Tensor:
+    """S4's function: the exact int32 logits, dequantised and shifted in
+    fp32 in the study's order, exp2, p rounded to v's dtype, the ones
+    column as the row sum, guard 1.2e-38."""
+    s32 = torch.matmul(q8.double(), k8.double().transpose(-1, -2)).float()
+    s = s32 * sk_row[..., None, :] * sq_row[..., None] - bound[..., None]
+    p = torch.exp2(s)
+    acc = torch.matmul(p.to(v_ext.dtype).float(), v_ext.float())
+    return (acc[..., :d] / acc[..., d:d + 1].clamp_min(1.2e-38)).to(
+        v_ext.dtype)
+
+
+def _int8_attn(wrapper, plain, q8, sq_row, k8, sk_row, v, bq, bk):
+    """The part common to full_int8 and int8_attn_from_quant, from the
+    quantised q/k and q's scales already multiplied by scale * log2(e)."""
+    if q8.dim() != 4 or k8.dim() != 4 or v.dim() != 4:
+        raise ValueError("q8, k8, v must be (B, H, S, D)")
+    b, h, sq, d = q8.shape
+    skv = k8.shape[2]
+    if (k8.shape != v.shape or k8.shape[:2] != (b, h) or k8.shape[3] != d
+            or sq_row.shape != (b, h, sq) or sk_row.shape != (b, h, skv)):
+        raise ValueError("shape mismatch")
+    if q8.dtype != torch.int8 or k8.dtype != torch.int8:
+        raise ValueError("q8 and k8 must be int8")
+    check_tiles(bq, bk)
+    if sq % bq or skv % bk or d % 8:
+        raise ValueError(f"Sq={sq} must divide by bq={bq}, Skv={skv} by "
+                         f"bk={bk}, D={d} by 8")
+    key = (pad16(d), pad16(pad8(d + 1)), bq, bk)
+    if key not in INT8_BUILT:
+        raise ValueError(f"{wrapper.__name__}: instantiation {key} is not "
+                         "built")
+    bound = int8_bound(q8, sq_row, k8, sk_row)
+    v_ext = v_ones(v)
+    if plain or q8.device.type == "cpu":
+        return int8_attn_plain(q8, k8, v_ext, sq_row, sk_row, bound, d)
+    if q8.device.type != "cuda" or v.dtype != torch.bfloat16:
+        raise ValueError("the kernel takes CUDA tensors and a bfloat16 v")
+    out = torch.empty((b, h, sq, d), dtype=v.dtype, device=v.device)
+    ts = [t.contiguous() for t in (q8, k8, v_ext, sq_row.float(),
+                                   sk_row.float(), bound)]
+    err = _build.load().sg_study_int8(
+        *(t.data_ptr() for t in ts), out.data_ptr(), b * h, sq, skv, d,
+        v_ext.shape[3], bq, bk, cuda_stream(v))
+    _build.check(err, "sg_study_int8")
+    wrapper.launches += 1
+    return out
+
+
+@kernel_wrapper
+def full_int8(wrapper, plain, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, *, sm_scale: float, bq: int, bk: int
+              ) -> torch.Tensor:
+    """S4 with the quantisation on the host: per-row absmax int8 q and k,
+    q's scales times scale * log2(e)."""
+    q8, sq_row = quant_rows(q)
+    k8, sk_row = quant_rows(k)
+    return _int8_attn(wrapper, plain, q8, sq_row * (sm_scale * LOG2E), k8,
+                      sk_row, v, bq, bk)
+
+
+@kernel_wrapper
+def int8_attn_from_quant(wrapper, plain, q8, sq_row, k8, sk_row, v, *,
+                         sm_scale: float, bq: int, bk: int) -> torch.Tensor:
+    """S4 fed q and k already quantised (after the projection GEMMs), with
+    their per-row scales (B, H, S)."""
+    return _int8_attn(wrapper, plain, q8,
+                      sq_row * (sm_scale * LOG2E), k8, sk_row, v, bq, bk)
+
+
+WRAPPERS = (qk_only, full_int8, int8_attn_from_quant)

@@ -43,6 +43,17 @@ def test_port_imports_no_jax_or_flax():
         "import storygen_tpu_torch.training.steps, "
         "storygen_tpu_torch.training.trainer\n"
         "import storygen_tpu_torch.utils.logging\n"
+        "import storygen_tpu_torch.ops.study_attention, "
+        "storygen_tpu_torch.ops.study_int8\n"
+        "import storygen_tpu_torch.studies.common, "
+        "storygen_tpu_torch.studies.bench_attn_variants\n"
+        "import storygen_tpu_torch.studies.bench_attn_v2, "
+        "storygen_tpu_torch.studies.bench_attn_scan\n"
+        "import storygen_tpu_torch.studies.bench_attn_ablate, "
+        "storygen_tpu_torch.studies.bench_attn_bnd2\n"
+        "import storygen_tpu_torch.studies.bench_attn_multihead, "
+        "storygen_tpu_torch.studies.bench_attn_int8\n"
+        "import storygen_tpu_torch.studies.bench_attn_int8_epilogue\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'storygen_tpu'))\n"
         "assert not bad, bad\n"
@@ -66,7 +77,10 @@ def test_nvcc_command_targets_sm90a_into_build_dir():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"flash_fwd.cu", "flash_bwd.cu",
                                       "geglu_matmul.cu", "conv3x3.cu",
-                                      "downconv3x3.cu"}
+                                      "downconv3x3.cu", "study_online.cu",
+                                      "study_bounded.cu", "study_qk.cu",
+                                      "study_int8.cu"}
+    assert {p.name for p in _build.headers()} == {"study_mma.cuh"}
     out = _build.lib_path(srcs)
     nvcc = "/usr/local/cuda/bin/nvcc"
     for src in srcs:
@@ -86,10 +100,27 @@ def test_nvcc_command_targets_sm90a_into_build_dir():
     assert _build.source_hash(srcs) == out.parent.name
 
 
+def test_source_hash_covers_the_shared_header(tmp_path, monkeypatch):
+    """Editing a header that the sources include changes the build's hash,
+    so the library is rebuilt."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in _build.sources() + _build.headers():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    srcs = _build.sources()
+    before = _build.source_hash(srcs)
+    header = csrc / "study_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.source_hash(srcs) != before
+
+
 @pytest.mark.parametrize("name", [
     "flash_attention.py", "geglu.py", "conv.py", "_build.py", "attention.py",
-    "downconv.py", "flash_fwd.cu", "flash_bwd.cu", "geglu_matmul.cu",
-    "conv3x3.cu", "downconv3x3.cu"])
+    "downconv.py", "study_attention.py", "study_int8.py", "flash_fwd.cu",
+    "flash_bwd.cu", "geglu_matmul.cu", "conv3x3.cu", "downconv3x3.cu",
+    "study_online.cu", "study_bounded.cu", "study_qk.cu", "study_int8.cu",
+    "study_mma.cuh"])
 def test_kernel_modules_call_no_library_kernel(name):
     src = (PORT / ("ops" if name.endswith(".py") else "csrc") / name
            ).read_text()
@@ -97,6 +128,15 @@ def test_kernel_modules_call_no_library_kernel(name):
                    "cpp_extension", "flash_attn", "xformers", "triton.ops",
                    "cudnn", "cublas", "cutlass"):
         assert banned not in src.lower(), (name, banned)
+
+
+def test_sdpa_only_as_the_studies_yardstick():
+    """PyTorch's fused attention appears in the port only in
+    studies/common.py, where it is timed beside the kernels (and in
+    chip_smoke.py, outside the package)."""
+    users = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")
+             if "scaled_dot_product_attention" in p.read_text()}
+    assert users == {"studies/common.py"}
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch,
