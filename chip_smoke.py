@@ -16,7 +16,8 @@ stride-2 conv on kernel D):
                already applied, with CUDA-event times for the kernel, its
                plain version and, where one PyTorch call computes the same
                function, that call (timed only, as a yardstick; the port
-               never calls it), beside the kernel's bound;
+               never calls it), beside the kernel's bound, and for F and M
+               their factor over SDPA and their rate in TFLOP/s;
   models       in each configuration: one full-width UNet image-cycle pass
                (512 px, 3 refs) and one 512 px VAE encode and decode,
                kernel path against the plain path on the card, compared
@@ -255,6 +256,8 @@ def _attn_cases(dev, rnd):
 
     cases = []
     fwd = [("attn1 L1", 6, 4096, 4096, 40, None),
+           # the main pass's attn1 (3-row CFG batch), 5 launches per pass
+           ("attn1 L1", 3, 4096, 4096, 40, None),
            ("attn3 L1", 3, 4096, 12288, 40, None),
            ("attn3 L2", 3, 1024, 3072, 80, None),
            ("attn3 L3", 3, 256, 768, 160, None),
@@ -540,10 +543,16 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
         b_ms, b_by = bound_ms(c.flops, c.nbytes)
         ok &= good
         lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
+        # the forward's rate and its factor over SDPA on the same inputs
+        rate = vs_lib = None
+        fwd_line = ""
+        if c.name in ("flash_fwd", "flash_fwd_masked"):
+            rate, vs_lib = c.flops / ms / 1e9, ms / lib_ms
+            fwd_line = f"  {vs_lib:.2f}x SDPA  {rate:.1f} TFLOP/s"
         print(f"kernel {c.name:16s} {c.label:38s} max_abs_err {err:.3e} "
               f"(bound {bound:.3e}) {'ok' if good else 'FAIL'};{twin_line}  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  "
-              f"bound {b_ms:.4f} ms ({b_by})  [{card}]", flush=True)
+              f"bound {b_ms:.4f} ms ({b_by}){fwd_line}  [{card}]", flush=True)
         r = results.setdefault(c.name, {
             "name": c.name, **KERNEL_META[c.name], "launches": 0,
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -561,7 +570,8 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
                            "bound": bound, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": b_ms, "bound_by": b_by,
                            "library_ms": lib_ms,
-                           "max_abs_err_vs_c": twin_err})
+                           "max_abs_err_vs_c": twin_err, "tflops": rate,
+                           "vs_library": vs_lib})
     for r in results.values():  # the bound of the kernel's summed cases
         r["bound_by"] = max(r["cases"], key=lambda x: x["bound_ms"])[
             "bound_by"]

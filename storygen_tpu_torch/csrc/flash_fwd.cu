@@ -1,232 +1,305 @@
-// Flash-attention forward for Hopper (sm_90a): O = softmax(Q K^T * scale) V.
+// Flash-attention forward for Hopper (sm_90a): O = softmax(Q K^T * scale) V,
+// kernels F (unmasked) and M (masked), one template.
 //
-// Replaces the four forward variants of the TPU kernel in
-// storygen_tpu/ops/pallas_attention.py (_bnd2_kernel, _bnd_kernel,
-// _online_t_kernel, _flash_kernel), reached through _flash_core. The TPU's
-// per-row bound with its 120-unit exp2 clamp and the transposed "bhds"
-// output layout are TPU workarounds and are not carried over: this is the
-// exact online softmax.
+// Replaces the forward variants of the TPU kernel in
+// storygen_tpu/ops/pallas_attention.py, reached through _flash_core:
+// _bnd_kernel :83, _bnd2_kernel :124, _online_t_kernel :163 and
+// _flash_kernel :208 (F), and their masked forms _bnd_masked_kernel :118,
+// _bnd2_masked_kernel :157, _online_t_masked_kernel :202 and
+// _masked_kernel :251 (M). The TPU's per-row bound with its 120-unit exp2
+// clamp and the transposed "bhds" output layout are TPU workarounds and are
+// not carried over: this is the exact online softmax.
 //
-// What bounds it on the H100: at the UNet's 4096 x 4096 (attn1) and
-// 4096 x 12288 (attn3) shapes the logits matrix is 16-48x larger than Q, K,
-// V and O together, so a kernel that never writes the logits is bound by
-// tensor-core work, not by HBM. The design keeps S and P in shared memory
-// (never in HBM) and reads Q once and K/V once per 64-row query tile.
+// What bounds it on the H100: tensor-core work, 4 Sq Skv d operations per
+// head, and beside it one exp2 per logit on the special-function units. At
+// the UNet's 4096 x 4096 (attn1) and 4096 x 12288 (attn3) shapes the logits
+// are 16-48x larger than Q, K, V and O together, so a kernel that never
+// writes them to HBM is not bound by HBM.
 //
-// Design: one block of 4 warps per (query tile of 64 rows, head, batch);
-// each warp owns 16 query rows. The block loops over 64-row K/V tiles:
-// S = Q K^T with bf16 WMMA (fp32 accumulation) into shared memory, the
-// online softmax per row in fp32 (running max and sum, exp2 with
-// scale*log2(e) folded in), P rounded to bf16, O += P V accumulated in fp32
-// in shared memory. Head dims that are not a multiple of the MMA k-step
-// (d = 40) are zero-padded to a multiple of 16 in shared memory only
-// (40 -> 48), never in HBM. Ragged Sq and Skv (attn2's 77-token text kv)
-// are masked at the tile edge: out-of-range K/V rows load as zeros and
-// their logits as -inf. Q, K and V are read straight from the projections'
-// (B, S, H*D) layout through batch and row strides (so a split k|v view
-// needs no copy), and O is written as (B, Sq, H*D): the head merge is free.
+// What the design does about it:
+// - S, P and O live in registers. Each warp owns HALVES 16-row slices of
+//   the block's BQ query rows; S = Q K^T and O += P V are mma.sync m16n8k16
+//   products (bf16 in, fp32 accumulation) with ldmatrix fragment loads, and
+//   S's accumulators, rounded to bf16 pairs, are P's A fragments
+//   (study_mma.cuh). The row max and sum are quad shuffles, the rescale of O
+//   a multiply of the warp's own registers. With two halves a warp starts
+//   the second half's Q K^T before the first half's softmax.
+// - K and V tiles of BK = 64 rows arrive through a ring of STAGES shared
+//   buffers filled by cp.async 16-byte copies: the copies of the next tile
+//   start before the current tile's Q K^T, so they overlap it. The
+//   copy zero-fills rows past Skv and columns past D itself (src-size 0,
+//   reading nothing), so head dim 40 runs as 48 in shared memory only. Q
+//   takes the same path once and then stays in registers. Rows are an odd
+//   number of 16-byte units apart, so ldmatrix is free of bank conflicts.
+// - The scale stays in the kernel: p = exp2(s * scale log2(e) - m) is one
+//   FFMA and one exp2 per logit, with m kept in the scaled log2 domain
+//   (scale > 0, checked by the launcher).
 //
-// The masked instantiation (kernel M) replaces the masked variants
-// (_bnd2_masked_kernel, _bnd_masked_kernel, _online_t_masked_kernel,
-// _masked_kernel): the kv is N equal reference spans and `keep` (B, N)
-// says which spans a batch row may attend to. Every span is a multiple of
-// BK, so a flag holds for a whole K/V tile and a dropped tile is skipped
-// before it is loaded. The first tile a row sees may then be any kept one,
-// so the recurrence no longer relies on column 0 of the first tile: a row
-// whose running max is still -inf takes alpha = 0 instead of
-// exp2(-inf - -inf), and a row that kept no tile at all (never the case in
-// training, where the newest reference is always kept) writes zeros.
-// Simple first: no cp.async pipelining, wgmma or TMA yet.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// The contract: Q, K and V are read straight from the projections'
+// (B, S, H*D) layout through batch and row strides (a split k|v view needs
+// no copy), and O is written as (B, Sq, H*D) in bf16: the head merge is
+// free. Ragged Sq and Skv (attn2's 77-token text kv): rows past Sq are not
+// written, kv columns past Skv become -inf logits. For M the kv is N equal
+// reference spans and `keep` (B, N) says which spans a batch row may attend
+// to; every span is a multiple of BK, so a flag holds for a whole tile, and
+// the ring walks from one kept tile to the next: a dropped span costs
+// neither a copy nor a wait. A row whose running max is still -inf takes
+// alpha = 0, and a row that kept no span writes zeros.
+//
+// Not yet: wgmma, TMA and warp specialisation.
 #include <math.h>
-#include <mma.h>
-#include <stdint.h>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "study_mma.cuh"
+
+using namespace sg_study;
 
 namespace {
 
-constexpr int BQ = 64;
+// rows of a K/V tile: every reference span of M is a multiple of it
 constexpr int BK = 64;
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
 
-__host__ __device__ constexpr int align128(int x) { return (x + 127) / 128 * 128; }
-
-template <int DP>
-struct Smem {
-  static constexpr int q = 0;
-  static constexpr int k = align128(q + BQ * DP * 2);
-  static constexpr int v = align128(k + BK * DP * 2);
-  static constexpr int s = align128(v + BK * DP * 2);
-  static constexpr int p = align128(s + BQ * BK * 4);
-  static constexpr int o = align128(p + BQ * BK * 2);
-  static constexpr int m = align128(o + BQ * DP * 4);
-  static constexpr int l = align128(m + BQ * 4);
-  static constexpr int bytes = align128(l + BQ * 4);
+template <int DP, int BQ, int HALVES, int STAGES>
+struct Cfg {
+  static constexpr int NT = 32 * BQ / (16 * HALVES);  // threads
+  static constexpr int PITCH = pitch_bytes(DP * 2);
+  static constexpr int CPR = DP * 2 / 16;  // 16-byte chunks per row
+  static constexpr int QBYTES = align128(BQ * PITCH);
+  static constexpr int TILE = align128(BK * PITCH);  // one K or V tile
+  static constexpr int BYTES = QBYTES + STAGES * 2 * TILE;
 };
 
-// Copy rows [row0, row0 + TILE) x [0, D) of a strided bf16 matrix into a
-// (TILE, DP) shared tile; rows past `nrows` and columns past D become zero.
-template <int DP, int TILE>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// 2^x on the special-function unit (2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// wait until at most N of this thread's copy groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copies of rows [row0, row0 + ROWS) x [0, D) of a strided bf16
+// matrix (`src` its first row of this head, row stride `rs` elements) into
+// a shared tile of pitch PITCH. A chunk past `nrows` or past D is
+// zero-filled by the copy, which then reads nothing; its address is `src`.
+template <int ROWS, int CPR, int PITCH, int NT>
+__device__ __forceinline__ void copy_tile(unsigned char* dst, const bf16* src,
                                           long long rs, int row0, int nrows,
-                                          int D) {
-  constexpr int CPR = DP / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < TILE * CPR; idx += NTHREADS) {
-    const int r = idx / CPR, c = (idx % CPR) * 8;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < nrows && c < D)
-      val = *reinterpret_cast<const uint4*>(src + (long long)gr * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * DP + c) = val;
+                                          int D, int tid) {
+  constexpr int N = ROWS * CPR;
+#pragma unroll
+  for (int i = 0; i < (N + NT - 1) / NT; ++i) {
+    const int idx = tid + i * NT;
+    if (N % NT == 0 || idx < N) {
+      const int r = idx / CPR, c = idx % CPR;
+      const bool in = row0 + r < nrows && c * 8 < D;
+      cp_async16(dst + r * PITCH + c * 16,
+                 in ? src + (long long)(row0 + r) * rs + c * 8 : src,
+                 in ? 16 : 0);
+    }
   }
 }
 
-template <int DP, bool MASKED>
-__global__ void __launch_bounds__(NTHREADS)
+template <int DP, int BQ, int HALVES, int STAGES, bool MASKED>
+__global__ void __launch_bounds__(Cfg<DP, BQ, HALVES, STAGES>::NT)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int H,
                  int Sq, int Skv, int D, long long qb, long long qr,
                  long long kb, long long kr, long long vb, long long vr,
                  const int* __restrict__ keep, int nref, int span,
                  float scale_log2) {
+  using C = Cfg<DP, BQ, HALVES, STAGES>;
+  constexpr int KS = DP / 16, NTK = BK / 8, DT = DP / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  using L = Smem<DP>;
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p);
-  float* Os = reinterpret_cast<float*>(smem + L::o);
-  float* Ms = reinterpret_cast<float*>(smem + L::m);
-  float* Ls = reinterpret_cast<float*>(smem + L::l);
-
+  unsigned char* ring = smem + C::QBYTES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp * 16;  // this warp's first row inside the tile
-  const bf16* qbase = q + b * qb + (long long)h * D;
-  const bf16* kbase = k + b * kb + (long long)h * D;
-  const bf16* vbase = v + b * vb + (long long)h * D;
+  const int wrow = warp * 16 * HALVES;  // this warp's first row in the tile
+  const bf16* qh = q + b * qb + (long long)h * D;
+  const bf16* kh = k + b * kb + (long long)h * D;
+  const bf16* vh = v + b * vb + (long long)h * D;
+  const int ntiles = (Skv + BK - 1) / BK;
+  const int* kp = MASKED ? keep + b * nref : keep;
+  const int tps = span / BK;  // tiles per reference span (M)
+  // the first tile at or after t that the row keeps (block-uniform)
+  auto next_kept = [&](int t) {
+    if (MASKED)
+      while (t < ntiles && !kp[t / tps]) ++t;
+    return t;
+  };
+  auto fetch = [&](int t, int stage) {
+    unsigned char* ks = ring + stage * 2 * C::TILE;
+    copy_tile<BK, C::CPR, C::PITCH, C::NT>(ks, kh, kr, t * BK, Skv, D, tid);
+    copy_tile<BK, C::CPR, C::PITCH, C::NT>(ks + C::TILE, vh, vr, t * BK, Skv,
+                                           D, tid);
+  };
 
-  load_tile<DP, BQ>(Qs, qbase, qr, q0, Sq, D);
-  for (int i = threadIdx.x; i < BQ * DP; i += NTHREADS) Os[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-    Ms[i] = -INFINITY;
-    Ls[i] = 0.f;
+  // group 0: Q; then one group per ring stage but the last
+  copy_tile<BQ, C::CPR, C::PITCH, C::NT>(smem, qh, qr, q0, Sq, D, tid);
+  cp_async_commit();
+  int ld = next_kept(0);  // the next tile to copy
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (ld < ntiles) {
+      fetch(ld, s);
+      ld = next_kept(ld + 1);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<STAGES - 1>();
+  __syncthreads();
+  uint32_t qa[HALVES][KS][4];
+#pragma unroll
+  for (int hh = 0; hh < HALVES; ++hh)
+    load_a_bf16<KS>(qa[hh], smem + (wrow + 16 * hh) * C::PITCH, C::PITCH,
+                    lane);
+
+  // per half: O, the running max (scaled, log2 domain) and this lane's
+  // share of the row sum, for rows grp and grp + 8
+  float acc[HALVES][DT][4], m[HALVES][2], l[HALVES][2];
+#pragma unroll
+  for (int hh = 0; hh < HALVES; ++hh) {
+    m[hh][0] = m[hh][1] = -INFINITY;
+    l[hh][0] = l[hh][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      acc[hh][j][0] = acc[hh][j][1] = acc[hh][j][2] = acc[hh][j][3] = 0.f;
   }
 
-  for (int k0 = 0; k0 < Skv; k0 += BK) {
-    // block-uniform: every thread skips the same tiles
-    if (MASKED && !keep[b * nref + k0 / span]) continue;
-    load_tile<DP, BK>(Ks, kbase, kr, k0, Skv, D);
-    load_tile<DP, BK>(Vs, vbase, vr, k0, Skv, D);
+  int cs = 0, ls = STAGES - 1;  // ring stages of the tile in use / to fill
+  for (int cur = next_kept(0); cur < ntiles; cur = next_kept(cur + 1)) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile `cur`
+    // every thread's copies have landed, and every warp is done with the
+    // stage that the copies below overwrite
     __syncthreads();
-
-    // S[wr:wr+16, :] = Q K^T (unscaled, fp32)
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kc = 0; kc < DP / 16; ++kc) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, Qs + wr * DP + kc * 16, DP);
-        wmma::load_matrix_sync(bt, Ks + j * 16 * DP + kc * 16, DP);
-        wmma::mma_sync(acc, a, bt, acc);
-      }
-      wmma::store_matrix_sync(Ss + wr * BK + j * 16, acc, BK,
-                              wmma::mem_row_major);
+    if (ld < ntiles) {
+      fetch(ld, ls);
+      ld = next_kept(ld + 1);
     }
-    __syncwarp();
+    cp_async_commit();
+    ls = ls + 1 == STAGES ? 0 : ls + 1;
+    const unsigned char* ks = ring + cs * 2 * C::TILE;
+    cs = cs + 1 == STAGES ? 0 : cs + 1;
 
-    // online softmax over this warp's 16 rows; lane holds columns lane and
-    // lane + 32 of the tile
-    const int kvalid = min(BK, Skv - k0);
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr + r;
-      const float s0 =
-          lane < kvalid ? Ss[row * BK + lane] * scale_log2 : -INFINITY;
-      const float s1 = lane + 32 < kvalid
-                           ? Ss[row * BK + lane + 32] * scale_log2
-                           : -INFINITY;
-      float mx = fmaxf(s0, s1);
+    float s[HALVES][NTK][4];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = Ms[row];
-      // finite: every processed tile holds at least column 0
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = exp2f(s0 - m_new);
-      const float p1 = exp2f(s1 - m_new);
-      float sum = p0 + p1;
+    for (int hh = 0; hh < HALVES; ++hh) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      // the row's first processed tile: nothing to rescale (and never
-      // exp2(-inf - -inf))
-      const float alpha = m_old == -INFINITY ? 0.f : exp2f(m_old - m_new);
-      Ps[row * BK + lane] = __float2bfloat16(p0);
-      Ps[row * BK + lane + 32] = __float2bfloat16(p1);
-      for (int c = lane; c < DP; c += 32) Os[row * DP + c] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        Ms[row] = m_new;
-        Ls[row] = Ls[row] * alpha + sum;
-      }
+      for (int j = 0; j < NTK; ++j)
+        s[hh][j][0] = s[hh][j][1] = s[hh][j][2] = s[hh][j][3] = 0.f;
+      qk_bf16<KS, NTK>(s[hh], qa[hh], ks, C::PITCH, lane);
     }
-    __syncwarp();
+    const int kvalid = Skv - cur * BK;
+    if (kvalid < BK) {  // the ragged last tile: columns past Skv
+#pragma unroll
+      for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+        for (int j = 0; j < NTK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (8 * j + 2 * (lane % 4) + e % 2 >= kvalid)
+              s[hh][j][e] = -INFINITY;
+    }
 
-    // O[wr:wr+16, :] += P V
 #pragma unroll
-    for (int dt = 0; dt < DP / 16; ++dt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, Os + wr * DP + dt * 16, DP,
-                             wmma::mem_row_major);
+    for (int hh = 0; hh < HALVES; ++hh) {
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, Ps + wr * BK + kk * 16, BK);
-        wmma::load_matrix_sync(bv, Vs + kk * 16 * DP + dt * 16, DP);
-        wmma::mma_sync(acc, a, bv, acc);
+      for (int j = 0; j < NTK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[hh][j][e]);
+      float alpha[2], neg[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // finite: a processed tile holds at least one column of every row
+        const float m_new = fmaxf(m[hh][r], quad_max(mx[r]) * scale_log2);
+        // the row's first processed tile: nothing to rescale (and never
+        // exp2(-inf - -inf))
+        alpha[r] =
+            m[hh][r] == -INFINITY ? 0.f : fast_exp2(m[hh][r] - m_new);
+        m[hh][r] = m_new;
+        l[hh][r] *= alpha[r];
+        neg[r] = -m_new;
       }
-      wmma::store_matrix_sync(Os + wr * DP + dt * 16, acc, DP,
-                              wmma::mem_row_major);
+#pragma unroll
+      for (int j = 0; j < NTK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p =
+              fast_exp2(fmaf(s[hh][j][e], scale_log2, neg[e / 2]));
+          s[hh][j][e] = p;
+          l[hh][e / 2] += p;
+        }
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        acc[hh][j][0] *= alpha[0];
+        acc[hh][j][1] *= alpha[0];
+        acc[hh][j][2] *= alpha[1];
+        acc[hh][j][3] *= alpha[1];
+      }
+      uint32_t p[NTK / 2][4];
+      pack_p<NTK>(p, s[hh]);
+      pv_bf16<NTK / 2, DT>(acc[hh], p, ks + C::TILE, C::PITCH, lane);
     }
-    __syncthreads();  // K/V tiles are overwritten next iteration
   }
 
-  // O / l, written as (B, Sq, H*D)
+  // O / l into (B, Sq, H*D); l = 0: the row kept no span, write zeros
+  const int grp = lane / 4, tq = lane % 4;
   const long long ors = (long long)H * D;
-  for (int idx = threadIdx.x; idx < BQ * D; idx += NTHREADS) {
-    const int r = idx / D, c = idx % D;
-    const int gr = q0 + r;
-    if (gr < Sq)  // Ls = 0: the row kept no tile and attends to nothing
-      o[((long long)b * Sq + gr) * ors + (long long)h * D + c] =
-          __float2bfloat16(Ls[r] > 0.f ? Os[r * DP + c] / Ls[r] : 0.f);
-  }
+  bf16* ob = o + (long long)b * Sq * ors + (long long)h * D;
+#pragma unroll
+  for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float den = quad_sum(l[hh][r]);
+      const float inv = den > 0.f ? 1.f / den : 0.f;
+      const int row = q0 + wrow + 16 * hh + grp + 8 * r;
+      if (row < Sq) {
+        bf16* orow = ob + row * ors;
+#pragma unroll
+        for (int j = 0; j < DT; ++j) {
+          const int c = 8 * j + 2 * tq;
+          if (c < D)
+            *reinterpret_cast<uint32_t*>(orow + c) = pack_bf16(
+                acc[hh][j][2 * r] * inv, acc[hh][j][2 * r + 1] * inv);
+        }
+      }
+    }
 }
 
-template <int DP, bool MASKED>
+template <int DP, int BQ, int HALVES, int STAGES, bool MASKED>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                    int B, int H, int Sq, int Skv, int D, long long qb,
                    long long qr, long long kb, long long kr, long long vb,
                    long long vr, const int* keep, int nref, int span,
                    float scale_log2, cudaStream_t stream) {
-  constexpr int bytes = Smem<DP>::bytes;
+  using C = Cfg<DP, BQ, HALVES, STAGES>;
+  static_assert(STAGES >= 2, "a ring of at least two stages");
+  static_assert(BQ % (16 * HALVES) == 0, "whole 16-row slices per warp");
+  auto kern = flash_fwd_kernel<DP, BQ, HALVES, STAGES, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DP, MASKED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<DP, MASKED><<<grid, NTHREADS, bytes, stream>>>(
-      q, k, v, o, H, Sq, Skv, D, qb, qr, kb, kr, vb, vr, keep, nref, span,
-      scale_log2);
+  kern<<<grid, C::NT, C::BYTES, stream>>>(q, k, v, o, H, Sq, Skv, D, qb, qr,
+                                          kb, kr, vb, vr, keep, nref, span,
+                                          scale_log2);
   return cudaGetLastError();
 }
 
@@ -234,6 +307,9 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 
 // keep == nullptr: kernel F; otherwise kernel M with keep (B, nref) int32
 // and every span of `span` kv rows a multiple of BK (checked by the caller).
+// D a multiple of 8, scale > 0. The instantiations built are the SG_BUILT
+// lines below, one per (16-padded head dim, masked), mirrored by FWD_BUILT
+// in ops/flash_attention.py; any other returns cudaErrorInvalidValue.
 extern "C" int sg_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, int B, int H, int Sq, int Skv, int D,
                             long long qb, long long qr, long long kb,
@@ -247,22 +323,31 @@ extern "C" int sg_flash_fwd(const void* q, const void* k, const void* v,
   bf16* O = static_cast<bf16*>(o);
   const int* KEEP = static_cast<const int*>(keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (KEEP != nullptr && (span <= 0 || span % BK || nref * span != Skv))
+  const int masked = KEEP != nullptr;
+  if (D % 8 || !(scale > 0.f) ||
+      (masked && (span <= 0 || span % BK || nref * span != Skv)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int dp = (D + 15) / 16 * 16;
-#define SG_CASE(N)                                                          \
-  case N:                                                                   \
-    return KEEP ? launch<N, true>(Q, K, V, O, B, H, Sq, Skv, D, qb, qr, kb,  \
-                                  kr, vb, vr, KEEP, nref, span, sl2, s)     \
-                : launch<N, false>(Q, K, V, O, B, H, Sq, Skv, D, qb, qr, kb, \
-                                   kr, vb, vr, nullptr, 1, 1, sl2, s);
-  // The UNet's head dims: 40 (padded to 48), 80 and 160.
-  switch (dp) {
-    SG_CASE(48)
-    SG_CASE(80)
-    SG_CASE(160)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (!masked) {
+    nref = 1;
+    span = 1;
   }
-#undef SG_CASE
+  const int dp = (D + 15) / 16 * 16;
+#define SG_BUILT(DP_, MASKED_, BQ_, BK_, HALVES_, STAGES_)                  \
+  if (dp == DP_ && masked == MASKED_) {                                     \
+    static_assert(BK_ == BK, "one K/V tile height");                        \
+    return static_cast<int>(                                                \
+        launch<DP_, BQ_, HALVES_, STAGES_, (MASKED_ != 0)>(                 \
+            Q, K, V, O, B, H, Sq, Skv, D, qb, qr, kb, kr, vb, vr, KEEP,     \
+            nref, span, sl2, s));                                           \
+  }
+  // (padded head dim, masked, BQ, BK, halves per warp, ring stages): the
+  // UNet's head dims 40 (padded to 48), 80 and 160
+  SG_BUILT(48, 0, 128, 64, 2, 2)
+  SG_BUILT(48, 1, 128, 64, 2, 2)
+  SG_BUILT(80, 0, 64, 64, 1, 2)
+  SG_BUILT(80, 1, 128, 64, 2, 2)
+  SG_BUILT(160, 0, 64, 64, 1, 2)
+  SG_BUILT(160, 1, 64, 64, 1, 2)
+#undef SG_BUILT
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -30,6 +30,14 @@ from storygen_tpu_torch.ops import _build
 _PADDED_D = (48, 80, 160)
 # rows of a K/V tile: every reference span must be a multiple of it
 _BK = 64
+# The instantiations of kernels F and M in csrc/flash_fwd.cu (its SG_BUILT
+# lines): (16-padded head dim, masked) -> (BQ, BK, 16-row halves per warp,
+# cp.async ring stages).
+FWD_BUILT = {
+    (48, False): (128, 64, 2, 2), (48, True): (128, 64, 2, 2),
+    (80, False): (64, 64, 1, 2), (80, True): (128, 64, 2, 2),
+    (160, False): (64, 64, 1, 2), (160, True): (64, 64, 1, 2),
+}
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -198,10 +206,26 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_fwd(q, k, v, num_heads, scale, keep):
+def fwd_tile(d: int, masked: bool) -> Tuple[int, int, int, int]:
+    """The instantiation that kernel F (M where `masked`) runs at head dim
+    d: (BQ, BK, halves, stages); its grid is (ceil(Sq / BQ), H, B).
+    ValueError if none is built."""
+    key = ((d + 15) // 16 * 16, bool(masked))
+    if d % 8 or key not in FWD_BUILT:
+        raise ValueError(f"no flash forward built for head dim {d}"
+                         f"{' (masked)' if masked else ''}")
+    return FWD_BUILT[key]
+
+
+def _launch_fwd(q, k, v, num_heads, scale, keep, lib=None):
+    """One launch of sg_flash_fwd from `lib` (the built library if None;
+    the tile study passes one built with other SG_BUILT lines)."""
     b, sq, skv, d, kargs, keep32 = _cuda_args(q, k, v, num_heads, keep)
+    fwd_tile(d, keep is not None)
+    if not scale > 0:
+        raise ValueError(f"the forward kernel takes a scale > 0, got {scale}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = _build.load().sg_flash_fwd(
+    err = (lib or _build.load()).sg_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, num_heads, sq, skv, d, *_strides(q, k, v), *kargs, float(scale),
         _stream(q))

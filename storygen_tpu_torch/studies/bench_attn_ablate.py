@@ -39,8 +39,8 @@ def main(device=None, shapes=MAIN_SHAPES, iters: int = 10) -> None:
         q, k, v = common.qkv(dev, b, h, sq, skv, d)
         sm = d ** -0.5
         ref = common.xla_attn(q.float(), k.float(), v.float(), sm)
-        cands = [("repo", functools.partial(common.repo_attn, q, k, v, sm),
-                  True)]
+        cands = [(common.REPO,
+                  functools.partial(common.repo_attn, q, k, v, sm), True)]
         for t in (64, 128):
             cands += [(f"{label:10s} bq{t} bk{t}", functools.partial(
                 ablate_attention, q, k, v, sm_scale=sm, bq=t, bk=t,

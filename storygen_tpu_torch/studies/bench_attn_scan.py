@@ -82,7 +82,8 @@ def main(device=None, shapes=MAIN_SHAPES, iters: int = 20) -> None:
         sm = d ** -0.5
         ops = 4.0 * b * h * sq * skv * d
         cands = [("xla", functools.partial(common.xla_attn, q, k, v, sm)),
-                 ("repo", functools.partial(common.repo_attn, q, k, v, sm))]
+                 (common.REPO,
+                  functools.partial(common.repo_attn, q, k, v, sm))]
         # tiles that do not divide the shape are skipped, as in the study
         cands += [(f"ds+scale bq{bq} bk{bk}", functools.partial(
             variant_attention, q, k, v, sm_scale=sm, bq=bq, bk=bk,

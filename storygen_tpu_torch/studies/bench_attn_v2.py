@@ -39,8 +39,8 @@ def main(device=None, shapes=MAIN_SHAPES, iters: int = 10) -> None:
         ref = common.xla_attn(q.float(), k.float(), v.float(), sm)
         cands = [("sdpa (yardstick)", functools.partial(common.sdpa, q, k, v,
                                                         sm), True),
-                 ("repo", functools.partial(common.repo_attn, q, k, v, sm),
-                  True)]
+                 (common.REPO,
+                  functools.partial(common.repo_attn, q, k, v, sm), True)]
         for bq in TILES:
             for bk in TILES:
                 tag = f"bq{bq} bk{bk}"

@@ -42,8 +42,8 @@ def main(device=None, shapes=MAIN_SHAPES, iters: int = 10) -> None:
         q, k, v = common.qkv(dev, b, h, sq, skv, d)
         sm = d ** -0.5
         ref = common.xla_attn(q.float(), k.float(), v.float(), sm)
-        cands = [("repo", functools.partial(common.repo_attn, q, k, v, sm),
-                  True)]
+        cands = [(common.REPO,
+                  functools.partial(common.repo_attn, q, k, v, sm), True)]
         cands += [(label, functools.partial(
             variant_attention, q, k, v, sm_scale=sm, bq=64, bk=bk, **kw),
             True) for label, kw, bk in VARIANTS]

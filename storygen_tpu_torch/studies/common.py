@@ -90,6 +90,12 @@ def xla_attn(q, k, v, scale: float) -> torch.Tensor:
     return fa.plain_attention(q, k, v, scale)
 
 
+# the label of the "repo" baseline: kernel F as redesigned with S, P and O
+# in mma.sync registers and K/V through a cp.async ring (earlier tables'
+# "repo" rows timed the shared-memory WMMA kernel it replaced)
+REPO = "repo (F, mma.sync)"
+
+
 def repo_attn(q, k, v, scale: float) -> torch.Tensor:
     """The port's kernel F on (B, H, S, D) tensors (its plain version on
     the CPU): the studies' "repo" baseline."""
@@ -98,11 +104,11 @@ def repo_attn(q, k, v, scale: float) -> torch.Tensor:
                                        fa.merge_heads(v), h, scale), h)
 
 
-def sdpa(q, k, v, scale: float) -> torch.Tensor:
-    """PyTorch's fused attention: timed as a yardstick only; no kernel path
-    of the port calls it."""
-    return torch.nn.functional.scaled_dot_product_attention(q, k, v,
-                                                            scale=scale)
+def sdpa(q, k, v, scale: float, mask=None) -> torch.Tensor:
+    """PyTorch's fused attention (`mask`: boolean, True = keep): timed as a
+    yardstick only; no kernel path of the port calls it."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale)
 
 
 def time_ms(fn: Callable, dev: torch.device, iters: int) -> float:
