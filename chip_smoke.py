@@ -12,12 +12,17 @@ stride-2 conv on kernel D):
   kernels      builds the nine CUDA kernels from storygen_tpu_torch/csrc/
                and holds each against its plain PyTorch version at the
                512 px shapes of the main paths (serving and stage-2
-               training), and P also against kernel C run on the prologue
-               already applied, with CUDA-event times for the kernel, its
-               plain version and, where one PyTorch call computes the same
-               function, that call (timed only, as a yardstick; the port
-               never calls it), beside the kernel's bound, and for F and M
-               their factor over SDPA and their rate in TFLOP/s;
+               training), M, L, DQ and DKV also at the mid block's
+               reference spans of a 256 and a 768 px image (16 and 144
+               tokens, which straddle the kernels' 64-row K/V tiles), C, P
+               and D also at the tiles of 16- and 8-column images and C at
+               the input gradient's shape, and P also against kernel C run
+               on the prologue already applied, with CUDA-event times for
+               the kernel, its plain version and, where one PyTorch call
+               computes the same function, that call (timed only, as a
+               yardstick; the port never calls it), beside the kernel's
+               bound, and for F, M, C, P and D their rate in TFLOP/s and
+               (but P) their factor over SDPA or cuDNN;
   models       in each configuration: one full-width UNet image-cycle pass
                (512 px, 3 refs) and one 512 px VAE encode and decode,
                kernel path against the plain path on the card, compared
@@ -28,7 +33,10 @@ stride-2 conv on kernel D):
                the full-width SD-1.5 + VLCM UNet, VAE and CLIP text encoder
                (seeded random weights and token ids), checking the frames,
                that every serving kernel ran on that path, and P and D not;
-  train        `train("stage2", ...)` at 512 px, batch 4, 3 refs, bf16,
+  train        one stage-2 micro-step at 256 px (batch 4, 3 refs, attn3
+               spans of 16 tokens at the mid block) on the kernel path
+               against the plain path; then
+               `train("stage2", ...)` at 512 px, batch 4, 3 refs, bf16,
                gradient checkpointing, 2 micro-steps per optimizer step, 3
                optimizer steps on seeded synthetic batches, checking finite
                losses, that every attn3 parameter moved and nothing else
@@ -55,6 +63,7 @@ before printing any result. The last line is the JSON status object.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -136,6 +145,10 @@ KERNEL_META = {
 }
 # the serving and training paths' nine kernels
 PORT_KERNELS = tuple(KERNEL_META)
+# the kernels whose rate the kernels phase prints, with the library call
+# that their factor is taken over
+RATED = {"flash_fwd": "SDPA", "flash_fwd_masked": "SDPA",
+         "conv3x3": "cuDNN", "gnconv3x3": "cuDNN", "downconv3x3": "cuDNN"}
 STUDY_SOURCES = {"online": "storygen_tpu_torch/csrc/study_online.cu",
                  "bounded": "storygen_tpu_torch/csrc/study_bounded.cu",
                  "qk": "storygen_tpu_torch/csrc/study_qk.cu",
@@ -268,6 +281,10 @@ def _attn_cases(dev, rnd):
            ("masked attn3 L2", 4, 1024, 3072, 80, KEEP),
            ("masked attn3 L3", 4, 256, 768, 160, KEEP),
            ("masked attn3 mid", 4, 64, 192, 160, KEEP),
+           # spans that straddle the 64-row K/V tiles: the mid block at
+           # 256 px (span 16) and at 768 px (span 144)
+           ("masked attn3 mid 256px", 4, 16, 48, 160, KEEP),
+           ("masked attn3 mid 768px", 4, 144, 432, 160, KEEP),
            # a row that keeps no ref: output 0, as the plain version's
            ("masked none kept", 2, 256, 768, 80, NONE_KEPT)]
     for label, b, sq, skv, d, table in fwd:
@@ -301,6 +318,8 @@ def _attn_cases(dev, rnd):
            ("attn2 L1", 4, 4096, 77, 40, None),
            ("masked attn3 L3", 4, 256, 768, 160, KEEP),
            ("attn1 mid", 4, 64, 64, 160, None),
+           ("masked attn3 mid 256px", 4, 16, 48, 160, KEEP),
+           ("masked attn3 mid 768px", 4, 144, 432, 160, KEEP),
            ("masked none kept", 2, 256, 768, 80, NONE_KEPT)]
     for label, b, sq, skv, d, table in bwd:
         q, k, v = rnd(b, sq, 8 * d), rnd(b, skv, 8 * d), rnd(b, skv, 8 * d)
@@ -387,7 +406,12 @@ def kernel_cases(dev):
             ("VAE dec 512px", 1, 512, 256, 128, False, False),
             ("VAE enc conv_in", 1, 512, 3, 128, False, False),
             ("VAE dec conv_out", 1, 512, 128, 3, False, False),
-            ("UNet conv_in", 3, 64, 4, 320, False, False)]:
+            ("UNet conv_in", 3, 64, 4, 320, False, False),
+            # the tiles for 16- and 8-column images and the input gradient
+            ("UNet L3", 3, 16, 1280, 1280, False, False),
+            ("UNet mid", 3, 8, 1280, 1280, False, False),
+            ("UNet up block 1", 3, 8, 2560, 1280, False, False),
+            ("UNet up L1 input gradient", 3, 64, 320, 960, False, False)]:
         x = rnd(b, hw, hw, cin)
         w9 = rnd(9, cin, cout, s=(9 * cin) ** -0.5)
         bias = torch.randn((b, cout) if bias_b else (cout,), generator=g,
@@ -429,6 +453,11 @@ def _fused_conv_cases(dev, g, rnd):
             ("UNet up L1 (B,C) bias", 3, 64, 64, 960, 320, True, False),
             ("VAE dec 512px + residual", 1, 512, 512, 128, 128, False, True),
             ("VAE enc 512px", 3, 512, 512, 128, 128, False, False),
+            # the tiles for 16- and 8-column images
+            ("UNet L3 (B,C) bias + residual", 3, 16, 16, 1280, 1280, True,
+             True),
+            ("UNet mid (B,C) bias + residual", 3, 8, 8, 1280, 1280, True,
+             True),
             ("ragged (B,C) bias + residual", 2, 40, 24, 320, 320, True,
              True)]:
         x = rnd(b, h, w, cin)
@@ -460,6 +489,9 @@ def _fused_conv_cases(dev, g, rnd):
             ("UNet L1", 3, 64, 64, 320, 320, (1, 1, 1, 1)),
             ("VAE enc 512px", 3, 512, 512, 128, 128, (0, 1, 0, 1)),
             ("VAE enc 128px", 3, 128, 128, 512, 512, (0, 1, 0, 1)),
+            # the tiles for 16- and 8-column outputs
+            ("UNet L2", 3, 32, 32, 640, 640, (1, 1, 1, 1)),
+            ("UNet L3", 3, 16, 16, 1280, 1280, (1, 1, 1, 1)),
             ("ragged", 2, 45, 37, 96, 160, (0, 1, 0, 1))]:
         x = rnd(b, h, w, cin)
         w9 = rnd(9, cin, cout, s=(9 * cin) ** -0.5)
@@ -543,12 +575,16 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
         b_ms, b_by = bound_ms(c.flops, c.nbytes)
         ok &= good
         lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
-        # the forward's rate and its factor over SDPA on the same inputs
+        # the rate of F, M, C, P and D, and their factor over SDPA or cuDNN
+        # on the same inputs (none for P)
         rate = vs_lib = None
         fwd_line = ""
-        if c.name in ("flash_fwd", "flash_fwd_masked"):
-            rate, vs_lib = c.flops / ms / 1e9, ms / lib_ms
-            fwd_line = f"  {vs_lib:.2f}x SDPA  {rate:.1f} TFLOP/s"
+        if c.name in RATED:
+            rate = c.flops / ms / 1e9
+            fwd_line = f"  {rate:.1f} TFLOP/s"
+            if lib_ms is not None:
+                vs_lib = ms / lib_ms
+                fwd_line = f"  {vs_lib:.2f}x {RATED[c.name]}" + fwd_line
         print(f"kernel {c.name:16s} {c.label:38s} max_abs_err {err:.3e} "
               f"(bound {bound:.3e}) {'ok' if good else 'FAIL'};{twin_line}  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  "
@@ -842,20 +878,92 @@ def phase_story(dev, card: str, results: dict,
 TRAIN_BATCH, TRAIN_GA = 4, 2
 # optimizer steps of the train phase in each configuration
 TRAIN_STEPS = {"default": 3, "fused": 1}
+# the image side of the train phase's kernel-vs-plain micro-step: its attn3
+# spans at the mid block (16 tokens) straddle the flash kernels' 64-row K/V
+# tiles
+SMALL_SIDE = 256
+
+
+def stage2_step_vs_plain(dev, card: str, side: int = SMALL_SIDE) -> bool:
+    """One stage-2 micro-step at `side` px (batch 4, 3 refs under KEEP, bf16,
+    gradient checkpointing) through the trainer's step function, on the
+    kernel path and on the plain path from the same weights, batch and
+    draws: the loss and the micro-step gradient's norm, and that the kernel
+    path launched M, L, DQ and DKV (no fallback to the plain versions)."""
+    import torch
+    from storygen_tpu_torch import ops
+    from storygen_tpu_torch.configs import TrainConfig
+    from storygen_tpu_torch.data.loader import SyntheticStoryDataset, collate
+    from storygen_tpu_torch.training import trainer
+    logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_step")
+    cfg = TrainConfig(logdir=logdir, train_batch_size=TRAIN_BATCH,
+                      gradient_accumulation_steps=TRAIN_GA, seed=0,
+                      mixed_precision="bf16", remat=True)
+    bundle = trainer.build_models(cfg, dev)
+    synth = SyntheticStoryDataset(TRAIN_BATCH, size=side, seed=7)
+    batch = trainer.to_device(collate([synth[i] for i in range(TRAIN_BATCH)]),
+                              dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    lat, n = (side // 8, side // 8, 4), 3
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    draws = {"posterior_noise": randn(TRAIN_BATCH, *lat),
+             "noise": randn(TRAIN_BATCH, *lat),
+             "t": torch.tensor([500, 80, 300, 900], device=dev),
+             "ref_posterior_noise": randn(n * TRAIN_BATCH, *lat),
+             "ref_noise": randn(TRAIN_BATCH, *lat),
+             "ref_mask": torch.tensor(KEEP, dtype=torch.bool, device=dev)}
+    # the first micro-step of an accumulation only accumulates, so each
+    # path's step leaves the weights as they were
+    step_k, _ = trainer.make_stage_step("stage2", cfg, bundle, dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out_k = step_k(batch, g, draws)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = read_launches()
+    with ops.plain_path():
+        step_p, _ = trainer.make_stage_step("stage2", cfg, bundle, dev)
+        out_p = step_p(batch, g, draws)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    lk, lp = out_k["loss"].item(), out_p["loss"].item()
+    nk, np_ = out_k["grad_norm"].item(), out_p["grad_norm"].item()
+    rel_loss, rel_norm = abs(lk - lp) / abs(lp), abs(nk - np_) / abs(np_)
+    backward = ("flash_fwd_masked", "flash_lse", "flash_dq", "flash_dkv")
+    ran = all(launches[k] > 0 for k in backward)
+    ok = (ran and math.isfinite(lk) and math.isfinite(nk)
+          and rel_loss <= MODEL_REL_L2 and rel_norm <= GRAD_REL_L2)
+    print(f"stage-2 micro-step {side}px B{TRAIN_BATCH} 3 refs (attn3 mid "
+          f"span {(side // 64) ** 2}): loss kernel {lk:.6f} plain {lp:.6f} "
+          f"rel {rel_loss:.3e} (bound {MODEL_REL_L2:.0e}); grad norm kernel "
+          f"{nk:.6f} plain {np_:.6f} rel {rel_norm:.3e} (bound "
+          f"{GRAD_REL_L2:.0e}); launches M/L/DQ/DKV "
+          f"{[launches[k] for k in backward]} {'ok' if ok else 'FAIL'}; "
+          f"kernel path {1e3 * (t1 - t0):.1f} ms, plain path "
+          f"{1e3 * (t2 - t1):.1f} ms (first calls) [{card}]", flush=True)
+    del bundle, step_k, step_p
+    torch.cuda.empty_cache()
+    return ok
 
 
 def phase_train(dev, card: str, results: dict,
                 config: str = "default") -> bool:
     """The training path: `train("stage2", ...)` through the trainer, on
-    seeded synthetic StorySalon-layout batches made up front."""
-    import math
-
+    seeded synthetic StorySalon-layout batches made up front. In the default
+    configuration it first holds a 256 px micro-step's kernel path against
+    its plain path (`stage2_step_vs_plain`)."""
     import torch
     from storygen_tpu_torch.configs import TrainConfig
     from storygen_tpu_torch.data.loader import SyntheticStoryDataset
     from storygen_tpu_torch.training import trainer
     path = "train" if config == "default" else "train_fused"
     steps = TRAIN_STEPS[config]
+    ok = stage2_step_vs_plain(dev, card) if config == "default" else True
     logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", f"chip_smoke_{path}")
     cfg = TrainConfig(logdir=logdir, train_steps=steps,
@@ -883,8 +991,8 @@ def phase_train(dev, card: str, results: dict,
     attn3 = {k for k in before if k.startswith("unet.") and "attn3" in k}
     finite = all(math.isfinite(x) for x in state.losses)
     n_micro = steps * TRAIN_GA
-    ok = (finite and len(state.losses) == n_micro and moved == attn3
-          and len(attn3) == 16 * 5 and state.optimizer.count == steps)
+    ok &= (finite and len(state.losses) == n_micro and moved == attn3
+           and len(attn3) == 16 * 5 and state.optimizer.count == steps)
     steady = state.micro_seconds[1:]
     ms = 1e3 * sum(steady) / len(steady)
     print(f"{path} stage2: {steps} optimizer steps x {TRAIN_GA} "

@@ -30,11 +30,17 @@
 // in shared memory only. Rows past Skv (attn2's 77 text tokens) load as
 // zeros, get P = 0 in DQ and are never written by DKV; rows past Sq get
 // P = 0 in DKV (lse = +inf) and are never written by DQ. With `keep`
-// (B, N refs) over N equal spans that are multiples of 64 rows, L and DQ
-// skip dropped K/V tiles and DKV writes zeros for a dropped tile without
-// loading anything. Inputs are read from the projections' (B, S, H*D)
-// layout through batch and row strides; dQ, dK, dV are written as
-// (B, S, H*D). Simple first: no cp.async pipelining, wgmma or TMA yet.
+// (B, N refs) over N equal spans of any length, L and DQ skip a K/V tile
+// whose rows all lie in dropped spans, and DKV writes zeros for such a tile
+// without loading anything. A tile that straddles a span boundary (spans
+// of 16 or 144 rows at the mid block of a 256 or 768 px image) is loaded,
+// and P is 0 at its rows in dropped spans: L and DQ take nothing from them,
+// and DKV writes zero dK and dV there. That is an instantiation of its own
+// (STRADDLE), chosen at launch: spans that are multiples of 64 rows (the
+// 512 px UNet) run the code that tests one flag per tile and does no
+// per-row work. Inputs are read from the projections' (B, S, H*D) layout
+// through batch and row strides; dQ, dK, dV are written as (B, S, H*D).
+// Simple first: no cp.async pipelining, wgmma or TMA yet.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -167,8 +173,32 @@ struct Args {
   float scale, scale_log2;
 };
 
+// Does any of the K/V tile's rows [k0, k0 + BT) below Skv lie in a kept
+// span? Without STRADDLE every span is a multiple of BT rows and one flag
+// holds for the tile.
+template <bool STRADDLE>
+__device__ __forceinline__ bool tile_kept(const Args& a, int b, int k0) {
+  const int* kp = a.keep + b * a.nref;
+  if (!STRADDLE) return kp[k0 / a.span] != 0;
+  const int last = (min(k0 + BT, a.Skv) - 1) / a.span;
+  for (int r = k0 / a.span; r <= last; ++r)
+    if (kp[r]) return true;
+  return false;
+}
+
+// Do the K/V tile's rows lie in more than one span (then each row has its
+// own flag)?
+__device__ __forceinline__ bool tile_straddles(const Args& a, int k0) {
+  return k0 / a.span != (min(k0 + BT, a.Skv) - 1) / a.span;
+}
+
+// Is kv row `row` below Skv and in a kept span?
+__device__ __forceinline__ bool row_kept(const Args& a, int b, int row) {
+  return row < a.Skv && a.keep[b * a.nref + row / a.span] != 0;
+}
+
 // ----------------------------------------------------------------- L
-template <int DP, bool MASKED>
+template <int DP, bool MASKED, bool STRADDLE>
 __global__ void __launch_bounds__(NTHREADS) flash_lse_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   using L = LseSmem<DP>;
@@ -189,25 +219,29 @@ __global__ void __launch_bounds__(NTHREADS) flash_lse_kernel(Args a) {
   }
   const bf16* kbase = a.k + b * a.kb + (long long)h * a.D;
   for (int k0 = 0; k0 < a.Skv; k0 += BT) {
-    if (MASKED && !a.keep[b * a.nref + k0 / a.span]) continue;
+    if (MASKED && !tile_kept<STRADDLE>(a, b, k0)) continue;
     load_tile<DP>(Ks, kbase, a.kr, k0, a.Skv, a.D);
     __syncthreads();
     warp_abt<DP>(Ss, Qs, Ks, wr);
     __syncwarp();
+    // this lane's two columns: below Skv, and kept where the tile straddles
     const int kvalid = min(BT, a.Skv - k0);
+    const bool mixed = STRADDLE && tile_straddles(a, k0);
+    const bool ok0 = mixed ? row_kept(a, b, k0 + lane) : lane < kvalid;
+    const bool ok1 =
+        mixed ? row_kept(a, b, k0 + lane + 32) : lane + 32 < kvalid;
     for (int r = 0; r < 16; ++r) {
       const int row = wr + r;
-      const float s0 =
-          lane < kvalid ? Ss[row * BT + lane] * a.scale_log2 : -INFINITY;
-      const float s1 = lane + 32 < kvalid
-                           ? Ss[row * BT + lane + 32] * a.scale_log2
-                           : -INFINITY;
+      const float s0 = ok0 ? Ss[row * BT + lane] * a.scale_log2 : -INFINITY;
+      const float s1 =
+          ok1 ? Ss[row * BT + lane + 32] * a.scale_log2 : -INFINITY;
       float mx = fmaxf(s0, s1);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_old = Ms[row];
-      const float m_new = fmaxf(m_old, mx);  // finite: column 0 is valid
+      // finite: a processed tile holds a kept column below Skv
+      const float m_new = fmaxf(m_old, mx);
       float sum = exp2f(s0 - m_new) + exp2f(s1 - m_new);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -230,7 +264,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_lse_kernel(Args a) {
 }
 
 // ----------------------------------------------------------------- DQ
-template <int DP, bool MASKED>
+template <int DP, bool MASKED, bool STRADDLE>
 __global__ void __launch_bounds__(NTHREADS) flash_dq_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   using L = DqSmem<DP>;
@@ -263,19 +297,24 @@ __global__ void __launch_bounds__(NTHREADS) flash_dq_kernel(Args a) {
   const bf16* kbase = a.k + b * a.kb + hd;
   const bf16* vbase = a.v + b * a.vb + hd;
   for (int k0 = 0; k0 < a.Skv; k0 += BT) {
-    if (MASKED && !a.keep[b * a.nref + k0 / a.span]) continue;
+    if (MASKED && !tile_kept<STRADDLE>(a, b, k0)) continue;
     load_tile<DP>(Ks, kbase, a.kr, k0, a.Skv, a.D);
     load_tile<DP>(Vs, vbase, a.vr, k0, a.Skv, a.D);
     __syncthreads();
     warp_abt<DP>(Ss, Qs, Ks, wr);    // S = Q K^T
     warp_abt<DP>(dPs, dOs, Vs, wr);  // dP = dO V^T
     __syncwarp();
+    // this lane's two columns: below Skv, and kept where the tile straddles
     const int kvalid = min(BT, a.Skv - k0);
+    const bool mixed = STRADDLE && tile_straddles(a, k0);
+    const bool ok0 = mixed ? row_kept(a, b, k0 + lane) : lane < kvalid;
+    const bool ok1 =
+        mixed ? row_kept(a, b, k0 + lane + 32) : lane + 32 < kvalid;
     for (int r = 0; r < 16; ++r) {
       const int row = wr + r;
       for (int c = lane; c < BT; c += 32) {
         const float p =
-            c < kvalid
+            (c < 32 ? ok0 : ok1)
                 ? exp2f(Ss[row * BT + c] * a.scale_log2 - lse_s[row])
                 : 0.f;
         dSs[row * BT + c] =
@@ -290,7 +329,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_dq_kernel(Args a) {
 }
 
 // ----------------------------------------------------------------- DKV
-template <int DP, bool MASKED>
+template <int DP, bool MASKED, bool STRADDLE>
 __global__ void __launch_bounds__(NTHREADS) flash_dkv_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   using L = DkvSmem<DP>;
@@ -313,8 +352,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_kernel(Args a) {
   const long long hd = (long long)h * a.D;
   zero_acc<DP>(dKacc);
   zero_acc<DP>(dVacc);
-  if (MASKED && !a.keep[b * a.nref + k0 / a.span]) {
-    // a dropped span gets no gradient
+  if (MASKED && !tile_kept<STRADDLE>(a, b, k0)) {
+    // rows in dropped spans get no gradient
     __syncthreads();
     store_rows<DP>(a.dk, dKacc, 0.f, b, h, a.H, a.Skv, a.D, k0);
     store_rows<DP>(a.dv, dVacc, 0.f, b, h, a.H, a.Skv, a.D, k0);
@@ -324,6 +363,12 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_kernel(Args a) {
   load_tile<DP>(Vs, a.v + b * a.vb + hd, a.vr, k0, a.Skv, a.D);
   const long long dob = (long long)a.Sq * a.H * a.D;  // dO is contiguous
   const long long rb = ((long long)b * a.H + h) * a.Sq;
+  // where the tile straddles a span boundary, the kv rows of this warp
+  // that lie in dropped spans: bit r for row wr + r (P = 0 there)
+  unsigned dropped = 0u;
+  if (STRADDLE && tile_straddles(a, k0))
+    for (int r = 0; r < 16; ++r)
+      if (!row_kept(a, b, k0 + wr + r)) dropped |= 1u << r;
   for (int q0 = 0; q0 < a.Sq; q0 += BT) {
     load_tile<DP>(Qs, a.q + b * a.qb + hd, a.qr, q0, a.Sq, a.D);
     load_tile<DP>(dOs, a.dout + b * dob + hd, (long long)a.H * a.D, q0,
@@ -339,8 +384,10 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_kernel(Args a) {
     __syncwarp();
     for (int r = 0; r < 16; ++r) {
       const int row = wr + r;
+      const bool drop = (dropped >> r) & 1u;
       for (int c = lane; c < BT; c += 32) {
-        const float p = exp2f(St[row * BT + c] * a.scale_log2 - lse_s[c]);
+        const float p =
+            drop ? 0.f : exp2f(St[row * BT + c] * a.scale_log2 - lse_s[c]);
         Pt[row * BT + c] = __float2bfloat16(p);
         dSt[row * BT + c] =
             __float2bfloat16(p * (dPt[row * BT + c] - delta_s[c]));
@@ -357,20 +404,20 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_kernel(Args a) {
 
 enum Which { kLse = 0, kDq = 1, kDkv = 2 };
 
-template <int DP, bool MASKED>
+template <int DP, bool MASKED, bool STRADDLE>
 cudaError_t launch(Which which, const Args& a, int B, cudaStream_t stream) {
   void (*kern)(Args);
   int bytes, tiles;
   if (which == kLse) {
-    kern = flash_lse_kernel<DP, MASKED>;
+    kern = flash_lse_kernel<DP, MASKED, STRADDLE>;
     bytes = LseSmem<DP>::bytes;
     tiles = (a.Sq + BT - 1) / BT;
   } else if (which == kDq) {
-    kern = flash_dq_kernel<DP, MASKED>;
+    kern = flash_dq_kernel<DP, MASKED, STRADDLE>;
     bytes = DqSmem<DP>::bytes;
     tiles = (a.Sq + BT - 1) / BT;
   } else {
-    kern = flash_dkv_kernel<DP, MASKED>;
+    kern = flash_dkv_kernel<DP, MASKED, STRADDLE>;
     bytes = DkvSmem<DP>::bytes;
     tiles = (a.Skv + BT - 1) / BT;
   }
@@ -387,15 +434,17 @@ int dispatch(Which which, Args& a, int B, int D, float scale,
   a.D = D;
   a.scale = scale;
   a.scale_log2 = scale * LOG2E;
-  if (a.keep != nullptr &&
-      (a.span <= 0 || a.span % BT || a.nref * a.span != a.Skv))
+  if (a.keep != nullptr && (a.span <= 0 || a.nref * a.span != a.Skv))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int dp = (D + 15) / 16 * 16;
-#define SG_CASE(N)                                             \
-  case N:                                                      \
-    return static_cast<int>(a.keep ? launch<N, true>(which, a, B, s) \
-                                   : launch<N, false>(which, a, B, s));
+  const bool straddle = a.keep != nullptr && a.span % BT != 0;
+#define SG_CASE(N)                                                     \
+  case N:                                                              \
+    return static_cast<int>(                                           \
+        straddle ? launch<N, true, true>(which, a, B, s)               \
+                 : (a.keep ? launch<N, true, false>(which, a, B, s)    \
+                           : launch<N, false, false>(which, a, B, s)));
   // The UNet's head dims: 40 (padded to 48), 80 and 160.
   switch (dp) {
     SG_CASE(48)

@@ -40,11 +40,16 @@
 // no copy), and O is written as (B, Sq, H*D) in bf16: the head merge is
 // free. Ragged Sq and Skv (attn2's 77-token text kv): rows past Sq are not
 // written, kv columns past Skv become -inf logits. For M the kv is N equal
-// reference spans and `keep` (B, N) says which spans a batch row may attend
-// to; every span is a multiple of BK, so a flag holds for a whole tile, and
-// the ring walks from one kept tile to the next: a dropped span costs
-// neither a copy nor a wait. A row whose running max is still -inf takes
-// alpha = 0, and a row that kept no span writes zeros.
+// reference spans of any length and `keep` (B, N) says which spans a batch
+// row may attend to. The ring walks from one tile that holds a kept row to
+// the next: a tile wholly inside dropped spans costs neither a copy nor a
+// wait. Where a span is a multiple of BK (the 512 px UNet) a flag holds
+// for a whole tile and the instantiation with STRADDLE = false does no
+// per-column work; otherwise (16 or 144 tokens at the mid block of a 256
+// or 768 px image) a tile that straddles a span boundary sets the logits
+// of its dropped columns to -inf in the S registers, as the ragged last
+// tile does past Skv. A row whose running max is still -inf takes alpha =
+// 0, and a row that kept no span writes zeros.
 //
 // Not yet: wgmma, TMA and warp specialisation.
 #include <math.h>
@@ -55,7 +60,7 @@ using namespace sg_study;
 
 namespace {
 
-// rows of a K/V tile: every reference span of M is a multiple of it
+// rows of a K/V tile
 constexpr int BK = 64;
 
 template <int DP, int BQ, int HALVES, int STAGES>
@@ -115,7 +120,7 @@ __device__ __forceinline__ void copy_tile(unsigned char* dst, const bf16* src,
   }
 }
 
-template <int DP, int BQ, int HALVES, int STAGES, bool MASKED>
+template <int DP, int BQ, int HALVES, int STAGES, bool MASKED, bool STRADDLE>
 __global__ void __launch_bounds__(Cfg<DP, BQ, HALVES, STAGES>::NT)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int H,
@@ -136,11 +141,21 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vh = v + b * vb + (long long)h * D;
   const int ntiles = (Skv + BK - 1) / BK;
   const int* kp = MASKED ? keep + b * nref : keep;
-  const int tps = span / BK;  // tiles per reference span (M)
-  // the first tile at or after t that the row keeps (block-uniform)
+  const int tps = span / BK;  // tiles per reference span (M, aligned)
+  // the spans of tile t's first and last kv row (M, STRADDLE)
+  auto first_span = [&](int t) { return t * BK / span; };
+  auto last_span = [&](int t) { return (min(t * BK + BK, Skv) - 1) / span; };
+  // does tile t hold a kept kv row (block-uniform)
+  auto kept = [&](int t) {
+    if constexpr (!STRADDLE) return kp[t / tps] != 0;
+    for (int r = first_span(t); r <= last_span(t); ++r)
+      if (kp[r]) return true;
+    return false;
+  };
+  // the first tile at or after t that holds a kept row
   auto next_kept = [&](int t) {
     if (MASKED)
-      while (t < ntiles && !kp[t / tps]) ++t;
+      while (t < ntiles && !kept(t)) ++t;
     return t;
   };
   auto fetch = [&](int t, int stage) {
@@ -216,6 +231,19 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             if (8 * j + 2 * (lane % 4) + e % 2 >= kvalid)
               s[hh][j][e] = -INFINITY;
     }
+    if (STRADDLE && first_span(cur) != last_span(cur)) {
+      // a tile across a span boundary: its columns in dropped spans
+#pragma unroll
+      for (int j = 0; j < NTK; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = cur * BK + 8 * j + 2 * (lane % 4) + e;
+          if (col < Skv && !kp[col / span])
+#pragma unroll
+            for (int hh = 0; hh < HALVES; ++hh)
+              s[hh][j][e] = s[hh][j][e + 2] = -INFINITY;
+        }
+    }
 
 #pragma unroll
     for (int hh = 0; hh < HALVES; ++hh) {
@@ -227,7 +255,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float alpha[2], neg[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        // finite: a processed tile holds at least one column of every row
+        // finite: a processed tile holds at least one kept column, and
+        // keep is per batch row, so every query row sees it
         const float m_new = fmaxf(m[hh][r], quad_max(mx[r]) * scale_log2);
         // the row's first processed tile: nothing to rescale (and never
         // exp2(-inf - -inf))
@@ -283,7 +312,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
-template <int DP, int BQ, int HALVES, int STAGES, bool MASKED>
+template <int DP, int BQ, int HALVES, int STAGES, bool MASKED, bool STRADDLE>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                    int B, int H, int Sq, int Skv, int D, long long qb,
                    long long qr, long long kb, long long kr, long long vb,
@@ -292,7 +321,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   using C = Cfg<DP, BQ, HALVES, STAGES>;
   static_assert(STAGES >= 2, "a ring of at least two stages");
   static_assert(BQ % (16 * HALVES) == 0, "whole 16-row slices per warp");
-  auto kern = flash_fwd_kernel<DP, BQ, HALVES, STAGES, MASKED>;
+  auto kern = flash_fwd_kernel<DP, BQ, HALVES, STAGES, MASKED, STRADDLE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return err;
@@ -306,10 +335,12 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 }  // namespace
 
 // keep == nullptr: kernel F; otherwise kernel M with keep (B, nref) int32
-// and every span of `span` kv rows a multiple of BK (checked by the caller).
-// D a multiple of 8, scale > 0. The instantiations built are the SG_BUILT
-// lines below, one per (16-padded head dim, masked), mirrored by FWD_BUILT
-// in ops/flash_attention.py; any other returns cudaErrorInvalidValue.
+// over nref spans of `span` kv rows, nref * span == Skv. D a multiple of 8,
+// scale > 0. The instantiations built are the SG_BUILT lines below, one
+// per (16-padded head dim, masked), mirrored by FWD_BUILT in
+// ops/flash_attention.py; any other returns cudaErrorInvalidValue. A masked
+// line builds M twice: for spans that are a multiple of BK and for the
+// rest (STRADDLE), chosen here.
 extern "C" int sg_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, int B, int H, int Sq, int Skv, int D,
                             long long qb, long long qr, long long kb,
@@ -325,18 +356,24 @@ extern "C" int sg_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int masked = KEEP != nullptr;
   if (D % 8 || !(scale > 0.f) ||
-      (masked && (span <= 0 || span % BK || nref * span != Skv)))
+      (masked && (span <= 0 || nref * span != Skv)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!masked) {
     nref = 1;
     span = 1;
   }
+  const bool straddle = masked && span % BK != 0;
   const int dp = (D + 15) / 16 * 16;
 #define SG_BUILT(DP_, MASKED_, BQ_, BK_, HALVES_, STAGES_)                  \
   if (dp == DP_ && masked == MASKED_) {                                     \
     static_assert(BK_ == BK, "one K/V tile height");                        \
+    if (straddle)                                                           \
+      return static_cast<int>(                                              \
+          launch<DP_, BQ_, HALVES_, STAGES_, (MASKED_ != 0),                \
+                 (MASKED_ != 0)>(Q, K, V, O, B, H, Sq, Skv, D, qb, qr, kb,  \
+                                 kr, vb, vr, KEEP, nref, span, sl2, s));    \
     return static_cast<int>(                                                \
-        launch<DP_, BQ_, HALVES_, STAGES_, (MASKED_ != 0)>(                 \
+        launch<DP_, BQ_, HALVES_, STAGES_, (MASKED_ != 0), false>(          \
             Q, K, V, O, B, H, Sq, Skv, D, qb, qr, kb, kr, vb, vr, KEEP,     \
             nref, span, sl2, s));                                           \
   }

@@ -11,6 +11,11 @@ same `_kernel` with fused=True (reached through `gnconv3x3` /
 `gnconvres3x3`): kernel C on silu(x * a + s), the resnet's folded GroupNorm
 and SiLU, applied where the kernel loads its input (border kept 0).
 
+Both run one implicit-GEMM template (`csrc/conv_mma.cuh`) in the
+instantiations listed in `CONV_BUILT`, picked by `conv_tile` from the
+stride, the prologue, Cin % 8, Cout and the output width; anything else
+raises ValueError.
+
 The backward of C follows `_conv3x3_bwd` of the JAX module: the input
 gradient reuses kernel C on the spatially flipped, in/out-transposed
 weight; the weight and bias gradients are plain. That of P follows
@@ -19,12 +24,64 @@ of the activation from kernel C, and the rest plain.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from storygen_tpu_torch.ops import _build
+
+# The instantiations of kernels C and P in csrc/conv3x3.cu (its SG_BUILT
+# lines): (stride, prologue, Cin % 8 != 0, Cout > 16, W class) -> (TH, TW,
+# BN, warps along M, warps along N, CK, ring stages, blocks per SM): an
+# output tile of TH x TW pixels by BN channels, Cin walked in chunks of CK.
+# The W class of the output width is 0 for W <= 8, 1 for W <= 16, else 2.
+# P keeps C's CK at every W class: with the same chunk depth a tile sums
+# its products in the same order (chunk, tap, 16-channel step), so P on a
+# slab equals C on the prologue applied beforehand, bit for bit.
+CONV_BUILT = {
+    (1, 0, 0, 1, 2): (8, 32, 64, 4, 1, 16, 2, 2),
+    (1, 0, 0, 1, 1): (8, 16, 32, 4, 1, 32, 3, 2),
+    (1, 0, 0, 1, 0): (8, 8, 32, 4, 2, 64, 2, 1),
+    (1, 0, 0, 0, 2): (16, 16, 16, 8, 1, 32, 2, 1),
+    (1, 0, 0, 0, 1): (8, 16, 16, 4, 1, 32, 2, 4),
+    (1, 0, 0, 0, 0): (8, 8, 16, 4, 1, 32, 2, 4),
+    (1, 0, 1, 1, 2): (8, 16, 64, 4, 2, 16, 2, 2),
+    (1, 0, 1, 1, 1): (8, 16, 64, 4, 2, 16, 2, 2),
+    (1, 0, 1, 1, 0): (8, 16, 64, 4, 2, 16, 2, 2),
+    (1, 0, 1, 0, 2): (8, 16, 16, 4, 1, 16, 2, 4),
+    (1, 0, 1, 0, 1): (8, 16, 16, 4, 1, 16, 2, 4),
+    (1, 0, 1, 0, 0): (8, 16, 16, 4, 1, 16, 2, 4),
+    (1, 1, 0, 1, 2): (16, 16, 64, 8, 2, 16, 2, 1),
+    (1, 1, 0, 1, 1): (8, 16, 64, 4, 2, 32, 2, 2),
+    (1, 1, 0, 1, 0): (8, 8, 32, 4, 2, 64, 2, 1),
+}
+
+
+def tile_key(stride: int, prologue: bool, cin: int, cout: int,
+             wo: int) -> Tuple[int, int, int, int, int]:
+    """The key under which the conv kernels (C, P and D) pick their
+    instantiation, as csrc/conv_mma.cuh's cout_class and w_class do:
+    (stride, prologue, Cin % 8 != 0, Cout > 16, W class of the output
+    width)."""
+    return (int(stride), int(bool(prologue)), int(cin % 8 != 0),
+            int(cout > 16), 0 if wo <= 8 else (1 if wo <= 16 else 2))
+
+
+def pick_tile(built: dict, key: tuple) -> tuple:
+    """The instantiation that `built` lists under `key`; ValueError if
+    none is built."""
+    if key not in built:
+        raise ValueError(f"no conv kernel built for (stride, prologue, "
+                         f"narrow Cin, wide Cout, W class) = {key}")
+    return built[key]
+
+
+def conv_tile(prologue: bool, cin: int, cout: int, w: int) -> tuple:
+    """The instantiation that kernel C (P where `prologue`) runs: (TH, TW,
+    BN, WM, WN, CK, stages, blocks per SM); its grid is (ceil(H / TH)
+    ceil(W / TW), ceil(Cout / BN), B). ValueError if none is built."""
+    return pick_tile(CONV_BUILT, tile_key(1, prologue, cin, cout, w))
 
 
 def pack_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -102,16 +159,22 @@ def check_kernel_operands(x, w9, residual=None):
         raise ValueError("empty convolution")
 
 
-def _launch(name: str, x, w9, bias, residual, *affine) -> torch.Tensor:
+def _launch(name: str, x, w9, bias, residual, *affine,
+            lib=None) -> torch.Tensor:
     """Launch `name` (sg_conv3x3, or sg_gnconv3x3 with its fp32 (a, s)) on
-    checked operands; the bias and a, s go to the kernel as fp32."""
+    checked operands; the bias and a, s go to the kernel as fp32. `lib` is
+    the built library if None (the tile study passes one built with other
+    SG_BUILT lines)."""
     check_kernel_operands(x, w9, residual)
     b, h, w, cin = x.shape
     cout = w9.shape[2]
+    conv_tile(bool(affine), cin, cout, w)
     bias32 = bias.float().contiguous()
+    # the kernel reads a and s 16 bytes at a time
     affine32 = [t.float().contiguous() for t in affine]
+    affine32 = [t if t.data_ptr() % 16 == 0 else t.clone() for t in affine32]
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    err = getattr(_build.load(), name)(
+    err = getattr(lib or _build.load(), name)(
         x.data_ptr(), w9.data_ptr(), bias32.data_ptr(),
         cout if bias.dim() == 2 else 0, *(t.data_ptr() for t in affine32),
         None if residual is None else residual.data_ptr(),

@@ -9,6 +9,10 @@ Downsample2D, (0, 1, 0, 1) at the VAE encoder's. Weights come packed as
 (9, Cin, Cout), tap-major (3*dy + dx), as for the stride-1 conv. The
 backward is plain fp32 torch, as `_downconv3x3_bwd` of the JAX module is
 plain XLA: per tap, one product with the strided input slice.
+
+Kernel D runs kernel C's implicit-GEMM template (`csrc/conv_mma.cuh`) with
+stride 2, in the instantiations listed in `DOWN_BUILT`, picked by
+`down_tile`; anything else raises ValueError.
 """
 from __future__ import annotations
 
@@ -18,7 +22,24 @@ import torch
 import torch.nn.functional as F
 
 from storygen_tpu_torch.ops import _build
-from storygen_tpu_torch.ops.conv import check_kernel_operands
+from storygen_tpu_torch.ops.conv import (check_kernel_operands, pick_tile,
+                                         tile_key)
+
+# The instantiations of kernel D in csrc/downconv3x3.cu (its SG_BUILT
+# lines), keyed and valued as ops/conv.py's CONV_BUILT: the W class is that
+# of the output width.
+DOWN_BUILT = {
+    (2, 0, 0, 1, 2): (8, 16, 64, 4, 2, 16, 2, 2),
+    (2, 0, 0, 1, 1): (4, 16, 64, 4, 2, 16, 2, 2),
+    (2, 0, 0, 1, 0): (8, 8, 32, 4, 2, 64, 2, 1),
+}
+
+
+def down_tile(cin: int, cout: int, wo: int) -> tuple:
+    """The instantiation that kernel D runs for an output `wo` columns
+    wide: (TH, TW, BN, WM, WN, CK, stages, blocks per SM). ValueError if
+    none is built."""
+    return pick_tile(DOWN_BUILT, tile_key(2, False, cin, cout, wo))
 
 
 def out_size(h: int, w: int, pad: Sequence[int]) -> Tuple[int, int]:
@@ -53,6 +74,24 @@ def _check(x, w9, bias, pad):
         raise ValueError("all operands must be on one device")
 
 
+def _launch(x, w9, bias, pad, lib=None) -> torch.Tensor:
+    """One launch of sg_downconv3x3 from `lib` (the built library if None;
+    the tile study passes one built with other SG_BUILT lines)."""
+    check_kernel_operands(x, w9)
+    b, h, w, cin = x.shape
+    cout = w9.shape[2]
+    ho, wo = out_size(h, w, pad)
+    down_tile(cin, cout, wo)
+    bias32 = bias.float().contiguous()
+    out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
+    err = (lib or _build.load()).sg_downconv3x3(
+        x.data_ptr(), w9.data_ptr(), bias32.data_ptr(), out.data_ptr(),
+        b, h, w, cin, cout, ho, wo, int(pad[0]), int(pad[2]),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "sg_downconv3x3")
+    return out
+
+
 def downconv3x3(x: torch.Tensor, w9: torch.Tensor, bias: torch.Tensor,
                 pad: Sequence[int]) -> torch.Tensor:
     """x (B, H, W, Cin), w9 (9, Cin, Cout), bias (Cout), pad (top, bottom,
@@ -61,18 +100,7 @@ def downconv3x3(x: torch.Tensor, w9: torch.Tensor, bias: torch.Tensor,
     _check(x, w9, bias, pad)
     if x.device.type == "cpu":
         return downconv3x3_plain(x, w9, bias, pad)
-    check_kernel_operands(x, w9)
-    b, h, w, cin = x.shape
-    cout = w9.shape[2]
-    ho, wo = out_size(h, w, pad)
-    bias32 = bias.float().contiguous()
-    out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
-    lib = _build.load()
-    err = lib.sg_downconv3x3(
-        x.data_ptr(), w9.data_ptr(), bias32.data_ptr(), out.data_ptr(),
-        b, h, w, cin, cout, ho, wo, int(pad[0]), int(pad[2]),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "sg_downconv3x3")
+    out = _launch(x, w9, bias, pad)
     downconv3x3.launches += 1
     return out
 

@@ -28,7 +28,7 @@ from storygen_tpu_torch.ops import _build
 
 # 16-padded head dims the kernels are instantiated for: the UNet's 40, 80, 160
 _PADDED_D = (48, 80, 160)
-# rows of a K/V tile: every reference span must be a multiple of it
+# rows of a K/V tile; a reference span need not be a multiple of it
 _BK = 64
 # The instantiations of kernels F and M in csrc/flash_fwd.cu (its SG_BUILT
 # lines): (16-padded head dim, masked) -> (BQ, BK, 16-row halves per warp,
@@ -38,6 +38,18 @@ FWD_BUILT = {
     (80, False): (64, 64, 1, 2), (80, True): (128, 64, 2, 2),
     (160, False): (64, 64, 1, 2), (160, True): (64, 64, 1, 2),
 }
+
+
+def ref_span(skv: int, nref: int) -> int:
+    """The kv rows of each of `nref` equal reference spans over `skv` rows:
+    any span > 0 with nref * span == skv. A span need not be a multiple of
+    the kernels' 64-row K/V tile: a tile that straddles two spans is masked
+    column by column inside the kernels (16 and 144 tokens at the mid
+    block of a 256 and a 768 px image). ValueError otherwise."""
+    if nref <= 0 or skv <= 0 or skv % nref:
+        raise ValueError(f"Skv={skv} does not split into {nref} equal "
+                         "reference spans")
+    return skv // nref
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -158,9 +170,7 @@ def _check(q, k, v, num_heads, keep=None):
         if keep.dim() != 2 or keep.shape[0] != b:
             raise ValueError(f"keep must be (B={b}, N), got "
                              f"{tuple(keep.shape)}")
-        if k.shape[1] % keep.shape[1]:
-            raise ValueError(f"Skv={k.shape[1]} does not split into "
-                             f"{keep.shape[1]} equal spans")
+        ref_span(k.shape[1], keep.shape[1])
         if keep.device != q.device:
             raise ValueError("keep must be on the device of q")
 
@@ -188,9 +198,7 @@ def _cuda_args(q, k, v, num_heads, keep, extra=()):
     if keep is None:
         return b, sq, skv, d, (None, 1, 1), None
     nref = keep.shape[1]
-    span = skv // nref
-    if span % _BK:
-        raise ValueError(f"reference span {span} is not a multiple of {_BK}")
+    span = ref_span(skv, nref)
     keep32 = keep.to(torch.int32).contiguous()
     return b, sq, skv, d, (keep32.data_ptr(), nref, span), keep32
 

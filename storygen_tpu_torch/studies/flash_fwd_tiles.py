@@ -3,8 +3,7 @@ padded head dim on the card.
 
 Builds csrc/flash_fwd.cu once per candidate (BQ, 16-row halves per warp,
 cp.async ring stages), each into its own library whose only SG_BUILT lines
-are that candidate's (BK stays 64: every reference span of M is a multiple
-of it), one nvcc per candidate, all started together, under
+are that candidate's (BK, the K/V tile height, stays 64), one nvcc per candidate, all started together, under
 build/storygen_tpu_torch/tiles/. Then times each candidate, the built
 kernel (the `flash_fwd` / `flash_fwd_masked` wrappers) and SDPA as a
 yardstick on the UNet's 512 px attention shapes of that head dim, F and M,

@@ -1,0 +1,158 @@
+"""The tiles of kernels C, P (csrc/conv3x3.cu) and D (csrc/downconv3x3.cu),
+without a card: the Python tables of built instantiations against the
+sources' SG_BUILT lines, the shared memory and warp layout of every built
+and candidate tile, the wrappers' choice at the UNet's and the VAE's conv
+sites, a ValueError for a key that is not built, the tile study's rewrite
+of a source, and the study's CPU path at a tiny shape. The kernels
+themselves run only on the card (chip_smoke.py)."""
+import re
+
+import pytest
+
+from storygen_tpu_torch.ops import _build, conv, downconv
+from storygen_tpu_torch.studies import conv_tiles
+
+# a block's dynamic shared memory, and an SM's (each block takes 1 KB more)
+BLOCK_SMEM, SM_SMEM = 232448, 233472
+
+
+def _built_lines(src: str):
+    """The integer arguments of every SG_BUILT invocation (not the macro's
+    own definition)."""
+    out = []
+    for args in re.findall(r"^\s*SG_BUILT\(([^)]*)\)\s*$", src, re.M):
+        if any(a.strip().endswith("_") for a in args.split(",")):
+            continue
+        out.append(tuple(int(a) for a in args.split(",")))
+    return out
+
+
+def _table(src_name: str) -> dict:
+    lines = _built_lines((_build.CSRC / src_name).read_text())
+    table = {line[:5]: line[5:] for line in lines}
+    assert len(table) == len(lines)  # one line per key
+    return table
+
+
+def test_conv_built_matches_the_cuda_source():
+    assert _table("conv3x3.cu") == conv.CONV_BUILT
+
+
+def test_down_built_matches_the_cuda_source():
+    assert _table("downconv3x3.cu") == downconv.DOWN_BUILT
+
+
+def _check_tile(stride, tile):
+    """The static_asserts of conv_mma.cuh's ConvCfg and conv_launch."""
+    th, tw, bn, wm, wn, ck, stages, minb = tile
+    nt = 32 * wm * wn
+    assert tw % 8 == 0 and (th * tw) % (16 * wm) == 0
+    assert bn % (16 * wn) == 0 and ck % 16 == 0 and stages >= 2
+    assert nt % (ck // 8) == 0 and nt <= 1024
+    nbytes = conv_tiles.shared_bytes(stride, tile)
+    assert nbytes <= BLOCK_SMEM and minb * (nbytes + 1024) <= SM_SMEM
+
+
+@pytest.mark.parametrize("key", sorted(conv.CONV_BUILT)
+                         + sorted(downconv.DOWN_BUILT))
+def test_every_built_tile_fits_an_sm(key):
+    table = conv.CONV_BUILT if key[0] == 1 else downconv.DOWN_BUILT
+    _check_tile(key[0], table[key])
+
+
+@pytest.mark.parametrize("key", sorted(conv_tiles.CANDIDATES))
+def test_every_study_candidate_fits_an_sm(key):
+    for tile in conv_tiles.CANDIDATES[key]:
+        _check_tile(key[0], tile)
+
+
+@pytest.mark.parametrize("key", [k for k in sorted(conv.CONV_BUILT) if k[1]])
+def test_p_keeps_the_chunk_depth_of_c(key):
+    """P and C at the same site sum in one order (chunk, tap, 16-channel
+    step), so P equals C on the prologue applied beforehand bit for bit
+    (chip_smoke.py's P_VS_C_RTOL check)."""
+    c_key = key[:1] + (0,) + key[2:]
+    assert conv.CONV_BUILT[key][5] == conv.CONV_BUILT[c_key][5]
+
+
+# (prologue, Cin, Cout, W) of C and P at the 512 px UNet's and VAE's conv
+# sites, the conv's input gradient and a 256 px image's 4x4 mid block
+SITES = [(False, 4, 320, 64), (False, 320, 320, 64), (False, 960, 320, 64),
+         (False, 320, 960, 64), (False, 640, 640, 32), (False, 1280, 1280, 16),
+         (False, 1280, 1280, 8), (False, 2560, 1280, 8), (False, 320, 4, 64),
+         (False, 1280, 1280, 4), (False, 3, 128, 512), (False, 128, 3, 512),
+         (False, 256, 128, 512), (False, 512, 512, 64), (False, 512, 8, 64),
+         (True, 320, 320, 64), (True, 960, 320, 64), (True, 1280, 1280, 16),
+         (True, 2560, 1280, 8), (True, 128, 128, 512), (True, 512, 512, 128)]
+
+
+@pytest.mark.parametrize("pro, cin, cout, w", SITES)
+def test_conv_tile_choice_at_the_sites_is_built(pro, cin, cout, w):
+    key = conv.tile_key(1, pro, cin, cout, w)
+    assert key == (1, int(pro), int(cin % 8 != 0), int(cout > 16),
+                   0 if w <= 8 else 1 if w <= 16 else 2)
+    assert conv.conv_tile(pro, cin, cout, w) == conv.CONV_BUILT[key]
+
+
+# (H, W, Cin, Cout, pad) of D at the UNet's and the VAE encoder's sites
+DOWN_SITES = [(64, 64, 320, 320, (1, 1, 1, 1)), (32, 32, 640, 640, (1, 1, 1, 1)),
+              (16, 16, 1280, 1280, (1, 1, 1, 1)),
+              (512, 512, 128, 128, (0, 1, 0, 1)),
+              (256, 256, 256, 256, (0, 1, 0, 1)),
+              (128, 128, 512, 512, (0, 1, 0, 1))]
+
+
+@pytest.mark.parametrize("h, w, cin, cout, pad", DOWN_SITES)
+def test_down_tile_choice_at_the_sites_is_built(h, w, cin, cout, pad):
+    wo = downconv.out_size(h, w, pad)[1]
+    assert wo == w // 2
+    key = conv.tile_key(2, False, cin, cout, wo)
+    assert downconv.down_tile(cin, cout, wo) == downconv.DOWN_BUILT[key]
+
+
+@pytest.mark.parametrize("call", [
+    lambda: conv.conv_tile(True, 3, 320, 64),    # P on a 3-channel input
+    lambda: conv.conv_tile(True, 320, 4, 64),    # P with a narrow Cout
+    lambda: downconv.down_tile(4, 320, 32),      # D on a 4-channel input
+    lambda: downconv.down_tile(320, 8, 32),      # D with a narrow Cout
+    lambda: conv.pick_tile(conv.CONV_BUILT, (3, 0, 0, 1, 2))])
+def test_tile_choice_raises_for_an_unbuilt_key(call):
+    with pytest.raises(ValueError, match="no conv kernel built"):
+        call()
+
+
+@pytest.mark.parametrize("key", sorted(conv_tiles.CANDIDATES))
+def test_tile_study_rewrites_only_the_built_lines(key):
+    name = conv_tiles.SOURCES[key[0]]
+    src = (_build.CSRC / name).read_text()
+    tile = conv_tiles.CANDIDATES[key][0]
+    new = conv_tiles.candidate_source(key, tile)
+    assert _built_lines(new) == [key + tuple(tile)]
+    strip = re.compile(r"^\s*SG_BUILT\(\d[^)]*\)\s*\n", re.M)
+    assert strip.sub("", new) == strip.sub("", src)
+
+
+def test_tile_study_covers_every_key_of_its_shapes():
+    for name in conv_tiles.SHAPES:
+        key = conv_tiles.shape_key(name)
+        built = conv.CONV_BUILT if key[0] == 1 else downconv.DOWN_BUILT
+        assert key in built and key in conv_tiles.CANDIDATES
+        # the built tile is among the candidates it was chosen from
+        assert built[key] in conv_tiles.CANDIDATES[key]
+
+
+def test_tile_study_runs_the_plain_path_on_the_cpu(capsys):
+    shapes = [("tiny_c", "C", 1, 8, 8, 16, 24, False, True, None),
+              ("tiny_p", "P", 2, 6, 10, 16, 16, True, True, None),
+              ("tiny_d", "D", 1, 9, 7, 16, 24, False, False, (0, 1, 0, 1))]
+    conv_tiles.main(device="cpu", shapes=shapes, iters=1)
+    out = capsys.readouterr().out
+    for name, *_ in shapes:
+        for row in ("plain (cpu)", "built"):
+            line = next(x for x in out.splitlines()
+                        if x.startswith(name) and row in x)
+            assert "[cpu host clock]" in line
+            # the wrapper's CPU path is the plain version: same result
+            err = float(re.search(r"maxerr (\S+)", line).group(1))
+            assert err < 0.1
+    assert "FAILED" not in out

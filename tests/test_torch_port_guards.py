@@ -54,6 +54,7 @@ def test_port_imports_no_jax_or_flax():
         "import storygen_tpu_torch.studies.bench_attn_multihead, "
         "storygen_tpu_torch.studies.bench_attn_int8\n"
         "import storygen_tpu_torch.studies.bench_attn_int8_epilogue\n"
+        "import storygen_tpu_torch.studies.conv_tiles\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'storygen_tpu'))\n"
         "assert not bad, bad\n"
@@ -80,7 +81,8 @@ def test_nvcc_command_targets_sm90a_into_build_dir():
                                       "downconv3x3.cu", "study_online.cu",
                                       "study_bounded.cu", "study_qk.cu",
                                       "study_int8.cu"}
-    assert {p.name for p in _build.headers()} == {"study_mma.cuh"}
+    assert {p.name for p in _build.headers()} == {"study_mma.cuh",
+                                                  "conv_mma.cuh"}
     out = _build.lib_path(srcs)
     nvcc = "/usr/local/cuda/bin/nvcc"
     for src in srcs:
@@ -120,7 +122,7 @@ def test_source_hash_covers_the_shared_header(tmp_path, monkeypatch):
     "downconv.py", "study_attention.py", "study_int8.py", "flash_fwd.cu",
     "flash_bwd.cu", "geglu_matmul.cu", "conv3x3.cu", "downconv3x3.cu",
     "study_online.cu", "study_bounded.cu", "study_qk.cu", "study_int8.cu",
-    "study_mma.cuh"])
+    "study_mma.cuh", "conv_mma.cuh"])
 def test_kernel_modules_call_no_library_kernel(name):
     src = (PORT / ("ops" if name.endswith(".py") else "csrc") / name
            ).read_text()

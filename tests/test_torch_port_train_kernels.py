@@ -8,6 +8,10 @@ JAX package, fp32, tolerance 1e-4 (tests/torch_port_util.py):
   runs it (its backward is _lse_kernel/_dq_kernel/_dkv_kernel);
 - attn2's ragged 77-token kv, which no Pallas block tiles, against jax.grad
   of the XLA attention;
+- attn3 spans of 16 and 144 rows (the mid block at 256 and 768 px), which
+  straddle the kernels' 64-row K/V tiles, against jax.vjp of the
+  multi-head attention with ref_mask (its XLA path), and the span rule
+  (`ref_span`);
 - Conv3x3Fn and GegluMatmulFn against jax.vjp of pallas_conv.conv3x3 and
   pallas_geglu.geglu_matmul (interpret mode).
 The CUDA kernels themselves run only on the card (chip_smoke.py)."""
@@ -17,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from storygen_tpu.ops.attention import xla_attention
+from storygen_tpu.ops.attention import multi_head_attention, xla_attention
 from storygen_tpu.ops.pallas_attention import flash_attention as j_flash
 from storygen_tpu.ops.pallas_conv import conv3x3 as j_conv3x3
 from storygen_tpu.ops.pallas_geglu import geglu_matmul as j_geglu
@@ -132,6 +136,57 @@ def test_row_that_keeps_no_ref_gives_zeros():
     lse = fa.flash_lse(_seq(q).detach(), _seq(k).detach(), H, d ** -0.5,
                        torch.tensor(keep))
     assert torch.isneginf(lse[0]).all() and torch.isfinite(lse[1]).all()
+
+
+@pytest.mark.parametrize("span, sq, keep", [
+    # 256 px mid block: the three spans share one 64-row K/V tile
+    (16, 16, [[0, 1, 1], [1, 0, 1]]),
+    (16, 16, [[1, 1, 0], [0, 1, 0]]),
+    # 768 px mid block: tiles [128, 192) and [256, 320) straddle spans
+    (144, 32, [[0, 1, 1], [1, 0, 1]]),
+    (144, 32, [[1, 0, 0], [0, 1, 0]])])
+def test_unaligned_spans_match_the_xla_ref_mask(span, sq, keep):
+    """attn3 spans that are not a multiple of the kernels' 64-row K/V tile:
+    the port's forward and its L/DQ/DKV backward (plain versions) against
+    jax.vjp of the JAX package's multi-head attention with ref_mask, which
+    takes its XLA path with an elementwise kv mask."""
+    b, d = 2, 16
+    q, k, v = (rand(s, (b, H, n, d)) for s, n in ((70, sq), (71, 3 * span),
+                                                   (72, 3 * span)))
+    g = rand(73, (b, H, sq, d))
+
+    def seq(x):
+        return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(
+            x.shape[0], x.shape[2], H * d)
+
+    def j_mha(q, k, v):
+        out = multi_head_attention(seq(q), seq(k), seq(v), H,
+                                   ref_mask=jnp.asarray(keep, bool))
+        return out.reshape(b, sq, H, d).transpose(0, 2, 1, 3)
+
+    ref = _jax_grads(j_mha, q, k, v, g)
+    got = _port_grads(q, k, v, g, d, keep)
+    for name, r, p in zip(("out", "dq", "dk", "dv"), ref, got):
+        assert_close(r, p, msg=name)
+    for bi, row in enumerate(keep):  # a dropped span gets no gradient
+        for j, kept in enumerate(row):
+            if not kept:
+                sl = slice(j * span, (j + 1) * span)
+                assert not got[2][bi, :, sl].any()
+                assert not got[3][bi, :, sl].any()
+
+
+@pytest.mark.parametrize("skv, nref, span", [(48, 3, 16), (432, 3, 144),
+                                             (12288, 3, 4096), (192, 3, 64),
+                                             (7, 7, 1)])
+def test_span_rule_accepts_any_equal_split(skv, nref, span):
+    assert fa.ref_span(skv, nref) == span
+
+
+@pytest.mark.parametrize("skv, nref", [(50, 3), (48, 0), (0, 3), (2, 3)])
+def test_span_rule_raises_without_an_equal_split(skv, nref):
+    with pytest.raises(ValueError, match="equal reference spans"):
+        fa.ref_span(skv, nref)
 
 
 @pytest.mark.parametrize("per_batch_bias", [True, False])
