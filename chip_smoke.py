@@ -14,15 +14,18 @@ stride-2 conv on kernel D):
                512 px shapes of the main paths (serving and stage-2
                training), M, L, DQ and DKV also at the mid block's
                reference spans of a 256 and a 768 px image (16 and 144
-               tokens, which straddle the kernels' 64-row K/V tiles), C, P
+               tokens, which straddle the kernels' 64-row K/V tiles), F,
+               L, DQ and DKV also at a ragged 1000 x 333 shape, C, P
                and D also at the tiles of 16- and 8-column images and C at
                the input gradient's shape, and P also against kernel C run
                on the prologue already applied, with CUDA-event times for
                the kernel, its plain version and, where one PyTorch call
                computes the same function, that call (timed only, as a
                yardstick; the port never calls it), beside the kernel's
-               bound, and for F, M, C, P and D their rate in TFLOP/s and
-               (but P) their factor over SDPA or cuDNN;
+               bound, for F, M, DQ, DKV, C, P and D their rate in TFLOP/s,
+               for F, M, C and D their factor over SDPA or cuDNN, and for
+               each backward case SDPA's backward alone (its forward run
+               outside the timed calls) and DQ+DKV's factor over it;
   models       in each configuration: one full-width UNet image-cycle pass
                (512 px, 3 refs) and one 512 px VAE encode and decode,
                kernel path against the plain path on the card, compared
@@ -121,7 +124,7 @@ KERNEL_META = {
         "route": "cuda", "source": "storygen_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "storygen_tpu/ops/pallas_attention.py:157"},
     "flash_lse": {
-        "route": "cuda", "source": "storygen_tpu_torch/csrc/flash_bwd.cu",
+        "route": "cuda", "source": "storygen_tpu_torch/csrc/flash_lse.cu",
         "replaces": "storygen_tpu/ops/pallas_attention.py:526"},
     "flash_dq": {
         "route": "cuda", "source": "storygen_tpu_torch/csrc/flash_bwd.cu",
@@ -146,8 +149,10 @@ KERNEL_META = {
 # the serving and training paths' nine kernels
 PORT_KERNELS = tuple(KERNEL_META)
 # the kernels whose rate the kernels phase prints, with the library call
-# that their factor is taken over
+# that their factor is taken over (None: DQ and DKV, whose sum is held
+# against SDPA's backward alone)
 RATED = {"flash_fwd": "SDPA", "flash_fwd_masked": "SDPA",
+         "flash_dq": None, "flash_dkv": None,
          "conv3x3": "cuDNN", "gnconv3x3": "cuDNN", "downconv3x3": "cuDNN"}
 STUDY_SOURCES = {"online": "storygen_tpu_torch/csrc/study_online.cu",
                  "bounded": "storygen_tpu_torch/csrc/study_bounded.cu",
@@ -242,14 +247,16 @@ class Case:
     operations and bytes the function needs (unpadded shapes, kept spans
     only, each input read once and each output written once). `twin`, if
     given, is a second reference that the kernel must match within
-    P_VS_C_RTOL (kernel C on P's prologue applied beforehand)."""
+    P_VS_C_RTOL (kernel C on P's prologue applied beforehand).
+    `backward`, for DQ and DKV, makes SDPA's backward alone on the case's
+    inputs: it runs SDPA's forward once and returns the call to time."""
 
     def __init__(self, name, label, kern, plain, oracle, library, flops,
-                 nbytes, twin=None):
+                 nbytes, twin=None, backward=None):
         self.name, self.label = name, label
         self.kern, self.plain, self.oracle = kern, plain, oracle
         self.library, self.flops, self.nbytes = library, flops, nbytes
-        self.twin = twin
+        self.twin, self.backward = twin, backward
 
 
 def _attn_cases(dev, rnd):
@@ -320,7 +327,11 @@ def _attn_cases(dev, rnd):
            ("attn1 mid", 4, 64, 64, 160, None),
            ("masked attn3 mid 256px", 4, 16, 48, 160, KEEP),
            ("masked attn3 mid 768px", 4, 144, 432, 160, KEEP),
-           ("masked none kept", 2, 256, 768, 80, NONE_KEPT)]
+           ("masked none kept", 2, 256, 768, 80, NONE_KEPT),
+           # Sq and Skv that no tile divides: the last Q and K/V tiles of
+           # DQ and DKV are partial on both sides
+           ("ragged", 2, 1000, 333, 40, None),
+           ("ragged", 2, 1000, 333, 160, None)]
     for label, b, sq, skv, d, table in bwd:
         q, k, v = rnd(b, sq, 8 * d), rnd(b, skv, 8 * d), rnd(b, skv, 8 * d)
         dout = rnd(b, sq, 8 * d)
@@ -341,6 +352,15 @@ def _attn_cases(dev, rnd):
             o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                scale=sc)
             o.backward(split_heads(dout, 8))
+
+        def sdpa_bwd(q=q, k=k, v=v, dout=dout, sc=sc, mask=mask):
+            qh, kh, vh = (split_heads(t, 8).detach().requires_grad_()
+                          for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                               scale=sc)
+            g = split_heads(dout, 8)
+            return lambda: torch.autograd.grad(o, (qh, kh, vh), g,
+                                               retain_graph=True)
 
         tag = f"{label} B{b} {sq}x{skv} d{d}"
         qb, kvb = 2.0 * b * sq * 8 * d, 2.0 * rows * 8 * d  # bf16 bytes
@@ -363,7 +383,8 @@ def _attn_cases(dev, rnd):
                      *a, 8, sc, keep),
                  lambda a=f32, sc=sc, keep=keep: fa.flash_dq_plain(
                      *a, 8, sc, keep),
-                 sdpa_fwd_bwd, 3 * mm, 3 * qb + 2 * kvb + 2 * rowb),
+                 sdpa_fwd_bwd, 3 * mm, 3 * qb + 2 * kvb + 2 * rowb,
+                 backward=sdpa_bwd),
             Case("flash_dkv", tag,
                  lambda a=args, sc=sc, keep=keep: fa.flash_dkv(
                      *a, 8, sc, keep),
@@ -372,7 +393,8 @@ def _attn_cases(dev, rnd):
                  lambda a=f32, sc=sc, keep=keep: fa.flash_dkv_plain(
                      *a, 8, sc, keep),
                  sdpa_fwd_bwd, 4 * mm,
-                 2 * qb + 2 * kvb + 2 * kv_out + 2 * rowb)]
+                 2 * qb + 2 * kvb + 2 * kv_out + 2 * rowb,
+                 backward=sdpa_bwd)]
     return cases
 
 
@@ -532,6 +554,8 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
     torch.backends.cuda.matmul.allow_tf32 = False
     ok = True
     library_ms = {}  # the backward's three kernels share one yardstick
+    backward_ms = {}  # SDPA's backward alone, per backward case
+    dq_ms = {}  # DQ's time per backward case, for DQ+DKV's factor
     for c in kernel_cases(dev):
         with torch.no_grad():
             outs = [o.float() for o in _as_tuple(c.kern())]
@@ -572,19 +596,34 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
             if c.library not in library_ms:
                 library_ms[c.library] = cuda_ms(c.library, 5)
             lib_ms = library_ms[c.library]
+        bwd_ms = None
+        if c.backward is not None:
+            if c.label not in backward_ms:
+                call = c.backward()
+                backward_ms[c.label] = cuda_ms(call, 5)
+                del call
+            bwd_ms = backward_ms[c.label]
         b_ms, b_by = bound_ms(c.flops, c.nbytes)
         ok &= good
         lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
-        # the rate of F, M, C, P and D, and their factor over SDPA or cuDNN
-        # on the same inputs (none for P)
-        rate = vs_lib = None
+        # the rate of F, M, DQ, DKV, C, P and D, and the factor of F, M, C
+        # and D over SDPA or cuDNN on the same inputs; DQ+DKV's factor over
+        # SDPA's backward alone on the DKV line
+        rate = vs_lib = vs_bwd = None
         fwd_line = ""
         if c.name in RATED:
             rate = c.flops / ms / 1e9
             fwd_line = f"  {rate:.1f} TFLOP/s"
-            if lib_ms is not None:
+            if lib_ms is not None and RATED[c.name] is not None:
                 vs_lib = ms / lib_ms
                 fwd_line = f"  {vs_lib:.2f}x {RATED[c.name]}" + fwd_line
+        if c.name == "flash_dq":
+            dq_ms[c.label] = ms
+        if bwd_ms is not None:
+            fwd_line += f"  SDPA backward {bwd_ms:.4f} ms"
+            if c.name == "flash_dkv" and c.label in dq_ms:
+                vs_bwd = (dq_ms[c.label] + ms) / bwd_ms
+                fwd_line += f", DQ+DKV {vs_bwd:.2f}x it"
         print(f"kernel {c.name:16s} {c.label:38s} max_abs_err {err:.3e} "
               f"(bound {bound:.3e}) {'ok' if good else 'FAIL'};{twin_line}  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  "
@@ -607,7 +646,9 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
                            "bound_ms": b_ms, "bound_by": b_by,
                            "library_ms": lib_ms,
                            "max_abs_err_vs_c": twin_err, "tflops": rate,
-                           "vs_library": vs_lib})
+                           "vs_library": vs_lib,
+                           "sdpa_backward_ms": bwd_ms,
+                           "dq_dkv_vs_sdpa_backward": vs_bwd})
     for r in results.values():  # the bound of the kernel's summed cases
         r["bound_by"] = max(r["cases"], key=lambda x: x["bound_ms"])[
             "bound_by"]

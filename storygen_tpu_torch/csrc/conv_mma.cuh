@@ -52,24 +52,6 @@ namespace sg_conv {
 
 using namespace sg_study;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's copy groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // silu(v * a + s) in fp32, each step rounded as PyTorch's eager ops round it
 __device__ __forceinline__ float silu_affine(float v, float a, float s) {
   const float z = __fadd_rn(__fmul_rn(v, a), s);

@@ -1,170 +1,100 @@
-// Flash-attention backward for Hopper (sm_90a): three kernels that follow
-// the split of the TPU backward in storygen_tpu/ops/pallas_attention.py
-// (_pallas_bwd_with_out, reached through _core_bwd):
+// Flash-attention backward for Hopper (sm_90a): the gradient kernels DQ
+// and DKV, one template each. With P = exp(scale q.k - lse) and
+// dS = P * (dO V^T - delta):
 //
-//   L    flash_lse_kernel  replaces _lse_kernel: the forward's row
-//        logsumexp, lse = log sum_k exp(s * q.k), recomputed over K tiles;
-//   DQ   flash_dq_kernel   replaces _dq_kernel: per 64-row Q tile, a loop
-//        over K/V tiles accumulating dQ = scale * sum_k dS K, with
-//        P = exp(s q.k - lse), dP = dO V^T, dS = P * (dP - delta);
-//   DKV  flash_dkv_kernel  replaces _dkv_kernel: per 64-row K/V tile, a
-//        loop over Q tiles accumulating dV = P^T dO and dK = scale dS^T Q.
+//   DQ   flash_dq_kernel   replaces _dq_kernel of the TPU backward in
+//        storygen_tpu/ops/pallas_attention.py (:558, its pallas_call :685):
+//        dQ = scale * dS K, per block of Q rows, over the K/V tiles;
+//   DKV  flash_dkv_kernel  replaces _dkv_kernel (:593, pallas_call :698):
+//        dV = P^T dO and dK = scale * dS^T Q, per block of K/V rows, over
+//        the Q tiles, in the transposed form the TPU kernel uses (s_t).
 //
-// delta = rowsum(dO * O) is computed by the caller in fp32 (plain torch,
-// as the JAX package computes it in XLA). Because dQ and dK/dV each own
-// their output tile and loop over the other side, no atomics are needed.
+// lse comes from kernel L (flash_lse.cu) and delta = rowsum(dO * O) from
+// the caller in fp32 (plain torch, as the JAX package computes it in XLA).
+// Each kernel owns its output tile and loops over the other side, so there
+// are no atomics and the result is deterministic.
 //
-// What bounds it on the H100: like the forward, the (Sq, Skv) logits are
-// 16-48x larger than Q, K, V, dO and the gradients together at the UNet's
-// level-1 shapes, so kernels that keep S, P, dP and dS in shared memory are
-// bound by tensor-core work: L does 1 product of Q K^T per tile, DQ 3
-// (S, dP, dS K) and DKV 4 (S^T, dP^T, P^T dO, dS^T Q). The design recomputes
-// P in each kernel rather than storing it.
+// What bounds them on the H100: tensor-core work. DQ does 3 products per
+// (Q row, kept K/V row) pair (S, dP and dS K) and DKV 4 (S^T, dP^T, P^T dO
+// and dS^T Q), 2 D operations each, and one exp2 per pair. At the UNet's
+// 4096 x 4096 and 4096 x 12288 shapes the (Sq, Skv) logits are 16-48x
+// larger than Q, K, V, dO and the gradients together, so kernels that keep
+// S, P, dP and dS on chip are not bound by HBM.
 //
-// Layout and numerics as in the forward (flash_fwd.cu): one block of 4
-// warps per (64-row tile, head, batch), each warp owning 16 rows of the
-// block's own tile, so the softmax-side elementwise work needs only warp
-// synchronisation. bf16 WMMA with fp32 accumulation; accumulators in fp32
-// shared memory. P and dS are rounded to bf16 as the A operands of their
-// products, as the TPU kernels cast them. Head dim 40 is zero-padded to 48
-// in shared memory only. Rows past Skv (attn2's 77 text tokens) load as
-// zeros, get P = 0 in DQ and are never written by DKV; rows past Sq get
-// P = 0 in DKV (lse = +inf) and are never written by DQ. With `keep`
-// (B, N refs) over N equal spans of any length, L and DQ skip a K/V tile
-// whose rows all lie in dropped spans, and DKV writes zeros for such a tile
-// without loading anything. A tile that straddles a span boundary (spans
-// of 16 or 144 rows at the mid block of a 256 or 768 px image) is loaded,
-// and P is 0 at its rows in dropped spans: L and DQ take nothing from them,
-// and DKV writes zero dK and dV there. That is an instantiation of its own
-// (STRADDLE), chosen at launch: spans that are multiples of 64 rows (the
-// 512 px UNet) run the code that tests one flag per tile and does no
-// per-row work. Inputs are read from the projections' (B, S, H*D) layout
-// through batch and row strides; dQ, dK, dV are written as (B, S, H*D).
-// Simple first: no cp.async pipelining, wgmma or TMA yet.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// What the design does about it (flash_fwd.cu's, on study_mma.cuh):
+// - S, P, dP and dS live in registers. Each warp owns one 16-row slice of
+//   the block's BR rows: DQ's Q rows, DKV's K/V rows. S = Q K^T and
+//   dP = dO V^T (DKV: S^T = K Q^T, dP^T = V dO^T) are mma.sync m16n8k16
+//   products (bf16 in, fp32 accumulation) with ldmatrix fragment loads;
+//   P = exp2(s scale log2(e) - lse log2(e)) and dS = P (dP - delta) are
+//   computed in the accumulators, and their bf16 pairs are the A fragments
+//   of dQ += dS K (DKV: dV += P^T dO, dK += dS^T Q), whose B operand a
+//   transposing ldmatrix reads. dQ, dK and dV are fp32 register
+//   accumulators, scaled and written once as bf16. DKV's lse and delta are
+//   per column: they arrive with each Q tile as two fp32 rows.
+// - The other side's tiles of BC rows arrive through a ring of STAGES
+//   shared buffers filled by cp.async (16-byte copies of bf16 rows, 4-byte
+//   copies of the fp32 rows): the copies of the next tile start before the
+//   current tile's products, one barrier per tile. The copy zero-fills rows
+//   past Skv or Sq and columns past D itself (src-size 0, reading nothing),
+//   so head dim 40 runs as 48 in shared memory only. The block's own two
+//   tiles take the same path once. Rows are an odd number of 16-byte units
+//   apart, so ldmatrix is free of bank conflicts.
+// - Registers are the limit: at d = 160, dQ holds 80 floats per thread and
+//   dK plus dV 160. AREG chooses whether a warp holds its A fragments (Q
+//   and dO in DQ, K and V in DKV; DP / 4 registers each) or reads them from
+//   shared memory at each product, and BC how many logits a warp holds per
+//   tile. The SG_BUILT lines below, chosen by studies/flash_bwd_tiles.py
+//   and mirrored by BWD_BUILT in ops/flash_attention.py, give each kernel
+//   and padded head dim its tile; no built instantiation spills.
+//
+// Edges and masking: columns past Skv (attn2's 77 text tokens) get P = 0
+// in DQ; Q rows past Sq get P = 0 in DKV; rows past Sq or Skv are not
+// written. With `keep` (B, N refs) over N equal spans of any length, DQ's
+// ring walks only the K/V tiles that hold a kept row, and DKV writes zeros
+// for a block whose rows all lie in dropped spans without loading
+// anything. A tile that straddles a span boundary (spans of 16 or 144 rows
+// at the mid block of a 256 or 768 px image) sets P = 0 in registers at
+// its dropped columns (DQ) or rows (DKV); that is an instantiation of its
+// own (STRADDLE), chosen at launch, so spans that are multiples of the K/V
+// tile (the 512 px UNet) test one flag per tile. A row that keeps no span
+// gets exact zeros. Inputs are read from the projections' (B, S, H*D)
+// layout through batch and row strides (dO contiguous); dQ, dK, dV are
+// written as (B, S, H*D).
+//
+// Not yet: wgmma, TMA and warp specialisation; kernel L is still the first
+// WMMA design (flash_lse.cu).
 #include <math.h>
-#include <mma.h>
-#include <stdint.h>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "study_mma.cuh"
+
+using namespace sg_study;
 
 namespace {
 
-constexpr int BT = 64;  // rows per tile, on both sides
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
 constexpr float LOG2E = 1.4426950408889634f;
 
-__host__ __device__ constexpr int align128(int x) { return (x + 127) / 128 * 128; }
+enum Which { kDq = 1, kDkv = 2 };
 
-// Shared-memory layout: `bt` bf16 (BT, DP) tiles, `sf` fp32 (BT, BT) score
-// tiles, `sb` bf16 (BT, BT) operand tiles, `acc` fp32 (BT, DP) accumulators
-// and two fp32 rows of BT scalars.
-template <int DP, int NT, int NSF, int NSB, int NACC>
-struct Smem {
-  static constexpr int tile = align128(BT * DP * 2);
-  static constexpr int sf = align128(BT * BT * 4);
-  static constexpr int sb = align128(BT * BT * 2);
-  static constexpr int acc = align128(BT * DP * 4);
-  static constexpr int t0 = 0;
-  static constexpr int sf0 = t0 + NT * tile;
-  static constexpr int sb0 = sf0 + NSF * sf;
-  static constexpr int acc0 = sb0 + NSB * sb;
-  static constexpr int row0 = acc0 + NACC * acc;
-  static constexpr int bytes = row0 + 2 * align128(BT * 4);
+// BR: the block's own rows (DQ: Q rows; DKV: K/V rows), 16 per warp; BC:
+// the rows of one tile of the other side, streamed through the ring.
+template <int DP, int BR, int BC, int STAGES>
+struct Cfg {
+  static constexpr int NT = 32 * BR / 16;  // threads
+  static constexpr int PITCH = pitch_bytes(DP * 2);
+  static constexpr int CPR = DP * 2 / 16;  // 16-byte chunks per row
+  static constexpr int OWN = align128(BR * PITCH);   // one own tile
+  static constexpr int TILE = align128(BC * PITCH);  // one streamed tile
+  static constexpr int ROW = align128(BC * 4);       // one fp32 row (DKV)
+  static constexpr int DQ_STAGE = 2 * TILE;              // K, V
+  static constexpr int DKV_STAGE = 2 * TILE + 2 * ROW;   // Q, dO, lse, delta
+  static constexpr int DQ_BYTES = 2 * OWN + STAGES * DQ_STAGE;
+  static constexpr int DKV_BYTES = 2 * OWN + STAGES * DKV_STAGE;
 };
-template <int DP> using LseSmem = Smem<DP, 2, 1, 0, 0>;
-template <int DP> using DqSmem = Smem<DP, 4, 2, 1, 1>;
-template <int DP> using DkvSmem = Smem<DP, 4, 2, 2, 2>;
-
-// Copy rows [row0, row0 + BT) x [0, D) of a strided bf16 matrix into a
-// (BT, DP) shared tile; rows past `nrows` and columns past D become zero.
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long rs, int row0, int nrows,
-                                          int D) {
-  constexpr int CPR = DP / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < BT * CPR; idx += NTHREADS) {
-    const int r = idx / CPR, c = (idx % CPR) * 8;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < nrows && c < D)
-      val = *reinterpret_cast<const uint4*>(src + (long long)gr * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * DP + c) = val;
-  }
-}
-
-template <int DP>
-__device__ __forceinline__ void zero_acc(float* acc) {
-  for (int i = threadIdx.x; i < BT * DP; i += NTHREADS) acc[i] = 0.f;
-}
-
-// C[wr:wr+16, 0:BT] = A[wr:wr+16, :] B^T over a DP-deep contraction, A and
-// B both (BT, DP) row-major bf16 tiles; C fp32 with row stride BT.
-template <int DP>
-__device__ __forceinline__ void warp_abt(float* C, const bf16* A,
-                                         const bf16* B, int wr) {
-#pragma unroll
-  for (int j = 0; j < BT / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kc = 0; kc < DP / 16; ++kc) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-      wmma::load_matrix_sync(a, A + wr * DP + kc * 16, DP);
-      wmma::load_matrix_sync(bt, B + j * 16 * DP + kc * 16, DP);
-      wmma::mma_sync(acc, a, bt, acc);
-    }
-    wmma::store_matrix_sync(C + wr * BT + j * 16, acc, BT,
-                            wmma::mem_row_major);
-  }
-}
-
-// Acc[wr:wr+16, 0:DP] += P[wr:wr+16, 0:BT] X, P a (BT, BT) row-major bf16
-// tile and X a (BT, DP) row-major bf16 tile; Acc fp32 with row stride DP.
-template <int DP>
-__device__ __forceinline__ void warp_acc_px(float* Acc, const bf16* P,
-                                            const bf16* X, int wr) {
-#pragma unroll
-  for (int dt = 0; dt < DP / 16; ++dt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, Acc + wr * DP + dt * 16, DP,
-                           wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bx;
-      wmma::load_matrix_sync(a, P + wr * BT + kk * 16, BT);
-      wmma::load_matrix_sync(bx, X + kk * 16 * DP + dt * 16, DP);
-      wmma::mma_sync(acc, a, bx, acc);
-    }
-    wmma::store_matrix_sync(Acc + wr * DP + dt * 16, acc, DP,
-                            wmma::mem_row_major);
-  }
-}
-
-// Write rows [row0, row0 + BT) of acc * mul as bf16 into (B, S, H*D).
-template <int DP>
-__device__ __forceinline__ void store_rows(bf16* out, const float* acc,
-                                           float mul, int b, int h, int H,
-                                           int S, int D, int row0) {
-  const long long rs = (long long)H * D;
-  for (int idx = threadIdx.x; idx < BT * D; idx += NTHREADS) {
-    const int r = idx / D, c = idx % D;
-    const int gr = row0 + r;
-    if (gr < S)
-      out[((long long)b * S + gr) * rs + (long long)h * D + c] =
-          __float2bfloat16(acc[r * DP + c] * mul);
-  }
-}
 
 struct Args {
   const bf16 *q, *k, *v, *dout;
   const float *lse, *delta;
-  float* lse_out;
   bf16 *dq, *dk, *dv;
   int H, Sq, Skv, D;
   long long qb, qr, kb, kr, vb, vr;  // batch and row strides of q, k, v
@@ -173,259 +103,390 @@ struct Args {
   float scale, scale_log2;
 };
 
-// Does any of the K/V tile's rows [k0, k0 + BT) below Skv lie in a kept
-// span? Without STRADDLE every span is a multiple of BT rows and one flag
-// holds for the tile.
-template <bool STRADDLE>
-__device__ __forceinline__ bool tile_kept(const Args& a, int b, int k0) {
-  const int* kp = a.keep + b * a.nref;
-  if (!STRADDLE) return kp[k0 / a.span] != 0;
-  const int last = (min(k0 + BT, a.Skv) - 1) / a.span;
-  for (int r = k0 / a.span; r <= last; ++r)
-    if (kp[r]) return true;
-  return false;
+// 4-byte cp.async copy (zero-filled where src_bytes is 0)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
 }
 
-// Do the K/V tile's rows lie in more than one span (then each row has its
-// own flag)?
-__device__ __forceinline__ bool tile_straddles(const Args& a, int k0) {
-  return k0 / a.span != (min(k0 + BT, a.Skv) - 1) / a.span;
-}
-
-// Is kv row `row` below Skv and in a kept span?
-__device__ __forceinline__ bool row_kept(const Args& a, int b, int row) {
-  return row < a.Skv && a.keep[b * a.nref + row / a.span] != 0;
-}
-
-// ----------------------------------------------------------------- L
-template <int DP, bool MASKED, bool STRADDLE>
-__global__ void __launch_bounds__(NTHREADS) flash_lse_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using L = LseSmem<DP>;
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::t0);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::t0 + L::tile);
-  float* Ss = reinterpret_cast<float*>(smem + L::sf0);
-  float* Ms = reinterpret_cast<float*>(smem + L::row0);
-  float* Ls = Ms + align128(BT * 4) / 4;
-
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp * 16;
-  load_tile<DP>(Qs, a.q + b * a.qb + (long long)h * a.D, a.qr, q0, a.Sq,
-                a.D);
-  for (int i = threadIdx.x; i < BT; i += NTHREADS) {
-    Ms[i] = -INFINITY;
-    Ls[i] = 0.f;
-  }
-  const bf16* kbase = a.k + b * a.kb + (long long)h * a.D;
-  for (int k0 = 0; k0 < a.Skv; k0 += BT) {
-    if (MASKED && !tile_kept<STRADDLE>(a, b, k0)) continue;
-    load_tile<DP>(Ks, kbase, a.kr, k0, a.Skv, a.D);
-    __syncthreads();
-    warp_abt<DP>(Ss, Qs, Ks, wr);
-    __syncwarp();
-    // this lane's two columns: below Skv, and kept where the tile straddles
-    const int kvalid = min(BT, a.Skv - k0);
-    const bool mixed = STRADDLE && tile_straddles(a, k0);
-    const bool ok0 = mixed ? row_kept(a, b, k0 + lane) : lane < kvalid;
-    const bool ok1 =
-        mixed ? row_kept(a, b, k0 + lane + 32) : lane + 32 < kvalid;
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr + r;
-      const float s0 = ok0 ? Ss[row * BT + lane] * a.scale_log2 : -INFINITY;
-      const float s1 =
-          ok1 ? Ss[row * BT + lane + 32] * a.scale_log2 : -INFINITY;
-      float mx = fmaxf(s0, s1);
+// Start the copies of entries [row0, row0 + BC) of two fp32 rows `x` and
+// `y` of length n into `dx` and `dy`; entries past n become 0.
+template <int BC, int NT>
+__device__ __forceinline__ void copy_rows2(float* dx, float* dy,
+                                           const float* x, const float* y,
+                                           int row0, int n, int tid) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = Ms[row];
-      // finite: a processed tile holds a kept column below Skv
-      const float m_new = fmaxf(m_old, mx);
-      float sum = exp2f(s0 - m_new) + exp2f(s1 - m_new);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = m_old == -INFINITY ? 0.f : exp2f(m_old - m_new);
-      __syncwarp();
-      if (lane == 0) {
-        Ms[row] = m_new;
-        Ls[row] = Ls[row] * alpha + sum;
-      }
-      __syncwarp();
+  for (int i = 0; i < (2 * BC + NT - 1) / NT; ++i) {
+    const int idx = tid + i * NT;
+    if ((2 * BC) % NT == 0 || idx < 2 * BC) {
+      const int r = idx % BC;
+      const bool in = row0 + r < n;
+      const float* src = idx < BC ? x : y;
+      cp_async4((idx < BC ? dx : dy) + r, in ? src + row0 + r : src,
+                in ? 4 : 0);
     }
-    __syncthreads();  // the K tile is overwritten next iteration
   }
-  // natural-log units; -inf for a row that kept no tile
-  for (int i = threadIdx.x; i < BT; i += NTHREADS)
-    if (q0 + i < a.Sq)
-      a.lse_out[((long long)b * a.H + h) * a.Sq + q0 + i] =
-          Ls[i] > 0.f ? (Ms[i] + log2f(Ls[i])) / LOG2E : -INFINITY;
+}
+
+// S (16 x 8 NTL tiles) += A B^T for a warp: A's 16 rows x DP from its
+// registers `a` (AREG) or from the shared rows at `arows`, B's NTL * 8
+// rows from `brows`, both at pitch PITCH.
+template <int KS, int NTL, int PITCH, bool AREG>
+__device__ __forceinline__ void abt(float (&s)[NTL][4],
+                                    const uint32_t (&a)[AREG ? KS : 1][4],
+                                    const unsigned char* arows,
+                                    const unsigned char* brows, int lane) {
+  if constexpr (AREG) {
+    qk_bf16<KS, NTL>(s, a, brows, PITCH, lane);
+  } else {
+    const unsigned char* pa = arows +
+                              (lane % 8 + 8 * ((lane / 8) % 2)) * PITCH +
+                              16 * (lane / 16);
+    const unsigned char* pb =
+        brows + (lane % 8 + 8 * (lane / 16)) * PITCH + 16 * ((lane / 8) % 2);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t af[4];
+      ldsm_x4(af, pa + 32 * kk);
+#pragma unroll
+      for (int j = 0; j < NTL; j += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, pb + j * 8 * PITCH + 32 * kk);
+        mma_bf16(s[j], af, b[0], b[1]);
+        mma_bf16(s[j + 1], af, b[2], b[3]);
+      }
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
+}
+
+// Write a warp's 16 rows (first row `row0` of the S rows) of acc * mul as
+// bf16 pairs into a (B, S, H*D) output whose head starts at `out`.
+template <int DT>
+__device__ __forceinline__ void store_acc(bf16* out, long long rs, int row0,
+                                          int S, int D,
+                                          const float (&acc)[DT][4],
+                                          float mul, int lane) {
+  const int grp = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + grp + 8 * r;
+    if (row < S) {
+      bf16* orow = out + row * rs;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        const int c = 8 * j + 2 * tq;
+        if (c < D)
+          *reinterpret_cast<uint32_t*>(orow + c) =
+              pack_bf16(acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
+      }
+    }
+  }
 }
 
 // ----------------------------------------------------------------- DQ
-template <int DP, bool MASKED, bool STRADDLE>
-__global__ void __launch_bounds__(NTHREADS) flash_dq_kernel(Args a) {
+template <int DP, int BR, int BC, int STAGES, bool AREG, bool MASKED,
+          bool STRADDLE>
+__global__ void __launch_bounds__(Cfg<DP, BR, BC, STAGES>::NT)
+flash_dq_kernel(const Args a) {
+  using C = Cfg<DP, BR, BC, STAGES>;
+  constexpr int KS = DP / 16, NTK = BC / 8, DT = DP / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  using L = DqSmem<DP>;
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::t0);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::t0 + L::tile);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::t0 + 2 * L::tile);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::t0 + 3 * L::tile);
-  float* Ss = reinterpret_cast<float*>(smem + L::sf0);
-  float* dPs = reinterpret_cast<float*>(smem + L::sf0 + L::sf);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + L::sb0);
-  float* dQacc = reinterpret_cast<float*>(smem + L::acc0);
-  float* lse_s = reinterpret_cast<float*>(smem + L::row0);
-  float* delta_s = lse_s + align128(BT * 4) / 4;
-
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp * 16;
+  unsigned char* qs = smem;            // the block's Q rows
+  unsigned char* dos = smem + C::OWN;  // and dO rows
+  unsigned char* ring = smem + 2 * C::OWN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = lane / 4, tq = lane % 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BR;
+  const int wrow = warp * 16;  // this warp's first row in the block
   const long long hd = (long long)h * a.D;
-  const long long dob = (long long)a.Sq * a.H * a.D;  // dO is contiguous
-  load_tile<DP>(Qs, a.q + b * a.qb + hd, a.qr, q0, a.Sq, a.D);
-  load_tile<DP>(dOs, a.dout + b * dob + hd, (long long)a.H * a.D, q0, a.Sq,
-                a.D);
-  zero_acc<DP>(dQacc);
-  const long long rb = ((long long)b * a.H + h) * a.Sq;
-  for (int i = threadIdx.x; i < BT; i += NTHREADS) {
-    const bool ok = q0 + i < a.Sq;
-    lse_s[i] = ok ? a.lse[rb + q0 + i] * LOG2E : 0.f;
-    delta_s[i] = ok ? a.delta[rb + q0 + i] : 0.f;
-  }
-  const bf16* kbase = a.k + b * a.kb + hd;
-  const bf16* vbase = a.v + b * a.vb + hd;
-  for (int k0 = 0; k0 < a.Skv; k0 += BT) {
-    if (MASKED && !tile_kept<STRADDLE>(a, b, k0)) continue;
-    load_tile<DP>(Ks, kbase, a.kr, k0, a.Skv, a.D);
-    load_tile<DP>(Vs, vbase, a.vr, k0, a.Skv, a.D);
-    __syncthreads();
-    warp_abt<DP>(Ss, Qs, Ks, wr);    // S = Q K^T
-    warp_abt<DP>(dPs, dOs, Vs, wr);  // dP = dO V^T
-    __syncwarp();
-    // this lane's two columns: below Skv, and kept where the tile straddles
-    const int kvalid = min(BT, a.Skv - k0);
-    const bool mixed = STRADDLE && tile_straddles(a, k0);
-    const bool ok0 = mixed ? row_kept(a, b, k0 + lane) : lane < kvalid;
-    const bool ok1 =
-        mixed ? row_kept(a, b, k0 + lane + 32) : lane + 32 < kvalid;
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr + r;
-      for (int c = lane; c < BT; c += 32) {
-        const float p =
-            (c < 32 ? ok0 : ok1)
-                ? exp2f(Ss[row * BT + c] * a.scale_log2 - lse_s[row])
-                : 0.f;
-        dSs[row * BT + c] =
-            __float2bfloat16(p * (dPs[row * BT + c] - delta_s[row]));
-      }
+  const long long drs = (long long)a.H * a.D;  // dO's and dQ's row stride
+  const bf16* kh = a.k + b * a.kb + hd;
+  const bf16* vh = a.v + b * a.vb + hd;
+  const int ntiles = (a.Skv + BC - 1) / BC;
+  const int* kp = MASKED ? a.keep + b * a.nref : a.keep;
+  const int tps = a.span / BC;  // K/V tiles per reference span (aligned)
+  // the spans of tile t's first and last kv row (STRADDLE)
+  auto first_span = [&](int t) { return t * BC / a.span; };
+  auto last_span = [&](int t) { return (min(t * BC + BC, a.Skv) - 1) / a.span; };
+  // does tile t hold a kept kv row (block-uniform)
+  auto kept = [&](int t) {
+    if constexpr (!STRADDLE) return kp[t / tps] != 0;
+    for (int r = first_span(t); r <= last_span(t); ++r)
+      if (kp[r]) return true;
+    return false;
+  };
+  // the first tile at or after t that holds a kept row
+  auto next_kept = [&](int t) {
+    if (MASKED)
+      while (t < ntiles && !kept(t)) ++t;
+    return t;
+  };
+  auto fetch = [&](int t, int stage) {
+    unsigned char* ks = ring + stage * C::DQ_STAGE;
+    copy_tile<BC, C::CPR, C::PITCH, C::NT>(ks, kh, a.kr, t * BC, a.Skv, a.D,
+                                           tid);
+    copy_tile<BC, C::CPR, C::PITCH, C::NT>(ks + C::TILE, vh, a.vr, t * BC,
+                                           a.Skv, a.D, tid);
+  };
+
+  // group 0: Q and dO; then one group per ring stage but the last
+  copy_tile<BR, C::CPR, C::PITCH, C::NT>(qs, a.q + b * a.qb + hd, a.qr, q0,
+                                         a.Sq, a.D, tid);
+  copy_tile<BR, C::CPR, C::PITCH, C::NT>(
+      dos, a.dout + (long long)b * a.Sq * drs + hd, drs, q0, a.Sq, a.D, tid);
+  cp_async_commit();
+  int ld = next_kept(0);  // the next tile to copy
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (ld < ntiles) {
+      fetch(ld, s);
+      ld = next_kept(ld + 1);
     }
-    __syncwarp();
-    warp_acc_px<DP>(dQacc, dSs, Ks, wr);  // dQ += dS K
-    __syncthreads();  // K/V tiles are overwritten next iteration
+    cp_async_commit();
   }
-  store_rows<DP>(a.dq, dQacc, a.scale, b, h, a.H, a.Sq, a.D, q0);
+  // this lane's rows grp and grp + 8: lse (log2 units) and delta; rows
+  // past Sq have zero Q and dO, so dS = 0 there
+  const long long rb = ((long long)b * a.H + h) * a.Sq;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wrow + grp + 8 * r;
+    lse2[r] = row < a.Sq ? a.lse[rb + row] * LOG2E : 0.f;
+    dlt[r] = row < a.Sq ? a.delta[rb + row] : 0.f;
+  }
+  cp_async_wait<STAGES - 1>();
+  __syncthreads();
+  const unsigned char* qw = qs + wrow * C::PITCH;
+  const unsigned char* dow = dos + wrow * C::PITCH;
+  uint32_t qa[AREG ? KS : 1][4], oa[AREG ? KS : 1][4];
+  if constexpr (AREG) {
+    load_a_bf16<KS>(qa, qw, C::PITCH, lane);
+    load_a_bf16<KS>(oa, dow, C::PITCH, lane);
+  }
+  float acc[DT][4];  // dQ / scale
+  zero(acc);
+
+  int cs = 0, ls = STAGES - 1;  // ring stages of the tile in use / to fill
+  for (int cur = next_kept(0); cur < ntiles; cur = next_kept(cur + 1)) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile `cur`
+    // every thread's copies have landed, and every warp is done with the
+    // stage that the copies below overwrite
+    __syncthreads();
+    if (ld < ntiles) {
+      fetch(ld, ls);
+      ld = next_kept(ld + 1);
+    }
+    cp_async_commit();
+    ls = ls + 1 == STAGES ? 0 : ls + 1;
+    const unsigned char* ks = ring + cs * C::DQ_STAGE;
+    cs = cs + 1 == STAGES ? 0 : cs + 1;
+
+    float s[NTK][4], dp[NTK][4];
+    zero(s);
+    zero(dp);
+    abt<KS, NTK, C::PITCH, AREG>(s, qa, qw, ks, lane);            // Q K^T
+    abt<KS, NTK, C::PITCH, AREG>(dp, oa, dow, ks + C::TILE, lane);  // dO V^T
+#pragma unroll
+    for (int j = 0; j < NTK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = fast_exp2(fmaf(s[j][e], a.scale_log2, -lse2[e / 2]));
+    const int kvalid = a.Skv - cur * BC;
+    if (kvalid < BC) {  // the ragged last tile: columns past Skv
+#pragma unroll
+      for (int j = 0; j < NTK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * j + 2 * tq + e % 2 >= kvalid) s[j][e] = 0.f;
+    }
+    if (STRADDLE && first_span(cur) != last_span(cur)) {
+      // a tile across a span boundary: its columns in dropped spans
+#pragma unroll
+      for (int j = 0; j < NTK; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = cur * BC + 8 * j + 2 * tq + e;
+          if (col < a.Skv && !kp[col / a.span]) s[j][e] = s[j][e + 2] = 0.f;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < NTK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - dlt[e / 2];  // dS
+    uint32_t ds[NTK / 2][4];
+    pack_p<NTK>(ds, s);
+    pv_bf16<NTK / 2, DT>(acc, ds, ks, C::PITCH, lane);  // dQ += dS K
+  }
+  store_acc<DT>(a.dq + (long long)b * a.Sq * drs + hd, drs, q0 + wrow, a.Sq,
+                a.D, acc, a.scale, lane);
 }
 
-// ----------------------------------------------------------------- DKV
-template <int DP, bool MASKED, bool STRADDLE>
-__global__ void __launch_bounds__(NTHREADS) flash_dkv_kernel(Args a) {
+// ---------------------------------------------------------------- DKV
+template <int DP, int BR, int BC, int STAGES, bool AREG, bool MASKED,
+          bool STRADDLE>
+__global__ void __launch_bounds__(Cfg<DP, BR, BC, STAGES>::NT)
+flash_dkv_kernel(const Args a) {
+  using C = Cfg<DP, BR, BC, STAGES>;
+  constexpr int KS = DP / 16, NTQ = BC / 8, DT = DP / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  using L = DkvSmem<DP>;
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::t0);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::t0 + L::tile);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::t0 + 2 * L::tile);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::t0 + 3 * L::tile);
-  float* St = reinterpret_cast<float*>(smem + L::sf0);
-  float* dPt = reinterpret_cast<float*>(smem + L::sf0 + L::sf);
-  bf16* Pt = reinterpret_cast<bf16*>(smem + L::sb0);
-  bf16* dSt = reinterpret_cast<bf16*>(smem + L::sb0 + L::sb);
-  float* dKacc = reinterpret_cast<float*>(smem + L::acc0);
-  float* dVacc = reinterpret_cast<float*>(smem + L::acc0 + L::acc);
-  float* lse_s = reinterpret_cast<float*>(smem + L::row0);
-  float* delta_s = lse_s + align128(BT * 4) / 4;
-
-  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp * 16;  // this warp's first K/V row inside the tile
+  unsigned char* kso = smem;            // the block's K rows
+  unsigned char* vso = smem + C::OWN;   // and V rows
+  unsigned char* ring = smem + 2 * C::OWN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = lane / 4, tq = lane % 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BR;
+  const int wrow = warp * 16;  // this warp's first K/V row in the block
   const long long hd = (long long)h * a.D;
-  zero_acc<DP>(dKacc);
-  zero_acc<DP>(dVacc);
-  if (MASKED && !tile_kept<STRADDLE>(a, b, k0)) {
-    // rows in dropped spans get no gradient
-    __syncthreads();
-    store_rows<DP>(a.dk, dKacc, 0.f, b, h, a.H, a.Skv, a.D, k0);
-    store_rows<DP>(a.dv, dVacc, 0.f, b, h, a.H, a.Skv, a.D, k0);
-    return;
+  const long long drs = (long long)a.H * a.D;  // dO's, dK's, dV's row stride
+  float dk[DT][4], dv[DT][4];  // dK / scale, dV
+  zero(dk);
+  zero(dv);
+  const int* kp = MASKED ? a.keep + b * a.nref : a.keep;
+  // the spans of the block's first and last kv row; does one of its rows
+  // lie in a kept span (block-uniform)
+  const int span0 = MASKED ? k0 / a.span : 0;
+  const int span1 = MASKED ? (min(k0 + BR, a.Skv) - 1) / a.span : 0;
+  bool live = true;
+  if (MASKED) {
+    live = false;
+    for (int r = span0; r <= span1; ++r) live |= kp[r] != 0;
   }
-  load_tile<DP>(Ks, a.k + b * a.kb + hd, a.kr, k0, a.Skv, a.D);
-  load_tile<DP>(Vs, a.v + b * a.vb + hd, a.vr, k0, a.Skv, a.D);
-  const long long dob = (long long)a.Sq * a.H * a.D;  // dO is contiguous
-  const long long rb = ((long long)b * a.H + h) * a.Sq;
-  // where the tile straddles a span boundary, the kv rows of this warp
-  // that lie in dropped spans: bit r for row wr + r (P = 0 there)
-  unsigned dropped = 0u;
-  if (STRADDLE && tile_straddles(a, k0))
-    for (int r = 0; r < 16; ++r)
-      if (!row_kept(a, b, k0 + wr + r)) dropped |= 1u << r;
-  for (int q0 = 0; q0 < a.Sq; q0 += BT) {
-    load_tile<DP>(Qs, a.q + b * a.qb + hd, a.qr, q0, a.Sq, a.D);
-    load_tile<DP>(dOs, a.dout + b * dob + hd, (long long)a.H * a.D, q0,
-                  a.Sq, a.D);
-    for (int i = threadIdx.x; i < BT; i += NTHREADS) {
-      const bool ok = q0 + i < a.Sq;  // rows past Sq: P = exp2(-inf) = 0
-      lse_s[i] = ok ? a.lse[rb + q0 + i] * LOG2E : INFINITY;
-      delta_s[i] = ok ? a.delta[rb + q0 + i] : 0.f;
+  if (live) {
+    const bf16* qh = a.q + b * a.qb + hd;
+    const bf16* doh = a.dout + (long long)b * a.Sq * drs + hd;
+    const long long rb = ((long long)b * a.H + h) * a.Sq;
+    const float* lseh = a.lse + rb;
+    const float* dlth = a.delta + rb;
+    const int ntiles = (a.Sq + BC - 1) / BC;
+    auto fetch = [&](int t, int stage) {
+      unsigned char* qs = ring + stage * C::DKV_STAGE;
+      float* rows = reinterpret_cast<float*>(qs + 2 * C::TILE);
+      copy_tile<BC, C::CPR, C::PITCH, C::NT>(qs, qh, a.qr, t * BC, a.Sq,
+                                             a.D, tid);
+      copy_tile<BC, C::CPR, C::PITCH, C::NT>(qs + C::TILE, doh, drs, t * BC,
+                                             a.Sq, a.D, tid);
+      copy_rows2<BC, C::NT>(rows, rows + C::ROW / 4, lseh, dlth, t * BC,
+                            a.Sq, tid);
+    };
+    // group 0: K and V; then one group per ring stage but the last
+    copy_tile<BR, C::CPR, C::PITCH, C::NT>(kso, a.k + b * a.kb + hd, a.kr,
+                                           k0, a.Skv, a.D, tid);
+    copy_tile<BR, C::CPR, C::PITCH, C::NT>(vso, a.v + b * a.vb + hd, a.vr,
+                                           k0, a.Skv, a.D, tid);
+    cp_async_commit();
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < ntiles) fetch(s, s);
+      cp_async_commit();
     }
-    __syncthreads();
-    warp_abt<DP>(St, Ks, Qs, wr);    // S^T = K Q^T
-    warp_abt<DP>(dPt, Vs, dOs, wr);  // dP^T = V dO^T
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr + r;
-      const bool drop = (dropped >> r) & 1u;
-      for (int c = lane; c < BT; c += 32) {
-        const float p =
-            drop ? 0.f : exp2f(St[row * BT + c] * a.scale_log2 - lse_s[c]);
-        Pt[row * BT + c] = __float2bfloat16(p);
-        dSt[row * BT + c] =
-            __float2bfloat16(p * (dPt[row * BT + c] - delta_s[c]));
+    // where the block straddles a span boundary: are this lane's kv rows
+    // grp and grp + 8 in dropped spans (P = 0 there)
+    bool drop[2] = {false, false};
+    if (STRADDLE && span0 != span1)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = k0 + wrow + grp + 8 * r;
+        drop[r] = row < a.Skv && !kp[row / a.span];
       }
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    const unsigned char* kw = kso + wrow * C::PITCH;
+    const unsigned char* vw = vso + wrow * C::PITCH;
+    uint32_t ka[AREG ? KS : 1][4], va[AREG ? KS : 1][4];
+    if constexpr (AREG) {
+      load_a_bf16<KS>(ka, kw, C::PITCH, lane);
+      load_a_bf16<KS>(va, vw, C::PITCH, lane);
     }
-    __syncwarp();
-    warp_acc_px<DP>(dVacc, Pt, dOs, wr);  // dV += P^T dO
-    warp_acc_px<DP>(dKacc, dSt, Qs, wr);  // dK += dS^T Q
-    __syncthreads();  // Q/dO tiles and the row scalars are overwritten next
+
+    int cs = 0, ls = STAGES - 1;  // ring stages of the tile in use / to fill
+    for (int cur = 0; cur < ntiles; ++cur) {
+      cp_async_wait<STAGES - 2>();  // this thread's copies of tile `cur`
+      // every thread's copies have landed, and every warp is done with the
+      // stage that the copies below overwrite
+      __syncthreads();
+      if (cur + STAGES - 1 < ntiles) fetch(cur + STAGES - 1, ls);
+      cp_async_commit();
+      ls = ls + 1 == STAGES ? 0 : ls + 1;
+      const unsigned char* qs = ring + cs * C::DKV_STAGE;
+      const unsigned char* dos = qs + C::TILE;
+      const float* lse_s = reinterpret_cast<const float*>(qs + 2 * C::TILE);
+      const float* dlt_s = lse_s + C::ROW / 4;
+      cs = cs + 1 == STAGES ? 0 : cs + 1;
+
+      float st[NTQ][4], dpt[NTQ][4];
+      zero(st);
+      zero(dpt);
+      abt<KS, NTQ, C::PITCH, AREG>(st, ka, kw, qs, lane);    // K Q^T
+      abt<KS, NTQ, C::PITCH, AREG>(dpt, va, vw, dos, lane);  // V dO^T
+      const int qvalid = a.Sq - cur * BC;
+#pragma unroll
+      for (int j = 0; j < NTQ; ++j) {
+        // this lane's two columns (Q rows) 8 j + 2 tq and + 1
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j +
+                                                          2 * tq);
+        const float2 dl = *reinterpret_cast<const float2*>(dlt_s + 8 * j +
+                                                           2 * tq);
+        const float nl[2] = {-l.x * LOG2E, -l.y * LOG2E};
+        const float dd[2] = {dl.x, dl.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = fast_exp2(fmaf(st[j][e], a.scale_log2, nl[e % 2]));
+          // Q rows past Sq; kv rows in dropped spans
+          if ((qvalid < BC && 8 * j + 2 * tq + e % 2 >= qvalid) ||
+              (STRADDLE && drop[e / 2]))
+            p = 0.f;
+          st[j][e] = p;                                // P^T
+          dpt[j][e] = p * (dpt[j][e] - dd[e % 2]);     // dS^T
+        }
+      }
+      uint32_t pt[NTQ / 2][4], dst[NTQ / 2][4];
+      pack_p<NTQ>(pt, st);
+      pack_p<NTQ>(dst, dpt);
+      pv_bf16<NTQ / 2, DT>(dv, pt, dos, C::PITCH, lane);  // dV += P^T dO
+      pv_bf16<NTQ / 2, DT>(dk, dst, qs, C::PITCH, lane);  // dK += dS^T Q
+    }
   }
-  store_rows<DP>(a.dk, dKacc, a.scale, b, h, a.H, a.Skv, a.D, k0);
-  store_rows<DP>(a.dv, dVacc, 1.f, b, h, a.H, a.Skv, a.D, k0);
+  // a block wholly in dropped spans writes zeros
+  store_acc<DT>(a.dk + (long long)b * a.Skv * drs + hd, drs, k0 + wrow,
+                a.Skv, a.D, dk, a.scale, lane);
+  store_acc<DT>(a.dv + (long long)b * a.Skv * drs + hd, drs, k0 + wrow,
+                a.Skv, a.D, dv, 1.f, lane);
 }
 
-enum Which { kLse = 0, kDq = 1, kDkv = 2 };
-
-template <int DP, bool MASKED, bool STRADDLE>
-cudaError_t launch(Which which, const Args& a, int B, cudaStream_t stream) {
+template <Which W, int DP, int BR, int BC, int STAGES, bool AREG,
+          bool MASKED, bool STRADDLE>
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  using C = Cfg<DP, BR, BC, STAGES>;
+  static_assert(STAGES >= 2, "a ring of at least two stages");
+  static_assert(BR % 16 == 0 && BC % 16 == 0, "whole 16-row slices");
+  static_assert(DP % 16 == 0 && (DP / 8) % 2 == 0, "16-padded head dim");
   void (*kern)(Args);
-  int bytes, tiles;
-  if (which == kLse) {
-    kern = flash_lse_kernel<DP, MASKED, STRADDLE>;
-    bytes = LseSmem<DP>::bytes;
-    tiles = (a.Sq + BT - 1) / BT;
-  } else if (which == kDq) {
-    kern = flash_dq_kernel<DP, MASKED, STRADDLE>;
-    bytes = DqSmem<DP>::bytes;
-    tiles = (a.Sq + BT - 1) / BT;
+  int bytes, rows;
+  if constexpr (W == kDq) {
+    kern = flash_dq_kernel<DP, BR, BC, STAGES, AREG, MASKED, STRADDLE>;
+    bytes = C::DQ_BYTES;
+    rows = a.Sq;
   } else {
-    kern = flash_dkv_kernel<DP, MASKED, STRADDLE>;
-    bytes = DkvSmem<DP>::bytes;
-    tiles = (a.Skv + BT - 1) / BT;
+    kern = flash_dkv_kernel<DP, BR, BC, STAGES, AREG, MASKED, STRADDLE>;
+    bytes = C::DKV_BYTES;
+    rows = a.Skv;
   }
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(tiles, a.H, B);
-  kern<<<grid, NTHREADS, bytes, stream>>>(a);
+  dim3 grid((rows + BR - 1) / BR, a.H, B);
+  kern<<<grid, C::NT, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -434,34 +495,58 @@ int dispatch(Which which, Args& a, int B, int D, float scale,
   a.D = D;
   a.scale = scale;
   a.scale_log2 = scale * LOG2E;
-  if (a.keep != nullptr && (a.span <= 0 || a.nref * a.span != a.Skv))
+  const int masked = a.keep != nullptr;
+  if (D % 8 || (masked && (a.span <= 0 || a.nref * a.span != a.Skv)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!masked) {
+    a.nref = 1;
+    a.span = 1;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int dp = (D + 15) / 16 * 16;
-  const bool straddle = a.keep != nullptr && a.span % BT != 0;
-#define SG_CASE(N)                                                     \
-  case N:                                                              \
-    return static_cast<int>(                                           \
-        straddle ? launch<N, true, true>(which, a, B, s)               \
-                 : (a.keep ? launch<N, true, false>(which, a, B, s)    \
-                           : launch<N, false, false>(which, a, B, s)));
-  // The UNet's head dims: 40 (padded to 48), 80 and 160.
-  switch (dp) {
-    SG_CASE(48)
-    SG_CASE(80)
-    SG_CASE(160)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  // A masked line builds its kernel twice: for spans that are a multiple
+  // of its K/V tile (DQ's BC, DKV's BR) and for the rest (STRADDLE),
+  // chosen here.
+#define SG_BUILT(KIND_, DP_, MASKED_, BR_, BC_, STAGES_, AREG_)             \
+  if (which == KIND_ && dp == DP_ && masked == MASKED_) {                   \
+    if (masked && a.span % (KIND_ == kDq ? BC_ : BR_) != 0)                 \
+      return static_cast<int>(                                              \
+          launch<KIND_, DP_, BR_, BC_, STAGES_, (AREG_ != 0),               \
+                 (MASKED_ != 0), (MASKED_ != 0)>(a, B, s));                 \
+    return static_cast<int>(                                                \
+        launch<KIND_, DP_, BR_, BC_, STAGES_, (AREG_ != 0), (MASKED_ != 0), \
+               false>(a, B, s));                                            \
   }
-#undef SG_CASE
+  // (kernel, padded head dim, masked, BR, BC, ring stages, A fragments in
+  // registers): the UNet's head dims 40 (padded to 48), 80 and 160
+  SG_BUILT(kDq, 48, 0, 64, 64, 2, 1)
+  SG_BUILT(kDq, 48, 1, 64, 64, 2, 1)
+  SG_BUILT(kDq, 80, 0, 64, 64, 2, 1)
+  SG_BUILT(kDq, 80, 1, 64, 64, 2, 1)
+  SG_BUILT(kDq, 160, 0, 64, 64, 2, 0)
+  SG_BUILT(kDq, 160, 1, 64, 64, 2, 0)
+  SG_BUILT(kDkv, 48, 0, 64, 64, 3, 1)
+  SG_BUILT(kDkv, 48, 1, 64, 64, 3, 1)
+  SG_BUILT(kDkv, 80, 0, 64, 64, 2, 0)
+  SG_BUILT(kDkv, 80, 1, 64, 64, 2, 0)
+  SG_BUILT(kDkv, 160, 0, 64, 16, 2, 0)
+  SG_BUILT(kDkv, 160, 1, 64, 16, 2, 0)
+#undef SG_BUILT
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-Args make_args(const void* q, const void* k, int B, int H, int Sq, int Skv,
+Args make_args(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, int H, int Sq, int Skv,
                long long qb, long long qr, long long kb, long long kr,
-               const void* keep, int nref, int span) {
+               long long vb, long long vr, const void* keep, int nref,
+               int span) {
   Args a = {};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.dout = static_cast<const bf16*>(dout);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
   a.H = H;
   a.Sq = Sq;
   a.Skv = Skv;
@@ -469,28 +554,21 @@ Args make_args(const void* q, const void* k, int B, int H, int Sq, int Skv,
   a.qr = qr;
   a.kb = kb;
   a.kr = kr;
+  a.vb = vb;
+  a.vr = vr;
   a.keep = static_cast<const int*>(keep);
   a.nref = nref;
   a.span = span;
-  (void)B;
   return a;
 }
 
 }  // namespace
 
-// lse (B, H, Sq) fp32 <- q (B, Sq, H*D), k (B, Skv, H*D); keep may be null.
-extern "C" int sg_flash_lse(const void* q, const void* k, void* lse, int B,
-                            int H, int Sq, int Skv, int D, long long qb,
-                            long long qr, long long kb, long long kr,
-                            const void* keep, int nref, int span,
-                            float scale, void* stream) {
-  Args a = make_args(q, k, B, H, Sq, Skv, qb, qr, kb, kr, keep, nref, span);
-  a.lse_out = static_cast<float*>(lse);
-  return dispatch(kLse, a, B, D, scale, stream);
-}
-
 // dq (B, Sq, H*D) <- q, k, v, dout (B, Sq, H*D) contiguous, lse and delta
-// (B, H, Sq) fp32.
+// (B, H, Sq) fp32. keep == nullptr: every kv row; otherwise keep (B, nref)
+// int32 over nref spans of `span` kv rows, nref * span == Skv. D a multiple
+// of 8. The instantiations built are the SG_BUILT lines of `dispatch`; any
+// other returns cudaErrorInvalidValue.
 extern "C" int sg_flash_dq(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, void* dq, int B, int H, int Sq,
@@ -498,13 +576,8 @@ extern "C" int sg_flash_dq(const void* q, const void* k, const void* v,
                            long long kb, long long kr, long long vb,
                            long long vr, const void* keep, int nref,
                            int span, float scale, void* stream) {
-  Args a = make_args(q, k, B, H, Sq, Skv, qb, qr, kb, kr, keep, nref, span);
-  a.v = static_cast<const bf16*>(v);
-  a.vb = vb;
-  a.vr = vr;
-  a.dout = static_cast<const bf16*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
+  Args a = make_args(q, k, v, dout, lse, delta, H, Sq, Skv, qb, qr, kb, kr,
+                     vb, vr, keep, nref, span);
   a.dq = static_cast<bf16*>(dq);
   return dispatch(kDq, a, B, D, scale, stream);
 }
@@ -517,13 +590,8 @@ extern "C" int sg_flash_dkv(const void* q, const void* k, const void* v,
                             long long qr, long long kb, long long kr,
                             long long vb, long long vr, const void* keep,
                             int nref, int span, float scale, void* stream) {
-  Args a = make_args(q, k, B, H, Sq, Skv, qb, qr, kb, kr, keep, nref, span);
-  a.v = static_cast<const bf16*>(v);
-  a.vb = vb;
-  a.vr = vr;
-  a.dout = static_cast<const bf16*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
+  Args a = make_args(q, k, v, dout, lse, delta, H, Sq, Skv, qb, qr, kb, kr,
+                     vb, vr, keep, nref, span);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
   return dispatch(kDkv, a, B, D, scale, stream);

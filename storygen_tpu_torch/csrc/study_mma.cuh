@@ -1,6 +1,7 @@
-// Shared building blocks of the attention-study kernels (study_online.cu,
-// study_bounded.cu, study_qk.cu, study_int8.cu): tile copies from HBM into
-// shared memory, ldmatrix fragment loads and the mma.sync tensor-core
+// Shared building blocks of the mma.sync kernels (the attention studies
+// study_*.cu, the flash kernels flash_fwd.cu and flash_bwd.cu, and the conv
+// template conv_mma.cuh): tile copies from HBM into shared memory, plain or
+// through cp.async, ldmatrix fragment loads and the mma.sync tensor-core
 // products, for sm_90a.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k32): in a warp, lane =
@@ -61,6 +62,55 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, int pitch,
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte cp.async copy into shared memory; the bytes past `src_bytes`
+// are zero-filled (0: the copy reads nothing)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x on the special-function unit (2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Start the copies of rows [row0, row0 + ROWS) x [0, D) of a strided bf16
+// matrix (`src` its first row of this head, row stride `rs` elements) into
+// a shared tile of pitch PITCH. A chunk past `nrows` or past D is
+// zero-filled by the copy, which then reads nothing; its address is `src`.
+template <int ROWS, int CPR, int PITCH, int NT>
+__device__ __forceinline__ void copy_tile(unsigned char* dst, const bf16* src,
+                                          long long rs, int row0, int nrows,
+                                          int D, int tid) {
+  constexpr int N = ROWS * CPR;
+#pragma unroll
+  for (int i = 0; i < (N + NT - 1) / NT; ++i) {
+    const int idx = tid + i * NT;
+    if (N % NT == 0 || idx < N) {
+      const int r = idx / CPR, c = idx % CPR;
+      const bool in = row0 + r < nrows && c * 8 < D;
+      cp_async16(dst + r * PITCH + c * 16,
+                 in ? src + (long long)(row0 + r) * rs + c * 8 : src,
+                 in ? 16 : 0);
+    }
+  }
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {

@@ -1,13 +1,13 @@
-"""Flash attention, forward and backward: wrappers of `csrc/flash_fwd.cu`
-and `csrc/flash_bwd.cu`, their plain PyTorch versions, and the
-differentiable `flash_attention`.
+"""Flash attention, forward and backward: wrappers of `csrc/flash_fwd.cu`,
+`csrc/flash_lse.cu` and `csrc/flash_bwd.cu`, their plain PyTorch versions,
+and the differentiable `flash_attention`.
 
 Replaces storygen_tpu/ops/pallas_attention.py. The forward kernels
 (`_bnd2_kernel`, `_bnd_kernel`, `_online_t_kernel`, `_flash_kernel`, all
 reached through `_flash_core`) become kernel F (`flash_fwd`), their masked
 variants kernel M (`flash_fwd_masked`); the backward (`_core_bwd` ->
-`_pallas_bwd_with_out`) becomes kernels L (`flash_lse`), DQ (`flash_dq`) and
-DKV (`flash_dkv`), tied together by `FlashAttentionFn`.
+`_pallas_bwd_with_out`) becomes kernels L (`flash_lse`, `csrc/flash_lse.cu`),
+DQ (`flash_dq`) and DKV (`flash_dkv`), tied together by `FlashAttentionFn`.
 
 Inputs are the projections' own layout: q (B, Sq, H*D), k/v (B, Skv, H*D),
 each with a contiguous last dimension (a k|v split view is taken as it is);
@@ -37,6 +37,23 @@ FWD_BUILT = {
     (48, False): (128, 64, 2, 2), (48, True): (128, 64, 2, 2),
     (80, False): (64, 64, 1, 2), (80, True): (128, 64, 2, 2),
     (160, False): (64, 64, 1, 2), (160, True): (64, 64, 1, 2),
+}
+# The instantiations of kernels DQ and DKV in csrc/flash_bwd.cu (its
+# SG_BUILT lines): (kernel, 16-padded head dim, masked) -> (BR, the block's
+# own rows; BC, the rows of a streamed tile; cp.async ring stages; A
+# fragments held in registers). DQ's own rows are Q rows and its streamed
+# tiles K/V; DKV's the other way round.
+BWD_BUILT = {
+    ("dq", 48, False): (64, 64, 2, True), ("dq", 48, True): (64, 64, 2, True),
+    ("dq", 80, False): (64, 64, 2, True), ("dq", 80, True): (64, 64, 2, True),
+    ("dq", 160, False): (64, 64, 2, False),
+    ("dq", 160, True): (64, 64, 2, False),
+    ("dkv", 48, False): (64, 64, 3, True),
+    ("dkv", 48, True): (64, 64, 3, True),
+    ("dkv", 80, False): (64, 64, 2, False),
+    ("dkv", 80, True): (64, 64, 2, False),
+    ("dkv", 160, False): (64, 16, 2, False),
+    ("dkv", 160, True): (64, 16, 2, False),
 }
 
 
@@ -297,6 +314,43 @@ def _check_grad_inputs(q, dout, lse, delta, num_heads):
         raise ValueError("dout, lse and delta must be contiguous")
 
 
+def bwd_tile(kernel: str, d: int, masked: bool
+             ) -> Tuple[int, int, int, bool]:
+    """The instantiation that kernel DQ (`kernel` "dq") or DKV ("dkv") runs
+    at head dim d: (BR, BC, stages, A fragments in registers); its grid is
+    (ceil(Sq / BR), H, B) for DQ, (ceil(Skv / BR), H, B) for DKV.
+    ValueError if none is built."""
+    key = (kernel, (d + 15) // 16 * 16, bool(masked))
+    if d % 8 or key not in BWD_BUILT:
+        raise ValueError(f"no flash backward {kernel} built for head dim {d}"
+                         f"{' (masked)' if masked else ''}")
+    return BWD_BUILT[key]
+
+
+def _launch_bwd(kernel, q, k, v, dout, lse, delta, num_heads, scale, keep,
+                lib=None):
+    """One launch of sg_flash_dq or sg_flash_dkv from `lib` (the built
+    library if None; the tile study passes one built with other SG_BUILT
+    lines); returns dq, or (dk, dv)."""
+    b, sq, skv, d, kargs, keep32 = _cuda_args(q, k, v, num_heads, keep,
+                                              (("dout", dout),))
+    bwd_tile(kernel, d, keep is not None)
+    lib = lib or _build.load()
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    tail = (b, num_heads, sq, skv, d, *_strides(q, k, v), *kargs,
+            float(scale), _stream(q))
+    if kernel == "dq":
+        out = (torch.empty(q.shape, dtype=q.dtype, device=q.device),)
+        err = lib.sg_flash_dq(*ins, out[0].data_ptr(), *tail)
+    else:
+        dk = torch.empty((b, skv, k.shape[2]), dtype=k.dtype, device=k.device)
+        out = (dk, torch.empty_like(dk))
+        err = lib.sg_flash_dkv(*ins, dk.data_ptr(), out[1].data_ptr(), *tail)
+    _build.check(err, f"sg_flash_{kernel}")
+    return out[0] if kernel == "dq" else out
+
+
 def flash_dq(q, k, v, dout, lse, delta, num_heads: int, scale: float,
              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel DQ: dQ (B, Sq, H*D) from dout (B, Sq, H*D), lse and
@@ -306,14 +360,7 @@ def flash_dq(q, k, v, dout, lse, delta, num_heads: int, scale: float,
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, dout, lse, delta, num_heads, scale,
                               keep)
-    b, sq, skv, d, kargs, keep32 = _cuda_args(q, k, v, num_heads, keep,
-                                              (("dout", dout),))
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = _build.load().sg_flash_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, num_heads, sq,
-        skv, d, *_strides(q, k, v), *kargs, float(scale), _stream(q))
-    _build.check(err, "sg_flash_dq")
+    dq = _launch_bwd("dq", q, k, v, dout, lse, delta, num_heads, scale, keep)
     flash_dq.launches += 1
     return dq
 
@@ -327,16 +374,8 @@ def flash_dkv(q, k, v, dout, lse, delta, num_heads: int, scale: float,
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, dout, lse, delta, num_heads, scale,
                                keep)
-    b, sq, skv, d, kargs, keep32 = _cuda_args(q, k, v, num_heads, keep,
-                                              (("dout", dout),))
-    dk = torch.empty((b, skv, k.shape[2]), dtype=k.dtype, device=k.device)
-    dv = torch.empty_like(dk)
-    err = _build.load().sg_flash_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
-        num_heads, sq, skv, d, *_strides(q, k, v), *kargs, float(scale),
-        _stream(q))
-    _build.check(err, "sg_flash_dkv")
+    dk, dv = _launch_bwd("dkv", q, k, v, dout, lse, delta, num_heads, scale,
+                         keep)
     flash_dkv.launches += 1
     return dk, dv
 

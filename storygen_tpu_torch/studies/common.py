@@ -1,7 +1,8 @@
 """What the ported attention studies share: the UNet's attention shapes by
 the studies' names, seeded inputs, the fp32 reference, the port's kernel F
-as the "repo" baseline, the SDPA yardstick, CUDA-event timing and the
-report line.
+as the "repo" baseline, the SDPA yardstick, CUDA-event timing, the
+report line, and the tile studies' parallel build of one library per
+candidate with its ptxas registers and spills.
 
 Every study runs on the card unless the caller asks for the CPU
 (`device="cpu"` or `--device cpu`); without a card it raises. On the CPU
@@ -12,13 +13,16 @@ say nothing about the card.
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import time
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+from pathlib import Path
+from typing import (Callable, Dict, Hashable, Iterable, List, Optional,
+                    Sequence, Tuple)
 
 import torch
 
-from storygen_tpu_torch.ops import flash_attention as fa
+from storygen_tpu_torch.ops import _build, flash_attention as fa
 from storygen_tpu_torch.utils.device import resolve_device
 
 # (batch, heads, Sq, Skv, head dim) of the UNet's attention sites at
@@ -164,3 +168,53 @@ def setup(device) -> Tuple[torch.device, str]:
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     return dev, card_line(dev)
+
+
+def ptxas_summary(out: str) -> List[Tuple[str, int, int, int, int]]:
+    """(kernel entry, registers, stack bytes, spill stores, spill loads)
+    of every entry in `nvcc -Xptxas -v` output."""
+    rows, entry, frame = [], "?", (0, 0, 0)
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, frame = m.group(1), (0, 0, 0)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows.append((entry, int(m.group(1)), *frame))
+    return rows
+
+
+def build_candidates(root: Path, cands: Dict[Hashable, Tuple[str, str]],
+                     kernel: str) -> Dict[Hashable, Path]:
+    """One shared library per candidate under `root`: `cands` maps a key
+    to (file stem, CUDA source). One nvcc with `-Xptxas -v` per candidate,
+    all started together. Prints each candidate's registers and (stack,
+    spill stores, spill loads) per kernel entry whose name holds `kernel`,
+    or FAILED with the compiler's output, and then leaves it out."""
+    root.mkdir(parents=True, exist_ok=True)
+    nvcc = _build.find_nvcc()
+    procs = []
+    for key, (stem, text) in cands.items():
+        src, lib = root / f"{stem}.cu", root / f"lib{stem}.so"
+        src.write_text(text)
+        procs.append((key, stem, lib, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+             str(_build.CSRC), "-shared", "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for key, stem, lib, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            print(f"candidate {stem} FAILED to build:\n{out[-3000:]}",
+                  flush=True)
+            continue
+        ents = [e for e in ptxas_summary(out) if kernel in e[0]]
+        print(f"candidate {stem}: registers {[e[1] for e in ents]}, "
+              f"stack/spill stores/loads {[e[2:] for e in ents]}",
+              flush=True)
+        libs[key] = lib
+    return libs

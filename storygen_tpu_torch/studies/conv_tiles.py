@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import ctypes
 import re
-import subprocess
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
@@ -167,40 +166,14 @@ def candidate_source(key: tuple, tile: Tile) -> str:
 
 def build(cands: Sequence[Tuple[tuple, Tile]]) -> Dict[tuple, Path]:
     """One library per (key, tile), keyed by the sources' hash, built in
-    parallel where missing; a candidate that does not build prints FAILED
-    and is left out."""
+    parallel, each printing its ptxas registers and spills; a candidate
+    that does not build prints FAILED and is left out."""
     root = (_build.BUILD_ROOT / "conv_tiles"
             / _build.source_hash([_build.CSRC / s for s in SOURCES.values()]))
-    root.mkdir(parents=True, exist_ok=True)
-    nvcc = _build.find_nvcc()
-    libs, cmds = {}, []
-    for key, tile in cands:
-        tag = "_".join(map(str, key + tuple(tile)))
-        lib = root / f"libconv_{tag}.so"
-        libs[(key, tile)] = lib
-        if not lib.exists():
-            src = root / f"conv_{tag}.cu"
-            src.write_text(candidate_source(key, tile))
-            cmds.append(((key, tile), [nvcc, *_build.NVCC_FLAGS, "-Xptxas",
-                                       "-v", "-I", str(_build.CSRC),
-                                       "-shared", "-o", str(lib), str(src)]))
-    procs = [(c, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True))
-             for c, cmd in cmds]
-    for c, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            print(f"candidate {c} FAILED to build:\n{out[-2000:]}",
-                  flush=True)
-            del libs[c]
-            continue
-        # ptxas: registers, and stack and spills (of the one kernel)
-        regs = re.findall(r"Used (\d+) registers", out)
-        spill = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                           r"stores, (\d+) bytes spill loads", out)
-        print(f"candidate {c}: registers {regs}, stack/spill stores/loads "
-              f"{spill}", flush=True)
-    return libs
+    return common.build_candidates(
+        root, {(key, tile): ("conv_" + "_".join(map(str, key + tuple(tile))),
+                             candidate_source(key, tile))
+               for key, tile in cands}, "conv_mma_kernel")
 
 
 def load(path: Path, stride: int) -> ctypes.CDLL:

@@ -3,8 +3,10 @@ padded head dim on the card.
 
 Builds csrc/flash_fwd.cu once per candidate (BQ, 16-row halves per warp,
 cp.async ring stages), each into its own library whose only SG_BUILT lines
-are that candidate's (BK, the K/V tile height, stays 64), one nvcc per candidate, all started together, under
-build/storygen_tpu_torch/tiles/. Then times each candidate, the built
+are that candidate's (BK, the K/V tile height, stays 64), one nvcc per
+candidate, all started together, under build/storygen_tpu_torch/tiles/,
+and prints ptxas's registers and spills of each. Then times each
+candidate, the built
 kernel (the `flash_fwd` / `flash_fwd_masked` wrappers) and SDPA as a
 yardstick on the UNet's 512 px attention shapes of that head dim, F and M,
 with the max error against the fp32 plain version. The rate counts the
@@ -74,23 +76,14 @@ def candidate_source(dp: int, bq: int, halves: int, stages: int) -> str:
 
 def build(cands) -> Dict[tuple, Path]:
     """One library per (dp, bq, halves, stages), keyed by the sources' hash
-    and the candidate; built in parallel where missing."""
+    and the candidate, built in parallel, each printing its ptxas
+    registers and spills."""
     root = (_build.BUILD_ROOT / "tiles"
             / _build.source_hash([_build.CSRC / "flash_fwd.cu"]))
-    root.mkdir(parents=True, exist_ok=True)
-    nvcc = _build.find_nvcc()
-    libs, cmds = {}, []
-    for c in cands:
-        tag = "_".join(map(str, c))
-        lib = root / f"libflash_fwd_{tag}.so"
-        libs[c] = lib
-        if not lib.exists():
-            src = root / f"flash_fwd_{tag}.cu"
-            src.write_text(candidate_source(*c))
-            cmds.append([nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-                         "-shared", "-o", str(lib), str(src)])
-    _build._run_all(cmds)
-    return libs
+    return common.build_candidates(
+        root, {c: (f"flash_fwd_{'_'.join(map(str, c))}",
+                   candidate_source(*c)) for c in cands},
+        "flash_fwd_kernel")
 
 
 def load(path: Path) -> ctypes.CDLL:
