@@ -22,10 +22,14 @@ stride-2 conv on kernel D):
                the kernel, its plain version and, where one PyTorch call
                computes the same function, that call (timed only, as a
                yardstick; the port never calls it), beside the kernel's
-               bound, for F, M, DQ, DKV, C, P and D their rate in TFLOP/s,
-               for F, M, C and D their factor over SDPA or cuDNN, and for
-               each backward case SDPA's backward alone (its forward run
-               outside the timed calls) and DQ+DKV's factor over it;
+               bound, for F, M, L, DQ, DKV, C, P and D their rate in
+               TFLOP/s, for F, M, C and D their factor over SDPA or cuDNN,
+               for each backward case SDPA's backward alone (its forward
+               run outside the timed calls) and DQ+DKV's factor over it,
+               and for G (at every feed-forward site class of serving, its
+               reference pass and training) its share of its bound, its
+               GB/s and the time of the unfused bf16 chain of PyTorch
+               calls (a yardstick, not G's function);
   models       in each configuration: one full-width UNet image-cycle pass
                (512 px, 3 refs) and one 512 px VAE encode and decode,
                kernel path against the plain path on the card, compared
@@ -152,7 +156,7 @@ PORT_KERNELS = tuple(KERNEL_META)
 # that their factor is taken over (None: DQ and DKV, whose sum is held
 # against SDPA's backward alone)
 RATED = {"flash_fwd": "SDPA", "flash_fwd_masked": "SDPA",
-         "flash_dq": None, "flash_dkv": None,
+         "flash_lse": None, "flash_dq": None, "flash_dkv": None,
          "conv3x3": "cuDNN", "gnconv3x3": "cuDNN", "downconv3x3": "cuDNN"}
 STUDY_SOURCES = {"online": "storygen_tpu_torch/csrc/study_online.cu",
                  "bounded": "storygen_tpu_torch/csrc/study_bounded.cu",
@@ -249,14 +253,18 @@ class Case:
     given, is a second reference that the kernel must match within
     P_VS_C_RTOL (kernel C on P's prologue applied beforehand).
     `backward`, for DQ and DKV, makes SDPA's backward alone on the case's
-    inputs: it runs SDPA's forward once and returns the call to time."""
+    inputs: it runs SDPA's forward once and returns the call to time.
+    `unfused`, for G, is the bf16 chain of PyTorch calls without the
+    kernel: timed as a yardstick, it is not G's function (it rounds the
+    gated product where PyTorch does)."""
 
     def __init__(self, name, label, kern, plain, oracle, library, flops,
-                 nbytes, twin=None, backward=None):
+                 nbytes, twin=None, backward=None, unfused=None):
         self.name, self.label = name, label
         self.kern, self.plain, self.oracle = kern, plain, oracle
         self.library, self.flops, self.nbytes = library, flops, nbytes
         self.twin, self.backward = twin, backward
+        self.unfused = unfused
 
 
 def _attn_cases(dev, rnd):
@@ -411,17 +419,34 @@ def kernel_cases(dev):
             torch.bfloat16)
 
     cases = _attn_cases(dev, rnd)
-    for label, m, n, e in [("L1 ff", 3 * 4096, 1280, 320),
-                           ("L2 ref ff", 6 * 1024, 2560, 640),
-                           ("mid ff", 192, 5120, 1280)]:
-        p, w, bias = rnd(m, 2 * n), rnd(e, n, s=n ** -0.5), rnd(e)
+    # every feed-forward site class: the serving main pass (3-row CFG
+    # batch), its reference pass (6 rows), stage-2 training (batch 4); an
+    # fp32 bias (the kernel reads either dtype as stored) and a ragged M
+    # under split-K
+    for label, m, n, e, bias32 in [
+            ("L1 ff", 3 * 4096, 1280, 320, False),
+            ("L2 ff", 3 * 1024, 2560, 640, False),
+            ("L3 ff", 3 * 256, 5120, 1280, False),
+            ("mid ff", 192, 5120, 1280, False),
+            ("L1 ref ff", 6 * 4096, 1280, 320, False),
+            ("L2 ref ff", 6 * 1024, 2560, 640, False),
+            ("L1 train ff", 4 * 4096, 1280, 320, False),
+            ("mid train ff", 4 * 64, 5120, 1280, False),
+            ("L1 ff fp32 bias", 3 * 4096, 1280, 320, True),
+            ("ragged", 1000, 5120, 1280, False)]:
+        p, w = rnd(m, 2 * n), rnd(e, n, s=n ** -0.5)
+        bias = rnd(e).float() if bias32 else rnd(e)
         cases.append(Case(
             "geglu_matmul", f"{label} ({m}, 2x{n})->{e}",
             lambda p=p, w=w, bias=bias: geglu.geglu_matmul(p, w, bias),
             lambda p=p, w=w, bias=bias: geglu.geglu_matmul_plain(p, w, bias),
             lambda p=p, w=w, bias=bias: geglu.geglu_matmul_plain(
                 p.float(), w.float(), bias.float()),
-            None, 2.0 * m * n * e, 2.0 * (2 * m * n + e * n + m * e)))
+            None, 2.0 * m * n * e,
+            2.0 * (2 * m * n + e * n + m * e) + bias.element_size() * e,
+            unfused=lambda p=p, w=w, bias=bias: F.linear(
+                p[:, :w.shape[1]] * F.gelu(p[:, w.shape[1]:]), w,
+                bias.to(p.dtype))))
     for label, b, hw, cin, cout, bias_b, res in [
             ("UNet up L1 (B,C) bias", 3, 64, 960, 320, True, False),
             ("UNet L1 residual", 3, 64, 320, 320, False, True),
@@ -606,7 +631,7 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
         b_ms, b_by = bound_ms(c.flops, c.nbytes)
         ok &= good
         lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
-        # the rate of F, M, DQ, DKV, C, P and D, and the factor of F, M, C
+        # the rate of F, M, L, DQ, DKV, C, P and D, and the factor of F, M, C
         # and D over SDPA or cuDNN on the same inputs; DQ+DKV's factor over
         # SDPA's backward alone on the DKV line
         rate = vs_lib = vs_bwd = None
@@ -619,6 +644,14 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
                 fwd_line = f"  {vs_lib:.2f}x {RATED[c.name]}" + fwd_line
         if c.name == "flash_dq":
             dq_ms[c.label] = ms
+        unfused_ms = None
+        if c.unfused is not None:
+            # G: its share of its bound, its HBM rate and the unfused chain
+            with torch.no_grad():
+                unfused_ms = cuda_ms(c.unfused, 10)
+            fwd_line += (f"  {b_ms / ms:.1%} of bound  "
+                         f"{c.nbytes / ms / 1e6:.0f} GB/s  "
+                         f"unfused {unfused_ms:.4f} ms")
         if bwd_ms is not None:
             fwd_line += f"  SDPA backward {bwd_ms:.4f} ms"
             if c.name == "flash_dkv" and c.label in dq_ms:
@@ -648,7 +681,8 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
                            "max_abs_err_vs_c": twin_err, "tflops": rate,
                            "vs_library": vs_lib,
                            "sdpa_backward_ms": bwd_ms,
-                           "dq_dkv_vs_sdpa_backward": vs_bwd})
+                           "dq_dkv_vs_sdpa_backward": vs_bwd,
+                           "unfused_ms": unfused_ms})
     for r in results.values():  # the bound of the kernel's summed cases
         r["bound_by"] = max(r["cases"], key=lambda x: x["bound_ms"])[
             "bound_by"]

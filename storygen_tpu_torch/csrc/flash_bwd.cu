@@ -62,8 +62,8 @@
 // layout through batch and row strides (dO contiguous); dQ, dK, dV are
 // written as (B, S, H*D).
 //
-// Not yet: wgmma, TMA and warp specialisation; kernel L is still the first
-// WMMA design (flash_lse.cu).
+// Not yet: wgmma, TMA and warp specialisation. Kernel L, the logsumexp
+// that DQ and DKV read, is flash_lse.cu.
 #include <math.h>
 
 #include "study_mma.cuh"

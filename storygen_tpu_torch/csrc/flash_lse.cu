@@ -5,240 +5,291 @@
 // through _core_bwd); its gradient kernels DQ and DKV are flash_bwd.cu.
 //
 // What bounds it on the H100: one Q K^T product per K tile, tensor-core
-// work, and one exp2 per logit. This is still the first, simple design:
-// one block of 4 warps per (64-row Q tile, head, batch), each warp owning
-// 16 rows; bf16 WMMA with the fp32 logits staged in shared memory and read
-// back one element at a time; synchronous tile copies. Head dim 40 is
-// zero-padded to 48 in shared memory only. Rows past Skv (attn2's 77 text
-// tokens) load as zeros and take no part in the sum; rows past Sq are not
-// written. With `keep` (B, N refs) over N equal spans of any length, a K
-// tile whose rows all lie in dropped spans is skipped, and a tile that
-// straddles a span boundary (spans of 16 or 144 rows at the mid block of a
-// 256 or 768 px image) drops its columns in dropped spans: an instantiation
-// of its own (STRADDLE), chosen at launch, so that spans that are
-// multiples of 64 rows (the 512 px UNet) test one flag per tile. A row that
-// keeps no span gets lse = -inf. Inputs are read from the projections'
-// (B, S, H*D) layout through batch and row strides.
-// Not yet: F's register design (mma.sync, a cp.async ring).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// work (2 Sq Skv d operations per head), and beside it one exp2 per logit
+// on the special-function units; Q, K and the (B, H, Sq) fp32 result are
+// far smaller than the logits, which never leave the registers.
+//
+// What the design does about it: kernel F's register template
+// (flash_fwd.cu) without V, P V and O.
+// - Each warp owns HALVES 16-row slices of the block's BQ query rows; Q's
+//   A fragments stay in registers, S = Q K^T is mma.sync m16n8k16 (bf16
+//   in, fp32 accumulation) with ldmatrix fragments (study_mma.cuh), and
+//   the running max and sum of each row stay in registers (quad
+//   shuffles), with p = exp2(s * scale log2(e) - m) one FFMA and one exp2
+//   per logit (scale > 0, checked by the launcher).
+// - K tiles of BK = 64 rows arrive through a ring of STAGES shared buffers
+//   filled by cp.async 16-byte copies, the next tile's copies started
+//   before the current tile's Q K^T. The copy zero-fills rows past Skv and
+//   columns past D itself, so head dim 40 runs as 48 in shared memory
+//   only. Rows are an odd number of 16-byte units apart, so ldmatrix is
+//   free of bank conflicts.
+// - lse is written once per row, in natural-log units, from the quad
+//   that holds the row.
+//
+// The contract: Q and K are read straight from the projections' (B, S,
+// H*D) layout through batch and row strides. Rows past Sq are not
+// written; kv columns past Skv (attn2's 77 text tokens) become -inf
+// logits. With `keep` (B, N refs) over N equal spans of any length, the
+// ring walks from one K tile that holds a kept row to the next; a tile
+// that straddles a span boundary (spans of 16 or 144 rows at the mid
+// block of a 256 or 768 px image) sets the logits of its dropped columns
+// to -inf in the S registers: an instantiation of its own (STRADDLE),
+// chosen at launch, so that spans that are multiples of BK (the 512 px
+// UNet) test one flag per tile. A row that keeps no span gets lse = -inf.
+//
+// Not yet: wgmma and TMA.
 #include <math.h>
-#include <mma.h>
-#include <stdint.h>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "study_mma.cuh"
+
+using namespace sg_study;
 
 namespace {
 
-constexpr int BT = 64;  // rows per tile, on both sides
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float LOG2E = 1.4426950408889634f;
+// rows of a K tile
+constexpr int BK = 64;
 
-__host__ __device__ constexpr int align128(int x) { return (x + 127) / 128 * 128; }
-
-// Shared-memory layout: two bf16 (BT, DP) tiles (Q, K), one fp32 (BT, BT)
-// logit tile and two fp32 rows of BT scalars (running max and sum).
-template <int DP>
-struct LseSmem {
-  static constexpr int tile = align128(BT * DP * 2);
-  static constexpr int sf0 = 2 * tile;
-  static constexpr int row0 = sf0 + align128(BT * BT * 4);
-  static constexpr int bytes = row0 + 2 * align128(BT * 4);
+template <int DP, int BQ, int HALVES, int STAGES>
+struct LseCfg {
+  static constexpr int NT = 32 * BQ / (16 * HALVES);  // threads
+  static constexpr int PITCH = pitch_bytes(DP * 2);
+  static constexpr int CPR = DP * 2 / 16;  // 16-byte chunks per row
+  static constexpr int QBYTES = align128(BQ * PITCH);
+  static constexpr int TILE = align128(BK * PITCH);  // one K tile
+  static constexpr int BYTES = QBYTES + STAGES * TILE;
 };
 
-// Copy rows [row0, row0 + BT) x [0, D) of a strided bf16 matrix into a
-// (BT, DP) shared tile; rows past `nrows` and columns past D become zero.
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long rs, int row0, int nrows,
-                                          int D) {
-  constexpr int CPR = DP / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < BT * CPR; idx += NTHREADS) {
-    const int r = idx / CPR, c = (idx % CPR) * 8;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < nrows && c < D)
-      val = *reinterpret_cast<const uint4*>(src + (long long)gr * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * DP + c) = val;
-  }
-}
-
-// C[wr:wr+16, 0:BT] = A[wr:wr+16, :] B^T over a DP-deep contraction, A and
-// B both (BT, DP) row-major bf16 tiles; C fp32 with row stride BT.
-template <int DP>
-__device__ __forceinline__ void warp_abt(float* C, const bf16* A,
-                                         const bf16* B, int wr) {
-#pragma unroll
-  for (int j = 0; j < BT / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kc = 0; kc < DP / 16; ++kc) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-      wmma::load_matrix_sync(a, A + wr * DP + kc * 16, DP);
-      wmma::load_matrix_sync(bt, B + j * 16 * DP + kc * 16, DP);
-      wmma::mma_sync(acc, a, bt, acc);
-    }
-    wmma::store_matrix_sync(C + wr * BT + j * 16, acc, BT,
-                            wmma::mem_row_major);
-  }
-}
-
-struct Args {
-  const bf16 *q, *k;
-  float* lse_out;
-  int H, Sq, Skv, D;
-  long long qb, qr, kb, kr;  // batch and row strides of q, k
-  const int* keep;           // (B, nref) or nullptr
-  int nref, span;
-  float scale_log2;
-};
-
-// Does any of the K tile's rows [k0, k0 + BT) below Skv lie in a kept
-// span? Without STRADDLE every span is a multiple of BT rows and one flag
-// holds for the tile.
-template <bool STRADDLE>
-__device__ __forceinline__ bool tile_kept(const Args& a, int b, int k0) {
-  const int* kp = a.keep + b * a.nref;
-  if (!STRADDLE) return kp[k0 / a.span] != 0;
-  const int last = (min(k0 + BT, a.Skv) - 1) / a.span;
-  for (int r = k0 / a.span; r <= last; ++r)
-    if (kp[r]) return true;
-  return false;
-}
-
-// Do the K tile's rows lie in more than one span (then each row has its
-// own flag)?
-__device__ __forceinline__ bool tile_straddles(const Args& a, int k0) {
-  return k0 / a.span != (min(k0 + BT, a.Skv) - 1) / a.span;
-}
-
-// Is kv row `row` below Skv and in a kept span?
-__device__ __forceinline__ bool row_kept(const Args& a, int b, int row) {
-  return row < a.Skv && a.keep[b * a.nref + row / a.span] != 0;
-}
-
-template <int DP, bool MASKED, bool STRADDLE>
-__global__ void __launch_bounds__(NTHREADS) flash_lse_kernel(Args a) {
+template <int DP, int BQ, int HALVES, int STAGES, bool MASKED, bool STRADDLE>
+__global__ void __launch_bounds__(LseCfg<DP, BQ, HALVES, STAGES>::NT)
+flash_lse_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 float* __restrict__ lse, int H, int Sq, int Skv, int D,
+                 long long qb, long long qr, long long kb, long long kr,
+                 const int* __restrict__ keep, int nref, int span,
+                 float scale_log2) {
+  using C = LseCfg<DP, BQ, HALVES, STAGES>;
+  constexpr int KS = DP / 16, NTK = BK / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  using L = LseSmem<DP>;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::tile);
-  float* Ss = reinterpret_cast<float*>(smem + L::sf0);
-  float* Ms = reinterpret_cast<float*>(smem + L::row0);
-  float* Ls = Ms + align128(BT * 4) / 4;
+  unsigned char* ring = smem + C::QBYTES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BQ;
+  const int wrow = warp * 16 * HALVES;  // this warp's first row in the tile
+  const bf16* qh = q + b * qb + (long long)h * D;
+  const bf16* kh = k + b * kb + (long long)h * D;
+  const int ntiles = (Skv + BK - 1) / BK;
+  const int* kp = MASKED ? keep + b * nref : keep;
+  const int tps = span / BK;  // tiles per reference span (aligned)
+  // the spans of tile t's first and last kv row (STRADDLE)
+  auto first_span = [&](int t) { return t * BK / span; };
+  auto last_span = [&](int t) { return (min(t * BK + BK, Skv) - 1) / span; };
+  // does tile t hold a kept kv row (block-uniform)
+  auto kept = [&](int t) {
+    if constexpr (!STRADDLE) return kp[t / tps] != 0;
+    for (int r = first_span(t); r <= last_span(t); ++r)
+      if (kp[r]) return true;
+    return false;
+  };
+  // the first tile at or after t that holds a kept row
+  auto next_kept = [&](int t) {
+    if (MASKED)
+      while (t < ntiles && !kept(t)) ++t;
+    return t;
+  };
+  auto fetch = [&](int t, int stage) {
+    copy_tile<BK, C::CPR, C::PITCH, C::NT>(ring + stage * C::TILE, kh, kr,
+                                           t * BK, Skv, D, tid);
+  };
 
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp * 16;
-  load_tile<DP>(Qs, a.q + b * a.qb + (long long)h * a.D, a.qr, q0, a.Sq,
-                a.D);
-  for (int i = threadIdx.x; i < BT; i += NTHREADS) {
-    Ms[i] = -INFINITY;
-    Ls[i] = 0.f;
-  }
-  const bf16* kbase = a.k + b * a.kb + (long long)h * a.D;
-  for (int k0 = 0; k0 < a.Skv; k0 += BT) {
-    if (MASKED && !tile_kept<STRADDLE>(a, b, k0)) continue;
-    load_tile<DP>(Ks, kbase, a.kr, k0, a.Skv, a.D);
-    __syncthreads();
-    warp_abt<DP>(Ss, Qs, Ks, wr);
-    __syncwarp();
-    // this lane's two columns: below Skv, and kept where the tile straddles
-    const int kvalid = min(BT, a.Skv - k0);
-    const bool mixed = STRADDLE && tile_straddles(a, k0);
-    const bool ok0 = mixed ? row_kept(a, b, k0 + lane) : lane < kvalid;
-    const bool ok1 =
-        mixed ? row_kept(a, b, k0 + lane + 32) : lane + 32 < kvalid;
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr + r;
-      const float s0 = ok0 ? Ss[row * BT + lane] * a.scale_log2 : -INFINITY;
-      const float s1 =
-          ok1 ? Ss[row * BT + lane + 32] * a.scale_log2 : -INFINITY;
-      float mx = fmaxf(s0, s1);
+  // group 0: Q; then one group per ring stage but the last
+  copy_tile<BQ, C::CPR, C::PITCH, C::NT>(smem, qh, qr, q0, Sq, D, tid);
+  cp_async_commit();
+  int ld = next_kept(0);  // the next tile to copy
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = Ms[row];
-      // finite: a processed tile holds a kept column below Skv
-      const float m_new = fmaxf(m_old, mx);
-      float sum = exp2f(s0 - m_new) + exp2f(s1 - m_new);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = m_old == -INFINITY ? 0.f : exp2f(m_old - m_new);
-      __syncwarp();
-      if (lane == 0) {
-        Ms[row] = m_new;
-        Ls[row] = Ls[row] * alpha + sum;
-      }
-      __syncwarp();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (ld < ntiles) {
+      fetch(ld, s);
+      ld = next_kept(ld + 1);
     }
-    __syncthreads();  // the K tile is overwritten next iteration
+    cp_async_commit();
   }
-  // natural-log units; -inf for a row that kept no tile
-  for (int i = threadIdx.x; i < BT; i += NTHREADS)
-    if (q0 + i < a.Sq)
-      a.lse_out[((long long)b * a.H + h) * a.Sq + q0 + i] =
-          Ls[i] > 0.f ? (Ms[i] + log2f(Ls[i])) / LOG2E : -INFINITY;
+  cp_async_wait<STAGES - 1>();
+  __syncthreads();
+  uint32_t qa[HALVES][KS][4];
+#pragma unroll
+  for (int hh = 0; hh < HALVES; ++hh)
+    load_a_bf16<KS>(qa[hh], smem + (wrow + 16 * hh) * C::PITCH, C::PITCH,
+                    lane);
+
+  // per half: the running max (scaled, log2 domain) and this lane's share
+  // of the row sum, for rows grp and grp + 8
+  float m[HALVES][2], l[HALVES][2];
+#pragma unroll
+  for (int hh = 0; hh < HALVES; ++hh) {
+    m[hh][0] = m[hh][1] = -INFINITY;
+    l[hh][0] = l[hh][1] = 0.f;
+  }
+
+  int cs = 0, ls = STAGES - 1;  // ring stages of the tile in use / to fill
+  for (int cur = next_kept(0); cur < ntiles; cur = next_kept(cur + 1)) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile `cur`
+    // every thread's copies have landed, and every warp is done with the
+    // stage that the copies below overwrite
+    __syncthreads();
+    if (ld < ntiles) {
+      fetch(ld, ls);
+      ld = next_kept(ld + 1);
+    }
+    cp_async_commit();
+    ls = ls + 1 == STAGES ? 0 : ls + 1;
+    const unsigned char* ks = ring + cs * C::TILE;
+    cs = cs + 1 == STAGES ? 0 : cs + 1;
+
+    float s[HALVES][NTK][4];
+#pragma unroll
+    for (int hh = 0; hh < HALVES; ++hh) {
+#pragma unroll
+      for (int j = 0; j < NTK; ++j)
+        s[hh][j][0] = s[hh][j][1] = s[hh][j][2] = s[hh][j][3] = 0.f;
+      qk_bf16<KS, NTK>(s[hh], qa[hh], ks, C::PITCH, lane);
+    }
+    const int kvalid = Skv - cur * BK;
+    if (kvalid < BK) {  // the ragged last tile: columns past Skv
+#pragma unroll
+      for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+        for (int j = 0; j < NTK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (8 * j + 2 * (lane % 4) + e % 2 >= kvalid)
+              s[hh][j][e] = -INFINITY;
+    }
+    if (STRADDLE && first_span(cur) != last_span(cur)) {
+      // a tile across a span boundary: its columns in dropped spans
+#pragma unroll
+      for (int j = 0; j < NTK; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = cur * BK + 8 * j + 2 * (lane % 4) + e;
+          if (col < Skv && !kp[col / span])
+#pragma unroll
+            for (int hh = 0; hh < HALVES; ++hh)
+              s[hh][j][e] = s[hh][j][e + 2] = -INFINITY;
+        }
+    }
+
+#pragma unroll
+    for (int hh = 0; hh < HALVES; ++hh) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NTK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[hh][j][e]);
+      float neg[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // finite: a processed tile holds at least one kept column, and
+        // keep is per batch row, so every query row sees it
+        const float m_new = fmaxf(m[hh][r], quad_max(mx[r]) * scale_log2);
+        // the row's first processed tile: nothing to rescale
+        l[hh][r] *=
+            m[hh][r] == -INFINITY ? 0.f : fast_exp2(m[hh][r] - m_new);
+        m[hh][r] = m_new;
+        neg[r] = -m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < NTK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          l[hh][e / 2] +=
+              fast_exp2(fmaf(s[hh][j][e], scale_log2, neg[e / 2]));
+    }
+  }
+
+  // (m + log2 l) ln 2 into (B, H, Sq); l = 0: the row kept no span, -inf
+  const int grp = lane / 4, tq = lane % 4;
+  float* lb = lse + ((long long)b * H + h) * Sq;
+#pragma unroll
+  for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float den = quad_sum(l[hh][r]);
+      const int row = q0 + wrow + 16 * hh + grp + 8 * r;
+      if (tq == 0 && row < Sq)
+        lb[row] = den > 0.f ? (m[hh][r] + log2f(den)) * 0.6931471805599453f
+                            : -INFINITY;
+    }
 }
 
-template <int DP, bool MASKED, bool STRADDLE>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  auto kern = flash_lse_kernel<DP, MASKED, STRADDLE>;
-  const int bytes = LseSmem<DP>::bytes;
+template <int DP, int BQ, int HALVES, int STAGES, bool MASKED, bool STRADDLE>
+cudaError_t launch(const bf16* q, const bf16* k, float* lse, int B, int H,
+                   int Sq, int Skv, int D, long long qb, long long qr,
+                   long long kb, long long kr, const int* keep, int nref,
+                   int span, float scale_log2, cudaStream_t stream) {
+  using C = LseCfg<DP, BQ, HALVES, STAGES>;
+  static_assert(STAGES >= 2, "a ring of at least two stages");
+  static_assert(BQ % (16 * HALVES) == 0, "whole 16-row slices per warp");
+  auto kern = flash_lse_kernel<DP, BQ, HALVES, STAGES, MASKED, STRADDLE>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Sq + BT - 1) / BT, a.H, B);
-  kern<<<grid, NTHREADS, bytes, stream>>>(a);
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  kern<<<grid, C::NT, C::BYTES, stream>>>(q, k, lse, H, Sq, Skv, D, qb, qr,
+                                          kb, kr, keep, nref, span,
+                                          scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// lse (B, H, Sq) fp32 <- q (B, Sq, H*D), k (B, Skv, H*D); keep may be null.
+// lse (B, H, Sq) fp32 <- q (B, Sq, H*D), k (B, Skv, H*D); keep == nullptr
+// or (B, nref) int32 over nref spans of `span` kv rows, nref * span ==
+// Skv. D a multiple of 8, scale > 0. The instantiations built are the
+// SG_BUILT lines below, one per (16-padded head dim, masked), mirrored by
+// LSE_BUILT in ops/flash_attention.py; any other returns
+// cudaErrorInvalidValue. A masked line builds L twice: for spans that are a
+// multiple of BK and for the rest (STRADDLE), chosen here.
 extern "C" int sg_flash_lse(const void* q, const void* k, void* lse, int B,
                             int H, int Sq, int Skv, int D, long long qb,
                             long long qr, long long kb, long long kr,
                             const void* keep, int nref, int span,
                             float scale, void* stream) {
-  Args a = {};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.lse_out = static_cast<float*>(lse);
-  a.H = H;
-  a.Sq = Sq;
-  a.Skv = Skv;
-  a.D = D;
-  a.qb = qb;
-  a.qr = qr;
-  a.kb = kb;
-  a.kr = kr;
-  a.keep = static_cast<const int*>(keep);
-  a.nref = nref;
-  a.span = span;
-  a.scale_log2 = scale * LOG2E;
-  if (a.keep != nullptr && (span <= 0 || nref * span != Skv))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const float sl2 = scale * 1.4426950408889634f;  // scale * log2(e)
+  const bf16* Q = static_cast<const bf16*>(q);
+  const bf16* K = static_cast<const bf16*>(k);
+  float* LSE = static_cast<float*>(lse);
+  const int* KEEP = static_cast<const int*>(keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool straddle = a.keep != nullptr && span % BT != 0;
-#define SG_CASE(N)                                                   \
-  case N:                                                            \
-    return static_cast<int>(                                         \
-        straddle ? launch<N, true, true>(a, B, s)                    \
-                 : (a.keep ? launch<N, true, false>(a, B, s)         \
-                           : launch<N, false, false>(a, B, s)));
-  // The UNet's head dims: 40 (padded to 48), 80 and 160.
-  switch ((D + 15) / 16 * 16) {
-    SG_CASE(48)
-    SG_CASE(80)
-    SG_CASE(160)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const int masked = KEEP != nullptr;
+  if (D % 8 || !(scale > 0.f) ||
+      (masked && (span <= 0 || nref * span != Skv)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!masked) {
+    nref = 1;
+    span = 1;
   }
-#undef SG_CASE
+  const bool straddle = masked && span % BK != 0;
+  const int dp = (D + 15) / 16 * 16;
+#define SG_BUILT(DP_, MASKED_, BQ_, BK_, HALVES_, STAGES_)                  \
+  if (dp == DP_ && masked == MASKED_) {                                     \
+    static_assert(BK_ == BK, "one K tile height");                          \
+    if (straddle)                                                           \
+      return static_cast<int>(                                              \
+          launch<DP_, BQ_, HALVES_, STAGES_, (MASKED_ != 0),                \
+                 (MASKED_ != 0)>(Q, K, LSE, B, H, Sq, Skv, D, qb, qr, kb,   \
+                                 kr, KEEP, nref, span, sl2, s));            \
+    return static_cast<int>(                                                \
+        launch<DP_, BQ_, HALVES_, STAGES_, (MASKED_ != 0), false>(          \
+            Q, K, LSE, B, H, Sq, Skv, D, qb, qr, kb, kr, KEEP, nref, span,  \
+            sl2, s));                                                       \
+  }
+  // (padded head dim, masked, BQ, BK, halves per warp, ring stages): the
+  // UNet's head dims 40 (padded to 48), 80 and 160
+  SG_BUILT(48, 0, 128, 64, 2, 2)
+  SG_BUILT(48, 1, 128, 64, 2, 2)
+  SG_BUILT(80, 0, 64, 64, 1, 2)
+  SG_BUILT(80, 1, 128, 64, 2, 2)
+  SG_BUILT(160, 0, 64, 64, 1, 2)
+  SG_BUILT(160, 1, 128, 64, 1, 2)
+#undef SG_BUILT
+  return static_cast<int>(cudaErrorInvalidValue);
 }

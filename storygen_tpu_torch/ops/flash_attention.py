@@ -38,6 +38,13 @@ FWD_BUILT = {
     (80, False): (64, 64, 1, 2), (80, True): (128, 64, 2, 2),
     (160, False): (64, 64, 1, 2), (160, True): (64, 64, 1, 2),
 }
+# The instantiations of kernel L in csrc/flash_lse.cu (its SG_BUILT lines),
+# keyed and valued as FWD_BUILT.
+LSE_BUILT = {
+    (48, False): (128, 64, 2, 2), (48, True): (128, 64, 2, 2),
+    (80, False): (64, 64, 1, 2), (80, True): (128, 64, 2, 2),
+    (160, False): (64, 64, 1, 2), (160, True): (128, 64, 1, 2),
+}
 # The instantiations of kernels DQ and DKV in csrc/flash_bwd.cu (its
 # SG_BUILT lines): (kernel, 16-padded head dim, masked) -> (BR, the block's
 # own rows; BC, the rows of a streamed tile; cp.async ring stages; A
@@ -281,6 +288,34 @@ def flash_fwd_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def lse_tile(d: int, masked: bool) -> Tuple[int, int, int, int]:
+    """The instantiation that kernel L runs at head dim d: (BQ, BK,
+    halves, stages); its grid is (ceil(Sq / BQ), H, B). ValueError if none
+    is built."""
+    key = ((d + 15) // 16 * 16, bool(masked))
+    if d % 8 or key not in LSE_BUILT:
+        raise ValueError(f"no flash logsumexp built for head dim {d}"
+                         f"{' (masked)' if masked else ''}")
+    return LSE_BUILT[key]
+
+
+def _launch_lse(q, k, num_heads, scale, keep, lib=None):
+    """One launch of sg_flash_lse from `lib` (the built library if None;
+    the tile study passes one built with other SG_BUILT lines)."""
+    b, sq, skv, d, kargs, keep32 = _cuda_args(q, k, k, num_heads, keep)
+    lse_tile(d, keep is not None)
+    if not scale > 0:
+        raise ValueError(f"the logsumexp kernel takes a scale > 0, got "
+                         f"{scale}")
+    lse = torch.empty((b, num_heads, sq), dtype=torch.float32,
+                      device=q.device)
+    err = (lib or _build.load()).sg_flash_lse(
+        q.data_ptr(), k.data_ptr(), lse.data_ptr(), b, num_heads, sq, skv,
+        d, *_strides(q, k), *kargs, float(scale), _stream(q))
+    _build.check(err, "sg_flash_lse")
+    return lse
+
+
 def flash_lse(q: torch.Tensor, k: torch.Tensor, num_heads: int,
               scale: float, keep: Optional[torch.Tensor] = None
               ) -> torch.Tensor:
@@ -288,13 +323,7 @@ def flash_lse(q: torch.Tensor, k: torch.Tensor, num_heads: int,
     _check(q, k, k, num_heads, keep)
     if q.device.type == "cpu":
         return flash_lse_plain(q, k, num_heads, scale, keep)
-    b, sq, skv, d, kargs, keep32 = _cuda_args(q, k, k, num_heads, keep)
-    lse = torch.empty((b, num_heads, sq), dtype=torch.float32,
-                      device=q.device)
-    err = _build.load().sg_flash_lse(
-        q.data_ptr(), k.data_ptr(), lse.data_ptr(), b, num_heads, sq, skv,
-        d, *_strides(q, k), *kargs, float(scale), _stream(q))
-    _build.check(err, "sg_flash_lse")
+    lse = _launch_lse(q, k, num_heads, scale, keep)
     flash_lse.launches += 1
     return lse
 

@@ -5,8 +5,10 @@ Replaces `_geglu_kernel` of storygen_tpu/ops/pallas_geglu.py (reached
 through `geglu_matmul`). From the packed projection proj (M, 2N) =
 [value | gate] it computes (value * gelu_erf(gate)) @ weight.T + bias, where
 weight is the nn.Linear weight (E, N); the gated product never reaches
-memory in the kernel. The backward is plain fp32 torch (`_bwd` of the JAX
-module, which runs in XLA outside any Pallas kernel).
+memory in the kernel. `GEGLU_BUILT` mirrors the kernel's instantiations
+and `geglu_tile` picks one per (M, N, E). The backward is plain fp32
+torch (`_bwd` of the JAX module, which runs in XLA outside any Pallas
+kernel).
 """
 from __future__ import annotations
 
@@ -28,6 +30,83 @@ def geglu_matmul_plain(proj: torch.Tensor, weight: torch.Tensor,
     gated = (value * F.gelu(gate)).to(proj.dtype).float()
     out = gated @ weight.float().t() + bias.float()
     return out.to(proj.dtype)
+
+
+# The instantiations of kernel G in csrc/geglu_matmul.cu (its SG_BUILT
+# lines): (E, m_class(M)) -> (BM, BE, BK, warps along M, warps along E,
+# cp.async ring stages, split-K, gelu form: 0 erff, 1 Abramowitz & Stegun,
+# 2 rational).
+GEGLU_BUILT = {
+    (320, 0): (32, 320, 64, 1, 4, 3, 4, 2),
+    (320, 1): (32, 320, 64, 1, 4, 3, 1, 2),
+    (320, 2): (64, 320, 64, 2, 4, 3, 1, 2),
+    (640, 0): (32, 320, 64, 1, 4, 3, 4, 2),
+    (640, 1): (32, 320, 64, 1, 4, 3, 2, 2),
+    (640, 2): (64, 320, 64, 2, 4, 3, 1, 2),
+    (1280, 0): (32, 128, 64, 1, 4, 3, 4, 2),
+    (1280, 1): (64, 256, 64, 2, 4, 3, 2, 2),
+    (1280, 2): (128, 256, 64, 2, 4, 3, 1, 2),
+}
+
+
+def m_class(m: int) -> int:
+    """The class of M that picks an instantiation together with E (the
+    source's m_class): 0 up to 512 rows (the mid block), 1 up to 2048 (the
+    third level), 2 above."""
+    return 0 if m <= 512 else (1 if m <= 2048 else 2)
+
+
+def geglu_tile(m: int, n: int, e: int) -> Tuple[int, ...]:
+    """The instantiation that kernel G runs for proj (m, 2n) and weight
+    (e, n): (BM, BE, BK, WM, WE, stages, split, gelu form); its grid is
+    (ceil(e / BE), ceil(m / BM), split). ValueError if none is built or n
+    is not a multiple of its BK."""
+    key = (e, m_class(m))
+    if key not in GEGLU_BUILT:
+        raise ValueError(f"no GEGLU kernel built for E={e}, M={m}")
+    tile = GEGLU_BUILT[key]
+    if n % tile[2]:
+        raise ValueError(f"inner width {n} must be a multiple of the K step "
+                         f"{tile[2]}")
+    return tile
+
+
+# Per (device, stream): the split-K tiles' arrival counters. Zeroed once;
+# every launch leaves them zeroed, and launches on one stream never overlap.
+_counters = {}
+
+
+def _tile_counters(device: torch.device, stream: int, n: int
+                   ) -> torch.Tensor:
+    buf = _counters.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[(device, stream)] = buf
+    return buf
+
+
+def _launch(proj, weight, bias, lib=None, tile=None) -> torch.Tensor:
+    """One launch of sg_geglu_matmul from `lib` (the built library if
+    None; the tile study passes one built with other SG_BUILT lines and
+    that line's `tile`)."""
+    m, e, n = proj.shape[0], *weight.shape
+    tile = tile or geglu_tile(m, n, e)
+    bm, be, split = tile[0], tile[1], tile[6]
+    stream = torch.cuda.current_stream(proj.device).cuda_stream
+    out = torch.empty((m, e), dtype=proj.dtype, device=proj.device)
+    part = count = None
+    if split > 1:
+        part = torch.empty((split, m, e), dtype=torch.float32,
+                           device=proj.device)
+        count = _tile_counters(proj.device, stream,
+                               -(-m // bm) * -(-e // be))
+    err = (lib or _build.load()).sg_geglu_matmul(
+        proj.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        int(bias.dtype == torch.float32), out.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if count is None else count.data_ptr(), m, n, e, stream)
+    _build.check(err, "sg_geglu_matmul")
+    return out
 
 
 def geglu_matmul(proj: torch.Tensor, weight: torch.Tensor,
@@ -57,14 +136,9 @@ def geglu_matmul(proj: torch.Tensor, weight: torch.Tensor,
         raise ValueError("proj and weight must be 16-byte aligned")
     if m == 0:
         raise ValueError("empty projection")
-    bias32 = bias.float().contiguous()
-    out = torch.empty((m, e), dtype=proj.dtype, device=proj.device)
-    lib = _build.load()
-    err = lib.sg_geglu_matmul(
-        proj.data_ptr(), weight.data_ptr(), bias32.data_ptr(),
-        out.data_ptr(), m, n, e,
-        torch.cuda.current_stream(proj.device).cuda_stream)
-    _build.check(err, "sg_geglu_matmul")
+    if bias.dtype not in (torch.bfloat16, torch.float32):
+        bias = bias.float()  # the kernel reads a bf16 or fp32 bias as it is
+    out = _launch(proj, weight, bias.contiguous())
     geglu_matmul.launches += 1
     return out
 

@@ -164,6 +164,17 @@ def run_candidates(name: str, cands, ref, ops: float, dev, card: str,
         print(line(name, label, ms, ops, card, err, unit), flush=True)
 
 
+def refused_as_value_error(fn: Callable) -> Callable:
+    """A candidate whose launch the card refuses (a cudaError_t that the
+    wrapper raises as RuntimeError) prints a FAILED line."""
+    def call():
+        try:
+            return fn()
+        except RuntimeError as e:
+            raise ValueError(str(e)) from e
+    return call
+
+
 def setup(device) -> Tuple[torch.device, str]:
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False

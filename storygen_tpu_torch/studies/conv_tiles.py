@@ -204,17 +204,6 @@ def inputs(shape, dev: torch.device, seed: int = 0):
     return x, w9, bias, r, a, s
 
 
-def _as_value_error(fn):
-    """A candidate whose launch the card refuses (a cudaError_t that the
-    wrapper raises as RuntimeError) prints a FAILED line."""
-    def call():
-        try:
-            return fn()
-        except RuntimeError as e:
-            raise ValueError(str(e)) from e
-    return call
-
-
 def main(device=None, shapes=tuple(SHAPES), iters: int = 10) -> None:
     dev, card = common.setup(device)
     torch.backends.cudnn.allow_tf32 = False
@@ -273,7 +262,7 @@ def main(device=None, shapes=tuple(SHAPES), iters: int = 10) -> None:
                     call = (lambda lib=lib: conv._launch(
                         "sg_gnconv3x3" if pro else "sg_conv3x3", x, w9,
                         bias, r, *aff, lib=lib))
-                rows.append((tag, _as_value_error(call), True))
+                rows.append((tag, common.refused_as_value_error(call), True))
         common.run_candidates(label, rows, ref,
                               2.0 * b * ho * wo * 9 * cin * cout, dev, card,
                               iters)

@@ -37,6 +37,13 @@ CANDIDATES: Dict[int, List[Tuple[int, int, int]]] = {
     80: [(64, 1, 2), (64, 2, 2), (128, 1, 2), (128, 2, 2), (64, 1, 3)],
     160: [(64, 1, 2), (128, 1, 2), (64, 1, 3)],
 }
+# L needs half of F's ring and no O registers: 128-row blocks at every dp
+LSE_CANDIDATES: Dict[int, List[Tuple[int, int, int]]] = {
+    48: [(64, 1, 2), (128, 1, 2), (128, 2, 2), (128, 2, 3), (64, 1, 3)],
+    80: [(64, 1, 2), (128, 1, 2), (128, 2, 2), (128, 2, 3)],
+    160: [(64, 1, 2), (128, 1, 2), (128, 2, 2), (64, 1, 3)],
+}
+SOURCES = {"fwd": "flash_fwd.cu", "lse": "flash_lse.cu"}
 # the UNet's attention sites at 512 px: (B, Sq, Skv, keep table or None),
 # 8 heads; attn3's table as in chip_smoke.py
 KEEP = [[0, 0, 1], [0, 1, 1], [1, 1, 1], [0, 0, 1]]
@@ -61,35 +68,38 @@ def padded(d: int) -> int:
     return (d + 15) // 16 * 16
 
 
-def candidate_source(dp: int, bq: int, halves: int, stages: int) -> str:
-    """flash_fwd.cu with its SG_BUILT lines replaced by the candidate's two
-    (F and M at 16-padded head dim dp)."""
-    src = (_build.CSRC / "flash_fwd.cu").read_text()
+def candidate_source(dp: int, bq: int, halves: int, stages: int,
+                     kind: str = "fwd") -> str:
+    """flash_fwd.cu (kind "fwd") or flash_lse.cu ("lse") with its SG_BUILT
+    lines replaced by the candidate's two (unmasked and masked at 16-padded
+    head dim dp)."""
+    src = (_build.CSRC / SOURCES[kind]).read_text()
     first = _BUILT_LINE.search(src)
     if first is None:
-        raise ValueError("flash_fwd.cu has no SG_BUILT lines")
+        raise ValueError(f"{SOURCES[kind]} has no SG_BUILT lines")
     body = _BUILT_LINE.sub("", src)
     mine = "".join(f"  SG_BUILT({dp}, {m}, {bq}, {fa._BK}, {halves}, "
                    f"{stages})\n" for m in (0, 1))
     return body[:first.start()] + mine + body[first.start():]
 
 
-def build(cands) -> Dict[tuple, Path]:
-    """One library per (dp, bq, halves, stages), keyed by the sources' hash
+def build(cands, kind: str = "fwd") -> Dict[tuple, Path]:
+    """One library per (dp, bq, halves, stages), keyed by the source's hash
     and the candidate, built in parallel, each printing its ptxas
     registers and spills."""
     root = (_build.BUILD_ROOT / "tiles"
-            / _build.source_hash([_build.CSRC / "flash_fwd.cu"]))
+            / _build.source_hash([_build.CSRC / SOURCES[kind]]))
     return common.build_candidates(
-        root, {c: (f"flash_fwd_{'_'.join(map(str, c))}",
-                   candidate_source(*c)) for c in cands},
-        "flash_fwd_kernel")
+        root, {c: (f"flash_{kind}_{'_'.join(map(str, c))}",
+                   candidate_source(*c, kind=kind)) for c in cands},
+        f"flash_{kind}_kernel")
 
 
-def load(path: Path) -> ctypes.CDLL:
+def load(path: Path, kind: str = "fwd") -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    lib.sg_flash_fwd.argtypes = list(_build.SIGNATURES["sg_flash_fwd"])
-    lib.sg_flash_fwd.restype = ctypes.c_int
+    fn = getattr(lib, f"sg_flash_{kind}")
+    fn.argtypes = list(_build.SIGNATURES[f"sg_flash_{kind}"])
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -100,7 +110,10 @@ def main(device=None, shapes=tuple(SHAPES), iters: int = 10) -> None:
     todo = [(n, *SHAPES[n]) for n in shapes]
     dps = sorted({padded(d) for *_, d, _ in todo})
     cands = [(dp, *c) for dp in dps for c in CANDIDATES[dp]]
+    lse_cands = [(dp, *c) for dp in dps for c in LSE_CANDIDATES[dp]]
     libs = {c: load(p) for c, p in build(cands).items()}
+    lse_libs = {c: load(p, "lse")
+                for c, p in build(lse_cands, "lse").items()}
     g = torch.Generator(device=dev).manual_seed(0)
     for name, b, sq, skv, d, table in todo:
         q, k, v = (torch.randn((b, s, HEADS * d), generator=g, device=dev)
@@ -130,7 +143,21 @@ def main(device=None, shapes=tuple(SHAPES), iters: int = 10) -> None:
         label = f"{name} B{b} {sq}x{skv} d{d}"
         common.run_candidates(label, cands_here, ref,
                               4.0 * HEADS * sq * kept * d, dev, card, iters)
-        del q, k, v, ref
+        with torch.no_grad():
+            lse_ref = fa.flash_lse_plain(q.float(), k.float(), HEADS, sm,
+                                         keep)
+        lb = fa.lse_tile(d, keep is not None)
+        lse_here = [(f"built L {lb[0]}/{lb[2]}h/{lb[3]}s",
+                     lambda: fa.flash_lse(q, k, HEADS, sm, keep), True)]
+        lse_here += [
+            (f"L bq{bq} {halves}h {stages}s",
+             functools.partial(fa._launch_lse, q, k, HEADS, sm, keep,
+                               lse_libs[(dp, bq, halves, stages)]), True)
+            for dp, bq, halves, stages in lse_cands
+            if dp == padded(d) and (dp, bq, halves, stages) in lse_libs]
+        common.run_candidates(label, lse_here, lse_ref,
+                              2.0 * HEADS * sq * kept * d, dev, card, iters)
+        del q, k, v, ref, lse_ref
 
 
 if __name__ == "__main__":

@@ -56,7 +56,8 @@ def test_port_imports_no_jax_or_flax():
         "import storygen_tpu_torch.studies.bench_attn_int8_epilogue\n"
         "import storygen_tpu_torch.studies.conv_tiles, "
         "storygen_tpu_torch.studies.flash_fwd_tiles\n"
-        "import storygen_tpu_torch.studies.flash_bwd_tiles\n"
+        "import storygen_tpu_torch.studies.flash_bwd_tiles, "
+        "storygen_tpu_torch.studies.geglu_tiles\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'storygen_tpu'))\n"
         "assert not bad, bad\n"
