@@ -128,7 +128,7 @@ KERNEL_META = {
         "route": "cuda", "source": "storygen_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "storygen_tpu/ops/pallas_attention.py:157"},
     "flash_lse": {
-        "route": "cuda", "source": "storygen_tpu_torch/csrc/flash_lse.cu",
+        "route": "cuda", "source": "storygen_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "storygen_tpu/ops/pallas_attention.py:526"},
     "flash_dq": {
         "route": "cuda", "source": "storygen_tpu_torch/csrc/flash_bwd.cu",

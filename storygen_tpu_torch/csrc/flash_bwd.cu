@@ -9,7 +9,7 @@
 //        dV = P^T dO and dK = scale * dS^T Q, per block of K/V rows, over
 //        the Q tiles, in the transposed form the TPU kernel uses (s_t).
 //
-// lse comes from kernel L (flash_lse.cu) and delta = rowsum(dO * O) from
+// lse comes from kernel L (flash_fwd.cu) and delta = rowsum(dO * O) from
 // the caller in fp32 (plain torch, as the JAX package computes it in XLA).
 // Each kernel owns its output tile and loops over the other side, so there
 // are no atomics and the result is deterministic.
@@ -63,7 +63,7 @@
 // written as (B, S, H*D).
 //
 // Not yet: wgmma, TMA and warp specialisation. Kernel L, the logsumexp
-// that DQ and DKV read, is flash_lse.cu.
+// that DQ and DKV read, is in flash_fwd.cu.
 #include <math.h>
 
 #include "study_mma.cuh"

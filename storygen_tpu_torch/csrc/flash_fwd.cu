@@ -1,20 +1,24 @@
 // Flash-attention forward for Hopper (sm_90a): O = softmax(Q K^T * scale) V,
-// kernels F (unmasked) and M (masked), one template.
+// kernels F (unmasked) and M (masked), and the backward's kernel L, the
+// forward's row logsumexp lse = log sum_k exp(scale q.k): one template.
 //
 // Replaces the forward variants of the TPU kernel in
 // storygen_tpu/ops/pallas_attention.py, reached through _flash_core:
 // _bnd_kernel :83, _bnd2_kernel :124, _online_t_kernel :163 and
 // _flash_kernel :208 (F), and their masked forms _bnd_masked_kernel :118,
 // _bnd2_masked_kernel :157, _online_t_masked_kernel :202 and
-// _masked_kernel :251 (M). The TPU's per-row bound with its 120-unit exp2
-// clamp and the transposed "bhds" output layout are TPU workarounds and are
-// not carried over: this is the exact online softmax.
+// _masked_kernel :251 (M); and _lse_kernel :526 of the TPU backward
+// (_pallas_bwd_with_out, reached through _core_bwd) (L), whose gradient
+// kernels DQ and DKV are flash_bwd.cu. The TPU's per-row bound with its
+// 120-unit exp2 clamp and the transposed "bhds" output layout are TPU
+// workarounds and are not carried over: this is the exact online softmax.
 //
 // What bounds it on the H100: tensor-core work, 4 Sq Skv d operations per
 // head, and beside it one exp2 per logit on the special-function units. At
 // the UNet's 4096 x 4096 (attn1) and 4096 x 12288 (attn3) shapes the logits
 // are 16-48x larger than Q, K, V and O together, so a kernel that never
-// writes them to HBM is not bound by HBM.
+// writes them to HBM is not bound by HBM. L is the same walk with half
+// the products (Q K^T only) and writes (B, H, Sq) fp32.
 //
 // What the design does about it:
 // - S, P and O live in registers. Each warp owns HALVES 16-row slices of
@@ -51,6 +55,11 @@
 // tile does past Skv. A row whose running max is still -inf takes alpha =
 // 0, and a row that kept no span writes zeros.
 //
+// L (template flag LSE) is this kernel without V, P V and O: the ring holds
+// K tiles only (half the bytes), so 128-row blocks fit at d80 and d160 too,
+// and the epilogue writes lse = (m + log2 l) ln 2 once per row from the
+// quad that holds it, -inf for a row that kept no span.
+//
 // Not yet: wgmma, TMA and warp specialisation.
 #include <math.h>
 
@@ -63,25 +72,31 @@ namespace {
 // rows of a K/V tile
 constexpr int BK = 64;
 
-template <int DP, int BQ, int HALVES, int STAGES>
+// what an SG_BUILT line builds: F or M (O), or L (lse)
+enum Kind { kFwd = 1, kLse = 2 };
+
+template <int DP, int BQ, int HALVES, int STAGES, bool LSE>
 struct Cfg {
   static constexpr int NT = 32 * BQ / (16 * HALVES);  // threads
   static constexpr int PITCH = pitch_bytes(DP * 2);
   static constexpr int CPR = DP * 2 / 16;  // 16-byte chunks per row
   static constexpr int QBYTES = align128(BQ * PITCH);
   static constexpr int TILE = align128(BK * PITCH);  // one K or V tile
-  static constexpr int BYTES = QBYTES + STAGES * 2 * TILE;
+  static constexpr int KV = LSE ? 1 : 2;             // tiles a ring stage
+  static constexpr int BYTES = QBYTES + STAGES * KV * TILE;
 };
 
-template <int DP, int BQ, int HALVES, int STAGES, bool MASKED, bool STRADDLE>
-__global__ void __launch_bounds__(Cfg<DP, BQ, HALVES, STAGES>::NT)
+// out: O (B, Sq, H*D) bf16, or with LSE lse (B, H, Sq) fp32 (v unread)
+template <int DP, int BQ, int HALVES, int STAGES, bool MASKED, bool STRADDLE,
+          bool LSE>
+__global__ void __launch_bounds__(Cfg<DP, BQ, HALVES, STAGES, LSE>::NT)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int H,
+                 const bf16* __restrict__ v, void* __restrict__ out, int H,
                  int Sq, int Skv, int D, long long qb, long long qr,
                  long long kb, long long kr, long long vb, long long vr,
                  const int* __restrict__ keep, int nref, int span,
                  float scale_log2) {
-  using C = Cfg<DP, BQ, HALVES, STAGES>;
+  using C = Cfg<DP, BQ, HALVES, STAGES, LSE>;
   constexpr int KS = DP / 16, NTK = BK / 8, DT = DP / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem + C::QBYTES;
@@ -112,10 +127,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     return t;
   };
   auto fetch = [&](int t, int stage) {
-    unsigned char* ks = ring + stage * 2 * C::TILE;
+    unsigned char* ks = ring + stage * C::KV * C::TILE;
     copy_tile<BK, C::CPR, C::PITCH, C::NT>(ks, kh, kr, t * BK, Skv, D, tid);
-    copy_tile<BK, C::CPR, C::PITCH, C::NT>(ks + C::TILE, vh, vr, t * BK, Skv,
-                                           D, tid);
+    if constexpr (!LSE)
+      copy_tile<BK, C::CPR, C::PITCH, C::NT>(ks + C::TILE, vh, vr, t * BK,
+                                             Skv, D, tid);
   };
 
   // group 0: Q; then one group per ring stage but the last
@@ -138,8 +154,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_a_bf16<KS>(qa[hh], smem + (wrow + 16 * hh) * C::PITCH, C::PITCH,
                     lane);
 
-  // per half: O, the running max (scaled, log2 domain) and this lane's
-  // share of the row sum, for rows grp and grp + 8
+  // per half: O (not with LSE), the running max (scaled, log2 domain) and
+  // this lane's share of the row sum, for rows grp and grp + 8
   float acc[HALVES][DT][4], m[HALVES][2], l[HALVES][2];
 #pragma unroll
   for (int hh = 0; hh < HALVES; ++hh) {
@@ -162,7 +178,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     cp_async_commit();
     ls = ls + 1 == STAGES ? 0 : ls + 1;
-    const unsigned char* ks = ring + cs * 2 * C::TILE;
+    const unsigned char* ks = ring + cs * C::KV * C::TILE;
     cs = cs + 1 == STAGES ? 0 : cs + 1;
 
     float s[HALVES][NTK][4];
@@ -228,23 +244,41 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           s[hh][j][e] = p;
           l[hh][e / 2] += p;
         }
+      if constexpr (!LSE) {
 #pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        acc[hh][j][0] *= alpha[0];
-        acc[hh][j][1] *= alpha[0];
-        acc[hh][j][2] *= alpha[1];
-        acc[hh][j][3] *= alpha[1];
+        for (int j = 0; j < DT; ++j) {
+          acc[hh][j][0] *= alpha[0];
+          acc[hh][j][1] *= alpha[0];
+          acc[hh][j][2] *= alpha[1];
+          acc[hh][j][3] *= alpha[1];
+        }
+        uint32_t p[NTK / 2][4];
+        pack_p<NTK>(p, s[hh]);
+        pv_bf16<NTK / 2, DT>(acc[hh], p, ks + C::TILE, C::PITCH, lane);
       }
-      uint32_t p[NTK / 2][4];
-      pack_p<NTK>(p, s[hh]);
-      pv_bf16<NTK / 2, DT>(acc[hh], p, ks + C::TILE, C::PITCH, lane);
     }
   }
 
-  // O / l into (B, Sq, H*D); l = 0: the row kept no span, write zeros
   const int grp = lane / 4, tq = lane % 4;
+  if constexpr (LSE) {
+    // (m + log2 l) ln 2 into (B, H, Sq); l = 0: the row kept no span, -inf
+    float* lb = static_cast<float*>(out) + ((long long)b * H + h) * Sq;
+#pragma unroll
+    for (int hh = 0; hh < HALVES; ++hh)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float den = quad_sum(l[hh][r]);
+        const int row = q0 + wrow + 16 * hh + grp + 8 * r;
+        if (tq == 0 && row < Sq)
+          lb[row] = den > 0.f ? (m[hh][r] + log2f(den)) * 0.6931471805599453f
+                              : -INFINITY;
+      }
+    return;
+  }
+  // O / l into (B, Sq, H*D); l = 0: the row kept no span, write zeros
   const long long ors = (long long)H * D;
-  bf16* ob = o + (long long)b * Sq * ors + (long long)h * D;
+  bf16* ob = static_cast<bf16*>(out) + (long long)b * Sq * ors +
+             (long long)h * D;
 #pragma unroll
   for (int hh = 0; hh < HALVES; ++hh)
 #pragma unroll
@@ -265,46 +299,43 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
-template <int DP, int BQ, int HALVES, int STAGES, bool MASKED, bool STRADDLE>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+template <int DP, int BQ, int HALVES, int STAGES, bool MASKED, bool STRADDLE,
+          bool LSE>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, void* out,
                    int B, int H, int Sq, int Skv, int D, long long qb,
                    long long qr, long long kb, long long kr, long long vb,
                    long long vr, const int* keep, int nref, int span,
                    float scale_log2, cudaStream_t stream) {
-  using C = Cfg<DP, BQ, HALVES, STAGES>;
+  using C = Cfg<DP, BQ, HALVES, STAGES, LSE>;
   static_assert(STAGES >= 2, "a ring of at least two stages");
   static_assert(BQ % (16 * HALVES) == 0, "whole 16-row slices per warp");
-  auto kern = flash_fwd_kernel<DP, BQ, HALVES, STAGES, MASKED, STRADDLE>;
+  auto kern = flash_fwd_kernel<DP, BQ, HALVES, STAGES, MASKED, STRADDLE, LSE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, C::NT, C::BYTES, stream>>>(q, k, v, o, H, Sq, Skv, D, qb, qr,
-                                          kb, kr, vb, vr, keep, nref, span,
-                                          scale_log2);
+  kern<<<grid, C::NT, C::BYTES, stream>>>(q, k, v, out, H, Sq, Skv, D, qb,
+                                          qr, kb, kr, vb, vr, keep, nref,
+                                          span, scale_log2);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// keep == nullptr: kernel F; otherwise kernel M with keep (B, nref) int32
-// over nref spans of `span` kv rows, nref * span == Skv. D a multiple of 8,
-// scale > 0. The instantiations built are the SG_BUILT lines below, one
-// per (16-padded head dim, masked), mirrored by FWD_BUILT in
-// ops/flash_attention.py; any other returns cudaErrorInvalidValue. A masked
-// line builds M twice: for spans that are a multiple of BK and for the
-// rest (STRADDLE), chosen here.
-extern "C" int sg_flash_fwd(const void* q, const void* k, const void* v,
-                            void* o, int B, int H, int Sq, int Skv, int D,
-                            long long qb, long long qr, long long kb,
-                            long long kr, long long vb, long long vr,
-                            const void* keep, int nref, int span,
-                            float scale, void* stream) {
+// One launch of `kind`. D a multiple of 8, scale > 0; keep == nullptr or
+// (B, nref) int32 over nref spans of `span` kv rows, nref * span == Skv.
+// The instantiations built are the SG_BUILT lines below, one per (kind,
+// 16-padded head dim, masked), mirrored by FWD_BUILT (kFwd) and LSE_BUILT
+// (kLse) in ops/flash_attention.py; any other returns
+// cudaErrorInvalidValue. A masked line builds its kernel twice: for spans
+// that are a multiple of BK and for the rest (STRADDLE), chosen here.
+int dispatch(Kind kind, const void* q, const void* k, const void* v,
+             void* out, int B, int H, int Sq, int Skv, int D, long long qb,
+             long long qr, long long kb, long long kr, long long vb,
+             long long vr, const void* keep, int nref, int span, float scale,
+             void* stream) {
   const float sl2 = scale * 1.4426950408889634f;  // scale * log2(e)
   const bf16* Q = static_cast<const bf16*>(q);
   const bf16* K = static_cast<const bf16*>(k);
   const bf16* V = static_cast<const bf16*>(v);
-  bf16* O = static_cast<bf16*>(o);
   const int* KEEP = static_cast<const int*>(keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int masked = KEEP != nullptr;
@@ -317,27 +348,58 @@ extern "C" int sg_flash_fwd(const void* q, const void* k, const void* v,
   }
   const bool straddle = masked && span % BK != 0;
   const int dp = (D + 15) / 16 * 16;
-#define SG_BUILT(DP_, MASKED_, BQ_, BK_, HALVES_, STAGES_)                  \
-  if (dp == DP_ && masked == MASKED_) {                                     \
+#define SG_BUILT(KIND_, DP_, MASKED_, BQ_, BK_, HALVES_, STAGES_)           \
+  if (kind == KIND_ && dp == DP_ && masked == MASKED_) {                    \
     static_assert(BK_ == BK, "one K/V tile height");                        \
     if (straddle)                                                           \
       return static_cast<int>(                                              \
           launch<DP_, BQ_, HALVES_, STAGES_, (MASKED_ != 0),                \
-                 (MASKED_ != 0)>(Q, K, V, O, B, H, Sq, Skv, D, qb, qr, kb,  \
-                                 kr, vb, vr, KEEP, nref, span, sl2, s));    \
+                 (MASKED_ != 0), KIND_ == kLse>(                            \
+              Q, K, V, out, B, H, Sq, Skv, D, qb, qr, kb, kr, vb, vr, KEEP, \
+              nref, span, sl2, s));                                         \
     return static_cast<int>(                                                \
-        launch<DP_, BQ_, HALVES_, STAGES_, (MASKED_ != 0), false>(          \
-            Q, K, V, O, B, H, Sq, Skv, D, qb, qr, kb, kr, vb, vr, KEEP,     \
-            nref, span, sl2, s));                                           \
+        launch<DP_, BQ_, HALVES_, STAGES_, (MASKED_ != 0), false,           \
+               KIND_ == kLse>(Q, K, V, out, B, H, Sq, Skv, D, qb, qr, kb,   \
+                              kr, vb, vr, KEEP, nref, span, sl2, s));       \
   }
-  // (padded head dim, masked, BQ, BK, halves per warp, ring stages): the
-  // UNet's head dims 40 (padded to 48), 80 and 160
-  SG_BUILT(48, 0, 128, 64, 2, 2)
-  SG_BUILT(48, 1, 128, 64, 2, 2)
-  SG_BUILT(80, 0, 64, 64, 1, 2)
-  SG_BUILT(80, 1, 128, 64, 2, 2)
-  SG_BUILT(160, 0, 64, 64, 1, 2)
-  SG_BUILT(160, 1, 64, 64, 1, 2)
+  // (kind, padded head dim, masked, BQ, BK, halves per warp, ring stages):
+  // the UNet's head dims 40 (padded to 48), 80 and 160
+  SG_BUILT(kFwd, 48, 0, 128, 64, 2, 2)
+  SG_BUILT(kFwd, 48, 1, 128, 64, 2, 2)
+  SG_BUILT(kFwd, 80, 0, 64, 64, 1, 2)
+  SG_BUILT(kFwd, 80, 1, 128, 64, 2, 2)
+  SG_BUILT(kFwd, 160, 0, 64, 64, 1, 2)
+  SG_BUILT(kFwd, 160, 1, 64, 64, 1, 2)
+  SG_BUILT(kLse, 48, 0, 128, 64, 2, 2)
+  SG_BUILT(kLse, 48, 1, 128, 64, 2, 2)
+  SG_BUILT(kLse, 80, 0, 64, 64, 1, 2)
+  SG_BUILT(kLse, 80, 1, 128, 64, 2, 2)
+  SG_BUILT(kLse, 160, 0, 64, 64, 1, 2)
+  SG_BUILT(kLse, 160, 1, 128, 64, 1, 2)
 #undef SG_BUILT
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Kernels F (keep == nullptr) and M: O (B, Sq, H*D) bf16 <- q (B, Sq, H*D),
+// k and v (B, Skv, H*D), in the layout of dispatch() above.
+extern "C" int sg_flash_fwd(const void* q, const void* k, const void* v,
+                            void* o, int B, int H, int Sq, int Skv, int D,
+                            long long qb, long long qr, long long kb,
+                            long long kr, long long vb, long long vr,
+                            const void* keep, int nref, int span,
+                            float scale, void* stream) {
+  return dispatch(kFwd, q, k, v, o, B, H, Sq, Skv, D, qb, qr, kb, kr, vb, vr,
+                  keep, nref, span, scale, stream);
+}
+
+// Kernel L: lse (B, H, Sq) fp32 <- q (B, Sq, H*D), k (B, Skv, H*D).
+extern "C" int sg_flash_lse(const void* q, const void* k, void* lse, int B,
+                            int H, int Sq, int Skv, int D, long long qb,
+                            long long qr, long long kb, long long kr,
+                            const void* keep, int nref, int span,
+                            float scale, void* stream) {
+  return dispatch(kLse, q, k, k, lse, B, H, Sq, Skv, D, qb, qr, kb, kr, kb,
+                  kr, keep, nref, span, scale, stream);
 }

@@ -9,7 +9,7 @@
 // at the first level of a 3-row CFG batch, more than the 50 MB L2). The
 // function needs the projection read once and the output written once;
 // the GEMM (2 M N E operations) is tensor-core work below that line at
-// E = 320, and the exact gelu (one erff per gate element) is ALU work of
+// E = 320, and the exact gelu (one erf per gate element) is ALU work of
 // about the same size as the bytes.
 //
 // What the design does about it:
@@ -38,13 +38,12 @@
 //   previous step's products, so that the arithmetic overlaps other warps'
 //   products and the step's barrier publishes it (kernel P's prologue in
 //   conv_mma.cuh works the same way). The gelu is the erf form,
-//   0.5 g (1 + erf(g / sqrt 2)), with CUDA's erff (ERF = 0), the TPU
-//   kernel's Abramowitz & Stegun 7.1.26 form (ERF = 1, max abs error
-//   1.5e-7) or the rational form that XLA and Eigen use for fp32 erf
-//   (ERF = 2: x p(x^2) / q(x^2), degrees 13 and 8, clamped to [-4, 4]; its
-//   error is held below 1e-6 by tests/test_torch_port_geglu_tiles.py).
-//   studies/geglu_tiles.py times the three; the rational one, fewest
-//   instructions and no branch, is built.
+//   0.5 g (1 + erf(g / sqrt 2)), with the rational erf that XLA and Eigen
+//   use for fp32 (x p(x^2) / q(x^2), degrees 13 and 8, clamped to [-4, 4];
+//   tests/test_torch_port_geglu_tiles.py holds it within 1e-6 of erf): on
+//   the card it ran faster than CUDA's erff and than the TPU kernel's
+//   Abramowitz & Stegun 7.1.26 form (PERF.md), with fewest instructions
+//   and no branch.
 // - Split-K for few rows (the mid block's 192 rows, L3's 768): SPLIT
 //   blocks share an output tile, each walking its own range of inner
 //   steps, and write fp32 partial sums to a scratch (SPLIT, M, E) that the
@@ -98,38 +97,23 @@ struct GegluArgs {
   int M, N, E;
 };
 
-template <int ERF>
+// erf(x) as x p(x^2) / q(x^2) on [-4, 4], where erf is +-1 in fp32 beyond
 __device__ __forceinline__ float erf_of(float x) {
-  if constexpr (ERF == 0) {
-    return erff(x);
-  } else if constexpr (ERF == 1) {
-    const float ax = fabsf(x);
-    const float t = __frcp_rn(fmaf(0.3275911f, ax, 1.f));
-    const float poly =
-        t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f),
-                                 1.421413741f),
-                         -0.284496736f),
-                 0.254829592f);
-    return copysignf(1.f - poly * __expf(-ax * ax), x);
-  } else {
-    // x p(x^2) / q(x^2) on [-4, 4], where erf is +-1 in fp32 beyond
-    const float xc = fminf(fmaxf(x, -4.f), 4.f), x2 = xc * xc;
-    float p = fmaf(x2, -2.72614225801306e-10f, 2.77068142495902e-08f);
-    p = fmaf(x2, p, -2.10102402082508e-06f);
-    p = fmaf(x2, p, -5.69250639462346e-05f);
-    p = fmaf(x2, p, -7.34990630326855e-04f);
-    p = fmaf(x2, p, -2.95459980854025e-03f);
-    p = fmaf(x2, p, -1.60960333262415e-02f);
-    float q = fmaf(x2, -1.45660718464996e-05f, -2.13374055278905e-04f);
-    q = fmaf(x2, q, -1.68282697438203e-03f);
-    q = fmaf(x2, q, -7.37332916720468e-03f);
-    q = fmaf(x2, q, -1.42647390514189e-02f);
-    return __fdividef(xc * p, q);
-  }
+  const float xc = fminf(fmaxf(x, -4.f), 4.f), x2 = xc * xc;
+  float p = fmaf(x2, -2.72614225801306e-10f, 2.77068142495902e-08f);
+  p = fmaf(x2, p, -2.10102402082508e-06f);
+  p = fmaf(x2, p, -5.69250639462346e-05f);
+  p = fmaf(x2, p, -7.34990630326855e-04f);
+  p = fmaf(x2, p, -2.95459980854025e-03f);
+  p = fmaf(x2, p, -1.60960333262415e-02f);
+  float q = fmaf(x2, -1.45660718464996e-05f, -2.13374055278905e-04f);
+  q = fmaf(x2, q, -1.68282697438203e-03f);
+  q = fmaf(x2, q, -7.37332916720468e-03f);
+  q = fmaf(x2, q, -1.42647390514189e-02f);
+  return __fdividef(xc * p, q);
 }
 
 // bf16(v * gelu(g)) of 8 consecutive elements held as 16-byte pieces
-template <int ERF>
 __device__ __forceinline__ uint4 gated8(uint4 v, uint4 g) {
   union {
     uint4 u;
@@ -142,8 +126,8 @@ __device__ __forceinline__ uint4 gated8(uint4 v, uint4 g) {
     const float2 a = __bfloat1622float2(pv.h[i]);
     const float2 b = __bfloat1622float2(pg.h[i]);
     constexpr float R = 0.7071067811865476f;  // 1 / sqrt(2)
-    const float ga = 0.5f * b.x * (1.f + erf_of<ERF>(b.x * R));
-    const float gb = 0.5f * b.y * (1.f + erf_of<ERF>(b.y * R));
+    const float ga = 0.5f * b.x * (1.f + erf_of(b.x * R));
+    const float gb = 0.5f * b.y * (1.f + erf_of(b.y * R));
     pv.h[i] = __floats2bfloat162_rn(a.x * ga, a.y * gb);
   }
   return pv.u;
@@ -154,8 +138,7 @@ __device__ __forceinline__ float bias_at(const bf16* b, int i) {
   return __bfloat162float(b[i]);
 }
 
-template <int BM, int BE, int BK, int WM, int WE, int STAGES, int ERF,
-          class BT>
+template <int BM, int BE, int BK, int WM, int WE, int STAGES, class BT>
 __global__ void __launch_bounds__(32 * WM * WE)
 geglu_mma_kernel(const GegluArgs a) {
   using C = GegluCfg<BM, BE, BK, WM, WE, STAGES>;
@@ -210,8 +193,7 @@ geglu_mma_kernel(const GegluArgs a) {
       if ((BM * CPR) % C::NT == 0 || idx < BM * CPR) {
         const int off = (idx / CPR) * PITCH + 16 * (idx % CPR);
         uint4* v = reinterpret_cast<uint4*>(st + off);
-        *v = gated8<ERF>(*v, *reinterpret_cast<const uint4*>(
-                                 st + C::ATILE + off));
+        *v = gated8(*v, *reinterpret_cast<const uint4*>(st + C::ATILE + off));
       }
     }
   };
@@ -362,11 +344,10 @@ geglu_mma_kernel(const GegluArgs a) {
 }
 
 // One launch on the grid (ceil(E / BE), ceil(M / BM), split).
-template <int BM, int BE, int BK, int WM, int WE, int STAGES, int ERF,
-          class BT>
+template <int BM, int BE, int BK, int WM, int WE, int STAGES, class BT>
 cudaError_t launch(const GegluArgs& a, int split, cudaStream_t stream) {
   using C = GegluCfg<BM, BE, BK, WM, WE, STAGES>;
-  auto kern = geglu_mma_kernel<BM, BE, BK, WM, WE, STAGES, ERF, BT>;
+  auto kern = geglu_mma_kernel<BM, BE, BK, WM, WE, STAGES, BT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return err;
@@ -399,27 +380,26 @@ extern "C" int sg_geglu_matmul(const void* proj, const void* w,
   a.E = E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int mc = m_class(M);
-#define SG_BUILT(E_, MC_, BM_, BE_, BK_, WM_, WE_, STAGES_, SPLIT_, ERF_) \
+#define SG_BUILT(E_, MC_, BM_, BE_, BK_, WM_, WE_, STAGES_, SPLIT_)      \
   if (E == E_ && mc == MC_) {                                           \
     if (N % BK_ != 0 || (SPLIT_ > 1 && (!part || !count)))              \
       return static_cast<int>(cudaErrorInvalidValue);                   \
     return static_cast<int>(                                            \
-        bias_fp32 ? launch<BM_, BE_, BK_, WM_, WE_, STAGES_, ERF_, float>( \
-                        a, SPLIT_, s)                                   \
-                  : launch<BM_, BE_, BK_, WM_, WE_, STAGES_, ERF_, bf16>( \
-                        a, SPLIT_, s));                                 \
+        bias_fp32                                                       \
+            ? launch<BM_, BE_, BK_, WM_, WE_, STAGES_, float>(a, SPLIT_, s) \
+            : launch<BM_, BE_, BK_, WM_, WE_, STAGES_, bf16>(a, SPLIT_, s)); \
   }
   // (E, M class, BM, BE, BK, warps along M, warps along E, ring stages,
-  // split-K, gelu form): the UNet's widths 320, 640 and 1280
-  SG_BUILT(320, 0, 32, 320, 64, 1, 4, 3, 4, 2)
-  SG_BUILT(320, 1, 32, 320, 64, 1, 4, 3, 1, 2)
-  SG_BUILT(320, 2, 64, 320, 64, 2, 4, 3, 1, 2)
-  SG_BUILT(640, 0, 32, 320, 64, 1, 4, 3, 4, 2)
-  SG_BUILT(640, 1, 32, 320, 64, 1, 4, 3, 2, 2)
-  SG_BUILT(640, 2, 64, 320, 64, 2, 4, 3, 1, 2)
-  SG_BUILT(1280, 0, 32, 128, 64, 1, 4, 3, 4, 2)
-  SG_BUILT(1280, 1, 64, 256, 64, 2, 4, 3, 2, 2)
-  SG_BUILT(1280, 2, 128, 256, 64, 2, 4, 3, 1, 2)
+  // split-K): the UNet's widths 320, 640 and 1280
+  SG_BUILT(320, 0, 32, 320, 64, 1, 4, 3, 4)
+  SG_BUILT(320, 1, 32, 320, 64, 1, 4, 3, 1)
+  SG_BUILT(320, 2, 64, 320, 64, 2, 4, 3, 1)
+  SG_BUILT(640, 0, 32, 320, 64, 1, 4, 3, 4)
+  SG_BUILT(640, 1, 32, 320, 64, 1, 4, 3, 2)
+  SG_BUILT(640, 2, 64, 320, 64, 2, 4, 3, 1)
+  SG_BUILT(1280, 0, 32, 128, 64, 1, 4, 3, 4)
+  SG_BUILT(1280, 1, 64, 256, 64, 2, 4, 3, 2)
+  SG_BUILT(1280, 2, 128, 256, 64, 2, 4, 3, 1)
 #undef SG_BUILT
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,13 +1,14 @@
-"""Flash attention, forward and backward: wrappers of `csrc/flash_fwd.cu`,
-`csrc/flash_lse.cu` and `csrc/flash_bwd.cu`, their plain PyTorch versions,
-and the differentiable `flash_attention`.
+"""Flash attention, forward and backward: wrappers of `csrc/flash_fwd.cu`
+and `csrc/flash_bwd.cu`, their plain PyTorch versions, and the
+differentiable `flash_attention`.
 
 Replaces storygen_tpu/ops/pallas_attention.py. The forward kernels
 (`_bnd2_kernel`, `_bnd_kernel`, `_online_t_kernel`, `_flash_kernel`, all
 reached through `_flash_core`) become kernel F (`flash_fwd`), their masked
 variants kernel M (`flash_fwd_masked`); the backward (`_core_bwd` ->
-`_pallas_bwd_with_out`) becomes kernels L (`flash_lse`, `csrc/flash_lse.cu`),
-DQ (`flash_dq`) and DKV (`flash_dkv`), tied together by `FlashAttentionFn`.
+`_pallas_bwd_with_out`) becomes kernels L (`flash_lse`, F's template in
+`csrc/flash_fwd.cu` without V and O), DQ (`flash_dq`) and DKV
+(`flash_dkv`), tied together by `FlashAttentionFn`.
 
 Inputs are the projections' own layout: q (B, Sq, H*D), k/v (B, Skv, H*D),
 each with a contiguous last dimension (a k|v split view is taken as it is);
@@ -30,16 +31,16 @@ from storygen_tpu_torch.ops import _build
 _PADDED_D = (48, 80, 160)
 # rows of a K/V tile; a reference span need not be a multiple of it
 _BK = 64
-# The instantiations of kernels F and M in csrc/flash_fwd.cu (its SG_BUILT
-# lines): (16-padded head dim, masked) -> (BQ, BK, 16-row halves per warp,
-# cp.async ring stages).
+# The instantiations of kernels F and M in csrc/flash_fwd.cu (its kFwd
+# SG_BUILT lines): (16-padded head dim, masked) -> (BQ, BK, 16-row halves
+# per warp, cp.async ring stages).
 FWD_BUILT = {
     (48, False): (128, 64, 2, 2), (48, True): (128, 64, 2, 2),
     (80, False): (64, 64, 1, 2), (80, True): (128, 64, 2, 2),
     (160, False): (64, 64, 1, 2), (160, True): (64, 64, 1, 2),
 }
-# The instantiations of kernel L in csrc/flash_lse.cu (its SG_BUILT lines),
-# keyed and valued as FWD_BUILT.
+# The instantiations of kernel L in csrc/flash_fwd.cu (its kLse SG_BUILT
+# lines), keyed and valued as FWD_BUILT.
 LSE_BUILT = {
     (48, False): (128, 64, 2, 2), (48, True): (128, 64, 2, 2),
     (80, False): (64, 64, 1, 2), (80, True): (128, 64, 2, 2),

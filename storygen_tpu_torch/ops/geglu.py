@@ -34,18 +34,17 @@ def geglu_matmul_plain(proj: torch.Tensor, weight: torch.Tensor,
 
 # The instantiations of kernel G in csrc/geglu_matmul.cu (its SG_BUILT
 # lines): (E, m_class(M)) -> (BM, BE, BK, warps along M, warps along E,
-# cp.async ring stages, split-K, gelu form: 0 erff, 1 Abramowitz & Stegun,
-# 2 rational).
+# cp.async ring stages, split-K).
 GEGLU_BUILT = {
-    (320, 0): (32, 320, 64, 1, 4, 3, 4, 2),
-    (320, 1): (32, 320, 64, 1, 4, 3, 1, 2),
-    (320, 2): (64, 320, 64, 2, 4, 3, 1, 2),
-    (640, 0): (32, 320, 64, 1, 4, 3, 4, 2),
-    (640, 1): (32, 320, 64, 1, 4, 3, 2, 2),
-    (640, 2): (64, 320, 64, 2, 4, 3, 1, 2),
-    (1280, 0): (32, 128, 64, 1, 4, 3, 4, 2),
-    (1280, 1): (64, 256, 64, 2, 4, 3, 2, 2),
-    (1280, 2): (128, 256, 64, 2, 4, 3, 1, 2),
+    (320, 0): (32, 320, 64, 1, 4, 3, 4),
+    (320, 1): (32, 320, 64, 1, 4, 3, 1),
+    (320, 2): (64, 320, 64, 2, 4, 3, 1),
+    (640, 0): (32, 320, 64, 1, 4, 3, 4),
+    (640, 1): (32, 320, 64, 1, 4, 3, 2),
+    (640, 2): (64, 320, 64, 2, 4, 3, 1),
+    (1280, 0): (32, 128, 64, 1, 4, 3, 4),
+    (1280, 1): (64, 256, 64, 2, 4, 3, 2),
+    (1280, 2): (128, 256, 64, 2, 4, 3, 1),
 }
 
 
@@ -58,7 +57,7 @@ def m_class(m: int) -> int:
 
 def geglu_tile(m: int, n: int, e: int) -> Tuple[int, ...]:
     """The instantiation that kernel G runs for proj (m, 2n) and weight
-    (e, n): (BM, BE, BK, WM, WE, stages, split, gelu form); its grid is
+    (e, n): (BM, BE, BK, WM, WE, stages, split); its grid is
     (ceil(e / BE), ceil(m / BM), split). ValueError if none is built or n
     is not a multiple of its BK."""
     key = (e, m_class(m))

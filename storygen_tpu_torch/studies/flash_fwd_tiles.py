@@ -1,16 +1,16 @@
-"""Which tile of kernels F and M (csrc/flash_fwd.cu) is fastest at each
-padded head dim on the card.
+"""Which tile of kernels F and M, and of the backward's logsumexp L (all
+csrc/flash_fwd.cu), is fastest at each padded head dim on the card.
 
-Builds csrc/flash_fwd.cu once per candidate (BQ, 16-row halves per warp,
-cp.async ring stages), each into its own library whose only SG_BUILT lines
-are that candidate's (BK, the K/V tile height, stays 64), one nvcc per
-candidate, all started together, under build/storygen_tpu_torch/tiles/,
-and prints ptxas's registers and spills of each. Then times each
-candidate, the built
-kernel (the `flash_fwd` / `flash_fwd_masked` wrappers) and SDPA as a
-yardstick on the UNet's 512 px attention shapes of that head dim, F and M,
-with the max error against the fp32 plain version. The rate counts the
-kept kv rows only.
+Builds csrc/flash_fwd.cu once per candidate (kernel, BQ, 16-row halves
+per warp, cp.async ring stages), each into its own library whose only
+SG_BUILT lines are that candidate's (BK, the K/V tile height, stays 64),
+one nvcc per candidate, all started together, under
+build/storygen_tpu_torch/tiles/, and prints ptxas's registers and spills
+of each. Then times each candidate, the built kernel (the `flash_fwd` /
+`flash_fwd_masked` / `flash_lse` wrappers) and, for F and M, SDPA as a
+yardstick on the UNet's 512 px attention shapes of that head dim, with
+the max error against the fp32 plain version. The rate counts the kept kv
+rows only.
 
 The candidates need the card and nvcc; there is no CPU mode.
 
@@ -43,7 +43,9 @@ LSE_CANDIDATES: Dict[int, List[Tuple[int, int, int]]] = {
     80: [(64, 1, 2), (128, 1, 2), (128, 2, 2), (128, 2, 3)],
     160: [(64, 1, 2), (128, 1, 2), (128, 2, 2), (64, 1, 3)],
 }
-SOURCES = {"fwd": "flash_fwd.cu", "lse": "flash_lse.cu"}
+# the kernel of a candidate -> its SG_BUILT kind
+KINDS = {"fwd": "kFwd", "lse": "kLse"}
+SOURCE = "flash_fwd.cu"
 # the UNet's attention sites at 512 px: (B, Sq, Skv, keep table or None),
 # 8 heads; attn3's table as in chip_smoke.py
 KEEP = [[0, 0, 1], [0, 1, 1], [1, 1, 1], [0, 0, 1]]
@@ -61,7 +63,7 @@ SHAPES = {
     "masked_attn3_mid": (4, 64, 192, 160, KEEP),
 }
 HEADS = 8
-_BUILT_LINE = re.compile(r"^[ \t]*SG_BUILT\((\d+),[^)]*\)[ \t]*\n", re.M)
+_BUILT_LINE = re.compile(r"^[ \t]*SG_BUILT\(k\w+,[^)]*\)[ \t]*\n", re.M)
 
 
 def padded(d: int) -> int:
@@ -70,16 +72,16 @@ def padded(d: int) -> int:
 
 def candidate_source(dp: int, bq: int, halves: int, stages: int,
                      kind: str = "fwd") -> str:
-    """flash_fwd.cu (kind "fwd") or flash_lse.cu ("lse") with its SG_BUILT
-    lines replaced by the candidate's two (unmasked and masked at 16-padded
-    head dim dp)."""
-    src = (_build.CSRC / SOURCES[kind]).read_text()
+    """flash_fwd.cu with its SG_BUILT lines replaced by the candidate's two:
+    kernel `kind` ("fwd" for F and M, "lse" for L), unmasked and masked at
+    16-padded head dim dp."""
+    src = (_build.CSRC / SOURCE).read_text()
     first = _BUILT_LINE.search(src)
     if first is None:
-        raise ValueError(f"{SOURCES[kind]} has no SG_BUILT lines")
+        raise ValueError(f"{SOURCE} has no SG_BUILT lines")
     body = _BUILT_LINE.sub("", src)
-    mine = "".join(f"  SG_BUILT({dp}, {m}, {bq}, {fa._BK}, {halves}, "
-                   f"{stages})\n" for m in (0, 1))
+    mine = "".join(f"  SG_BUILT({KINDS[kind]}, {dp}, {m}, {bq}, {fa._BK}, "
+                   f"{halves}, {stages})\n" for m in (0, 1))
     return body[:first.start()] + mine + body[first.start():]
 
 
@@ -88,11 +90,11 @@ def build(cands, kind: str = "fwd") -> Dict[tuple, Path]:
     and the candidate, built in parallel, each printing its ptxas
     registers and spills."""
     root = (_build.BUILD_ROOT / "tiles"
-            / _build.source_hash([_build.CSRC / SOURCES[kind]]))
+            / _build.source_hash([_build.CSRC / SOURCE]))
     return common.build_candidates(
         root, {c: (f"flash_{kind}_{'_'.join(map(str, c))}",
                    candidate_source(*c, kind=kind)) for c in cands},
-        f"flash_{kind}_kernel")
+        "flash_fwd_kernel")
 
 
 def load(path: Path, kind: str = "fwd") -> ctypes.CDLL:

@@ -4,7 +4,7 @@ sites on the card.
 Kernel G picks its instantiation by the key (E, m_class(M))
 (ops/geglu.py::geglu_tile). For the key of each site below, the study
 builds the source once per candidate tile (BM, BE, BK, warps along M and
-E, ring stages, split-K, gelu form), each into its own library whose only
+E, ring stages, split-K), each into its own library whose only
 SG_BUILT line is that candidate's, one nvcc per candidate, all started
 together, under build/storygen_tpu_torch/geglu_tiles/, and prints ptxas's
 registers and spills of each. Then it times each candidate, the built
@@ -57,34 +57,32 @@ SHAPES = {
     "L1_train_128px": (1024, 1280, 320),
 }
 
-Tile = Tuple[int, int, int, int, int, int, int, int]
-# (E, M class) -> candidate tiles (BM, BE, BK, WM, WE, stages, split, gelu
-# form: 0 erff, 1 Abramowitz & Stegun, 2 rational)
+Tile = Tuple[int, int, int, int, int, int, int]
+# (E, M class) -> candidate tiles (BM, BE, BK, WM, WE, stages, split)
 CANDIDATES: Dict[tuple, List[Tile]] = {
     # L1: the whole E = 320 in one block reads proj once; W, re-read from
     # L2 by every block, is 2.5x proj's bytes at BM = 64 and half that at
-    # 128 (160 accumulators a thread, or 16 warps); the three gelu forms
-    (320, 2): [(64, 320, 64, 2, 4, 3, 1, 2), (64, 320, 64, 2, 4, 3, 1, 0),
-               (64, 320, 64, 2, 4, 3, 1, 1), (64, 320, 32, 2, 4, 4, 1, 2),
-               (128, 320, 32, 2, 4, 3, 1, 2), (128, 320, 64, 2, 4, 2, 1, 2),
-               (64, 160, 64, 2, 2, 3, 1, 2)],
-    (640, 2): [(64, 320, 64, 2, 4, 3, 1, 2), (64, 160, 64, 2, 2, 3, 1, 2),
-               (128, 320, 32, 2, 4, 3, 1, 2), (64, 320, 32, 2, 4, 6, 1, 2)],
-    (1280, 2): [(128, 256, 64, 2, 4, 3, 1, 2), (64, 256, 64, 2, 4, 3, 1, 2),
-                (128, 256, 32, 2, 4, 5, 1, 2)],
+    # 128 (160 accumulators a thread, or 16 warps)
+    (320, 2): [(64, 320, 64, 2, 4, 3, 1), (64, 320, 32, 2, 4, 4, 1),
+               (128, 320, 32, 2, 4, 3, 1), (128, 320, 64, 2, 4, 2, 1),
+               (64, 160, 64, 2, 2, 3, 1)],
+    (640, 2): [(64, 320, 64, 2, 4, 3, 1), (64, 160, 64, 2, 2, 3, 1),
+               (128, 320, 32, 2, 4, 3, 1), (64, 320, 32, 2, 4, 6, 1)],
+    (1280, 2): [(128, 256, 64, 2, 4, 3, 1), (64, 256, 64, 2, 4, 3, 1),
+                (128, 256, 32, 2, 4, 5, 1)],
     # few rows: split-K fills the card
-    (1280, 1): [(64, 256, 64, 2, 4, 3, 2, 2), (64, 256, 64, 2, 4, 3, 4, 2),
-                (128, 256, 64, 2, 4, 3, 2, 2), (64, 128, 64, 2, 2, 3, 2, 2)],
-    (1280, 0): [(32, 128, 64, 1, 4, 3, 4, 2), (32, 128, 64, 1, 4, 3, 8, 2),
-                (64, 256, 64, 2, 4, 3, 4, 2), (64, 128, 64, 2, 2, 3, 4, 2)],
-    (640, 1): [(32, 320, 64, 1, 4, 3, 2, 2), (32, 320, 64, 1, 4, 3, 4, 2),
-               (64, 320, 64, 2, 4, 3, 2, 2)],
-    (640, 0): [(32, 320, 64, 1, 4, 3, 4, 2), (32, 320, 64, 1, 4, 3, 8, 2),
-               (32, 160, 64, 1, 2, 3, 4, 2)],
-    (320, 1): [(32, 320, 64, 1, 4, 3, 2, 2), (64, 320, 64, 2, 4, 3, 2, 2),
-               (32, 320, 64, 1, 4, 3, 1, 2)],
-    (320, 0): [(32, 320, 64, 1, 4, 3, 4, 2), (32, 320, 64, 1, 4, 3, 2, 2),
-               (32, 160, 64, 1, 2, 3, 4, 2)],
+    (1280, 1): [(64, 256, 64, 2, 4, 3, 2), (64, 256, 64, 2, 4, 3, 4),
+                (128, 256, 64, 2, 4, 3, 2), (64, 128, 64, 2, 2, 3, 2)],
+    (1280, 0): [(32, 128, 64, 1, 4, 3, 4), (32, 128, 64, 1, 4, 3, 8),
+                (64, 256, 64, 2, 4, 3, 4), (64, 128, 64, 2, 2, 3, 4)],
+    (640, 1): [(32, 320, 64, 1, 4, 3, 2), (32, 320, 64, 1, 4, 3, 4),
+               (64, 320, 64, 2, 4, 3, 2)],
+    (640, 0): [(32, 320, 64, 1, 4, 3, 4), (32, 320, 64, 1, 4, 3, 8),
+               (32, 160, 64, 1, 2, 3, 4)],
+    (320, 1): [(32, 320, 64, 1, 4, 3, 2), (64, 320, 64, 2, 4, 3, 2),
+               (32, 320, 64, 1, 4, 3, 1)],
+    (320, 0): [(32, 320, 64, 1, 4, 3, 4), (32, 320, 64, 1, 4, 3, 2),
+               (32, 160, 64, 1, 2, 3, 4)],
 }
 SOURCE = "geglu_matmul.cu"
 _BUILT_LINE = re.compile(r"^[ \t]*SG_BUILT\(\d[^)]*\)[ \t]*\n", re.M)
@@ -93,7 +91,7 @@ _BUILT_LINE = re.compile(r"^[ \t]*SG_BUILT\(\d[^)]*\)[ \t]*\n", re.M)
 def shared_bytes(tile: Tile) -> int:
     """Dynamic shared memory of an instantiation: its ring of value, gate
     and W tiles (csrc/geglu_matmul.cu's GegluCfg::BYTES)."""
-    bm, be, bk, _, _, stages, _, _ = tile
+    bm, be, bk, _, _, stages, _ = tile
     row = 2 * bk if (2 * bk // 16) % 2 else 2 * bk + 16  # odd 16-byte units
 
     def a128(x):

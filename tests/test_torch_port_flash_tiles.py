@@ -1,7 +1,7 @@
-"""The tiles of kernels F and M (csrc/flash_fwd.cu), without a card: the
-Python table of built instantiations against the source's SG_BUILT lines,
-the wrapper's choice at every UNet attention shape, and the tile study's
-rewrite of the source. The kernels themselves run only on the card
+"""The tiles of kernels F, M and L (csrc/flash_fwd.cu), without a card:
+the Python tables of built instantiations against the source's SG_BUILT
+lines, the wrapper's choice at every UNet attention shape, and the tile
+study's rewrite of the source. The kernels themselves run only on the card
 (chip_smoke.py)."""
 import re
 
@@ -12,20 +12,26 @@ from storygen_tpu_torch.ops import _build, flash_attention as fa
 from storygen_tpu_torch.studies import flash_fwd_tiles
 
 
-def _built_lines(src: str):
-    """(dp, masked, bq, bk, halves, stages) of every SG_BUILT invocation
-    after the exported launcher's head (not the macro's own definition)."""
-    body = src[src.index('extern "C"'):]
+KINDS = {"kFwd": "fwd", "kLse": "lse"}
+
+
+def _built_lines(src: str, kind: str = "fwd"):
+    """(dp, masked, bq, bk, halves, stages) of every SG_BUILT invocation of
+    kernel `kind` ("fwd" for F and M, "lse" for L; not the macro's own
+    definition)."""
     out = []
-    for args in re.findall(r"^\s*SG_BUILT\(([^)]*)\)\s*$", body, re.M):
-        if any(a.strip().endswith("_") for a in args.split(",")):
-            continue
-        out.append(tuple(int(a) for a in args.split(",")))
+    for k, args in re.findall(r"^\s*SG_BUILT\((k\w+),([^)]*)\)\s*$", src,
+                              re.M):
+        if KINDS[k] == kind:
+            out.append(tuple(int(a) for a in args.split(",")))
     return out
 
 
 def test_fwd_built_matches_the_cuda_source():
-    lines = _built_lines((_build.CSRC / "flash_fwd.cu").read_text())
+    src = (_build.CSRC / "flash_fwd.cu").read_text()
+    assert set(re.findall(r"^\s*SG_BUILT\((k\w+),", src, re.M)) == \
+        set(KINDS)
+    lines = _built_lines(src)
     table = {(dp, bool(m)): (bq, bk, halves, stages)
              for dp, m, bq, bk, halves, stages in lines}
     assert len(table) == len(lines)  # one line per (dp, masked)
@@ -61,7 +67,8 @@ def test_tile_study_rewrites_only_the_built_lines():
     new = flash_fwd_tiles.candidate_source(48, 64, 2, 3)
     assert _built_lines(new) == [(48, 0, 64, fa._BK, 2, 3),
                                  (48, 1, 64, fa._BK, 2, 3)]
-    strip = re.compile(r"^\s*SG_BUILT\(\d[^)]*\)\s*\n", re.M)
+    assert _built_lines(new, "lse") == []
+    strip = re.compile(r"^\s*SG_BUILT\(k\w+,[^)]*\)\s*\n", re.M)
     assert strip.sub("", new) == strip.sub("", src)
 
 
@@ -85,7 +92,7 @@ def test_tile_study_needs_the_card(monkeypatch):
 
 
 def test_lse_built_matches_the_cuda_source():
-    lines = _built_lines((_build.CSRC / "flash_lse.cu").read_text())
+    lines = _built_lines((_build.CSRC / "flash_fwd.cu").read_text(), "lse")
     table = {(dp, bool(m)): (bq, bk, halves, stages)
              for dp, m, bq, bk, halves, stages in lines}
     assert len(table) == len(lines)  # one line per (dp, masked)
@@ -138,11 +145,12 @@ def test_lse_tile_rejects_what_is_not_built(d):
 
 
 def test_tile_study_rewrites_only_the_lse_lines():
-    src = (_build.CSRC / "flash_lse.cu").read_text()
+    src = (_build.CSRC / "flash_fwd.cu").read_text()
     new = flash_fwd_tiles.candidate_source(80, 128, 2, 3, kind="lse")
-    assert _built_lines(new) == [(80, 0, 128, fa._BK, 2, 3),
-                                 (80, 1, 128, fa._BK, 2, 3)]
-    strip = re.compile(r"^\s*SG_BUILT\(\d[^)]*\)\s*\n", re.M)
+    assert _built_lines(new, "lse") == [(80, 0, 128, fa._BK, 2, 3),
+                                        (80, 1, 128, fa._BK, 2, 3)]
+    assert _built_lines(new) == []
+    strip = re.compile(r"^\s*SG_BUILT\(k\w+,[^)]*\)\s*\n", re.M)
     assert strip.sub("", new) == strip.sub("", src)
 
 

@@ -46,9 +46,9 @@ def test_m_class_matches_the_cuda_source():
 
 def _check_tile(tile):
     """The static_asserts of geglu_matmul.cu's GegluCfg."""
-    bm, be, bk, wm, we, stages, split, form = tile
+    bm, be, bk, wm, we, stages, split = tile
     assert bm % (16 * wm) == 0 and be % (16 * we) == 0
-    assert bk % 16 == 0 and stages >= 2 and split >= 1 and form in (0, 1, 2)
+    assert bk % 16 == 0 and stages >= 2 and split >= 1
     assert 32 <= 32 * wm * we <= 1024
     assert geglu_tiles.shared_bytes(tile) <= BLOCK_SMEM
 
@@ -65,10 +65,10 @@ def test_every_study_candidate_fits_a_block(key):
 
 
 def _rational_erf_source():
-    """The coefficients of the kernel's rational erf (gelu form 2), read
-    from the source: numerator a13 .. a1, denominator b8 .. b0."""
+    """The coefficients of the kernel's rational erf, read from the
+    source: numerator a13 .. a1, denominator b8 .. b0."""
     src = (_build.CSRC / "geglu_matmul.cu").read_text()
-    body = src[src.index("// x p(x^2) / q(x^2)"):]
+    body = src[src.index("float erf_of(float x)"):]
     body = body[:body.index("return __fdividef")]
     num = r"(-?\d+\.\d+e-?\d+)f"
     a = re.findall(r"float p = fmaf\(x2, " + num + ", " + num, body)[0]
@@ -79,7 +79,7 @@ def _rational_erf_source():
 
 
 def test_rational_erf_of_the_kernel_is_within_1e6():
-    """Gelu form 2, evaluated in fp32 with the source's coefficients, is
+    """The kernel's erf, evaluated in fp32 with the source's coefficients, is
     within 1e-6 of erf everywhere (the gated product is then rounded to
     bf16, 2^-9 relative)."""
     a, b = _rational_erf_source()
@@ -99,16 +99,23 @@ def test_rational_erf_of_the_kernel_is_within_1e6():
 
 
 def test_built_tiles_use_the_rational_gelu():
-    assert {t[7] for t in geglu.GEGLU_BUILT.values()} == {2}
+    """The rational erf is the kernel's only gelu: no other form is built
+    or selectable per tile."""
+    src = (_build.CSRC / "geglu_matmul.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    assert code.count("erf_of(") == 3  # its definition and the two uses
+    assert "erff(" not in code and "__expf(" not in code
+    assert "template <int ERF>" not in code
+    assert {len(t) for t in geglu.GEGLU_BUILT.values()} == {7}
 
 
 def test_shared_bytes_counts_the_ring():
     # BK 64: rows of 128 bytes padded to 144 (an odd number of 16-byte
     # units); value, gate (64 rows each) and W (320 rows), three stages
-    assert geglu_tiles.shared_bytes((64, 320, 64, 2, 4, 3, 1, 0)) == \
+    assert geglu_tiles.shared_bytes((64, 320, 64, 2, 4, 3, 1)) == \
         3 * (2 * 64 * 144 + 320 * 144)
     # BK 32: 64-byte rows padded to 80
-    assert geglu_tiles.shared_bytes((128, 160, 32, 4, 2, 2, 1, 0)) == \
+    assert geglu_tiles.shared_bytes((128, 160, 32, 4, 2, 2, 1)) == \
         2 * (2 * 128 * 80 + 160 * 80)
 
 
@@ -138,7 +145,7 @@ def test_split_k_at_the_few_row_sites(m):
 def test_first_level_reads_proj_once(m):
     """No split-K at L1, and one block spans the whole E = 320, as the TPU
     kernel's (BM, E) output block: the projection is read once."""
-    bm, be, *_, split, _ = geglu.geglu_tile(m, 1280, 320)
+    bm, be, *_, split = geglu.geglu_tile(m, 1280, 320)
     assert split == 1 and be == 320
 
 

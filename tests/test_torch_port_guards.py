@@ -79,8 +79,7 @@ def test_port_sources_never_import_jax():
 
 def test_nvcc_command_targets_sm90a_into_build_dir():
     srcs = _build.sources()
-    assert {p.name for p in srcs} == {"flash_fwd.cu", "flash_lse.cu",
-                                      "flash_bwd.cu",
+    assert {p.name for p in srcs} == {"flash_fwd.cu", "flash_bwd.cu",
                                       "geglu_matmul.cu", "conv3x3.cu",
                                       "downconv3x3.cu", "study_online.cu",
                                       "study_bounded.cu", "study_qk.cu",
@@ -124,7 +123,7 @@ def test_source_hash_covers_the_shared_header(tmp_path, monkeypatch):
 @pytest.mark.parametrize("name", [
     "flash_attention.py", "geglu.py", "conv.py", "_build.py", "attention.py",
     "downconv.py", "study_attention.py", "study_int8.py", "flash_fwd.cu",
-    "flash_lse.cu", "flash_bwd.cu", "geglu_matmul.cu", "conv3x3.cu", "downconv3x3.cu",
+    "flash_bwd.cu", "geglu_matmul.cu", "conv3x3.cu", "downconv3x3.cu",
     "study_online.cu", "study_bounded.cu", "study_qk.cu", "study_int8.cu",
     "study_mma.cuh", "conv_mma.cuh"])
 def test_kernel_modules_call_no_library_kernel(name):
