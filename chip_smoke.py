@@ -4,7 +4,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It takes no arguments and runs seven phases, all of which must pass. The
+It takes no arguments and runs eight phases, all of which must pass. The
 serving and training paths run in the default conv configuration and in
 the fused-conv one (`ConvKernels(fused_prologue=True, strided=True)`: every
 resnet conv on kernel P with its GroupNorm + SiLU as prologue, every 3x3
@@ -51,6 +51,19 @@ stride-2 conv on kernel D):
                on that path, and P and D not;
   story_fused  a 2-prompt story in the fused configuration: every serving
                kernel, P and D ran;
+  serving      the serving options at 512 px, bf16, full width: each of the
+               six samplers (DDIM with eta 0.5) on one auto-regressive
+               frame with 3 refs at 4 steps, its ms per denoise step, and
+               that it launched F, G and C and nothing else; stage
+               "multi-image-condition" (3 refs, 2 steps, one reference
+               pass of (N+1)B rows) kernel path against plain path in
+               both configurations, P and D launched in the fused one;
+               ref_feature_interval 2 against 1 (half the reference
+               passes, half their launches); generate_story(fused=True)
+               against the per-frame story on the same draws (3 frames,
+               DDIM-4: frame 1 bit for bit, the rest within
+               ROLLOUT_REL_L2); and 2 images per prompt with a negative
+               prompt;
   train_fused  1 optimizer step of 2 micro-steps in the fused
                configuration: all nine kernels ran;
   studies      the attention studies' kernels (S1-S4, csrc/study_*.cu):
@@ -62,7 +75,7 @@ stride-2 conv on kernel D):
                the same inputs at the studies' full-width shapes (attn3 L1,
                attn1 L1, attn3 L2, attn3 L3), with kernel, plain, library
                (SDPA, for the functions that compute attention) and bound
-               times. The six earlier paths launch no study kernel.
+               times. The earlier paths launch no study kernel.
 
 There is no CPU branch: without a CUDA device the script exits non-zero
 before printing any result. The last line is the JSON status object.
@@ -187,6 +200,12 @@ PATH_KERNELS = {
     "story": SERVING_KERNELS,
     "train": tuple(k for k in PORT_KERNELS if k not in FUSED_KERNELS),
     "story_fused": SERVING_KERNELS + FUSED_KERNELS,
+    # the serving phase's runs: every sampler, stage "multi-image-condition"
+    # in both configurations, and generate_story(fused=True)
+    "samplers": SERVING_KERNELS,
+    "mic": SERVING_KERNELS,
+    "mic_fused": SERVING_KERNELS + FUSED_KERNELS,
+    "rollout": SERVING_KERNELS,
     "train_fused": PORT_KERNELS,
     # the study entry points, with kernel F as their baseline
     "studies": STUDY_KERNELS + ("flash_fwd",),
@@ -890,8 +909,7 @@ def record_launches(results: dict, launches: dict, path: str) -> bool:
         r.setdefault("launches_by_path", {})[path] = n
         if path == ("studies" if k in STUDY_KERNELS else "train_fused"):
             r["launches"] = n
-    want = PATH_KERNELS[path]
-    good = all((n > 0) == (k in want) for k, n in launches.items())
+    good = launches_ok(launches, path)
     print(f"{path}-path launches: {json.dumps(launches)} "
           f"{'ok' if good else 'FAIL'}", flush=True)
     return good
@@ -947,6 +965,239 @@ def phase_story(dev, card: str, results: dict,
     ok &= record_launches(results, launches, path)
     del pipe, unet, vae, clip
     torch.cuda.empty_cache()
+    return ok
+
+
+# The serving-options phase: DDIM-style steps per sampler frame, and each
+# sampler with the eta it runs at (eta > 0 only where the sampler takes it)
+OPTION_STEPS = 4
+SAMPLER_RUNS = (("ddim", 0.5), ("dpm++", 0.0), ("pndm", 0.0), ("lms", 0.0),
+                ("euler", 0.0), ("euler_a", 0.0))
+# generate_story(fused=True) against the per-frame story on the same draws.
+# Frame 1 runs the same calls at the same shapes, so it must be equal bit
+# for bit. The later frames differ only in the batch of the VAE encoder's
+# pass over the history (one frame in the rollout, all the refs at once per
+# frame), which may change cuBLAS's algorithm for the VAE attention's
+# projections and so the bf16 rounding of the refs' posterior moments; such
+# a rounding-level change moves a frame by no more than the models phase
+# accepts between two bf16 paths (MODEL_REL_L2, relative L2). A wrong ref,
+# caption or draw changes the frame outright.
+ROLLOUT_REL_L2 = MODEL_REL_L2
+
+
+def launches_ok(launches: dict, path: str) -> bool:
+    """True if every kernel of `path` launched and no other kernel did."""
+    want = PATH_KERNELS[path]
+    return all((n > 0) == (k in want) for k, n in launches.items())
+
+
+def frames_ok(images, shape) -> bool:
+    import numpy as np
+    return (images.shape == shape and bool(np.isfinite(images).all())
+            and images.min() >= 0.0 and images.max() <= 1.0)
+
+
+def phase_serving(dev, card: str, results: dict) -> bool:
+    """Serving's samplers, stages and options at 512 px, bf16, full width,
+    on the entry points a user calls: each sampler on one auto-regressive
+    frame with 3 refs; stage "multi-image-condition" kernel path against
+    plain path, in both conv configurations; ref_feature_interval 2
+    against 1; generate_story(fused=True) against the per-frame story; and
+    2 images per prompt with a negative prompt."""
+    import numpy as np
+    import torch
+    from storygen_tpu_torch.pipeline import StoryGenPipeline
+    refs = np.random.RandomState(7).rand(3, 1, 512, 512, 3).astype(
+        np.float32)
+    frame = dict(prompt=[PROMPTS[3]], image_prompt=refs,
+                 prev_prompt=[[p] for p in PROMPTS[:3]], height=512,
+                 width=512, guidance_scale=7.5, image_guidance_scale=3.5)
+    ok = True
+    for config in ("default", "fused"):
+        unet, vae, clip = full_width_models(dev, conv_kernels(config))
+        pipe = StoryGenPipeline(unet, vae, clip, token_ids, device=dev)
+        if config == "default":
+            ok &= serving_samplers(pipe, dev, card, results, frame)
+            ok &= serving_interval(pipe, dev, frame)
+            ok &= serving_rollout(pipe, card, results)
+            ok &= serving_images_per_prompt(pipe, dev, card, frame)
+        ok &= serving_mic(pipe, dev, card, results, frame, config)
+        del pipe, unet, vae, clip
+        torch.cuda.empty_cache()
+    return ok
+
+
+def serving_samplers(pipe, dev, card: str, results: dict, frame: dict
+                     ) -> bool:
+    """Each sampler once; prints the wall time of its sample() call per
+    UNet step (a first call of each sampler, after the story phase warmed
+    the kernels)."""
+    import torch
+    from storygen_tpu_torch.pipeline import frame_generator, timesteps
+    walls = []
+    sample = pipe.sampler.sample
+
+    def timed_sample(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sample(*args, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    pipe.sampler.sample = timed_sample
+    ok, total = True, None
+    for name, eta in SAMPLER_RUNS:
+        reset_launches()
+        img = pipe(stage="auto-regressive", num_inference_steps=OPTION_STEPS,
+                   sampler=name, eta=eta,
+                   generator=frame_generator(dev, 0, 3), **frame)
+        launches = read_launches()
+        total = launches if total is None else {
+            k: n + launches[k] for k, n in total.items()}
+        n_iters = len(timesteps(pipe.sampler.sched_cfg, name,
+                                OPTION_STEPS).t)
+        good = frames_ok(img, (1, 512, 512, 3)) and launches_ok(
+            launches, "samplers")
+        ok &= good
+        print(f"sampler {name}{f' eta {eta}' if eta else ''}: "
+              f"auto-regressive frame 512 px, 3 refs, {n_iters} UNet steps: "
+              f"{1e3 * walls[-1] / n_iters:.1f} ms per denoise step; range "
+              f"[{img.min():.3f}, {img.max():.3f}]; launches F "
+              f"{launches['flash_fwd']}, G {launches['geglu_matmul']}, C "
+              f"{launches['conv3x3']} {'ok' if good else 'FAIL'} [{card}]",
+              flush=True)
+    del pipe.sampler.sample
+    return ok & record_launches(results, total, "samplers")
+
+
+def serving_mic(pipe, dev, card: str, results: dict, frame: dict,
+                config: str) -> bool:
+    """Stage "multi-image-condition" (one reference pass of (N+1)B rows), 2
+    steps, kernel path against plain path on the same draws."""
+    import torch
+    from storygen_tpu_torch import ops
+    from storygen_tpu_torch.pipeline import frame_generator
+    path = "mic" if config == "default" else "mic_fused"
+
+    def run():
+        _, lat = pipe._generate("multi-image-condition",
+                                num_inference_steps=2,
+                                generator=frame_generator(dev, 0, 3),
+                                **frame)
+        return lat.float()
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    lat_k = run()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = read_launches()
+    with ops.plain_path():
+        lat_p = run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rel = ((lat_k - lat_p).norm() / lat_p.norm()).item()
+    ok = (bool(torch.isfinite(lat_k).all().item()) and rel <= MODEL_REL_L2
+          and tuple(lat_k.shape) == (1, 64, 64, 4))
+    print(f"[{config}] multi-image-condition 512 px, 3 refs, DDIM-2: final "
+          f"latents rel L2 kernel vs plain {rel:.3e} (bound "
+          f"{MODEL_REL_L2:.0e}) {'ok' if ok else 'FAIL'}; kernel path "
+          f"{1e3 * (t1 - t0):.1f} ms, plain path {1e3 * (t2 - t1):.1f} ms "
+          f"[{card}]", flush=True)
+    return ok & record_launches(results, launches, path)
+
+
+def serving_interval(pipe, dev, frame: dict) -> bool:
+    """ref_feature_interval 2 at 4 steps runs the reference pass at steps 0
+    and 2 only: half the reference passes of interval 1, and half their
+    kernel launches."""
+    from storygen_tpu_torch.pipeline import frame_generator
+    passes = []
+    reference_context = pipe.sampler._reference_context
+
+    def counted(*args):
+        before = read_launches()
+        out = reference_context(*args)
+        after = read_launches()
+        passes.append({k: after[k] - n for k, n in before.items()})
+        return out
+
+    pipe.sampler._reference_context = counted
+    runs = {}
+    for interval in (1, 2):
+        passes.clear()
+        img = pipe(stage="auto-regressive", num_inference_steps=OPTION_STEPS,
+                   ref_feature_interval=interval,
+                   generator=frame_generator(dev, 0, 3), **frame)
+        runs[interval] = (len(passes), {k: sum(p[k] for p in passes)
+                                        for k in passes[0]}, img)
+    del pipe.sampler._reference_context
+    (n1, l1, img1), (n2, l2, img2) = runs[1], runs[2]
+    ok = (n1 == OPTION_STEPS and n2 == OPTION_STEPS // 2
+          and all(l1[k] == 2 * l2[k] and (l2[k] > 0) == (k in SERVING_KERNELS)
+                  for k in l1)
+          and frames_ok(img1, (1, 512, 512, 3))
+          and frames_ok(img2, (1, 512, 512, 3)))
+    print(f"ref_feature_interval 1 / 2 at {OPTION_STEPS} steps: {n1} / {n2} "
+          f"reference passes; their launches F {l1['flash_fwd']} / "
+          f"{l2['flash_fwd']}, G {l1['geglu_matmul']} / "
+          f"{l2['geglu_matmul']}, C {l1['conv3x3']} / {l2['conv3x3']}; "
+          f"frames differ by {abs(img1 - img2).max():.4f} max abs "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def serving_rollout(pipe, card: str, results: dict) -> bool:
+    """generate_story(fused=True), the story rollout on cached posterior
+    moments, against the per-frame story on the same draws: 3 frames,
+    DDIM-4, refs up to 3."""
+    import numpy as np
+    import torch
+    kw = dict(num_inference_steps=OPTION_STEPS, height=512, width=512,
+              guidance_scale=7.5, image_guidance_scale=3.5, seed=0)
+    prompts = list(PROMPTS[:3])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    fused = pipe.generate_story(prompts, fused=True, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = read_launches()
+    per_frame = pipe.generate_story(prompts, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ok = all(frames_ok(f, (512, 512, 3)) for f in fused + per_frame)
+    ok &= np.array_equal(fused[0], per_frame[0])
+    diffs, rels = [], []
+    for a, b in zip(fused, per_frame):
+        diffs.append(float(np.abs(a - b).max()))
+        rels.append(float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+    ok &= all(r <= ROLLOUT_REL_L2 for r in rels)
+    print(f"story_rollout (generate_story fused=True) vs per-frame, 3 frames"
+          f" 512 px DDIM-{OPTION_STEPS}: max abs diff per frame "
+          f"{', '.join(f'{d:.3e}' for d in diffs)}, rel L2 "
+          f"{', '.join(f'{r:.3e}' for r in rels)} (frame 1 bitwise, the rest "
+          f"rel L2 <= {ROLLOUT_REL_L2:.0e}) {'ok' if ok else 'FAIL'}; fused "
+          f"{t1 - t0:.2f} s, per-frame {t2 - t1:.2f} s [{card}]", flush=True)
+    return ok & record_launches(results, launches, "rollout")
+
+
+def serving_images_per_prompt(pipe, dev, card: str, frame: dict) -> bool:
+    """2 images per prompt with a negative prompt: a batch of 2 in the main
+    pass (3-row CFG: 6 rows) and in the reference pass (12 rows)."""
+    import numpy as np
+    from storygen_tpu_torch.pipeline import frame_generator
+    img = pipe(stage="auto-regressive", num_inference_steps=2,
+               negative_prompt=["blurry, dark, low quality"],
+               num_images_per_prompt=2, generator=frame_generator(dev, 0, 3),
+               **frame)
+    ok = frames_ok(img, (2, 512, 512, 3)) and not np.array_equal(img[0],
+                                                                 img[1])
+    print(f"num_images_per_prompt 2, negative prompt: shape {img.shape}, "
+          f"range [{img.min():.3f}, {img.max():.3f}] "
+          f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
     return ok
 
 
@@ -1332,6 +1583,7 @@ def main() -> int:
             ("story", lambda: phase_story(dev, card, results)),
             ("train", lambda: phase_train(dev, card, results)),
             ("story_fused", lambda: phase_story(dev, card, results, "fused")),
+            ("serving", lambda: phase_serving(dev, card, results)),
             ("train_fused", lambda: phase_train(dev, card, results, "fused")),
             ("studies", lambda: phase_studies(dev, card, results))):
         t0 = time.perf_counter()

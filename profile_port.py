@@ -6,7 +6,8 @@ device time goes.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 profile_port.py
+    python3 profile_port.py            # frames and micro-steps
+    python3 profile_port.py options    # serving's samplers and options
 
 The frame is the headline's: 512 px, auto-regressive with 3 reference
 frames, bf16, batch 1, guidance 7.5 / image guidance 3.5, with the
@@ -33,8 +34,18 @@ profile_train.txt (default) and profile_port_fused.txt,
 profile_train_fused.txt. Every frame time includes the refs' VAE
 encodes, the text encodes and the decode; every micro-step the VAE
 encodes, text encodes, the reference UNet pass, the main pass, its
-backward and the optimizer. Without a CUDA device the script exits
-non-zero.
+backward and the optimizer.
+
+With `options` it times instead, in the default configuration and in
+turns (each variant three times, forward and backward order in turn;
+the stories twice), the wall time of
+  - one auto-regressive frame (3 refs, 512 px) at DDIM-50, DPM++-25 and
+    PNDM-50 (51 UNet steps);
+  - the DDIM-50 frame with ref_feature_interval 1 and 2;
+  - a 4-frame DDIM-50 story, per-frame and fused (generate_story(fused=
+    True)),
+and prints each one's times, median and factor over the first variant.
+Without a CUDA device the script exits non-zero.
 """
 from __future__ import annotations
 
@@ -60,22 +71,28 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = cs.nvidia_smi_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    if sys.argv[1:] == ["options"]:
+        return 0 if serving_options(dev, card) else 1
     return 0 if story_frames(dev, card) and train_micro_steps(dev, card) \
         else 1
 
 
-def in_turns(run, label: str, card: str, unit: str, scale: float) -> dict:
-    """Times run(config) twice per configuration, in the order default,
-    fused, fused, default, and prints each configuration's times."""
-    times = {c: [] for c in CONFIGS}
-    for config in CONFIGS + CONFIGS[::-1]:
-        times[config].append(run(config))
-    for config in CONFIGS:
-        med = statistics.median(times[config])
-        print(f"[{config}] {label}: "
-              f"{', '.join(f'{scale * t:.3f}' for t in times[config])} "
-              f"{unit}; median {scale * med:.3f} {unit} [{card}]",
-              flush=True)
+def in_turns(run, label: str, card: str, unit: str, scale: float,
+             keys=CONFIGS, rounds: int = 2) -> dict:
+    """Times run(key) `rounds` times per key, the keys in order and in
+    reverse order by turns (default, fused, fused, default for two
+    configurations), and prints each key's times."""
+    times = {k: [] for k in keys}
+    for r in range(rounds):
+        for key in (keys if r % 2 == 0 else keys[::-1]):
+            times[key].append(run(key))
+    for key in keys:
+        med = statistics.median(times[key])
+        print(f"[{key}] {label}: "
+              f"{', '.join(f'{scale * t:.3f}' for t in times[key])} "
+              f"{unit}; median {scale * med:.3f} {unit}; "
+              f"{med / statistics.median(times[keys[0]]):.3f}x [{keys[0]}]"
+              f" [{card}]", flush=True)
     return times
 
 
@@ -124,6 +141,59 @@ def story_frames(dev, card: str) -> bool:
     del pipes
     torch.cuda.empty_cache()
     return ok
+
+
+def serving_options(dev, card: str) -> bool:
+    """`profile_port.py options`: the samplers, ref_feature_interval and
+    the fused story against the per-frame one, in turns."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from storygen_tpu_torch.pipeline import StoryGenPipeline, frame_generator
+    unet, vae, clip = cs.full_width_models(dev)
+    pipe = StoryGenPipeline(unet, vae, clip, cs.token_ids, device=dev)
+    refs = np.random.RandomState(0).rand(3, 1, 512, 512, 3).astype(np.float32)
+    prev = [[p] for p in cs.PROMPTS[:3]]
+
+    def frame(sampler: str, steps: int, interval: int = 1) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = pipe(stage="auto-regressive", prompt=[cs.PROMPTS[3]],
+                   image_prompt=refs, prev_prompt=prev,
+                   num_inference_steps=steps, guidance_scale=7.5,
+                   image_guidance_scale=3.5, sampler=sampler,
+                   ref_feature_interval=interval,
+                   generator=frame_generator(dev, 0, 3))
+        torch.cuda.synchronize()
+        assert img.shape == (1, 512, 512, 3) and np.isfinite(img).all()
+        return time.perf_counter() - t0
+
+    def story(fused: bool) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = pipe.generate_story(list(cs.PROMPTS), fused=fused,
+                                     num_inference_steps=HEADLINE_STEPS,
+                                     guidance_scale=7.5,
+                                     image_guidance_scale=3.5, seed=0)
+        torch.cuda.synchronize()
+        assert len(frames) == 4 and all(np.isfinite(f).all() for f in frames)
+        return time.perf_counter() - t0
+
+    variants = {"DDIM-50": ("ddim", 50), "DPM++-25": ("dpm++", 25),
+                "PNDM-50": ("pndm", 50)}
+    for sampler, _ in variants.values():
+        frame(sampler, 2)
+    in_turns(lambda k: frame(*variants[k]), "auto-regressive frame, 3 refs, "
+             "512 px, bf16", card, "s", 1.0, keys=tuple(variants), rounds=3)
+    frame("ddim", 4, 2)
+    in_turns(lambda k: frame("ddim", 50, int(k[-1])), "DDIM-50 "
+             "auto-regressive frame, 3 refs, 512 px, bf16", card, "s", 1.0,
+             keys=("ref_feature_interval 1", "ref_feature_interval 2"),
+             rounds=3)
+    in_turns(lambda k: story(k == "fused"), "4-frame DDIM-50 story, refs up "
+             "to 3, 512 px, bf16", card, "s", 1.0,
+             keys=("per-frame", "fused"), rounds=2)
+    return True
 
 
 def report(label: str, run, wall: float, card: str, out_name: str) -> bool:

@@ -18,8 +18,10 @@ from storygen_tpu_torch.models.clip_text import CLIPTextModel
 from storygen_tpu_torch.models.unet import UNet2DConditionModel
 from storygen_tpu_torch.models.vae import AutoencoderKL
 from storygen_tpu_torch.ops import _build
-from storygen_tpu_torch.pipeline import StoryGenPipeline, StoryGenSampler
+from storygen_tpu_torch.pipeline import (StoryGenPipeline, StoryGenSampler,
+                                         seeded_draws)
 from storygen_tpu_torch.training import trainer
+from tests.torch_port_util import tokenizer
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "storygen_tpu_torch"
@@ -43,6 +45,11 @@ def test_port_imports_no_jax_or_flax():
         "import storygen_tpu_torch.training.steps, "
         "storygen_tpu_torch.training.trainer\n"
         "import storygen_tpu_torch.utils.logging\n"
+        "import storygen_tpu_torch.diffusion.schedule, "
+        "storygen_tpu_torch.diffusion.dpm_solver\n"
+        "import storygen_tpu_torch.diffusion.euler, "
+        "storygen_tpu_torch.diffusion.pndm, "
+        "storygen_tpu_torch.diffusion.lms\n"
         "import storygen_tpu_torch.ops.study_attention, "
         "storygen_tpu_torch.ops.study_int8\n"
         "import storygen_tpu_torch.studies.common, "
@@ -161,6 +168,21 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch,
         StoryGenSampler(unet, vae)
     pipe = StoryGenPipeline(unet, vae, clip, lambda p: None, device="cpu")
     assert pipe.device == pipe.sampler.device == torch.device("cpu")
+    # the story paths: without a card the sampler and the pipeline behind
+    # story_rollout and generate_story(fused=True) refuse to be built;
+    # given device="cpu" both run there
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StoryGenSampler(unet, vae).story_rollout
+    sampler = StoryGenSampler(unet, vae, device="cpu")
+    text = torch.zeros((2, 1, 77, 8))
+    frames = sampler.story_rollout(
+        text[0], text, seeded_draws("cpu", 0), 7.5, 3.5,
+        num_inference_steps=1, height=64, width=64)
+    assert frames.shape == (2, 1, 64, 64, 3) and frames.device.type == "cpu"
+    pipe = StoryGenPipeline(unet, vae, clip, tokenizer, device="cpu")
+    frames = pipe.generate_story(["a", "b"], fused=True,
+                                 num_inference_steps=1, height=64, width=64)
+    assert [f.shape for f in frames] == [(64, 64, 3)] * 2
 
 
 def test_entry_points_refuse_models_elsewhere():

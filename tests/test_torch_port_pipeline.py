@@ -1,42 +1,34 @@
 """Port parity for the slice as a whole: StoryGenSampler.sample for 2 DDIM
 steps of the auto-regressive stage with 2 refs (batched reference cycle,
 CFG-row dedup, per-ref noise decay, 3-way CFG, DDIM update), then decode,
-JAX vs storygen_tpu_torch on the same injected draws (5e-4, the
-test_torch_golden.py full-sampler standard); and a per-frame
+JAX vs storygen_tpu_torch on the same injected draws and weights (5e-4,
+the test_torch_golden.py full-sampler standard); and a per-frame
 generate_story of the port on the CPU."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from storygen_tpu.configs import CLIPTextConfig, UNetConfig, VAEConfig
-from storygen_tpu.models.unet import UNet2DConditionModel as JUNet
-from storygen_tpu.models.vae import AutoencoderKL as JVAE
 from storygen_tpu.pipeline import StoryGenSampler as JSampler
-from storygen_tpu_torch.checkpoint.convert import VAE_REWRITES
 from storygen_tpu_torch.models.clip_text import CLIPTextModel as TCLIP
 from storygen_tpu_torch.models.init import init_random_
 from storygen_tpu_torch.models.unet import UNet2DConditionModel as TUNet
 from storygen_tpu_torch.models.vae import AutoencoderKL as TVAE
 from storygen_tpu_torch.pipeline import StoryGenPipeline
 from storygen_tpu_torch.pipeline import StoryGenSampler as TSampler
-from tests.torch_port_util import assert_close, load, rand, t
+from tests.torch_port_util import (TINY_CLIP, TINY_UNET, TINY_VAE,
+                                   assert_close, rand, serving_models, t,
+                                   tokenizer)
 
-UNET_CFG = UNetConfig(block_out_channels=(16, 32, 32, 32),
-                      attention_head_dim=4, norm_num_groups=4,
-                      cross_attention_dim=24)
-VAE_CFG = VAEConfig(block_out_channels=(8, 8, 8, 8), layers_per_block=1,
-                    norm_num_groups=2)
+UNET_CFG = UNetConfig(**TINY_UNET)
+VAE_CFG = VAEConfig(**TINY_VAE)
 HW, TXT = 16, 7
 
 
 def test_sampler_and_decode_match_jax():
     n, b, steps, g_txt, g_img = 2, 1, 2, 7.5, 3.5
-    rng = jax.random.PRNGKey(5)
-    junet, jvae = JUNet(config=UNET_CFG), JVAE(config=VAE_CFG)
-    up = jax.jit(junet.init)(rng, jnp.zeros((1, HW, HW, 4)),
-                             jnp.asarray([0]), jnp.zeros((1, TXT, 24)))
-    vp = jax.jit(jvae.init)(rng, jnp.zeros((1, 32, 32, 3)), rng)
+    models = serving_models()
+    (tunet, junet, up), (tvae, jvae, vp) = models["unet"], models["vae"]
     lat0 = rand(30, (b, HW, HW, 4))
     refs = rand(31, (n, b, HW, HW, 4), 0.5)
     zero = rand(33, (b, HW, HW, 4), 0.05)
@@ -52,9 +44,7 @@ def test_sampler_and_decode_match_jax():
         num_inference_steps=steps)
     img_j = js.decode(vp, out_j)
 
-    ts = TSampler(load(TUNet(UNET_CFG), up),
-                  load(TVAE(VAE_CFG), vp, key_rewrites=VAE_REWRITES),
-                  device="cpu")
+    ts = TSampler(tunet, tvae, device="cpu")
     out_t = ts.sample(*map(t, (lat0, tu, tc, refs, zero, prev_u, prev_c,
                                noise)), g_txt, g_img,
                       stage="auto-regressive", num_inference_steps=steps)
@@ -62,18 +52,11 @@ def test_sampler_and_decode_match_jax():
     assert_close(img_j, ts.decode(out_t), atol=5e-4, rtol=5e-4, msg="image")
 
 
-def _tokenizer(prompts):
-    return np.stack([np.random.RandomState(len(p)).randint(0, 49408, 77)
-                     for p in prompts])
-
-
 def test_generate_story_runs_on_cpu():
     unet = init_random_(TUNet(UNET_CFG), 1)
     vae = init_random_(TVAE(VAE_CFG), 2)
-    clip = init_random_(TCLIP(CLIPTextConfig(
-        num_hidden_layers=2, hidden_size=24, intermediate_size=48,
-        num_attention_heads=4)), 3)
-    pipe = StoryGenPipeline(unet, vae, clip, _tokenizer, device="cpu")
+    clip = init_random_(TCLIP(CLIPTextConfig(**TINY_CLIP)), 3)
+    pipe = StoryGenPipeline(unet, vae, clip, tokenizer, device="cpu")
     frames = pipe.generate_story(["a fox", "the fox runs", "it sleeps"],
                                  num_inference_steps=2, height=64, width=64,
                                  seed=7)

@@ -33,7 +33,7 @@ from storygen_tpu_torch.configs import (CLIPTextConfig, ConvKernels,
 from storygen_tpu_torch.data.loader import SyntheticStoryDataset
 from storygen_tpu_torch.diffusion import schedule as S
 from storygen_tpu_torch.training import optim, steps, trainer
-from tests.torch_port_util import assert_close, np_tree
+from tests.torch_port_util import assert_close, jax_params, np_tree
 
 # the tiny widths of tests/test_training.py
 UNET = dict(block_out_channels=(16, 32, 32, 32), attention_head_dim=4,
@@ -60,14 +60,6 @@ def _port_models(seed=0, conv=ConvKernels()):
                                 conv)
 
 
-def _jax_params(module, sd, convert, *init_args):
-    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *init_args)
-    template = jax.tree_util.tree_map(
-        lambda s: np.zeros(s.shape, s.dtype), shapes)
-    sd = {k: v.detach().numpy() for k, v in sd.items()}
-    return convert(sd, template)
-
-
 def _batch(seed=0):
     rs = np.random.RandomState(seed)
     return {
@@ -86,12 +78,12 @@ def test_stage2_step_matches_jax():
     jvae = JVAE(config=JVAEConfig(**VAE))
     jclip = JCLIP(config=JCLIPConfig(**CLIP))
     rng = jax.random.PRNGKey(0)
-    up = _jax_params(junet, unet.state_dict(), hf_import.torch_to_flax_unet,
+    up = jax_params(junet, unet.state_dict(), hf_import.torch_to_flax_unet,
                      jnp.zeros((1, 8, 8, 4)), jnp.asarray([0]),
                      jnp.zeros((1, 8, 16)))
-    vp = _jax_params(jvae, vae.state_dict(), hf_import.torch_to_flax_vae,
+    vp = jax_params(jvae, vae.state_dict(), hf_import.torch_to_flax_vae,
                      jnp.zeros((1, IMG, IMG, 3)), rng)
-    cp = _jax_params(jclip, clip.state_dict(), hf_import.torch_to_flax_clip,
+    cp = jax_params(jclip, clip.state_dict(), hf_import.torch_to_flax_clip,
                      jnp.zeros((1, 8), jnp.int32))
 
     # the JAX step

@@ -41,3 +41,158 @@ def assert_close(jax_out, torch_out, atol: float = ATOL, rtol: float = RTOL,
         else np.asarray(torch_out, dtype=np.float32)
     assert got.shape == ref.shape, (got.shape, ref.shape, msg)
     np.testing.assert_allclose(got, ref, atol=atol, rtol=rtol, err_msg=msg)
+
+
+# The tiny serving models of the port's pipeline tests
+# (tests/test_torch_port_pipeline.py).
+TINY_UNET = dict(block_out_channels=(16, 32, 32, 32), attention_head_dim=4,
+                 norm_num_groups=4, cross_attention_dim=24)
+TINY_VAE = dict(block_out_channels=(8, 8, 8, 8), layers_per_block=1,
+                norm_num_groups=2)
+TINY_CLIP = dict(num_hidden_layers=2, hidden_size=24, intermediate_size=48,
+                 num_attention_heads=4)
+
+
+def jax_params(module, state_dict, convert, *init_args):
+    """A port module's weights as the JAX module's variable tree, by the
+    JAX package's diffusers import, with the tree's structure taken from
+    jax.eval_shape (no JAX init runs)."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *init_args)
+    template = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype), shapes)
+    return convert({k: v.detach().numpy() for k, v in state_dict.items()},
+                   template)
+
+
+def serving_models(clip: bool = False, seed: int = 1):
+    """The tiny UNet and VAE (and CLIP text encoder) in both packages with
+    the same weights: the port's seeded random init, taken into JAX trees
+    by the JAX package's diffusers import (jax.eval_shape gives the trees'
+    structure, so no JAX init runs) and carried back into fresh port
+    modules by checkpoint/convert.py (`load`).
+    Returns {"unet": (port, jax module, jax params), "vae": ..., "clip":
+    ...}, the port's modules on the CPU in eval mode."""
+    import jax.numpy as jnp
+
+    from storygen_tpu.checkpoint import hf_import
+    from storygen_tpu.configs import CLIPTextConfig as JCLIPConfig
+    from storygen_tpu.configs import UNetConfig as JUNetConfig
+    from storygen_tpu.configs import VAEConfig as JVAEConfig
+    from storygen_tpu.models.clip_text import CLIPTextModel as JCLIP
+    from storygen_tpu.models.unet import UNet2DConditionModel as JUNet
+    from storygen_tpu.models.vae import AutoencoderKL as JVAE
+    from storygen_tpu_torch.checkpoint.convert import (CLIP_REWRITES,
+                                                       VAE_REWRITES)
+    from storygen_tpu_torch.configs import (CLIPTextConfig, UNetConfig,
+                                            VAEConfig)
+    from storygen_tpu_torch.models.clip_text import CLIPTextModel
+    from storygen_tpu_torch.models.init import init_random_
+    from storygen_tpu_torch.models.unet import UNet2DConditionModel
+    from storygen_tpu_torch.models.vae import AutoencoderKL
+
+    def both(port_cls, cfg, jax_mod, seed, convert, init_args, **convert_kw):
+        params = jax_params(jax_mod, init_random_(port_cls(cfg), seed)
+                            .state_dict(), convert, *init_args)
+        return load(port_cls(cfg), params, **convert_kw), jax_mod, params
+
+    out = {
+        "unet": both(UNet2DConditionModel, UNetConfig(**TINY_UNET),
+                     JUNet(config=JUNetConfig(**TINY_UNET)), seed,
+                     hf_import.torch_to_flax_unet,
+                     (jnp.zeros((1, 8, 8, 4)), jnp.asarray([0]),
+                      jnp.zeros((1, 7, TINY_UNET["cross_attention_dim"])))),
+        "vae": both(AutoencoderKL, VAEConfig(**TINY_VAE),
+                    JVAE(config=JVAEConfig(**TINY_VAE)), seed + 1,
+                    hf_import.torch_to_flax_vae,
+                    (jnp.zeros((1, 64, 64, 3)), jax.random.PRNGKey(0)),
+                    key_rewrites=VAE_REWRITES)}
+    if clip:
+        out["clip"] = both(CLIPTextModel, CLIPTextConfig(**TINY_CLIP),
+                           JCLIP(config=JCLIPConfig(**TINY_CLIP)), seed + 2,
+                           hf_import.torch_to_flax_clip,
+                           (jnp.zeros((1, 77), jnp.int32),),
+                           prefix="text_model.", key_rewrites=CLIP_REWRITES)
+    return out
+
+
+def tokenizer(prompts):
+    """Token ids seeded by each prompt's length, shared by both packages."""
+    return np.stack([np.random.RandomState(len(p)).randint(0, 49408, 77)
+                     for p in prompts])
+
+
+def jax_frame_draws(key):
+    """The draws that the JAX package's _generate(rng=key) makes, as the
+    port's draw(name, shape): the five keys of jax.random.split(key, 5)
+    are the port's DRAWS in order; "step" row i is normal(fold_in(k_eta,
+    i))."""
+    import jax.numpy as jnp
+
+    from storygen_tpu_torch.pipeline import DRAWS
+    keys = dict(zip(DRAWS, jax.random.split(key, 5)))
+
+    def draw(name, shape):
+        if name == "step":
+            z = jnp.stack([jax.random.normal(
+                jax.random.fold_in(keys["step"], i), shape[1:], jnp.float32)
+                for i in range(shape[0])])
+        else:
+            z = jax.random.normal(keys[name], shape, jnp.float32)
+        return t(z)
+    return draw
+
+
+def jax_story_draws(rng, num_prompts: int):
+    """The draws of the JAX package's stories on base key `rng`, as the
+    port's draw(frame, name, shape): frame k's from fold_in(rng, k), and
+    the reuse_latents first-frame encode's (frame num_prompts) from
+    fold_in(rng, num_prompts) itself."""
+    def draw(frame, name, shape):
+        key = jax.random.fold_in(rng, frame)
+        if frame == num_prompts:
+            assert name == "ref_posterior", name
+            return t(jax.random.normal(key, shape))
+        return jax_frame_draws(key)(name, shape)
+    return draw
+
+
+def sample_both(models, *, sampler, stage, steps, eta=0.0, rfi=1,
+                num_refs=2, b=1, hw=16, txt=7, seed=0):
+    """StoryGenSampler.sample of the JAX package and of the port on the
+    same inputs (seeded numpy; the per-step noise of eta > 0 and euler_a
+    as the JAX sampler draws it from sample_rng); returns both final
+    latents."""
+    import jax.numpy as jnp
+
+    from storygen_tpu.pipeline import StoryGenSampler as JSampler
+    from storygen_tpu_torch.pipeline import StoryGenSampler, timesteps
+    from storygen_tpu_torch.configs import SchedulerConfig
+    unet, junet, up = models["unet"]
+    d = TINY_UNET["cross_attention_dim"]
+    lat = (b, hw, hw, 4)
+    inputs = [rand(seed, lat), rand(seed + 1, (b, txt, d)),
+              rand(seed + 2, (b, txt, d))]
+    if stage == "no":
+        inputs += [None] * 4
+    else:
+        inputs += [rand(seed + 3, (num_refs,) + lat, 0.5),
+                   rand(seed + 4, lat, 0.05),
+                   rand(seed + 5, (num_refs, b, txt, d)),
+                   rand(seed + 6, (num_refs, b, txt, d))]
+    inputs.append(rand(seed + 7, lat))
+    key = jax.random.PRNGKey(seed)
+    kw = dict(stage=stage, num_inference_steps=steps, sampler=sampler,
+              eta=eta, ref_feature_interval=rfi)
+    js = JSampler(junet, None)
+    out_j = js.sample({"unet": up, "vae": None},
+                      *[None if x is None else jnp.asarray(x)
+                        for x in inputs],
+                      jnp.asarray(7.5), jnp.asarray(3.5), sample_rng=key,
+                      **kw)
+    n_iters = len(timesteps(SchedulerConfig(), sampler, steps).t)
+    step_noise = torch.stack([t(jax.random.normal(
+        jax.random.fold_in(key, i), lat)) for i in range(n_iters)])
+    ts = StoryGenSampler(unet, models["vae"][0], device="cpu")
+    out_t = ts.sample(*[None if x is None else t(x) for x in inputs], 7.5,
+                      3.5, step_noise=step_noise, **kw)
+    return out_j, out_t
