@@ -4,7 +4,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It takes no arguments and runs eight phases, all of which must pass. The
+It takes no arguments and runs ten phases, all of which must pass. The
 serving and training paths run in the default conv configuration and in
 the fused-conv one (`ConvKernels(fused_prologue=True, strided=True)`: every
 resnet conv on kernel P with its GroupNorm + SiLU as prologue, every 3x3
@@ -66,6 +66,25 @@ stride-2 conv on kernel D):
                prompt;
   train_fused  1 optimizer step of 2 micro-steps in the fused
                configuration: all nine kernels ran;
+  checkpoint   the full-width seeded bf16 models through
+               StoryGenPipeline.save_pretrained into build/ and back
+               through load_diffusers_pretrained onto the card (every
+               tensor equal bit for bit, with the seconds and bytes of the
+               save and the load); a 2-frame DDIM-4 story from the loaded
+               pipeline equal bit for bit to the source pipeline's on the
+               same draws, launching F, G and C; and a UNet file without
+               the attn3/norm4 keys loading with attn3 == attn1 and
+               norm4 == norm1;
+  train_more   from that folder, at 512 px, batch 4, bf16, gradient
+               checkpointing: train("stage1") and train("coco") (finite
+               losses, only the stage's subset moved, their launches: no
+               M); train("stage2") on .npz posterior moments that the
+               loaded VAE encodes on the card, with AdamW8bit, a checkpoint
+               every optimizer step, an export and a SampleLogger PNG at
+               step 2 (the VAE encoder runs fewer times than micro-steps);
+               a run resumed from checkpoint 1 equal bit for bit to the
+               uninterrupted one; and the peak memory of a step with 8-bit
+               against fp32 moments;
   studies      the attention studies' kernels (S1-S4, csrc/study_*.cu):
                drives every ported study entry point
                (storygen_tpu_torch/studies/) at one of its own UNet shapes,
@@ -207,6 +226,16 @@ PATH_KERNELS = {
     "mic_fused": SERVING_KERNELS + FUSED_KERNELS,
     "rollout": SERVING_KERNELS,
     "train_fused": PORT_KERNELS,
+    # the story from a loaded folder; stage 1 (attn1) and COCO (attn3
+    # without a mask) train without M; stage 2 on precomputed latents,
+    # with its validation render
+    "checkpoint": SERVING_KERNELS,
+    "train_stage1": tuple(k for k in PORT_KERNELS if k not in FUSED_KERNELS
+                          and k != "flash_fwd_masked"),
+    "train_coco": tuple(k for k in PORT_KERNELS if k not in FUSED_KERNELS
+                        and k != "flash_fwd_masked"),
+    "train_precomputed": tuple(k for k in PORT_KERNELS
+                               if k not in FUSED_KERNELS),
     # the study entry points, with kernel F as their baseline
     "studies": STUDY_KERNELS + ("flash_fwd",),
 }
@@ -1338,6 +1367,320 @@ def phase_train(dev, card: str, results: dict,
     torch.cuda.empty_cache()
     return ok
 
+# DDIM steps of the checkpoint phase's story frames
+CKPT_STORY_STEPS = 4
+
+
+def build_dir(name: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        name)
+
+
+def folder_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def phase_checkpoint(dev, card: str, results: dict) -> bool:
+    """Checkpoint IO on the card: the full-width seeded bf16 models through
+    StoryGenPipeline.save_pretrained and back through
+    load_diffusers_pretrained (every tensor equal bit for bit); a 2-frame
+    DDIM-4 story from the loaded pipeline against the source pipeline's on
+    the same draws (equal bit for bit; it launches F, G and C); and a UNet
+    file without attn3/norm4 loading with attn3 == attn1, norm4 == norm1."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from storygen_tpu_torch.checkpoint import hf_import
+    from storygen_tpu_torch.models.unet import UNet2DConditionModel
+    from storygen_tpu_torch.pipeline import StoryGenPipeline
+    root = build_dir("chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    src = StoryGenPipeline(*full_width_models(dev), token_ids, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src.save_pretrained(root)
+    save_s = time.perf_counter() - t0
+    nbytes = folder_bytes(root)
+    t0 = time.perf_counter()
+    b = hf_import.load_diffusers_pretrained(root, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    pairs = (("unet", src.sampler.unet), ("vae", src.vae),
+             ("text_encoder", src.text_encoder))
+    unequal = [f"{k}.{n}" for k, m in pairs
+               for n, v in m.state_dict().items()
+               if not (b[k].state_dict()[n].dtype == v.dtype
+                       and torch.equal(b[k].state_dict()[n], v))]
+    n_tensors = sum(len(m.state_dict()) for _, m in pairs)
+    ok = not unequal
+    print(f"checkpoint: save_pretrained {save_s:.2f} s, {nbytes} bytes "
+          f"({nbytes / save_s / 1e9:.3f} GB/s); load_diffusers_pretrained "
+          f"onto the card {load_s:.2f} s ({nbytes / load_s / 1e9:.3f} GB/s); "
+          f"{n_tensors - len(unequal)}/{n_tensors} tensors equal bit for bit "
+          f"{'ok' if ok else 'FAIL ' + str(unequal[:3])} [{card}]",
+          flush=True)
+    b_unet_config = b["unet_config"]
+    loaded = StoryGenPipeline(b["unet"], b["vae"], b["text_encoder"],
+                              token_ids, b["scheduler_config"], device=dev)
+    kw = dict(num_inference_steps=CKPT_STORY_STEPS, height=512, width=512,
+              guidance_scale=7.5, image_guidance_scale=3.5, seed=0)
+    want = src.generate_story(list(PROMPTS[:2]), **kw)
+    torch.cuda.synchronize()
+    reset_launches()
+    got = loaded.generate_story(list(PROMPTS[:2]), **kw)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    same = [bool(np.array_equal(a, g)) for a, g in zip(want, got)]
+    good = all(same) and len(got) == 2 and frames_ok(np.stack(got),
+                                                     (2, 512, 512, 3))
+    ok &= good
+    print(f"checkpoint: 2-frame DDIM-{CKPT_STORY_STEPS} story from the "
+          f"loaded folder vs the source models, same draws: frames equal "
+          f"bit for bit {same} {'ok' if good else 'FAIL'}", flush=True)
+    ok &= record_launches(results, launches, "checkpoint")
+    del loaded, b, src
+    torch.cuda.empty_cache()
+
+    # a vanilla SD-1.5 UNet file: no attn3 / norm4 keys
+    vanilla = build_dir("chip_smoke_ckpt_vanilla")
+    os.makedirs(vanilla, exist_ok=True)
+    sd = hf_import.load_state_dict_file(
+        os.path.join(root, "unet", "diffusion_pytorch_model.bin"))
+    kept = {k: v for k, v in sd.items()
+            if ".attn3." not in k and ".norm4." not in k}
+    path = os.path.join(vanilla, "diffusion_pytorch_model.bin")
+    torch.save(kept, path)
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        meta = UNet2DConditionModel(b_unet_config)
+    unet = hf_import.load_into(
+        meta, hf_import.apply_attn3_surgery(hf_import.load_state_dict_file(
+            path)), dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    surgery_s = time.perf_counter() - t0
+    state = unet.state_dict()
+    filled = [k for k in state if ".attn3." in k or ".norm4." in k]
+    wrong = [k for k in filled if not torch.equal(
+        state[k], state[k.replace(".attn3.", ".attn1.")
+                        .replace(".norm4.", ".norm1.")])]
+    good = len(filled) == 112 and not wrong and len(sd) - len(kept) == 112
+    ok &= good
+    print(f"checkpoint: UNet file without attn3/norm4 ({len(kept)} keys) "
+          f"loaded in {surgery_s:.2f} s; {len(filled) - len(wrong)}/"
+          f"{len(filled)} filled tensors equal attn1 / norm1 "
+          f"{'ok' if good else 'FAIL'} [{card}]", flush=True)
+    del unet, state, sd, kept
+    shutil.rmtree(vanilla, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return ok
+
+
+# train_more: optimizer steps of the stage-1 and COCO runs, and of the
+# precomputed stage-2 run (checkpointed after each); each run trains from
+# the checkpoint phase's folder
+MORE_STEPS = {"stage1": 1, "coco": 1, "precomputed": 2}
+STAGE_SUBSET = {"stage1": "attn1", "coco": "attn3", "stage2": "attn3"}
+
+
+def more_config(name: str, **kw):
+    from storygen_tpu_torch.configs import TrainConfig
+    return TrainConfig(pretrained_model_path=build_dir("chip_smoke_ckpt"),
+                       logdir=build_dir(f"chip_smoke_{name}"),
+                       train_batch_size=TRAIN_BATCH,
+                       gradient_accumulation_steps=TRAIN_GA, seed=0,
+                       mixed_precision="bf16", remat=True, **kw)
+
+
+def run_stage(stage: str, cfg, dataset, bundle, dev, card: str, **kw):
+    """train() on the card from `bundle`: finite losses, only the stage's
+    subset moved. Returns (ok, state, launches)."""
+    import torch
+    from storygen_tpu_torch.training import trainer
+
+    def params():
+        return {f"{m}.{n}": p for m in ("unet", "vae", "text_encoder")
+                for n, p in bundle[m].named_parameters()}
+
+    before = {k: p.detach().clone() for k, p in params().items()}
+    torch.cuda.synchronize()
+    reset_launches()
+    state = trainer.train(stage, cfg, dataset, device=dev,
+                          models_bundle=bundle, **kw)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    after = params()
+    moved = {k for k in before if not torch.equal(
+        after[k].detach().float(), before[k].float())}
+    subset = {k for k in before if k.startswith("unet.")
+              and STAGE_SUBSET[stage] in k}
+    ok = (all(math.isfinite(x) for x in state.losses) and moved == subset
+          and len(subset) == 16 * 5
+          and state.optimizer.count == cfg.train_steps
+          and len(state.losses) == cfg.train_steps * TRAIN_GA)
+    steady = state.micro_seconds[1:]
+    ms = 1e3 * sum(steady) / len(steady)
+    print(f"train_more {stage}{' (precomputed)' if cfg.latents_path else ''}"
+          f": {cfg.train_steps} optimizer steps x {TRAIN_GA} micro-steps, "
+          f"batch {TRAIN_BATCH}, 512 px, bf16, gradient checkpointing, "
+          f"{type(state.optimizer).__name__}; losses "
+          f"{', '.join(f'{x:.4f}' for x in state.losses)}; "
+          f"{len(moved & subset)}/{len(subset)} {STAGE_SUBSET[stage]} "
+          f"tensors moved, {len(moved - subset)} others; first micro-step "
+          f"{1e3 * state.micro_seconds[0]:.1f} ms, then {ms:.1f} ms per "
+          f"micro-step ({', '.join(f'{1e3 * x:.1f}' for x in steady)}) "
+          f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
+    return ok, state, launches
+
+
+def write_latents(vae, synth, root: str) -> None:
+    """The posterior moments of each synthetic sample's frame and refs,
+    encoded by `vae` on the card, as precomputed .npz files (fp16)."""
+    import numpy as np
+    import torch
+    os.makedirs(root, exist_ok=True)
+    dev = next(vae.parameters()).device
+    for i in range(len(synth)):
+        s = synth[i]
+        imgs = torch.from_numpy(np.concatenate(
+            [s["image"][None], s["ref_images"]])).to(dev)
+        with torch.no_grad():
+            dist = vae.encode(imgs)
+        m = torch.cat([dist.mean, dist.logvar], -1).half().cpu().numpy()
+        np.savez(os.path.join(root, f"{i:08d}.npz"), latent_moments=m[0],
+                 ref_latent_moments=m[1:], mask=s["mask"].astype(np.float16),
+                 input_ids=s["input_ids"], ref_input_ids=s["ref_input_ids"])
+
+
+def phase_train_more(dev, card: str, results: dict) -> bool:
+    """Training from the checkpoint phase's folder at 512 px, batch 4,
+    bf16, gradient checkpointing: stage 1 and COCO; then stage 2 in the
+    precomputed-latent mode on .npz files that the loaded VAE encodes on
+    the card, with AdamW8bit, a checkpoint after every optimizer step, an
+    export and a SampleLogger PNG at step 2; a run resumed from checkpoint
+    1 against the uninterrupted one (bit for bit); and the peak memory of
+    a step with 8-bit against fp32 moments."""
+    import shutil
+
+    import torch
+    from storygen_tpu_torch.checkpoint import hf_import
+    from storygen_tpu_torch.data.loader import SyntheticStoryDataset
+    from storygen_tpu_torch.training import trainer
+    synth = SyntheticStoryDataset(2 * TRAIN_BATCH, size=512, seed=5)
+    dataset = [synth[i] for i in range(len(synth))]
+    ok = True
+    for stage in ("stage1", "coco"):
+        cfg = more_config(stage, train_steps=MORE_STEPS[stage])
+        shutil.rmtree(cfg.logdir, ignore_errors=True)
+        bundle = trainer.build_models(cfg, dev)
+        good, state, launches = run_stage(stage, cfg, dataset, bundle, dev,
+                                          card)
+        ok &= good
+        ok &= record_launches(results, launches, f"train_{stage}")
+        del bundle, state
+        torch.cuda.empty_cache()
+
+    # stage 2 on precomputed latents
+    lat_dir = build_dir("chip_smoke_latents")
+    shutil.rmtree(lat_dir, ignore_errors=True)
+    kw = dict(latents_path=lat_dir, use_8bit_adam=True, checkpointing_steps=1,
+              export_steps=2, validation_steps=2,
+              validation_sample_logger=dict(num_inference_steps=2,
+                                            height=512, width=512))
+    cfg = more_config("precomputed", train_steps=MORE_STEPS["precomputed"],
+                      **kw)
+    shutil.rmtree(cfg.logdir, ignore_errors=True)
+    bundle = trainer.build_models(cfg, dev)
+    t0 = time.perf_counter()
+    write_latents(bundle["vae"], synth, lat_dir)
+    print(f"train_more: {len(synth)} samples encoded to .npz by the loaded "
+          f"VAE in {time.perf_counter() - t0:.2f} s", flush=True)
+    val = [{"prompt": PROMPTS[1], "ref_images": dataset[0]["ref_images"],
+            "ref_prompts": [PROMPTS[0]] * 3}]
+    encodes = []
+    encode = bundle["vae"].encode
+    bundle["vae"].encode = lambda x: encodes.append(x.shape) or encode(x)
+    torch.cuda.reset_peak_memory_stats()
+    good, full, launches = run_stage("stage2", cfg, None, bundle, dev, card,
+                                     tokenizer=token_ids, val_dataset=val)
+    del bundle["vae"].encode
+    n_micro = cfg.train_steps * TRAIN_GA
+    png = os.path.join(cfg.logdir, "samples", "step2_0.png")
+    with open(png, "rb") as f:
+        png_ok = f.read(8) == b"\x89PNG\r\n\x1a\n"
+    export = os.path.join(cfg.logdir, "checkpoint_2")
+    sd = hf_import.load_state_dict_file(
+        os.path.join(export, "unet", "diffusion_pytorch_model.bin"))
+    export_ok = all(torch.equal(sd[k], p.detach().cpu())
+                    for k, p in full.trainable.items())
+    ckpts = sorted(os.listdir(trainer.checkpoint_dir(cfg)))
+    good &= (png_ok and export_ok and ckpts == ["1", "2"]
+             and len(encodes) < n_micro)
+    print(f"train_more precomputed: VAE encoder calls {len(encodes)} over "
+          f"{n_micro} micro-steps and a validation render (shapes "
+          f"{[tuple(x) for x in encodes]}); checkpoints {ckpts}; export "
+          f"{folder_bytes(export)} bytes, trained tensors equal {export_ok}; "
+          f"SampleLogger PNG {os.path.getsize(png)} bytes {png_ok}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"{'ok' if good else 'FAIL'} [{card}]", flush=True)
+    ok &= good
+    ok &= record_launches(results, launches, "train_precomputed")
+    del bundle, sd
+    torch.cuda.empty_cache()
+
+    # resumed from checkpoint 1, in a fresh logdir and fresh models
+    rcfg = more_config("resumed", train_steps=MORE_STEPS["precomputed"], **kw)
+    shutil.rmtree(rcfg.logdir, ignore_errors=True)
+    shutil.copytree(os.path.join(trainer.checkpoint_dir(cfg), "1"),
+                    os.path.join(trainer.checkpoint_dir(rcfg), "1"))
+    bundle = trainer.build_models(rcfg, dev)
+    resumed = trainer.train("stage2", rcfg, None, device=dev,
+                            models_bundle=bundle, tokenizer=token_ids,
+                            val_dataset=val)
+    diffs = {k: (p.float() - resumed.trainable[k].float()).abs().max().item()
+             for k, p in full.trainable.items()}
+    worst = max(diffs, key=diffs.get)
+    same = (all(torch.equal(p, resumed.trainable[k])
+                for k, p in full.trainable.items())
+            and resumed.losses == full.losses[TRAIN_GA:])
+    ok &= same
+    print(f"train_more resume from checkpoint 1: losses "
+          f"{', '.join(f'{x:.6f}' for x in resumed.losses)} vs uninterrupted "
+          f"{', '.join(f'{x:.6f}' for x in full.losses[TRAIN_GA:])}; "
+          f"trained tensors equal bit for bit {same}; largest difference "
+          f"{diffs[worst]:.3e} at {worst} {'ok' if same else 'FAIL'} "
+          f"[{card}]", flush=True)
+    del full, resumed
+
+    # peak memory of one optimizer step: 8-bit against fp32 moments
+    peaks = {}
+    for eightbit in (True, False):
+        pcfg = more_config("peak", latents_path=lat_dir, train_steps=1,
+                           use_8bit_adam=eightbit)
+        shutil.rmtree(pcfg.logdir, ignore_errors=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.train("stage2", pcfg, None, device=dev,
+                              models_bundle=bundle, tokenizer=token_ids)
+        torch.cuda.synchronize()
+        moments = sum(t.numel() * t.element_size()
+                      for key in ("mu", "nu")
+                      for v in state.optimizer.state_dict()[key].values()
+                      for t in (v.values() if isinstance(v, dict) else [v]))
+        peaks[eightbit] = (torch.cuda.max_memory_allocated(), moments)
+        del state
+    print(f"train_more peak memory, one precomputed stage-2 step: AdamW8bit "
+          f"{peaks[True][0] / 2**30:.3f} GiB (moments {peaks[True][1]} "
+          f"bytes), AdamW {peaks[False][0] / 2**30:.3f} GiB (moments "
+          f"{peaks[False][1]} bytes) [{card}]", flush=True)
+    ok &= peaks[True][1] < peaks[False][1] / 3
+    del bundle
+    torch.cuda.empty_cache()
+    return ok
+
+
 # the study phase's full-width shapes: (B, H, Sq, Skv, d)
 STUDY_SHAPES = {"attn3 L1": (3, 8, 4096, 12288, 40),
                 "attn1 L1": (6, 8, 4096, 4096, 40),
@@ -1363,6 +1706,7 @@ def study_path() -> None:
             (bench_attn_ablate.main, "attn1_L1_ref"),
             (bench_attn_bnd2.main, "attn3_L2"),
             (bench_attn_multihead.main, "attn3_L2"),
+            (bench_attn_multihead.main, "attn3_L3"),
             (bench_attn_int8.main, "attn1_L1_ref"),
             (bench_attn_int8_epilogue.main, "attn1_L1")):
         run(shapes=[shape], iters=2)
@@ -1424,7 +1768,9 @@ def study_cases(dev):
             (sa.bnd2_attention, "attn3 L2", dict(bq=128, bk=128)),
             (sa.mh_attention, "attn3 L3", dict(g=2)),
             (sa.mh_attention, "attn3 L2", dict(g=4)),
-            (sa.mh_attention, "attn1 L1", dict(g=8))):
+            (sa.mh_attention, "attn1 L1", dict(g=8)),
+            # 32-row K/V tiles (sa.mh_kv_rows)
+            (sa.mh_attention, "attn3 L3", dict(g=8))):
         q, k, v = qkv(shape)
         b, h, sq, skv, d = STUDY_SHAPES[shape]
         sm = d ** -0.5
@@ -1585,6 +1931,8 @@ def main() -> int:
             ("story_fused", lambda: phase_story(dev, card, results, "fused")),
             ("serving", lambda: phase_serving(dev, card, results)),
             ("train_fused", lambda: phase_train(dev, card, results, "fused")),
+            ("checkpoint", lambda: phase_checkpoint(dev, card, results)),
+            ("train_more", lambda: phase_train_more(dev, card, results)),
             ("studies", lambda: phase_studies(dev, card, results))):
         t0 = time.perf_counter()
         if not phase():

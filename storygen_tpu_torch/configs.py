@@ -5,12 +5,32 @@ The port's own copy of the dataclasses of storygen_tpu/configs.py, with
 the same field names and defaults, so a configuration written for the JAX
 package reads here unchanged. `TrainConfig` keeps only the fields that
 `training/` reads; the TPU mesh and Pallas variant knobs have no
-counterpart. Defaults are the SD-1.5 + VLCM operating point.
+counterpart. Defaults are the SD-1.5 + VLCM operating point. The model
+configs read a diffusers folder's config.json files (`from_json`,
+`load_pretrained_configs`) as the JAX package reads them: unknown keys are
+dropped, and a UNet `sample_size` above 128 is taken as pixels.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+
+def _filter_kwargs(cls, d: dict) -> dict:
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in d.items() if k in names}
+
+
+def _read_json(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _tuples(d: dict, *keys: str) -> dict:
+    return {**d, **{k: tuple(d[k]) for k in keys if k in d}}
 
 
 @dataclass(frozen=True)
@@ -56,6 +76,16 @@ class UNetConfig:
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
 
+    @classmethod
+    def from_json(cls, path: str) -> "UNetConfig":
+        d = _tuples(_read_json(path), "down_block_types", "up_block_types",
+                    "block_out_channels")
+        if d.get("sample_size", 64) > 128:
+            # pixels (the exported schema writes sample_size * 8); the
+            # config keeps latents
+            d["sample_size"] = d["sample_size"] // 8
+        return cls(**_filter_kwargs(cls, d))
+
 
 @dataclass(frozen=True)
 class VAEConfig:
@@ -74,6 +104,11 @@ class VAEConfig:
     def downscale_factor(self) -> int:
         return 2 ** (len(self.block_out_channels) - 1)
 
+    @classmethod
+    def from_json(cls, path: str) -> "VAEConfig":
+        d = _tuples(_read_json(path), "block_out_channels")
+        return cls(**_filter_kwargs(cls, d))
+
 
 @dataclass(frozen=True)
 class CLIPTextConfig:
@@ -89,6 +124,13 @@ class CLIPTextConfig:
     bos_token_id: int = 49406
     eos_token_id: int = 49407
     pad_token_id: int = 49407
+
+    @classmethod
+    def from_json(cls, path: str) -> "CLIPTextConfig":
+        """A text encoder's config.json, or a full CLIP config's
+        `text_config`."""
+        d = _read_json(path)
+        return cls(**_filter_kwargs(cls, d.get("text_config", d)))
 
 
 @dataclass(frozen=True)
@@ -120,21 +162,35 @@ class SchedulerConfig:
     clip_sample: bool = False
     prediction_type: str = "epsilon"
 
+    @classmethod
+    def from_json(cls, path: str) -> "SchedulerConfig":
+        return cls(**_filter_kwargs(cls, _read_json(path)))
+
 
 @dataclass(frozen=True)
 class TrainConfig:
     """The training fields of the reference's config/*.yml that the port's
     trainer reads (names and defaults as in the JAX package)."""
+    # a diffusers folder; build_models loads it when it holds unet/
+    pretrained_model_path: str = "./ckpt/stable-diffusion-v1-5/"
     logdir: str = "./logs/"
+    # a folder of precomputed VAE posterior moments (.npz); when set, the
+    # trainer trains on those instead of images
+    latents_path: Optional[str] = None
     train_steps: int = 50000
     train_batch_size: int = 12
     gradient_accumulation_steps: int = 8
+    validation_steps: int = 500
+    checkpointing_steps: int = 5000
+    # diffusers-folder export cadence; None: every checkpointing_steps
+    export_steps: Optional[int] = None
     seed: int = 6666
     mixed_precision: str = "bf16"  # "fp16" is read as bf16
     learning_rate: float = 1e-5
     scale_lr: bool = False
     lr_scheduler: str = "constant"
     lr_warmup_steps: int = 0
+    use_8bit_adam: bool = False  # block-quantized moments (optim8bit.py)
     adam_beta1: float = 0.9
     adam_beta2: float = 0.999
     adam_weight_decay: float = 0.01
@@ -143,6 +199,9 @@ class TrainConfig:
     num_ref_frames: int = 3
     # gradient checkpointing per UNet block
     remat: bool = True
+    loader_threads: int = 8
+    # SampleLogger keyword arguments; renders need a tokenizer
+    validation_sample_logger: Optional[dict] = None
 
     def __post_init__(self):
         if self.mixed_precision not in ("bf16", "fp16", "fp32", "no"):
@@ -151,3 +210,16 @@ class TrainConfig:
                 "'bf16', 'fp16' (read as bf16), 'fp32' or 'no'")
         if self.lr_scheduler not in ("constant", "linear", "cosine"):
             raise ValueError(f"lr_scheduler={self.lr_scheduler!r}")
+
+
+def load_pretrained_configs(root: str):
+    """(unet, vae, clip, scheduler) configs of a diffusers-layout folder;
+    the text encoder's from text_encoder/ or else CLIP/."""
+    unet = UNetConfig.from_json(os.path.join(root, "unet", "config.json"))
+    vae = VAEConfig.from_json(os.path.join(root, "vae", "config.json"))
+    sched = SchedulerConfig.from_json(
+        os.path.join(root, "scheduler", "scheduler_config.json"))
+    clip_path = os.path.join(root, "text_encoder", "config.json")
+    if not os.path.exists(clip_path):
+        clip_path = os.path.join(root, "CLIP", "config.json")
+    return unet, vae, CLIPTextConfig.from_json(clip_path), sched

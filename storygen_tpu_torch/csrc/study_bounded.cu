@@ -260,8 +260,8 @@ extern "C" int sg_study_bounded(const void* q, const void* k, const void* v,
   // bnd2_attention at d = 40, 80
   SG_TILES4(48, 1, 1, 1, BND2)
   SG_TILES4(80, 1, 1, 1, BND2)
-  // mh_attention: g heads per block (g = 8 at d = 160 needs 344,064 bytes
-  // of shared memory and is not built)
+  // mh_attention: g heads per block; g = 8 at d = 160 takes 32-row K/V
+  // tiles (172,032 bytes of shared memory; 64-row tiles would need 344,064)
   SG_BUILT(48, 64, 64, 1, 1, 2, BND2)
   SG_BUILT(48, 64, 64, 1, 1, 4, BND2)
   SG_BUILT(48, 64, 64, 1, 1, 8, BND2)
@@ -270,6 +270,7 @@ extern "C" int sg_study_bounded(const void* q, const void* k, const void* v,
   SG_BUILT(80, 64, 64, 1, 1, 8, BND2)
   SG_BUILT(160, 64, 64, 1, 1, 2, BND2)
   SG_BUILT(160, 64, 64, 1, 1, 4, BND2)
+  SG_BUILT(160, 64, 32, 1, 1, 8, BND2)
 #undef SG_TILES4
 #undef SG_BUILT
   return static_cast<int>(cudaErrorInvalidValue);

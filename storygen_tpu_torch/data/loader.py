@@ -1,52 +1,179 @@
-"""Batching for training: `collate`, a seeded batch iterator and a seeded
-synthetic dataset.
+"""Batching for training: `collate`, the shuffling, prefetching
+`DataLoader` and a seeded synthetic dataset.
 
-Counterpart of storygen_tpu/data/loader.py (`collate` and the order of
-`DataLoader`'s batches). The threaded prefetching loader and the CLIP
-tokenizer are not ported yet: samples arrive with token ids.
+Counterpart of storygen_tpu/data/loader.py (`collate` and `DataLoader`,
+with the same seeded order of samples). The CLIP tokenizer is not ported
+(no vocab or merges files ship with the repository): samples arrive with
+token ids, or the caller passes a tokenizer.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Sequence
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
 
-def collate(samples: Sequence[Dict]) -> Dict[str, np.ndarray]:
-    """Stack per-sample dicts into batch arrays. ref_images stacks to
-    (N_refs, B, H, W, 3) and ref_input_ids to (N_refs, B, 77), the
-    ref-major layout the training step takes."""
+def collate(samples: Sequence[Dict],
+            tokenizer: Optional[Callable] = None) -> Dict[str, np.ndarray]:
+    """Stack per-sample dicts into batch arrays. Per-frame arrays stack
+    batch-major; ref_images to (N_refs, B, H, W, 3), ref_latent_moments to
+    (N_refs, B, h, w, 8) and ref_input_ids to (N_refs, B, 77), the
+    ref-major layout the training step takes. Prompts become input_ids /
+    ref_input_ids when a tokenizer (list of str -> (B, 77) ids) is given,
+    else pass through as lists."""
     out: Dict[str, np.ndarray] = {}
     keys = samples[0].keys()
-    for key in ("image", "mask"):
+    for key in ("image", "mask", "latent_moments"):
         if key in keys:
             out[key] = np.stack([s[key] for s in samples])
     if "input_ids" in keys:
         out["input_ids"] = np.stack(
             [s["input_ids"] for s in samples]).astype(np.int64)
-    if "ref_images" in keys:
-        out["ref_images"] = np.stack([s["ref_images"] for s in samples],
-                                     axis=1)
+    for key in ("ref_images", "ref_latent_moments"):
+        if key in keys:
+            out[key] = np.stack([s[key] for s in samples], axis=1)
     if "ref_input_ids" in keys:
         out["ref_input_ids"] = np.stack(
             [s["ref_input_ids"] for s in samples], axis=1).astype(np.int64)
+    if "prompt" in keys:
+        prompts = [s["prompt"] for s in samples]
+        if tokenizer is not None:
+            out["input_ids"] = np.asarray(tokenizer(prompts), np.int64)
+        else:
+            out["prompt"] = prompts
+    if "ref_prompts" in keys:
+        n = len(samples[0]["ref_prompts"])
+        if tokenizer is not None:
+            out["ref_input_ids"] = np.stack(
+                [np.asarray(tokenizer([s["ref_prompts"][i] for s in samples]),
+                            np.int64) for i in range(n)])
+        else:
+            out["ref_prompts"] = [s["ref_prompts"] for s in samples]
     return out
 
 
-def batches(dataset, batch_size: int, seed: int = 0
-            ) -> Iterator[Dict[str, np.ndarray]]:
-    """Collated batches forever, epoch after epoch, each epoch in a fresh
-    permutation from one seeded numpy generator and without its last
-    partial batch (DataLoader's order)."""
-    rng = np.random.RandomState(seed)
-    n = len(dataset)
-    if n < batch_size or batch_size < 1:
-        raise ValueError(f"{n} samples make no batch of {batch_size}")
-    while True:
-        idx = np.arange(n)
-        rng.shuffle(idx)
-        for s in range(0, n // batch_size * batch_size, batch_size):
-            yield collate([dataset[int(i)] for i in idx[s:s + batch_size]])
+class DataLoader:
+    """Collated batches forever, epoch after epoch.
+
+    Each epoch is a permutation from one seeded numpy RandomState (every
+    shard draws the same one and takes every num_shards-th index from
+    shard_id on, so the shards' batches never overlap); a dataset with a
+    `_rng.set_epoch` hears the epoch first. drop_last drops an epoch's
+    partial batch. Samples load on a pool of `num_threads` threads and
+    batches are made `prefetch` ahead on a thread of their own (prefetch 0:
+    in the caller's thread). `start` skips that many batches first without
+    loading them, so a resumed run continues where its checkpoint left off.
+    An error in a sample's loading is raised to the caller."""
+
+    def __init__(self, dataset, batch_size: int,
+                 tokenizer: Optional[Callable] = None, shuffle: bool = True,
+                 seed: int = 0, drop_last: bool = True, prefetch: int = 2,
+                 num_threads: int = 4, num_shards: int = 1, shard_id: int = 0,
+                 start: int = 0):
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard {shard_id} of {num_shards}")
+        per_epoch = len(range(shard_id, len(dataset), num_shards))
+        full = per_epoch // batch_size if batch_size > 0 else 0
+        if full == 0 and (drop_last or per_epoch == 0):
+            raise ValueError(f"{per_epoch} samples per epoch make no batch "
+                             f"of {batch_size}")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.tokenizer = tokenizer
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.num_threads = num_threads
+        self.num_shards = num_shards
+        self.shard_id = shard_id
+        self.start = start
+        self._rng = np.random.RandomState(seed)
+
+    def _epoch_indices(self) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            self._rng.shuffle(idx)
+        if self.num_shards > 1:
+            idx = idx[self.shard_id::self.num_shards]
+        return idx
+
+    def _batch_indices(self) -> Iterator[np.ndarray]:
+        """The sample indices of each batch, epoch after epoch, after the
+        first `start` batches."""
+        epoch, skip = 0, self.start
+        while True:
+            rng = getattr(self.dataset, "_rng", None)
+            if hasattr(rng, "set_epoch"):
+                rng.set_epoch(epoch)
+            epoch += 1
+            idx = self._epoch_indices()
+            full = len(idx) // self.batch_size * self.batch_size
+            for s in range(0, full if self.drop_last else len(idx),
+                           self.batch_size):
+                if skip:
+                    skip -= 1
+                    continue
+                yield idx[s:s + self.batch_size]
+
+    def _batches(self, pool) -> Iterator[Dict[str, np.ndarray]]:
+        for chunk in self._batch_indices():
+            items = [int(i) for i in chunk]
+            samples = (list(pool.map(self.dataset.__getitem__, items))
+                       if pool is not None
+                       else [self.dataset[i] for i in items])
+            yield collate(samples, self.tokenizer)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        pool = (ThreadPoolExecutor(max_workers=self.num_threads)
+                if self.num_threads > 1 else None)
+        try:
+            if self.prefetch <= 0:
+                yield from self._batches(pool)
+            else:
+                yield from self._prefetched(pool)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
+
+    def _prefetched(self, pool) -> Iterator[Dict[str, np.ndarray]]:
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        errors = []
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for batch in self._batches(pool):
+                    if not put(batch):
+                        return
+            except BaseException as e:  # raised again in the caller
+                errors.append(e)
+            put(None)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                batch = q.get()
+                if batch is None:
+                    if errors:
+                        raise errors[0]
+                    return
+                yield batch
+        finally:
+            stop.set()
+            t.join()
 
 
 class SyntheticStoryDataset:

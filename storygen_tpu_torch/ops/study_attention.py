@@ -36,6 +36,9 @@ from storygen_tpu_torch.ops import _build
 
 LOG2E = 1.4426950408889634
 TILES = (64, 128)
+# mh_attention's K/V tile rows where 64-row tiles overflow shared memory
+# (g = 8 heads at d = 160)
+MH_SMALL_KV = 32
 # shared memory a block may use on the H100 (bytes)
 SMEM_LIMIT = 232448
 
@@ -71,7 +74,8 @@ BOUNDED_BUILT = frozenset(
     | {(48, t, t, 1, 2, 1, TB) for t in TILES}
     | _tiles4(48, 1, 1, 1, BND2) | _tiles4(80, 1, 1, 1, BND2)
     | {(dp, 64, 64, 1, 1, g, BND2) for dp in (48, 80) for g in (2, 4, 8)}
-    | {(160, 64, 64, 1, 1, g, BND2) for g in (2, 4)})
+    | {(160, 64, 64, 1, 1, g, BND2) for g in (2, 4)}
+    | {(160, 64, MH_SMALL_KV, 1, 1, 8, BND2)})
 
 
 def pad16(w: int) -> int:
@@ -106,13 +110,13 @@ def _require(built, key, smem: int, name: str) -> None:
     raise ValueError(f"{name}: instantiation {key} is not built")
 
 
-def check_tiles(bq: int, bk: int) -> None:
-    if bq not in TILES or bk not in TILES:
-        raise ValueError(f"bq and bk are tile rows, one of {TILES}; got "
-                         f"{bq}, {bk}")
+def check_tiles(bq: int, bk: int, kv_tiles=TILES) -> None:
+    if bq not in TILES or bk not in kv_tiles:
+        raise ValueError(f"bq and bk are tile rows, one of {TILES} (bk "
+                         f"{kv_tiles}); got {bq}, {bk}")
 
 
-def _check(q, k, v, bq, bk, rows_per_step=None):
+def _check(q, k, v, bq, bk, rows_per_step=None, kv_tiles=TILES):
     """(B, H, Sq, Skv, D) after validating shapes and tiles."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, S, D)")
@@ -124,7 +128,7 @@ def _check(q, k, v, bq, bk, rows_per_step=None):
         raise ValueError("q, k, v must be on one device")
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError("q, k, v must share a dtype")
-    check_tiles(bq, bk)
+    check_tiles(bq, bk, kv_tiles)
     skv = k.shape[2]
     step = rows_per_step or bk
     if sq % bq or skv % step:
@@ -373,8 +377,8 @@ def ablate_attention(wrapper, plain, q, k, v, *, sm_scale: float,
                     1e-30, halves=halves)
 
 
-def _bnd2(wrapper, plain, q, k, v, sm_scale, bq, bk, g):
-    b, h, _, _, d = _check(q, k, v, bq, bk)
+def _bnd2(wrapper, plain, q, k, v, sm_scale, bq, bk, g, kv_tiles=TILES):
+    b, h, _, _, d = _check(q, k, v, bq, bk, kv_tiles=kv_tiles)
     if (b * h) % g:
         raise ValueError(f"B*H={b * h} does not divide into groups of {g}")
     key = (pad16(d), bq, bk, 1, 1, g, BND2)
@@ -396,11 +400,22 @@ def bnd2_attention(wrapper, plain, q, k, v, *, sm_scale: float,
     return _bnd2(wrapper, plain, q, k, v, sm_scale, bq, bk, 1)
 
 
+def mh_kv_rows(d: int, g: int, bq: int = 64) -> int:
+    """mh_attention's default K/V tile rows: 64, or MH_SMALL_KV where the
+    double-buffered 64-row tiles of g heads overflow shared memory."""
+    fits = bounded_smem(pad16(d), bq, 64, 1, g) <= SMEM_LIMIT
+    return 64 if fits else MH_SMALL_KV
+
+
 @kernel_wrapper
 def mh_attention(wrapper, plain, q, k, v, *, sm_scale: float, bq: int = 64,
-                 bk: int = 64, g: int = 2) -> torch.Tensor:
-    """bnd2_attention with g heads per block."""
-    return _bnd2(wrapper, plain, q, k, v, sm_scale, bq, bk, g)
+                 bk: Optional[int] = None, g: int = 2) -> torch.Tensor:
+    """bnd2_attention with g heads per block; bk defaults to
+    mh_kv_rows(d, g, bq)."""
+    if bk is None:
+        bk = mh_kv_rows(q.shape[-1], g, bq)
+    return _bnd2(wrapper, plain, q, k, v, sm_scale, bq, bk, g,
+                 TILES + (MH_SMALL_KV,))
 
 
 WRAPPERS = (variant_attention, t_attention, tb_attention, bounded_attention,

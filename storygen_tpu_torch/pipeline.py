@@ -20,7 +20,8 @@ Random draws come from a draw provider, `draw(frame, name, shape)`, with
 take the same draws. The default provider (`seeded_draws`) draws frame k
 from `frame_generator(device, seed, k)`.
 
-Not ported: `save_pretrained` (checkpoint IO) and `numpy_to_pil` (PIL).
+`StoryGenPipeline.save_pretrained` writes the diffusers folder that
+checkpoint/hf_import.py loads. Not ported: `numpy_to_pil` (PIL).
 """
 from __future__ import annotations
 
@@ -393,6 +394,18 @@ class StoryGenPipeline:
         self.vae = vae
         self.text_encoder = text_encoder
         self.tokenizer = tokenizer
+
+    def save_pretrained(self, root: str) -> None:
+        """Write unet/, vae/, text_encoder/, scheduler/ and
+        model_index.json (checkpoint/hf_export.py), and tokenizer/ when
+        the tokenizer has a save_pretrained of its own."""
+        from storygen_tpu_torch.checkpoint.hf_export import save_pretrained
+        save_pretrained(root, unet=self.sampler.unet, vae=self.vae,
+                        text_encoder=self.text_encoder,
+                        scheduler_config=self.sampler.sched_cfg)
+        tok = getattr(self.tokenizer, "tok", self.tokenizer)
+        if hasattr(tok, "save_pretrained"):
+            tok.save_pretrained(f"{root}/tokenizer")
 
     def tokenize(self, prompts: Sequence[str]) -> torch.Tensor:
         try:

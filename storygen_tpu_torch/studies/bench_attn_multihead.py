@@ -3,8 +3,8 @@
 The card's counterpart of scripts/studies/bench_attn_multihead.py: mh on
 kernel S2 (csrc/study_bounded.cu) is bnd2 with g heads per block (4 warps
 per head, 64-row tiles), so the grid has g times fewer, g times larger
-blocks. g = 8 at d = 160 needs 344,064 bytes of shared memory, more than
-a block has, and prints a FAILED line.
+blocks. g = 8 at d = 160 takes 32-row K/V tiles: with 64-row ones it
+would need 344,064 bytes of shared memory, more than a block has.
 
   bnd(cur)  the port's kernel F
   mh g2/g4/g8

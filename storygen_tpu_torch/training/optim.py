@@ -15,6 +15,9 @@ kernel is involved):
 - AdamW: bias-corrected moments, eps outside the square root, decoupled
   weight decay on every trainable parameter, and the learning rate of the
   schedule at the number of updates made so far (0 for the first).
+
+`make_optimizer` picks it or its 8-bit form (optim8bit.py, the JAX
+package's `use_8bit_adam`), which shares all but the moments' storage.
 """
 from __future__ import annotations
 
@@ -84,7 +87,9 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 class AdamW:
     """clip-by-global-norm -> AdamW -> k-step gradient accumulation over a
-    {name: parameter} dict; all state in fp32 on the parameters' device."""
+    {name: parameter} dict; all state in fp32 on the parameters' device.
+    `state_dict` / `load_state_dict` carry the moments, the accumulator,
+    `count` and `mini_step` (a checkpoint's optimizer state)."""
 
     def __init__(self, params: Dict[str, torch.Tensor], cfg: TrainConfig):
         self.params = params
@@ -93,13 +98,15 @@ class AdamW:
         self.eps, self.weight_decay = cfg.adam_epsilon, cfg.adam_weight_decay
         self.max_norm = cfg.max_grad_norm
         self.every_k = max(cfg.gradient_accumulation_steps, 1)
-        zeros = {n: torch.zeros_like(p, dtype=torch.float32)
-                 for n, p in params.items()}
-        self.mu = {n: z.clone() for n, z in zeros.items()}
-        self.nu = {n: z.clone() for n, z in zeros.items()}
-        self.acc = zeros
+        self.acc = {n: torch.zeros_like(p, dtype=torch.float32)
+                    for n, p in params.items()}
+        self.mu, self.nu = self._init_moments()
         self.count = 0       # optimizer updates made
         self.mini_step = 0   # micro-steps accumulated since the last update
+
+    def _init_moments(self):
+        return ({n: torch.zeros_like(a) for n, a in self.acc.items()},
+                {n: torch.zeros_like(a) for n, a in self.acc.items()})
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor]) -> bool:
@@ -121,16 +128,58 @@ class AdamW:
     def _apply(self, grads: Dict[str, torch.Tensor]) -> None:
         norm = global_norm(grads.values())
         below = norm < self.max_norm
-        lr = self.schedule(self.count)
+        lr = self.schedule(self.count)  # the count before this update
         self.count += 1
         c1 = 1.0 - self.b1 ** self.count
         c2 = 1.0 - self.b2 ** self.count
         for name, p in self.params.items():
             g = grads[name]
             g = torch.where(below, g, g / norm * self.max_norm)
-            mu, nu = self.mu[name], self.nu[name]
-            mu.mul_(self.b1).add_((1.0 - self.b1) * g)
-            nu.mul_(self.b2).add_((1.0 - self.b2) * g * g)
-            upd = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
-            upd = upd + self.weight_decay * p.float()
-            p.copy_((p.float() - lr * upd).to(p.dtype))
+            self._step(name, p, g, lr, c1, c2)
+
+    def _step(self, name: str, p: torch.Tensor, g: torch.Tensor, lr: float,
+              c1: float, c2: float) -> None:
+        """One parameter's AdamW update from its clipped gradient."""
+        mu, nu = self.mu[name], self.nu[name]
+        mu.mul_(self.b1).add_((1.0 - self.b1) * g)
+        nu.mul_(self.b2).add_((1.0 - self.b2) * g * g)
+        self._move(p, mu, nu, lr, c1, c2)
+
+    def _move(self, p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+              lr: float, c1: float, c2: float) -> None:
+        """p -= lr * (bias-corrected Adam step + weight decay), in fp32."""
+        upd = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+        upd = upd + self.weight_decay * p.float()
+        p.copy_((p.float() - lr * upd).to(p.dtype))
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mini_step": self.mini_step,
+                "acc": self.acc, "mu": self.mu, "nu": self.nu}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore a state_dict in place, on the parameters' devices."""
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        mine = self.state_dict()
+        for key in ("acc", "mu", "nu"):
+            if set(state[key]) != set(mine[key]):
+                raise KeyError(f"optimizer {key}: the state's tensors are not "
+                               "the trainable parameters")
+            for name, v in state[key].items():
+                dst = mine[key][name]
+                if isinstance(dst, dict):  # a quantized moment's parts
+                    for part, t in dst.items():
+                        t.copy_(v[part])
+                else:
+                    dst.copy_(v)
+
+
+def make_optimizer(cfg: TrainConfig, params: Dict[str, torch.Tensor]
+                   ) -> AdamW:
+    """AdamW, or with cfg.use_8bit_adam the block-quantized AdamW8bit
+    (optim8bit.py); both clip, accumulate and schedule alike."""
+    if cfg.use_8bit_adam:
+        from storygen_tpu_torch.training.optim8bit import AdamW8bit
+        return AdamW8bit(params, cfg)
+    return AdamW(params, cfg)

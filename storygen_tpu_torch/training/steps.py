@@ -13,11 +13,23 @@ batched over the N refs, without a graph (`torch.no_grad`, the JAX
 there. Only the main UNet pass is differentiated. The "random number of
 refs" is a per-sample (B, N) keep mask over attn3's fixed (B, N*S) kv.
 
+Precomputed-latent mode (the JAX step's): a batch with `latent_moments`
+(B, h, w, 8) and `ref_latent_moments` (N, B, h, w, 8), the stored VAE
+posterior means and logvars, in place of image and ref_images. Each
+posterior is sampled in fp32 (logvar clipped to [-30, 20]), scaled and cast
+to the VAE's dtype; no encoder runs. Unlike the JAX package, this mode
+applies the CFG dropout that the image datasets apply per sample (the
+files are written without it): 5% of rows take the empty prompt's ids, and
+10% take the empty ref prompts and the moments of an all-zero reference
+image, which the frozen VAE encodes once, as zeroed refs are in the image
+mode. The empty prompt's ids come from the caller's tokenizer
+(`empty_ids`); without them the mode raises.
+
 Random draws come from one `torch.Generator`, in a fixed order: the latent
-posterior noise, the noise, t, the ref posterior noise, the ref noise and
-the ref mask. Each can be injected instead (`draws`), so that two
-implementations can be fed the same random numbers. The precomputed-latent
-mode of the JAX step is not ported yet.
+posterior noise, the noise, t, the ref posterior noise, the ref noise, the
+ref mask and, in the precomputed mode, the prompt and ref dropout rows.
+Each can be injected instead (`draws`, keys DRAW_KEYS), so that two
+implementations can be fed the same random numbers.
 """
 from __future__ import annotations
 
@@ -26,11 +38,15 @@ from typing import Callable, Dict, Optional
 import torch
 
 from storygen_tpu_torch.diffusion import schedule as S
+from storygen_tpu_torch.models.vae import DiagonalGaussian
 from storygen_tpu_torch.training.losses import downsample_mask, masked_mse
 from storygen_tpu_torch.training.optim import AdamW, global_norm
 
 DRAW_KEYS = ("posterior_noise", "noise", "t", "ref_posterior_noise",
-             "ref_noise", "ref_mask")
+             "ref_noise", "ref_mask", "prompt_dropout", "ref_dropout")
+# the CFG dropout rates of the reference's StorySalon and COCO datasets
+PROMPT_DROPOUT = 0.05
+REF_DROPOUT = 0.1
 
 
 def sample_ref_mask(generator: torch.Generator, batch: int, num_refs: int,
@@ -51,17 +67,21 @@ def make_train_step(unet, vae, text_encoder, sched: S.NoiseSchedule,
                     optimizer: AdamW, *, stage: str = "stage2",
                     num_refs: int = 3, ref_noise_decay: bool = True,
                     use_mask: bool = True,
-                    num_train_timesteps: int = 1000) -> Callable:
+                    num_train_timesteps: int = 1000,
+                    empty_ids: Optional[torch.Tensor] = None) -> Callable:
     """Build the train step of a stage.
 
     stage: 'stage1' (no refs) | 'stage2' | 'coco'.
     ref_noise_decay: noise ref i at ref_t * (N - i) (stage2) instead of a
       flat ref_t (COCO).
     use_mask: masked MSE over the inpainting mask.
+    empty_ids: (77,) token ids of the empty prompt, which the precomputed
+      mode's CFG dropout needs.
 
     The step takes a batch of tensors on the models' device:
-      image (B, H, W, 3) in [-1, 1]; mask (B, H, W, 1) in [0, 1] (if
-      use_mask); input_ids (B, 77); ref_images (N, B, H, W, 3) and
+      image (B, H, W, 3) in [-1, 1] or latent_moments (B, h, w, 8); mask
+      (B, H, W, 1) in [0, 1] (if use_mask); input_ids (B, 77); ref_images
+      (N, B, H, W, 3) or ref_latent_moments (N, B, h, w, 8), and
       ref_input_ids (N, B, 77) (stages with refs);
     a generator on that device, and optionally `draws`, a dict of tensors
     under DRAW_KEYS that replace the generator's draws. It differentiates
@@ -76,10 +96,31 @@ def make_train_step(unet, vae, text_encoder, sched: S.NoiseSchedule,
     down = vae.config.downscale_factor
     lat_ch = vae.config.latent_channels
 
-    def draw(batch, generator, given):
-        b, hh, ww = batch["image"].shape[:3]
-        lat = (b, hh // down, ww // down, lat_ch)
-        dev = batch["image"].device
+    zero_moments = {}  # (h, w) -> the all-zero image's moments
+
+    def zero_image_moments(h: int, w: int, dev) -> torch.Tensor:
+        """(h, w, 8) posterior moments of an all-zero image, fp32."""
+        if (h, w) not in zero_moments:
+            dist = vae.encode(torch.zeros((1, h * down, w * down, 3),
+                                          device=dev))
+            zero_moments[(h, w)] = torch.cat([dist.mean, dist.logvar],
+                                             dim=-1)[0]
+        return zero_moments[(h, w)]
+
+    def sample_moments(moments, noise):
+        mean, logvar = moments.float().chunk(2, dim=-1)
+        z = DiagonalGaussian(mean, logvar.clamp(-30.0, 20.0)).sample(noise)
+        return (z * sf).to(vae.dtype)
+
+    def draw(batch, generator, given, precomputed):
+        if precomputed:
+            b, h, w = batch["latent_moments"].shape[:3]
+            dev = batch["latent_moments"].device
+        else:
+            b, hh, ww = batch["image"].shape[:3]
+            h, w = hh // down, ww // down
+            dev = batch["image"].device
+        lat = (b, h, w, lat_ch)
         out = {}
 
         def put(key, fn):
@@ -88,6 +129,10 @@ def make_train_step(unet, vae, text_encoder, sched: S.NoiseSchedule,
         def normal(shape):
             return lambda: torch.randn(shape, generator=generator,
                                        device=dev)
+
+        def dropped(rate):
+            return lambda: torch.rand((b,), generator=generator,
+                                      device=dev) < rate
 
         put("posterior_noise", normal(lat))
         put("noise", normal(lat))
@@ -99,7 +144,33 @@ def make_train_step(unet, vae, text_encoder, sched: S.NoiseSchedule,
             if stage == "stage2":
                 put("ref_mask", lambda: sample_ref_mask(generator, b,
                                                         num_refs))
+        if precomputed:
+            put("prompt_dropout", dropped(PROMPT_DROPOUT))
+            if use_refs:
+                put("ref_dropout", dropped(REF_DROPOUT))
         return out
+
+    def cfg_dropout(batch, d):
+        """The precomputed batch's ids and ref moments after CFG
+        dropout."""
+        if empty_ids is None:
+            raise ValueError(
+                "the precomputed-latent mode's CFG dropout needs the empty "
+                "prompt's ids: pass the tokenizer to train() (empty_ids)")
+        empty = empty_ids.to(batch["input_ids"])
+        drop = d["prompt_dropout"].bool()
+        ids = torch.where(drop[:, None], empty, batch["input_ids"])
+        if not use_refs:
+            return ids, None, None  # stage 1 takes no refs
+        drop = d["ref_dropout"].bool()
+        moments = batch["ref_latent_moments"]
+        zero = zero_image_moments(moments.shape[2], moments.shape[3],
+                                  moments.device)
+        ref_moments = torch.where(drop[None, :, None, None, None],
+                                  zero.to(moments.dtype), moments)
+        ref_ids = torch.where(drop[None, :, None], empty,
+                              batch["ref_input_ids"])
+        return ids, ref_moments, ref_ids
 
     def step(batch: Dict[str, torch.Tensor], generator: torch.Generator,
              draws: Optional[Dict[str, torch.Tensor]] = None
@@ -108,21 +179,34 @@ def make_train_step(unet, vae, text_encoder, sched: S.NoiseSchedule,
         if unknown:
             raise ValueError(f"unknown draws {sorted(unknown)}; expected "
                              f"some of {DRAW_KEYS}")
-        d = draw(batch, generator, draws or {})
+        precomputed = "latent_moments" in batch
+        d = draw(batch, generator, draws or {}, precomputed)
         t = d["t"].long()
         with torch.no_grad():
-            latents = vae.encode(batch["image"]).sample(
-                d["posterior_noise"].float()) * sf
+            if precomputed:
+                ids, ref_moments, ref_ids = cfg_dropout(batch, d)
+                latents = sample_moments(batch["latent_moments"],
+                                         d["posterior_noise"].float())
+            else:
+                ids, ref_ids = batch["input_ids"], batch.get("ref_input_ids")
+                latents = vae.encode(batch["image"]).sample(
+                    d["posterior_noise"].float()) * sf
             b = latents.shape[0]
-            text = text_encoder(batch["input_ids"])
+            text = text_encoder(ids)
             noisy = S.add_noise(sched, latents, d["noise"].float(), t)
             ctx = ref_mask = None
             if use_refs:
                 n = num_refs
-                refs = batch["ref_images"]
-                dist = vae.encode(refs.reshape((n * b,) + refs.shape[2:]))
-                z = dist.sample(d["ref_posterior_noise"].float()) * sf
-                ref_lat = z.reshape((n, b) + z.shape[1:])
+                if precomputed:
+                    noise = d["ref_posterior_noise"].float()
+                    ref_lat = sample_moments(
+                        ref_moments, noise.reshape((n, b) + noise.shape[1:]))
+                else:
+                    refs = batch["ref_images"]
+                    dist = vae.encode(refs.reshape((n * b,)
+                                                   + refs.shape[2:]))
+                    z = dist.sample(d["ref_posterior_noise"].float()) * sf
+                    ref_lat = z.reshape((n, b) + z.shape[1:])
                 ref_t = t // 10
                 if ref_noise_decay:
                     factors = torch.arange(n, 0, -1, device=t.device)
@@ -132,8 +216,7 @@ def make_train_step(unet, vae, text_encoder, sched: S.NoiseSchedule,
                 noisy_refs = S.add_noise(sched, ref_lat,
                                          d["ref_noise"].float()[None],
                                          ref_ts)
-                prev_text = text_encoder(
-                    batch["ref_input_ids"].reshape(n * b, -1))
+                prev_text = text_encoder(ref_ids.reshape(n * b, -1))
                 _, raw = unet(noisy_refs.reshape((n * b,)
                                                  + ref_lat.shape[2:]),
                               ref_ts.reshape(-1), prev_text)

@@ -12,6 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from storygen_tpu_torch.checkpoint import hf_import
 from storygen_tpu_torch.configs import (CLIPTextConfig, TrainConfig,
                                         UNetConfig, VAEConfig)
 from storygen_tpu_torch.models.clip_text import CLIPTextModel
@@ -44,7 +45,13 @@ def test_port_imports_no_jax_or_flax():
         "storygen_tpu_torch.training.optim\n"
         "import storygen_tpu_torch.training.steps, "
         "storygen_tpu_torch.training.trainer\n"
-        "import storygen_tpu_torch.utils.logging\n"
+        "import storygen_tpu_torch.utils.logging, "
+        "storygen_tpu_torch.utils.image\n"
+        "import storygen_tpu_torch.checkpoint.hf_import, "
+        "storygen_tpu_torch.checkpoint.hf_export\n"
+        "import storygen_tpu_torch.checkpoint.torch_io, "
+        "storygen_tpu_torch.training.optim8bit\n"
+        "import storygen_tpu_torch.data.datasets\n"
         "import storygen_tpu_torch.diffusion.schedule, "
         "storygen_tpu_torch.diffusion.dpm_solver\n"
         "import storygen_tpu_torch.diffusion.euler, "
@@ -183,6 +190,20 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch,
     frames = pipe.generate_story(["a", "b"], fused=True,
                                  num_inference_steps=1, height=64, width=64)
     assert [f.shape for f in frames] == [(64, 64, 3)] * 2
+    # checkpoint folders: the loader, and the trainer that loads
+    # pretrained_model_path, refuse without a card; given device="cpu"
+    # they load there
+    root = str(tmp_path / "folder")
+    pipe.save_pretrained(root)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hf_import.load_diffusers_pretrained(root)
+    loaded = hf_import.load_diffusers_pretrained(root, device="cpu")
+    assert {p.device.type for k in ("unet", "vae", "text_encoder")
+            for p in loaded[k].parameters()} == {"cpu"}
+    cfg = TrainConfig(logdir=str(tmp_path), pretrained_model_path=root)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.build_models(cfg)
+    assert trainer.build_models(cfg, "cpu")["unet"].config == unet.config
 
 
 def test_entry_points_refuse_models_elsewhere():

@@ -13,7 +13,7 @@ from storygen_tpu.data.loader import collate as j_collate
 from storygen_tpu.training import losses as j_losses
 from storygen_tpu.training import optim as j_optim
 from storygen_tpu_torch.configs import TrainConfig
-from storygen_tpu_torch.data.loader import (SyntheticStoryDataset, batches,
+from storygen_tpu_torch.data.loader import (DataLoader, SyntheticStoryDataset,
                                             collate)
 from storygen_tpu_torch.training import losses, optim, steps
 from tests.torch_port_util import assert_close, rand, t
@@ -124,8 +124,11 @@ def test_collate_matches_jax_and_batches_cycle():
     assert ours["ref_images"].shape == (3, 2, 16, 16, 3)
     assert ours["ref_input_ids"].shape == (3, 2, 8)
     np.testing.assert_array_equal(ds[3]["image"], samples[1]["image"])
-    it = batches(ds, 2, seed=0)
+    def batches():
+        return iter(DataLoader(ds, 2, seed=0, prefetch=0, num_threads=1))
+
+    it = batches()
     first = [next(it) for _ in range(3)]  # two full batches an epoch
     assert all(b["image"].shape == (2, 16, 16, 3) for b in first)
-    again = batches(ds, 2, seed=0)
+    again = batches()
     np.testing.assert_array_equal(next(again)["image"], first[0]["image"])
