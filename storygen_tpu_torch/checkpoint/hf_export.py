@@ -137,27 +137,25 @@ def _dump(root: str, sub: str, name: str, payload: dict) -> None:
 def save_pretrained(root: str, unet: Optional[nn.Module] = None,
                     vae: Optional[nn.Module] = None,
                     text_encoder: Optional[nn.Module] = None,
-                    configs: Optional[dict] = None,
                     scheduler_config: Optional[SchedulerConfig] = None,
-                    write_model_index: bool = True) -> None:
-    """Write the folder for the modules given. `configs` maps "unet",
-    "vae" and "clip" to their configs; a module's own `.config` is used
-    where the map has none."""
-    configs = configs or {}
-    for sub, fname, module, key, schema in (
-            ("unet", "diffusion_pytorch_model.bin", unet, "unet",
+                    tokenizer=None) -> None:
+    """Write the folder for the modules given, each under the schema of
+    its own `.config`, and tokenizer/ when the tokenizer has a
+    save_pretrained of its own."""
+    for sub, fname, module, schema in (
+            ("unet", "diffusion_pytorch_model.bin", unet,
              diffusers_unet_config),
-            ("vae", "diffusion_pytorch_model.bin", vae, "vae",
-             diffusers_vae_config),
-            ("text_encoder", "pytorch_model.bin", text_encoder, "clip",
+            ("vae", "diffusion_pytorch_model.bin", vae, diffusers_vae_config),
+            ("text_encoder", "pytorch_model.bin", text_encoder,
              transformers_clip_config)):
         if module is None:
             continue
         os.makedirs(os.path.join(root, sub), exist_ok=True)
         save_weights(module, os.path.join(root, sub, fname))
-        _dump(root, sub, "config.json",
-              schema(configs.get(key) or module.config))
+        _dump(root, sub, "config.json", schema(module.config))
     _dump(root, "scheduler", "scheduler_config.json",
           diffusers_scheduler_config(scheduler_config or SchedulerConfig()))
-    if write_model_index:
-        _dump(root, "", "model_index.json", MODEL_INDEX)
+    _dump(root, "", "model_index.json", MODEL_INDEX)
+    tok = getattr(tokenizer, "tok", tokenizer)
+    if hasattr(tok, "save_pretrained"):
+        tok.save_pretrained(os.path.join(root, "tokenizer"))

@@ -4,8 +4,9 @@ Counterpart of storygen_tpu/checkpoint/orbax_io.py on `torch.save`. Each
 save writes `<ckpt_dir>/<step>/state.pt` under a temporary name and renames
 the folder into place, so a run killed mid-save leaves no half checkpoint
 that `latest_step` would pick. The state is a nested dict of tensors and
-Python scalars (the trainer's: the micro-step count, the trainable tensors,
-the optimizer's state, the generator's state and the loader's position);
+Python scalars (the trainer's: the micro-step count, which is also the
+loader's position, the trainable tensors, the optimizer's state and the
+generator's state);
 tensors are stored on the CPU and restored there, bit for bit.
 """
 from __future__ import annotations

@@ -167,12 +167,17 @@ class SchedulerConfig:
         return cls(**_filter_kwargs(cls, _read_json(path)))
 
 
+# TrainConfig's pretrained_model_path default, the JAX package's
+DEFAULT_MODEL_PATH = "./ckpt/stable-diffusion-v1-5/"
+
+
 @dataclass(frozen=True)
 class TrainConfig:
     """The training fields of the reference's config/*.yml that the port's
     trainer reads (names and defaults as in the JAX package)."""
-    # a diffusers folder; build_models loads it when it holds unet/
-    pretrained_model_path: str = "./ckpt/stable-diffusion-v1-5/"
+    # a diffusers folder; build_models loads it when it holds unet/ and
+    # was named (this default counts as unnamed)
+    pretrained_model_path: str = DEFAULT_MODEL_PATH
     logdir: str = "./logs/"
     # a folder of precomputed VAE posterior moments (.npz); when set, the
     # trainer trains on those instead of images

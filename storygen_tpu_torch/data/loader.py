@@ -4,26 +4,24 @@
 Counterpart of storygen_tpu/data/loader.py (`collate` and `DataLoader`,
 with the same seeded order of samples). The CLIP tokenizer is not ported
 (no vocab or merges files ship with the repository): samples arrive with
-token ids, or the caller passes a tokenizer.
+token ids.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterator, Optional, Sequence
+from typing import Dict, Iterator, Sequence
 
 import numpy as np
 
 
-def collate(samples: Sequence[Dict],
-            tokenizer: Optional[Callable] = None) -> Dict[str, np.ndarray]:
+def collate(samples: Sequence[Dict]) -> Dict[str, np.ndarray]:
     """Stack per-sample dicts into batch arrays. Per-frame arrays stack
     batch-major; ref_images to (N_refs, B, H, W, 3), ref_latent_moments to
     (N_refs, B, h, w, 8) and ref_input_ids to (N_refs, B, 77), the
-    ref-major layout the training step takes. Prompts become input_ids /
-    ref_input_ids when a tokenizer (list of str -> (B, 77) ids) is given,
-    else pass through as lists."""
+    ref-major layout the training step takes. Prompts pass through as
+    lists (the validation renders read them)."""
     out: Dict[str, np.ndarray] = {}
     keys = samples[0].keys()
     for key in ("image", "mask", "latent_moments"):
@@ -38,20 +36,9 @@ def collate(samples: Sequence[Dict],
     if "ref_input_ids" in keys:
         out["ref_input_ids"] = np.stack(
             [s["ref_input_ids"] for s in samples], axis=1).astype(np.int64)
-    if "prompt" in keys:
-        prompts = [s["prompt"] for s in samples]
-        if tokenizer is not None:
-            out["input_ids"] = np.asarray(tokenizer(prompts), np.int64)
-        else:
-            out["prompt"] = prompts
-    if "ref_prompts" in keys:
-        n = len(samples[0]["ref_prompts"])
-        if tokenizer is not None:
-            out["ref_input_ids"] = np.stack(
-                [np.asarray(tokenizer([s["ref_prompts"][i] for s in samples]),
-                            np.int64) for i in range(n)])
-        else:
-            out["ref_prompts"] = [s["ref_prompts"] for s in samples]
+    for key in ("prompt", "ref_prompts"):
+        if key in keys:
+            out[key] = [s[key] for s in samples]
     return out
 
 
@@ -68,9 +55,8 @@ class DataLoader:
     loading them, so a resumed run continues where its checkpoint left off.
     An error in a sample's loading is raised to the caller."""
 
-    def __init__(self, dataset, batch_size: int,
-                 tokenizer: Optional[Callable] = None, shuffle: bool = True,
-                 seed: int = 0, drop_last: bool = True, prefetch: int = 2,
+    def __init__(self, dataset, batch_size: int, seed: int = 0,
+                 drop_last: bool = True, prefetch: int = 2,
                  num_threads: int = 4, num_shards: int = 1, shard_id: int = 0,
                  start: int = 0):
         if not 0 <= shard_id < num_shards:
@@ -82,8 +68,6 @@ class DataLoader:
                              f"of {batch_size}")
         self.dataset = dataset
         self.batch_size = batch_size
-        self.tokenizer = tokenizer
-        self.shuffle = shuffle
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.num_threads = num_threads
@@ -94,8 +78,7 @@ class DataLoader:
 
     def _epoch_indices(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
-        if self.shuffle:
-            self._rng.shuffle(idx)
+        self._rng.shuffle(idx)
         if self.num_shards > 1:
             idx = idx[self.shard_id::self.num_shards]
         return idx
@@ -124,7 +107,7 @@ class DataLoader:
             samples = (list(pool.map(self.dataset.__getitem__, items))
                        if pool is not None
                        else [self.dataset[i] for i in items])
-            yield collate(samples, self.tokenizer)
+            yield collate(samples)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         pool = (ThreadPoolExecutor(max_workers=self.num_threads)

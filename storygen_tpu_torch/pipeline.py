@@ -402,10 +402,8 @@ class StoryGenPipeline:
         from storygen_tpu_torch.checkpoint.hf_export import save_pretrained
         save_pretrained(root, unet=self.sampler.unet, vae=self.vae,
                         text_encoder=self.text_encoder,
-                        scheduler_config=self.sampler.sched_cfg)
-        tok = getattr(self.tokenizer, "tok", self.tokenizer)
-        if hasattr(tok, "save_pretrained"):
-            tok.save_pretrained(f"{root}/tokenizer")
+                        scheduler_config=self.sampler.sched_cfg,
+                        tokenizer=self.tokenizer)
 
     def tokenize(self, prompts: Sequence[str]) -> torch.Tensor:
         try:

@@ -4,18 +4,18 @@ Counterpart of storygen_tpu/training/trainer.py: config dump to the
 logdir, trainable-subset finetuning, gradient accumulation, loss and lr
 logging, validation renders (`SampleLogger`), checkpoints with resume, and
 diffusers-folder exports. The models come from `pretrained_model_path`
-when it holds a diffusers folder (checkpoint/hf_import.py), else from a
-seeded random init at the SD-1.5 + VLCM widths. Trainable parameters are
-kept in fp32, as the JAX package keeps its parameters, while the models
-compute in bf16 under `mixed_precision="bf16"`.
+when it was named and holds a diffusers folder (checkpoint/hf_import.py),
+else from a seeded random init at the SD-1.5 + VLCM widths. Trainable
+parameters are kept in fp32, as the JAX package keeps its parameters,
+while the models compute in bf16 under `mixed_precision="bf16"`.
 
 Every `checkpointing_steps` optimizer steps the trainer saves
 `<logdir>/checkpoints/<step>` (checkpoint/torch_io.py): the micro-step
-count, the trainable tensors, the optimizer's whole state, the generator's
-state and the loader's position; a run started on a logdir with a
-checkpoint resumes from the latest one and continues the uninterrupted
-run's draws and batches. Every `export_steps` (default: the checkpointing
-cadence) it also writes the full pipeline folder to
+count (which is also the loader's position), the trainable tensors, the
+optimizer's whole state and the generator's state; a run started on a
+logdir with a checkpoint resumes from the latest one and continues the
+uninterrupted run's draws and batches. Every `export_steps` (default:
+the checkpointing cadence) it also writes the full pipeline folder to
 `<logdir>/checkpoint_<step>`.
 
 With `latents_path` the trainer reads precomputed VAE posterior moments
@@ -37,9 +37,9 @@ import numpy as np
 import torch
 
 from storygen_tpu_torch.checkpoint import hf_export, hf_import, torch_io
-from storygen_tpu_torch.configs import (CLIPTextConfig, ConvKernels,
-                                        SchedulerConfig, TrainConfig,
-                                        UNetConfig, VAEConfig)
+from storygen_tpu_torch.configs import (DEFAULT_MODEL_PATH, CLIPTextConfig,
+                                        ConvKernels, SchedulerConfig,
+                                        TrainConfig, UNetConfig, VAEConfig)
 from storygen_tpu_torch.data.datasets import PrecomputedLatentDataset
 from storygen_tpu_torch.data.loader import DataLoader, collate
 from storygen_tpu_torch.diffusion import schedule as S
@@ -101,15 +101,19 @@ class SampleLogger:
 
 
 def build_models(cfg: TrainConfig, device="cuda",
-                 unet_config: UNetConfig = UNetConfig(),
-                 vae_config: VAEConfig = VAEConfig(),
-                 clip_config: CLIPTextConfig = CLIPTextConfig(),
+                 unet_config: Optional[UNetConfig] = None,
+                 vae_config: Optional[VAEConfig] = None,
+                 clip_config: Optional[CLIPTextConfig] = None,
                  conv: ConvKernels = ConvKernels()) -> dict:
     """UNet, VAE and CLIP text encoder in the config's dtype on `device`,
-    the UNet's and the VAE's convs on the kernels `conv` picks: loaded from
-    `cfg.pretrained_model_path` when it holds unet/ (its configs win over
-    the ones given), else seeded at random; the UNet checkpoints each block
-    under `cfg.remat`."""
+    the UNet's and the VAE's convs on the kernels `conv` picks; the UNet
+    checkpoints each block under `cfg.remat`.
+
+    They are loaded from `cfg.pretrained_model_path` when it was named
+    (not left at DEFAULT_MODEL_PATH, so a ./ckpt folder where the run
+    starts changes nothing) and holds unet/; a config given here must then
+    equal the folder's. Otherwise they are seeded at random with the
+    configs given, the SD-1.5 + VLCM ones where none is."""
     from storygen_tpu_torch.models.clip_text import CLIPTextModel
     from storygen_tpu_torch.models.init import init_random_
     from storygen_tpu_torch.models.unet import UNet2DConditionModel
@@ -119,14 +123,24 @@ def build_models(cfg: TrainConfig, device="cuda",
     dtype = (torch.bfloat16 if cfg.mixed_precision in ("bf16", "fp16")
              else torch.float32)
     root = cfg.pretrained_model_path
-    if root and os.path.isdir(os.path.join(root, "unet")):
+    given = dict(unet_config=unet_config, vae_config=vae_config,
+                 clip_config=clip_config)
+    if root and root != DEFAULT_MODEL_PATH \
+            and os.path.isdir(os.path.join(root, "unet")):
         bundle = hf_import.load_diffusers_pretrained(root, dev, dtype, conv)
+        for key, config in given.items():
+            if config is not None and config != bundle[key]:
+                raise ValueError(f"{key} {config} differs from the one in "
+                                 f"{root}: {bundle[key]}")
     else:
         def make(cls, seed, *args):
             with torch.device(dev):
                 module = cls(*args)
             return init_random_(module.to(dtype), seed)
 
+        unet_config = unet_config or UNetConfig()
+        vae_config = vae_config or VAEConfig()
+        clip_config = clip_config or CLIPTextConfig()
         bundle = dict(
             unet=make(UNet2DConditionModel, cfg.seed, unet_config, conv),
             unet_config=unet_config,
@@ -174,21 +188,6 @@ def checkpoint_dir(cfg: TrainConfig) -> str:
     return os.path.join(cfg.logdir, "checkpoints")
 
 
-def export_folder(root: str, bundle: dict, tokenizer=None) -> None:
-    """The bundle's modules as a diffusers folder (the trained subset in
-    its fp32, the rest in the compute dtype)."""
-    hf_export.save_pretrained(
-        root, unet=bundle["unet"], vae=bundle["vae"],
-        text_encoder=bundle["text_encoder"],
-        configs={"unet": bundle.get("unet_config"),
-                 "vae": bundle.get("vae_config"),
-                 "clip": bundle.get("clip_config")},
-        scheduler_config=bundle["scheduler_config"])
-    tok = getattr(tokenizer, "tok", tokenizer)
-    if hasattr(tok, "save_pretrained"):
-        tok.save_pretrained(os.path.join(root, "tokenizer"))
-
-
 def train(stage: str = "stage2", config: Optional[TrainConfig] = None,
           dataset=None, device=None, models_bundle: Optional[dict] = None,
           tokenizer=None, val_dataset=None,
@@ -206,9 +205,9 @@ def train(stage: str = "stage2", config: Optional[TrainConfig] = None,
       then make the dataset.
     device: None (the card) or a torch device; the models of
       `models_bundle` must already live there.
-    tokenizer: list of str -> (B, 77) ids: tokenizes prompts, gives the
-      precomputed mode its empty prompt and the validation pipeline its
-      tokenizer.
+    tokenizer: list of str -> (B, 77) ids: gives the precomputed mode its
+      empty prompt, the validation pipeline its tokenizer and the exports
+      their tokenizer/ (when it has a save_pretrained).
     val_dataset, sample_logger: validation renders every
       `validation_steps` (a SampleLogger is made from
       `validation_sample_logger` when a tokenizer is given).
@@ -256,9 +255,8 @@ def train(stage: str = "stage2", config: Optional[TrainConfig] = None,
         sample_logger = SampleLogger(pipe, cfg.logdir,
                                      **cfg.validation_sample_logger)
 
-    loader = DataLoader(dataset, cfg.train_batch_size, tokenizer=tokenizer,
-                        seed=cfg.seed, num_threads=cfg.loader_threads,
-                        start=start)
+    loader = DataLoader(dataset, cfg.train_batch_size, seed=cfg.seed,
+                        num_threads=cfg.loader_threads, start=start)
     logger = MetricLogger(cfg.logdir)
     ga = cfg.gradient_accumulation_steps
     losses: List[float] = []
@@ -292,13 +290,17 @@ def train(stage: str = "stage2", config: Optional[TrainConfig] = None,
                     "micro_step": micro + 1,
                     "trainable": opt.params,
                     "optimizer": opt.state_dict(),
-                    "generator": gen.get_state(),
-                    "loader": {"batches": micro + 1}})
+                    "generator": gen.get_state()})
                 if opt_step % (cfg.export_steps
                                or cfg.checkpointing_steps) == 0:
-                    export_folder(os.path.join(cfg.logdir,
-                                               f"checkpoint_{opt_step}"),
-                                  bundle, tokenizer)
+                    # the trained subset in its fp32, the rest in the
+                    # compute dtype
+                    hf_export.save_pretrained(
+                        os.path.join(cfg.logdir, f"checkpoint_{opt_step}"),
+                        unet=bundle["unet"], vae=bundle["vae"],
+                        text_encoder=bundle["text_encoder"],
+                        scheduler_config=bundle["scheduler_config"],
+                        tokenizer=tokenizer)
     finally:
         it.close()
     return TrainState(cfg.train_steps, opt.params, opt, losses, seconds)

@@ -5,9 +5,9 @@ loader on resume, so it is no reference here.
 A save and a restore round trip bit for bit; a run resumed from checkpoint
 1 ends equal, bit for bit, to the uninterrupted 2-step run (the image mode
 with AdamW, the precomputed-latent mode with AdamW8bit and CFG dropout);
-the exported folder loads back through `pretrained_model_path`; the
-SampleLogger's PNG holds the pipeline's render; the PNG writer against
-PIL's decoder.
+the exported folder loads back through `pretrained_model_path`, and
+`build_models` loads only a folder that was named; the SampleLogger's
+PNG holds the pipeline's render; the PNG writer against PIL's decoder.
 """
 import io
 import os
@@ -17,9 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from storygen_tpu_torch.checkpoint import torch_io
-from storygen_tpu_torch.configs import (CLIPTextConfig, TrainConfig,
-                                        UNetConfig, VAEConfig)
+from storygen_tpu_torch.checkpoint import hf_export, torch_io
+from storygen_tpu_torch.configs import (DEFAULT_MODEL_PATH, CLIPTextConfig,
+                                        TrainConfig, UNetConfig, VAEConfig)
 from storygen_tpu_torch.data.loader import SyntheticStoryDataset, collate
 from storygen_tpu_torch.pipeline import StoryGenPipeline
 from storygen_tpu_torch.training import trainer
@@ -58,7 +58,7 @@ def test_checkpoint_round_trips_bit_for_bit(tmp_path):
                                "scale": torch.rand(1, 1)}},
                            "nu": {"a": torch.randint(0, 256, (1, 256),
                                                      dtype=torch.uint8)}},
-             "generator": g.get_state(), "loader": {"batches": 6}}
+             "generator": g.get_state()}
     ckpt = str(tmp_path / "ckpt")
     assert torch_io.latest_step(ckpt) is None
     with pytest.raises(FileNotFoundError):
@@ -154,6 +154,35 @@ def test_resumed_run_equals_the_uninterrupted_one(mode, tmp_path):
     live = resumed.optimizer.params
     unet = back["unet"].state_dict()
     assert all(torch.equal(unet[k], v) for k, v in live.items())
+
+
+def _unet_equal(a, b):
+    sa, sb = a["unet"].state_dict(), b["unet"].state_dict()
+    return all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def test_build_models_loads_only_a_named_folder(tmp_path, monkeypatch):
+    folder = _bundle(TrainConfig(mixed_precision="fp32", seed=1))
+    hf_export.save_pretrained(str(tmp_path / DEFAULT_MODEL_PATH),
+                              unet=folder["unet"], vae=folder["vae"],
+                              text_encoder=folder["text_encoder"])
+    monkeypatch.chdir(tmp_path)
+    # a folder at the default path, where the run starts, changes nothing
+    cfg = TrainConfig(mixed_precision="fp32", seed=2)
+    seeded = _bundle(cfg)
+    assert _unet_equal(seeded, trainer.build_models(
+        cfg, "cpu", UNetConfig(**UNET), VAEConfig(**VAE),
+        CLIPTextConfig(**CLIP)))
+    assert not _unet_equal(seeded, folder)
+    # named, it loads, and a config that differs from the folder's raises
+    named = TrainConfig(mixed_precision="fp32", seed=2,
+                        pretrained_model_path=os.path.abspath(
+                            DEFAULT_MODEL_PATH))
+    assert _unet_equal(folder, trainer.build_models(
+        named, "cpu", UNetConfig(**UNET)))
+    with pytest.raises(ValueError, match="vae_config"):
+        trainer.build_models(named, "cpu",
+                             vae_config=VAEConfig(**VAE, scaling_factor=1.0))
 
 
 def test_sample_logger_writes_the_render(tmp_path):
