@@ -4,7 +4,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It takes no arguments and runs ten phases, all of which must pass. The
+It takes no arguments and runs eleven phases, all of which must pass. The
 serving and training paths run in the default conv configuration and in
 the fused-conv one (`ConvKernels(fused_prologue=True, strided=True)`: every
 resnet conv on kernel P with its GroupNorm + SiLU as prologue, every 3x3
@@ -62,8 +62,11 @@ stride-2 conv on kernel D):
                passes, half their launches); generate_story(fused=True)
                against the per-frame story on the same draws (3 frames,
                DDIM-4: frame 1 bit for bit, the rest within
-               ROLLOUT_REL_L2); and 2 images per prompt with a negative
-               prompt;
+               ROLLOUT_REL_L2), then the VAE encoder's batch dependence
+               behind the later frames' difference (frames 1-2 encoded
+               together and one at a time, every module's output compared;
+               a port kernel that depends on the batch fails the phase);
+               and 2 images per prompt with a negative prompt;
   train_fused  1 optimizer step of 2 micro-steps in the fused
                configuration: all nine kernels ran;
   checkpoint   the full-width seeded bf16 models through
@@ -85,6 +88,19 @@ stride-2 conv on kernel D):
                a run resumed from checkpoint 1 equal bit for bit to the
                uninterrupted one; and the peak memory of a step with 8-bit
                against fp32 moments;
+  cli          the entry points of storygen_tpu_torch/scripts/, called
+               through their main(argv) from the checkpoint phase's folder
+               at 512 px and full width: a BPE tokenizer written with
+               Tokenizer.save_pretrained (ids below 49408, CLIP's bos and
+               eos ids); a StorySalon tree of 512 px PNGs; precompute_latents
+               over it; train stage 2 (2 optimizer steps, batch 4) from the
+               images (from a YAML config where PyYAML is installed) with an
+               export, then from the latents with AdamW8bit; inference from
+               the export, a 3-frame DDIM-4 story whose PNGs, read back,
+               equal the pipeline's frames for the seed; serve on
+               127.0.0.1 port 0 (GET /healthz, POST /story of 2 frames);
+               each path's launches (F, G, C serving; M, L, DQ, DKV also
+               training) and wall time;
   studies      the attention studies' kernels (S1-S4, csrc/study_*.cu):
                drives every ported study entry point
                (storygen_tpu_torch/studies/) at one of its own UNet shapes,
@@ -236,6 +252,14 @@ PATH_KERNELS = {
                         and k != "flash_fwd_masked"),
     "train_precomputed": tuple(k for k in PORT_KERNELS
                                if k not in FUSED_KERNELS),
+    # the cli phase: the VAE encoder alone (kernel C); stage 2 from images
+    # and from latents; a story and a served request
+    "cli_precompute": ("conv3x3",),
+    "cli_train": tuple(k for k in PORT_KERNELS if k not in FUSED_KERNELS),
+    "cli_train_latents": tuple(k for k in PORT_KERNELS
+                               if k not in FUSED_KERNELS),
+    "cli_inference": SERVING_KERNELS,
+    "cli_serve": SERVING_KERNELS,
     # the study entry points, with kernel F as their baseline
     "studies": STUDY_KERNELS + ("flash_fwd",),
 }
@@ -784,6 +808,148 @@ def token_ids(prompts):
     return ids
 
 
+def write_bpe_files(path: str, corpus, num_merges: int) -> None:
+    """vocab.json and merges.txt of a byte-level BPE learned from `corpus`
+    (no vocab ships with the repository): the 256 byte characters at ids
+    0-255 and with `</w>` at 256-511, the merges' tokens after them, and
+    <|startoftext|> / <|endoftext|> at CLIP's ids 49406 / 49407."""
+    import collections
+
+    from storygen_tpu_torch.data import tokenizer as T
+    chars = list(T.BYTE_CHARS.values())
+    vocab = {c: i for i, c in enumerate(chars)}
+    vocab.update({c + "</w>": 256 + i for i, c in enumerate(chars)})
+    words = collections.Counter()
+    for text in corpus:
+        for w in T.words(T.normalize(text)):
+            b = "".join(T.BYTE_CHARS[x] for x in w.encode("utf-8"))
+            words[tuple(b[:-1]) + (b[-1] + "</w>",)] += 1
+    merges = []
+    for _ in range(num_merges):
+        pairs = collections.Counter()
+        for w, n in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += n
+        if not pairs:
+            break
+        best = max(sorted(pairs), key=pairs.get)
+        merges.append(best)
+        vocab.setdefault("".join(best), len(vocab))
+        merged = collections.Counter()
+        for w, n in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if w[i:i + 2] == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += n
+        words = merged
+    vocab["<|startoftext|>"] = 49406
+    vocab["<|endoftext|>"] = 49407
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n"
+                + "".join(f"{a} {b}\n" for a, b in merges))
+
+
+def write_storysalon_tree(root: str, stories: int, frames: int, size: int,
+                          test: int = 1) -> None:
+    """A StorySalon video-source tree of seeded PNGs (8 x 8 colour cells
+    over a smooth gradient, with grain), masks and captions; the last
+    `test` stories are held out in video_test_set.txt. PIL writes the
+    files, choosing each row's filter as encoders of real files do."""
+    import numpy as np
+    from PIL import Image
+
+    def write(path, a):
+        Image.fromarray(a).save(path)
+    yy, xx = np.mgrid[0:size, 0:size] * (96.0 / size)
+    ramp = np.stack([yy, xx, (yy + xx) / 2], -1)
+    for s in range(stories):
+        sid = f"story{s:03d}"
+        dirs = [os.path.join(root, sub, sid) for sub in (
+            "image_inpainted_finally_checked", "mask",
+            os.path.join("Text", "Caption", "Video"))]
+        for d in dirs:
+            os.makedirs(d, exist_ok=True)
+        for i in range(frames):
+            rs = np.random.RandomState([s, i])
+            block = size // 8
+            cells = rs.randint(0, 160, (8, 8, 3)).repeat(block, 0).repeat(
+                block, 1)
+            grain = rs.normal(0, 4, (size, size, 3))
+            write(os.path.join(dirs[0], f"{i}.png"),
+                  np.clip(cells + ramp + grain, 0, 255).astype(np.uint8))
+            mask = np.full((size, size, 3), 255, np.uint8)
+            mask[:size // 10] = 0  # a text band, as inpainted pages have
+            write(os.path.join(dirs[1], f"{i}.png"), mask)
+            with open(os.path.join(dirs[2], f"{i}.txt"), "w") as f:
+                f.write(PROMPTS[(s + i) % len(PROMPTS)])
+    with open(os.path.join(root, "video_test_set.txt"), "w") as f:
+        f.write("".join(f"story{s:03d}\n"
+                        for s in range(stories - test, stories)))
+
+
+def png_filters(path: str) -> list:
+    """How many rows of an 8-bit RGB PNG use each of the five filters."""
+    import struct
+    import zlib
+
+    import numpy as np
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, width = 8, b"", 0
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if kind == b"IHDR":
+            width = struct.unpack(">I", data[pos + 8:pos + 12])[0]
+        elif kind == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    return np.bincount(raw[::1 + 3 * width], minlength=5).tolist()
+
+
+def loader_times(tree: str, card: str) -> None:
+    """Host seconds to decode the tree's 512 px frames with PIL and with
+    utils/image.py's reader (the decoder of a host without PIL), and to
+    make a StorySalon training sample (5 decodes: 4 frames and a mask);
+    prints them with the rows' filters."""
+    import glob
+
+    import numpy as np
+    from PIL import Image
+    from storygen_tpu_torch.data.datasets import StorySalonDataset
+    from storygen_tpu_torch.utils.image import read_png
+    frames = sorted(glob.glob(os.path.join(
+        tree, "image_inpainted_finally_checked", "*", "*.png")))[:8]
+    filters = np.sum([png_filters(p) for p in frames], 0).tolist()
+    times = {}
+    for name, decode in (
+            ("pil_decode", lambda p: np.asarray(
+                Image.open(p).convert("RGB"))),
+            ("read_png", read_png)):
+        t0 = time.perf_counter()
+        for p in frames:
+            decode(p)
+        times[name] = (time.perf_counter() - t0) / len(frames)
+    ds = StorySalonDataset(tree, "train")
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds[i]
+    times["sample"] = (time.perf_counter() - t0) / len(ds)
+    print(f"cli loader: {len(frames)} frames, rows by filter 0-4 "
+          f"{filters}; per frame PIL {times['pil_decode'] * 1e3:.2f} ms, "
+          f"read_png {times['read_png'] * 1e3:.2f} ms; per StorySalon "
+          f"sample ({len(ds)}, PIL) {times['sample'] * 1e3:.2f} ms [{card}]",
+          flush=True)
+
+
 def kernel_vs_plain(label: str, fn, shape, card: str) -> bool:
     """Runs `fn` on the kernel path and on the plain path, and holds the
     relative L2 error of the (unclamped) outputs under MODEL_REL_L2."""
@@ -1210,7 +1376,116 @@ def serving_rollout(pipe, card: str, results: dict) -> bool:
           f"{', '.join(f'{r:.3e}' for r in rels)} (frame 1 bitwise, the rest "
           f"rel L2 <= {ROLLOUT_REL_L2:.0e}) {'ok' if ok else 'FAIL'}; fused "
           f"{t1 - t0:.2f} s, per-frame {t2 - t1:.2f} s [{card}]", flush=True)
-    return ok & record_launches(results, launches, "rollout")
+    ok &= record_launches(results, launches, "rollout")
+    return ok & encoder_batch_dependence(pipe.vae, per_frame[:2], card)
+
+
+def encoder_batch_dependence(vae, frames, card: str) -> bool:
+    """Where the VAE encoder's result depends on its batch: the per-frame
+    story encodes its history frames together (B = 2 for frame 3), the
+    rollout one at a time (B = 1). Two views, module by module:
+    - along the chain: every module's output at B = 2 against the two
+      B = 1 runs' (forward hooks, in the order the modules finish); the
+      first that differs is printed with whether its input was equal;
+    - per leaf module: each call of the B = 2 run replayed on its own
+      inputs one frame at a time, so each module's own batch dependence
+      shows whatever happened upstream; counted per module class.
+    False if a module of one of the port's kernels (kernel C's Conv3x3,
+    kernel D's strided StridedConv) depends on the batch."""
+    import numpy as np
+    import torch
+    from storygen_tpu_torch.models.layers import Conv3x3, StridedConv
+    dev = next(vae.parameters()).device
+    x = torch.as_tensor(np.stack(frames), device=dev)
+    b = x.shape[0]
+    leaves = {m for m in vae.modules() if not list(m.children())}
+    records = []
+
+    def clone(v):
+        if torch.is_tensor(v):
+            return v.detach().clone()
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            return type(v)(*map(clone, v))
+        if isinstance(v, (tuple, list)):
+            return type(v)(map(clone, v))
+        if isinstance(v, dict):
+            return {k: clone(u) for k, u in v.items()}
+        return v
+
+    def row(v, i):
+        """Frame i of every batch-major tensor in v."""
+        if torch.is_tensor(v):
+            return v[i:i + 1] if v.dim() and v.shape[0] == b else v
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            return type(v)(*(row(u, i) for u in v))
+        if isinstance(v, (tuple, list)):
+            return type(v)(row(u, i) for u in v)
+        if isinstance(v, dict):
+            return {k: row(u, i) for k, u in v.items()}
+        return v
+
+    def hook(module, args, kwargs, output, name):
+        if torch.is_tensor(output):
+            keep = module in leaves
+            records.append((name, module, clone(args) if keep else None,
+                            clone(kwargs) if keep else None,
+                            output.detach().clone()))
+
+    handles = [m.register_forward_hook(
+        lambda mod, a, kw, o, name=name: hook(mod, a, kw, o, name),
+        with_kwargs=True) for name, m in vae.named_modules() if name]
+    try:
+        with torch.no_grad():
+            singles, moments1 = [], []
+            for i in range(b):
+                records.clear()
+                d = vae.encode(x[i:i + 1])
+                moments1.append(torch.cat([d.mean, d.logvar], -1))
+                singles.append(list(records))
+            records.clear()
+            d = vae.encode(x)
+            pair = list(records)
+    finally:
+        for h in handles:
+            h.remove()
+    moments2 = torch.cat([d.mean, d.logvar], -1).float()
+    moments1 = torch.cat(moments1).float()
+    first = "none"
+    for j, (name, module, _, _, out) in enumerate(pair):
+        if not torch.equal(out, torch.cat([r[j][4] for r in singles])):
+            same_in = pair[j][2] is not None and torch.equal(
+                pair[j][2][0], torch.cat([r[j][2][0] for r in singles]))
+            first = (f"{name} ({type(module).__name__}), input equal "
+                     f"{same_in}")
+            break
+    per_class: dict = {}
+    kernel_dependent = []
+    with torch.no_grad():
+        for name, module, args, kwargs, out in pair:
+            if args is None:
+                continue
+            alone = torch.cat([module(*row(args, i), **row(kwargs, i))
+                               for i in range(b)])
+            differs = not torch.equal(alone, out)
+            kind = type(module).__name__
+            if isinstance(module, StridedConv):
+                kind += "(kernel D)" if module.strided else "(F.conv2d)"
+            n_diff, n = per_class.get(kind, (0, 0))
+            per_class[kind] = (n_diff + differs, n + 1)
+            if differs and (isinstance(module, Conv3x3) or (
+                    isinstance(module, StridedConv) and module.strided)):
+                kernel_dependent.append(name)
+    ok = not kernel_dependent
+    print(f"VAE encoder batch dependence (frames 1-2 at B = 2 vs one at a "
+          f"time): first differing along the chain: {first}; leaf calls "
+          f"replayed one frame at a time that differ, by class: "
+          f"{json.dumps({k: f'{d}/{n}' for k, (d, n) in per_class.items()})}"
+          f"; posterior moments max abs diff "
+          f"{(moments2 - moments1).abs().max().item():.3e}, rel L2 "
+          f"{(moments2 - moments1).norm().item() / moments1.norm().item():.3e}"
+          f" {'ok' if ok else 'FAIL: port kernels depend on the batch: '}"
+          f"{', '.join(kernel_dependent)} [{card}]", flush=True)
+    return ok
 
 
 def serving_images_per_prompt(pipe, dev, card: str, frame: dict) -> bool:
@@ -1681,6 +1956,197 @@ def phase_train_more(dev, card: str, results: dict) -> bool:
     return ok
 
 
+# the cli phase: StorySalon stories written (the last held out) and frames
+# per story (4 training windows: batch 4); optimizer steps of each training
+# run; DDIM steps of the inference story and the served one
+CLI_STORIES, CLI_FRAMES = 5, 4
+CLI_TRAIN_STEPS = 2
+CLI_STORY_STEPS = 4
+
+
+def timed_main(label: str, fn, card: str):
+    """Run fn() on the card: (its result, wall seconds, launches)."""
+    import torch
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"cli {label}: {wall:.2f} s wall [{card}]", flush=True)
+    return out, wall, read_launches()
+
+
+def phase_cli(dev, card: str, results: dict) -> bool:
+    """The port's entry points, called in process through their main(argv)
+    at 512 px and full width, from the checkpoint phase's folder: a
+    tokenizer written with Tokenizer.save_pretrained; a StorySalon tree of
+    512 px PNGs; precompute_latents over it; train stage 2 (2 optimizer
+    steps, batch 4) from the images with an export, then from the latents
+    with AdamW8bit; inference from the export (a 3-frame DDIM-4 story whose
+    PNGs, read back, equal the pipeline's frames for the seed); and serve
+    on 127.0.0.1 port 0 (GET /healthz, POST /story of 2 frames). Each
+    path's launches and wall time are printed."""
+    import base64
+    import shutil
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from storygen_tpu_torch.configs import TrainConfig
+    from storygen_tpu_torch.data.tokenizer import Tokenizer
+    from storygen_tpu_torch.scripts import (inference, precompute_latents,
+                                            serve, train)
+    from storygen_tpu_torch.scripts.common import load_pipeline
+    from storygen_tpu_torch.utils.image import decode_png, read_png
+    ckpt = build_dir("chip_smoke_ckpt")
+    work = build_dir("chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    raw = os.path.join(work, "bpe")
+    write_bpe_files(raw, PROMPTS, 400)
+    tok = Tokenizer(raw)
+    tok.save_pretrained(os.path.join(ckpt, "tokenizer"))
+    tok = Tokenizer(os.path.join(ckpt, "tokenizer"))
+    ids = tok(list(PROMPTS))
+    ok = bool(ids.max() < 49408 and (ids[:, 0] == 49406).all()
+              and tok.ids["eos_token"] == 49407 and ids.shape == (4, 77))
+    print(f"cli tokenizer: {len(tok.encoder)} tokens, {len(tok.merges)} "
+          f"merges, ids < 49408, bos 49406, eos 49407 "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+
+    tree = os.path.join(work, "salon")
+    write_storysalon_tree(tree, CLI_STORIES, CLI_FRAMES, 512)
+    loader_times(tree, card)
+    walls = {}
+    lat = os.path.join(work, "latents")
+    _, walls["precompute_latents"], launches = timed_main(
+        "precompute_latents", lambda: precompute_latents.main(
+            ["--ckpt", ckpt, "--dataset", tree, "--out", lat]), card)
+    n_lat = len([f for f in os.listdir(lat) if f.endswith(".npz")])
+    ok &= n_lat == TRAIN_BATCH
+    ok &= record_launches(results, launches, "cli_precompute")
+
+    cfg = dict(pretrained_model_path=ckpt, dataset_path=tree,
+               logdir=os.path.join(work, "train_images"),
+               train_steps=CLI_TRAIN_STEPS, train_batch_size=TRAIN_BATCH,
+               gradient_accumulation_steps=1,
+               checkpointing_steps=CLI_TRAIN_STEPS, seed=0,
+               mixed_precision="bf16", remat=True, loader_threads=4)
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
+    path = os.path.join(work, "stage2.yml")
+
+    def train_images():
+        if yaml is None:
+            return train.run("stage2", TrainConfig(**cfg))
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return train.main(["--stage", "stage2", "--config", path])
+
+    state, walls["train_images"], launches = timed_main(
+        "train stage2 from images, " + ("train.run (no PyYAML here)"
+                                        if yaml is None else
+                                        "train.main --config <YAML>"),
+        train_images, card)
+    export = os.path.join(cfg["logdir"], f"checkpoint_{CLI_TRAIN_STEPS}")
+    good = (len(state.losses) == CLI_TRAIN_STEPS
+            and all(math.isfinite(x) for x in state.losses)
+            and os.path.isdir(os.path.join(export, "tokenizer")))
+    print(f"cli train from images: losses "
+          f"{', '.join(f'{x:.4f}' for x in state.losses)}; micro-step s "
+          f"(loader wait included) {[round(x, 3) for x in state.micro_seconds]}"
+          f"; export "
+          f"{folder_bytes(export)} bytes {'ok' if good else 'FAIL'}",
+          flush=True)
+    ok &= good & record_launches(results, launches, "cli_train")
+    del state
+    torch.cuda.empty_cache()
+
+    lcfg = TrainConfig(**dict(cfg, logdir=os.path.join(work, "train_latents")),
+                       latents_path=lat, use_8bit_adam=True)
+    state, walls["train_latents"], launches = timed_main(
+        "train stage2 from latents, AdamW8bit",
+        lambda: train.run("stage2", lcfg), card)
+    good = (len(state.losses) == CLI_TRAIN_STEPS
+            and all(math.isfinite(x) for x in state.losses)
+            and type(state.optimizer).__name__ == "AdamW8bit")
+    print(f"cli train from latents: losses "
+          f"{', '.join(f'{x:.4f}' for x in state.losses)}; micro-step s "
+          f"{[round(x, 3) for x in state.micro_seconds]} "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    ok &= good & record_launches(results, launches, "cli_train_latents")
+    del state
+    torch.cuda.empty_cache()
+
+    out = os.path.join(work, "story")
+    argv = ["--ckpt", export, "--logdir", out, "--num_inference_steps",
+            str(CLI_STORY_STEPS), "--seed", "5", "--prompt", *PROMPTS[:3]]
+    _, walls["inference"], launches = timed_main(
+        "inference", lambda: inference.main(argv), card)
+    ok &= record_launches(results, launches, "cli_inference")
+    pipe = load_pipeline(export, dev)
+    frames = pipe.generate_story(list(PROMPTS[:3]),
+                                 num_inference_steps=CLI_STORY_STEPS,
+                                 guidance_scale=7.0, seed=5)
+    same = [bool(np.array_equal(read_png(os.path.join(
+        out, f"story_frame{i}.png")), inference.to_u8(f)))
+        for i, f in enumerate(frames)]
+    good = len(same) == 3 and all(same)
+    print(f"cli inference: 3-frame DDIM-{CLI_STORY_STEPS} story from the "
+          f"export; PNGs read back equal the pipeline's frames {same} "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    ok &= good
+    del pipe
+    torch.cuda.empty_cache()
+
+    servers, ready = [], threading.Event()
+    thread = threading.Thread(target=serve.main, args=(
+        ["--ckpt", export, "--host", "127.0.0.1", "--port", "0"],),
+        kwargs=dict(on_ready=lambda srv: (servers.append(srv),
+                                          ready.set())), daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    good = ready.wait(300)
+    walls["serve_start"] = time.perf_counter() - t0
+    if good:
+        base = f"http://127.0.0.1:{servers[0].server_address[1]}"
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+                health = json.load(r)
+            body = json.dumps({"prompts": list(PROMPTS[:2]), "seed": 1,
+                               "num_inference_steps": CLI_STORY_STEPS}
+                              ).encode()
+
+            def post():
+                with urllib.request.urlopen(urllib.request.Request(
+                        base + "/story", body), timeout=600) as r:
+                    return json.load(r)
+
+            reply, walls["serve_story"], launches = timed_main(
+                "serve POST /story", post, card)
+            shapes = [decode_png(base64.b64decode(f)).shape
+                      for f in reply["frames"]]
+            good = (health == {"ok": True, "devices": 1}
+                    and shapes == [(512, 512, 3)] * 2)
+            print(f"cli serve: /healthz {health}; /story {len(shapes)} "
+                  f"frames {shapes}, latency_s {reply['latency_s']} "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            good &= record_launches(results, launches, "cli_serve")
+        finally:
+            servers[0].shutdown()
+            thread.join(60)
+    ok &= good and not thread.is_alive()
+    rounded = {k: round(v, 2) for k, v in walls.items()}
+    print(f"cli walls (s): {json.dumps(rounded)} [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    return ok
+
+
 # the study phase's full-width shapes: (B, H, Sq, Skv, d)
 STUDY_SHAPES = {"attn3 L1": (3, 8, 4096, 12288, 40),
                 "attn1 L1": (6, 8, 4096, 4096, 40),
@@ -1933,6 +2399,7 @@ def main() -> int:
             ("train_fused", lambda: phase_train(dev, card, results, "fused")),
             ("checkpoint", lambda: phase_checkpoint(dev, card, results)),
             ("train_more", lambda: phase_train_more(dev, card, results)),
+            ("cli", lambda: phase_cli(dev, card, results)),
             ("studies", lambda: phase_studies(dev, card, results))):
         t0 = time.perf_counter()
         if not phase():

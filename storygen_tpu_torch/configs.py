@@ -3,17 +3,21 @@ settings it reads.
 
 The port's own copy of the dataclasses of storygen_tpu/configs.py, with
 the same field names and defaults, so a configuration written for the JAX
-package reads here unchanged. `TrainConfig` keeps only the fields that
-`training/` reads; the TPU mesh and Pallas variant knobs have no
-counterpart. Defaults are the SD-1.5 + VLCM operating point. The model
-configs read a diffusers folder's config.json files (`from_json`,
-`load_pretrained_configs`) as the JAX package reads them: unknown keys are
-dropped, and a UNet `sample_size` above 128 is taken as pixels.
+package reads here unchanged. `TrainConfig` keeps the fields that
+`training/` and the scripts read (the mesh's shape only to say that one
+device trains); the mesh's axes and the Pallas variant knobs have no
+counterpart. `TrainConfig.from_yaml` reads the
+repository's configs/*.yml (with PyYAML, imported there). Defaults are
+the SD-1.5 + VLCM operating point. The model configs read a diffusers
+folder's config.json files (`from_json`, `load_pretrained_configs`) as
+the JAX package reads them: unknown keys are dropped, and a UNet
+`sample_size` above 128 is taken as pixels.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -179,6 +183,8 @@ class TrainConfig:
     # was named (this default counts as unnamed)
     pretrained_model_path: str = DEFAULT_MODEL_PATH
     logdir: str = "./logs/"
+    # the StorySalon (or COCO) root that the train entry point reads
+    dataset_path: str = "./StorySalon/"
     # a folder of precomputed VAE posterior moments (.npz); when set, the
     # trainer trains on those instead of images
     latents_path: Optional[str] = None
@@ -202,11 +208,18 @@ class TrainConfig:
     adam_epsilon: float = 1e-8
     max_grad_norm: float = 1.0
     num_ref_frames: int = 3
+    # the JAX package's data-parallel mesh, capped there at the devices it
+    # has; the port's trainer runs on one device and says so when the
+    # mesh asks for more
+    mesh_shape: Tuple[int, ...] = (1,)
     # gradient checkpointing per UNet block
     remat: bool = True
     loader_threads: int = 8
     # SampleLogger keyword arguments; renders need a tokenizer
     validation_sample_logger: Optional[dict] = None
+    # the tokenizer folder (vocab.json, merges.txt); None:
+    # <pretrained_model_path>/tokenizer
+    tokenizer_path: Optional[str] = None
 
     def __post_init__(self):
         if self.mixed_precision not in ("bf16", "fp16", "fp32", "no"):
@@ -215,6 +228,22 @@ class TrainConfig:
                 "'bf16', 'fp16' (read as bf16), 'fp32' or 'no'")
         if self.lr_scheduler not in ("constant", "linear", "cosine"):
             raise ValueError(f"lr_scheduler={self.lr_scheduler!r}")
+        if self.mesh_devices < 1:
+            raise ValueError(f"mesh_shape={self.mesh_shape!r}: no devices")
+
+    @property
+    def mesh_devices(self) -> int:
+        """The devices the mesh asks for (the product of its shape)."""
+        return math.prod(self.mesh_shape)
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "TrainConfig":
+        """The fields of a YAML file (configs/*.yml); other keys are
+        dropped. Needs PyYAML."""
+        import yaml
+        with open(path) as f:
+            d = yaml.safe_load(f)
+        return cls(**_filter_kwargs(cls, _tuples(d, "mesh_shape")))
 
 
 def load_pretrained_configs(root: str):

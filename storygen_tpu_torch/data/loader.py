@@ -2,26 +2,29 @@
 `DataLoader` and a seeded synthetic dataset.
 
 Counterpart of storygen_tpu/data/loader.py (`collate` and `DataLoader`,
-with the same seeded order of samples). The CLIP tokenizer is not ported
-(no vocab or merges files ship with the repository): samples arrive with
-token ids.
+with the same seeded order of samples). Samples carry token ids, or
+prompts that a tokenizer (data/tokenizer.py) turns into ids as the batch
+is made.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
 
-def collate(samples: Sequence[Dict]) -> Dict[str, np.ndarray]:
+def collate(samples: Sequence[Dict],
+            tokenizer: Optional[Callable] = None) -> Dict[str, np.ndarray]:
     """Stack per-sample dicts into batch arrays. Per-frame arrays stack
     batch-major; ref_images to (N_refs, B, H, W, 3), ref_latent_moments to
     (N_refs, B, h, w, 8) and ref_input_ids to (N_refs, B, 77), the
-    ref-major layout the training step takes. Prompts pass through as
-    lists (the validation renders read them)."""
+    ref-major layout the training step takes. With a tokenizer, `prompt`
+    becomes input_ids (B, 77) and `ref_prompts` ref_input_ids (N_refs, B,
+    77); without one they pass through as lists (the validation renders
+    read them). Ids are int64."""
     out: Dict[str, np.ndarray] = {}
     keys = samples[0].keys()
     for key in ("image", "mask", "latent_moments"):
@@ -36,9 +39,20 @@ def collate(samples: Sequence[Dict]) -> Dict[str, np.ndarray]:
     if "ref_input_ids" in keys:
         out["ref_input_ids"] = np.stack(
             [s["ref_input_ids"] for s in samples], axis=1).astype(np.int64)
-    for key in ("prompt", "ref_prompts"):
-        if key in keys:
-            out[key] = [s[key] for s in samples]
+    if "prompt" in keys:
+        prompts = [s["prompt"] for s in samples]
+        if tokenizer is None:
+            out["prompt"] = prompts
+        else:
+            out["input_ids"] = np.asarray(tokenizer(prompts), np.int64)
+    if "ref_prompts" in keys:
+        refs = [s["ref_prompts"] for s in samples]
+        if tokenizer is None:
+            out["ref_prompts"] = refs
+        else:
+            out["ref_input_ids"] = np.stack(
+                [np.asarray(tokenizer([r[i] for r in refs]), np.int64)
+                 for i in range(len(refs[0]))])
     return out
 
 
@@ -53,9 +67,11 @@ class DataLoader:
     batches are made `prefetch` ahead on a thread of their own (prefetch 0:
     in the caller's thread). `start` skips that many batches first without
     loading them, so a resumed run continues where its checkpoint left off.
-    An error in a sample's loading is raised to the caller."""
+    `tokenizer` goes to `collate`. An error in a sample's loading is raised
+    to the caller."""
 
-    def __init__(self, dataset, batch_size: int, seed: int = 0,
+    def __init__(self, dataset, batch_size: int,
+                 tokenizer: Optional[Callable] = None, seed: int = 0,
                  drop_last: bool = True, prefetch: int = 2,
                  num_threads: int = 4, num_shards: int = 1, shard_id: int = 0,
                  start: int = 0):
@@ -68,6 +84,7 @@ class DataLoader:
                              f"of {batch_size}")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.tokenizer = tokenizer
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.num_threads = num_threads
@@ -107,7 +124,7 @@ class DataLoader:
             samples = (list(pool.map(self.dataset.__getitem__, items))
                        if pool is not None
                        else [self.dataset[i] for i in items])
-            yield collate(samples)
+            yield collate(samples, self.tokenizer)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         pool = (ThreadPoolExecutor(max_workers=self.num_threads)

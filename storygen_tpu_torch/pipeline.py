@@ -21,7 +21,8 @@ take the same draws. The default provider (`seeded_draws`) draws frame k
 from `frame_generator(device, seed, k)`.
 
 `StoryGenPipeline.save_pretrained` writes the diffusers folder that
-checkpoint/hf_import.py loads. Not ported: `numpy_to_pil` (PIL).
+checkpoint/hf_import.py loads. `numpy_to_pil` (also a method) needs PIL,
+imported there.
 """
 from __future__ import annotations
 
@@ -405,6 +406,10 @@ class StoryGenPipeline:
                         scheduler_config=self.sampler.sched_cfg,
                         tokenizer=self.tokenizer)
 
+    @staticmethod
+    def numpy_to_pil(images: np.ndarray):
+        return numpy_to_pil(images)
+
     def tokenize(self, prompts: Sequence[str]) -> torch.Tensor:
         try:
             ids = self.tokenizer(list(prompts))
@@ -629,3 +634,10 @@ class StoryGenPipeline:
             ref_feature_interval=int(ref_feature_interval),
             normalize_refs=normalize_refs, height=height, width=width)
         return list(out[:, 0].cpu().numpy())
+
+
+def numpy_to_pil(images: np.ndarray):
+    """(B, H, W, 3) float [0, 1] -> list of PIL images (rounded to uint8)."""
+    from PIL import Image
+    arr = (np.asarray(images) * 255).round().astype("uint8")
+    return [Image.fromarray(a) for a in arr]

@@ -20,10 +20,11 @@ the checkpointing cadence) it also writes the full pipeline folder to
 
 With `latents_path` the trainer reads precomputed VAE posterior moments
 (data/datasets.py) and the step samples them, applying CFG dropout; that
-mode needs the tokenizer for the empty prompt's ids.
+mode needs the tokenizer for the empty prompt's ids. Samples with prompts
+(the StorySalon and COCO datasets) are tokenized by the loader.
 
-Not ported yet: the StorySalon and COCO image datasets and the CLIP
-tokenizer (PIL and vocab files), data-parallel and multi-host runs.
+Not ported yet: data-parallel and multi-host runs. One process trains on
+one device; a `mesh_shape` that asks for more devices is told so.
 """
 from __future__ import annotations
 
@@ -199,15 +200,17 @@ def train(stage: str = "stage2", config: Optional[TrainConfig] = None,
     TrainState.
 
     stage: 'stage1' | 'stage2' | 'coco'.
-    dataset: len/getitem over dicts with image, mask, input_ids and, for
-      the stages with refs, ref_images and ref_input_ids (numpy arrays;
-      see data/loader.py); None with `latents_path` set, whose .npz files
+    dataset: len/getitem over dicts with image, mask, input_ids (or a
+      prompt) and, for the stages with refs, ref_images and ref_input_ids
+      (or ref_prompts) (numpy arrays; see data/loader.py and
+      data/datasets.py); None with `latents_path` set, whose .npz files
       then make the dataset.
     device: None (the card) or a torch device; the models of
       `models_bundle` must already live there.
-    tokenizer: list of str -> (B, 77) ids: gives the precomputed mode its
-      empty prompt, the validation pipeline its tokenizer and the exports
-      their tokenizer/ (when it has a save_pretrained).
+    tokenizer: list of str -> (B, 77) ids: tokenizes the samples' prompts,
+      gives the precomputed mode its empty prompt, the validation pipeline
+      its tokenizer and the exports their tokenizer/ (when it has a
+      save_pretrained).
     val_dataset, sample_logger: validation renders every
       `validation_steps` (a SampleLogger is made from
       `validation_sample_logger` when a tokenizer is given).
@@ -216,6 +219,10 @@ def train(stage: str = "stage2", config: Optional[TrainConfig] = None,
     if overrides and config is not None:
         cfg = dataclasses.replace(cfg, **overrides)
     dev = resolve_device(device)
+    if cfg.mesh_devices > 1:
+        print(f"mesh_shape {tuple(cfg.mesh_shape)} asks for "
+              f"{cfg.mesh_devices} devices: data-parallel training is not "
+              f"ported, so this run trains on one ({dev})", flush=True)
     if cfg.latents_path:
         if dataset is not None:
             raise ValueError("give a dataset or latents_path, not both")
@@ -255,8 +262,9 @@ def train(stage: str = "stage2", config: Optional[TrainConfig] = None,
         sample_logger = SampleLogger(pipe, cfg.logdir,
                                      **cfg.validation_sample_logger)
 
-    loader = DataLoader(dataset, cfg.train_batch_size, seed=cfg.seed,
-                        num_threads=cfg.loader_threads, start=start)
+    loader = DataLoader(dataset, cfg.train_batch_size, tokenizer,
+                        seed=cfg.seed, num_threads=cfg.loader_threads,
+                        start=start)
     logger = MetricLogger(cfg.logdir)
     ga = cfg.gradient_accumulation_steps
     losses: List[float] = []

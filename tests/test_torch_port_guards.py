@@ -7,6 +7,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import pytest
@@ -21,6 +22,8 @@ from storygen_tpu_torch.models.vae import AutoencoderKL
 from storygen_tpu_torch.ops import _build
 from storygen_tpu_torch.pipeline import (StoryGenPipeline, StoryGenSampler,
                                          seeded_draws)
+from storygen_tpu_torch.scripts import (inference, inference_coco_val,
+                                        precompute_latents, serve, train)
 from storygen_tpu_torch.training import trainer
 from tests.torch_port_util import tokenizer
 
@@ -51,7 +54,14 @@ def test_port_imports_no_jax_or_flax():
         "storygen_tpu_torch.checkpoint.hf_export\n"
         "import storygen_tpu_torch.checkpoint.torch_io, "
         "storygen_tpu_torch.training.optim8bit\n"
-        "import storygen_tpu_torch.data.datasets\n"
+        "import storygen_tpu_torch.data.datasets, "
+        "storygen_tpu_torch.data.tokenizer\n"
+        "import storygen_tpu_torch.scripts.common, "
+        "storygen_tpu_torch.scripts.inference\n"
+        "import storygen_tpu_torch.scripts.precompute_latents, "
+        "storygen_tpu_torch.scripts.train\n"
+        "import storygen_tpu_torch.scripts.inference_coco_val, "
+        "storygen_tpu_torch.scripts.serve\n"
         "import storygen_tpu_torch.diffusion.schedule, "
         "storygen_tpu_torch.diffusion.dpm_solver\n"
         "import storygen_tpu_torch.diffusion.euler, "
@@ -73,7 +83,8 @@ def test_port_imports_no_jax_or_flax():
         "import storygen_tpu_torch.studies.flash_bwd_tiles, "
         "storygen_tpu_torch.studies.geglu_tiles\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'storygen_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'storygen_tpu', 'transformers', "
+        "'tokenizers', 'regex'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -85,8 +96,8 @@ def test_port_imports_no_jax_or_flax():
 
 def test_port_sources_never_import_jax():
     pat = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|jaxlib|storygen_tpu)(\.|\s|$)",
-        re.M)
+        r"^\s*(import|from)\s+(jax|flax|jaxlib|storygen_tpu|transformers|"
+        r"tokenizers|regex)(\.|\s|$)", re.M)
     for p in list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
         assert not pat.search(p.read_text()), p
 
@@ -204,6 +215,49 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trainer.build_models(cfg)
     assert trainer.build_models(cfg, "cpu")["unet"].config == unet.config
+    _scripts_need_a_card_unless_asked_for_cpu(tmp_path)
+
+
+def _scripts_need_a_card_unless_asked_for_cpu(tmp_path):
+    """Each script's --device defaults to cuda and refuses without a card;
+    with --device cpu it runs (on an empty dataset, or at train_steps 0)."""
+    from chip_smoke import write_bpe_files, write_storysalon_tree
+    from storygen_tpu_torch.data.tokenizer import Tokenizer
+    from tests.torch_port_util import cli_folder
+    write_bpe_files(str(tmp_path / "bpe"), ["a fox"], 10)
+    root = cli_folder(str(tmp_path / "cli"), Tokenizer(str(tmp_path / "bpe")))
+    salon = str(tmp_path / "salon")
+    write_storysalon_tree(salon, stories=2, frames=4, size=64)
+    coco = tmp_path / "coco"
+    (coco / "annotations").mkdir(parents=True)
+    (coco / "annotations" / "instances_val2017.json").write_text(
+        '{"images": [], "annotations": [], "categories": []}')
+    out = str(tmp_path / "out")
+    cfg = str(tmp_path / "cfg.yml")
+    with open(cfg, "w") as f:
+        f.write(f"pretrained_model_path: {root}\ndataset_path: {salon}\n"
+                f"logdir: {out}\ntrain_steps: 0\ntrain_batch_size: 1\n")
+    runs = [
+        (inference, ["--ckpt", root, "--logdir", out, "--prompt", "a fox",
+                     "--stage", "no", "--num_inference_steps", "1",
+                     "--num_sample_per_prompt", "1"]),
+        (precompute_latents, ["--ckpt", root, "--dataset", out, "--out",
+                              out]),
+        (train, ["--config", cfg]),
+        (inference_coco_val, ["--ckpt", root, "--coco_root", str(coco),
+                              "--logdir", out]),
+        (serve, ["--ckpt", root, "--port", "0"])]
+    for script, argv in runs:
+        assert script.parse_args(argv).device == "cuda"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            script.main(argv)
+    for script, argv in runs:
+        if script is serve:
+            script.main(argv + ["--device", "cpu"], on_ready=lambda srv: (
+                threading.Thread(target=srv.shutdown).start()))
+        else:
+            script.main(argv + ["--device", "cpu"])
+    assert os.path.exists(os.path.join(out, "0_output.png"))
 
 
 def test_entry_points_refuse_models_elsewhere():

@@ -51,6 +51,33 @@ TINY_VAE = dict(block_out_channels=(8, 8, 8, 8), layers_per_block=1,
                 norm_num_groups=2)
 TINY_CLIP = dict(num_hidden_layers=2, hidden_size=24, intermediate_size=48,
                  num_attention_heads=4)
+# A tiny UNet without attention at its first level, for the entry points,
+# which render and train at 512 px: attention over the 64 x 64 latent's
+# 4096 tokens would take seconds per pass on the CPU
+CLI_UNET = dict(block_out_channels=(8, 8, 8, 8), attention_head_dim=2,
+                norm_num_groups=2, cross_attention_dim=24, layers_per_block=1,
+                down_block_types=("DownBlock2D", "CrossAttnDownBlock2D",
+                                  "CrossAttnDownBlock2D", "DownBlock2D"),
+                up_block_types=("UpBlock2D", "CrossAttnUpBlock2D",
+                                "CrossAttnUpBlock2D", "UpBlock2D"))
+
+
+def cli_folder(root: str, tokenizer) -> str:
+    """A diffusers folder at `root` of seeded tiny models (CLI_UNET,
+    TINY_VAE, TINY_CLIP) with `tokenizer`'s tokenizer/."""
+    from storygen_tpu_torch.configs import (CLIPTextConfig, UNetConfig,
+                                            VAEConfig)
+    from storygen_tpu_torch.models.clip_text import CLIPTextModel
+    from storygen_tpu_torch.models.init import init_random_
+    from storygen_tpu_torch.models.unet import UNet2DConditionModel
+    from storygen_tpu_torch.models.vae import AutoencoderKL
+    from storygen_tpu_torch.pipeline import StoryGenPipeline
+    StoryGenPipeline(
+        init_random_(UNet2DConditionModel(UNetConfig(**CLI_UNET)), 1),
+        init_random_(AutoencoderKL(VAEConfig(**TINY_VAE)), 2),
+        init_random_(CLIPTextModel(CLIPTextConfig(**TINY_CLIP)), 3),
+        tokenizer, device="cpu").save_pretrained(root)
+    return root
 
 
 def jax_params(module, state_dict, convert, *init_args):
