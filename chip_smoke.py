@@ -4,7 +4,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It takes no arguments and runs eleven phases, all of which must pass. The
+It takes no arguments and runs twelve phases, all of which must pass. The
 serving and training paths run in the default conv configuration and in
 the fused-conv one (`ConvKernels(fused_prologue=True, strided=True)`: every
 resnet conv on kernel P with its GroupNorm + SiLU as prologue, every 3x3
@@ -15,7 +15,9 @@ stride-2 conv on kernel D):
                training), M, L, DQ and DKV also at the mid block's
                reference spans of a 256 and a 768 px image (16 and 144
                tokens, which straddle the kernels' 64-row K/V tiles), F,
-               L, DQ and DKV also at a ragged 1000 x 333 shape, C, P
+               L, DQ and DKV also at a ragged 1000 x 333 shape, F, L, DQ,
+               DKV, G, C and P also at a tensor-parallel rank's shard
+               shapes (tp = 2, and 4 for F, G, C and P), C, P
                and D also at the tiles of 16- and 8-column images and C at
                the input gradient's shape, and P also against kernel C run
                on the prologue already applied, with CUDA-event times for
@@ -101,6 +103,22 @@ stride-2 conv on kernel D):
                127.0.0.1 port 0 (GET /healthz, POST /story of 2 frames);
                each path's launches (F, G, C serving; M, L, DQ, DKV also
                training) and wall time;
+  parallel     storygen_tpu_torch/parallel/ on the one card: (a)
+               scripts.train.main on stage 2 from the checkpoint folder
+               and the cli tree, 2 micro-steps, with --coordinator
+               127.0.0.1:<free port> --num_processes 1 --process_id 0
+               (NCCL at world size 1) and without, in turns: losses and
+               attn3 tensors equal bit for bit; (b) two spawned ranks on
+               the card over gloo with the UNet sharded over them (TP =
+               2): a 2-frame DDIM-4 512 px story and one fused-conv
+               image-cycle pass against one process (rel L2 within
+               MODEL_REL_L2), the all-reduces of a reference and a main
+               pass against the layout (70 and 86), each rank's launches,
+               and F, G, C and P at the shard shapes against their plain
+               versions; (c) two ranks, DP = 2, stage-2 micro-steps at
+               batch 2 each against one process at batch 4 (losses, grad
+               norms and attn3 updates within GRAD_REL_L2). The ranks'
+               times are of two processes time-sliced on one card;
   studies      the attention studies' kernels (S1-S4, csrc/study_*.cu):
                drives every ported study entry point
                (storygen_tpu_torch/studies/) at one of its own UNet shapes,
@@ -260,6 +278,14 @@ PATH_KERNELS = {
                                if k not in FUSED_KERNELS),
     "cli_inference": SERVING_KERNELS,
     "cli_serve": SERVING_KERNELS,
+    # the parallel phase: training over NCCL at world size 1; per rank,
+    # the TP = 2 story, the fused TP image-cycle pass and DP = 2 training
+    "nccl_train": tuple(k for k in PORT_KERNELS if k not in FUSED_KERNELS),
+    **{f"{p}_r{r}": ks for r in (0, 1) for p, ks in (
+        ("tp_story", SERVING_KERNELS),
+        ("tp_fused_pass", SERVING_KERNELS + FUSED_KERNELS),
+        ("dp_train", tuple(k for k in PORT_KERNELS
+                           if k not in FUSED_KERNELS)))},
     # the study entry points, with kernel F as their baseline
     "studies": STUDY_KERNELS + ("flash_fwd",),
 }
@@ -373,30 +399,37 @@ def _attn_cases(dev, rnd):
            ("masked attn3 mid 256px", 4, 16, 48, 160, KEEP),
            ("masked attn3 mid 768px", 4, 144, 432, 160, KEEP),
            # a row that keeps no ref: output 0, as the plain version's
-           ("masked none kept", 2, 256, 768, 80, NONE_KEPT)]
-    for label, b, sq, skv, d, table in fwd:
-        q, k, v = rnd(b, sq, 8 * d), rnd(b, skv, 8 * d), rnd(b, skv, 8 * d)
+           ("masked none kept", 2, 256, 768, 80, NONE_KEPT),
+           # a tensor-parallel rank's heads at tp = 2 (parallel phase)
+           # and tp = 4
+           ("attn1 L1 TP=2 shard, 4 heads", 3, 4096, 4096, 40, None, 4),
+           ("attn1 L1 TP=4 shard, 2 heads", 3, 4096, 4096, 40, None, 2)]
+    for label, b, sq, skv, d, table, *nh in fwd:
+        h = nh[0] if nh else 8
+        q, k, v = rnd(b, sq, h * d), rnd(b, skv, h * d), rnd(b, skv, h * d)
         sc = d ** -0.5
         masked = table is not None
         keep = (torch.tensor(table, dtype=torch.bool, device=dev)
                 if masked else None)
         rows = kept_rows(keep, b, skv)
-        flops = 4.0 * 8 * sq * rows * d
-        nbytes = 2.0 * 8 * d * (2 * b * sq + 2 * rows)
+        flops = 4.0 * h * sq * rows * d
+        nbytes = 2.0 * h * d * (2 * b * sq + 2 * rows)
         mask = sdpa_mask(keep, skv)
         name = "flash_fwd_masked" if masked else "flash_fwd"
-        kern = ((lambda q=q, k=k, v=v, sc=sc, keep=keep:
-                 fa.flash_fwd_masked(q, k, v, 8, sc, keep)) if masked else
-                (lambda q=q, k=k, v=v, sc=sc: fa.flash_fwd(q, k, v, 8, sc)))
+        kern = ((lambda q=q, k=k, v=v, sc=sc, keep=keep, h=h:
+                 fa.flash_fwd_masked(q, k, v, h, sc, keep)) if masked else
+                (lambda q=q, k=k, v=v, sc=sc, h=h: fa.flash_fwd(q, k, v, h,
+                                                              sc)))
         cases.append(Case(
             name, f"{label} B{b} {sq}x{skv} d{d}", kern,
-            lambda q=q, k=k, v=v, sc=sc, keep=keep: fa.flash_attention_plain(
-                q, k, v, 8, sc, keep),
-            lambda q=q, k=k, v=v, sc=sc, keep=keep: fa.flash_attention_plain(
-                q.float(), k.float(), v.float(), 8, sc, keep),
-            lambda q=q, k=k, v=v, sc=sc, mask=mask:
+            lambda q=q, k=k, v=v, sc=sc, keep=keep, h=h:
+                fa.flash_attention_plain(q, k, v, h, sc, keep),
+            lambda q=q, k=k, v=v, sc=sc, keep=keep, h=h:
+                fa.flash_attention_plain(q.float(), k.float(), v.float(), h,
+                                         sc, keep),
+            lambda q=q, k=k, v=v, sc=sc, mask=mask, h=h:
                 F.scaled_dot_product_attention(
-                    split_heads(q, 8), split_heads(k, 8), split_heads(v, 8),
+                    split_heads(q, h), split_heads(k, h), split_heads(v, h),
                     attn_mask=mask, scale=sc),
             flops, nbytes))
 
@@ -411,67 +444,72 @@ def _attn_cases(dev, rnd):
            # Sq and Skv that no tile divides: the last Q and K/V tiles of
            # DQ and DKV are partial on both sides
            ("ragged", 2, 1000, 333, 40, None),
-           ("ragged", 2, 1000, 333, 160, None)]
-    for label, b, sq, skv, d, table in bwd:
-        q, k, v = rnd(b, sq, 8 * d), rnd(b, skv, 8 * d), rnd(b, skv, 8 * d)
-        dout = rnd(b, sq, 8 * d)
+           ("ragged", 2, 1000, 333, 160, None),
+           # a tensor-parallel rank's heads at tp = 2 (a TP training step)
+           ("attn1 L1 TP=2 shard, 4 heads", 4, 4096, 4096, 40, None, 4),
+           ("masked attn3 L1 TP=2 shard, 4 heads", 4, 4096, 12288, 40, KEEP,
+            4)]
+    for label, b, sq, skv, d, table, *nh in bwd:
+        h = nh[0] if nh else 8
+        q, k, v = rnd(b, sq, h * d), rnd(b, skv, h * d), rnd(b, skv, h * d)
+        dout = rnd(b, sq, h * d)
         sc = d ** -0.5
         keep = (torch.tensor(table, dtype=torch.bool, device=dev)
                 if table is not None else None)
         rows = kept_rows(keep, b, skv)
         with torch.no_grad():
             out = fa.flash_attention_plain(q.float(), k.float(), v.float(),
-                                           8, sc, keep).to(q.dtype)
-            delta = fa.attention_delta(out, dout, 8)
-            lse = fa.flash_lse_plain(q.float(), k.float(), 8, sc, keep)
+                                           h, sc, keep).to(q.dtype)
+            delta = fa.attention_delta(out, dout, h)
+            lse = fa.flash_lse_plain(q.float(), k.float(), h, sc, keep)
         mask = sdpa_mask(keep, skv)
 
-        def sdpa_fwd_bwd(q=q, k=k, v=v, dout=dout, sc=sc, mask=mask):
-            qh, kh, vh = (split_heads(t, 8).detach().requires_grad_()
+        def sdpa_fwd_bwd(h=h, q=q, k=k, v=v, dout=dout, sc=sc, mask=mask):
+            qh, kh, vh = (split_heads(t, h).detach().requires_grad_()
                           for t in (q, k, v))
             o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                scale=sc)
-            o.backward(split_heads(dout, 8))
+            o.backward(split_heads(dout, h))
 
-        def sdpa_bwd(q=q, k=k, v=v, dout=dout, sc=sc, mask=mask):
-            qh, kh, vh = (split_heads(t, 8).detach().requires_grad_()
+        def sdpa_bwd(h=h, q=q, k=k, v=v, dout=dout, sc=sc, mask=mask):
+            qh, kh, vh = (split_heads(t, h).detach().requires_grad_()
                           for t in (q, k, v))
             o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                scale=sc)
-            g = split_heads(dout, 8)
+            g = split_heads(dout, h)
             return lambda: torch.autograd.grad(o, (qh, kh, vh), g,
                                                retain_graph=True)
 
         tag = f"{label} B{b} {sq}x{skv} d{d}"
-        qb, kvb = 2.0 * b * sq * 8 * d, 2.0 * rows * 8 * d  # bf16 bytes
-        kv_out = 2.0 * b * skv * 8 * d  # dK or dV, every row written
-        rowb = 4.0 * b * 8 * sq  # an fp32 (B, H, Sq) row of scalars
-        mm = 2.0 * 8 * sq * rows * d  # one (Sq x kept Skv x D) product
+        qb, kvb = 2.0 * b * sq * h * d, 2.0 * rows * h * d  # bf16 bytes
+        kv_out = 2.0 * b * skv * h * d  # dK or dV, every row written
+        rowb = 4.0 * b * h * sq  # an fp32 (B, H, Sq) row of scalars
+        mm = 2.0 * h * sq * rows * d  # one (Sq x kept Skv x D) product
         args = (q, k, v, dout, lse, delta)
         f32 = tuple(t.float() for t in (q, k, v, dout)) + (lse, delta)
         cases += [
             Case("flash_lse", tag,
-                 lambda q=q, k=k, sc=sc, keep=keep: fa.flash_lse(
-                     q, k, 8, sc, keep),
-                 lambda q=q, k=k, sc=sc, keep=keep: fa.flash_lse_plain(
-                     q, k, 8, sc, keep),
+                 lambda h=h, q=q, k=k, sc=sc, keep=keep: fa.flash_lse(
+                     q, k, h, sc, keep),
+                 lambda h=h, q=q, k=k, sc=sc, keep=keep: fa.flash_lse_plain(
+                     q, k, h, sc, keep),
                  lambda lse=lse: lse, sdpa_fwd_bwd, mm, qb + kvb + rowb),
             Case("flash_dq", tag,
-                 lambda a=args, sc=sc, keep=keep: fa.flash_dq(
-                     *a, 8, sc, keep),
-                 lambda a=args, sc=sc, keep=keep: fa.flash_dq_plain(
-                     *a, 8, sc, keep),
-                 lambda a=f32, sc=sc, keep=keep: fa.flash_dq_plain(
-                     *a, 8, sc, keep),
+                 lambda h=h, a=args, sc=sc, keep=keep: fa.flash_dq(
+                     *a, h, sc, keep),
+                 lambda h=h, a=args, sc=sc, keep=keep: fa.flash_dq_plain(
+                     *a, h, sc, keep),
+                 lambda h=h, a=f32, sc=sc, keep=keep: fa.flash_dq_plain(
+                     *a, h, sc, keep),
                  sdpa_fwd_bwd, 3 * mm, 3 * qb + 2 * kvb + 2 * rowb,
                  backward=sdpa_bwd),
             Case("flash_dkv", tag,
-                 lambda a=args, sc=sc, keep=keep: fa.flash_dkv(
-                     *a, 8, sc, keep),
-                 lambda a=args, sc=sc, keep=keep: fa.flash_dkv_plain(
-                     *a, 8, sc, keep),
-                 lambda a=f32, sc=sc, keep=keep: fa.flash_dkv_plain(
-                     *a, 8, sc, keep),
+                 lambda h=h, a=args, sc=sc, keep=keep: fa.flash_dkv(
+                     *a, h, sc, keep),
+                 lambda h=h, a=args, sc=sc, keep=keep: fa.flash_dkv_plain(
+                     *a, h, sc, keep),
+                 lambda h=h, a=f32, sc=sc, keep=keep: fa.flash_dkv_plain(
+                     *a, h, sc, keep),
                  sdpa_fwd_bwd, 4 * mm,
                  2 * qb + 2 * kvb + 2 * kv_out + 2 * rowb,
                  backward=sdpa_bwd)]
@@ -505,7 +543,10 @@ def kernel_cases(dev):
             ("L1 train ff", 4 * 4096, 1280, 320, False),
             ("mid train ff", 4 * 64, 5120, 1280, False),
             ("L1 ff fp32 bias", 3 * 4096, 1280, 320, True),
-            ("ragged", 1000, 5120, 1280, False)]:
+            ("ragged", 1000, 5120, 1280, False),
+            # a tensor-parallel rank's inner shard at tp = 2 and 4
+            ("L1 ff TP=2 shard", 3 * 4096, 640, 320, False),
+            ("L1 ff TP=4 shard", 3 * 4096, 320, 320, False)]:
         p, w = rnd(m, 2 * n), rnd(e, n, s=n ** -0.5)
         bias = rnd(e).float() if bias32 else rnd(e)
         cases.append(Case(
@@ -530,7 +571,14 @@ def kernel_cases(dev):
             ("UNet L3", 3, 16, 1280, 1280, False, False),
             ("UNet mid", 3, 8, 1280, 1280, False, False),
             ("UNet up block 1", 3, 8, 2560, 1280, False, False),
-            ("UNet up L1 input gradient", 3, 64, 320, 960, False, False)]:
+            ("UNet up L1 input gradient", 3, 64, 320, 960, False, False),
+            # a tensor-parallel rank's conv1 and conv2 at tp = 2 and 4
+            ("UNet L1 conv1 TP=2 shard (B,C) bias", 3, 64, 320, 160, True,
+             False),
+            ("UNet L1 conv2 TP=2 shard", 3, 64, 160, 320, False, False),
+            ("UNet L1 conv1 TP=4 shard (B,C) bias", 3, 64, 320, 80, True,
+             False),
+            ("UNet L1 conv2 TP=4 shard", 3, 64, 80, 320, False, False)]:
         x = rnd(b, hw, hw, cin)
         w9 = rnd(9, cin, cout, s=(9 * cin) ** -0.5)
         bias = torch.randn((b, cout) if bias_b else (cout,), generator=g,
@@ -578,7 +626,13 @@ def _fused_conv_cases(dev, g, rnd):
             ("UNet mid (B,C) bias + residual", 3, 8, 8, 1280, 1280, True,
              True),
             ("ragged (B,C) bias + residual", 2, 40, 24, 320, 320, True,
-             True)]:
+             True),
+            # a tensor-parallel rank's conv2 at tp = 2 and 4 (16 and 8 of
+            # the 32 groups)
+            ("UNet L1 conv2 TP=2 shard", 3, 64, 64, 160, 320, False,
+             False),
+            ("UNet L1 conv2 TP=4 shard", 3, 64, 64, 80, 320, False,
+             False)]:
         x = rnd(b, h, w, cin)
         w9 = rnd(9, cin, cout, s=(9 * cin) ** -0.5)
         bias = torch.randn((b, cout) if bias_b else (cout,), generator=g,
@@ -2147,6 +2201,405 @@ def phase_cli(dev, card: str, results: dict) -> bool:
     return ok
 
 
+# The parallel phase. (a) 2 micro-steps of each training run; (b) DDIM
+# steps of the TP story's 2 frames; each part's rank processes must end
+# within RANKS_TIMEOUT seconds.
+PAR_TRAIN_STEPS = 2
+TP_STORY_STEPS = 4
+TP_SIDE = 512  # px of (b)'s story frames and UNet pass
+RANKS_TIMEOUT = 400
+# all-reduces of a full-width UNet pass under tensor parallelism: one per
+# row-parallel site, 16 transformer blocks x (attn1, attn2, FF, and attn3
+# in the image cycle) + 22 resnet conv2
+TP_REDUCES = {"reference": 16 * 3 + 22, "main": 16 * 4 + 22}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(case: str, world: int, dev, **kw) -> list:
+    """`world` spawned processes on the device `dev` (all on one card),
+    joined over gloo through a file store under build/, each running
+    RANK_CASES[case](rank, world, dev, **kw); their results in rank order.
+    A rank that fails, or a part that outlasts RANKS_TIMEOUT, raises (the
+    processes are killed). The kernels are built before: the ranks load
+    the library from disk."""
+    import multiprocessing
+    import shutil
+
+    import torch
+    work = build_dir(f"chip_smoke_ranks_{case}")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.save(dict(kw, device=str(dev)), os.path.join(work, "args.pt"))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=rank_main, args=(case, r, world, work))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + RANKS_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(deadline - time.time(), 1))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+    if hung:
+        raise RuntimeError(f"{case}: {len(hung)} rank(s) hung past "
+                           f"{RANKS_TIMEOUT} s")
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"{case}: rank exit codes {codes}")
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def rank_main(case: str, rank: int, world: int, work: str) -> None:
+    """One rank process of run_ranks: gloo over a file store."""
+    import torch
+    import torch.distributed as dist
+    from storygen_tpu_torch.ops import _build
+    kw = torch.load(os.path.join(work, "args.pt"), weights_only=False)
+    dev = torch.device(kw.pop("device"))
+    torch.cuda.set_device(dev)
+    _build.load()  # built by the parent: found on disk
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        work, "store"), rank=rank, world_size=world)
+    try:
+        out = RANK_CASES[case](rank, world, dev, **kw)
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_story_rank(rank, world, dev, prompts, kw):
+    """The TP story: generate_story with the UNet sharded over the ranks
+    (VAE and CLIP replicated); frames, launches and wall time."""
+    import torch
+    from storygen_tpu_torch.parallel import tensor as T
+    from storygen_tpu_torch.pipeline import StoryGenPipeline
+    unet, vae, clip = full_width_models(dev)
+    tp = T.shard_unet_params(unet, T.make_tp_mesh(1, world))
+    pipe = StoryGenPipeline(unet, vae, clip, token_ids, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    frames = pipe.generate_story(prompts, **kw)
+    torch.cuda.synchronize()
+    return {"frames": frames, "wall": time.perf_counter() - t0,
+            "launches": read_launches(), "reduces": tp.allreduces}
+
+
+def tp_pass_rank(rank, world, dev, inputs, config):
+    """One reference pass and one image-cycle pass of the sharded UNet in
+    conv configuration `config`: eps, launches and each pass's
+    all-reduces."""
+    import torch
+    from storygen_tpu_torch.parallel import tensor as T
+    unet = full_width_models(dev, conv_kernels(config))[0]
+    tp = T.shard_unet_params(unet, T.make_tp_mesh(1, world))
+    torch.cuda.synchronize()
+    reset_launches()
+    eps, reduces = unet_passes(unet, inputs, dev, tp)
+    torch.cuda.synchronize()
+    return {"eps": eps, "launches": read_launches(), "reduces": reduces}
+
+
+def unet_passes(unet, inputs, dev, tp=None):
+    """models_vs_plain's image cycle: a reference pass over 3 refs (6
+    rows), then the main pass (3 CFG rows); eps on the CPU and, with `tp`,
+    the all-reduces of each pass."""
+    import torch
+    from storygen_tpu_torch.pipeline import StoryGenSampler
+    x = {k: v.to(dev) for k, v in inputs.items()}
+    reduces = {}
+    with torch.no_grad():
+        n0 = tp.allreduces if tp else 0
+        _, raw = unet(x["refs"], x["t_ref"], x["rtext"])
+        reduces["reference"] = (tp.allreduces if tp else 0) - n0
+        ctx = {k: StoryGenSampler._expand(v, 3, 1) for k, v in raw.items()}
+        n0 = tp.allreduces if tp else 0
+        eps = unet(x["x"], 481, x["text"], ctx)[0].float().cpu()
+        reduces["main"] = (tp.allreduces if tp else 0) - n0
+    return eps, reduces
+
+
+def dp_train_rank(rank, world, dev, steps, seed):
+    """Stage-2 micro-steps of the full-width models at batch 2 per rank,
+    the gradients averaged over the ranks (mesh.make_mesh): losses, grad
+    norms, the attn3 parameters before and after, launches and wall."""
+    import torch
+    from storygen_tpu_torch.parallel import mesh as M
+    return dp_train(dev, M.make_mesh(world), steps, seed)
+
+
+def dp_train(dev, mesh, steps: int, seed: int) -> dict:
+    """`steps` stage-2 micro-steps (optimizer steps, no accumulation) of
+    the global batch of TRAIN_BATCH seeded 512 px samples, this rank's
+    rows of it (all without a mesh), the draws from one seeded generator
+    (the global batch's on every rank)."""
+    import torch
+    from storygen_tpu_torch.configs import TrainConfig
+    from storygen_tpu_torch.data.loader import SyntheticStoryDataset, collate
+    from storygen_tpu_torch.parallel import mesh as M
+    from storygen_tpu_torch.training import trainer
+    cfg = TrainConfig(train_batch_size=TRAIN_BATCH,
+                      gradient_accumulation_steps=1, seed=seed,
+                      mixed_precision="bf16", remat=True)
+    bundle = trainer.build_models(cfg, dev)
+    synth = SyntheticStoryDataset(TRAIN_BATCH, size=512, seed=seed)
+    batch = collate([synth[i] for i in range(TRAIN_BATCH)])
+    if mesh is not None:
+        batch = M.shard_batch(batch, mesh)
+    batch = trainer.to_device(batch, dev)
+    step, opt = trainer.make_stage_step("stage2", cfg, bundle, dev,
+                                        mesh=mesh)
+    before = {k: p.detach().float().to("cpu", copy=True)
+              for k, p in opt.params.items()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = [step(batch, gen) for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"loss": [m["loss"].item() for m in metrics],
+            "grad_norm": [m["grad_norm"].item() for m in metrics],
+            "before": before, "launches": read_launches(), "wall": wall,
+            "after": {k: p.detach().float().cpu()
+                      for k, p in opt.params.items()}}
+
+
+RANK_CASES = {"tp_story": tp_story_rank, "tp_pass": tp_pass_rank,
+              "dp_train": dp_train_rank}
+
+
+def rel_l2(a, b) -> float:
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def parallel_nccl_world1(card: str, results: dict) -> bool:
+    """(a) scripts.train.main on stage 2 from the checkpoint phase's
+    folder and the cli phase's 512 px tree, without and with the three
+    flags at world size 1 over NCCL, in turns (plain, NCCL, NCCL, plain):
+    losses and updated attn3 parameters equal bit for bit."""
+    import torch
+    import yaml
+    from storygen_tpu_torch.scripts import train
+    work = build_dir("chip_smoke_parallel")
+    os.makedirs(work, exist_ok=True)
+    runs, ok = [], True
+    for i, nccl in enumerate((False, True, True, False)):
+        cfg = dict(pretrained_model_path=build_dir("chip_smoke_ckpt"),
+                   dataset_path=os.path.join(build_dir("chip_smoke_cli"),
+                                             "salon"),
+                   logdir=os.path.join(work, f"run{i}"),
+                   train_steps=PAR_TRAIN_STEPS, train_batch_size=TRAIN_BATCH,
+                   gradient_accumulation_steps=1, checkpointing_steps=1000,
+                   seed=0, mixed_precision="bf16", remat=True,
+                   loader_threads=4)
+        path = os.path.join(work, f"run{i}.yml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        argv = ["--stage", "stage2", "--config", path]
+        if nccl:
+            argv += ["--coordinator", f"127.0.0.1:{free_port()}",
+                     "--num_processes", "1", "--process_id", "0"]
+        label = "NCCL world 1" if nccl else "plain"
+        state, wall, launches = timed_main(f"parallel (a) train {label}",
+                                           lambda: train.main(argv), card)
+        ok &= not torch.distributed.is_initialized()  # main left the group
+        runs.append((nccl, list(state.losses), list(state.micro_seconds),
+                     {k: v.detach().cpu() for k, v in
+                      state.trainable.items()}, wall))
+        if i == 1:
+            ok &= record_launches(results, launches, "nccl_train")
+        del state
+        torch.cuda.empty_cache()
+    plain = [r for r in runs if not r[0]]
+    same = []
+    for r in runs:
+        same.append(r[1] == plain[0][1] and all(
+            torch.equal(r[3][k], plain[0][3][k]) for k in plain[0][3]))
+    good = all(same) and len(plain[0][3]) == 16 * 5
+    ok &= good
+    for nccl, losses, secs, _, wall in runs:
+        print(f"parallel (a) {'NCCL world 1' if nccl else 'plain       '}: "
+              f"losses {', '.join(f'{x:.6f}' for x in losses)}; micro-step "
+              f"ms {', '.join(f'{1e3 * s:.1f}' for s in secs)}; wall "
+              f"{wall:.2f} s [{card}]", flush=True)
+    print(f"parallel (a): losses and {len(plain[0][3])} attn3 tensors equal "
+          f"bit for bit to the first plain run {same} "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    return ok
+
+
+def parallel_kernels_at_shards(dev, card: str) -> bool:
+    """The kernels at the shapes a TP = 2 shard gives them at the UNet's
+    first level (512 px, CFG batch 3), each against its plain version
+    (kernel_vs_plain): F with 4 heads at d 40, G at N 640 and E 320, C at
+    Cout 160 and at Cin 160 with Cout 320, P at Cin 160 with 16 groups."""
+    import torch
+    from storygen_tpu_torch.models.layers import GroupNorm
+    from storygen_tpu_torch.ops import route
+    from storygen_tpu_torch.ops.attention import multi_head_attention
+    from storygen_tpu_torch.ops.conv import (conv3x3, conv3x3_plain,
+                                             gnconv3x3, gnconv3x3_plain)
+    from storygen_tpu_torch.ops.geglu import geglu_matmul, geglu_matmul_plain
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    b, s = 3, 4096
+    q, k, v = (randn(b, s, 160) for _ in range(3))
+    proj, w_ff, b_ff = randn(b * s, 1280), randn(320, 640, scale=0.04), \
+        randn(320).float()
+    x320, x160 = randn(b, 64, 64, 320), randn(b, 64, 64, 160)
+    w_c1, w_c2 = randn(9, 320, 160, scale=0.02), randn(9, 160, 320,
+                                                       scale=0.03)
+    bias160, bias320 = randn(160).float(), randn(320).float()
+    res = randn(b, 64, 64, 320)
+    gn = GroupNorm(16, 160).to(dev)
+    a, sh = gn.fold(x160)
+    ok = kernel_vs_plain(
+        "parallel (b) F at a TP=2 shard: attn1 L1 B3 4096^2, 4 heads d40",
+        lambda: multi_head_attention(q, k, v, 4), (b, s, 160), card)
+    ok &= kernel_vs_plain(
+        "parallel (b) G at a TP=2 shard: L1 ff (12288, 2x640) -> E 320",
+        lambda: route(geglu_matmul, geglu_matmul_plain)(proj, w_ff, b_ff),
+        (b * s, 320), card)
+    ok &= kernel_vs_plain(
+        "parallel (b) C at a TP=2 shard: conv1 L1 64^2 320 -> Cout 160",
+        lambda: route(conv3x3, conv3x3_plain)(x320, w_c1, bias160),
+        (b, 64, 64, 160), card)
+    ok &= kernel_vs_plain(
+        "parallel (b) C at a TP=2 shard: conv2 L1 64^2 Cin 160 -> 320 "
+        "+ residual", lambda: route(conv3x3, conv3x3_plain)(
+            x160, w_c2, bias320, res), (b, 64, 64, 320), card)
+    ok &= kernel_vs_plain(
+        "parallel (b) P at a TP=2 shard: conv2 L1 Cin 160, 16 groups -> "
+        "320 + residual", lambda: route(gnconv3x3, gnconv3x3_plain)(
+            x160, w_c2, bias320, a, sh, res), (b, 64, 64, 320), card)
+    return ok
+
+
+def parallel_tp(dev, card: str, results: dict) -> bool:
+    """(b) TP = 2 on two ranks sharing cuda:0 over gloo: a 2-frame
+    auto-regressive DDIM-4 story at 512 px (max 3 refs) and one fused
+    image-cycle UNet pass, each against one process on the same weights
+    and draws (rel L2 <= MODEL_REL_L2 per frame and for eps), the
+    all-reduces of each pass against the layout (TP_REDUCES), the paths'
+    launches, and the kernels at the shard shapes."""
+    import numpy as np
+    import torch
+    from storygen_tpu_torch.pipeline import StoryGenPipeline
+    kw = dict(num_inference_steps=TP_STORY_STEPS, height=TP_SIDE,
+              width=TP_SIDE, guidance_scale=7.5, image_guidance_scale=3.5,
+              seed=0, max_refs=3)
+    prompts = list(PROMPTS[:2])
+    pipe = StoryGenPipeline(*full_width_models(dev), token_ids, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = pipe.generate_story(prompts, **kw)
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    del pipe
+    unet = full_width_models(dev, conv_kernels("fused"))[0]
+    g, lat = torch.Generator().manual_seed(11), TP_SIDE // 8
+    d = unet.config.cross_attention_dim
+    inputs = {"refs": torch.randn((6, lat, lat, 4), generator=g),
+              "rtext": torch.randn((6, 77, d), generator=g),
+              "x": torch.randn((3, lat, lat, 4), generator=g),
+              "text": torch.randn((3, 77, d), generator=g),
+              "t_ref": torch.tensor([48, 48, 32, 32, 16, 16])}
+    eps_one, _ = unet_passes(unet, inputs, dev)
+    del unet
+    torch.cuda.empty_cache()
+    ok = True
+    t0 = time.perf_counter()
+    story = run_ranks("tp_story", 2, dev, prompts=prompts, kw=kw)
+    story_wall = time.perf_counter() - t0
+    passes = run_ranks("tp_pass", 2, dev, inputs=inputs, config="fused")
+    for rank, (out, fused) in enumerate(zip(story, passes)):
+        rels = [rel_l2(f, w) for f, w in zip(out["frames"], want)]
+        finite = all(bool(np.isfinite(f).all()) for f in out["frames"])
+        rel_eps = rel_l2(fused["eps"], eps_one)
+        good = (finite and len(rels) == 2 and max(rels) <= MODEL_REL_L2
+                and rel_eps <= MODEL_REL_L2
+                and fused["reduces"] == TP_REDUCES)
+        ok &= good
+        print(f"parallel (b) rank {rank}: TP=2 story frames rel L2 vs one "
+              f"process {', '.join(f'{r:.3e}' for r in rels)} (bound "
+              f"{MODEL_REL_L2:.0e}); fused image-cycle pass eps rel L2 "
+              f"{rel_eps:.3e}; all-reduces per pass {fused['reduces']} "
+              f"(layout {TP_REDUCES}), story {out['reduces']}; story wall "
+              f"{out['wall']:.2f} s (two processes time-sliced on one card; "
+              f"one process {one_wall:.2f} s) {'ok' if good else 'FAIL'} "
+              f"[{card}]", flush=True)
+        ok &= record_launches(results, out["launches"], f"tp_story_r{rank}")
+        ok &= record_launches(results, fused["launches"],
+                              f"tp_fused_pass_r{rank}")
+    print(f"parallel (b): spawn to results {story_wall:.1f} s [{card}]",
+          flush=True)
+    return ok & parallel_kernels_at_shards(dev, card)
+
+
+def parallel_dp(dev, card: str, results: dict) -> bool:
+    """(c) DP = 2 on two ranks sharing cuda:0 over gloo: stage-2
+    micro-steps at batch 2 per rank against one process at batch 4 on the
+    same global batch and draws: losses, grad norms and the attn3 updates
+    within GRAD_REL_L2 (PyTorch's GroupNorm sums in a batch-dependent
+    order, so not bit for bit)."""
+    import torch
+    one = dp_train(dev, None, PAR_TRAIN_STEPS, 3)
+    torch.cuda.empty_cache()
+    ranks = run_ranks("dp_train", 2, dev, steps=PAR_TRAIN_STEPS, seed=3)
+    ok = True
+    upd_one = torch.cat([(one["after"][k] - one["before"][k]).flatten()
+                         for k in one["after"]])
+    for rank, out in enumerate(ranks):
+        upd = torch.cat([(out["after"][k] - out["before"][k]).flatten()
+                         for k in one["after"]])
+        rel_upd = rel_l2(upd, upd_one)
+        rel_loss = max(abs(a - b) / abs(b) for a, b in zip(out["loss"],
+                                                             one["loss"]))
+        rel_norm = max(abs(a - b) / abs(b) for a, b in zip(
+            out["grad_norm"], one["grad_norm"]))
+        good = (all(math.isfinite(x) for x in out["loss"])
+                and max(rel_upd, rel_loss, rel_norm) <= GRAD_REL_L2)
+        ok &= good
+        print(f"parallel (c) rank {rank}: DP=2 B2/rank vs one process B4, "
+              f"{PAR_TRAIN_STEPS} micro-steps: losses "
+              f"{', '.join(f'{x:.6f}' for x in out['loss'])} vs "
+              f"{', '.join(f'{x:.6f}' for x in one['loss'])} (max rel "
+              f"{rel_loss:.3e}); grad norm max rel {rel_norm:.3e}; attn3 "
+              f"update rel L2 {rel_upd:.3e} (bound {GRAD_REL_L2:.0e}); wall "
+              f"{out['wall']:.2f} s (two processes time-sliced on one "
+              f"card; one process {one['wall']:.2f} s) "
+              f"{'ok' if good else 'FAIL'} [{card}]", flush=True)
+        ok &= record_launches(results, out["launches"], f"dp_train_r{rank}")
+    return ok
+
+
+def phase_parallel(dev, card: str, results: dict) -> bool:
+    """parallel/: (a) NCCL at world size 1 equal to the plain trainer,
+    (b) TP = 2 and (c) DP = 2 on two gloo ranks sharing the card."""
+    ok = parallel_nccl_world1(card, results)
+    ok &= parallel_tp(dev, card, results)
+    ok &= parallel_dp(dev, card, results)
+    return ok
+
+
 # the study phase's full-width shapes: (B, H, Sq, Skv, d)
 STUDY_SHAPES = {"attn3 L1": (3, 8, 4096, 12288, 40),
                 "attn1 L1": (6, 8, 4096, 4096, 40),
@@ -2400,6 +2853,7 @@ def main() -> int:
             ("checkpoint", lambda: phase_checkpoint(dev, card, results)),
             ("train_more", lambda: phase_train_more(dev, card, results)),
             ("cli", lambda: phase_cli(dev, card, results)),
+            ("parallel", lambda: phase_parallel(dev, card, results)),
             ("studies", lambda: phase_studies(dev, card, results))):
         t0 = time.perf_counter()
         if not phase():

@@ -6,6 +6,10 @@ hf_import.py: unet/, vae/ and text_encoder/ each with its config.json and a
 diffusers names, which the port's modules carry already),
 scheduler/scheduler_config.json and model_index.json, in the schemas of
 the JAX package's exporter, so either package loads what the other wrote.
+
+A module sharded by parallel/tensor.py is written whole: every rank of
+its tensor group calls `save_pretrained`, the shards are gathered into
+full tensors (a collective), and rank 0 alone writes.
 """
 from __future__ import annotations
 
@@ -120,11 +124,21 @@ MODEL_INDEX = {
 }
 
 
-def save_weights(module: nn.Module, path: str) -> None:
-    """`torch.save` of the module's state dict as contiguous CPU tensors in
-    their own dtypes."""
+def full_state_dict(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The module's state dict, a sharded module's gathered whole (a
+    collective over its tensor group)."""
+    state = module.state_dict()
+    if getattr(module, "tp", None) is not None:
+        from storygen_tpu_torch.parallel.tensor import full_tensors
+        state = full_tensors(state, module.tp_plan, module.tp)
+    return state
+
+
+def save_weights(state: Dict[str, torch.Tensor], path: str) -> None:
+    """`torch.save` of a state dict as contiguous CPU tensors in their own
+    dtypes."""
     torch.save({k: v.detach().to("cpu").contiguous()
-                for k, v in module.state_dict().items()}, path)
+                for k, v in state.items()}, path)
 
 
 def _dump(root: str, sub: str, name: str, payload: dict) -> None:
@@ -141,17 +155,22 @@ def save_pretrained(root: str, unet: Optional[nn.Module] = None,
                     tokenizer=None) -> None:
     """Write the folder for the modules given, each under the schema of
     its own `.config`, and tokenizer/ when the tokenizer has a
-    save_pretrained of its own."""
-    for sub, fname, module, schema in (
-            ("unet", "diffusion_pytorch_model.bin", unet,
-             diffusers_unet_config),
-            ("vae", "diffusion_pytorch_model.bin", vae, diffusers_vae_config),
-            ("text_encoder", "pytorch_model.bin", text_encoder,
-             transformers_clip_config)):
-        if module is None:
-            continue
+    save_pretrained of its own. Sharded modules are gathered whole first;
+    then only rank 0 of a process group writes."""
+    from storygen_tpu_torch.parallel.multihost import is_coordinator
+    parts = [(sub, fname, module, schema, full_state_dict(module))
+             for sub, fname, module, schema in (
+                 ("unet", "diffusion_pytorch_model.bin", unet,
+                  diffusers_unet_config),
+                 ("vae", "diffusion_pytorch_model.bin", vae,
+                  diffusers_vae_config),
+                 ("text_encoder", "pytorch_model.bin", text_encoder,
+                  transformers_clip_config)) if module is not None]
+    if not is_coordinator():
+        return
+    for sub, fname, module, schema, state in parts:
         os.makedirs(os.path.join(root, sub), exist_ok=True)
-        save_weights(module, os.path.join(root, sub, fname))
+        save_weights(state, os.path.join(root, sub, fname))
         _dump(root, sub, "config.json", schema(module.config))
     _dump(root, "scheduler", "scheduler_config.json",
           diffusers_scheduler_config(scheduler_config or SchedulerConfig()))

@@ -4,8 +4,8 @@ settings it reads.
 The port's own copy of the dataclasses of storygen_tpu/configs.py, with
 the same field names and defaults, so a configuration written for the JAX
 package reads here unchanged. `TrainConfig` keeps the fields that
-`training/` and the scripts read (the mesh's shape only to say that one
-device trains); the mesh's axes and the Pallas variant knobs have no
+`training/` and the scripts read (the mesh's shape only to say how many
+ranks train); the mesh's axes and the Pallas variant knobs have no
 counterpart. `TrainConfig.from_yaml` reads the
 repository's configs/*.yml (with PyYAML, imported there). Defaults are
 the SD-1.5 + VLCM operating point. The model configs read a diffusers
@@ -209,8 +209,8 @@ class TrainConfig:
     max_grad_norm: float = 1.0
     num_ref_frames: int = 3
     # the JAX package's data-parallel mesh, capped there at the devices it
-    # has; the port's trainer runs on one device and says so when the
-    # mesh asks for more
+    # has; the port's trainer runs on the ranks of its process group and
+    # says so when the mesh asks for more
     mesh_shape: Tuple[int, ...] = (1,)
     # gradient checkpointing per UNet block
     remat: bool = True

@@ -6,6 +6,11 @@ through the flash kernels and every FeedForward through the fused GEGLU
 kernel, forward and backward; projections stay plain matmuls. attn3 takes
 an optional `ref_mask` (B, N refs) that drops reference frames from its kv
 (the JAX `image_ref_mask`, stage-2 training's random 1-3 refs).
+
+A module sharded by parallel/tensor.py holds its rank's heads (or inner
+columns) and the tensor group (`tp`): its replicated inputs pass
+Megatron's f, and its output projection's partial product (no bias) is
+all-reduced in fp32 before the bias is added.
 """
 from __future__ import annotations
 
@@ -46,6 +51,8 @@ def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 class CrossAttention(nn.Module):
     """q/k/v projections without bias, output projection with bias."""
 
+    tp = None  # the tensor group when sharded (parallel/tensor.py)
+
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None):
         super().__init__()
@@ -60,11 +67,20 @@ class CrossAttention(nn.Module):
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
                 ref_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.copy_in(x)
+            if context is not None:
+                context = self.tp.copy_in(context)
         context = x if context is None else context
         out = multi_head_attention(
             _linear(x, self.to_q), _linear(context, self.to_k),
             _linear(context, self.to_v), self.heads, ref_mask=ref_mask)
-        return _linear(out, self.to_out[0])
+        if self.tp is None:
+            return _linear(out, self.to_out[0])
+        lin = self.to_out[0]  # the partial product in fp32 of out's dtype
+        return self.tp.reduce_out(
+            F.linear(out.float(), lin.weight.to(out.dtype).float()),
+            lin.bias.to(out.dtype), out.dtype)
 
 
 class GEGLU(nn.Module):
@@ -77,7 +93,11 @@ class GEGLU(nn.Module):
 
 class FeedForward(nn.Module):
     """net.0 (GEGLU projection) -> value*gelu(gate) -> net.2, with the gate
-    and net.2 fused in the GEGLU kernel."""
+    and net.2 fused in the GEGLU kernel. Sharded, net.0 holds the rank's
+    [value_r | gate_r] rows and net.2 its columns; kernel G computes the
+    partial product without the bias."""
+
+    tp = None  # the tensor group when sharded (parallel/tensor.py)
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -85,11 +105,16 @@ class FeedForward(nn.Module):
                                   nn.Linear(dim * mult, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.copy_in(x)
         proj = self.net[0].proj(x)
         out_lin = self.net[2]
         fn = route(GegluMatmulFn.apply, geglu_matmul_plain)
-        out = fn(proj.reshape(-1, proj.shape[-1]), out_lin.weight,
-                 out_lin.bias)
+        bias = out_lin.bias if self.tp is None else torch.zeros_like(
+            out_lin.bias)
+        out = fn(proj.reshape(-1, proj.shape[-1]), out_lin.weight, bias)
+        if self.tp is not None:
+            out = self.tp.reduce_out(out, out_lin.bias, proj.dtype)
         return out.reshape(*x.shape[:-1], out.shape[-1])
 
 

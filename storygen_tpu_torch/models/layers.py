@@ -8,6 +8,12 @@ the JAX package uses XLA's convolution there. In the fused-conv
 configuration (`configs.ConvKernels`) a resnet's convs take their
 GroupNorm + SiLU as kernel P's prologue, and stride-2 convolutions run
 kernel D (`ops/downconv.py`).
+
+A resnet sharded by parallel/tensor.py holds its rank's conv1 output
+channels (with time_emb_proj's and norm2's, whose groups it holds whole)
+and conv2 input channels: conv1's replicated inputs pass Megatron's f, and
+conv2's partial product, without bias and residual, is all-reduced in
+fp32 before they are added.
 """
 from __future__ import annotations
 
@@ -139,12 +145,15 @@ class Conv3x3(_Packed3x3):
     def forward(self, x: torch.Tensor,
                 extra_bias: Optional[torch.Tensor] = None,
                 residual: Optional[torch.Tensor] = None,
-                prologue: Optional[Prologue] = None) -> torch.Tensor:
+                prologue: Optional[Prologue] = None,
+                with_bias: bool = True) -> torch.Tensor:
         """`extra_bias` (B, Cout) is added with the bias (the resnet temb
         term); `residual` (B, H, W, Cout) is added to the output;
         `prologue` (a, s), each (B, Cin) fp32, applies silu(x * a + s) to
-        the input first (a folded GroupNorm + SiLU)."""
-        bias = self.bias.float()
+        the input first (a folded GroupNorm + SiLU); without `with_bias`
+        the bias is left out (a row-parallel partial product)."""
+        bias = self.bias.float() if with_bias else torch.zeros_like(
+            self.bias, dtype=torch.float32)
         if extra_bias is not None:
             bias = bias[None] + extra_bias.float()
         w9 = self.packed_weight(x.dtype)
@@ -183,6 +192,8 @@ class ResnetBlock2D(nn.Module):
     With `fused_prologue` each GN + SiLU is folded into (a, s) and applied
     by its conv's prologue (kernel P), as the JAX ResnetBlock2D does."""
 
+    tp = None  # the tensor group when sharded (parallel/tensor.py)
+
     def __init__(self, cin: int, cout: int, groups: int, eps: float,
                  temb_channels: Optional[int] = None,
                  fused_prologue: bool = False):
@@ -199,15 +210,30 @@ class ResnetBlock2D(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        tp = self.tp
         extra = None
         if temb is not None:
-            extra = self.time_emb_proj(F.silu(temb))
+            t = F.silu(temb)
+            extra = self.time_emb_proj(t if tp is None else tp.copy_in(t))
         skip = self.conv_shortcut(x) if hasattr(self, "conv_shortcut") else x
         if self.fused_prologue:
-            h = self.conv1(x, extra_bias=extra, prologue=self.norm1.fold(x))
-            return self.conv2(h, residual=skip, prologue=self.norm2.fold(h))
-        h = self.conv1(self.norm1(x), extra_bias=extra)
-        return self.conv2(self.norm2(h), residual=skip)
+            a, s = self.norm1.fold(x)
+            xin = x
+            if tp is not None:
+                xin, a, s = tp.copy_in(x, a, s)
+            h = self.conv1(xin, extra_bias=extra, prologue=(a, s))
+            if tp is None:
+                return self.conv2(h, residual=skip,
+                                  prologue=self.norm2.fold(h))
+            part = self.conv2(h, prologue=self.norm2.fold(h), with_bias=False)
+        else:
+            hin = self.norm1(x)
+            h = self.conv1(hin if tp is None else tp.copy_in(hin),
+                           extra_bias=extra)
+            if tp is None:
+                return self.conv2(self.norm2(h), residual=skip)
+            part = self.conv2(self.norm2(h), with_bias=False)
+        return tp.reduce_out(part, self.conv2.bias, x.dtype, skip)
 
 
 class Downsample2D(nn.Module):

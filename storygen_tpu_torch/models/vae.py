@@ -5,7 +5,9 @@ pad (0, 1) bottom/right before a stride-2 valid conv, as diffusers does; the
 decoder's upsample is nearest 2x then a 3x3 conv. The mid block's
 single-head attention stays plain (an einsum chain in the JAX package).
 `conv` (configs.ConvKernels) picks the kernels of every resnet and of the
-encoder's downsamplers.
+encoder's downsamplers. Sharded by parallel/tensor.py, the mid block's
+attention holds the rank's query / key / value channels and proj_attn
+columns: its fp32 logits are all-reduced before the softmax.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ class VAEAttentionBlock(nn.Module):
     """Single-head self-attention over spatial tokens (diffusers 0.13
     AttentionBlock names: group_norm, query, key, value, proj_attn)."""
 
+    tp = None  # the tensor group when sharded (parallel/tensor.py)
+
     def __init__(self, ch: int, groups: int):
         super().__init__()
         self.group_norm = GroupNorm(groups, ch, eps=1e-6)
@@ -33,13 +37,22 @@ class VAEAttentionBlock(nn.Module):
         self.proj_attn = nn.Linear(ch, ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, h, w, c = x.shape
+        b, h, w, c = x.shape  # c is the full channel count, sharded or not
         y = self.group_norm(x).reshape(b, h * w, c)
+        if self.tp is not None:
+            y = self.tp.copy_in(y)
         q, k, v = self.query(y), self.key(y), self.value(y)
-        logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * c ** -0.5
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        logits = torch.matmul(q.float(), k.float().transpose(1, 2))
+        if self.tp is not None:
+            logits = self.tp.reduce(logits)
+        probs = torch.softmax(logits * c ** -0.5, dim=-1).to(x.dtype)
         y = torch.matmul(probs.float(), v.float()).to(x.dtype)
-        return self.proj_attn(y).reshape(b, h, w, c) + x
+        if self.tp is None:
+            return self.proj_attn(y).reshape(b, h, w, c) + x
+        lin = self.proj_attn
+        return self.tp.reduce_out(
+            torch.nn.functional.linear(y.float(), lin.weight.float()),
+            lin.bias, x.dtype, x.reshape(b, h * w, c)).reshape(b, h, w, c)
 
 
 class VAEMidBlock(nn.Module):

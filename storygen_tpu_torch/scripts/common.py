@@ -19,6 +19,17 @@ def add_device_flag(ap: argparse.ArgumentParser) -> None:
                          "when asked)")
 
 
+def add_process_flags(ap: argparse.ArgumentParser) -> None:
+    """The JAX scripts' multi-process flags (parallel/multihost.py), and
+    the backend."""
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of rank 0 (or an init method URL)")
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
+    ap.add_argument("--backend", default="nccl",
+                    help="torch.distributed backend: nccl (default) or gloo")
+
+
 def tokenizer_folder(root: str) -> str:
     """<root>/tokenizer when there is one, else root itself."""
     sub = os.path.join(root, "tokenizer")

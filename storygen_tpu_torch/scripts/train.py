@@ -24,7 +24,9 @@ from storygen_tpu_torch.configs import TrainConfig
 from storygen_tpu_torch.data.datasets import (COCOMultiSegDataset,
                                               StorySalonDataset)
 from storygen_tpu_torch.data.tokenizer import Tokenizer
+from storygen_tpu_torch.parallel import multihost
 from storygen_tpu_torch.scripts.common import (add_device_flag,
+                                               add_process_flags,
                                                tokenizer_folder)
 from storygen_tpu_torch.training import trainer
 
@@ -35,6 +37,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     choices=["stage1", "stage2", "coco"])
     ap.add_argument("--config", required=True)
     add_device_flag(ap)
+    add_process_flags(ap)
     return ap.parse_args(argv)
 
 
@@ -57,8 +60,17 @@ def run(stage: str, cfg: TrainConfig, device="cuda") -> trainer.TrainState:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> trainer.TrainState:
+    """Train as the flags say; joins (and at the end leaves) the process
+    group when the flags or the environment ask for one."""
     args = parse_args(argv)
-    return run(args.stage, TrainConfig.from_yaml(args.config), args.device)
+    cfg = TrainConfig.from_yaml(args.config)
+    if not multihost.initialize(args.coordinator, args.num_processes,
+                                args.process_id, args.backend, args.device):
+        return run(args.stage, cfg, args.device)
+    try:
+        return run(args.stage, cfg, multihost.rank_device(args.device))
+    finally:
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

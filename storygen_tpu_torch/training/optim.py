@@ -18,13 +18,20 @@ kernel is involved):
 
 `make_optimizer` picks it or its 8-bit form (optim8bit.py, the JAX
 package's `use_8bit_adam`), which shares all but the moments' storage.
+
+Under tensor parallelism (parallel/tensor.py) some parameters are a
+rank's shards of a tensor split over the tensor group (`sharded`): the
+global norm then sums their squares over that group and counts every
+other parameter once, as GSPMD computes it for the JAX package. The
+moments of a shard are the shard's own.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable
+from typing import Callable, Collection, Dict, Iterable
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from storygen_tpu_torch.configs import TrainConfig
@@ -80,19 +87,34 @@ def lr_at(cfg: TrainConfig, opt_step: int) -> float:
     return float(make_schedule(cfg)(opt_step))
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, fp32."""
-    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+def global_norm(tensors: Iterable[torch.Tensor],
+                sharded: Iterable[torch.Tensor] = (),
+                group=None) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors, fp32; the squares of
+    `sharded` (a rank's shards of tensors split over the process group
+    `group`) are summed over the group first."""
+    total = sum(t.float().pow(2).sum() for t in tensors)
+    shards = list(sharded)
+    if shards:
+        part = sum(t.float().pow(2).sum() for t in shards)
+        dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
+        total = total + part
+    return torch.sqrt(total)
 
 
 class AdamW:
     """clip-by-global-norm -> AdamW -> k-step gradient accumulation over a
     {name: parameter} dict; all state in fp32 on the parameters' device.
     `state_dict` / `load_state_dict` carry the moments, the accumulator,
-    `count` and `mini_step` (a checkpoint's optimizer state)."""
+    `count` and `mini_step` (a checkpoint's optimizer state). `sharded`
+    names the parameters that are shards over the process group
+    `tp_group` (tensor parallelism)."""
 
-    def __init__(self, params: Dict[str, torch.Tensor], cfg: TrainConfig):
+    def __init__(self, params: Dict[str, torch.Tensor], cfg: TrainConfig,
+                 sharded: Collection[str] = (), tp_group=None):
         self.params = params
+        self.sharded = frozenset(sharded)
+        self.tp_group = tp_group
         self.schedule = make_schedule(cfg)
         self.b1, self.b2 = cfg.adam_beta1, cfg.adam_beta2
         self.eps, self.weight_decay = cfg.adam_epsilon, cfg.adam_weight_decay
@@ -125,8 +147,16 @@ class AdamW:
         self.mini_step = 0
         return True
 
+    def norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of a gradient of the parameters (sharded ones
+        summed over the tensor group)."""
+        return global_norm(
+            (g for n, g in grads.items() if n not in self.sharded),
+            (g for n, g in grads.items() if n in self.sharded),
+            self.tp_group)
+
     def _apply(self, grads: Dict[str, torch.Tensor]) -> None:
-        norm = global_norm(grads.values())
+        norm = self.norm(grads)
         below = norm < self.max_norm
         lr = self.schedule(self.count)  # the count before this update
         self.count += 1
@@ -175,11 +205,12 @@ class AdamW:
                     dst.copy_(v)
 
 
-def make_optimizer(cfg: TrainConfig, params: Dict[str, torch.Tensor]
-                   ) -> AdamW:
+def make_optimizer(cfg: TrainConfig, params: Dict[str, torch.Tensor],
+                   sharded: Collection[str] = (), tp_group=None) -> AdamW:
     """AdamW, or with cfg.use_8bit_adam the block-quantized AdamW8bit
-    (optim8bit.py); both clip, accumulate and schedule alike."""
+    (optim8bit.py); both clip, accumulate and schedule alike. `sharded`
+    and `tp_group` as in AdamW."""
     if cfg.use_8bit_adam:
         from storygen_tpu_torch.training.optim8bit import AdamW8bit
-        return AdamW8bit(params, cfg)
-    return AdamW(params, cfg)
+        return AdamW8bit(params, cfg, sharded, tp_group)
+    return AdamW(params, cfg, sharded, tp_group)

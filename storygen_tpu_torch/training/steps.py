@@ -30,6 +30,16 @@ posterior noise, the noise, t, the ref posterior noise, the ref noise, the
 ref mask and, in the precomputed mode, the prompt and ref dropout rows.
 Each can be injected instead (`draws`, keys DRAW_KEYS), so that two
 implementations can be fed the same random numbers.
+
+Data parallelism (`mesh`, parallel/mesh.py): each rank holds its rows of
+the global batch. Every rank draws (or is given) the draws of the global
+batch, from generators seeded alike, and keeps its own rows, as one JAX key
+over a sharded batch does; so a run draws the same numbers at any world
+size. Between the gradients and the optimizer the gradients (and the
+loss) are averaged over the batch axes in one fp32 all-reduce. Under
+tensor parallelism (parallel/tensor.py) the UNet holds shards; the
+gradient of a shard is its own, and the optimizer's norm sums the shards'
+squares over the tensor group (`optim.AdamW.norm`).
 """
 from __future__ import annotations
 
@@ -39,8 +49,9 @@ import torch
 
 from storygen_tpu_torch.diffusion import schedule as S
 from storygen_tpu_torch.models.vae import DiagonalGaussian
+from storygen_tpu_torch.parallel.mesh import Mesh, allreduce_mean_
 from storygen_tpu_torch.training.losses import downsample_mask, masked_mse
-from storygen_tpu_torch.training.optim import AdamW, global_norm
+from storygen_tpu_torch.training.optim import AdamW
 
 DRAW_KEYS = ("posterior_noise", "noise", "t", "ref_posterior_noise",
              "ref_noise", "ref_mask", "prompt_dropout", "ref_dropout")
@@ -68,7 +79,8 @@ def make_train_step(unet, vae, text_encoder, sched: S.NoiseSchedule,
                     num_refs: int = 3, ref_noise_decay: bool = True,
                     use_mask: bool = True,
                     num_train_timesteps: int = 1000,
-                    empty_ids: Optional[torch.Tensor] = None) -> Callable:
+                    empty_ids: Optional[torch.Tensor] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Build the train step of a stage.
 
     stage: 'stage1' (no refs) | 'stage2' | 'coco'.
@@ -77,6 +89,8 @@ def make_train_step(unet, vae, text_encoder, sched: S.NoiseSchedule,
     use_mask: masked MSE over the inpainting mask.
     empty_ids: (77,) token ids of the empty prompt, which the precomputed
       mode's CFG dropout needs.
+    mesh: the data-parallel (or data and tensor) mesh: the batch is this
+      rank's rows, `draws` are the global batch's.
 
     The step takes a batch of tensors on the models' device:
       image (B, H, W, 3) in [-1, 1] or latent_moments (B, h, w, 8); mask
@@ -86,8 +100,8 @@ def make_train_step(unet, vae, text_encoder, sched: S.NoiseSchedule,
     a generator on that device, and optionally `draws`, a dict of tensors
     under DRAW_KEYS that replace the generator's draws. It differentiates
     the loss, hands the gradients to the optimizer and returns
-    {"loss", "grad_norm"} (fp32 scalars; grad_norm is the micro-step
-    gradient's global norm before clipping).
+    {"loss", "grad_norm"} (fp32 scalars over the global batch; grad_norm
+    is the micro-step gradient's global norm before clipping).
     """
     if stage not in ("stage1", "stage2", "coco"):
         raise ValueError(f"unknown stage {stage!r}")
@@ -95,6 +109,11 @@ def make_train_step(unet, vae, text_encoder, sched: S.NoiseSchedule,
     sf = vae.config.scaling_factor
     down = vae.config.downscale_factor
     lat_ch = vae.config.latent_channels
+    # the batch axes: how many ranks split the global batch, and which
+    # block of its rows is this rank's
+    n_data = 1 if mesh is None else mesh.size(*mesh.batch_axes)
+    data_index = 0 if mesh is None else mesh.index(*mesh.batch_axes)
+    data_group = None if mesh is None else mesh.group(*mesh.batch_axes)
 
     zero_moments = {}  # (h, w) -> the all-zero image's moments
 
@@ -113,6 +132,8 @@ def make_train_step(unet, vae, text_encoder, sched: S.NoiseSchedule,
         return (z * sf).to(vae.dtype)
 
     def draw(batch, generator, given, precomputed):
+        """The global batch's draws, in the fixed order; this rank keeps
+        its rows (axis 1 of the ref-major ref posterior noise)."""
         if precomputed:
             b, h, w = batch["latent_moments"].shape[:3]
             dev = batch["latent_moments"].device
@@ -120,29 +141,37 @@ def make_train_step(unet, vae, text_encoder, sched: S.NoiseSchedule,
             b, hh, ww = batch["image"].shape[:3]
             h, w = hh // down, ww // down
             dev = batch["image"].device
-        lat = (b, h, w, lat_ch)
+        gb = b * n_data  # the global batch
+        rows = slice(data_index * b, (data_index + 1) * b)
+        lat = (gb, h, w, lat_ch)
         out = {}
 
-        def put(key, fn):
-            out[key] = (given[key].to(dev) if key in given else fn())
+        def put(key, fn, ref_major=False):
+            x = given[key].to(dev) if key in given else fn()
+            if ref_major:  # (N*B, ...) -> this rank's (N*b, ...)
+                x = x.reshape((num_refs, gb) + x.shape[1:])[:, rows]
+                out[key] = x.reshape((num_refs * b,) + x.shape[2:])
+            else:
+                out[key] = x[rows]
 
         def normal(shape):
             return lambda: torch.randn(shape, generator=generator,
                                        device=dev)
 
         def dropped(rate):
-            return lambda: torch.rand((b,), generator=generator,
+            return lambda: torch.rand((gb,), generator=generator,
                                       device=dev) < rate
 
         put("posterior_noise", normal(lat))
         put("noise", normal(lat))
-        put("t", lambda: torch.randint(0, num_train_timesteps, (b,),
+        put("t", lambda: torch.randint(0, num_train_timesteps, (gb,),
                                        generator=generator, device=dev))
         if use_refs:
-            put("ref_posterior_noise", normal((num_refs * b,) + lat[1:]))
+            put("ref_posterior_noise", normal((num_refs * gb,) + lat[1:]),
+                ref_major=True)
             put("ref_noise", normal(lat))
             if stage == "stage2":
-                put("ref_mask", lambda: sample_ref_mask(generator, b,
+                put("ref_mask", lambda: sample_ref_mask(generator, gb,
                                                         num_refs))
         if precomputed:
             put("prompt_dropout", dropped(PROMPT_DROPOUT))
@@ -237,8 +266,12 @@ def make_train_step(unet, vae, text_encoder, sched: S.NoiseSchedule,
                                     allow_unused=True)
         grads = {n: torch.zeros_like(p) if g is None else g
                  for (n, p), g in zip(params.items(), grads)}
-        norm = global_norm(grads.values())
+        loss = loss.detach()
+        if mesh is not None:
+            # the global batch's mean gradient and loss
+            allreduce_mean_(list(grads.values()) + [loss], data_group)
+        norm = optimizer.norm(grads)
         optimizer.update(grads)
-        return {"loss": loss.detach(), "grad_norm": norm}
+        return {"loss": loss, "grad_norm": norm}
 
     return step

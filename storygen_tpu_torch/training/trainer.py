@@ -23,8 +23,15 @@ With `latents_path` the trainer reads precomputed VAE posterior moments
 mode needs the tokenizer for the empty prompt's ids. Samples with prompts
 (the StorySalon and COCO datasets) are tokenized by the loader.
 
-Not ported yet: data-parallel and multi-host runs. One process trains on
-one device; a `mesh_shape` that asks for more devices is told so.
+Data parallelism: inside a process group (parallel/multihost.py) every
+rank trains a replica on its own device, on its shard of the loader at
+`train_batch_size // world` samples, and the step averages the gradients
+over the world (training/steps.py); the replicas start from rank 0's
+weights. Logs, checkpoints, exports and validation renders are written by
+rank 0 alone, and the other ranks wait for it; every rank resumes from the
+same checkpoint. A `mesh_shape` that asks for more devices than the world
+has is told that the run trains on what it has, as the JAX package caps
+its mesh at its devices.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from storygen_tpu_torch.checkpoint import hf_export, hf_import, torch_io
 from storygen_tpu_torch.configs import (DEFAULT_MODEL_PATH, CLIPTextConfig,
@@ -44,6 +52,8 @@ from storygen_tpu_torch.configs import (DEFAULT_MODEL_PATH, CLIPTextConfig,
 from storygen_tpu_torch.data.datasets import PrecomputedLatentDataset
 from storygen_tpu_torch.data.loader import DataLoader, collate
 from storygen_tpu_torch.diffusion import schedule as S
+from storygen_tpu_torch.parallel import mesh as M
+from storygen_tpu_torch.parallel import multihost
 from storygen_tpu_torch.training import optim, steps
 from storygen_tpu_torch.utils.device import require_on, resolve_device
 from storygen_tpu_torch.utils.image import write_png
@@ -153,18 +163,18 @@ def build_models(cfg: TrainConfig, device="cuda",
     return bundle
 
 
-def to_device(batch, dev: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).to(dev, non_blocking=True)
-            for k, v in batch.items()}
+# a loaded batch (this process's rows) -> tensors on the device
+to_device = multihost.host_local_batch
 
 
 def make_stage_step(stage: str, cfg: TrainConfig, bundle: dict,
                     dev: torch.device,
-                    empty_ids: Optional[torch.Tensor] = None):
+                    empty_ids: Optional[torch.Tensor] = None,
+                    mesh: Optional[M.Mesh] = None):
     """Freeze all but the stage's subset (kept in fp32) and build its
     optimizer (optim.make_optimizer) and train step; `empty_ids` are the
-    empty prompt's ids for the precomputed mode's CFG dropout. Returns
-    (step_fn, optimizer)."""
+    empty prompt's ids for the precomputed mode's CFG dropout; `mesh` the
+    data-parallel mesh. Returns (step_fn, optimizer)."""
     if stage not in optim.STAGE_PREDICATES:
         raise ValueError(f"unknown stage {stage!r}")
     unet, vae, clip = (bundle["unet"], bundle["vae"],
@@ -181,7 +191,7 @@ def make_stage_step(stage: str, cfg: TrainConfig, bundle: dict,
         num_refs=cfg.num_ref_frames, ref_noise_decay=stage != "coco",
         use_mask=stage != "coco",
         num_train_timesteps=bundle["scheduler_config"].num_train_timesteps,
-        empty_ids=empty_ids)
+        empty_ids=empty_ids, mesh=mesh)
     return step_fn, opt
 
 
@@ -219,25 +229,35 @@ def train(stage: str = "stage2", config: Optional[TrainConfig] = None,
     if overrides and config is not None:
         cfg = dataclasses.replace(cfg, **overrides)
     dev = resolve_device(device)
-    if cfg.mesh_devices > 1:
+    rank, world = M.world()
+    mesh = multihost.global_mesh() if dist.is_initialized() else None
+    if cfg.mesh_devices > world:
         print(f"mesh_shape {tuple(cfg.mesh_shape)} asks for "
-              f"{cfg.mesh_devices} devices: data-parallel training is not "
-              f"ported, so this run trains on one ({dev})", flush=True)
+              f"{cfg.mesh_devices} devices: this run trains on the {world} "
+              f"it has", flush=True)
+    if cfg.train_batch_size % world:
+        raise ValueError(f"train_batch_size {cfg.train_batch_size} does not "
+                         f"split over {world} ranks")
+    coordinator = multihost.is_coordinator()
     if cfg.latents_path:
         if dataset is not None:
             raise ValueError("give a dataset or latents_path, not both")
         dataset = PrecomputedLatentDataset(cfg.latents_path)
-    os.makedirs(cfg.logdir, exist_ok=True)
-    with open(os.path.join(cfg.logdir, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+    if coordinator:
+        os.makedirs(cfg.logdir, exist_ok=True)
+        with open(os.path.join(cfg.logdir, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
 
     bundle = models_bundle or build_models(cfg, dev)
     require_on(dev, **{k: bundle[k] for k in ("unet", "vae", "text_encoder")})
+    if mesh is not None:  # every replica starts from rank 0's weights
+        M.replicate([bundle[k] for k in ("unet", "vae", "text_encoder")],
+                    mesh)
     empty_ids = None
     if tokenizer is not None:
         empty_ids = torch.as_tensor(np.asarray(tokenizer([""]))[0],
                                     dtype=torch.long)
-    step_fn, opt = make_stage_step(stage, cfg, bundle, dev, empty_ids)
+    step_fn, opt = make_stage_step(stage, cfg, bundle, dev, empty_ids, mesh)
 
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     ckpt_dir = checkpoint_dir(cfg)
@@ -254,7 +274,7 @@ def train(stage: str = "stage2", config: Optional[TrainConfig] = None,
         print(f"resumed from step {latest} (micro-step {start})", flush=True)
 
     if sample_logger is None and cfg.validation_sample_logger is not None \
-            and tokenizer is not None:
+            and tokenizer is not None and coordinator:
         from storygen_tpu_torch.pipeline import StoryGenPipeline
         pipe = StoryGenPipeline(bundle["unet"], bundle["vae"],
                                 bundle["text_encoder"], tokenizer,
@@ -262,10 +282,10 @@ def train(stage: str = "stage2", config: Optional[TrainConfig] = None,
         sample_logger = SampleLogger(pipe, cfg.logdir,
                                      **cfg.validation_sample_logger)
 
-    loader = DataLoader(dataset, cfg.train_batch_size, tokenizer,
+    loader = DataLoader(dataset, cfg.train_batch_size // world, tokenizer,
                         seed=cfg.seed, num_threads=cfg.loader_threads,
-                        start=start)
-    logger = MetricLogger(cfg.logdir)
+                        num_shards=world, shard_id=rank, start=start)
+    logger = MetricLogger(cfg.logdir) if coordinator else None
     ga = cfg.gradient_accumulation_steps
     losses: List[float] = []
     seconds: List[float] = []
@@ -281,7 +301,7 @@ def train(stage: str = "stage2", config: Optional[TrainConfig] = None,
             if (micro + 1) % ga:
                 continue
             opt_step = (micro + 1) // ga
-            if opt_step % 50 == 0 or opt_step == 1:
+            if (opt_step % 50 == 0 or opt_step == 1) and coordinator:
                 now = time.time()
                 logger.log(opt_step, {
                     "loss": sum(window) / len(window),  # the window's mean
@@ -289,11 +309,13 @@ def train(stage: str = "stage2", config: Optional[TrainConfig] = None,
                     "steps_per_sec": (opt_step - last_opt)
                     / max(now - last_t, 1e-9)})
                 window, last_t, last_opt = [], now, opt_step
-            if sample_logger is not None and val_dataset is not None \
-                    and opt_step % cfg.validation_steps == 0:
+            render = (val_dataset is not None
+                      and opt_step % cfg.validation_steps == 0)
+            save = opt_step % cfg.checkpointing_steps == 0
+            if render and sample_logger is not None and coordinator:
                 vb = collate([val_dataset[opt_step % len(val_dataset)]])
                 sample_logger.log_sample_images(vb, opt_step)
-            if opt_step % cfg.checkpointing_steps == 0:
+            if save and coordinator:
                 torch_io.save_checkpoint(ckpt_dir, opt_step, {
                     "micro_step": micro + 1,
                     "trainable": opt.params,
@@ -309,6 +331,8 @@ def train(stage: str = "stage2", config: Optional[TrainConfig] = None,
                         text_encoder=bundle["text_encoder"],
                         scheduler_config=bundle["scheduler_config"],
                         tokenizer=tokenizer)
+            if render or save:
+                multihost.barrier()  # the other ranks wait for rank 0
     finally:
         it.close()
     return TrainState(cfg.train_steps, opt.params, opt, losses, seconds)

@@ -37,20 +37,21 @@ from tests.torch_port_util import cli_folder
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # each JAX script's flags that the port's script does not take:
-# --platform became --device; the multi-process flags and --tp wait for
-# data and tensor parallelism; PickScore (evaluation/) is not ported, nor
+# --platform became --device; PickScore (evaluation/) is not ported, nor
 # are the candidate counts that only its re-ranking reads; the JAX
 # precompute script never reads its --batch
 NOT_TAKEN = {
     "inference.py": {"--platform"},
     "precompute_latents.py": {"--batch"},
-    "train.py": {"--platform", "--coordinator", "--num_processes",
-                 "--process_id"},
+    "train.py": {"--platform"},
     "inference_coco_val.py": {"--platform", "--pickscore_processor",
                               "--pickscore_model", "--num_samples",
                               "--samples_per_batch"},
-    "serve.py": {"--platform", "--tp"},
+    "serve.py": {"--platform"},
 }
+# and the flags it adds: the device, and the torch.distributed backend of
+# the multi-process ones
+ADDED = {"train.py": {"--backend"}, "serve.py": {"--backend"}}
 SCRIPTS = {"inference.py": inference,
            "precompute_latents.py": precompute_latents, "train.py": train,
            "inference_coco_val.py": inference_coco_val, "serve.py": serve}
@@ -88,7 +89,8 @@ def test_flags_of_the_jax_scripts_are_taken(script, capsys):
         SCRIPTS[script].parse_args(["--help"])
     help_text = capsys.readouterr().out
     ours = set(re.findall(r"(--\w+)", help_text)) - {"--help"}
-    assert ours == jax_flags - NOT_TAKEN[script] | {"--device"}
+    assert ours == (jax_flags - NOT_TAKEN[script] | {"--device"}
+                    | ADDED.get(script, set()))
     assert "--device DEVICE" in help_text
 
 

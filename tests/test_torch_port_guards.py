@@ -82,6 +82,10 @@ def test_port_imports_no_jax_or_flax():
         "storygen_tpu_torch.studies.flash_fwd_tiles\n"
         "import storygen_tpu_torch.studies.flash_bwd_tiles, "
         "storygen_tpu_torch.studies.geglu_tiles\n"
+        "import storygen_tpu_torch.parallel.mesh, "
+        "storygen_tpu_torch.parallel.multihost\n"
+        "import storygen_tpu_torch.parallel.serving, "
+        "storygen_tpu_torch.parallel.tensor\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'storygen_tpu', 'transformers', "
         "'tokenizers', 'regex'))\n"
