@@ -17,7 +17,8 @@ stride-2 conv on kernel D):
                tokens, which straddle the kernels' 64-row K/V tiles), F,
                L, DQ and DKV also at a ragged 1000 x 333 shape, F, L, DQ,
                DKV, G, C and P also at a tensor-parallel rank's shard
-               shapes (tp = 2, and 4 for F, G, C and P), C, P
+               shapes (tp = 2, 4 for F, G, C and P, and every level's G
+               shard at tp = 8), C, P
                and D also at the tiles of 16- and 8-column images and C at
                the input gradient's shape, and P also against kernel C run
                on the prologue already applied, with CUDA-event times for
@@ -123,12 +124,17 @@ stride-2 conv on kernel D):
                drives every ported study entry point
                (storygen_tpu_torch/studies/) at one of its own UNet shapes,
                checking that it launched each of the eleven study wrappers
-               and kernel F (its baseline) and nothing else; then holds
+               and kernel F (its baseline) and nothing else; prints the
+               registers and spill bytes ptxas gave every S1 / S2
+               instantiation of this run's build (any spill fails the
+               phase) and kernel F's time at each study shape; then holds
                each wrapper's instantiations against its plain version on
                the same inputs at the studies' full-width shapes (attn3 L1,
                attn1 L1, attn3 L2, attn3 L3), with kernel, plain, library
-               (SDPA, for the functions that compute attention) and bound
-               times. The earlier paths launch no study kernel.
+               (SDPA, for the functions that compute attention), bound and
+               F times, and the kernel's own device time without its
+               wrapper's host preparation (torch.profiler). The earlier
+               paths launch no study kernel.
 
 There is no CPU branch: without a CUDA device the script exits non-zero
 before printing any result. The last line is the JSON status object.
@@ -245,6 +251,11 @@ for _name, _src, _line in (
     KERNEL_META[_name] = {"route": "cuda", "source": STUDY_SOURCES[_src],
                           "replaces": f"scripts/studies/{_line}"}
 STUDY_KERNELS = tuple(k for k in KERNEL_META if k not in PORT_KERNELS)
+# the CUDA kernel that each study source launches (its name in a trace)
+STUDY_ENTRIES = {STUDY_SOURCES["online"]: "online_kernel",
+                 STUDY_SOURCES["bounded"]: "bounded_kernel",
+                 STUDY_SOURCES["qk"]: "qk_kernel",
+                 STUDY_SOURCES["int8"]: "int8_attn_kernel"}
 SERVING_KERNELS = ("flash_fwd", "geglu_matmul", "conv3x3")
 FUSED_KERNELS = ("gnconv3x3", "downconv3x3")
 # what each path must launch (> 0); every other kernel is held to 0 (the
@@ -334,6 +345,27 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str, iters: int = 5):
+    """Device time per call of the CUDA kernels whose name holds `kernel`,
+    from a torch.profiler trace of `iters` calls after one warm-up: a
+    kernel's own time, without its wrapper's host preparation. None if
+    two traces in turn hold no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # a trace that lost its kernels is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "device_time_total", 0.0)
+                    for e in prof.key_averages() if kernel in e.key)
+        if total:
+            return total / 1e3 / iters
+    return None
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -544,9 +576,13 @@ def kernel_cases(dev):
             ("mid train ff", 4 * 64, 5120, 1280, False),
             ("L1 ff fp32 bias", 3 * 4096, 1280, 320, True),
             ("ragged", 1000, 5120, 1280, False),
-            # a tensor-parallel rank's inner shard at tp = 2 and 4
+            # a tensor-parallel rank's inner shard at tp = 2 and 4, and
+            # every level's at tp = 8 (L1's N = 160 takes the K step 32)
             ("L1 ff TP=2 shard", 3 * 4096, 640, 320, False),
-            ("L1 ff TP=4 shard", 3 * 4096, 320, 320, False)]:
+            ("L1 ff TP=4 shard", 3 * 4096, 320, 320, False),
+            ("L1 ff TP=8 shard", 3 * 4096, 160, 320, False),
+            ("L2 ff TP=8 shard", 3 * 1024, 320, 640, False),
+            ("L3 ff TP=8 shard", 3 * 256, 640, 1280, False)]:
         p, w = rnd(m, 2 * n), rnd(e, n, s=n ** -0.5)
         bias = rnd(e).float() if bias32 else rnd(e)
         cases.append(Case(
@@ -2688,7 +2724,6 @@ def study_cases(dev):
             (sa.mh_attention, "attn3 L3", dict(g=2)),
             (sa.mh_attention, "attn3 L2", dict(g=4)),
             (sa.mh_attention, "attn1 L1", dict(g=8)),
-            # 32-row K/V tiles (sa.mh_kv_rows)
             (sa.mh_attention, "attn3 L3", dict(g=8))):
         q, k, v = qkv(shape)
         b, h, sq, skv, d = STUDY_SHAPES[shape]
@@ -2755,9 +2790,65 @@ def study_cases(dev):
     return cases
 
 
+def study_ptxas() -> bool:
+    """The registers and spill bytes that ptxas gave every S1 / S2
+    instantiation in this run's build, one line each; False if any
+    instantiation spills or a built line has no report."""
+    import re
+    from storygen_tpu_torch.ops import _build, study_attention as sa
+    from storygen_tpu_torch.studies.common import ptxas_summary
+    ok = True
+    for stem, kernel, built in (("study_online", "online_kernel",
+                                 sa.ONLINE_BUILT),
+                                ("study_bounded", "bounded_kernel",
+                                 sa.BOUNDED_BUILT)):
+        seen = set()
+        for entry, regs, stack, stores, loads in ptxas_summary(
+                _build.ptxas_report(stem)):
+            m = re.search(kernel + r"I((?:Li-?\d+E)+)E", entry)
+            if m is None:
+                continue
+            args = tuple(int(x) for x in re.findall(r"Li(-?\d+)E",
+                                                     m.group(1)))
+            seen.add(args)
+            good = stores == 0 and loads == 0
+            ok &= good
+            print(f"ptxas {kernel}<{', '.join(map(str, args))}>: {regs} "
+                  f"registers, {stack} bytes stack, {stores} bytes spill "
+                  f"stores, {loads} bytes spill loads "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+        missing = built - seen
+        ok &= not missing
+        print(f"ptxas {stem}: {len(seen)} instantiations reported, "
+              f"{len(built)} built lines, missing {sorted(missing)} "
+              f"{'ok' if not missing else 'FAIL'}", flush=True)
+    return ok
+
+
+def study_f_baselines(dev, card: str) -> dict:
+    """Kernel F's time at each study shape, on the studies' inputs in F's
+    (B, S, H*D) layout: the product forward that each study case reads
+    against."""
+    import torch
+    from storygen_tpu_torch.ops import flash_attention as fa
+    from storygen_tpu_torch.studies import common
+    f_ms = {}
+    for shape, (b, h, sq, skv, d) in STUDY_SHAPES.items():
+        q, k, v = (fa.merge_heads(t) for t in common.qkv(
+            dev, b, h, sq, skv, d, seed=4))
+        with torch.no_grad():
+            f_ms[shape] = cuda_ms(
+                lambda: fa.flash_fwd(q, k, v, h, d ** -0.5), 10)
+        print(f"study F baseline {shape} B{b} {sq}x{skv} d{d}: kernel F "
+              f"{f_ms[shape]:.4f} ms  [{card}]", flush=True)
+        del q, k, v
+    return f_ms
+
+
 def phase_studies(dev, card: str, results: dict) -> bool:
-    """The study path's launches, then every study case: kernel against
-    its plain version on the same inputs, with times."""
+    """The study path's launches, the S1 / S2 ptxas report, then every
+    study case: kernel against its plain version on the same inputs, with
+    times beside SDPA's and kernel F's at the case's shape."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.synchronize()
@@ -2765,7 +2856,9 @@ def phase_studies(dev, card: str, results: dict) -> bool:
     study_path()
     torch.cuda.synchronize()
     ok = record_launches(results, read_launches(), "studies")
+    ok &= study_ptxas()
     torch.cuda.empty_cache()
+    f_ms = study_f_baselines(dev, card)
     library_ms = {}
     for c, rtol in study_cases(dev):
         with torch.no_grad():
@@ -2780,6 +2873,8 @@ def phase_studies(dev, card: str, results: dict) -> bool:
         del out, ref
         with torch.no_grad():
             ms = cuda_ms(c.kern, 10)
+            alone = device_ms(c.kern,
+                              STUDY_ENTRIES[KERNEL_META[c.name]["source"]])
             plain_ms = cuda_ms(c.plain, 3)
             lib_ms = None
             if c.library is not None:
@@ -2789,10 +2884,13 @@ def phase_studies(dev, card: str, results: dict) -> bool:
                 lib_ms = library_ms[key]
         b_ms, b_by = bound_ms(c.flops, c.nbytes)
         lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
+        shape_f = f_ms[" ".join(c.label.split(" ")[:2])]
+        own = "not measured" if alone is None else f"{alone:.4f} ms"
         print(f"study {c.name:23s} {c.label:58s} max_abs_err {err:.3e} "
               f"(bound {bound:.3e}) {'ok' if good else 'FAIL'};  kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  bound "
-              f"{b_ms:.4f} ms ({b_by})  [{card}]", flush=True)
+              f"{ms:.4f} ms (device time alone {own})  plain "
+              f"{plain_ms:.4f} ms  library {lib}  bound {b_ms:.4f} ms "
+              f"({b_by})  F {shape_f:.4f} ms  [{card}]", flush=True)
         r = results.setdefault(c.name, {"name": c.name, **KERNEL_META[c.name]})
         for key, val in (("max_abs_err", 0.0), ("ms", 0.0), ("plain_ms", 0.0),
                          ("bound_ms", 0.0), ("library_ms", None),
@@ -2807,7 +2905,8 @@ def phase_studies(dev, card: str, results: dict) -> bool:
         r["cases"].append({"case": c.label, "max_abs_err": err,
                            "bound": bound, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": b_ms, "bound_by": b_by,
-                           "library_ms": lib_ms})
+                           "library_ms": lib_ms, "device_ms": alone,
+                           "f_ms": shape_f})
         r["bound_by"] = max(r["cases"], key=lambda x: x["bound_ms"])[
             "bound_by"]
     # the summed cases have a library time only if each case has one (the

@@ -362,8 +362,11 @@ cudaError_t launch(const GegluArgs& a, int split, cudaStream_t stream) {
 // bias_fp32 else bf16. `part` is an fp32 scratch of split * M * E floats
 // (unused without split-K), `count` a zeroed int per output tile (left
 // zeroed). The instantiations built are the SG_BUILT lines below, one per
-// (E, m_class(M)), mirrored by GEGLU_BUILT in ops/geglu.py; any other, or
-// N not a multiple of the line's BK, returns cudaErrorInvalidValue.
+// (E, m_class(M), BK), mirrored by GEGLU_BUILT in ops/geglu.py: the first
+// line of (E, m_class(M)) whose K step BK divides N runs, so a K step of
+// 32 is taken only where N is not a multiple of 64 (the first level's
+// inner shard at tensor parallelism 8, N = 160). Any other key, or N that
+// no line's BK divides, returns cudaErrorInvalidValue.
 extern "C" int sg_geglu_matmul(const void* proj, const void* w,
                                const void* bias, int bias_fp32, void* out,
                                void* part, void* count, int M, int N, int E,
@@ -381,8 +384,8 @@ extern "C" int sg_geglu_matmul(const void* proj, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int mc = m_class(M);
 #define SG_BUILT(E_, MC_, BM_, BE_, BK_, WM_, WE_, STAGES_, SPLIT_)      \
-  if (E == E_ && mc == MC_) {                                           \
-    if (N % BK_ != 0 || (SPLIT_ > 1 && (!part || !count)))              \
+  if (E == E_ && mc == MC_ && N % BK_ == 0) {                           \
+    if (SPLIT_ > 1 && (!part || !count))                                \
       return static_cast<int>(cudaErrorInvalidValue);                   \
     return static_cast<int>(                                            \
         bias_fp32                                                       \
@@ -390,10 +393,12 @@ extern "C" int sg_geglu_matmul(const void* proj, const void* w,
             : launch<BM_, BE_, BK_, WM_, WE_, STAGES_, bf16>(a, SPLIT_, s)); \
   }
   // (E, M class, BM, BE, BK, warps along M, warps along E, ring stages,
-  // split-K): the UNet's widths 320, 640 and 1280
+  // split-K): the UNet's widths 320, 640 and 1280; a K step of 32 after
+  // the 64 one for the first level's N = 160 shard at tensor parallelism 8
   SG_BUILT(320, 0, 32, 320, 64, 1, 4, 3, 4)
   SG_BUILT(320, 1, 32, 320, 64, 1, 4, 3, 1)
   SG_BUILT(320, 2, 64, 320, 64, 2, 4, 3, 1)
+  SG_BUILT(320, 2, 128, 320, 32, 2, 4, 3, 1)
   SG_BUILT(640, 0, 32, 320, 64, 1, 4, 3, 4)
   SG_BUILT(640, 1, 32, 320, 64, 1, 4, 3, 2)
   SG_BUILT(640, 2, 64, 320, 64, 2, 4, 3, 1)

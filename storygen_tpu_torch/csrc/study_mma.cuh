@@ -24,6 +24,14 @@ __host__ __device__ constexpr int align128(int x) {
   return (x + 127) / 128 * 128;
 }
 
+// Ring stages of a kernel whose ring stage takes `stage` bytes of shared
+// memory (the attention studies' K/V rings): 3 where two blocks of three
+// stages fit in an SM's 233,472 bytes (less the 1 KB the card reserves per
+// block), so that the third stage costs no resident block; else 2.
+__host__ __device__ constexpr int ring_stages(int stage) {
+  return 2 * (3 * stage + 1024) <= 233472 ? 3 : 2;
+}
+
 // Row pitch in bytes of a shared tile whose rows hold `row_bytes` bytes (a
 // multiple of 16): an odd number of 16-byte units, so the eight rows one
 // ldmatrix reads fall in eight different bank groups.
@@ -91,10 +99,23 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// Start the copies of rows [row0, row0 + ROWS) x [0, D) of a strided bf16
-// matrix (`src` its first row of this head, row stride `rs` elements) into
-// a shared tile of pitch PITCH. A chunk past `nrows` or past D is
-// zero-filled by the copy, which then reads nothing; its address is `src`.
+// Start the copy of chunk `idx` (row idx / CPR, 16-byte column idx % CPR)
+// of rows [row0, ...) x [0, D) of a strided bf16 matrix (`src` its first
+// row of this head, row stride `rs` elements) into a shared tile of pitch
+// PITCH. A chunk past `nrows` or past D is zero-filled by the copy, which
+// then reads nothing; its address is `src`.
+template <int CPR, int PITCH>
+__device__ __forceinline__ void copy_chunk(unsigned char* dst, const bf16* src,
+                                           long long rs, int row0, int nrows,
+                                           int D, int idx) {
+  const int r = idx / CPR, c = idx % CPR;
+  const bool in = row0 + r < nrows && c * 8 < D;
+  cp_async16(dst + r * PITCH + c * 16,
+             in ? src + (long long)(row0 + r) * rs + c * 8 : src,
+             in ? 16 : 0);
+}
+
+// Start the copies of rows [row0, row0 + ROWS) of a tile (copy_chunk).
 template <int ROWS, int CPR, int PITCH, int NT>
 __device__ __forceinline__ void copy_tile(unsigned char* dst, const bf16* src,
                                           long long rs, int row0, int nrows,
@@ -103,13 +124,26 @@ __device__ __forceinline__ void copy_tile(unsigned char* dst, const bf16* src,
 #pragma unroll
   for (int i = 0; i < (N + NT - 1) / NT; ++i) {
     const int idx = tid + i * NT;
-    if (N % NT == 0 || idx < N) {
-      const int r = idx / CPR, c = idx % CPR;
-      const bool in = row0 + r < nrows && c * 8 < D;
-      cp_async16(dst + r * PITCH + c * 16,
-                 in ? src + (long long)(row0 + r) * rs + c * 8 : src,
-                 in ? 16 : 0);
-    }
+    if (N % NT == 0 || idx < N)
+      copy_chunk<CPR, PITCH>(dst, src, rs, row0, nrows, D, idx);
+  }
+}
+
+// copy_tile for a kernel whose registers hold O and the Q fragments across
+// its main loop (the attention studies): where a thread copies more than
+// four chunks of the tile, a rolled loop that computes each chunk's
+// addresses as it goes, so they are not held in registers.
+template <int ROWS, int CPR, int PITCH, int NT>
+__device__ __forceinline__ void copy_tile_lean(unsigned char* dst,
+                                               const bf16* src, long long rs,
+                                               int row0, int nrows, int D,
+                                               int tid) {
+  if constexpr (ROWS * CPR <= 4 * NT) {
+    copy_tile<ROWS, CPR, PITCH, NT>(dst, src, rs, row0, nrows, D, tid);
+  } else {
+#pragma unroll 1
+    for (int idx = tid; idx < ROWS * CPR; idx += NT)
+      copy_chunk<CPR, PITCH>(dst, src, rs, row0, nrows, D, idx);
   }
 }
 
@@ -280,18 +314,22 @@ __device__ __forceinline__ void qk_s8(int (&s)[NT][4],
   }
 }
 
+// The bf16 A fragment of P V over the 16 kv rows held by S tiles a and b.
+__device__ __forceinline__ void pack_p16(uint32_t (&p)[4], const float (&a)[4],
+                                         const float (&b)[4]) {
+  p[0] = pack_bf16(a[0], a[1]);
+  p[1] = pack_bf16(a[2], a[3]);
+  p[2] = pack_bf16(b[0], b[1]);
+  p[3] = pack_bf16(b[2], b[3]);
+}
+
 // Round the probabilities of S tiles (NT = 2 KT) to the bf16 A fragments of
 // the P V product.
 template <int NT>
 __device__ __forceinline__ void pack_p(uint32_t (&p)[NT / 2][4],
                                        const float (&s)[NT][4]) {
 #pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    p[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    p[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    p[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    p[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-  }
+  for (int kk = 0; kk < NT / 2; ++kk) pack_p16(p[kk], s[2 * kk], s[2 * kk + 1]);
 }
 
 // Sum over the four lanes of a quad (one accumulator row).
@@ -314,21 +352,24 @@ __device__ __forceinline__ float quad_max(float x) {
 }
 
 // The value at accumulator column `col` of this lane's two rows (grp and
-// grp + 8), from the lane of the quad that holds it.
+// grp + 8): the lane of the quad that holds it adds it to zero, the others
+// add nothing, and the quad's sum is exact. (Picking o[col / 8] by a
+// select of its elements would index o at run time, and o would live in
+// local memory.)
 template <int DT>
 __device__ __forceinline__ void column_of(const float (&o)[DT][4], int col,
                                           int lane, float& r0, float& r1) {
   float x0 = 0.f, x1 = 0.f;
-  const int e = col % 2;
 #pragma unroll
   for (int j = 0; j < DT; ++j)
-    if (j == col / 8) {
-      x0 = e ? o[j][1] : o[j][0];
-      x1 = e ? o[j][3] : o[j][2];
-    }
-  const int src = (lane & ~3) | ((col % 8) / 2);
-  r0 = __shfl_sync(0xffffffffu, x0, src);
-  r1 = __shfl_sync(0xffffffffu, x1, src);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (8 * j + 2 * (lane % 4) + e == col) {
+        x0 += o[j][e];
+        x1 += o[j][e + 2];
+      }
+  r0 = quad_sum(x0);
+  r1 = quad_sum(x1);
 }
 
 // Write a warp's 16 output rows (row0 = first row, out rows of d bf16):

@@ -23,15 +23,24 @@
 // two share these instantiations.
 //
 // What bounds it on the H100: tensor-core work (4 Sq Skv d operations) and
-// the per-logit softmax work; the logits never touch HBM. Unlike kernel F
-// (csrc/flash_fwd.cu, which stages S, P and O in shared memory with WMMA),
-// this kernel keeps S, P and O in registers with mma.sync: the accumulator
-// layout of mma.m16n8k16 is known, so the row max and sum are quad
-// shuffles and the rescale of O is a multiply of the warp's own registers.
-// One block per (BQ query rows, head); Q is staged through shared memory
-// into registers once; each step copies one BK-row K/V tile into shared
-// memory (zero-padded from d = 40 to 48 columns there). No cp.async, TMA
-// or wgmma yet.
+// the per-logit softmax work; the logits never touch HBM.
+//
+// The design is kernel F's (csrc/flash_fwd.cu), so that the study compares
+// forms of the softmax and not copy pipelines:
+// - S, P and O live in registers: mma.sync m16n8k16 (bf16 in, fp32
+//   accumulation) with ldmatrix fragments; two neighbouring S tiles are
+//   P's A fragment (study_mma.cuh). The row max and sum are quad shuffles,
+//   the rescale of O a multiply of the warp's own registers.
+// - K and V tiles of BK rows arrive through a ring of STAGES shared
+//   buffers (ring_stages: 3 where two blocks of them fit an SM, else 2)
+//   filled by 16-byte cp.async copies: the next tile's copies are issued
+//   before the current tile's Q K^T, one barrier per tile. The copy
+//   zero-fills columns past d (d = 40 runs as 48 in shared memory only).
+// - Q takes the same path once, into the ring's last stage (the first
+//   step refills that stage only after its barrier, when every warp holds
+//   its Q fragments in registers).
+// Rows are an odd number of 16-byte units apart: ldmatrix is free of bank
+// conflicts. Not yet: wgmma and TMA.
 #include <math.h>
 
 #include "study_mma.cuh"
@@ -46,9 +55,13 @@ template <int DP, int BQ, int BK, int HALVES>
 struct Cfg {
   static constexpr int NT = 32 * BQ / (16 * HALVES);
   static constexpr int PITCH = pitch_bytes(DP * 2);
-  static constexpr int QBYTES = BQ * PITCH;
-  static constexpr int KBYTES = BK * PITCH;
-  static constexpr int BYTES = QBYTES > 2 * KBYTES ? QBYTES : 2 * KBYTES;
+  static constexpr int CPR = DP * 2 / 16;  // 16-byte chunks per row
+  static constexpr int TILE = align128(BK * PITCH);  // one K or V tile
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int STAGES = ring_stages(STAGE);
+  static constexpr int BYTES = STAGES * STAGE;
+  static_assert(align128(BQ * PITCH) <= STAGE, "Q fits a ring stage");
+  static_assert(BYTES <= 232448, "a block's shared memory");
 };
 
 template <int MODE>
@@ -57,27 +70,45 @@ __device__ __forceinline__ float ex(float x) {
 }
 
 template <int DP, int BQ, int BK, int MODE, int HALVES>
-__global__ void __launch_bounds__(Cfg<DP, BQ, BK, HALVES>::NT)
+__global__ void __launch_bounds__(Cfg<DP, BQ, BK, HALVES>::NT, 1)
 online_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
               int Skv, int d, float scale) {
   using C = Cfg<DP, BQ, BK, HALVES>;
   constexpr int KS = DP / 16, NTK = BK / 8, DT = DP / 8;
+  constexpr int STAGES = C::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long long bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
   const int wrow = warp * 16 * HALVES;
-  const long long rs = (long long)d * 2;
+  const bf16* kh = k + bh * Skv * d;
+  const bf16* vh = v + bh * Skv * d;
+  const int ntiles = Skv / BK;
+  auto fetch = [&](int t, int stage) {
+    unsigned char* st = smem + stage * C::STAGE;
+    copy_tile_lean<BK, C::CPR, C::PITCH, C::NT>(st, kh, d, t * BK, Skv, d,
+                                                tid);
+    copy_tile_lean<BK, C::CPR, C::PITCH, C::NT>(st + C::TILE, vh, d, t * BK,
+                                                Skv, d, tid);
+  };
 
-  copy_rows<16>(smem, C::PITCH,
-                reinterpret_cast<const unsigned char*>(q) + bh * Sq * rs, rs,
-                q0, BQ, d * 2, DP * 2, tid, C::NT);
+  // group 0: Q into the last stage; then one group per stage but the last
+  unsigned char* qs = smem + (STAGES - 1) * C::STAGE;
+  copy_tile_lean<BQ, C::CPR, C::PITCH, C::NT>(qs, q + bh * Sq * d, d, q0, Sq,
+                                              d, tid);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles) fetch(s, s);
+    cp_async_commit();
+  }
+  cp_async_wait<STAGES - 1>();
   __syncthreads();
   uint32_t qa[HALVES][KS][4];
 #pragma unroll
   for (int h = 0; h < HALVES; ++h)
-    load_a_bf16<KS>(qa[h], smem + (wrow + 16 * h) * C::PITCH, C::PITCH, lane);
+    load_a_bf16<KS>(qa[h], qs + (wrow + 16 * h) * C::PITCH, C::PITCH, lane);
   float o[HALVES][DT][4], m[HALVES][2], l[HALVES][2];
 #pragma unroll
   for (int h = 0; h < HALVES; ++h) {
@@ -88,23 +119,25 @@ online_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         o[h][j][3] = 0.f;
   }
 
-  const unsigned char* kb =
-      reinterpret_cast<const unsigned char*>(k) + bh * Skv * rs;
-  const unsigned char* vb =
-      reinterpret_cast<const unsigned char*>(v) + bh * Skv * rs;
-  for (int k0 = 0; k0 < Skv; k0 += BK) {
+  int cs = 0, ls = STAGES - 1;  // ring stages of the tile in use / to fill
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile t
+    // every thread's copies have landed, and every warp is done with the
+    // stage that the copies below overwrite
     __syncthreads();
-    copy_rows<16>(smem, C::PITCH, kb, rs, k0, BK, d * 2, DP * 2, tid, C::NT);
-    copy_rows<16>(smem + C::KBYTES, C::PITCH, vb, rs, k0, BK, d * 2, DP * 2,
-                  tid, C::NT);
-    __syncthreads();
+    if (t + STAGES - 1 < ntiles) fetch(t + STAGES - 1, ls);
+    cp_async_commit();
+    ls = ls + 1 == STAGES ? 0 : ls + 1;
+    const unsigned char* ks = smem + cs * C::STAGE;
+    cs = cs + 1 == STAGES ? 0 : cs + 1;
+
     float s[HALVES][NTK][4];
 #pragma unroll
     for (int h = 0; h < HALVES; ++h) {
 #pragma unroll
       for (int j = 0; j < NTK; ++j)
         s[h][j][0] = s[h][j][1] = s[h][j][2] = s[h][j][3] = 0.f;
-      qk_bf16<KS, NTK>(s[h], qa[h], smem, C::PITCH, lane);
+      qk_bf16<KS, NTK>(s[h], qa[h], ks, C::PITCH, lane);
     }
 #pragma unroll
     for (int h = 0; h < HALVES; ++h) {
@@ -125,23 +158,29 @@ online_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         l[h][r] *= alpha[r];
       }
 #pragma unroll
-      for (int j = 0; j < NTK; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = ex<MODE>(s[h][j][e] - m[h][e / 2]);
-          s[h][j][e] = p;
-          l[h][e / 2] += p;
-        }
-#pragma unroll
       for (int j = 0; j < DT; ++j) {
         o[h][j][0] *= alpha[0];
         o[h][j][1] *= alpha[0];
         o[h][j][2] *= alpha[1];
         o[h][j][3] *= alpha[1];
       }
-      uint32_t p[NTK / 2][4];
-      pack_p<NTK>(p, s[h]);
-      pv_bf16<NTK / 2, DT>(o[h], p, smem + C::KBYTES, C::PITCH, lane);
+      // p, its row sum, its bf16 A fragment and P V, 16 kv rows at a
+      // time: a chunk's probabilities die once its products are issued
+#pragma unroll
+      for (int kk = 0; kk < NTK / 2; ++kk) {
+#pragma unroll
+        for (int j = 2 * kk; j < 2 * kk + 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = ex<MODE>(s[h][j][e] - m[h][e / 2]);
+            s[h][j][e] = p;
+            l[h][e / 2] += p;
+          }
+        uint32_t p[1][4];
+        pack_p16(p[0], s[h][2 * kk], s[h][2 * kk + 1]);
+        pv_bf16<1, DT>(o[h], p, ks + C::TILE + 16 * kk * C::PITCH, C::PITCH,
+                       lane);
+      }
     }
   }
 

@@ -8,7 +8,9 @@ takes seconds). The library is placed under
 of the flags, the sources and the `csrc/*.cuh` headers they include, and
 loaded with `ctypes`; every pointer and the
 stream are passed as `c_void_p`. The build runs at the first kernel launch,
-never at import. A missing `nvcc` or a failed build raises.
+never at import. A missing `nvcc` or a failed build raises. Each source's
+`ptxas -v` report (registers, stack and spill bytes of every kernel) is
+kept beside the library as `<stem>.ptxas.txt` (`ptxas_report`).
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "storygen_tpu_torch
 LIB_NAME = "libstorygen_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+# the library build's own: ptxas reports every kernel's registers and spills
+REPORT_FLAGS = ("-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -100,7 +104,7 @@ def find_nvcc() -> str:
 def source_hash(srcs: List[Path]) -> str:
     """Hash of the flags, the sources and every shared header, so that
     editing a header rebuilds the library."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + REPORT_FLAGS).encode())
     for p in list(srcs) + headers():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -112,27 +116,35 @@ def lib_path(srcs: List[Path]) -> Path:
 
 
 def compile_command(nvcc: str, src: Path, obj: Path) -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    return [nvcc, *NVCC_FLAGS, *REPORT_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def ptxas_report(stem: str) -> str:
+    """The `ptxas -v` output of csrc/<stem>.cu in this tree's build (after
+    `load()`)."""
+    return lib_path(sources()).with_name(f"{stem}.ptxas.txt").read_text()
 
 
 def link_command(nvcc: str, objs: List[Path], out: Path) -> List[str]:
     return [nvcc, "-shared", "-o", str(out), *map(str, objs)]
 
 
-def _run_all(cmds: List[List[str]]) -> None:
-    """Run the commands in parallel; raise with the first failure's
-    stderr once all have ended."""
+def _run_all(cmds: List[List[str]]) -> List[str]:
+    """Run the commands in parallel; raise with the failures' output once
+    all have ended, else return each command's output."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
+                              stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    failed = []
+    outs, failed = [], []
     for cmd, proc in zip(cmds, procs):
-        _, err = proc.communicate()
+        out, _ = proc.communicate()
+        outs.append(out)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): "
-                          f"{' '.join(cmd)}\n{err}")
+                          f"{' '.join(cmd)}\n{out}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load() -> ctypes.CDLL:
@@ -151,9 +163,11 @@ def load() -> ctypes.CDLL:
             objs = [out.with_name(f"{s.stem}.{tag}.o") for s in srcs]
             tmp = out.with_name(f"{LIB_NAME}.{tag}")
             t0 = time.perf_counter()
-            _run_all([compile_command(nvcc, s, o)
-                      for s, o in zip(srcs, objs)])
+            reports = _run_all([compile_command(nvcc, s, o)
+                                for s, o in zip(srcs, objs)])
             _run_all([link_command(nvcc, objs, tmp)])
+            for s, text in zip(srcs, reports):
+                out.with_name(f"{s.stem}.ptxas.txt").write_text(text)
             os.replace(tmp, out)
             for o in objs:
                 o.unlink()

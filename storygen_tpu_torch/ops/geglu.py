@@ -33,18 +33,22 @@ def geglu_matmul_plain(proj: torch.Tensor, weight: torch.Tensor,
 
 
 # The instantiations of kernel G in csrc/geglu_matmul.cu (its SG_BUILT
-# lines): (E, m_class(M)) -> (BM, BE, BK, warps along M, warps along E,
-# cp.async ring stages, split-K).
+# lines, in their order): (E, m_class(M), K step) -> (BM, BE, BK, warps
+# along M, warps along E, cp.async ring stages, split-K). Of the lines of
+# one (E, M class) the first whose K step divides N runs: the K step 32
+# only where N is not a multiple of 64 (the first level at tensor
+# parallelism 8, N = 1280 / 8 = 160).
 GEGLU_BUILT = {
-    (320, 0): (32, 320, 64, 1, 4, 3, 4),
-    (320, 1): (32, 320, 64, 1, 4, 3, 1),
-    (320, 2): (64, 320, 64, 2, 4, 3, 1),
-    (640, 0): (32, 320, 64, 1, 4, 3, 4),
-    (640, 1): (32, 320, 64, 1, 4, 3, 2),
-    (640, 2): (64, 320, 64, 2, 4, 3, 1),
-    (1280, 0): (32, 128, 64, 1, 4, 3, 4),
-    (1280, 1): (64, 256, 64, 2, 4, 3, 2),
-    (1280, 2): (128, 256, 64, 2, 4, 3, 1),
+    (320, 0, 64): (32, 320, 64, 1, 4, 3, 4),
+    (320, 1, 64): (32, 320, 64, 1, 4, 3, 1),
+    (320, 2, 64): (64, 320, 64, 2, 4, 3, 1),
+    (320, 2, 32): (128, 320, 32, 2, 4, 3, 1),
+    (640, 0, 64): (32, 320, 64, 1, 4, 3, 4),
+    (640, 1, 64): (32, 320, 64, 1, 4, 3, 2),
+    (640, 2, 64): (64, 320, 64, 2, 4, 3, 1),
+    (1280, 0, 64): (32, 128, 64, 1, 4, 3, 4),
+    (1280, 1, 64): (64, 256, 64, 2, 4, 3, 2),
+    (1280, 2, 64): (128, 256, 64, 2, 4, 3, 1),
 }
 
 
@@ -55,19 +59,26 @@ def m_class(m: int) -> int:
     return 0 if m <= 512 else (1 if m <= 2048 else 2)
 
 
+def tile_key(m: int, n: int, e: int) -> Tuple[int, int, int]:
+    """The GEGLU_BUILT key that kernel G runs for proj (m, 2n) and weight
+    (e, n): the first built line of (e, m_class(m)) whose K step divides
+    n. ValueError if (e, m_class(m)) has no line, or none divides n."""
+    steps = [k[2] for k in GEGLU_BUILT if k[:2] == (e, m_class(m))]
+    if not steps:
+        raise ValueError(f"no GEGLU kernel built for E={e}, M={m}")
+    for bk in steps:
+        if n % bk == 0:
+            return e, m_class(m), bk
+    raise ValueError(f"inner width {n} must be a multiple of the K step "
+                     f"{steps[-1]}")
+
+
 def geglu_tile(m: int, n: int, e: int) -> Tuple[int, ...]:
     """The instantiation that kernel G runs for proj (m, 2n) and weight
     (e, n): (BM, BE, BK, WM, WE, stages, split); its grid is
-    (ceil(e / BE), ceil(m / BM), split). ValueError if none is built or n
-    is not a multiple of its BK."""
-    key = (e, m_class(m))
-    if key not in GEGLU_BUILT:
-        raise ValueError(f"no GEGLU kernel built for E={e}, M={m}")
-    tile = GEGLU_BUILT[key]
-    if n % tile[2]:
-        raise ValueError(f"inner width {n} must be a multiple of the K step "
-                         f"{tile[2]}")
-    return tile
+    (ceil(e / BE), ceil(m / BM), split). ValueError if none is built for
+    these widths (`tile_key`)."""
+    return GEGLU_BUILT[tile_key(m, n, e)]
 
 
 # Per (device, stream): the split-K tiles' arrival counters. Zeroed once;

@@ -36,11 +36,9 @@ from storygen_tpu_torch.ops import _build
 
 LOG2E = 1.4426950408889634
 TILES = (64, 128)
-# mh_attention's K/V tile rows where 64-row tiles overflow shared memory
-# (g = 8 heads at d = 160)
-MH_SMALL_KV = 32
-# shared memory a block may use on the H100 (bytes)
+# shared memory a block may use on the H100, and an SM's (bytes)
 SMEM_LIMIT = 232448
+SM_SMEM = 233472
 
 # S2's kinds (the Kind enum of csrc/study_bounded.cu)
 TB, BOUNDED, QK, QK_EXP, QK_PV, BND2 = range(6)
@@ -73,9 +71,8 @@ BOUNDED_BUILT = frozenset(
        for kind in (QK, QK_EXP, QK_PV)}
     | {(48, t, t, 1, 2, 1, TB) for t in TILES}
     | _tiles4(48, 1, 1, 1, BND2) | _tiles4(80, 1, 1, 1, BND2)
-    | {(dp, 64, 64, 1, 1, g, BND2) for dp in (48, 80) for g in (2, 4, 8)}
-    | {(160, 64, 64, 1, 1, g, BND2) for g in (2, 4)}
-    | {(160, 64, MH_SMALL_KV, 1, 1, 8, BND2)})
+    | {(dp, 64, 64, 1, 1, g, BND2) for dp in (48, 80, 160)
+       for g in (2, 4, 8)})
 
 
 def pad16(w: int) -> int:
@@ -91,14 +88,32 @@ def pitch_bytes(row_bytes: int) -> int:
     return row_bytes if (row_bytes // 16) % 2 else row_bytes + 16
 
 
+def align128(x: int) -> int:
+    return (x + 127) // 128 * 128
+
+
+def ring_stages(stage: int) -> int:
+    """The kernels' K/V ring depth (csrc/study_mma.cuh::ring_stages): 3
+    where two blocks of three `stage`-byte stages fit an SM (less 1 KB a
+    block), else 2."""
+    return 3 if 2 * (3 * stage + 1024) <= SM_SMEM else 2
+
+
 def online_smem(dp: int, bq: int, bk: int) -> int:
-    pitch = pitch_bytes(2 * dp)
-    return max(bq * pitch, 2 * bk * pitch)
+    """S1's shared memory (csrc/study_online.cu's Cfg::BYTES): a ring of
+    K and V tiles of bk rows; Q is copied into its last stage."""
+    stage = 2 * align128(bk * pitch_bytes(2 * dp))
+    return ring_stages(stage) * stage
 
 
 def bounded_smem(dp: int, bq: int, bk: int, sub: int, g: int) -> int:
+    """S2's shared memory (csrc/study_bounded.cu's Cfg::BYTES): a ring of
+    stages of sub * bk rows of K and of V, with g > 1 also a Q slot (one
+    head's bq rows); with one head Q is copied into the last stage."""
     pitch = pitch_bytes(2 * dp)
-    return max(g * bq * pitch, 2 * g * sub * bk * pitch)
+    stage = (2 * align128(sub * bk * pitch)
+             + (align128(bq * pitch) if g > 1 else 0))
+    return ring_stages(stage) * stage
 
 
 def _require(built, key, smem: int, name: str) -> None:
@@ -110,13 +125,13 @@ def _require(built, key, smem: int, name: str) -> None:
     raise ValueError(f"{name}: instantiation {key} is not built")
 
 
-def check_tiles(bq: int, bk: int, kv_tiles=TILES) -> None:
-    if bq not in TILES or bk not in kv_tiles:
-        raise ValueError(f"bq and bk are tile rows, one of {TILES} (bk "
-                         f"{kv_tiles}); got {bq}, {bk}")
+def check_tiles(bq: int, bk: int) -> None:
+    if bq not in TILES or bk not in TILES:
+        raise ValueError(f"bq and bk are tile rows, one of {TILES}; got "
+                         f"{bq}, {bk}")
 
 
-def _check(q, k, v, bq, bk, rows_per_step=None, kv_tiles=TILES):
+def _check(q, k, v, bq, bk, rows_per_step=None):
     """(B, H, Sq, Skv, D) after validating shapes and tiles."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, S, D)")
@@ -128,7 +143,7 @@ def _check(q, k, v, bq, bk, rows_per_step=None, kv_tiles=TILES):
         raise ValueError("q, k, v must be on one device")
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError("q, k, v must share a dtype")
-    check_tiles(bq, bk, kv_tiles)
+    check_tiles(bq, bk)
     skv = k.shape[2]
     step = rows_per_step or bk
     if sq % bq or skv % step:
@@ -377,8 +392,8 @@ def ablate_attention(wrapper, plain, q, k, v, *, sm_scale: float,
                     1e-30, halves=halves)
 
 
-def _bnd2(wrapper, plain, q, k, v, sm_scale, bq, bk, g, kv_tiles=TILES):
-    b, h, _, _, d = _check(q, k, v, bq, bk, kv_tiles=kv_tiles)
+def _bnd2(wrapper, plain, q, k, v, sm_scale, bq, bk, g):
+    b, h, _, _, d = _check(q, k, v, bq, bk)
     if (b * h) % g:
         raise ValueError(f"B*H={b * h} does not divide into groups of {g}")
     key = (pad16(d), bq, bk, 1, 1, g, BND2)
@@ -400,22 +415,11 @@ def bnd2_attention(wrapper, plain, q, k, v, *, sm_scale: float,
     return _bnd2(wrapper, plain, q, k, v, sm_scale, bq, bk, 1)
 
 
-def mh_kv_rows(d: int, g: int, bq: int = 64) -> int:
-    """mh_attention's default K/V tile rows: 64, or MH_SMALL_KV where the
-    double-buffered 64-row tiles of g heads overflow shared memory."""
-    fits = bounded_smem(pad16(d), bq, 64, 1, g) <= SMEM_LIMIT
-    return 64 if fits else MH_SMALL_KV
-
-
 @kernel_wrapper
 def mh_attention(wrapper, plain, q, k, v, *, sm_scale: float, bq: int = 64,
-                 bk: Optional[int] = None, g: int = 2) -> torch.Tensor:
-    """bnd2_attention with g heads per block; bk defaults to
-    mh_kv_rows(d, g, bq)."""
-    if bk is None:
-        bk = mh_kv_rows(q.shape[-1], g, bq)
-    return _bnd2(wrapper, plain, q, k, v, sm_scale, bq, bk, g,
-                 TILES + (MH_SMALL_KV,))
+                 bk: int = 64, g: int = 2) -> torch.Tensor:
+    """bnd2_attention with g heads per block (B*H must divide by g)."""
+    return _bnd2(wrapper, plain, q, k, v, sm_scale, bq, bk, g)
 
 
 WRAPPERS = (variant_attention, t_attention, tb_attention, bounded_attention,

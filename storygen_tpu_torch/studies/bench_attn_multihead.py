@@ -1,10 +1,9 @@
 """Do several heads per block help the small-sequence shapes on the card?
 
 The card's counterpart of scripts/studies/bench_attn_multihead.py: mh on
-kernel S2 (csrc/study_bounded.cu) is bnd2 with g heads per block (4 warps
-per head, 64-row tiles), so the grid has g times fewer, g times larger
-blocks. g = 8 at d = 160 takes 32-row K/V tiles: with 64-row ones it
-would need 344,064 bytes of shared memory, more than a block has.
+kernel S2 (csrc/study_bounded.cu) is bnd2 with g heads per block (64-row
+Q and K/V tiles), so the grid has g times fewer blocks, each of which
+walks its g heads in turn with 4 warps on one K/V ring.
 
   bnd(cur)  the port's kernel F
   mh g2/g4/g8
@@ -21,6 +20,7 @@ from storygen_tpu_torch.studies import common
 
 MAIN_SHAPES = ("attn3_L2", "attn1_L2_ref", "attn1_L2_main", "attn3_L3",
                "attn1_L1_main")
+GROUPS = (2, 4, 8)
 
 
 def main(device=None, shapes=MAIN_SHAPES, iters: int = 10) -> None:
@@ -33,7 +33,7 @@ def main(device=None, shapes=MAIN_SHAPES, iters: int = 10) -> None:
                                                 sm), True)]
         cands += [(f"mh g{g}", functools.partial(
             mh_attention, q, k, v, sm_scale=sm, g=g), True)
-            for g in (2, 4, 8)]
+            for g in GROUPS]
         common.run_candidates(name, cands, ref, 4.0 * b * h * sq * skv * d,
                               dev, card, iters)
 

@@ -1,8 +1,8 @@
 """Which tile of kernel G (csrc/geglu_matmul.cu) is fastest at each of its
 sites on the card.
 
-Kernel G picks its instantiation by the key (E, m_class(M))
-(ops/geglu.py::geglu_tile). For the key of each site below, the study
+Kernel G picks its instantiation by the key (E, m_class(M), K step)
+(ops/geglu.py::tile_key). For the key of each site below, the study
 builds the source once per candidate tile (BM, BE, BK, warps along M and
 E, ring stages, split-K), each into its own library whose only
 SG_BUILT line is that candidate's, one nvcc per candidate, all started
@@ -14,8 +14,9 @@ yardstick only: three launches and the gated product through HBM), with
 the max error against the fp32 plain version. The sites are the feed-
 forwards of the 512 px UNet: the serving main pass (3-row CFG batch), its
 reference pass (6 rows), stage-2 training (batch 4) and its reference
-pass (12 rows), a 256 px micro-step's second level, and the keys that
-only a 128 px image reaches.
+pass (12 rows), a 256 px micro-step's second level, the keys that
+only a 128 px image reaches, and the first level's inner shard at tensor
+parallelism 8 (N = 160, the only site whose N is not a multiple of 64).
 
 On the card by default; `--device cpu` runs the plain versions only (the
 wrapper's CPU path), with host-clock times that say nothing about the card.
@@ -55,33 +56,40 @@ SHAPES = {
     "L1_128px": (512, 1280, 320),
     "L2_128px": (384, 2560, 640),
     "L1_train_128px": (1024, 1280, 320),
+    # a tensor-parallel rank's shard at tp = 8: N = 1280 / 8
+    "L1_main_tp8": (12288, 160, 320),
 }
 
 Tile = Tuple[int, int, int, int, int, int, int]
-# (E, M class) -> candidate tiles (BM, BE, BK, WM, WE, stages, split)
+# (E, M class, K step) -> candidate tiles (BM, BE, BK, WM, WE, stages,
+# split)
 CANDIDATES: Dict[tuple, List[Tile]] = {
     # L1: the whole E = 320 in one block reads proj once; W, re-read from
     # L2 by every block, is 2.5x proj's bytes at BM = 64 and half that at
     # 128 (160 accumulators a thread, or 16 warps)
-    (320, 2): [(64, 320, 64, 2, 4, 3, 1), (64, 320, 32, 2, 4, 4, 1),
-               (128, 320, 32, 2, 4, 3, 1), (128, 320, 64, 2, 4, 2, 1),
-               (64, 160, 64, 2, 2, 3, 1)],
-    (640, 2): [(64, 320, 64, 2, 4, 3, 1), (64, 160, 64, 2, 2, 3, 1),
+    (320, 2, 64): [(64, 320, 64, 2, 4, 3, 1), (64, 320, 32, 2, 4, 4, 1),
+                  (128, 320, 32, 2, 4, 3, 1), (128, 320, 64, 2, 4, 2, 1),
+                  (64, 160, 64, 2, 2, 3, 1)],
+    # the N = 160 shard: five 32-deep inner steps
+    (320, 2, 32): [(64, 320, 32, 2, 4, 4, 1), (64, 320, 32, 2, 4, 3, 1),
+                   (64, 320, 32, 2, 4, 2, 1), (32, 320, 32, 1, 4, 4, 1),
+                   (128, 320, 32, 2, 4, 3, 1), (64, 160, 32, 2, 2, 4, 1)],
+    (640, 2, 64): [(64, 320, 64, 2, 4, 3, 1), (64, 160, 64, 2, 2, 3, 1),
                (128, 320, 32, 2, 4, 3, 1), (64, 320, 32, 2, 4, 6, 1)],
-    (1280, 2): [(128, 256, 64, 2, 4, 3, 1), (64, 256, 64, 2, 4, 3, 1),
+    (1280, 2, 64): [(128, 256, 64, 2, 4, 3, 1), (64, 256, 64, 2, 4, 3, 1),
                 (128, 256, 32, 2, 4, 5, 1)],
     # few rows: split-K fills the card
-    (1280, 1): [(64, 256, 64, 2, 4, 3, 2), (64, 256, 64, 2, 4, 3, 4),
+    (1280, 1, 64): [(64, 256, 64, 2, 4, 3, 2), (64, 256, 64, 2, 4, 3, 4),
                 (128, 256, 64, 2, 4, 3, 2), (64, 128, 64, 2, 2, 3, 2)],
-    (1280, 0): [(32, 128, 64, 1, 4, 3, 4), (32, 128, 64, 1, 4, 3, 8),
+    (1280, 0, 64): [(32, 128, 64, 1, 4, 3, 4), (32, 128, 64, 1, 4, 3, 8),
                 (64, 256, 64, 2, 4, 3, 4), (64, 128, 64, 2, 2, 3, 4)],
-    (640, 1): [(32, 320, 64, 1, 4, 3, 2), (32, 320, 64, 1, 4, 3, 4),
+    (640, 1, 64): [(32, 320, 64, 1, 4, 3, 2), (32, 320, 64, 1, 4, 3, 4),
                (64, 320, 64, 2, 4, 3, 2)],
-    (640, 0): [(32, 320, 64, 1, 4, 3, 4), (32, 320, 64, 1, 4, 3, 8),
+    (640, 0, 64): [(32, 320, 64, 1, 4, 3, 4), (32, 320, 64, 1, 4, 3, 8),
                (32, 160, 64, 1, 2, 3, 4)],
-    (320, 1): [(32, 320, 64, 1, 4, 3, 2), (64, 320, 64, 2, 4, 3, 2),
+    (320, 1, 64): [(32, 320, 64, 1, 4, 3, 2), (64, 320, 64, 2, 4, 3, 2),
                (32, 320, 64, 1, 4, 3, 1)],
-    (320, 0): [(32, 320, 64, 1, 4, 3, 4), (32, 320, 64, 1, 4, 3, 2),
+    (320, 0, 64): [(32, 320, 64, 1, 4, 3, 4), (32, 320, 64, 1, 4, 3, 2),
                (32, 160, 64, 1, 2, 3, 4)],
 }
 SOURCE = "geglu_matmul.cu"
@@ -101,8 +109,10 @@ def shared_bytes(tile: Tile) -> int:
 
 
 def shape_key(shape) -> tuple:
+    """(E, M class, K step) of a site: the K step 64 where it divides N,
+    else 32 (geglu.tile_key at a built site; any width here)."""
     _, m, n, e = spec(shape)
-    return e, geglu.m_class(m)
+    return e, geglu.m_class(m), 64 if n % 64 == 0 else 32
 
 
 def spec(shape) -> tuple:
@@ -112,13 +122,13 @@ def spec(shape) -> tuple:
 
 def candidate_source(key: tuple, tile: Tile) -> str:
     """geglu_matmul.cu with its SG_BUILT lines replaced by one: `tile`
-    under `key`."""
+    under `key`'s (E, M class)."""
     src = (_build.CSRC / SOURCE).read_text()
     first = _BUILT_LINE.search(src)
     if first is None:
         raise ValueError(f"{SOURCE} has no SG_BUILT lines")
     body = _BUILT_LINE.sub("", src)
-    mine = f"  SG_BUILT({', '.join(map(str, key + tuple(tile)))})\n"
+    mine = f"  SG_BUILT({', '.join(map(str, key[:2] + tuple(tile)))})\n"
     return body[:first.start()] + mine + body[first.start():]
 
 

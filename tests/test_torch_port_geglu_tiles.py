@@ -32,9 +32,14 @@ def _built_lines(src: str):
 
 def test_geglu_built_matches_the_cuda_source():
     lines = _built_lines((_build.CSRC / "geglu_matmul.cu").read_text())
-    table = {line[:2]: line[2:] for line in lines}
-    assert len(table) == len(lines)  # one line per (E, M class)
+    table = {line[:2] + (line[4],): line[2:] for line in lines}
+    assert len(table) == len(lines)  # one line per (E, M class, K step)
     assert table == geglu.GEGLU_BUILT
+    # in the source's order: of one (E, M class) the K step 64 comes first
+    keys = list(table)
+    assert keys == list(geglu.GEGLU_BUILT)
+    for i, (e, mc, bk) in enumerate(keys):
+        assert bk == 64 or (e, mc, 64) in keys[:i]
 
 
 def test_m_class_matches_the_cuda_source():
@@ -131,8 +136,26 @@ SITES += [(m * r, 4 * e, e) for r in (4, 12)
 @pytest.mark.parametrize("m, n, e", SITES)
 def test_tile_choice_at_the_sites_is_built(m, n, e):
     tile = geglu.geglu_tile(m, n, e)
-    assert tile == geglu.GEGLU_BUILT[(e, geglu.m_class(m))]
+    assert tile == geglu.GEGLU_BUILT[(e, geglu.m_class(m), 64)]
     assert n % tile[2] == 0
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4, 8])
+def test_tile_at_every_tensor_parallel_shard(tp):
+    """Every UNet level's feed-forward inner shard (N = 4 E / tp, E
+    unsharded) at 512 px in serving (main pass B3, reference pass B6) and
+    training (B4) has a built tile whose K step divides it; the K step 32
+    only at the first level's N = 160 of tp = 8, and below tp = 8 the
+    tile of the unsharded width."""
+    for rows in (3, 6, 4):
+        for tokens, e in ((4096, 320), (1024, 640), (256, 1280),
+                          (64, 1280)):
+            m, n = rows * tokens, 4 * e // tp
+            tile = geglu.geglu_tile(m, n, e)
+            assert n % tile[2] == 0
+            assert tile[2] == (32 if n == 160 else 64)
+            if tp < 8:
+                assert tile == geglu.geglu_tile(m, 4 * e, e)
 
 
 @pytest.mark.parametrize("m", [64, 192, 256, 384, 768, 1024, 1536])
@@ -180,7 +203,7 @@ def test_tile_study_rewrites_only_the_built_lines(key):
     src = (_build.CSRC / geglu_tiles.SOURCE).read_text()
     tile = geglu_tiles.CANDIDATES[key][-1]
     new = geglu_tiles.candidate_source(key, tile)
-    assert _built_lines(new) == [key + tuple(tile)]
+    assert _built_lines(new) == [key[:2] + tuple(tile)]
     strip = re.compile(r"^\s*SG_BUILT\(\d[^)]*\)\s*\n", re.M)
     assert strip.sub("", new) == strip.sub("", src)
 
@@ -188,6 +211,7 @@ def test_tile_study_rewrites_only_the_built_lines(key):
 def test_tile_study_covers_every_key_of_its_shapes():
     for name in geglu_tiles.SHAPES:
         key = geglu_tiles.shape_key(name)
+        assert key == geglu.tile_key(*geglu_tiles.SHAPES[name])
         assert key in geglu.GEGLU_BUILT and key in geglu_tiles.CANDIDATES
         # the built tile is among the candidates it was chosen from
         assert geglu.GEGLU_BUILT[key] in geglu_tiles.CANDIDATES[key]

@@ -123,6 +123,8 @@ def test_nvcc_command_targets_sm90a_into_build_dir():
         assert cmd[cmd.index("-gencode") + 1] == \
             "arch=compute_90a,code=sm_90a"
         assert {"-O3", "-c", "-Xcompiler", "-fPIC"} <= set(cmd)
+        # ptxas reports every kernel's registers and spills
+        assert cmd[cmd.index("-Xptxas") + 1] == "-v"
         assert cmd[cmd.index("-o") + 1] == str(obj) and cmd[-1] == str(src)
     objs = [out.with_name(s.stem + ".o") for s in srcs]
     link = _build.link_command(nvcc, objs, out)

@@ -242,6 +242,53 @@ def test_built_tables_match_the_cuda_sources():
     assert parse("study_int8.cu", 2) == study_int8.INT8_BUILT
 
 
+def test_ring_stages_match_the_cuda_header():
+    """The Python mirror of the K/V ring's depth is the header's rule."""
+    from storygen_tpu_torch.ops import _build
+    src = (_build.CSRC / "study_mma.cuh").read_text()
+    assert "return 2 * (3 * stage + 1024) <= 233472 ? 3 : 2;" in src
+    assert sa.SM_SMEM == 233472
+    assert [sa.ring_stages(b) for b in (1000, 38570, 38571, 100000)] == \
+        [3, 3, 2, 2]
+
+
+@pytest.mark.parametrize("table", ["online", "bounded"])
+def test_every_built_study_ring_fits_a_block(table):
+    """Each built S1 / S2 instantiation's ring (two or three stages of K/V
+    tiles, Q in a stage) fits a block's shared memory, and its Q tile fits
+    one stage."""
+    if table == "online":
+        rows = [(sa.online_smem(dp, bq, bk), dp, bq, bk, 1, 1)
+                for dp, bq, bk, _, _ in sa.ONLINE_BUILT]
+    else:
+        rows = [(sa.bounded_smem(dp, bq, bk, sub, g), dp, bq, bk, sub, g)
+                for dp, bq, bk, sub, _, g, _ in sa.BOUNDED_BUILT]
+    for smem, dp, bq, bk, sub, g in rows:
+        pitch = sa.pitch_bytes(2 * dp)
+        stage = 2 * sa.align128(sub * bk * pitch) + (
+            sa.align128(bq * pitch) if g > 1 else 0)
+        assert smem == sa.ring_stages(stage) * stage
+        assert smem <= sa.SMEM_LIMIT, (table, dp, bq, bk, sub, g, smem)
+        assert sa.align128(bq * pitch) <= stage
+    # the widest: d = 160 (176 with the extended column) at 128-row tiles
+    # takes two stages, the d = 40 tiles three
+    assert sa.online_smem(160, 128, 128) == 2 * 2 * 128 * 336
+    assert sa.bounded_smem(176, 128, 128, 1, 1) == 2 * 2 * 128 * 368
+    assert sa.online_smem(48, 64, 64) == 3 * 2 * 64 * 112
+
+
+def test_multihead_study_sweeps_only_built_lines():
+    """Every (d, g) that bench_attn_multihead sweeps, at its default 64-row
+    tiles, is a built S2 line, g = 8 at d = 160 included."""
+    from storygen_tpu_torch.studies import bench_attn_multihead, common
+    for _, _, _, _, _, d in common.shapes(bench_attn_multihead.MAIN_SHAPES):
+        for g in bench_attn_multihead.GROUPS:
+            assert (sa.pad16(d), 64, 64, 1, 1, g, sa.BND2) in \
+                sa.BOUNDED_BUILT, (d, g)
+    assert {common.SHAPES[s][4] for s in bench_attn_multihead.MAIN_SHAPES} \
+        == {40, 80, 160}
+
+
 # the ported study entry points: (module, function, lines printed for one
 # shape, each ending with the device line)
 TINY = ("tiny", 1, 8, 128, 256, 40)
