@@ -125,16 +125,17 @@ stride-2 conv on kernel D):
                (storygen_tpu_torch/studies/) at one of its own UNet shapes,
                checking that it launched each of the eleven study wrappers
                and kernel F (its baseline) and nothing else; prints the
-               registers and spill bytes ptxas gave every S1 / S2
+               registers and spill bytes ptxas gave every S1-S4
                instantiation of this run's build (any spill fails the
                phase) and kernel F's time at each study shape; then holds
                each wrapper's instantiations against its plain version on
                the same inputs at the studies' full-width shapes (attn3 L1,
                attn1 L1, attn3 L2, attn3 L3), with kernel, plain, library
                (SDPA, for the functions that compute attention), bound and
-               F times, and the kernel's own device time without its
-               wrapper's host preparation (torch.profiler). The earlier
-               paths launch no study kernel.
+               F times, the kernel's own device time without its
+               wrapper's host preparation (torch.profiler) and, beside S3,
+               the bf16 q k^T product alone (torch.bmm, a yardstick). The
+               earlier paths launch no study kernel.
 
 There is no CPU branch: without a CUDA device the script exits non-zero
 before printing any result. The last line is the JSON status object.
@@ -386,15 +387,20 @@ class Case:
     inputs: it runs SDPA's forward once and returns the call to time.
     `unfused`, for G, is the bf16 chain of PyTorch calls without the
     kernel: timed as a yardstick, it is not G's function (it rounds the
-    gated product where PyTorch does)."""
+    gated product where PyTorch does). `yardstick`, for S3, is the bf16
+    q k^T product alone (torch.bmm): S3 has no one-call equivalent, and
+    the product is not S3's function (it writes the logits, S3 their
+    sums)."""
 
     def __init__(self, name, label, kern, plain, oracle, library, flops,
-                 nbytes, twin=None, backward=None, unfused=None):
+                 nbytes, twin=None, backward=None, unfused=None,
+                 yardstick=None):
         self.name, self.label = name, label
         self.kern, self.plain, self.oracle = kern, plain, oracle
         self.library, self.flops, self.nbytes = library, flops, nbytes
         self.twin, self.backward = twin, backward
         self.unfused = unfused
+        self.yardstick = yardstick
 
 
 def _attn_cases(dev, rnd):
@@ -2756,7 +2762,8 @@ def study_cases(dev):
             lambda a=qt_, c=k_, kw=kw: si.qk_only(a, c, **kw),
             lambda a=qt_, c=k_, kw=kw: si.qk_only.plain(a, c, **kw), None,
             None, 2.0 * n * (i8 if int8 else 1.0),
-            eb * b * h * d * (sq + skv) + 4.0 * b * h * sq),
+            eb * b * h * d * (sq + skv) + 4.0 * b * h * sq,
+            yardstick=lambda: torch.bmm(kf, q_t)),
             INT8_SUM_RTOL if int8 else KERNEL_RTOL))
     for shape, kw in (("attn3 L1", dict(bq=128, bk=64)),
                       ("attn1 L1", dict(bq=64, bk=64))):
@@ -2791,24 +2798,29 @@ def study_cases(dev):
 
 
 def study_ptxas() -> bool:
-    """The registers and spill bytes that ptxas gave every S1 / S2
+    """The registers and spill bytes that ptxas gave every S1-S4
     instantiation in this run's build, one line each; False if any
     instantiation spills or a built line has no report."""
     import re
-    from storygen_tpu_torch.ops import _build, study_attention as sa
+    from storygen_tpu_torch.ops import (_build, study_attention as sa,
+                                        study_int8 as si)
     from storygen_tpu_torch.studies.common import ptxas_summary
     ok = True
     for stem, kernel, built in (("study_online", "online_kernel",
                                  sa.ONLINE_BUILT),
                                 ("study_bounded", "bounded_kernel",
-                                 sa.BOUNDED_BUILT)):
+                                 sa.BOUNDED_BUILT),
+                                ("study_qk", "qk_kernel", si.QK_BUILT),
+                                ("study_int8", "int8_attn_kernel",
+                                 si.INT8_BUILT)):
         seen = set()
         for entry, regs, stack, stores, loads in ptxas_summary(
                 _build.ptxas_report(stem)):
-            m = re.search(kernel + r"I((?:Li-?\d+E)+)E", entry)
+            # template arguments: Li<n>E (int), Lb<0|1>E (bool)
+            m = re.search(kernel + r"I((?:L[ib]-?\d+E)+)E", entry)
             if m is None:
                 continue
-            args = tuple(int(x) for x in re.findall(r"Li(-?\d+)E",
+            args = tuple(int(x) for x in re.findall(r"L[ib](-?\d+)E",
                                                      m.group(1)))
             seen.add(args)
             good = stores == 0 and loads == 0
@@ -2846,7 +2858,7 @@ def study_f_baselines(dev, card: str) -> dict:
 
 
 def phase_studies(dev, card: str, results: dict) -> bool:
-    """The study path's launches, the S1 / S2 ptxas report, then every
+    """The study path's launches, the S1-S4 ptxas report, then every
     study case: kernel against its plain version on the same inputs, with
     times beside SDPA's and kernel F's at the case's shape."""
     import torch
@@ -2882,8 +2894,12 @@ def phase_studies(dev, card: str, results: dict) -> bool:
                 if key not in library_ms:
                     library_ms[key] = cuda_ms(c.library, 5)
                 lib_ms = library_ms[key]
+            yard_ms = (None if c.yardstick is None
+                       else cuda_ms(c.yardstick, 5))
         b_ms, b_by = bound_ms(c.flops, c.nbytes)
         lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
+        if yard_ms is not None:
+            lib += f" (yardstick: bf16 torch.bmm q k^T {yard_ms:.4f} ms)"
         shape_f = f_ms[" ".join(c.label.split(" ")[:2])]
         own = "not measured" if alone is None else f"{alone:.4f} ms"
         print(f"study {c.name:23s} {c.label:58s} max_abs_err {err:.3e} "
@@ -2906,7 +2922,7 @@ def phase_studies(dev, card: str, results: dict) -> bool:
                            "bound": bound, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": b_ms, "bound_by": b_by,
                            "library_ms": lib_ms, "device_ms": alone,
-                           "f_ms": shape_f})
+                           "f_ms": shape_f, "yardstick_ms": yard_ms})
         r["bound_by"] = max(r["cases"], key=lambda x: x["bound_ms"])[
             "bound_by"]
     # the summed cases have a library time only if each case has one (the

@@ -1,8 +1,8 @@
 // Shared building blocks of the mma.sync kernels (the attention studies
 // study_*.cu, the flash kernels flash_fwd.cu and flash_bwd.cu, and the conv
-// template conv_mma.cuh): tile copies from HBM into shared memory, plain or
-// through cp.async, ldmatrix fragment loads and the mma.sync tensor-core
-// products, for sm_90a.
+// template conv_mma.cuh): tile copies from HBM into shared memory through
+// cp.async, ldmatrix fragment loads and the mma.sync tensor-core products,
+// for sm_90a.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k32): in a warp, lane =
 // 4 * grp + tq. A 16 x 8 fp32 (or int32) accumulator tile holds, per lane,
@@ -39,35 +39,6 @@ __host__ __device__ constexpr int pitch_bytes(int row_bytes) {
   return (row_bytes / 16) % 2 ? row_bytes : row_bytes + 16;
 }
 
-// Copy rows [row0, row0 + rows) of a row-major matrix (row stride `rs`
-// bytes, `wb` valid bytes per row, wb a multiple of CHUNK) into a shared
-// tile of `tile_bytes` bytes per row (pitch `pitch`); bytes past wb become
-// zero. CHUNK is 16 where every row starts 16-byte aligned, 8 for the
-// 40-byte int8 rows of d = 40.
-template <int CHUNK>
-__device__ __forceinline__ void copy_rows(unsigned char* dst, int pitch,
-                                          const unsigned char* src,
-                                          long long rs, int row0, int rows,
-                                          int wb, int tile_bytes, int tid,
-                                          int nthreads) {
-  const int cpr = tile_bytes / CHUNK;
-  for (int idx = tid; idx < rows * cpr; idx += nthreads) {
-    const int r = idx / cpr, c = (idx % cpr) * CHUNK;
-    unsigned char* d = dst + r * pitch + c;
-    if (CHUNK == 16) {
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (c < wb)
-        val = *reinterpret_cast<const uint4*>(src + (row0 + r) * rs + c);
-      *reinterpret_cast<uint4*>(d) = val;
-    } else {
-      uint2 val = make_uint2(0u, 0u);
-      if (c < wb)
-        val = *reinterpret_cast<const uint2*>(src + (row0 + r) * rs + c);
-      *reinterpret_cast<uint2*>(d) = val;
-    }
-  }
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -77,6 +48,16 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 8-byte cp.async copy into shared memory, through L1 (the .cg form takes
+// 16 bytes only); the bytes past `src_bytes` are zero-filled
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                :
                : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
                : "memory");
@@ -145,6 +126,36 @@ __device__ __forceinline__ void copy_tile_lean(unsigned char* dst,
     for (int idx = tid; idx < ROWS * CPR; idx += NT)
       copy_chunk<CPR, PITCH>(dst, src, rs, row0, nrows, D, idx);
   }
+}
+
+// Start the copies of rows [row0, row0 + ROWS) of an int8 matrix whose
+// rows are D bytes apart (D a multiple of 8: the 40-byte rows of d = 40
+// are 8-byte aligned only) into a shared tile of DPB bytes a row (pitch
+// PITCH), in 8-byte pieces; the bytes past D are zero-filled. A rolled
+// loop, as copy_tile_lean.
+template <int ROWS, int DPB, int PITCH, int NT>
+__device__ __forceinline__ void copy_rows8(unsigned char* dst,
+                                           const unsigned char* src,
+                                           int row0, int D, int tid) {
+  constexpr int CPR = DPB / 8;
+#pragma unroll 1
+  for (int idx = tid; idx < ROWS * CPR; idx += NT) {
+    const int r = idx / CPR, c = idx % CPR;
+    const bool in = c * 8 < D;
+    cp_async8(dst + r * PITCH + c * 8,
+              in ? src + (long long)(row0 + r) * D + c * 8 : src, in ? 8 : 0);
+  }
+}
+
+// Start the 16-byte copies of `nbytes` contiguous bytes (a multiple of 16,
+// both ends 16-byte aligned). A rolled loop, as copy_tile_lean.
+template <int NT>
+__device__ __forceinline__ void copy_run16(unsigned char* dst,
+                                           const unsigned char* src,
+                                           int nbytes, int tid) {
+#pragma unroll 1
+  for (int i = tid; i < nbytes / 16; i += NT)
+    cp_async16(dst + 16 * i, src + 16 * i, 16);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -281,35 +292,31 @@ __device__ __forceinline__ void load_a_s8(uint32_t (&a)[(DPB + 31) / 32][4],
   }
 }
 
+__device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
 // S (int32, NT tiles of 16 x 8) += A K^T for int8 A fragments against
-// NT * 8 int8 K rows of DPB bytes starting at `krows`.
+// NT * 8 int8 K rows stored densely from `krows`, D bytes apart (a K tile
+// copied as the one contiguous run it is in HBM: the 40-byte rows of
+// d = 40 are not 16-byte aligned, so ldmatrix cannot read them): B
+// fragments by 32-bit loads; the k16 tail of D = 40 masks the bytes past D
+// (the next row's).
 template <int DPB, int NT>
-__device__ __forceinline__ void qk_s8(int (&s)[NT][4],
-                                      const uint32_t (&a)[(DPB + 31) / 32][4],
-                                      const unsigned char* krows, int pitch,
-                                      int lane) {
-  const unsigned char* p =
-      krows + (lane % 8 + 8 * (lane / 16)) * pitch + 16 * ((lane / 8) % 2);
+__device__ __forceinline__ void qk_s8_dense(
+    int (&s)[NT][4], const uint32_t (&a)[(DPB + 31) / 32][4],
+    const unsigned char* krows, int D, int lane) {
+  const int grp = lane / 4, tq = lane % 4;
 #pragma unroll
-  for (int j = 0; j < NT; j += 2) {
+  for (int j = 0; j < NT; ++j) {
+    const unsigned char* r = krows + (8 * j + grp) * D + 4 * tq;
 #pragma unroll
-    for (int kk = 0; kk < DPB / 32; ++kk) {
-      uint32_t b[4];
-      ldsm_x4(b, p + j * 8 * pitch + 32 * kk);
-      mma_s8_k32(s[j], a[kk], b[0], b[1]);
-      mma_s8_k32(s[j + 1], a[kk], b[2], b[3]);
-    }
-  }
-  if constexpr (DPB % 32 != 0) {
-    const unsigned char* t = krows + (lane % 8 + 8 * (lane / 8)) * pitch +
-                             32 * (DPB / 32);
-#pragma unroll
-    for (int j = 0; j < NT; j += 4) {
-      uint32_t b[4];
-      ldsm_x4(b, t + j * 8 * pitch);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        mma_s8_k16(s[j + i], a[DPB / 32][0], a[DPB / 32][1], b[i]);
+    for (int kk = 0; kk < DPB / 32; ++kk)
+      mma_s8_k32(s[j], a[kk], ld32(r + 32 * kk), ld32(r + 32 * kk + 16));
+    if constexpr (DPB % 32 != 0) {
+      const bool in = 32 * (DPB / 32) + 4 * tq < D;
+      mma_s8_k16(s[j], a[DPB / 32][0], a[DPB / 32][1],
+                 in ? ld32(r + 32 * (DPB / 32)) : 0u);
     }
   }
 }

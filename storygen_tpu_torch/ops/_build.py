@@ -74,8 +74,8 @@ SIGNATURES = {
                          _I, _I, _I, _F, _P),
     # q_t, k, out, BH, Sq, Skv, D, int8, bq, bk, stream
     "sg_study_qk": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # q8, k8, v_ext, sq, sk, bnd, out, BH, Sq, Skv, D, W, bq, bk, stream
-    "sg_study_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    # q8, k8, v, sq, sk, bnd, out, BH, Sq, Skv, D, bq, bk, stream
+    "sg_study_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P),
 }
 

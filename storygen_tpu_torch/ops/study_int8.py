@@ -16,22 +16,51 @@ tensors, counting launches in `<wrapper>.launches` (`<wrapper>.plain` runs
 the plain version on any device); an instantiation that is not built
 raises ValueError on either device. The plain versions take
 the int8 product exactly (in float64, exact at these magnitudes).
+`qk_smem` and `int8_smem` mirror the kernels' shared memory: each a ring
+of `ring_stages` K tiles (S3, beside its q_t slab) or k8 / v / sk tiles
+(S4, Q copied into its last stage).
 """
 from __future__ import annotations
 
 import torch
 
 from storygen_tpu_torch.ops import _build
-from storygen_tpu_torch.ops.study_attention import (LOG2E, TILES,
+from storygen_tpu_torch.ops.study_attention import (LOG2E, TILES, align128,
                                                     check_tiles, cuda_stream,
                                                     kernel_wrapper, pad8,
-                                                    pad16)
+                                                    pad16, pitch_bytes,
+                                                    ring_stages)
 
 # the instantiations of csrc/study_qk.cu: (int8, padded D, bq, bk) ...
 QK_BUILT = frozenset((i8, 48, bq, bk) for i8 in (0, 1) for bq in TILES
                      for bk in TILES)
 # ... and of csrc/study_int8.cu: (padded D, padded D + 1, bq, bk)
 INT8_BUILT = frozenset((48, 48, bq, bk) for bq in TILES for bk in TILES)
+
+
+def qk_smem(i8: int, dp: int, bq: int, bk: int) -> int:
+    """S3's shared memory (csrc/study_qk.cu's Cfg::BYTES): the q_t slab
+    (dp rows of bq queries) and a ring of K tiles of bk rows (int8 rows
+    dense, bf16 rows at an ldmatrix pitch)."""
+    eb = 1 if i8 else 2
+    stage = align128(bk * (dp if i8 else pitch_bytes(2 * dp)))
+    return align128(dp * pitch_bytes(bq * eb)) + ring_stages(stage) * stage
+
+
+def int8_smem(dp8: int, dv: int, bq: int, bk: int) -> int:
+    """S4's shared memory (csrc/study_int8.cu's Cfg::BYTES): a ring of
+    stages of bk rows of k8 (dense), v_ext and sk; Q is copied into the
+    last stage."""
+    stage = (align128(bk * dp8) + align128(bk * pitch_bytes(2 * dv))
+             + align128(bk * 4))
+    return ring_stages(stage) * stage
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous at a 16-byte aligned address (the kernels' cp.async
+    copies)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def quant_rows(x: torch.Tensor):
@@ -85,7 +114,7 @@ def qk_only(wrapper, plain, q_t: torch.Tensor, k: torch.Tensor, *, bq: int,
         return qk_only_plain(q_t, k)
     if q_t.device.type != "cuda":
         raise ValueError(f"unsupported device {q_t.device}")
-    qc, kc = q_t.contiguous(), k.contiguous()
+    qc, kc = _aligned(q_t), _aligned(k)
     out = torch.empty((bh, 1, sq), dtype=torch.float32, device=q_t.device)
     err = _build.load().sg_study_qk(qc.data_ptr(), kc.data_ptr(),
                                     out.data_ptr(), bh, sq, skv, d,
@@ -105,26 +134,15 @@ def int8_bound(q8, sq_row, k8, sk_row) -> torch.Tensor:
     return torch.sqrt((qd * qd).sum(-1)) * kmax
 
 
-def v_ones(v: torch.Tensor) -> torch.Tensor:
-    """[v, 1] zero-padded to a multiple of 8 columns."""
-    b, h, skv, d = v.shape
-    ve = v.new_zeros((b, h, skv, pad8(d + 1)))
-    ve[..., :d] = v
-    ve[..., d] = 1
-    return ve
-
-
-def int8_attn_plain(q8, k8, v_ext, sq_row, sk_row, bound, d: int
-                    ) -> torch.Tensor:
+def int8_attn_plain(q8, k8, v, sq_row, sk_row, bound) -> torch.Tensor:
     """S4's function: the exact int32 logits, dequantised and shifted in
-    fp32 in the study's order, exp2, p rounded to v's dtype, the ones
-    column as the row sum, guard 1.2e-38."""
+    fp32 in the study's order, exp2, p rounded to v's dtype, its row sum
+    as the denominator, guard 1.2e-38."""
     s32 = torch.matmul(q8.double(), k8.double().transpose(-1, -2)).float()
     s = s32 * sk_row[..., None, :] * sq_row[..., None] - bound[..., None]
-    p = torch.exp2(s)
-    acc = torch.matmul(p.to(v_ext.dtype).float(), v_ext.float())
-    return (acc[..., :d] / acc[..., d:d + 1].clamp_min(1.2e-38)).to(
-        v_ext.dtype)
+    p = torch.exp2(s).to(v.dtype).float()
+    acc = torch.matmul(p, v.float())
+    return (acc / p.sum(-1, keepdim=True).clamp_min(1.2e-38)).to(v.dtype)
 
 
 def _int8_attn(wrapper, plain, q8, sq_row, k8, sk_row, v, bq, bk):
@@ -148,17 +166,16 @@ def _int8_attn(wrapper, plain, q8, sq_row, k8, sk_row, v, bq, bk):
         raise ValueError(f"{wrapper.__name__}: instantiation {key} is not "
                          "built")
     bound = int8_bound(q8, sq_row, k8, sk_row)
-    v_ext = v_ones(v)
     if plain or q8.device.type == "cpu":
-        return int8_attn_plain(q8, k8, v_ext, sq_row, sk_row, bound, d)
+        return int8_attn_plain(q8, k8, v, sq_row, sk_row, bound)
     if q8.device.type != "cuda" or v.dtype != torch.bfloat16:
         raise ValueError("the kernel takes CUDA tensors and a bfloat16 v")
     out = torch.empty((b, h, sq, d), dtype=v.dtype, device=v.device)
-    ts = [t.contiguous() for t in (q8, k8, v_ext, sq_row.float(),
-                                   sk_row.float(), bound)]
+    ts = [_aligned(t) for t in (q8, k8, v, sq_row.float(), sk_row.float(),
+                                bound)]
     err = _build.load().sg_study_int8(
-        *(t.data_ptr() for t in ts), out.data_ptr(), b * h, sq, skv, d,
-        v_ext.shape[3], bq, bk, cuda_stream(v))
+        *(t.data_ptr() for t in ts), out.data_ptr(), b * h, sq, skv, d, bq,
+        bk, cuda_stream(v))
     _build.check(err, "sg_study_int8")
     wrapper.launches += 1
     return out

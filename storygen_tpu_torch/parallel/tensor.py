@@ -104,6 +104,27 @@ def take_shard(x: torch.Tensor, shard: Shard, rank: int,
                       for h in range(shard.halves)], shard.dim).contiguous()
 
 
+def full_shape(shape, shard: Shard, size: int) -> Tuple[int, ...]:
+    """The full tensor's shape, from the shape of a shard of it."""
+    out = list(shape)
+    out[shard.dim] *= size
+    return tuple(out)
+
+
+def embed_shard(t: torch.Tensor, shard: Shard, rank: int,
+                size: int) -> torch.Tensor:
+    """The inverse of take_shard on one rank: rank `rank`'s part t in a
+    zeroed fp32 tensor of the full shape."""
+    full = torch.zeros(full_shape(t.shape, shard, size), dtype=torch.float32,
+                       device=t.device)
+    part = full.shape[shard.dim] // shard.halves
+    k = t.shape[shard.dim] // shard.halves
+    for h in range(shard.halves):
+        full.narrow(shard.dim, h * part + rank * k, k).copy_(
+            t.narrow(shard.dim, h * k, k))
+    return full
+
+
 def _divides(shape, shard: Shard, size: int) -> bool:
     return shape[shard.dim] % (shard.halves * size) == 0
 
@@ -284,13 +305,7 @@ def full_tensors(tensors: Dict[str, torch.Tensor], plan: Dict[str, Shard],
         if s is None:
             out[n] = t.detach()
             continue
-        shape = list(t.shape)
-        shape[s.dim] *= tp.size
-        full = torch.zeros(shape, dtype=torch.float32, device=t.device)
-        part, k = shape[s.dim] // s.halves, t.shape[s.dim] // s.halves
-        for h in range(s.halves):
-            full.narrow(s.dim, h * part + tp.rank * k, k).copy_(
-                t.narrow(s.dim, h * k, k))
+        full = embed_shard(t, s, tp.rank, tp.size)
         dist.all_reduce(full, op=dist.ReduceOp.SUM, group=tp.group)
         out[n] = full.to(t.dtype)
     return out
@@ -305,11 +320,12 @@ def make_train_step_tp(bundle: dict, cfg, mesh: Mesh, stage: str = "stage2",
                        **step_kw):
     """The training step on a (data, tensor) mesh: the UNet sharded in
     place, the stage's subset made trainable in fp32, the optimizer built
-    on the shards (so its moments are the shards' own, and its norm sums
-    the shards over the tensor group) and the step averaging gradients
-    over "data". `bundle` holds unet, vae, text_encoder and
-    scheduler_config (trainer.build_models); the VAE and CLIP stay
-    replicated. Returns (step_fn, optimizer)."""
+    on the shards (its moments are the shards' own, its norm sums the
+    shards over the tensor group, and AdamW8bit's blocks are the full
+    tensor's) and the step averaging gradients over "data". `bundle`
+    holds unet, vae, text_encoder and scheduler_config
+    (trainer.build_models); the VAE and CLIP stay replicated. Returns
+    (step_fn, optimizer)."""
     from storygen_tpu_torch.diffusion import schedule as S
     from storygen_tpu_torch.training import optim, steps
     unet = bundle["unet"]
@@ -320,7 +336,8 @@ def make_train_step_tp(bundle: dict, cfg, mesh: Mesh, stage: str = "stage2",
     for p in trainable.values():
         p.data = p.data.float()
     opt = optim.make_optimizer(
-        cfg, trainable, [n for n in trainable if n in unet.tp_plan],
+        cfg, trainable, {n: unet.tp_plan[n] for n in trainable
+                         if n in unet.tp_plan},
         None if tp is None else tp.group)
     sched = S.make_schedule(bundle["scheduler_config"],
                             device=next(unet.parameters()).device)

@@ -12,7 +12,7 @@ bf16. At the two dominant d = 40 shapes it prints
     in TFLOP/s and TOP/s;
   - full int8 (quant in the call): per-row absmax quantisation of q and k
     on the host, then kernel S4 (csrc/study_int8.cu): int8 q k^T, rank-1
-    dequant, bound shift, exp2, bf16 P V with a ones column,
+    dequant, bound shift, exp2, bf16 P V and the row sum of the rounded p,
 
 each at bq, bk in 64, 128.
 

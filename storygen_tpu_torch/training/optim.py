@@ -23,12 +23,13 @@ Under tensor parallelism (parallel/tensor.py) some parameters are a
 rank's shards of a tensor split over the tensor group (`sharded`): the
 global norm then sums their squares over that group and counts every
 other parameter once, as GSPMD computes it for the JAX package. The
-moments of a shard are the shard's own.
+moments of a shard are the shard's own; AdamW8bit quantises them in the
+full tensor's blocks.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Collection, Dict, Iterable
+from typing import Callable, Collection, Dict, Iterable, Mapping, Optional
 
 import torch
 import torch.distributed as dist
@@ -206,11 +207,14 @@ class AdamW:
 
 
 def make_optimizer(cfg: TrainConfig, params: Dict[str, torch.Tensor],
-                   sharded: Collection[str] = (), tp_group=None) -> AdamW:
+                   sharded: Optional[Mapping[str, object]] = None,
+                   tp_group=None) -> AdamW:
     """AdamW, or with cfg.use_8bit_adam the block-quantized AdamW8bit
     (optim8bit.py); both clip, accumulate and schedule alike. `sharded`
-    and `tp_group` as in AdamW."""
+    maps each parameter that is a shard over the process group `tp_group`
+    to its parallel/tensor.py Shard: AdamW reads the names, AdamW8bit the
+    Shards too."""
     if cfg.use_8bit_adam:
         from storygen_tpu_torch.training.optim8bit import AdamW8bit
-        return AdamW8bit(params, cfg, sharded, tp_group)
-    return AdamW(params, cfg, sharded, tp_group)
+        return AdamW8bit(params, cfg, sharded or {}, tp_group)
+    return AdamW(params, cfg, sharded or {}, tp_group)

@@ -252,29 +252,52 @@ def test_ring_stages_match_the_cuda_header():
         [3, 3, 2, 2]
 
 
-@pytest.mark.parametrize("table", ["online", "bounded"])
+@pytest.mark.parametrize("table", ["online", "bounded", "qk", "int8"])
 def test_every_built_study_ring_fits_a_block(table):
-    """Each built S1 / S2 instantiation's ring (two or three stages of K/V
-    tiles, Q in a stage) fits a block's shared memory, and its Q tile fits
-    one stage."""
-    if table == "online":
-        rows = [(sa.online_smem(dp, bq, bk), dp, bq, bk, 1, 1)
-                for dp, bq, bk, _, _ in sa.ONLINE_BUILT]
+    """Each built S1-S4 instantiation's ring (two or three stages, by
+    ring_stages) fits a block's shared memory, beside S3's q_t slab; where
+    Q is copied into a stage (S1, one-head S2, S4), its tile fits one
+    stage."""
+    from storygen_tpu_torch.ops import study_int8 as si
+    rows = []  # (smem, one stage's bytes, bytes beside the ring, Q tile)
+    if table in ("online", "bounded"):
+        for key in (sa.ONLINE_BUILT if table == "online"
+                    else sa.BOUNDED_BUILT):
+            dp, bq, bk = key[:3]
+            sub, g = (1, 1) if table == "online" else (key[3], key[5])
+            pitch = sa.pitch_bytes(2 * dp)
+            q = sa.align128(bq * pitch)
+            rows.append((sa.online_smem(dp, bq, bk) if table == "online"
+                         else sa.bounded_smem(dp, bq, bk, sub, g),
+                         2 * sa.align128(sub * bk * pitch)
+                         + (q if g > 1 else 0), 0, q))
+    elif table == "qk":
+        for i8, dp, bq, bk in si.QK_BUILT:
+            # int8 K rows dense, bf16 at an ldmatrix pitch
+            eb = 1 if i8 else 2
+            kpitch = dp if i8 else sa.pitch_bytes(2 * dp)
+            rows.append((si.qk_smem(i8, dp, bq, bk), sa.align128(bk * kpitch),
+                         sa.align128(dp * sa.pitch_bytes(bq * eb)), 0))
     else:
-        rows = [(sa.bounded_smem(dp, bq, bk, sub, g), dp, bq, bk, sub, g)
-                for dp, bq, bk, sub, _, g, _ in sa.BOUNDED_BUILT]
-    for smem, dp, bq, bk, sub, g in rows:
-        pitch = sa.pitch_bytes(2 * dp)
-        stage = 2 * sa.align128(sub * bk * pitch) + (
-            sa.align128(bq * pitch) if g > 1 else 0)
-        assert smem == sa.ring_stages(stage) * stage
-        assert smem <= sa.SMEM_LIMIT, (table, dp, bq, bk, sub, g, smem)
-        assert sa.align128(bq * pitch) <= stage
+        for dp8, dv, bq, bk in si.INT8_BUILT:
+            rows.append((si.int8_smem(dp8, dv, bq, bk),
+                         sa.align128(bk * dp8)
+                         + sa.align128(bk * sa.pitch_bytes(2 * dv))
+                         + sa.align128(bk * 4), 0,
+                         sa.align128(bq * sa.pitch_bytes(dp8))))
+    assert len(rows) >= 4
+    for smem, stage, beside, q in rows:
+        assert smem == beside + sa.ring_stages(stage) * stage
+        assert smem <= sa.SMEM_LIMIT, (table, smem)
+        assert q <= stage
     # the widest: d = 160 (176 with the extended column) at 128-row tiles
-    # takes two stages, the d = 40 tiles three
+    # takes two stages, the d = 40 tiles three; S3 / S4's small stages
+    # three
     assert sa.online_smem(160, 128, 128) == 2 * 2 * 128 * 336
     assert sa.bounded_smem(176, 128, 128, 1, 1) == 2 * 2 * 128 * 368
     assert sa.online_smem(48, 64, 64) == 3 * 2 * 64 * 112
+    assert si.qk_smem(0, 48, 128, 128) == 48 * 272 + 3 * 128 * 112
+    assert si.int8_smem(48, 48, 128, 64) == 3 * (64 * 48 + 64 * 112 + 256)
 
 
 def test_multihead_study_sweeps_only_built_lines():

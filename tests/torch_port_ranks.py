@@ -198,8 +198,9 @@ def dp_step(rank, world, batch, draws, train_kw, steps=1):
 
 def tp_step(rank, world, batch, draws, train_kw, data, steps=1,
             ckpt_dir=None):
-    """The step on a (data, tensor) mesh: per-step metrics and the updated
-    attn3 parameters gathered whole. With `ckpt_dir`, also the TP
+    """The step on a (data, tensor) mesh: per-step metrics, the updated
+    attn3 parameters gathered whole and, with AdamW8bit, the scales of
+    their moments' blocks. With `ckpt_dir`, also the TP
     checkpoint round trip: after step 1 the coordinator saves the full
     trainable tensors and optimizer state; a fresh sharded run restores
     its shards from them (tp_place) and takes step 2, whose parameters
@@ -228,6 +229,9 @@ def tp_step(rank, world, batch, draws, train_kw, data, steps=1,
         metrics.append(_step_again(bundle, opt, train_kw, mesh, local, d))
     out["metrics"] = metrics
     out["params"] = T.full_tensors(dict(opt.params), plan, tp)
+    if train_kw.get("use_8bit_adam"):  # each moment's block scales
+        out["scales"] = {n: (opt.mu[n].scale, opt.nu[n].scale)
+                         for n in opt.params}
     if ckpt_dir is not None:
         from storygen_tpu_torch.checkpoint import hf_export
         hf_export.save_pretrained(os.path.join(ckpt_dir, "export"),
