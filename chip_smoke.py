@@ -4,7 +4,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It takes no arguments and runs twelve phases, all of which must pass. The
+It takes no arguments and runs thirteen phases, all of which must pass. The
 serving and training paths run in the default conv configuration and in
 the fused-conv one (`ConvKernels(fused_prologue=True, strided=True)`: every
 resnet conv on kernel P with its GroupNorm + SiLU as prologue, every 3x3
@@ -104,6 +104,27 @@ stride-2 conv on kernel D):
                127.0.0.1 port 0 (GET /healthz, POST /story of 2 frames);
                each path's launches (F, G, C serving; M, L, DQ, DKV also
                training) and wall time;
+  dataset      the dataset-building path (data_process/, detection/,
+               native/, utils/profiling): the native library's g++ build
+               and its three functions on 16 frames of 512 px, bit for bit
+               against their numpy forms; YOLOv7 at full P5 width, fp32,
+               640 px, from a seeded upstream train-form checkpoint
+               through load_torch_state and the importer, its detect
+               inputs and head maps less their bias against the same
+               module on the CPU (YOLO_REL_L2; cuDNN keeps its TF32
+               default), its NMS on one decoded tensor on the card and the
+               CPU (the same boxes), ms per detect; inpainting at 512 px,
+               DDIM-25, a rectangular mask, from the checkpoint folder in
+               both conv configurations (unmasked latents and pixels
+               exact, launches F, G, C and, fused, P, D), the masked
+               latents kernel path against plain path in both;
+               scripts.build_dataset.main on a synthetic video (extract,
+               dedup, mask with YOLOv7, inpaint, align; each inpainted
+               frame equal to its keyframe outside its mask; the caption
+               stage is not run, and a line says so); and
+               utils/profiling's trace of one annotated inpainting step,
+               a StepTimer over 5 steps, and the device's idle share of
+               the default configuration's 25-step call, traced;
   parallel     storygen_tpu_torch/parallel/ on the one card: (a)
                scripts.train.main on stage 2 from the checkpoint folder
                and the cli tree, 2 micro-steps, with --coordinator
@@ -290,6 +311,11 @@ PATH_KERNELS = {
                                if k not in FUSED_KERNELS),
     "cli_inference": SERVING_KERNELS,
     "cli_serve": SERVING_KERNELS,
+    # the dataset phase: inpainting (the UNet and the VAE) in both conv
+    # configurations, and build_dataset's stages (YOLOv7 is F.conv2d)
+    "inpaint": SERVING_KERNELS,
+    "inpaint_fused": SERVING_KERNELS + FUSED_KERNELS,
+    "dataset_build": SERVING_KERNELS,
     # the parallel phase: training over NCCL at world size 1; per rank,
     # the TP = 2 story, the fused TP image-cycle pass and DP = 2 training
     "nccl_train": tuple(k for k in PORT_KERNELS if k not in FUSED_KERNELS),
@@ -2243,6 +2269,509 @@ def phase_cli(dev, card: str, results: dict) -> bool:
     return ok
 
 
+# The dataset phase: YOLOv7's input side, the tolerance of its head maps
+# on the card against the CPU, the synthetic video's shape, and the
+# inpainting's DDIM steps (the JAX package's default).
+YOLO_SIZE = 640
+# cuDNN may run fp32 convolutions in TF32 (allow_tf32, on by default),
+# which rounds each operand to a 10-bit mantissa (2^-11 relative); the
+# port leaves that global flag as PyTorch sets it. The seeded detect
+# biases (objectness and class priors near -5) make up most of each raw
+# head map (the rest is 0.5-1.2% of its L2), so the check reads what the
+# backbone computes: the detect convs' input features, and the head maps
+# less their folded bias. Over the 55-71 convs in a row before them the
+# roundings add up to 3.2e-4 to 5.1e-4 relative on an H100 (under 4e-6
+# with TF32 off); a bf16 or wrong conv gives 1e-2 to O(1). Bound on the
+# relative L2 error of each.
+YOLO_REL_L2 = 2e-3
+VIDEO_SHOTS, VIDEO_SHOT_FRAMES = 3, 20
+VIDEO_W, VIDEO_H = 640, 360
+INPAINT_STEPS = 25
+NATIVE_FRAMES = 16
+
+
+def yolo_upstream_state(spec, num_classes: int, seed: int) -> dict:
+    """A seeded YOLOv7 state_dict in the upstream train form (Conv + BN,
+    RepConv's three branches, IDetect's conv and implicit pair) of `spec`:
+    conv weights N(0, 2 / fan_in), BN statistics and affines near their
+    identity, and the detect biases as upstream's _initialize_biases sets
+    them (objectness log(8 / (640 / stride)^2), classes log(0.6 / (nc -
+    0.99))), so that few boxes pass a 0.5 confidence."""
+    import torch
+    from storygen_tpu_torch.detection.yolov7 import (ANCHORS_P5, STRIDES_P5,
+                                                     spec_channels)
+    g = torch.Generator().manual_seed(seed)
+    ch = spec_channels(spec)
+    state = {}
+
+    def conv(key, cin, cout, k):
+        state[key] = torch.randn(cout, cin, k, k, generator=g) * math.sqrt(
+            2.0 / (cin * k * k))
+
+    def bn(key, c):
+        state[f"{key}.weight"] = 1 + 0.1 * torch.randn(c, generator=g)
+        state[f"{key}.bias"] = 0.1 * torch.randn(c, generator=g)
+        state[f"{key}.running_mean"] = 0.1 * torch.randn(c, generator=g)
+        state[f"{key}.running_var"] = 0.5 + torch.rand(c, generator=g)
+        state[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+    def conv_bn(key, cin, cout, k):
+        conv(f"{key}.conv.weight", cin, cout, k)
+        bn(f"{key}.bn", cout)
+
+    na = ANCHORS_P5.shape[1]
+    no = num_classes + 5
+    for i, e in enumerate(spec):
+        p = f"model.{i}"
+        if e[0] == "conv":
+            conv_bn(p, ch[e[1]], e[2], e[3])
+        elif e[0] == "sppcspc":
+            cin, c_ = ch[e[1]], e[2]
+            for j, (a, b, k) in enumerate(
+                    ((cin, c_, 1), (cin, c_, 1), (c_, c_, 3), (c_, c_, 1),
+                     (4 * c_, c_, 1), (c_, c_, 3), (2 * c_, c_, 1)), 1):
+                conv_bn(f"{p}.cv{j}", a, b, k)
+        elif e[0] == "repconv":
+            cin, cout = ch[e[1]], e[2]
+            conv(f"{p}.rbr_dense.0.weight", cin, cout, 3)
+            bn(f"{p}.rbr_dense.1", cout)
+            conv(f"{p}.rbr_1x1.0.weight", cin, cout, 1)
+            bn(f"{p}.rbr_1x1.1", cout)
+            if cin == cout:
+                bn(f"{p}.rbr_identity", cin)
+        elif e[0] == "detect":
+            for j, f in enumerate(e[1]):
+                state[f"{p}.m.{j}.weight"] = 0.01 * torch.randn(
+                    na * no, ch[f], 1, 1, generator=g)
+                b = 0.01 * torch.randn(na, no, generator=g)
+                b[:, 4] += math.log(8 / (640 / STRIDES_P5[j]) ** 2)
+                b[:, 5:] += math.log(0.6 / (num_classes - 0.99))
+                state[f"{p}.m.{j}.bias"] = b.reshape(-1)
+                state[f"{p}.ia.{j}.implicit"] = 0.02 * torch.randn(
+                    1, ch[f], 1, 1, generator=g)
+                state[f"{p}.im.{j}.implicit"] = 1 + 0.02 * torch.randn(
+                    1, na * no, 1, 1, generator=g)
+    return state
+
+
+def write_story_video(path: str, shots: int, frames_per_shot: int,
+                      width: int, height: int, seed: int = 0) -> None:
+    """An MJPG video of `shots` shots, each a colour ramp with a ripple
+    along its own direction (a third of a turn from the last shot's) and a
+    line of white overlay text, its frames differing by seeded grain: cuts
+    that the keyframe detector finds, the classical dedup embedder keeps
+    apart and the classical text detector masks."""
+    import cv2
+    import numpy as np
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 25.0,
+                        (width, height))
+    if not w.isOpened():
+        raise RuntimeError(f"cv2 cannot write {path}")
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    for shot in range(shots):
+        ang = 2 * np.pi * shot / 3
+        s = (xx - width / 2) * np.cos(ang) + (yy - height / 2) * np.sin(ang)
+        f = 110 + 60 * s / np.abs(s).max() + 30 * np.sin(2 * np.pi * s / 60)
+        base = np.ascontiguousarray(np.clip(np.stack(
+            [f, f * 0.8 + 20, 140 - f * 0.3], -1), 0, 255).astype(np.uint8))
+        cv2.putText(base, f"CHAPTER {shot + 1}: THE FOX", (20, height - 30),
+                    cv2.FONT_HERSHEY_SIMPLEX, 1.0, (245, 245, 245), 2)
+        for _ in range(frames_per_shot):
+            w.write(np.clip(base.astype(int) + rs.randint(-4, 5, base.shape),
+                            0, 255).astype(np.uint8))
+    w.release()
+
+
+def timed_ms(fn, iters: int) -> float:
+    """Host-clock ms per call of a host function, after one warm-up."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def dataset_native(card: str) -> bool:
+    """The native library: its g++ build into a fresh directory, and on
+    16 frames of 512 px each function bit for bit against its numpy form,
+    with ms per call of both."""
+    import shutil
+
+    import numpy as np
+    from storygen_tpu_torch import native
+    root = build_dir("chip_smoke_native")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    native.build(root)
+    build_s = time.perf_counter() - t0
+    native.load()
+    rs = np.random.RandomState(0)
+    frames = [rs.randint(0, 256, (512, 512, 3)).astype(np.uint8)
+              for _ in range(NATIVE_FRAMES)]
+    batch = np.stack(frames)
+    pairs = {
+        "normalize_u8": (lambda: native.normalize_u8(batch, 2 / 255, -1.0),
+                         lambda: native.normalize_u8_numpy(batch, 2 / 255,
+                                                           -1.0)),
+        "assemble_batch": (lambda: native.assemble_batch(frames, 1 / 255, 0.0),
+                           lambda: native.assemble_batch_numpy(
+                               frames, 1 / 255, 0.0)),
+        "resize_bilinear": (
+            lambda: [native.resize_bilinear(f, 384, 640) for f in frames],
+            lambda: [native.resize_bilinear_numpy(f, 384, 640)
+                     for f in frames])}
+    ok = True
+    for name, (lib_fn, np_fn) in pairs.items():
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(np.atleast_1d(lib_fn()), np.atleast_1d(np_fn())))
+        ok &= same
+        print(f"dataset native {name} (16 x 512x512x3"
+              f"{', to 384x640' if name == 'resize_bilinear' else ''}): "
+              f"equal bit for bit to the numpy form "
+              f"{'ok' if same else 'FAIL'}; per call native "
+              f"{timed_ms(lib_fn, 5):.3f} ms, numpy {timed_ms(np_fn, 3):.3f}"
+              f" ms", flush=True)
+    print(f"dataset native: g++ build {build_s:.2f} s [{card}]", flush=True)
+    return ok
+
+
+def dataset_yolo(dev, card: str, path: str) -> bool:
+    """YOLOv7 at full P5 width, fp32, 640 px: a seeded upstream train-form
+    checkpoint written to `path` and loaded by load_torch_state and the
+    importer; the card's detect inputs and head maps less their bias
+    against the same module on the CPU; the NMS of one decoded tensor on
+    the card and on the CPU; ms per detect."""
+    import numpy as np
+    import torch
+    from storygen_tpu_torch.detection import yolov7 as Y
+    state = yolo_upstream_state(Y.YOLOV7_P5_SPEC, 80, 7)
+    torch.save({"model": state}, path)
+    t0 = time.perf_counter()
+    sd = Y.import_yolov7_params(Y.load_torch_state(path))
+    import_s = time.perf_counter() - t0
+    cpu = Y.YOLOv7()
+    cpu.load_state_dict(sd, strict=True)
+    cpu.eval()
+    gpu = Y.YOLOv7()
+    gpu.load_state_dict(sd, strict=True)
+    gpu = gpu.to(dev).eval()
+    frame = np.random.RandomState(1).randint(0, 256, (512, 512, 3)).astype(
+        np.uint8)
+    x = torch.from_numpy(Y.letterbox(frame, YOLO_SIZE)[0])[None]
+    d = next(i for i, e in enumerate(Y.YOLOV7_P5_SPEC) if e[0] == "detect")
+    heads = [f"m{d}_{j}" for j in range(3)]
+    feats = {}
+    for model in (gpu, cpu):
+        for h in heads:  # the detect convs' inputs, as they run
+            model.layers[h].register_forward_pre_hook(
+                lambda mod, args, key=(id(model), h):
+                feats.__setitem__(key, args[0]))
+    with torch.no_grad():
+        maps_g = gpu(x.to(dev))
+        maps_c = cpu(x)
+
+    def rel(a, b):
+        return ((a.cpu() - b).norm() / b.norm()).item()
+    rel_f = [rel(feats[id(gpu), h], feats[id(cpu), h]) for h in heads]
+    bias = [cpu.layers[h].bias.detach() for h in heads]
+    rel_m = [rel(g.cpu() - b, c - b) for g, c, b in zip(maps_g, maps_c, bias)]
+    share = [((c - b).norm() / c.norm()).item()
+             for c, b in zip(maps_c, bias)]
+    ok = max(rel_f + rel_m) <= YOLO_REL_L2 and all(
+        bool(torch.isfinite(g).all()) for g in maps_g)
+    print(f"dataset yolov7: full P5 width fp32 at {tuple(x.shape)}: "
+          f"{sum(p.numel() for p in gpu.parameters())} parameters, imported"
+          f" in {import_s:.2f} s; card vs CPU rel L2 of the detect inputs "
+          f"{', '.join(f'{r:.3e}' for r in rel_f)}, of the head maps "
+          f"{[tuple(m.shape) for m in maps_g]} less their bias "
+          f"{', '.join(f'{r:.3e}' for r in rel_m)} (bound "
+          f"{YOLO_REL_L2:.0e}; cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}; the maps less their bias are"
+          f" {', '.join(f'{s:.3f}' for s in share)} of the maps' L2) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    pred = Y.decode_boxes(maps_g)[0]
+    kept = []
+    for p in (pred, pred.cpu()):
+        boxes, score, cls, valid = Y.nms(p, conf_thres=0.0)
+        kept.append((boxes[valid].cpu(), score[valid].cpu(),
+                     cls[valid].cpu()))
+    top = torch.topk((pred[:, 5:] * pred[:, 4:5]).max(-1).values, 300)
+    ties = 300 - len(torch.unique(top.values))
+    same = all(torch.equal(a, b) for a, b in zip(*kept))
+    ok &= same and len(kept[0][0]) > 0
+    print(f"dataset yolov7: NMS of one decoded tensor ({len(pred)} rows, "
+          f"{ties} ties among the 300 best scores), conf 0: card keeps "
+          f"{len(kept[0][0])}"
+          f" boxes, CPU {len(kept[1][0])}, same boxes, scores and classes "
+          f"in the same order {'ok' if same else 'FAIL'}", flush=True)
+    detect = Y.yolov7_person_detector(path, device=dev)
+    boxes = detect(frame)
+    ms = timed_ms(lambda: detect(frame), 10)
+    print(f"dataset yolov7: detect (letterbox, forward, NMS) on a 512x512 "
+          f"frame {ms:.2f} ms, {len(boxes)} person boxes at conf 0.5 "
+          f"[{card}]", flush=True)
+    return ok
+
+
+def dataset_inpaint(dev, card: str, results: dict, ckpt: str,
+                    kept_for_profiling: dict) -> bool:
+    """Inpainting at 512 px with the default 25 DDIM steps and a
+    rectangular mask, from the checkpoint folder, in both conv
+    configurations: the unmasked latents equal to latents0 bit for bit,
+    the pixels outside the mask equal to the input, the kernel path
+    against the plain path on the same draws, each configuration's
+    launches, ms per denoise step and s per frame. The default
+    configuration's latents call goes into `kept_for_profiling`."""
+    import numpy as np
+    import torch
+    from storygen_tpu_torch import ops
+    from storygen_tpu_torch.checkpoint.hf_import import (
+        load_diffusers_pretrained)
+    from storygen_tpu_torch.data.tokenizer import Tokenizer
+    from storygen_tpu_torch.data_process.inpaint import Inpainter, latent_mask
+    from storygen_tpu_torch.scripts.common import tokenizer_folder
+    tok = Tokenizer(tokenizer_folder(ckpt))
+    rs = np.random.RandomState(2)
+    image = rs.rand(512, 512, 3).astype(np.float32)
+    mask = np.zeros((512, 512), np.float32)
+    mask[100:300, 60:412] = 1.0
+    outside = mask == 0
+    ok = True
+    for config in ("default", "fused"):
+        b = load_diffusers_pretrained(ckpt, dev, torch.bfloat16,
+                                      conv_kernels(config))
+        inp = Inpainter(b["unet"], b["vae"], device=dev)
+        g = torch.Generator(device=dev).manual_seed(3)
+        post = torch.randn((1, 64, 64, 4), generator=g, device=dev)
+        noise = torch.randn((1, 64, 64, 4), generator=g, device=dev)
+        out = inp.inpaint_image(b["text_encoder"], tok, image, mask,
+                                prompt=PROMPTS[0], posterior_noise=post,
+                                latent_noise=noise)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = inp.inpaint_image(b["text_encoder"], tok, image, mask,
+                                prompt=PROMPTS[0], posterior_noise=post,
+                                latent_noise=noise)
+        torch.cuda.synchronize()
+        frame_s = time.perf_counter() - t0
+        path = "inpaint" if config == "default" else "inpaint_fused"
+        good = (out.shape == (512, 512, 3) and bool(np.isfinite(out).all())
+                and bool(np.array_equal(out[outside], image[outside])))
+        ok &= good & record_launches(results, read_launches(), path)
+        # the latents, kernel path and plain path on the same inputs
+        with torch.no_grad():
+            lat0 = b["vae"].encode(torch.as_tensor(
+                image, device=dev)[None] * 2 - 1).sample(post) * (
+                    b["vae"].config.scaling_factor)
+            text = b["text_encoder"](torch.as_tensor(
+                tok([PROMPTS[0]]), dtype=torch.long, device=dev))
+        m = latent_mask(torch.as_tensor(mask, device=dev), (64, 64))
+
+        def latents(steps=INPAINT_STEPS, inp=inp, lat0=lat0, m=m, text=text,
+                    noise=noise):
+            return inp.inpaint_latents(lat0, m, text, noise,
+                                       num_inference_steps=steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat_k = latents()
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / INPAINT_STEPS
+        kept = m == 0
+        exact = bool(torch.equal(lat_k[kept.expand_as(lat_k)],
+                                 lat0[kept.expand_as(lat0)]))
+        line = (f"dataset inpaint [{config}]: 512x512, DDIM-{INPAINT_STEPS},"
+                f" mask {int(mask.sum())} px ({int(m.sum())} latent px): "
+                f"{frame_s:.3f} s per frame, {step_ms:.2f} ms per denoise "
+                f"step; unmasked latents equal latents0 bit for bit {exact}, "
+                f"pixels outside the mask equal the input {good}")
+        with ops.plain_path():
+            lat_p = latents()
+        masked = m.bool().expand_as(lat_k)
+        rel = ((lat_k[masked] - lat_p[masked]).norm()
+               / lat_p[masked].norm()).item()
+        good = rel <= MODEL_REL_L2 and bool(torch.isfinite(lat_k).all())
+        ok &= exact and good
+        print(f"{line}; masked latents kernel vs plain path rel L2 {rel:.3e}"
+              f" (bound {MODEL_REL_L2:.0e}) {'ok' if good else 'FAIL'} "
+              f"[{card}]", flush=True)
+        if config == "default":
+            kept_for_profiling["latents"] = latents
+        del inp, b
+        torch.cuda.empty_cache()
+    return ok
+
+
+def dataset_build(dev, card: str, results: dict, ckpt: str,
+                  yolo: str) -> bool:
+    """scripts.build_dataset.main on a synthetic video (shot changes and
+    overlay text), stages extract, dedup, mask, inpaint and align on the
+    card: keyframes, a mask per kept frame, and each inpainted frame equal
+    to its keyframe (resized to 512 px, as the stage reads it) wherever
+    its mask is 0. The caption stage is not run: no image-to-text
+    checkpoint ships with the repository."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from storygen_tpu_torch.data_process import extract
+    from storygen_tpu_torch.scripts import build_dataset
+    work = build_dir("chip_smoke_dataset")
+    shutil.rmtree(work, ignore_errors=True)
+    videos = os.path.join(work, "videos")
+    os.makedirs(videos)
+    write_story_video(os.path.join(videos, "story1.avi"), VIDEO_SHOTS,
+                      VIDEO_SHOT_FRAMES, VIDEO_W, VIDEO_H)
+    originals = extract.extract_keyframes(os.path.join(videos, "story1.avi"),
+                                          os.path.join(work, "keyframes"))
+    out = os.path.join(work, "out")
+    argv = ["--videos", videos, "--out", out, "--stages",
+            "extract,dedup,mask,inpaint,align", "--ckpt", ckpt,
+            "--yolo_weights", yolo, "--device", "cuda"]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    build_dataset.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    img_dir = os.path.join(out, "image_inpainted_finally_checked", "story1")
+    mask_dir = os.path.join(out, "mask", "story1")
+    frames = sorted(os.listdir(img_dir))
+    masks = sorted(os.listdir(mask_dir))
+    checks = []
+    for orig in originals:
+        name = os.path.basename(orig)
+        if name not in frames:
+            continue
+        src = np.asarray(Image.open(orig).convert("RGB").resize((512, 512)),
+                         np.float32) / 255.0
+        m = np.asarray(Image.open(os.path.join(mask_dir, name)).convert("L")
+                       .resize((512, 512)), np.float32) / 255.0
+        got = np.asarray(Image.open(os.path.join(img_dir, name)))
+        if m.max() == 0:  # nothing to inpaint: the keyframe as it was
+            same = bool(np.array_equal(got, np.asarray(Image.open(orig))))
+            checks.append((name, 0.0, same, 0))
+            continue
+        # the stage's own arithmetic: uint8 / 255, composite, * 255
+        want = (src * 255).astype(np.uint8)
+        keep = m == 0
+        same = bool(np.array_equal(got[keep], want[keep]))
+        changed = int((got[~keep] != want[~keep]).any(-1).sum())
+        checks.append((name, float(m.mean()), same, changed))
+    good = (len(originals) == VIDEO_SHOTS and frames == masks
+            and len(checks) == len(frames) >= 2
+            and all(c[2] for c in checks) and any(c[3] > 0 for c in checks))
+    print(f"dataset build_dataset: {len(originals)} keyframes, {len(frames)}"
+          f" kept, masks {masks}; per frame (mask share, equal outside the "
+          f"mask, changed px inside) {checks} {'ok' if good else 'FAIL'}; "
+          f"wall {wall:.2f} s [{card}]", flush=True)
+    good &= record_launches(results, launches, "dataset_build")
+    print("dataset build_dataset: caption stage not run: no image-to-text "
+          "checkpoint ships with the repository, and a seeded one would "
+          "exercise transformers' BLIP more than the port; the CPU tests "
+          "hold data_process/caption.py against the JAX package (this "
+          "host has transformers: "
+          f"{importlib.util.find_spec('transformers') is not None})",
+          flush=True)
+    return good
+
+
+def dataset_profiling(card: str, kept: dict) -> bool:
+    """utils/profiling on the card, with the inpaint part's default
+    inpainter: trace() around one inpainting step annotated "inpaint_step"
+    writes a trace holding that range; StepTimer over 5 one-step calls;
+    and a trace of the main path's 25-step latents call, whose kernels'
+    busy time over the same call's untraced wall is the device's busy
+    share (1 - idle)."""
+    import glob
+    import shutil
+
+    import torch
+    from storygen_tpu_torch.utils.profiling import StepTimer, annotate, trace
+    latents = kept["latents"]
+
+    def traced(name, fn):
+        logdir = build_dir(f"chip_smoke_trace_{name}")
+        shutil.rmtree(logdir, ignore_errors=True)
+        with trace(logdir):
+            with annotate(name):
+                fn()
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        events = []
+        for f in files:
+            with open(f) as fh:
+                events += json.load(fh)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        found = len(files) == 1 and any(e.get("name") == name
+                                        for e in events)
+        return found, len(kernels), sum(e.get("dur", 0)
+                                        for e in kernels) / 1e3
+
+    def step():
+        return latents(1)
+    step()
+    found, n_step, busy_step = traced("inpaint_step", step)
+    timer = StepTimer()
+    for _ in range(5):
+        with timer:
+            timer.block_on(step())
+    st = timer.stats(skip_first=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    latents()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    found_all, n_all, busy_all = traced("inpaint_latents", latents)
+    ok = found and found_all and n_step > 0 and st["n"] == 5
+    print(f"dataset profiling: trace of one inpainting step ({n_step} "
+          f"device kernels, {busy_step:.2f} ms busy) holds the annotate "
+          f"range {found}; StepTimer over 5 one-step calls p50 "
+          f"{1e3 * st['p50_s']:.2f} ms, p90 {1e3 * st['p90_s']:.2f} ms; "
+          f"the {INPAINT_STEPS}-step latents call: {wall_ms:.2f} ms "
+          f"untraced, traced {n_all} device kernels {busy_all:.2f} ms busy "
+          f"(range held {found_all}): device idle "
+          f"{1 - busy_all / wall_ms:.3f} of the call "
+          f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
+    kept.clear()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def phase_dataset(dev, card: str, results: dict) -> bool:
+    """The dataset-building path on the card (data_process/, detection/,
+    native/, utils/profiling and scripts/build_dataset.py), from the
+    checkpoint phase's folder with the cli phase's tokenizer."""
+    import torch
+    ckpt = build_dir("chip_smoke_ckpt")
+    yolo = build_dir("chip_smoke_yolov7.pt")
+    # the kernels phase turned TF32 off for its library yardsticks; this
+    # phase runs as a user's process does, with PyTorch's default
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    ok = True
+    kept: dict = {}
+    for name, part in (
+            ("native", lambda: dataset_native(card)),
+            ("yolov7", lambda: dataset_yolo(dev, card, yolo)),
+            ("inpaint", lambda: dataset_inpaint(dev, card, results, ckpt,
+                                                kept)),
+            ("build_dataset", lambda: dataset_build(dev, card, results, ckpt,
+                                                    yolo)),
+            ("profiling", lambda: dataset_profiling(card, kept))):
+        t0 = time.perf_counter()
+        good = part()
+        ok &= good
+        print(f"dataset {name}: {time.perf_counter() - t0:.1f} s "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+    torch.backends.cudnn.allow_tf32 = tf32
+    return ok
+
+
 # The parallel phase. (a) 2 micro-steps of each training run; (b) DDIM
 # steps of the TP story's 2 frames; each part's rank processes must end
 # within RANKS_TIMEOUT seconds.
@@ -2968,6 +3497,7 @@ def main() -> int:
             ("checkpoint", lambda: phase_checkpoint(dev, card, results)),
             ("train_more", lambda: phase_train_more(dev, card, results)),
             ("cli", lambda: phase_cli(dev, card, results)),
+            ("dataset", lambda: phase_dataset(dev, card, results)),
             ("parallel", lambda: phase_parallel(dev, card, results)),
             ("studies", lambda: phase_studies(dev, card, results))):
         t0 = time.perf_counter()

@@ -18,7 +18,8 @@ Images are decoded by PIL, imported where it is used. On a host without
 PIL, a PNG already `size` x `size` (PIL's resize is then the identity) is
 read by utils/image.py's PNG reader, pixel for pixel what PIL gives, and
 anything else raises ImportError. The COCO datasets also need cv2,
-imported likewise.
+imported likewise. uint8 pixels become float32 in the native library
+(storygen_tpu_torch/native, built by g++ at its first call).
 """
 from __future__ import annotations
 
@@ -30,14 +31,14 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from storygen_tpu_torch import native
 from storygen_tpu_torch.utils.image import png_size, read_png
 
 
 def normalize_u8(img: np.ndarray, scale: float, offset: float) -> np.ndarray:
-    """uint8 array -> float32 img * scale + offset (the JAX package's
-    storygen_tpu/native numpy path)."""
-    return np.ascontiguousarray(img, dtype=np.uint8).astype(
-        np.float32) * scale + offset
+    """uint8 array -> float32 img * scale + offset, by the native library
+    (storygen_tpu_torch/native)."""
+    return native.normalize_u8(img, scale, offset)
 
 
 def load_rgb(path: str, size: int = 512) -> np.ndarray:

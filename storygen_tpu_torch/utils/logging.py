@@ -1,12 +1,19 @@
 """Metrics logging: one JSON line per record in <logdir>/metrics.jsonl,
-echoed to stdout. Counterpart of storygen_tpu/utils/logging.py
-(MetricLogger) without the optional tensorboard writer."""
+echoed to stdout, and the log directories' timestamp. Counterpart of
+storygen_tpu/utils/logging.py (MetricLogger, get_time_string) without the
+optional tensorboard writer."""
 from __future__ import annotations
 
 import json
 import os
 import time
+from datetime import datetime
 from typing import Dict
+
+
+def get_time_string() -> str:
+    """Timestamp suffix for log dirs."""
+    return datetime.now().strftime("%Y%m%dT%H%M%S")
 
 
 class MetricLogger:

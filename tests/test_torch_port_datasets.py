@@ -4,8 +4,8 @@ StorySalonDataset on a tree from scripts/make_synth_storysalon.py plus a
 PDF-source story (both splits, two seeds, set_epoch, the CFG dropout),
 the COCO datasets on a scripts/make_synth_coco.py tree, `collate` and the
 DataLoader with a tokenizer, TrainConfig.from_yaml on every configs/*.yml
-and numpy_to_pil. Images equal bit for bit (the JAX package's C++
-normalize_u8 and the port's numpy copy agree exactly here)."""
+and numpy_to_pil. Images equal bit for bit (the JAX package's and the
+port's C++ normalize_u8 agree exactly)."""
 import dataclasses
 import glob
 import io
