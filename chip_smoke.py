@@ -4,7 +4,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It takes no arguments and runs thirteen phases, all of which must pass. The
+It takes no arguments and runs fourteen phases, all of which must pass. The
 serving and training paths run in the default conv configuration and in
 the fused-conv one (`ConvKernels(fused_prologue=True, strided=True)`: every
 resnet conv on kernel P with its GroupNorm + SiLU as prologue, every 3x3
@@ -125,6 +125,27 @@ stride-2 conv on kernel D):
                utils/profiling's trace of one annotated inpainting step,
                a StepTimer over 5 steps, and the device's idle share of
                the default configuration's 25-step call, traced;
+  quality      the evaluation layer (evaluation/, the port's CLIP vision
+               tower and CLIPModel) and the quality scripts, called in
+               process through their main(argv) from the checkpoint
+               phase's folder with the cli phase's tokenizer, on a
+               make_synth_storysalon tree of 512 px frames (4 training
+               windows, one held-out story of 4 frames: one window):
+               run_chain (stage 1 for 1 step, precompute, stage 2 for 2
+               steps with a state every step, from copies of
+               configs/stage{1,2}_tpu_smoke.yml that name the folder and
+               its tokenizer, at batch 4 x 2 micro-steps; the suite's
+               DDIM-40 and dpm++-25 passes at states 1 and 2 with a seeded
+               ViT-B/32 scorer written by run_quality.ensure_clip;
+               chain.json); run_quality --skip_train --ckpt_step 2;
+               compare_quality on the suite's exact and dpm++-25 /
+               interval-2 JSONs; inference_coco_val with PickScore (2
+               candidates, DDIM-4) whose pick is the argmax of
+               PickScorer.score on the same candidates; study_knobs at full
+               width; and the scorer on the card against the CPU on the
+               generated PNGs (SCORER_IMAGE_REL_L2 with cuDNN's TF32
+               default, SCORER_TEXT_REL_L2), its ms per image at batch 1
+               and 8; each step's wall time, launches and the JSONs' keys;
   parallel     storygen_tpu_torch/parallel/ on the one card: (a)
                scripts.train.main on stage 2 from the checkpoint folder
                and the cli tree, 2 micro-steps, with --coordinator
@@ -2772,6 +2793,267 @@ def phase_dataset(dev, card: str, results: dict) -> bool:
     return ok
 
 
+# The quality phase: the StorySalon tree (4 training windows for batch 4,
+# one held-out window), the chain's steps, the COCO-val candidates, and the
+# card-vs-CPU bound of the scorer's embeddings. The scorer runs in fp32;
+# its patch conv (K = 3 * 32 * 32) runs in cuDNN with PyTorch's TF32
+# default, which rounds both operands to 10 mantissa bits (2^-11 relative):
+# over 3072 terms of mixed sign that is ~1e-4 of a patch embedding, and the
+# 12 pre-LN layers carry it at about that size to the pooled class token.
+# The text tower has no conv (its matmuls stay fp32), so its embeddings
+# differ by the order of fp32 sums alone, ~1e-6 after 12 layers.
+QUALITY_STORIES, QUALITY_FRAMES = 5, 4
+QUALITY_COCO_STEPS = 4
+SCORER_IMAGE_REL_L2 = 5e-3
+SCORER_TEXT_REL_L2 = 1e-4
+# run_quality on the trainer's final export against the suite's exact pass
+# on the stage-1 export with that state swapped in: the same weights, so
+# the same scores up to float noise (abs, on each mean and window)
+SWAP_SCORE_ABS = 1e-6
+# what each step of the quality phase must launch: the chain trains stage
+# 1 and stage 2 (and precomputes with the VAE encoder, renders with F, G,
+# C); run_quality, COCO-val and study_knobs render; compare_quality is
+# numpy
+PATH_KERNELS.update({
+    "quality_chain": tuple(k for k in PORT_KERNELS if k not in FUSED_KERNELS),
+    "quality_run": SERVING_KERNELS,
+    "quality_compare": (),
+    "quality_coco": SERVING_KERNELS,
+    "quality_knobs": SERVING_KERNELS,
+})
+
+
+def quality_step(label: str, fn, card: str, results: dict, path: str):
+    """Run one step of the quality phase on the card: (its result, wall
+    seconds, whether its launches are the path's)."""
+    import torch
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"quality {label}: {wall:.2f} s wall [{card}]", flush=True)
+    good = record_launches(results, launches, path)
+    torch.cuda.empty_cache()
+    return out, wall, good
+
+
+def quality_configs(work: str, ckpt: str) -> tuple:
+    """Copies of configs/stage{1,2}_tpu_smoke.yml that name the checkpoint
+    folder and its tokenizer (the committed ones name a tokenizer outside
+    the repository), at batch 4 with 2 micro-steps per optimizer step
+    (theirs: 8 and 24) to keep the phase short."""
+    import yaml
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = []
+    for stage in (1, 2):
+        with open(os.path.join(root, "configs",
+                               f"stage{stage}_tpu_smoke.yml")) as f:
+            cfg = yaml.safe_load(f)
+        cfg.update(pretrained_model_path=ckpt,
+                   tokenizer_path=os.path.join(ckpt, "tokenizer"),
+                   train_batch_size=TRAIN_BATCH,
+                   gradient_accumulation_steps=TRAIN_GA, loader_threads=4)
+        out.append(os.path.join(work, f"stage{stage}_smoke.yml"))
+        with open(out[-1], "w") as f:
+            yaml.safe_dump(cfg, f)
+    return tuple(out)
+
+
+def phase_quality(dev, card: str, results: dict) -> bool:
+    """The evaluation layer and the quality scripts on the card, called in
+    process through each script's main(argv), from the checkpoint phase's
+    full-width folder with the cli phase's tokenizer: run_chain (stage 1,
+    precompute, stage 2 from the stage-1 export, the suite's DDIM-40 and
+    dpm++-25 passes at states 1 and 2, chain.json), run_quality on the
+    chain's final export (its scores those of the suite's exact pass on
+    the swapped-in state), compare_quality on the suite's exact and
+    dpm++-25 / interval-2 JSONs, COCO-val with PickScore re-ranking (its
+    pick equal to the argmax of PickScorer.score on the same candidates),
+    study_knobs at full width, and the scorer on the card against the
+    same scorer on the CPU on the generated PNGs."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from storygen_tpu_torch.data.datasets import COCOValMultiSegDataset
+    from storygen_tpu_torch.evaluation.clip_scores import (CLIPScorer,
+                                                           PickScorer)
+    from storygen_tpu_torch.scripts import (compare_quality,
+                                            inference_coco_val,
+                                            make_synth_coco,
+                                            make_synth_storysalon, run_chain,
+                                            run_quality, study_knobs)
+    from storygen_tpu_torch.scripts.common import load_pipeline
+    ckpt = build_dir("chip_smoke_ckpt")
+    work = build_dir("chip_smoke_quality")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    # the kernels phase turned TF32 off for its library yardsticks; the
+    # scorers run as a user's process does, with PyTorch's default
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    data, root = os.path.join(work, "salon"), os.path.join(work, "chain")
+    make_synth_storysalon.write(data, QUALITY_STORIES, QUALITY_FRAMES, 512, 1)
+    stage1_yml, stage2_yml = quality_configs(work, ckpt)
+    ok, walls = True, {}
+
+    summary, walls["run_chain"], good = quality_step(
+        "run_chain (stage 1, precompute, stage 2, suite)",
+        lambda: run_chain.main([
+            "--root", root, "--data", data, "--stage1_steps", "1",
+            "--steps", "2", "--ckpt_every", "1", "--score_steps", "2",
+            "--stage1_config", stage1_yml, "--stage2_config", stage2_yml]),
+        card, results, "quality_chain")
+    tags = ("exact_s1", "dpm25_ri2_s1", "exact_s2", "dpm25_ri2_s2",
+            "dpm25_s2")
+    runs = {t: os.path.join(root, f"quality_{t}.json") for t in tags}
+    written = {t: os.path.exists(p) for t, p in runs.items()}
+    passes = list(summary["quality_curve"].values()) + list(
+        summary["fast_points"].values())
+    good &= (all(written.values()) and os.path.exists(
+        os.path.join(root, "chain.json"))
+        and all(r is not None and r["num_windows"] == 1 for r in passes)
+        and os.path.isdir(os.path.join(root, "train", "checkpoint_2")))
+    with open(runs["exact_s2"]) as f:
+        exact = json.load(f)
+    print(f"quality run_chain: suite JSONs {written}; loss curve "
+          f"{summary['loss_curve']}; exact_s2 keys {sorted(exact)}; clip_i "
+          f"{exact['clip_i']:.6f}, clip_t {exact['clip_t']:.6f}, pickscore "
+          f"{exact['pickscore']:.6f}, clip_fid {exact['clip_fid']} (one "
+          f"window: no covariance) {'ok' if good else 'FAIL'}", flush=True)
+    ok &= good
+
+    metrics, walls["run_quality"], good = quality_step(
+        "run_quality --skip_train --ckpt_step 2", lambda: run_quality.main([
+            "--root", root, "--data", data, "--skip_train", "--ckpt_step",
+            "2", "--stories", str(QUALITY_STORIES), "--frames",
+            str(QUALITY_FRAMES), "--test-stories", "1"]),
+        card, results, "quality_run")
+    keys = ("clip_i", "clip_t", "pickscore")
+    swap_err = max(abs(a - b) for k in keys for a, b in zip(
+        [metrics[k]] + metrics["per_window"][k],
+        [exact[k]] + exact["per_window"][k]))
+    good &= (sorted(metrics) == sorted(exact)
+             and all(math.isfinite(metrics[k]) for k in keys)
+             and swap_err <= SWAP_SCORE_ABS)
+    print(f"quality run_quality: keys {sorted(metrics)}; clip_i "
+          f"{metrics['clip_i']:.6f}, pickscore {metrics['pickscore']:.6f}; "
+          f"against the suite's exact_s2 (state swapped into the stage-1 "
+          f"export) max abs {swap_err:.3e} (bound {SWAP_SCORE_ABS:.0e}) "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    ok &= good
+
+    res, walls["compare_quality"], good = quality_step(
+        "compare_quality exact_s2 vs dpm25_ri2_s2",
+        lambda: compare_quality.main([runs["exact_s2"],
+                                      runs["dpm25_ri2_s2"]]),
+        card, results, "quality_compare")
+    good &= (res["fast_config"]["sampler"] == "dpm++"
+             and res["exact_config"]["num_inference_steps"] == 40
+             and isinstance(res["certified"], bool))
+    print(f"quality compare_quality: keys {sorted(res)}; certified "
+          f"{res['certified']} {'ok' if good else 'FAIL'}", flush=True)
+    ok &= good
+
+    scorer_dir = os.path.join(root, "clip_scorer")
+    coco, coco_out = os.path.join(work, "coco"), os.path.join(work, "coco_out")
+    make_synth_coco.write(coco, 1, 512, "val2017")
+    kept, walls["inference_coco_val"], good = quality_step(
+        "inference_coco_val with PickScore", lambda: inference_coco_val.main([
+            "--ckpt", ckpt, "--coco_root", coco, "--logdir", coco_out,
+            "--pickscore_processor", scorer_dir, "--pickscore_model",
+            scorer_dir, "--num_samples", "2", "--samples_per_batch", "2",
+            "--num_inference_steps", str(QUALITY_COCO_STEPS)]),
+        card, results, "quality_coco")
+    sample = COCOValMultiSegDataset(coco)[0]
+    name = os.path.basename(sample["image_path"])
+    pipe = load_pipeline(ckpt, dev)
+    cands = inference_coco_val.candidates(pipe, sample, 0, 2, 2,
+                                          QUALITY_COCO_STEPS)
+    del pipe
+    scores = PickScorer(scorer_dir, scorer_dir, dev).score(
+        sample["prompt"], [Image.fromarray(c) for c in cands])
+    want = os.path.join(work, "want.jpg")
+    Image.fromarray(cands[int(np.argmax(scores))]).save(want)
+    with open(want, "rb") as f, open(os.path.join(coco_out, name), "rb") as g:
+        same = f.read() == g.read()
+    good &= kept == {name: int(np.argmax(scores))} and same
+    print(f"quality inference_coco_val: PickScores {scores.tolist()}, kept "
+          f"{kept}, argmax {int(np.argmax(scores))}, the written file is "
+          f"that candidate: {same} {'ok' if good else 'FAIL'}", flush=True)
+    ok &= good
+    torch.cuda.empty_cache()
+
+    knobs, walls["study_knobs"], good = quality_step(
+        "study_knobs (full width, 512 px, bf16)",
+        lambda: study_knobs.main([]), card, results, "quality_knobs")
+    good &= (list(knobs) == [c[0] for c in study_knobs.CONFIGS]
+             and knobs["exact_ddim50"]["latent_rel_rmse_vs_exact"] == 0.0
+             and all(math.isfinite(v) for r in knobs.values()
+                     for v in r.values()))
+    print(f"quality study_knobs: {json.dumps(knobs)} "
+          f"{'ok' if good else 'FAIL'} [{card}]", flush=True)
+    ok &= good
+    ok &= quality_scorer(root, scorer_dir, dev, card)
+    torch.backends.cudnn.allow_tf32 = tf32
+    print(f"quality walls (s): "
+          f"{json.dumps({k: round(v, 2) for k, v in walls.items()})} "
+          f"[{card}]", flush=True)
+    return ok
+
+
+def quality_scorer(root: str, scorer_dir: str, dev, card: str) -> bool:
+    """The seeded ViT-B/32 scorer on the card against the same folder on
+    the CPU, on the generated and ground-truth PNGs (image embeddings) and
+    the captions and prompts (text embeddings), and its ms per image at
+    batch 1 and 8 (preprocessing included)."""
+    import glob
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from storygen_tpu_torch.evaluation.clip_scores import CLIPScorer
+    paths = sorted(glob.glob(os.path.join(root, "gen*", "*.png"))
+                   + glob.glob(os.path.join(root, "gt", "*.png")))
+    imgs = [Image.open(p).convert("RGB") for p in paths]
+    texts = list(PROMPTS)
+    for p in sorted(glob.glob(os.path.join(root, "captions", "*.txt"))):
+        with open(p) as f:
+            texts.append(f.read())
+    card_scorer = CLIPScorer(scorer_dir, dev)
+    cpu_scorer = CLIPScorer(scorer_dir, "cpu")
+    img_err = rel_l2(card_scorer.image_features(imgs).cpu(),
+                     cpu_scorer.image_features(imgs))
+    txt_err = rel_l2(card_scorer.text_features(texts).cpu(),
+                     cpu_scorer.text_features(texts))
+    batch8 = (imgs * 8)[:8]
+    ms = {}
+    for n in (1, 8):
+        card_scorer.image_embed(batch8[:n])  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            card_scorer.image_embed(batch8[:n])
+        torch.cuda.synchronize()
+        ms[n] = (time.perf_counter() - t0) * 1e3 / 5 / n
+    good = (len(imgs) >= 6 and img_err <= SCORER_IMAGE_REL_L2
+            and txt_err <= SCORER_TEXT_REL_L2)
+    print(f"quality scorer: card vs CPU on {len(imgs)} PNGs and "
+          f"{len(texts)} texts: image embeddings rel L2 {img_err:.3e} "
+          f"(bound {SCORER_IMAGE_REL_L2:.0e}, cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}), text {txt_err:.3e} (bound "
+          f"{SCORER_TEXT_REL_L2:.0e}); ms per image (preprocessing "
+          f"included) batch 1 {ms[1]:.3f}, batch 8 {ms[8]:.3f} "
+          f"{'ok' if good else 'FAIL'} [{card}]", flush=True)
+    del card_scorer
+    torch.cuda.empty_cache()
+    return good
+
+
 # The parallel phase. (a) 2 micro-steps of each training run; (b) DDIM
 # steps of the TP story's 2 frames; each part's rank processes must end
 # within RANKS_TIMEOUT seconds.
@@ -3498,6 +3780,7 @@ def main() -> int:
             ("train_more", lambda: phase_train_more(dev, card, results)),
             ("cli", lambda: phase_cli(dev, card, results)),
             ("dataset", lambda: phase_dataset(dev, card, results)),
+            ("quality", lambda: phase_quality(dev, card, results)),
             ("parallel", lambda: phase_parallel(dev, card, results)),
             ("studies", lambda: phase_studies(dev, card, results))):
         t0 = time.perf_counter()

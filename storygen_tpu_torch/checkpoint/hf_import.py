@@ -164,3 +164,28 @@ def load_diffusers_pretrained(root: str, device=None,
         text_encoder=load(CLIPTextModel, (clip_cfg,), te_dir),
         clip_config=clip_cfg, scheduler_config=sched_cfg)
 
+
+
+def load_clip_model(folder: str, device=None,
+                    dtype: torch.dtype = torch.float32):
+    """A transformers CLIP folder (config.json with text_config,
+    vision_config, projection_dim and logit_scale_init_value;
+    model.safetensors or pytorch_model.bin) as the port's CLIPModel on
+    `device` (None: the card) in `dtype`, in eval mode. Fields that
+    config.json leaves out take transformers 4.57's defaults
+    (configs.CLIPConfig); `*.position_ids` buffers of older saves are
+    dropped."""
+    from storygen_tpu_torch.configs import CLIPConfig
+    from storygen_tpu_torch.models.clip_vision import CLIPModel
+    dev = resolve_device(device)
+    cfg = CLIPConfig.from_json(os.path.join(folder, "config.json"))
+    names = ("model.safetensors", "pytorch_model.bin")
+    path = next((os.path.join(folder, n) for n in names
+                 if os.path.exists(os.path.join(folder, n))), None)
+    if path is None:
+        raise FileNotFoundError(f"no {' or '.join(names)} in {folder}")
+    sd = {k: v for k, v in load_state_dict_file(path).items()
+          if not k.endswith("position_ids")}
+    with torch.device("meta"):
+        model = CLIPModel(cfg)
+    return load_into(model, sd, dev, dtype).eval()

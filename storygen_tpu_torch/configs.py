@@ -137,6 +137,74 @@ class CLIPTextConfig:
         return cls(**_filter_kwargs(cls, d.get("text_config", d)))
 
 
+# transformers 4.57's CLIPTextConfig defaults (a ViT-B text tower), which a
+# CLIP folder's config.json leaves out where its values equal them; they
+# differ from SD-1.5's text encoder, CLIPTextConfig's defaults above
+HF_CLIP_TEXT_DEFAULTS = dict(
+    vocab_size=49408, hidden_size=512, intermediate_size=2048,
+    num_hidden_layers=12, num_attention_heads=8, max_position_embeddings=77,
+    layer_norm_eps=1e-5, hidden_act="quick_gelu", bos_token_id=49406,
+    eos_token_id=49407, pad_token_id=1)
+
+
+@dataclass(frozen=True)
+class CLIPVisionConfig:
+    """CLIP's vision tower (`vision_config` of a CLIP config.json), with
+    transformers 4.57's CLIPVisionConfig defaults: ViT-B/32 at 224 px."""
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    num_channels: int = 3
+    image_size: int = 224
+    patch_size: int = 32
+    hidden_act: str = "quick_gelu"
+    layer_norm_eps: float = 1e-5
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+
+@dataclass(frozen=True)
+class CLIPConfig:
+    """A two-tower CLIP (transformers' CLIPConfig): every field that the
+    file leaves out takes transformers 4.57's default."""
+    text_config: CLIPTextConfig = CLIPTextConfig(**HF_CLIP_TEXT_DEFAULTS)
+    vision_config: CLIPVisionConfig = CLIPVisionConfig()
+    projection_dim: int = 512
+    logit_scale_init_value: float = 2.6592
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "CLIPConfig":
+        text = {**HF_CLIP_TEXT_DEFAULTS,
+                **_filter_kwargs(CLIPTextConfig, d.get("text_config") or {})}
+        vision = _filter_kwargs(CLIPVisionConfig,
+                                d.get("vision_config") or {})
+        top = {k: d[k] for k in ("projection_dim", "logit_scale_init_value")
+               if k in d}
+        return cls(CLIPTextConfig(**text), CLIPVisionConfig(**vision), **top)
+
+    @classmethod
+    def from_json(cls, path: str) -> "CLIPConfig":
+        return cls.from_dict(_read_json(path))
+
+    def to_dict(self) -> dict:
+        """config.json in transformers' CLIPConfig layout, every field
+        written."""
+        return {
+            "architectures": ["CLIPModel"], "model_type": "clip",
+            "projection_dim": self.projection_dim,
+            "logit_scale_init_value": self.logit_scale_init_value,
+            "text_config": dict(dataclasses.asdict(self.text_config),
+                                model_type="clip_text_model",
+                                projection_dim=self.projection_dim),
+            "vision_config": dict(dataclasses.asdict(self.vision_config),
+                                  model_type="clip_vision_model",
+                                  projection_dim=self.projection_dim),
+            "torch_dtype": "float32"}
+
+
 @dataclass(frozen=True)
 class ConvKernels:
     """Which kernels the UNet's and the VAE's convolutions take; the

@@ -29,32 +29,48 @@ from storygen_tpu_torch.configs import TrainConfig
 from storygen_tpu_torch.data.datasets import PrecomputedLatentDataset
 from storygen_tpu_torch.data.tokenizer import Tokenizer
 from storygen_tpu_torch.pipeline import seeded_draws
-from storygen_tpu_torch.scripts import (inference, inference_coco_val,
-                                        precompute_latents, serve, train)
+from storygen_tpu_torch.scripts import (compare_quality, inference,
+                                        inference_coco_val,
+                                        precompute_latents, run_chain,
+                                        run_quality, run_quality_suite, serve,
+                                        study_knobs, train)
 from storygen_tpu_torch.scripts.common import load_pipeline
 from storygen_tpu_torch.utils.image import decode_png, read_png
 from tests.torch_port_util import cli_folder
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # each JAX script's flags that the port's script does not take:
-# --platform became --device; PickScore (evaluation/) is not ported, nor
-# are the candidate counts that only its re-ranking reads; the JAX
-# precompute script never reads its --batch
+# --platform became --device, and run_quality's --orbax_step became
+# --state_step (the trainer's torch_io states); the JAX precompute script
+# never reads its --batch
 NOT_TAKEN = {
     "inference.py": {"--platform"},
     "precompute_latents.py": {"--batch"},
     "train.py": {"--platform"},
-    "inference_coco_val.py": {"--platform", "--pickscore_processor",
-                              "--pickscore_model", "--num_samples",
-                              "--samples_per_batch"},
+    "inference_coco_val.py": {"--platform"},
     "serve.py": {"--platform"},
+    "run_quality.py": {"--platform", "--orbax_step"},
+    "run_quality_suite.py": set(),
+    "run_chain.py": {"--platform"},
+    "compare_quality.py": set(),
+    "study_knobs.py": set(),
 }
-# and the flags it adds: the device, and the torch.distributed backend of
-# the multi-process ones
-ADDED = {"train.py": {"--backend"}, "serve.py": {"--backend"}}
+# and the flags it adds: the device, the torch.distributed backend of the
+# multi-process ones, run_quality's trainer state, and run_chain's two
+# training configs (the JAX script hard-codes configs that name a tokenizer
+# outside the repository)
+ADDED = {"train.py": {"--backend"}, "serve.py": {"--backend"},
+         "run_quality.py": {"--state_step"},
+         "run_chain.py": {"--stage1_config", "--stage2_config"}}
+# the scripts that run no model, so take no --device
+NO_DEVICE = {"compare_quality.py"}
 SCRIPTS = {"inference.py": inference,
            "precompute_latents.py": precompute_latents, "train.py": train,
-           "inference_coco_val.py": inference_coco_val, "serve.py": serve}
+           "inference_coco_val.py": inference_coco_val, "serve.py": serve,
+           "run_quality.py": run_quality,
+           "run_quality_suite.py": run_quality_suite,
+           "run_chain.py": run_chain, "compare_quality.py": compare_quality,
+           "study_knobs.py": study_knobs}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -83,15 +99,17 @@ def tree(tmp_path_factory):
 @pytest.mark.parametrize("script", sorted(SCRIPTS))
 def test_flags_of_the_jax_scripts_are_taken(script, capsys):
     with open(os.path.join(REPO, "scripts", script)) as f:
-        jax_flags = set(re.findall(r'add_argument\(\s*"(--\w+)"', f.read()))
+        jax_flags = set(re.findall(r'add_argument\(\s*"(--\w[\w-]*)"',
+                                   f.read()))
     assert jax_flags >= NOT_TAKEN[script]
     with pytest.raises(SystemExit):
         SCRIPTS[script].parse_args(["--help"])
     help_text = capsys.readouterr().out
-    ours = set(re.findall(r"(--\w+)", help_text)) - {"--help"}
-    assert ours == (jax_flags - NOT_TAKEN[script] | {"--device"}
+    ours = set(re.findall(r"(--\w[\w-]*)", help_text)) - {"--help"}
+    device = set() if script in NO_DEVICE else {"--device"}
+    assert ours == (jax_flags - NOT_TAKEN[script] | device
                     | ADDED.get(script, set()))
-    assert "--device DEVICE" in help_text
+    assert ("--device DEVICE" in help_text) == (script not in NO_DEVICE)
 
 
 def test_inference_pngs_equal_the_pipeline(folder, tmp_path):

@@ -100,6 +100,17 @@ def test_port_imports_no_jax_or_flax():
         "import storygen_tpu_torch.data_process.align, "
         "storygen_tpu_torch.data_process.caption\n"
         "import storygen_tpu_torch.scripts.build_dataset\n"
+        "import storygen_tpu_torch.models.clip_vision, "
+        "storygen_tpu_torch.evaluation.clip_scores\n"
+        "import storygen_tpu_torch.evaluation.fid, "
+        "storygen_tpu_torch.evaluation.preprocess\n"
+        "import storygen_tpu_torch.scripts.run_quality, "
+        "storygen_tpu_torch.scripts.run_quality_suite\n"
+        "import storygen_tpu_torch.scripts.run_chain, "
+        "storygen_tpu_torch.scripts.compare_quality\n"
+        "import storygen_tpu_torch.scripts.study_knobs, "
+        "storygen_tpu_torch.scripts.make_synth_storysalon\n"
+        "import storygen_tpu_torch.scripts.make_synth_coco\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'storygen_tpu', 'transformers', "
         "'tokenizers', 'regex'))\n"
@@ -338,6 +349,54 @@ def test_dataset_entry_points_need_a_card_unless_asked_for_cpu(
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_dataset.main(argv)
     build_dataset.main(argv + ["--device", "cpu"])
+
+
+def test_quality_entry_points_need_a_card_unless_asked_for_cpu(
+        monkeypatch, tmp_path):
+    """The evaluation layer and the quality scripts: the scorers and the
+    CLIP loader, and run_quality, run_quality_suite, run_chain and
+    study_knobs without --device, refuse without a card; given the CPU the
+    scorers load and study_knobs runs (here on tiny models; the scripts'
+    CPU runs are in tests/test_torch_port_quality.py)."""
+    from chip_smoke import write_bpe_files
+    from storygen_tpu_torch.data.tokenizer import Tokenizer
+    from storygen_tpu_torch.evaluation import clip_scores
+    from storygen_tpu_torch.scripts import (run_chain, run_quality,
+                                            run_quality_suite, study_knobs)
+    from tests.test_torch_port_quality import TINY_SCORER
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    write_bpe_files(str(tmp_path / "bpe"), ["a fox"], 10)
+    Tokenizer(str(tmp_path / "bpe")).save_pretrained(str(tmp_path / "tok"))
+    scorer = str(tmp_path / "scorer")
+    run_quality.ensure_clip(scorer, str(tmp_path / "tok"), TINY_SCORER)
+    for make in (lambda **kw: hf_import.load_clip_model(scorer, **kw),
+                 lambda **kw: clip_scores.CLIPScorer(scorer, **kw),
+                 lambda **kw: clip_scores.PickScorer(scorer, scorer, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        got = make(device="cpu")
+        model = getattr(got, "model", got)
+        assert {p.device.type for p in model.parameters()} == {"cpu"}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        clip_scores.evaluate_directory(str(tmp_path), str(tmp_path), scorer)
+    root, data = str(tmp_path / "run"), str(tmp_path / "data")
+    runs = [(run_quality, ["--root", root, "--data", data]),
+            (run_quality_suite, ["--root", root, "--data", data, "--base",
+                                 root]),
+            (run_chain, ["--root", root, "--data", data]),
+            (study_knobs, [])]
+    for script, argv in runs:
+        assert script.parse_args(argv).device == "cuda"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            script.main(argv)
+    assert not os.path.exists(root) and not os.path.exists(data)
+    unet, vae, _ = _tiny_serving_models()
+    monkeypatch.setattr(study_knobs, "knob_models", lambda dev: (unet, vae))
+    monkeypatch.setattr(study_knobs, "SIDE", 64)
+    monkeypatch.setattr(study_knobs, "CONFIGS", [
+        (n, 1, s, i) for n, _, s, i in study_knobs.CONFIGS])
+    res = study_knobs.main(["--device", "cpu"])
+    assert sorted(res) == sorted(n for n, *_ in study_knobs.CONFIGS)
 
 
 def _tiny_serving_models():
