@@ -32,7 +32,15 @@ stride-2 conv on kernel D):
                and for G (at every feed-forward site class of serving, its
                reference pass and training) its share of its bound, its
                GB/s and the time of the unfused bf16 chain of PyTorch
-               calls (a yardstick, not G's function);
+               calls (a yardstick, not G's function), and for C and P
+               their share of their bound, the device time of a call's
+               kernels alone (torch.profiler) and the host's cost of a
+               call through the wrapper and of its C launcher alone; then,
+               at the sites whose wgmma line splits the reduction (UNet
+               L3, mid, up block 1), C run twice bit for bit, C at B3
+               against its three B1 calls bit for bit and against its
+               plain version, and ptxas's registers and spills of every
+               wgmma conv line (a spill fails the phase);
   models       in each configuration: one full-width UNet image-cycle pass
                (512 px, 3 refs) and one 512 px VAE encode and decode,
                kernel path against the plain path on the card, compared
@@ -423,6 +431,49 @@ def bound_ms(flops: float, nbytes: float):
                                        else "bytes")
 
 
+def host_us(fn, iters: int = 50) -> float:
+    """Host microseconds per call of `fn` with the device's queue not full:
+    what the call costs the CPU (enqueue, not device time)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / iters
+
+
+def conv_alone(x, w9, bias, residual, *affine):
+    """Kernel C's (P's, with fp32 a and s) C launcher on this call's
+    operands, its output and split workspace made once, as a callable."""
+    import torch
+    from storygen_tpu_torch.ops import _build, conv
+    b, h, w, cin = x.shape
+    cout = w9.shape[2]
+    name = "sg_gnconv3x3" if affine else "sg_conv3x3"
+    shape = conv.workspace_shape(bool(affine), b, h, w, cin, cout)
+    keep = [bias.float().contiguous(), *(t.float().contiguous()
+                                         for t in affine),
+            torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)]
+    if shape is not None:
+        keep.append(torch.empty(shape, dtype=torch.float32, device=x.device))
+    args = (x.data_ptr(), w9.data_ptr(), keep[0].data_ptr(),
+            cout if bias.dim() == 2 else 0,
+            *(t.data_ptr() for t in keep[1:1 + len(affine)]),
+            None if residual is None else residual.data_ptr(),
+            keep[1 + len(affine)].data_ptr(),
+            None if shape is None else keep[-1].data_ptr(),
+            1 if shape is None else shape[0], b, h, w, cin, cout,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    fn = getattr(_build.load(), name)
+
+    def call(keep=keep):
+        _build.check(fn(*args), name)
+    return call
+
+
 class Case:
     """One kernel at one shape: the kernel call, its plain version on the
     same bf16 inputs, the fp32 oracle, an optional library call, and the
@@ -437,17 +488,20 @@ class Case:
     gated product where PyTorch does). `yardstick`, for S3, is the bf16
     q k^T product alone (torch.bmm): S3 has no one-call equivalent, and
     the product is not S3's function (it writes the logits, S3 their
-    sums)."""
+    sums). `alone`, for C and P, is the kernel's C launcher on operands
+    and buffers made once: the host's cost of a call without the wrapper's
+    checks and allocations."""
 
     def __init__(self, name, label, kern, plain, oracle, library, flops,
                  nbytes, twin=None, backward=None, unfused=None,
-                 yardstick=None):
+                 yardstick=None, alone=None):
         self.name, self.label = name, label
         self.kern, self.plain, self.oracle = kern, plain, oracle
         self.library, self.flops, self.nbytes = library, flops, nbytes
         self.twin, self.backward = twin, backward
         self.unfused = unfused
         self.yardstick = yardstick
+        self.alone = alone
 
 
 def _attn_cases(dev, rnd):
@@ -692,7 +746,7 @@ def kernel_cases(dev):
             2.0 * pix * 9 * cin * cout,
             2.0 * (pix * cin + 9 * cin * cout + pix * cout * (2 if res
                                                                else 1))
-            + 4.0 * bias.numel()))
+            + 4.0 * bias.numel(), alone=conv_alone(x, w9, bias, r)))
     return cases + _fused_conv_cases(dev, g, rnd)
 
 
@@ -746,7 +800,7 @@ def _fused_conv_cases(dev, g, rnd):
                                                                else 1))
             + 4.0 * (bias.numel() + 2 * b * cin),
             twin=lambda act=act, w9=w9, bias=bias, r=r: conv.conv3x3(
-                act, w9, bias, r)))
+                act, w9, bias, r), alone=conv_alone(x, w9, bias, r, a, sh)))
     for label, b, h, w, cin, cout, pad in [
             ("UNet L1", 3, 64, 64, 320, 320, (1, 1, 1, 1)),
             ("VAE enc 512px", 3, 512, 512, 128, 128, (0, 1, 0, 1)),
@@ -867,6 +921,18 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
             fwd_line += (f"  {b_ms / ms:.1%} of bound  "
                          f"{c.nbytes / ms / 1e6:.0f} GB/s  "
                          f"unfused {unfused_ms:.4f} ms")
+        wrapper_us = alone_us = dev_ms = None
+        if c.alone is not None:
+            # C and P: share of bound, the device time of the call's
+            # kernels alone (the split reduction included), and the host's
+            # cost of a call, through the wrapper and of the C launcher
+            with torch.no_grad():
+                dev_ms = device_ms(c.kern, "sg_conv::")
+                wrapper_us, alone_us = host_us(c.kern), host_us(c.alone)
+            alone_txt = "-" if dev_ms is None else f"{dev_ms:.4f} ms"
+            fwd_line += (f"  {b_ms / ms:.1%} of bound  device time alone "
+                         f"{alone_txt}  host {wrapper_us:.1f} us (launcher alone "
+                         f"{alone_us:.1f} us)")
         if bwd_ms is not None:
             fwd_line += f"  SDPA backward {bwd_ms:.4f} ms"
             if c.name == "flash_dkv" and c.label in dq_ms:
@@ -897,11 +963,104 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
                            "vs_library": vs_lib,
                            "sdpa_backward_ms": bwd_ms,
                            "dq_dkv_vs_sdpa_backward": vs_bwd,
-                           "unfused_ms": unfused_ms})
+                           "unfused_ms": unfused_ms, "host_us": wrapper_us,
+                           "host_alone_us": alone_us,
+                           "device_alone_ms": dev_ms})
     for r in results.values():  # the bound of the kernel's summed cases
         r["bound_by"] = max(r["cases"], key=lambda x: x["bound_ms"])[
             "bound_by"]
+    ok &= conv_split_checks(dev, card)
+    ok &= conv_ptxas()
     torch.cuda.empty_cache()
+    return ok
+
+
+# (label, B, side, Cin, Cout, per-batch bias, residual) of kernel C at the
+# sites whose wgmma line splits the 9 Cin reduction
+SPLIT_SITES = [("UNet L3", 3, 16, 1280, 1280, False, False),
+               ("UNet mid (B,C) bias + residual", 3, 8, 1280, 1280, True,
+                True),
+               ("UNet up block 1", 3, 8, 2560, 1280, False, False)]
+
+
+def conv_split_checks(dev, card: str) -> bool:
+    """At the split sites: kernel C run twice is equal bit for bit, C at B3
+    equals its three B1 calls bit for bit (the split plan and each output's
+    order of summation ignore the batch), and the B3 result stays within
+    KERNEL_RTOL of the fp32 plain version."""
+    import torch
+    from storygen_tpu_torch.ops import conv
+    g = torch.Generator(device=dev).manual_seed(1)
+    ok = True
+    for label, b, hw, cin, cout, bias_b, res in SPLIT_SITES:
+        x = (torch.randn((b, hw, hw, cin), generator=g, device=dev)
+             .to(torch.bfloat16))
+        w9 = (torch.randn((9, cin, cout), generator=g, device=dev)
+              * (9 * cin) ** -0.5).to(torch.bfloat16)
+        bias = torch.randn((b, cout) if bias_b else (cout,), generator=g,
+                           device=dev)
+        r = (torch.randn((b, hw, hw, cout), generator=g, device=dev)
+             .to(torch.bfloat16) if res else None)
+        with torch.no_grad():
+            one = conv.conv3x3(x, w9, bias, r)
+            two = conv.conv3x3(x, w9, bias, r)
+            rows = torch.cat([conv.conv3x3(
+                x[i:i + 1].contiguous(), w9,
+                bias[i:i + 1].contiguous() if bias_b else bias,
+                None if r is None else r[i:i + 1].contiguous())
+                for i in range(b)])
+            ref = conv.conv3x3_plain(x.float(), w9.float(), bias,
+                                     None if r is None else r.float())
+        torch.cuda.synchronize()
+        repeat, sliced = torch.equal(one, two), torch.equal(one, rows)
+        err = (one.float() - ref).abs().max().item()
+        bound = KERNEL_RTOL * ref.abs().max().item()
+        good = (repeat and sliced and err <= bound
+                and bool(torch.isfinite(one.float()).all()))
+        ok &= good
+        print(f"conv split {label} B{b} {hw}x{hw} {cin}->{cout}: splits "
+              f"{conv.conv_splits(False, cin, cout, hw, hw)}, repeat "
+              f"{'equal' if repeat else 'DIFFERS'}, B{b} vs {b} x B1 "
+              f"{'equal' if sliced else 'DIFFERS'}, max_abs_err {err:.3e} "
+              f"(bound {bound:.3e}) {'ok' if good else 'FAIL'} [{card}]",
+              flush=True)
+    return ok
+
+
+def conv_ptxas() -> bool:
+    """Registers and spill bytes of every wgmma conv instantiation in this
+    run's build (`<hash>/conv3x3.ptxas.txt`), and any wgmma serialisation
+    ptxas reports; False if one spills or a built wgmma line has no
+    report."""
+    import re
+    from storygen_tpu_torch.ops import _build, conv
+    from storygen_tpu_torch.studies.common import ptxas_summary
+    text = _build.ptxas_report("conv3x3")
+    ok, seen = True, set()
+    for entry, regs, stack, stores, loads in ptxas_summary(text):
+        # template arguments: Lb<0|1>E (bool), Li<n>E (int)
+        m = re.search(r"wg_conv_kernel[^I]*I((?:L[ib]-?\d+E)+)E", entry)
+        if m is None:
+            continue
+        args = tuple(int(v) for v in re.findall(r"L[ib](-?\d+)E",
+                                                m.group(1)))
+        seen.add(args)
+        good = stores == 0 and loads == 0
+        ok &= good
+        print(f"ptxas wg_conv_kernel<{', '.join(map(str, args))}>: {regs} "
+              f"registers, {stack} bytes stack, {stores} bytes spill "
+              f"stores, {loads} bytes spill loads {'ok' if good else 'FAIL'}",
+              flush=True)
+    for line in text.splitlines():
+        if "serializ" in line:
+            print(f"ptxas: {line.strip()}", flush=True)
+    built = {(k[1],) + v[1:] for k, v in conv.CONV_BUILT.items()
+             if v[0] == conv.WGMMA}
+    missing = built - seen
+    ok &= not missing
+    print(f"ptxas conv3x3: {len(seen)} wgmma instantiations reported, "
+          f"{len(built)} built, missing {sorted(missing)} "
+          f"{'ok' if not missing else 'FAIL'}", flush=True)
     return ok
 
 

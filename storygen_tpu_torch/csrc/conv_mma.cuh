@@ -1,5 +1,8 @@
-// The implicit-GEMM 3x3 convolution over NHWC for Hopper (sm_90a) that
-// kernels C and P (conv3x3.cu) and D (downconv3x3.cu) instantiate:
+// The implicit-GEMM 3x3 convolution over NHWC for sm_90a on mma.sync that
+// kernel D (downconv3x3.cu) instantiates, and kernel C (conv3x3.cu) at the
+// keys that conv_wgmma.cuh does not take (Cin % 8 != 0, the conv_in; Cout
+// <= 16, the conv_out), where the card is bound by bytes; the tile study
+// also times it, P's prologue included, at every stride-1 key:
 //   out[b, oy, ox, co] = bias[b?, co] + sum_{dy, dx, ci}
 //       act(x[b, S*oy+dy-pt, S*ox+dx-pl, ci]) * w9[3*dy+dx, ci, co]
 //       (+ residual[b, oy, ox, co])
@@ -76,9 +79,10 @@ __device__ __forceinline__ uint4 prologue8(uint4 v, const float (&a)[8],
   return p.u;
 }
 
-// The classes that pick an instantiation (mirrored by ops/conv.py's
-// tile_key): Cout <= 16 is narrow (conv_out's 3, 4 or 8 channels), and
-// the output width falls in W <= 8, W <= 16 or wider.
+// The classes that pick D's instantiation (mirrored by ops/conv.py's
+// tile_key; conv_wgmma.cuh's conv_cout_class refines the first for the
+// stride-1 keys): Cout <= 16 is narrow (conv_out's 3, 4 or 8 channels),
+// and the output width falls in W <= 8, W <= 16 or wider.
 __host__ __device__ inline int cout_class(int cout) { return cout > 16; }
 __host__ __device__ inline int w_class(int wo) {
   return wo <= 8 ? 0 : (wo <= 16 ? 1 : 2);

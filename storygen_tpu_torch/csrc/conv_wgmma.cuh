@@ -1,0 +1,696 @@
+// The 3x3 stride-1 SAME convolution over NHWC on Hopper's own instructions
+// (sm_90a), instantiated by kernels C and P (conv3x3.cu) at every key with
+// Cin % 8 == 0 and Cout > 16:
+//   out[b, y, x, co] = bias[b?, co] + sum_{dy, dx, ci}
+//       act(x[b, y+dy-1, x+dx-1, ci]) * w9[3*dy+dx, ci, co]   (+ residual)
+// act the identity (C) or P's prologue bf16(silu(x * a[b, ci] + s[b, ci])).
+// It replaces _kernel of storygen_tpu/ops/pallas_conv.py:61 (fused=False
+// and fused=True), reached through the pallas_call at :295.
+//
+// What bounds it on the H100, by site class:
+// - Wide images (64x64 latents, the VAE's 128-512 px): tensor-core work,
+//   2 pixels 9 Cin Cout operations, as long as a block's pixels share each
+//   weight they read; the weights (9 Cin x Cout) then come from L2 once per
+//   256-pixel block.
+// - Few-pixel images (16x16 and 8x8 latents at 1280-2560 channels, M =
+//   768 and 192 at batch 3): the weights' bytes. Up block 1's weights are
+//   9 x 2560 x 1280 bf16 = 59 MB, 18 us at 3.35 TB/s, against 11 us of its
+//   products; a tiling that re-reads them per M tile multiplies that time.
+//
+// What the design does:
+// - Products by wgmma.mma_async m64nNk16 (bf16 in, fp32 accumulators in
+//   registers), N = BN, the block's whole Cout tile (128 or 160 here). A,
+//   the pixels, lives in registers: each warp loads its 16 rows with
+//   ldmatrix from the halo slab, so a tap shift stays an address and no
+//   im2col exists anywhere; wgmma's register-A form consumes the fragments
+//   as mma.sync's (the same m16k16 layout per warp). B, the weights, is
+//   read by wgmma from shared memory through a matrix descriptor.
+// - Copies by TMA, one producer thread, a ring of STAGES stages signalled by
+//   mbarriers (full: the copies' bytes landed; empty: every consumer
+//   thread is done with the stage). A stage holds one chunk of CK input
+//   channels: the halo slab, one 4-D box (CK, TW+2, TH+2, IB) at (c0,
+//   x0-1, y0-1, b0) of x seen as (Cin, W, H, B), whose out-of-range
+//   coordinates TMA fills with zeros, which is exactly the SAME border (and
+//   the channels past Cin); and the chunk's weights, BN / 32 boxes (32, CK,
+//   9) of w9 seen as (Cout, Cin, 9), each a 32-column panel of the (9 CK) x
+//   BN operand in the canonical N-major 64-byte-swizzled layout (8 K rows
+//   of 64 bytes a swizzle atom, the next 8 K rows 512 bytes on, the next
+//   panel 9 CK 64 bytes on). The slab's pixel rows are 2 CK bytes, swizzled
+//   by TMA over 2 CK bytes, so the eight pixels of one ldmatrix fall in
+//   eight bank groups. A block's warps share the SM's four register files,
+//   512 registers a lane each: with the producer warpgroup, 2 / 3 / 4
+//   consumer warpgroups launch at 168 / 128 / 96 registers a thread; the
+//   producer then drops to 40 by setmaxnreg and the consumers rise to 232
+//   / 152 / 104, which the accumulators (MT BN / 2) and P's prologue fit.
+// - Work split to the site, never to the batch: a block takes IB images'
+//   TH x TW tiles (IB = 3 whole 8x8 images at the 8-column sites, so the
+//   weights are read once per call at batch 3) by BN output channels, and
+//   where that leaves the card short of blocks the 9 Cin reduction is split
+//   into `splits` runs of whole chunks (blockIdx.z). The number of splits
+//   is a function of (H, W, Cin, Cout) alone (ops/conv.py::conv_splits),
+//   so every output sums its chunks in one order at any batch. Each split
+//   writes fp32 partials to a workspace that the wrapper allocates; a second
+//   kernel adds them in split order, then the bias and the residual, and
+//   stores bf16 once. No float atomics.
+// - P's prologue in place on the landed slab: after a stage's full barrier
+//   the consumer threads apply silu(x * a + s) to its pieces inside the
+//   image and below Cin (the border and the channel padding stay 0), fence
+//   the generic writes against the stage's next TMA write, and meet at a
+//   named barrier before the stage's ldmatrix. P takes C's instantiation
+//   at every key, so both sum in one order (split, chunk, tap, 16-channel
+//   step).
+// - The epilogue from the accumulators: bias ((Cout) or per batch (B,
+//   Cout)) and residual in fp32, bf16 pairs straight into (B, H, W, Cout).
+#pragma once
+#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda call)
+
+#include "conv_mma.cuh"
+
+namespace sg_conv {
+
+// The Cout class of the stride-1 keys (mirrored by ops/conv.py's tile_key;
+// the W class is conv_mma.cuh's w_class): 0 for Cout <= 16; 2 where Cin %
+// 8 == 0 and 128 does not divide Cout > 16 (320, 960, 160: 160-column
+// tiles); else 1 (128-1280 on the wgmma lines, any wider Cout at Cin % 8
+// != 0).
+__host__ __device__ inline int conv_cout_class(int cin, int cout) {
+  if (cout <= 16) return 0;
+  return cin % 8 == 0 && cout % 128 != 0 ? 2 : 1;
+}
+
+struct WgArgs {
+  const bf16* x;           // (B, H, W, Cin)
+  const bf16* w9;          // (9, Cin, Cout)
+  const float* bias;       // (Cout) or (B, Cout)
+  long long bias_bstride;  // 0 or Cout
+  const float* pa;         // P: (B, Cin) fp32, else null
+  const float* ps;
+  const bf16* res;         // (B, H, W, Cout) or null
+  bf16* out;               // (B, H, W, Cout)
+  float* ws;               // (splits, B H W, Cout) fp32 where splits > 1
+  int B, H, W, Cin, Cout, splits;
+};
+
+template <int TH, int TW, int IB, int WGM, int MT, int BN, int CK,
+          int STAGES>
+struct WgCfg {
+  static constexpr int NTC = 128 * WGM;   // consumer threads
+  static constexpr int NT = NTC + 128;    // and the producer warpgroup
+  // Registers a thread: at launch, what the block's warps leave each (an
+  // SM's four register files hold 512 a lane, and each takes WGM + 1 of
+  // the block's warps); after setmaxnreg, 40 for the producer, whose
+  // release is the pool that the consumers' increase draws on
+  static constexpr int REGS = 512 / (WGM + 1) / 8 * 8;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int RISE = (REGS + (REGS - PRODUCER_REGS) / WGM) / 8 * 8;
+  static constexpr int CONSUMER_REGS = RISE > 240 ? 240 : RISE;
+  static constexpr int SH = TH + 2, SW = TW + 2;  // a slab's rows, columns
+  static constexpr int PB = 2 * CK;       // a slab pixel's bytes = swizzle
+  static constexpr int SLAB_TX = IB * SH * SW * PB;  // the slab box
+  static constexpr int SLAB = (SLAB_TX + 1023) / 1024 * 1024;
+  static constexpr int PANEL = 9 * CK * 64;  // 32 columns x 9 CK rows
+  static constexpr int WBYTES = BN / 32 * PANEL;
+  static constexpr int STAGE = SLAB + WBYTES;
+  static constexpr int TX = SLAB_TX + WBYTES;  // bytes a stage's copies land
+  // the ring, 1 KB to align it to the 1024-byte swizzle period, and the
+  // full and empty barriers
+  static constexpr int BYTES = STAGES * STAGE + 1024 + 16 * STAGES;
+  static_assert(64 * WGM * MT == IB * TH * TW,
+                "a block's pixels fill its 64-row wgmma tiles");
+  static_assert(TW % 8 == 0, "8-pixel ldmatrix rows inside a tile row");
+  static_assert(CK == 16 || CK == 32 || CK == 64, "a swizzle span");
+  static_assert(BN % 32 == 0 && BN <= 256, "whole 32-column panels, N <= 256");
+  static_assert(SW <= 256 && SH <= 256 && IB <= 256, "TMA box dimensions");
+  static_assert(STAGES >= 2, "a ring");
+  static_assert(NTC % (CK / 8) == 0, "a prologue thread keeps its unit");
+  static_assert(WGM * CONSUMER_REGS + PRODUCER_REGS <= 512 &&
+                    REGS - PRODUCER_REGS >= WGM * (CONSUMER_REGS - REGS),
+                "the consumers' increase fits the producer's release");
+  static_assert(BYTES <= 232448, "a block's shared memory");
+};
+
+// ---- mbarriers, TMA, wgmma (PTX ISA 8.0, sm_90a)
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* m,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* m,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ldmatrix x4 at a shared-space address; volatile and clobbering memory so
+// that it stays behind the barrier wait that publishes the slab
+__device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across a wgmma
+// wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The descriptor of B, N-major with 64-byte swizzle: start address, the
+// leading byte offset (from one 32-column panel to the next) and the stride
+// byte offset (from 8 K rows to the next 8: 512 bytes), in 16-byte units;
+// layout type 2 (64B) in bits 62-63.
+__device__ __forceinline__ uint64_t b_desc(uint32_t saddr, uint32_t panel) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((panel >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// The 16-byte unit that TMA's swizzle over PB-byte rows puts logical unit
+// u of slab row R in (the address bits 7.. XORed into bits 4..; the slab
+// starts on a 1024-byte boundary)
+template <int PB>
+__device__ __forceinline__ int swz_unit(int R, int u) {
+  return u ^ (((R * PB) >> 7) & (PB / 16 - 1));
+}
+
+// d (64 x N fp32, this thread's N / 2) += a (64 x 16 bf16, this warp's
+// 16 rows in mma.sync's A fragment) b (16 x N bf16 at `desc`), N-major B
+template <int N>
+struct WgMma;
+
+template <>
+struct WgMma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(1));
+  }
+};
+template <>
+struct WgMma<128> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(1));
+  }
+};
+template <>
+struct WgMma<160> {
+  static __device__ __forceinline__ void run(float (&d)[80],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79"
+        "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(1));
+  }
+};
+template <>
+struct WgMma<256> {
+  static __device__ __forceinline__ void run(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(1));
+  }
+};
+
+// One block: IB images' TH x TW output tiles by BN output channels, over
+// the chunks of split blockIdx.z; WGM consumer warpgroups of MT 64-row
+// tiles each, then the producer warpgroup.
+template <bool PRO, int TH, int TW, int IB, int WGM, int MT, int BN, int CK,
+          int STAGES>
+__global__ void __launch_bounds__(128 * WGM + 128, 1)
+    wg_conv_kernel(const __grid_constant__ CUtensorMap tmx,
+                   const __grid_constant__ CUtensorMap tmw, const WgArgs a) {
+  using C = WgCfg<TH, TW, IB, WGM, MT, BN, CK, STAGES>;
+  constexpr int PB = C::PB, KS = CK / 16;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  // full: the stage's copies landed; empty: every consumer is done with it
+  const uint32_t full = base + STAGES * C::STAGE, empty = full + 8 * STAGES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  const int ntw = (a.W + TW - 1) / TW, tiles = ntw * ((a.H + TH - 1) / TH);
+  const int t = blockIdx.x % tiles, b0 = blockIdx.x / tiles * IB;
+  const int y0 = t / ntw * TH, x0 = t % ntw * TW, co0 = blockIdx.y * BN;
+  const int nc = (a.Cin + CK - 1) / CK;  // chunks; this split's run:
+  const int k0 = blockIdx.z * nc / a.splits;
+  const int nmy = (blockIdx.z + 1) * nc / a.splits - k0;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, C::NTC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * WGM) {  // the producer: one thread issues every copy
+    // the warpgroup gives its registers to the consumers; warps 1-3 leave
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        C::PRODUCER_REGS));
+    if (warp == 4 * WGM && lane == 0) {
+      for (int i = 0; i < nmy; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + 8 * s, (i / STAGES + 1) & 1);
+        const uint32_t bar = full + 8 * s, slab = base + s * C::STAGE;
+        const int c0 = (k0 + i) * CK;
+        mbar_expect_tx(bar, C::TX);
+        tma_load_4d(slab, &tmx, bar, c0, x0 - 1, y0 - 1, b0);
+#pragma unroll
+        for (int p = 0; p < BN / 32; ++p)
+          tma_load_3d(slab + C::SLAB + p * C::PANEL, &tmw, bar, co0 + 32 * p,
+                      c0, 0);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warp w of warpgroup g owns rows 16 w .. 16 w + 15 of
+  // each of the group's MT 64-row tiles
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      C::CONSUMER_REGS));
+  const int g = warp / 4, w = warp % 4;
+  // this lane's ldmatrix row: its slab row at tap (0, 0), per tile
+  int r0[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int p = (g * MT + mt) * 64 + 16 * w + lane % 8 + 8 * ((lane / 8) % 2);
+    const int q = p % (TH * TW);
+    r0[mt] = (p / (TH * TW) * C::SH + q / TW) * C::SW + q % TW;
+  }
+  const int half = lane / 16;  // the fragment's 8-channel half
+
+  // P: silu(x * a + s) in place on a landed slab, inside the image and
+  // below Cin (the border and the channel padding stay 0). A consumer
+  // thread keeps one logical 8-channel unit of the chunk (NTC % CK/8 == 0)
+  // over every NTC / (CK / 8)-th slab row and reads a and s a channel pair
+  // at a time; the slab by 32-bit shared addresses, so that little state
+  // sits beside the accumulators.
+  auto prologue = [&](uint32_t sl, int c0) {
+    constexpr int CPP = CK / 8, ROWS = IB * C::SH * C::SW;
+    const int u = tid % CPP, ci = c0 + 8 * u;
+    if (ci >= a.Cin) return;
+    // one piece, and one channel pair's a and s, live at a time
+#pragma unroll 1
+    for (int R = tid / CPP; R < ROWS; R += C::NTC / CPP) {
+      const int ib = R / (C::SH * C::SW), rr = R % (C::SH * C::SW);
+      const int gy = y0 - 1 + rr / C::SW, gx = x0 - 1 + rr % C::SW;
+      if (b0 + ib >= a.B || gy < 0 || gy >= a.H || gx < 0 || gx >= a.W)
+        continue;
+      const long long off = (long long)(b0 + ib) * a.Cin + ci;
+      const uint32_t q = sl + R * PB + 16 * swz_unit<PB>(R, u);
+      uint32_t v[4];
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                   : "r"(q)
+                   : "memory");
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 av = *reinterpret_cast<const float2*>(a.pa + off + 2 * k);
+        const float2 sv = *reinterpret_cast<const float2*>(a.ps + off + 2 * k);
+        const float2 f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&v[k]));
+        v[k] = pack_bf16(silu_affine(f.x, av.x, sv.x),
+                         silu_affine(f.y, av.y, sv.y));
+        asm volatile("" ::: "memory");  // the next pair's loads stay here
+      }
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(q),
+                   "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+                   : "memory");
+    }
+  };
+
+  float acc[MT][BN / 2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
+  uint32_t frag[2][MT][4];  // A of this k step and of the one in flight
+
+  for (int i = 0; i < nmy; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(full + 8 * s, (i / STAGES) & 1);
+    const uint32_t slab = base + s * C::STAGE, wts = slab + C::SLAB;
+    if constexpr (PRO) {
+      prologue(slab, (k0 + i) * CK);
+      // the generic writes come before the next TMA write of the stage,
+      // and every consumer's before any ldmatrix of the slab
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_bar_sync(1, C::NTC);
+    }
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t(&af)[MT][4] = frag[(tap * KS + kk) & 1];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int R = r0[mt] + (tap / 3) * C::SW + tap % 3;
+          ldsm_x4_at(af[mt], slab + R * PB + 16 * swz_unit<PB>(R, 2 * kk + half));
+        }
+        wg_fence();
+        const uint64_t desc = b_desc(wts + (tap * CK + 16 * kk) * 64, C::PANEL);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) WgMma<BN>::run(acc[mt], af[mt], desc);
+        wg_commit();
+        wg_wait<1>();  // the step before is done: its fragments are free
+      }
+    }
+    wg_wait<0>();  // the stage's weights are read
+    mbar_arrive(empty + 8 * s);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+
+  // epilogue: acc[mt][4 j + 2 h + e] is row 16 w + lane / 4 + 8 h, column
+  // 8 j + 2 (lane % 4) + e of tile mt
+  const int grp = lane / 4, tq = lane % 4;
+  const long long mtot = (long long)a.B * a.H * a.W;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = (g * MT + mt) * 64 + 16 * w + grp + 8 * h;
+      const int q = p % (TH * TW), b = b0 + p / (TH * TW);
+      const int y = y0 + q / TW, x = x0 + q % TW;
+      if (b >= a.B || y >= a.H || x >= a.W) continue;
+      const long long pix = ((long long)b * a.H + y) * a.W + x;
+      if (a.splits == 1) {
+        const float* bb = a.bias + b * a.bias_bstride;
+        bf16* o = a.out + pix * a.Cout;
+        const bf16* rp = a.res == nullptr ? nullptr : a.res + pix * a.Cout;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int co = co0 + 8 * j + 2 * tq;
+          if (co >= a.Cout) continue;
+          const float2 bz = *reinterpret_cast<const float2*>(bb + co);
+          float v0 = acc[mt][4 * j + 2 * h] + bz.x;
+          float v1 = acc[mt][4 * j + 2 * h + 1] + bz.y;
+          if (rp != nullptr) {
+            const float2 r = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(rp + co));
+            v0 += r.x;
+            v1 += r.y;
+          }
+          *reinterpret_cast<uint32_t*>(o + co) = pack_bf16(v0, v1);
+        }
+      } else {
+        float* o = a.ws + ((long long)blockIdx.z * mtot + pix) * a.Cout;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int co = co0 + 8 * j + 2 * tq;
+          if (co >= a.Cout) continue;
+          *reinterpret_cast<float2*>(o + co) =
+              make_float2(acc[mt][4 * j + 2 * h], acc[mt][4 * j + 2 * h + 1]);
+        }
+      }
+    }
+}
+
+// The split reduction: out = (sum over s in order of ws[s]) + bias
+// (+ residual), four channels a thread.
+__global__ void __launch_bounds__(256)
+    wg_splitk_reduce(const WgArgs a) {
+  const long long mtot = (long long)a.B * a.H * a.W;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= mtot * a.Cout / 4) return;
+  const long long e = 4 * i, pix = e / a.Cout;
+  const int co = static_cast<int>(e - pix * a.Cout);
+  float4 v = *reinterpret_cast<const float4*>(a.ws + e);
+  for (int s = 1; s < a.splits; ++s) {
+    const float4 u =
+        *reinterpret_cast<const float4*>(a.ws + s * mtot * a.Cout + e);
+    v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+  }
+  const float4 bz = *reinterpret_cast<const float4*>(
+      a.bias + pix / ((long long)a.H * a.W) * a.bias_bstride + co);
+  v.x += bz.x, v.y += bz.y, v.z += bz.z, v.w += bz.w;
+  if (a.res != nullptr) {
+    const uint2 r = *reinterpret_cast<const uint2*>(a.res + e);
+    const float2 r0 = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&r.x));
+    const float2 r1 = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&r.y));
+    v.x += r0.x, v.y += r0.y, v.z += r1.x, v.w += r1.y;
+  }
+  *reinterpret_cast<uint2*>(a.out + e) =
+      make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
+// ---- host side
+
+typedef CUresult (*TensorMapEncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime (no -lcuda);
+// null if the driver has none
+inline TensorMapEncodeTiled tensor_map_encoder() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
+#else
+  const cudaError_t err = cudaGetDriverEntryPoint(
+      "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+#endif
+  if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+  return reinterpret_cast<TensorMapEncodeTiled>(fn);
+}
+
+inline CUtensorMapSwizzle swizzle_of(int bytes) {
+  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// The tensor maps of one call: x as (Cin, W, H, B) in (CK, TW+2, TH+2, IB)
+// boxes swizzled over 2 CK bytes, w9 as (Cout, Cin, 9) in (32, CK, 9)
+// boxes swizzled over 64 bytes; out-of-range elements read as zero.
+inline bool encode_maps(const WgArgs& a, int ck, int th, int tw, int ib,
+                        CUtensorMap* tmx, CUtensorMap* tmw) {
+  const TensorMapEncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t e = sizeof(bf16);
+  const cuuint64_t xdim[4] = {(cuuint64_t)a.Cin, (cuuint64_t)a.W,
+                              (cuuint64_t)a.H, (cuuint64_t)a.B};
+  const cuuint64_t xstr[3] = {e * a.Cin, e * a.Cin * a.W,
+                              e * a.Cin * a.W * a.H};
+  const cuuint32_t xbox[4] = {(cuuint32_t)ck, (cuuint32_t)(tw + 2),
+                              (cuuint32_t)(th + 2), (cuuint32_t)ib};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  if (enc(tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(a.x),
+          xdim, xstr, xbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          swizzle_of(2 * ck), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  const cuuint64_t wdim[3] = {(cuuint64_t)a.Cout, (cuuint64_t)a.Cin, 9};
+  const cuuint64_t wstr[2] = {e * a.Cout, e * a.Cout * a.Cin};
+  const cuuint32_t wbox[3] = {32, (cuuint32_t)ck, 9};
+  return enc(tmw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<bf16*>(a.w9), wdim, wstr, wbox, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One call of an instantiation: the grid (ceil(B / IB) tiles, ceil(Cout /
+// BN), splits), then the split reduction where splits > 1; returns the
+// launches' cudaError_t (cudaErrorInvalidValue for operands it does not
+// take: Cin or Cout not a multiple of 8, more splits than chunks, no
+// workspace).
+template <bool PRO, int TH, int TW, int IB, int WGM, int MT, int BN, int CK,
+          int STAGES>
+cudaError_t wg_launch(const WgArgs& a, cudaStream_t stream) {
+  using C = WgCfg<TH, TW, IB, WGM, MT, BN, CK, STAGES>;
+  if (a.Cin % 8 != 0 || a.Cout % 8 != 0 || a.splits < 1 ||
+      a.splits > (a.Cin + CK - 1) / CK || (a.splits > 1 && a.ws == nullptr))
+    return cudaErrorInvalidValue;
+  CUtensorMap tmx, tmw;
+  if (!encode_maps(a, CK, TH, TW, IB, &tmx, &tmw))
+    return cudaErrorInvalidValue;
+  auto kern = wg_conv_kernel<PRO, TH, TW, IB, WGM, MT, BN, CK, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((a.W + TW - 1) / TW) * ((a.H + TH - 1) / TH);
+  dim3 grid(tiles * ((a.B + IB - 1) / IB), (a.Cout + BN - 1) / BN, a.splits);
+  kern<<<grid, C::NT, C::BYTES, stream>>>(tmx, tmw, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  const long long n4 = (long long)a.B * a.H * a.W * a.Cout / 4;
+  wg_splitk_reduce<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace sg_conv

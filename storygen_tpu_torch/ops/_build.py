@@ -56,11 +56,13 @@ SIGNATURES = {
     # proj, w, bias, bias is fp32, out, split-K partials, tile counters,
     # M, N, E, stream
     "sg_geglu_matmul": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
-    # x, w9, bias, bias batch stride, residual, out, B, H, W, Cin, Cout, stream
-    "sg_conv3x3": (_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, w9, bias, bias batch stride, a, s, residual, out, B, H, W, Cin,
-    # Cout, stream
-    "sg_gnconv3x3": (_P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w9, bias, bias batch stride, residual, out, split workspace,
+    # splits, B, H, W, Cin, Cout, stream
+    "sg_conv3x3": (_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, w9, bias, bias batch stride, a, s, residual, out, split workspace,
+    # splits, B, H, W, Cin, Cout, stream
+    "sg_gnconv3x3": (_P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _I, _P),
     # x, w9, bias, out, B, H, W, Cin, Cout, Ho, Wo, pad top, pad left, stream
     "sg_downconv3x3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P),

@@ -11,10 +11,14 @@ same `_kernel` with fused=True (reached through `gnconv3x3` /
 `gnconvres3x3`): kernel C on silu(x * a + s), the resnet's folded GroupNorm
 and SiLU, applied where the kernel loads its input (border kept 0).
 
-Both run one implicit-GEMM template (`csrc/conv_mma.cuh`) in the
-instantiations listed in `CONV_BUILT`, picked by `conv_tile` from the
-stride, the prologue, Cin % 8, Cout and the output width; anything else
-raises ValueError.
+Both run the templates listed in `CONV_BUILT`, picked by `conv_tile` from
+the stride, the prologue, Cin % 8, a Cout class and the output width:
+`csrc/conv_wgmma.cuh` (wgmma fed by TMA) wherever Cin % 8 == 0 and Cout >
+16, `csrc/conv_mma.cuh` (mma.sync) at the conv_in and conv_out keys;
+anything else raises ValueError. At the few-pixel sites the wgmma lines
+split the 9 Cin reduction (`conv_splits`, a function of the shape without
+the batch) into fp32 partials that the wrapper allocates
+(`workspace_shape`) and the kernel adds in one order.
 
 The backward of C follows `_conv3x3_bwd` of the JAX module: the input
 gradient reuses kernel C on the spatially flipped, in/out-transposed
@@ -32,40 +36,64 @@ import torch.nn.functional as F
 from storygen_tpu_torch.ops import _build
 
 # The instantiations of kernels C and P in csrc/conv3x3.cu (its SG_BUILT
-# lines): (stride, prologue, Cin % 8 != 0, Cout > 16, W class) -> (TH, TW,
-# BN, warps along M, warps along N, CK, ring stages, blocks per SM): an
-# output tile of TH x TW pixels by BN channels, Cin walked in chunks of CK.
-# The W class of the output width is 0 for W <= 8, 1 for W <= 16, else 2.
-# P keeps C's CK at every W class: with the same chunk depth a tile sums
-# its products in the same order (chunk, tap, 16-channel step), so P on a
-# slab equals C on the prologue applied beforehand, bit for bit.
+# lines): (stride, prologue, Cin % 8 != 0, Cout class, W class) ->
+# (family, then its eight tile parameters). Family MMA is conv_mma.cuh's
+# mma.sync template, (TH, TW, BN, warps along M, warps along N, CK, ring
+# stages, blocks per SM); family WGMMA conv_wgmma.cuh's, (TH, TW, images a
+# block, consumer warpgroups, 64-row tiles a warpgroup, BN, CK, ring
+# stages): an output tile of TH x TW pixels (of IB images) by BN channels,
+# Cin walked in chunks of CK. The Cout class is 0 for Cout <= 16, 2 for a
+# Cout that 128 does not divide where Cin % 8 == 0 and Cout > 16
+# (160-column tiles: 320 = 2 x 160), else 1; the W class of the output
+# width is 0 for W <= 8, 1 for W <= 16, else 2. P takes C's line at every
+# key: with the same tile, chunk depth and splits both sum their products
+# in one order (split, chunk, tap, 16-channel step), so P on a slab equals
+# C on the prologue applied beforehand, bit for bit.
+MMA, WGMMA = 0, 1
 CONV_BUILT = {
-    (1, 0, 0, 1, 2): (8, 32, 64, 4, 1, 16, 2, 2),
-    (1, 0, 0, 1, 1): (8, 16, 32, 4, 1, 32, 3, 2),
-    (1, 0, 0, 1, 0): (8, 8, 32, 4, 2, 64, 2, 1),
-    (1, 0, 0, 0, 2): (16, 16, 16, 8, 1, 32, 2, 1),
-    (1, 0, 0, 0, 1): (8, 16, 16, 4, 1, 32, 2, 4),
-    (1, 0, 0, 0, 0): (8, 8, 16, 4, 1, 32, 2, 4),
-    (1, 0, 1, 1, 2): (8, 16, 64, 4, 2, 16, 2, 2),
-    (1, 0, 1, 1, 1): (8, 16, 64, 4, 2, 16, 2, 2),
-    (1, 0, 1, 1, 0): (8, 16, 64, 4, 2, 16, 2, 2),
-    (1, 0, 1, 0, 2): (8, 16, 16, 4, 1, 16, 2, 4),
-    (1, 0, 1, 0, 1): (8, 16, 16, 4, 1, 16, 2, 4),
-    (1, 0, 1, 0, 0): (8, 16, 16, 4, 1, 16, 2, 4),
-    (1, 1, 0, 1, 2): (16, 16, 64, 8, 2, 16, 2, 1),
-    (1, 1, 0, 1, 1): (8, 16, 64, 4, 2, 32, 2, 2),
-    (1, 1, 0, 1, 0): (8, 8, 32, 4, 2, 64, 2, 1),
+    (1, 0, 0, 1, 2): (WGMMA, 6, 32, 1, 3, 1, 128, 32, 2),
+    (1, 0, 0, 2, 2): (WGMMA, 6, 32, 1, 3, 1, 160, 32, 2),
+    (1, 0, 0, 1, 1): (WGMMA, 8, 16, 1, 2, 1, 128, 32, 2),
+    (1, 0, 0, 2, 1): (WGMMA, 8, 16, 1, 2, 1, 160, 32, 2),
+    (1, 0, 0, 1, 0): (WGMMA, 8, 8, 3, 3, 1, 128, 32, 2),
+    (1, 0, 0, 2, 0): (WGMMA, 8, 8, 3, 3, 1, 160, 32, 2),
+    (1, 0, 0, 0, 2): (MMA, 16, 16, 16, 8, 1, 32, 2, 1),
+    (1, 0, 0, 0, 1): (MMA, 8, 16, 16, 4, 1, 32, 2, 4),
+    (1, 0, 0, 0, 0): (MMA, 8, 8, 16, 4, 1, 32, 2, 4),
+    (1, 0, 1, 1, 2): (MMA, 8, 16, 64, 4, 2, 16, 2, 2),
+    (1, 0, 1, 1, 1): (MMA, 8, 16, 64, 4, 2, 16, 2, 2),
+    (1, 0, 1, 1, 0): (MMA, 8, 16, 64, 4, 2, 16, 2, 2),
+    (1, 0, 1, 0, 2): (MMA, 8, 16, 16, 4, 1, 16, 2, 4),
+    (1, 0, 1, 0, 1): (MMA, 8, 16, 16, 4, 1, 16, 2, 4),
+    (1, 0, 1, 0, 0): (MMA, 8, 16, 16, 4, 1, 16, 2, 4),
+    (1, 1, 0, 1, 2): (WGMMA, 6, 32, 1, 3, 1, 128, 32, 2),
+    (1, 1, 0, 2, 2): (WGMMA, 6, 32, 1, 3, 1, 160, 32, 2),
+    (1, 1, 0, 1, 1): (WGMMA, 8, 16, 1, 2, 1, 128, 32, 2),
+    (1, 1, 0, 2, 1): (WGMMA, 8, 16, 1, 2, 1, 160, 32, 2),
+    (1, 1, 0, 1, 0): (WGMMA, 8, 8, 3, 3, 1, 128, 32, 2),
+    (1, 1, 0, 2, 0): (WGMMA, 8, 8, 3, 3, 1, 160, 32, 2),
 }
+# The card's SMs, and the batch that the split plan assumes (the UNet's
+# 3-row CFG batch): constants, so that a shape's split never depends on the
+# batch it comes with.
+SMS = 132
+PLAN_BATCH = 3
 
 
 def tile_key(stride: int, prologue: bool, cin: int, cout: int,
              wo: int) -> Tuple[int, int, int, int, int]:
     """The key under which the conv kernels (C, P and D) pick their
-    instantiation, as csrc/conv_mma.cuh's cout_class and w_class do:
-    (stride, prologue, Cin % 8 != 0, Cout > 16, W class of the output
-    width)."""
-    return (int(stride), int(bool(prologue)), int(cin % 8 != 0),
-            int(cout > 16), 0 if wo <= 8 else (1 if wo <= 16 else 2))
+    instantiation, as csrc/conv_wgmma.cuh's conv_cout_class (D:
+    conv_mma.cuh's cout_class) and w_class do: (stride, prologue, Cin % 8
+    != 0, Cout class, W class of the output width). It holds no batch."""
+    if cout <= 16:
+        coutc = 0
+    elif stride == 1 and cin % 8 == 0 and cout % 128:
+        coutc = 2
+    else:
+        coutc = 1
+    return (int(stride), int(bool(prologue)), int(cin % 8 != 0), coutc,
+            0 if wo <= 8 else (1 if wo <= 16 else 2))
 
 
 def pick_tile(built: dict, key: tuple) -> tuple:
@@ -73,15 +101,57 @@ def pick_tile(built: dict, key: tuple) -> tuple:
     none is built."""
     if key not in built:
         raise ValueError(f"no conv kernel built for (stride, prologue, "
-                         f"narrow Cin, wide Cout, W class) = {key}")
+                         f"narrow Cin, Cout class, W class) = {key}")
     return built[key]
 
 
 def conv_tile(prologue: bool, cin: int, cout: int, w: int) -> tuple:
-    """The instantiation that kernel C (P where `prologue`) runs: (TH, TW,
-    BN, WM, WN, CK, stages, blocks per SM); its grid is (ceil(H / TH)
-    ceil(W / TW), ceil(Cout / BN), B). ValueError if none is built."""
-    return pick_tile(CONV_BUILT, tile_key(1, prologue, cin, cout, w))
+    """The line that kernel C (P where `prologue`) runs: (family, then its
+    tile; see CONV_BUILT). ValueError if none is built, or for a wgmma
+    line's Cout that is not a multiple of 8 (its weight rows are TMA rows
+    of whole 16-byte pieces)."""
+    line = pick_tile(CONV_BUILT, tile_key(1, prologue, cin, cout, w))
+    if line[0] == WGMMA and cout % 8:
+        raise ValueError(f"no conv kernel built for Cout {cout} "
+                         f"(Cout % 8 != 0 with Cin {cin})")
+    return line
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_count(line: tuple, cin: int, cout: int, h: int, w: int) -> int:
+    """How many runs of whole CK-channel chunks `line` splits the 9 Cin
+    reduction into at an (H, W, Cin, Cout) site: 1 on a mma.sync line, and
+    on a wgmma line wherever PLAN_BATCH images give half the SMs a block or
+    more; else as many as fill the SMs, at least two chunks a run. A
+    function of the line and the shape alone: every batch sums in one
+    order."""
+    fam, th, tw, ib, _, _, bn, ck, _ = line
+    if fam != WGMMA:
+        return 1
+    blocks = (_ceil(PLAN_BATCH, ib) * _ceil(h, th) * _ceil(w, tw)
+              * _ceil(cout, bn))
+    if blocks >= SMS // 2:
+        return 1
+    return max(1, min(_ceil(SMS, blocks), _ceil(cin, ck) // 2))
+
+
+def conv_splits(prologue: bool, cin: int, cout: int, h: int,
+                w: int) -> int:
+    """`split_count` of the line that kernel C (P) runs at the site."""
+    return split_count(conv_tile(prologue, cin, cout, w), cin, cout, h, w)
+
+
+def workspace_shape(prologue: bool, b: int, h: int, w: int, cin: int,
+                    cout: int, line: Optional[tuple] = None
+                    ) -> Optional[Tuple[int, int, int]]:
+    """The fp32 partials of a split call, (splits, B H W, Cout), or None
+    where the reduction is not split; `line` is the built one if None."""
+    line = conv_tile(prologue, cin, cout, w) if line is None else line
+    splits = split_count(line, cin, cout, h, w)
+    return None if splits == 1 else (splits, b * h * w, cout)
 
 
 def pack_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -159,26 +229,37 @@ def check_kernel_operands(x, w9, residual=None):
         raise ValueError("empty convolution")
 
 
-def _launch(name: str, x, w9, bias, residual, *affine,
-            lib=None) -> torch.Tensor:
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy where it does not start on 16 bytes (the kernels read
+    the bias, a and s 16 or 8 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(name: str, x, w9, bias, residual, *affine, lib=None,
+            line=None) -> torch.Tensor:
     """Launch `name` (sg_conv3x3, or sg_gnconv3x3 with its fp32 (a, s)) on
-    checked operands; the bias and a, s go to the kernel as fp32. `lib` is
-    the built library if None (the tile study passes one built with other
-    SG_BUILT lines)."""
+    checked operands; the bias and a, s go to the kernel as fp32, with the
+    split reduction's workspace where the line splits it. `lib` is the
+    built library and `line` its line at this key if None (the tile study
+    passes a library built with another SG_BUILT line, and that line)."""
     check_kernel_operands(x, w9, residual)
     b, h, w, cin = x.shape
     cout = w9.shape[2]
-    conv_tile(bool(affine), cin, cout, w)
-    bias32 = bias.float().contiguous()
-    # the kernel reads a and s 16 bytes at a time
-    affine32 = [t.float().contiguous() for t in affine]
-    affine32 = [t if t.data_ptr() % 16 == 0 else t.clone() for t in affine32]
+    pro = bool(affine)
+    if line is None:
+        line = conv_tile(pro, cin, cout, w)
+    shape = workspace_shape(pro, b, h, w, cin, cout, line)
+    bias32 = _aligned(bias.float().contiguous())
+    affine32 = [_aligned(t.float().contiguous()) for t in affine]
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    ws = None if shape is None else torch.empty(
+        shape, dtype=torch.float32, device=x.device)
     err = getattr(lib or _build.load(), name)(
         x.data_ptr(), w9.data_ptr(), bias32.data_ptr(),
         cout if bias.dim() == 2 else 0, *(t.data_ptr() for t in affine32),
         None if residual is None else residual.data_ptr(),
-        out.data_ptr(), b, h, w, cin, cout,
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        1 if shape is None else shape[0], b, h, w, cin, cout,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, name)
     return out

@@ -2,16 +2,23 @@
 (csrc/downconv3x3.cu) is fastest at each of their sites on the card.
 
 Every kernel picks its instantiation by a key (stride, prologue, Cin % 8 !=
-0, Cout > 16, W class of the output width; ops/conv.py::tile_key). For the
-key of each shape below, the study builds the source once per candidate
-tile (TH, TW, BN, warps along M and N, CK, ring stages, blocks per SM),
-each into its own library whose only SG_BUILT line is that candidate's,
-one nvcc per candidate, all started together, under
-build/storygen_tpu_torch/conv_tiles/. Then it times each candidate, the
-built kernel (the `conv3x3` / `gnconv3x3` / `downconv3x3` wrappers) and
-cuDNN's bf16 channels_last convolution as a yardstick (not for P, which
-has no one-call counterpart), with the max error against the fp32 plain
-version. A candidate whose build the card refuses prints FAILED.
+0, Cout class, W class of the output width; ops/conv.py::tile_key). For
+the key of each shape below, the study builds the source once per
+candidate, each into its own library whose only SG_BUILT line is that
+candidate's, one nvcc per candidate, all started together, under
+build/storygen_tpu_torch/conv_tiles/, and prints each one's ptxas
+registers and spills. A stride-1 candidate names its family: the wgmma
+template of csrc/conv_wgmma.cuh (TH, TW, images a block, consumer
+warpgroups, 64-row tiles a warpgroup, BN, CK, ring stages; it splits the
+reduction as ops/conv.py::split_count plans for that tile) or the mma.sync
+template of csrc/conv_mma.cuh (TH, TW, BN, warps along M and N, CK, ring
+stages, blocks per SM), so each wgmma key is timed against its mma.sync
+line too; D's candidates are mma.sync tiles. Then it times each
+candidate, the built kernel (the `conv3x3` / `gnconv3x3` / `downconv3x3`
+wrappers) and cuDNN's bf16 channels_last convolution as a yardstick (not
+for P, which has no one-call counterpart), with the max error against the
+fp32 plain version. A candidate whose build the card refuses prints
+FAILED.
 
 On the card by default; `--device cpu` runs the plain versions only (the
 wrappers' CPU path), with host-clock times that say nothing about the card.
@@ -62,46 +69,46 @@ SHAPES = {
                       (0, 1, 0, 1)),
 }
 
-Tile = Tuple[int, int, int, int, int, int, int, int]
-# key -> candidate tiles (TH, TW, BN, WM, WN, CK, stages, blocks per SM)
-_WIDE = [(8, 16, 64, 4, 2, 32, 2, 2), (8, 16, 64, 2, 2, 32, 2, 2),
-         (8, 16, 128, 2, 2, 16, 2, 2), (16, 16, 128, 4, 2, 16, 2, 1),
-         (16, 16, 64, 4, 2, 16, 2, 1), (16, 16, 64, 8, 2, 16, 2, 1),
-         (8, 32, 64, 8, 2, 16, 2, 1), (16, 16, 64, 4, 1, 16, 2, 2),
-         (8, 32, 64, 4, 1, 16, 2, 2), (16, 16, 64, 4, 1, 16, 3, 2)]
-_W16 = [(8, 16, 32, 4, 2, 32, 2, 2), (8, 16, 64, 4, 2, 32, 2, 2),
-        (8, 16, 32, 4, 1, 32, 2, 3), (8, 16, 32, 4, 1, 32, 3, 2),
-        (8, 16, 64, 2, 2, 32, 2, 2), (8, 16, 32, 2, 2, 32, 2, 3)]
-_W8 = [(8, 8, 16, 4, 1, 32, 2, 4), (8, 8, 32, 4, 2, 32, 2, 2),
-       (8, 8, 32, 4, 1, 32, 2, 3), (8, 8, 32, 2, 2, 32, 2, 3),
-       (8, 8, 32, 4, 2, 64, 2, 1), (8, 8, 64, 4, 2, 32, 2, 2)]
-# P spends more of its time in the prologue's arithmetic, which more threads
-# per tile and fewer Cout blocks per pixel share
-_WIDE_P = [(8, 16, 64, 4, 2, 32, 2, 2), (8, 16, 64, 4, 2, 16, 3, 2),
-           (16, 16, 64, 8, 2, 16, 2, 1), (8, 16, 128, 2, 2, 16, 2, 2),
-           (16, 16, 128, 4, 2, 16, 2, 1), (8, 32, 64, 4, 1, 16, 2, 2),
-           (8, 32, 64, 4, 1, 16, 3, 2)]
-# at W <= 16 each of up to 40 Cout blocks recomputes P's prologue: wider
-# blocks (at C's CK) recompute it fewer times
-_W16_P = [(8, 16, 32, 4, 1, 32, 3, 2), (8, 16, 64, 4, 2, 32, 2, 2),
-          (8, 16, 64, 2, 2, 32, 2, 2), (8, 16, 128, 2, 4, 32, 2, 1)]
-_W8_P = [(8, 8, 32, 4, 2, 64, 2, 1), (8, 8, 64, 4, 2, 64, 2, 1),
-         (8, 8, 64, 2, 2, 64, 2, 1)]
+Tile = Tuple[int, ...]
+M, W = conv.MMA, conv.WGMMA
+# key -> candidates: for stride 1 (family, then its tile), for D the
+# mma.sync tile (TH, TW, BN, WM, WN, CK, stages, blocks per SM). Each
+# wgmma key lists the mma.sync line it had before beside its wgmma tiles.
+# A block's warps share an SM's four register files: with the producer
+# warpgroup, 2 / 3 / 4 consumer warpgroups rise by setmaxnreg to 232 / 152
+# / 104 registers a thread, which the accumulators (MT BN / 2) must fit.
+_WIDE_128 = [(W, 6, 32, 1, 3, 1, 128, 32, 2), (W, 8, 16, 1, 2, 1, 128, 32, 2),
+             (W, 8, 32, 1, 2, 2, 128, 32, 2), (W, 8, 32, 1, 4, 1, 128, 32, 2),
+             (W, 6, 32, 1, 3, 1, 128, 16, 4), (M, 8, 32, 64, 4, 1, 16, 2, 2)]
+_WIDE_160 = [(W, 6, 32, 1, 3, 1, 160, 32, 2), (W, 8, 16, 1, 2, 1, 160, 32, 2),
+             (W, 6, 32, 1, 3, 1, 160, 16, 4), (W, 8, 16, 1, 2, 1, 160, 16, 4),
+             (M, 8, 32, 64, 4, 1, 16, 2, 2)]
+_W16_128 = [(W, 8, 16, 1, 2, 1, 128, 32, 2), (W, 16, 16, 1, 4, 1, 128, 32, 2),
+            (W, 16, 16, 1, 2, 2, 128, 32, 2), (W, 8, 16, 1, 2, 1, 128, 16, 4),
+            (M, 8, 16, 32, 4, 1, 32, 3, 2)]
+_W16_160 = [(W, 8, 16, 1, 2, 1, 160, 32, 2), (W, 8, 16, 1, 2, 1, 160, 16, 4),
+            (M, 8, 16, 32, 4, 1, 32, 3, 2)]
+_W8_128 = [(W, 8, 8, 3, 3, 1, 128, 32, 2), (W, 8, 8, 3, 3, 1, 128, 16, 4),
+           (W, 8, 8, 3, 3, 1, 64, 32, 3), (W, 8, 8, 2, 2, 1, 128, 32, 2),
+           (M, 8, 8, 32, 4, 2, 64, 2, 1)]
+_W8_160 = [(W, 8, 8, 3, 3, 1, 160, 32, 2), (W, 8, 8, 3, 3, 1, 160, 16, 4),
+           (M, 8, 8, 32, 4, 2, 64, 2, 1)]
 CANDIDATES: Dict[tuple, List[Tile]] = {
-    (1, 0, 0, 1, 2): _WIDE,
-    (1, 1, 0, 1, 2): _WIDE_P,
-    (1, 0, 0, 1, 1): _W16,
-    (1, 1, 0, 1, 1): _W16_P,
-    (1, 0, 0, 1, 0): _W8,
-    (1, 1, 0, 1, 0): _W8_P,
-    (1, 0, 0, 0, 2): [(8, 16, 16, 4, 1, 32, 2, 4),
-                      (16, 16, 16, 4, 1, 32, 2, 2),
-                      (8, 32, 16, 4, 1, 32, 2, 2),
-                      (16, 16, 16, 8, 1, 32, 2, 1)],
-    (1, 0, 1, 1, 2): [(8, 16, 64, 4, 2, 16, 2, 2),
-                      (16, 16, 64, 4, 2, 16, 2, 1),
-                      (16, 16, 64, 8, 2, 16, 2, 1),
-                      (8, 16, 128, 2, 2, 16, 2, 2)],
+    # P takes C's line at every key, so both list the same candidates
+    **{(1, pro, 0, 1, 2): _WIDE_128 for pro in (0, 1)},
+    **{(1, pro, 0, 2, 2): _WIDE_160 for pro in (0, 1)},
+    **{(1, pro, 0, 1, 1): _W16_128 for pro in (0, 1)},
+    **{(1, pro, 0, 2, 1): _W16_160 for pro in (0, 1)},
+    **{(1, pro, 0, 1, 0): _W8_128 for pro in (0, 1)},
+    **{(1, pro, 0, 2, 0): _W8_160 for pro in (0, 1)},
+    (1, 0, 0, 0, 2): [(M, 8, 16, 16, 4, 1, 32, 2, 4),
+                      (M, 16, 16, 16, 4, 1, 32, 2, 2),
+                      (M, 8, 32, 16, 4, 1, 32, 2, 2),
+                      (M, 16, 16, 16, 8, 1, 32, 2, 1)],
+    (1, 0, 1, 1, 2): [(M, 8, 16, 64, 4, 2, 16, 2, 2),
+                      (M, 16, 16, 64, 4, 2, 16, 2, 1),
+                      (M, 16, 16, 64, 8, 2, 16, 2, 1),
+                      (M, 8, 16, 128, 2, 2, 16, 2, 2)],
     (2, 0, 0, 1, 2): [(8, 16, 64, 4, 2, 16, 2, 2),
                       (8, 16, 64, 4, 2, 32, 2, 1),
                       (8, 16, 64, 2, 2, 16, 2, 2),
@@ -123,8 +130,8 @@ _BUILT_LINE = re.compile(r"^[ \t]*SG_BUILT\(\d[^)]*\)[ \t]*\n", re.M)
 
 
 def shared_bytes(stride: int, tile: Tile) -> int:
-    """Dynamic shared memory of an instantiation: its ring of slab and
-    weight chunks (csrc/conv_mma.cuh's ConvCfg::BYTES)."""
+    """Dynamic shared memory of a mma.sync instantiation: its ring of slab
+    and weight chunks (csrc/conv_mma.cuh's ConvCfg::BYTES)."""
     th, tw, bn, _, _, ck, stages, _ = tile
 
     def pitch(b):  # an odd number of 16-byte units
@@ -137,6 +144,25 @@ def shared_bytes(stride: int, tile: Tile) -> int:
     sws = sw if stride == 1 else 2 * ((sw + 1) // 2)
     return stages * (a128(sh * sws * pitch(2 * ck))
                      + a128(9 * ck * pitch(2 * bn)))
+
+
+def wg_stage_bytes(tile: Tile) -> Tuple[int, int, int]:
+    """A wgmma instantiation's ring stage (csrc/conv_wgmma.cuh's WgCfg): the
+    bytes of its slab box (IB images' (TH+2) x (TW+2) pixels of CK
+    channels), of its BN / 32 weight panels (9 CK rows of 64 bytes each),
+    and of the stage (the slab rounded up to the 1024-byte swizzle
+    period, then the panels)."""
+    th, tw, ib, _, _, bn, ck, _ = tile
+    slab = ib * (th + 2) * (tw + 2) * 2 * ck
+    panels = bn // 32 * 9 * ck * 64
+    return slab, panels, (slab + 1023) // 1024 * 1024 + panels
+
+
+def wg_shared_bytes(tile: Tile) -> int:
+    """Dynamic shared memory of a wgmma instantiation: its ring, 1 KB to
+    align it, and its full and empty barriers (WgCfg::BYTES)."""
+    stages = tile[7]
+    return stages * wg_stage_bytes(tile)[2] + 1024 + 16 * stages
 
 
 def spec(shape) -> tuple:
@@ -173,7 +199,7 @@ def build(cands: Sequence[Tuple[tuple, Tile]]) -> Dict[tuple, Path]:
     return common.build_candidates(
         root, {(key, tile): ("conv_" + "_".join(map(str, key + tuple(tile))),
                              candidate_source(key, tile))
-               for key, tile in cands}, "conv_mma_kernel")
+               for key, tile in cands}, "conv_")
 
 
 def load(path: Path, stride: int) -> ctypes.CDLL:
@@ -259,9 +285,9 @@ def main(device=None, shapes=tuple(SHAPES), iters: int = 10) -> None:
                     call = (lambda lib=lib: downconv._launch(x, w9, bias, pad,
                                                              lib=lib))
                 else:
-                    call = (lambda lib=lib: conv._launch(
+                    call = (lambda lib=lib, tile=tile: conv._launch(
                         "sg_gnconv3x3" if pro else "sg_conv3x3", x, w9,
-                        bias, r, *aff, lib=lib))
+                        bias, r, *aff, lib=lib, line=tile))
                 rows.append((tag, common.refused_as_value_error(call), True))
         common.run_candidates(label, rows, ref,
                               2.0 * b * ho * wo * 9 * cin * cout, dev, card,

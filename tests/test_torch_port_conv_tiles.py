@@ -1,10 +1,12 @@
 """The tiles of kernels C, P (csrc/conv3x3.cu) and D (csrc/downconv3x3.cu),
 without a card: the Python tables of built instantiations against the
 sources' SG_BUILT lines, the shared memory and warp layout of every built
-and candidate tile, the wrappers' choice at the UNet's and the VAE's conv
-sites, a ValueError for a key that is not built, the tile study's rewrite
-of a source, and the study's CPU path at a tiny shape. The kernels
-themselves run only on the card (chip_smoke.py)."""
+and candidate tile (for the wgmma lines also TMA's box rules and wgmma's
+N), the wrappers' choice and split plan at the UNet's and the VAE's conv
+sites (no batch in either), a ValueError for a key that is not built, the
+tile study's rewrite of a source, and the study's CPU path at a tiny
+shape. The kernels themselves run only on the card (chip_smoke.py)."""
+import math
 import re
 
 import pytest
@@ -43,7 +45,15 @@ def test_down_built_matches_the_cuda_source():
 
 
 def _check_tile(stride, tile):
-    """The static_asserts of conv_mma.cuh's ConvCfg and conv_launch."""
+    """The static_asserts of conv_mma.cuh's ConvCfg and conv_launch (a
+    mma.sync tile), or of conv_wgmma.cuh's WgCfg (a stride-1 line of
+    family WGMMA)."""
+    if stride == 1:
+        fam, tile = tile[0], tile[1:]
+        if fam == conv.WGMMA:
+            _check_wgmma_tile(tile)
+            return
+        assert fam == conv.MMA
     th, tw, bn, wm, wn, ck, stages, minb = tile
     nt = 32 * wm * wn
     assert tw % 8 == 0 and (th * tw) % (16 * wm) == 0
@@ -51,6 +61,43 @@ def _check_tile(stride, tile):
     assert nt % (ck // 8) == 0 and nt <= 1024
     nbytes = conv_tiles.shared_bytes(stride, tile)
     assert nbytes <= BLOCK_SMEM and minb * (nbytes + 1024) <= SM_SMEM
+
+
+# the widths N whose wgmma instruction conv_wgmma.cuh spells out
+WGMMA_N = {int(n) for n in re.findall(
+    r"struct WgMma<(\d+)>", (_build.CSRC / "conv_wgmma.cuh").read_text())}
+
+
+def _check_wgmma_tile(tile):
+    th, tw, ib, wgm, mt, bn, ck, stages = tile
+    # the block's pixels fill its 64-row tiles; 8-pixel ldmatrix rows
+    assert 64 * wgm * mt == ib * th * tw and tw % 8 == 0
+    # the consumers and the producer warpgroup; each consumer thread keeps
+    # one 8-channel unit of a chunk in P's prologue
+    assert 128 * wgm + 128 <= 1024 and stages >= 2
+    assert (128 * wgm) % (ck // 8) == 0
+    # setmaxnreg: the consumers' rise fits the producer's release (WgCfg)
+    regs = 512 // (wgm + 1) // 8 * 8
+    cons = min(240, (regs + (regs - 40) // wgm) // 8 * 8)
+    assert wgm * cons + 40 <= 512 and regs - 40 >= wgm * (cons - regs)
+    assert cons >= mt * bn // 2 + 24  # the accumulators and some room
+    # wgmma's N: a multiple of 8 up to 256, spelled out in the header; the
+    # weights come in whole 32-column panels
+    assert bn % 8 == 0 and bn <= 256 and bn % 32 == 0 and bn in WGMMA_N
+    # TMA's boxes, (CK, TW+2, TH+2, IB) of x and (32, CK, 9) of w9: every
+    # dimension <= 256; the inner one a multiple of 16 bytes and within
+    # its swizzle span (the slab's 2 CK bytes, one of 32 / 64 / 128; the
+    # weights' 64)
+    for box in ((ck, tw + 2, th + 2, ib), (32, ck, 9)):
+        assert all(1 <= d <= 256 for d in box)
+    assert 2 * ck in (32, 64, 128)
+    # a k step is 16 weight rows of 64 bytes: 1024 bytes, so every
+    # descriptor start keeps the swizzle's phase; panels and stages are
+    # whole 1024-byte periods
+    slab, panels, stage = conv_tiles.wg_stage_bytes(tile)
+    assert panels % 1024 == 0 and stage % 1024 == 0
+    assert slab == ib * (th + 2) * (tw + 2) * 2 * ck
+    assert conv_tiles.wg_shared_bytes(tile) <= BLOCK_SMEM
 
 
 @pytest.mark.parametrize("key", sorted(conv.CONV_BUILT)
@@ -68,11 +115,12 @@ def test_every_study_candidate_fits_an_sm(key):
 
 @pytest.mark.parametrize("key", [k for k in sorted(conv.CONV_BUILT) if k[1]])
 def test_p_keeps_the_chunk_depth_of_c(key):
-    """P and C at the same site sum in one order (chunk, tap, 16-channel
-    step), so P equals C on the prologue applied beforehand bit for bit
-    (chip_smoke.py's P_VS_C_RTOL check)."""
+    """P and C at the same site sum in one order (split, chunk, tap,
+    16-channel step): P takes C's whole line (its tile, chunk depth CK and
+    so its split plan), so P equals C on the prologue applied beforehand
+    bit for bit (chip_smoke.py's P_VS_C_RTOL check)."""
     c_key = key[:1] + (0,) + key[2:]
-    assert conv.CONV_BUILT[key][5] == conv.CONV_BUILT[c_key][5]
+    assert conv.CONV_BUILT[key] == conv.CONV_BUILT[c_key]
 
 
 # (prologue, Cin, Cout, W) of C and P at the 512 px UNet's and VAE's conv
@@ -89,9 +137,14 @@ SITES = [(False, 4, 320, 64), (False, 320, 320, 64), (False, 960, 320, 64),
 @pytest.mark.parametrize("pro, cin, cout, w", SITES)
 def test_conv_tile_choice_at_the_sites_is_built(pro, cin, cout, w):
     key = conv.tile_key(1, pro, cin, cout, w)
-    assert key == (1, int(pro), int(cin % 8 != 0), int(cout > 16),
+    coutc = (0 if cout <= 16 else 2 if cin % 8 == 0 and cout % 128 else 1)
+    assert key == (1, int(pro), int(cin % 8 != 0), coutc,
                    0 if w <= 8 else 1 if w <= 16 else 2)
     assert conv.conv_tile(pro, cin, cout, w) == conv.CONV_BUILT[key]
+    # the wgmma template wherever Cin % 8 == 0 and Cout > 16, mma.sync at
+    # the conv_in and conv_out keys
+    fam = conv.WGMMA if cin % 8 == 0 and cout > 16 else conv.MMA
+    assert conv.CONV_BUILT[key][0] == fam
 
 
 # (H, W, Cin, Cout, pad) of D at the UNet's and the VAE encoder's sites
@@ -115,6 +168,7 @@ def test_down_tile_choice_at_the_sites_is_built(h, w, cin, cout, pad):
     lambda: conv.conv_tile(True, 320, 4, 64),    # P with a narrow Cout
     lambda: downconv.down_tile(4, 320, 32),      # D on a 4-channel input
     lambda: downconv.down_tile(320, 8, 32),      # D with a narrow Cout
+    lambda: conv.conv_tile(False, 320, 20, 64),  # wgmma: Cout % 8 != 0
     lambda: conv.pick_tile(conv.CONV_BUILT, (3, 0, 0, 1, 2))])
 def test_tile_choice_raises_for_an_unbuilt_key(call):
     with pytest.raises(ValueError, match="no conv kernel built"):
@@ -156,3 +210,70 @@ def test_tile_study_runs_the_plain_path_on_the_cpu(capsys):
             err = float(re.search(r"maxerr (\S+)", line).group(1))
             assert err < 0.1
     assert "FAILED" not in out
+
+
+# (prologue, B, H, W, Cin, Cout) of C and P at chip_smoke.py's kernel sites:
+# the UNet's and the VAE's at 512 px, the input gradient, the tensor-
+# parallel shards, the ragged P case and the UNet's 32-column level
+SMOKE_SITES = sorted({(k == "P", b, h, w, cin, cout)
+                      for k, b, h, w, cin, cout, *_ in
+                      conv_tiles.SHAPES.values() if k != "D"} | {
+    (False, 3, 64, 64, 320, 160), (False, 3, 64, 64, 160, 320),
+    (False, 3, 64, 64, 320, 80), (False, 3, 64, 64, 80, 320),
+    (True, 3, 64, 64, 160, 320), (True, 3, 64, 64, 80, 320),
+    (True, 2, 40, 24, 320, 320), (False, 3, 32, 32, 640, 640)})
+
+
+@pytest.mark.parametrize("pro, b, h, w, cin, cout", SMOKE_SITES)
+def test_split_plan_at_the_smoke_sites(pro, b, h, w, cin, cout):
+    """The split count and the workspace that the wrapper allocates: one
+    run where the batch-3 grid gives half the SMs a block, else enough
+    runs of two chunks or more to fill them."""
+    line = conv.conv_tile(pro, cin, cout, w)
+    splits = conv.conv_splits(pro, cin, cout, h, w)
+    shape = conv.workspace_shape(pro, b, h, w, cin, cout)
+    if line[0] == conv.MMA:
+        assert splits == 1 and shape is None
+        return
+    _, th, tw, ib, _, _, bn, ck, _ = line
+    nc = math.ceil(cin / ck)
+    blocks = (math.ceil(conv.PLAN_BATCH / ib) * math.ceil(h / th)
+              * math.ceil(w / tw) * math.ceil(cout / bn))
+    if blocks >= conv.SMS // 2:
+        assert splits == 1 and shape is None
+        return
+    assert 1 <= splits <= max(1, nc // 2)
+    assert blocks * splits >= conv.SMS or splits == max(1, nc // 2)
+    if splits > 1:
+        assert shape == (splits, b * h * w, cout)
+        # the fp32 partials stay within L2's 50 MB at every smoke site
+        assert 4 * math.prod(shape) <= 50e6
+    # P takes C's line, so both plan alike (P_VS_C_RTOL)
+    assert conv.conv_splits(not pro, cin, cout, h, w) == splits
+
+
+def test_split_plan_at_the_few_pixel_sites():
+    """The 16- and 8-column sites at 1280-2560 channels split their
+    reduction (else 30 and 10 blocks at batch 3); the 64- and 512-column
+    ones do not."""
+    for cin, cout, hw in ((1280, 1280, 16), (1280, 1280, 8),
+                          (2560, 1280, 8)):
+        for pro in (False, True):
+            assert conv.conv_splits(pro, cin, cout, hw, hw) > 1
+    for cin, cout in ((960, 320), (320, 320), (320, 960)):
+        assert conv.conv_splits(False, cin, cout, 64, 64) == 1
+    assert conv.conv_splits(False, 256, 128, 512, 512) == 1
+
+
+@pytest.mark.parametrize("pro, b, h, w, cin, cout", SMOKE_SITES)
+def test_tile_and_split_ignore_the_batch(pro, b, h, w, cin, cout):
+    """Neither the key, the line nor the split plan sees the batch: every
+    batch size sums each output in one order (the smoke's batch-slice and
+    batch-dependence checks)."""
+    line = conv.conv_tile(pro, cin, cout, w)
+    splits = conv.conv_splits(pro, cin, cout, h, w)
+    for bb in (1, 2, 3, 4, 6):
+        shape = conv.workspace_shape(pro, bb, h, w, cin, cout)
+        assert (1 if shape is None else shape[0]) == splits
+        assert shape is None or shape[1] == bb * h * w
+    assert conv.conv_tile(pro, cin, cout, w) == line

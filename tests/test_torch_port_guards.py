@@ -148,7 +148,8 @@ def test_nvcc_command_targets_sm90a_into_build_dir():
                                       "study_bounded.cu", "study_qk.cu",
                                       "study_int8.cu"}
     assert {p.name for p in _build.headers()} == {"study_mma.cuh",
-                                                  "conv_mma.cuh"}
+                                                  "conv_mma.cuh",
+                                                  "conv_wgmma.cuh"}
     out = _build.lib_path(srcs)
     nvcc = "/usr/local/cuda/bin/nvcc"
     for src in srcs:
