@@ -25,22 +25,28 @@ stride-2 conv on kernel D):
                the kernel, its plain version and, where one PyTorch call
                computes the same function, that call (timed only, as a
                yardstick; the port never calls it), beside the kernel's
-               bound, for F, M, L, DQ, DKV, C, P and D their rate in
-               TFLOP/s, for F, M, C and D their factor over SDPA or cuDNN,
-               for each backward case SDPA's backward alone (its forward
-               run outside the timed calls) and DQ+DKV's factor over it,
+               bound (for F, M, L, DQ and DKV also one exp per kept logit
+               at the special-function units' rate, with the binding term
+               printed), F and M also on k and v read from a k|v split
+               view of one tensor, for F, M, L, DQ, DKV, C, P and D their
+               rate in TFLOP/s, for F, M, C and D their factor over SDPA
+               or cuDNN, for each backward case SDPA's backward alone (its
+               forward run outside the timed calls) and DQ+DKV's factor
+               over it,
                and for G (at every feed-forward site class of serving, its
                reference pass and training) its share of its bound, its
                GB/s and the time of the unfused bf16 chain of PyTorch
-               calls (a yardstick, not G's function), and for C and P
-               their share of their bound, the device time of a call's
-               kernels alone (torch.profiler) and the host's cost of a
-               call through the wrapper and of its C launcher alone; then,
+               calls (a yardstick, not G's function), and for C, P, F
+               and M their share of their bound, the device time of a
+               call's kernels alone (torch.profiler) and the host's cost
+               of a call through the wrapper and of its C launcher alone;
+               then,
                at the sites whose wgmma line splits the reduction (UNet
                L3, mid, up block 1), C run twice bit for bit, C at B3
                against its three B1 calls bit for bit and against its
                plain version, and ptxas's registers and spills of every
-               wgmma conv line (a spill fails the phase);
+               wgmma conv line and every wgmma F / M line (a spill fails
+               the phase);
   models       in each configuration: one full-width UNet image-cycle pass
                (512 px, 3 refs) and one 512 px VAE encode and decode,
                kernel path against the plain path on the card, compared
@@ -233,6 +239,10 @@ P_VS_C_RTOL = 1e-3
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1979e12
+# The special-function units' ex2 rate: 16 a clock per SM on 132 SMs at the
+# 1.83 GHz that 989 TFLOP/s implies (989e12 / (132 x 4096 operations a
+# clock)): the attention kernels' third bound, one exp per kept logit.
+PEAK_EXPS = 132 * 16 * 1.83e9
 # The int8 study's column sum: exact int32 sums per K/V tile, accumulated
 # in fp32 across tiles, against the exact (float64) plain sum; at attn3 L1
 # its rounding is about 1e-7 of the largest sum.
@@ -424,11 +434,15 @@ def device_ms(fn, kernel: str, iters: int = 5):
     return None
 
 
-def bound_ms(flops: float, nbytes: float):
-    """The least time for the work: (ms, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+def bound_ms(flops: float, nbytes: float, exps: float = 0.0):
+    """The least time for the work, max(flops / 989e12, bytes / 3.35e12,
+    exps / PEAK_EXPS): (ms, the binding term: "operations", "bytes" or
+    "exps"). Exps are operations of the special-function units; the
+    status line's bound_by names them "operations"."""
+    terms = {"operations": flops / PEAK_FLOPS, "bytes": nbytes / PEAK_BYTES,
+             "exps": exps / PEAK_EXPS}
+    by = max(terms, key=terms.get)
+    return 1e3 * terms[by], by
 
 
 def host_us(fn, iters: int = 50) -> float:
@@ -443,6 +457,29 @@ def host_us(fn, iters: int = 50) -> float:
     t = time.perf_counter() - t0
     torch.cuda.synchronize()
     return 1e6 * t / iters
+
+
+def flash_alone(q, k, v, h, scale, keep=None):
+    """Kernel F's (M's, with `keep`) C launcher on this call's operands,
+    its output and int32 keep table made once, as a callable."""
+    import torch
+    from storygen_tpu_torch.ops import _build
+    b, sq, hd = q.shape
+    skv = k.shape[1]
+    nref = 1 if keep is None else keep.shape[1]
+    keep32 = None if keep is None else keep.to(torch.int32).contiguous()
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            sq, skv, hd // h, q.stride(0), q.stride(1), k.stride(0),
+            k.stride(1), v.stride(0), v.stride(1),
+            None if keep32 is None else keep32.data_ptr(), nref,
+            skv // nref, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    fn = _build.load().sg_flash_fwd
+
+    def call(held=(out, keep32)):
+        _build.check(fn(*args), "sg_flash_fwd")
+    return call
 
 
 def conv_alone(x, w9, bias, residual, *affine):
@@ -488,13 +525,16 @@ class Case:
     gated product where PyTorch does). `yardstick`, for S3, is the bf16
     q k^T product alone (torch.bmm): S3 has no one-call equivalent, and
     the product is not S3's function (it writes the logits, S3 their
-    sums). `alone`, for C and P, is the kernel's C launcher on operands
-    and buffers made once: the host's cost of a call without the wrapper's
-    checks and allocations."""
+    sums). `alone`, for C, P, F and M, is the kernel's C launcher on
+    operands and buffers made once: the host's cost of a call without the
+    wrapper's checks and allocations; `device` names the CUDA kernels whose
+    device time alone is read from a trace. `exps`, for the attention
+    kernels, is the exponentials the function needs (one per kept logit),
+    the bound's third term."""
 
     def __init__(self, name, label, kern, plain, oracle, library, flops,
                  nbytes, twin=None, backward=None, unfused=None,
-                 yardstick=None, alone=None):
+                 yardstick=None, alone=None, device="sg_conv::", exps=0.0):
         self.name, self.label = name, label
         self.kern, self.plain, self.oracle = kern, plain, oracle
         self.library, self.flops, self.nbytes = library, flops, nbytes
@@ -502,6 +542,7 @@ class Case:
         self.unfused = unfused
         self.yardstick = yardstick
         self.alone = alone
+        self.device, self.exps = device, exps
 
 
 def _attn_cases(dev, rnd):
@@ -542,10 +583,19 @@ def _attn_cases(dev, rnd):
            # a tensor-parallel rank's heads at tp = 2 (parallel phase)
            # and tp = 4
            ("attn1 L1 TP=2 shard, 4 heads", 3, 4096, 4096, 40, None, 4),
-           ("attn1 L1 TP=4 shard, 2 heads", 3, 4096, 4096, 40, None, 2)]
-    for label, b, sq, skv, d, table, *nh in fwd:
-        h = nh[0] if nh else 8
-        q, k, v = rnd(b, sq, h * d), rnd(b, skv, h * d), rnd(b, skv, h * d)
+           ("attn1 L1 TP=4 shard, 2 heads", 3, 4096, 4096, 40, None, 2),
+           # k and v as the two halves of one (B, Skv, 2 H D) tensor
+           # (kv.chunk(2, -1)): row strides of 2 H D, read without a copy
+           ("attn1 L1 k|v split view", 3, 4096, 4096, 40, None, 8, True),
+           ("masked attn3 L2 k|v split view", 4, 1024, 3072, 80, KEEP, 8,
+            True)]
+    for label, b, sq, skv, d, table, *rest in fwd:
+        h = rest[0] if rest else 8
+        q = rnd(b, sq, h * d)
+        if len(rest) > 1 and rest[1]:
+            k, v = rnd(b, skv, 2 * h * d).chunk(2, -1)
+        else:
+            k, v = rnd(b, skv, h * d), rnd(b, skv, h * d)
         sc = d ** -0.5
         masked = table is not None
         keep = (torch.tensor(table, dtype=torch.bool, device=dev)
@@ -570,7 +620,8 @@ def _attn_cases(dev, rnd):
                 F.scaled_dot_product_attention(
                     split_heads(q, h), split_heads(k, h), split_heads(v, h),
                     attn_mask=mask, scale=sc),
-            flops, nbytes))
+            flops, nbytes, alone=flash_alone(q, k, v, h, sc, keep),
+            device="flash_", exps=float(h * sq * rows)))
 
     bwd = [("attn1 L1", 4, 4096, 4096, 40, None),
            ("masked attn3 L1", 4, 4096, 12288, 40, KEEP),
@@ -624,6 +675,7 @@ def _attn_cases(dev, rnd):
         kv_out = 2.0 * b * skv * h * d  # dK or dV, every row written
         rowb = 4.0 * b * h * sq  # an fp32 (B, H, Sq) row of scalars
         mm = 2.0 * h * sq * rows * d  # one (Sq x kept Skv x D) product
+        logits = float(h * sq * rows)  # one exp each in L, DQ and DKV
         args = (q, k, v, dout, lse, delta)
         f32 = tuple(t.float() for t in (q, k, v, dout)) + (lse, delta)
         cases += [
@@ -632,7 +684,8 @@ def _attn_cases(dev, rnd):
                      q, k, h, sc, keep),
                  lambda h=h, q=q, k=k, sc=sc, keep=keep: fa.flash_lse_plain(
                      q, k, h, sc, keep),
-                 lambda lse=lse: lse, sdpa_fwd_bwd, mm, qb + kvb + rowb),
+                 lambda lse=lse: lse, sdpa_fwd_bwd, mm, qb + kvb + rowb,
+                 exps=logits),
             Case("flash_dq", tag,
                  lambda h=h, a=args, sc=sc, keep=keep: fa.flash_dq(
                      *a, h, sc, keep),
@@ -641,7 +694,7 @@ def _attn_cases(dev, rnd):
                  lambda h=h, a=f32, sc=sc, keep=keep: fa.flash_dq_plain(
                      *a, h, sc, keep),
                  sdpa_fwd_bwd, 3 * mm, 3 * qb + 2 * kvb + 2 * rowb,
-                 backward=sdpa_bwd),
+                 backward=sdpa_bwd, exps=logits),
             Case("flash_dkv", tag,
                  lambda h=h, a=args, sc=sc, keep=keep: fa.flash_dkv(
                      *a, h, sc, keep),
@@ -651,7 +704,7 @@ def _attn_cases(dev, rnd):
                      *a, h, sc, keep),
                  sdpa_fwd_bwd, 4 * mm,
                  2 * qb + 2 * kvb + 2 * kv_out + 2 * rowb,
-                 backward=sdpa_bwd)]
+                 backward=sdpa_bwd, exps=logits)]
     return cases
 
 
@@ -897,7 +950,8 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
                 backward_ms[c.label] = cuda_ms(call, 5)
                 del call
             bwd_ms = backward_ms[c.label]
-        b_ms, b_by = bound_ms(c.flops, c.nbytes)
+        b_ms, b_term = bound_ms(c.flops, c.nbytes, c.exps)
+        b_by = "bytes" if b_term == "bytes" else "operations"
         ok &= good
         lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
         # the rate of F, M, L, DQ, DKV, C, P and D, and the factor of F, M, C
@@ -923,11 +977,11 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
                          f"unfused {unfused_ms:.4f} ms")
         wrapper_us = alone_us = dev_ms = None
         if c.alone is not None:
-            # C and P: share of bound, the device time of the call's
-            # kernels alone (the split reduction included), and the host's
+            # C, P, F and M: share of bound, the device time of the call's
+            # kernels alone (C's split reduction included), and the host's
             # cost of a call, through the wrapper and of the C launcher
             with torch.no_grad():
-                dev_ms = device_ms(c.kern, "sg_conv::")
+                dev_ms = device_ms(c.kern, c.device)
                 wrapper_us, alone_us = host_us(c.kern), host_us(c.alone)
             alone_txt = "-" if dev_ms is None else f"{dev_ms:.4f} ms"
             fwd_line += (f"  {b_ms / ms:.1%} of bound  device time alone "
@@ -941,7 +995,7 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
         print(f"kernel {c.name:16s} {c.label:38s} max_abs_err {err:.3e} "
               f"(bound {bound:.3e}) {'ok' if good else 'FAIL'};{twin_line}  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  "
-              f"bound {b_ms:.4f} ms ({b_by}){fwd_line}  [{card}]", flush=True)
+              f"bound {b_ms:.4f} ms ({b_term}){fwd_line}  [{card}]", flush=True)
         r = results.setdefault(c.name, {
             "name": c.name, **KERNEL_META[c.name], "launches": 0,
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -958,7 +1012,7 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
         r["cases"].append({"case": c.label, "max_abs_err": err,
                            "bound": bound, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": b_ms, "bound_by": b_by,
-                           "library_ms": lib_ms,
+                           "bound_term": b_term, "library_ms": lib_ms,
                            "max_abs_err_vs_c": twin_err, "tflops": rate,
                            "vs_library": vs_lib,
                            "sdpa_backward_ms": bwd_ms,
@@ -971,6 +1025,7 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
             "bound_by"]
     ok &= conv_split_checks(dev, card)
     ok &= conv_ptxas()
+    ok &= flash_ptxas()
     torch.cuda.empty_cache()
     return ok
 
@@ -1059,6 +1114,46 @@ def conv_ptxas() -> bool:
     missing = built - seen
     ok &= not missing
     print(f"ptxas conv3x3: {len(seen)} wgmma instantiations reported, "
+          f"{len(built)} built, missing {sorted(missing)} "
+          f"{'ok' if not missing else 'FAIL'}", flush=True)
+    return ok
+
+
+def flash_ptxas() -> bool:
+    """Registers and spill bytes of every wgmma F / M instantiation in this
+    run's build (`<hash>/flash_fwd.ptxas.txt`: the unmasked, masked and
+    straddling kernels of each FWD_BUILT line of family WGMMA), and any
+    wgmma serialisation ptxas reports; False if one spills or a built line
+    has no report."""
+    import re
+    from storygen_tpu_torch.ops import _build, flash_attention as fa
+    from storygen_tpu_torch.studies.common import ptxas_summary
+    text = _build.ptxas_report("flash_fwd")
+    ok, seen = True, set()
+    for entry, regs, stack, stores, loads in ptxas_summary(text):
+        # template arguments: Lb<0|1>E (bool), Li<n>E (int)
+        m = re.search(r"flash_wg_kernel[^I]*I((?:L[ib]-?\d+E)+)E", entry)
+        if m is None:
+            continue
+        args = tuple(int(v) for v in re.findall(r"L[ib](-?\d+)E",
+                                                m.group(1)))
+        seen.add(args)
+        good = stores == 0 and loads == 0
+        ok &= good
+        print(f"ptxas flash_wg_kernel<{', '.join(map(str, args))}>: {regs} "
+              f"registers, {stack} bytes stack, {stores} bytes spill "
+              f"stores, {loads} bytes spill loads {'ok' if good else 'FAIL'}",
+              flush=True)
+    for line in text.splitlines():
+        if "serializ" in line:
+            print(f"ptxas: {line.strip()}", flush=True)
+    # (DP, warpgroups, BK, stages, panel, ping-pong, masked, straddle)
+    built = {(dp, bq // 64, bk, st, a, b, int(masked), straddle)
+             for (dp, masked), (fam, bq, bk, st, a, b) in fa.FWD_BUILT.items()
+             if fam == fa.WGMMA for straddle in ((0, 1) if masked else (0,))}
+    missing = built - seen
+    ok &= not missing
+    print(f"ptxas flash_fwd: {len(seen)} wgmma instantiations reported, "
           f"{len(built)} built, missing {sorted(missing)} "
           f"{'ok' if not missing else 'FAIL'}", flush=True)
     return ok

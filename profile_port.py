@@ -36,6 +36,17 @@ encodes, the text encodes and the decode; every micro-step the VAE
 encodes, text encodes, the reference UNet pass, the main pass, its
 backward and the optimizer.
 
+With `host [TREE]` it times instead the host's cost of one call of
+kernels F and C (microseconds, the device's queue not full): through the
+wrapper (`flash_fwd`, `conv3x3`) and of the C launcher alone on operands
+and buffers made once, at serving shapes (F: attn1 L1 B6 4096² d40, attn2
+L1 B3 4096x77 d40, mid B6 64² d160; C: UNet L1 B3 64² 320->320, mid B3
+8² 1280->1280 with its split workspace), and the first call of each
+launcher in the process (its one-time lookups included). TREE (default:
+this checkout) is the root of a checkout whose `storygen_tpu_torch` is
+imported and built, so that two commits are timed by one script, each in
+its own process, in turns.
+
 With `options` it times instead, in the default configuration and in
 turns (each variant three times, forward and backward order in turn;
 the stories twice), the wall time of
@@ -71,6 +82,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = cs.nvidia_smi_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    if sys.argv[1:2] == ["host"]:
+        tree = os.path.abspath(sys.argv[2] if len(sys.argv) > 2 else
+                               os.path.dirname(os.path.abspath(__file__)))
+        sys.path.insert(0, tree)
+        return 0 if host_costs(dev, card, tree) else 1
     if sys.argv[1:] == ["options"]:
         return 0 if serving_options(dev, card) else 1
     return 0 if story_frames(dev, card) and train_micro_steps(dev, card) \
@@ -94,6 +110,81 @@ def in_turns(run, label: str, card: str, unit: str, scale: float,
               f"{med / statistics.median(times[keys[0]]):.3f}x [{keys[0]}]"
               f" [{card}]", flush=True)
     return times
+
+
+HOST_CALLS = 200
+
+
+def host_costs(dev, card: str, tree: str) -> bool:
+    """Host microseconds per call of F and C through their wrappers and of
+    their C launchers alone, with `tree`'s package (first on sys.path)."""
+    import torch
+    from storygen_tpu_torch.ops import _build, conv, flash_attention as fa
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(fa.__file__)))
+    assert os.path.dirname(pkg) == tree, fa.__file__
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def us(fn, n=HOST_CALLS) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return 1e6 * t / n
+
+    rows = []
+    for label, b, sq, skv, d in (("attn1 L1 B6 4096x4096 d40", 6, 4096,
+                                  4096, 40),
+                                 ("attn2 L1 B3 4096x77 d40", 3, 4096, 77,
+                                  40),
+                                 ("attn1 mid B6 64x64 d160", 6, 64, 64,
+                                  160)):
+        q, k, v = rnd(b, sq, 8 * d), rnd(b, skv, 8 * d), rnd(b, skv, 8 * d)
+        out = torch.empty_like(q)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                8, sq, skv, d, q.stride(0), q.stride(1), k.stride(0),
+                k.stride(1), v.stride(0), v.stride(1), None, 1, 1,
+                d ** -0.5, stream)
+        rows.append(("F " + label, lambda a=args: lib.sg_flash_fwd(*a),
+                     lambda q=q, k=k, v=v, d=d: fa.flash_fwd(q, k, v, 8,
+                                                             d ** -0.5)))
+    for label, b, hw, c in (("C UNet L1 B3 64x64 320->320", 3, 64, 320),
+                            ("C mid B3 8x8 1280->1280", 3, 8, 1280)):
+        x, w9 = rnd(b, hw, hw, c), rnd(9, c, c)
+        bias = torch.randn((c,), generator=g, device=dev)
+        out = torch.empty_like(x)
+        shape = conv.workspace_shape(False, b, hw, hw, c, c)
+        ws = (None if shape is None else
+              torch.empty(shape, dtype=torch.float32, device=dev))
+        args = (x.data_ptr(), w9.data_ptr(), bias.data_ptr(), 0, None,
+                out.data_ptr(), None if ws is None else ws.data_ptr(),
+                1 if shape is None else shape[0], b, hw, hw, c, c, stream)
+        rows.append((label, lambda a=args, keep=(out, ws):
+                     lib.sg_conv3x3(*a),
+                     lambda x=x, w9=w9, bias=bias: conv.conv3x3(x, w9,
+                                                                bias)))
+    ok = True
+    with torch.no_grad():
+        for label, alone, wrapper in rows:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            err = alone()  # the launcher's first call in this process
+            first = 1e6 * (time.perf_counter() - t0)
+            ok &= err == 0
+            wrapper()
+            a_us, w_us = us(alone), us(wrapper)
+            a2_us, w2_us = us(alone), us(wrapper)
+            print(f"host {label}: launcher alone {a_us:.2f} / {a2_us:.2f} "
+                  f"us a call (first call {first:.1f} us), wrapper "
+                  f"{w_us:.2f} / {w2_us:.2f} us a call; tree {tree} "
+                  f"[{card}]", flush=True)
+    return ok
 
 
 def story_frames(dev, card: str) -> bool:

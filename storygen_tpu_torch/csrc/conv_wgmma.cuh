@@ -62,11 +62,12 @@
 // - The epilogue from the accumulators: bias ((Cout) or per batch (B,
 //   Cout)) and residual in fp32, bf16 pairs straight into (B, H, W, Cout).
 #pragma once
-#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda call)
-
 #include "conv_mma.cuh"
+#include "hopper.cuh"
 
 namespace sg_conv {
+
+using namespace sg_hopper;
 
 // The Cout class of the stride-1 keys (mirrored by ops/conv.py's tile_key;
 // the W class is conv_mma.cuh's w_class): 0 for Cout <= 16; 2 where Cin %
@@ -127,254 +128,6 @@ struct WgCfg {
                     REGS - PRODUCER_REGS >= WGM * (CONSUMER_REGS - REGS),
                 "the consumers' increase fits the producer's release");
   static_assert(BYTES <= 232448, "a block's shared memory");
-};
-
-// ---- mbarriers, TMA, wgmma (PTX ISA 8.0, sm_90a)
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* m,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* m,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// ldmatrix x4 at a shared-space address; volatile and clobbering memory so
-// that it stays behind the barrier wait that publishes the slab
-__device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving accumulator reads or writes across a wgmma
-// wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// The descriptor of B, N-major with 64-byte swizzle: start address, the
-// leading byte offset (from one 32-column panel to the next) and the stride
-// byte offset (from 8 K rows to the next 8: 512 bytes), in 16-byte units;
-// layout type 2 (64B) in bits 62-63.
-__device__ __forceinline__ uint64_t b_desc(uint32_t saddr, uint32_t panel) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((panel >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
-}
-
-// The 16-byte unit that TMA's swizzle over PB-byte rows puts logical unit
-// u of slab row R in (the address bits 7.. XORed into bits 4..; the slab
-// starts on a 1024-byte boundary)
-template <int PB>
-__device__ __forceinline__ int swz_unit(int R, int u) {
-  return u ^ (((R * PB) >> 7) & (PB / 16 - 1));
-}
-
-// d (64 x N fp32, this thread's N / 2) += a (64 x 16 bf16, this warp's
-// 16 rows in mma.sync's A fragment) b (16 x N bf16 at `desc`), N-major B
-template <int N>
-struct WgMma;
-
-template <>
-struct WgMma<64> {
-  static __device__ __forceinline__ void run(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1));
-  }
-};
-template <>
-struct WgMma<128> {
-  static __device__ __forceinline__ void run(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-        "%60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1));
-  }
-};
-template <>
-struct WgMma<160> {
-  static __device__ __forceinline__ void run(float (&d)[80],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
-        "%72, %73, %74, %75, %76, %77, %78, %79"
-        "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-          "+f"(d[78]), "+f"(d[79])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1));
-  }
-};
-template <>
-struct WgMma<256> {
-  static __device__ __forceinline__ void run(float (&d)[128],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
-        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
-        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
-        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
-        "%120, %121, %122, %123, %124, %125, %126, %127"
-        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-          "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1));
-  }
 };
 
 // One block: IB images' TH x TW output tiles by BN output channels, over
@@ -516,7 +269,10 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
           ldsm_x4_at(af[mt], slab + R * PB + 16 * swz_unit<PB>(R, 2 * kk + half));
         }
         wg_fence();
-        const uint64_t desc = b_desc(wts + (tap * CK + 16 * kk) * 64, C::PANEL);
+        // N-major, 64-byte rows: LBO the 32-column panel stride, SBO 8 K
+        // rows of 64 bytes
+        const uint64_t desc =
+            smem_desc(wts + (tap * CK + 16 * kk) * 64, C::PANEL, 512, 64);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) WgMma<BN>::run(acc[mt], af[mt], desc);
         wg_commit();
@@ -606,34 +362,6 @@ __global__ void __launch_bounds__(256)
 
 // ---- host side
 
-typedef CUresult (*TensorMapEncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime (no -lcuda);
-// null if the driver has none
-inline TensorMapEncodeTiled tensor_map_encoder() {
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-  const cudaError_t err = cudaGetDriverEntryPointByVersion(
-      "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
-#else
-  const cudaError_t err = cudaGetDriverEntryPoint(
-      "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
-#endif
-  if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-  return reinterpret_cast<TensorMapEncodeTiled>(fn);
-}
-
-inline CUtensorMapSwizzle swizzle_of(int bytes) {
-  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                      : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                    : CU_TENSOR_MAP_SWIZZLE_32B;
-}
-
 // The tensor maps of one call: x as (Cin, W, H, B) in (CK, TW+2, TH+2, IB)
 // boxes swizzled over 2 CK bytes, w9 as (Cout, Cin, 9) in (32, CK, 9)
 // boxes swizzled over 64 bytes; out-of-range elements read as zero.
@@ -679,9 +407,9 @@ cudaError_t wg_launch(const WgArgs& a, cudaStream_t stream) {
   CUtensorMap tmx, tmw;
   if (!encode_maps(a, CK, TH, TW, IB, &tmx, &tmw))
     return cudaErrorInvalidValue;
-  auto kern = wg_conv_kernel<PRO, TH, TW, IB, WGM, MT, BN, CK, STAGES>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+  constexpr auto kern =
+      wg_conv_kernel<PRO, TH, TW, IB, WGM, MT, BN, CK, STAGES>;
+  cudaError_t err = smem_limit_once<kern>(C::BYTES);
   if (err != cudaSuccess) return err;
   const int tiles = ((a.W + TW - 1) / TW) * ((a.H + TH - 1) / TH);
   dim3 grid(tiles * ((a.B + IB - 1) / IB), (a.Cout + BN - 1) / BN, a.splits);

@@ -1,6 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a): O = softmax(Q K^T * scale) V,
 // kernels F (unmasked) and M (masked), and the backward's kernel L, the
-// forward's row logsumexp lse = log sum_k exp(scale q.k): one template.
+// forward's row logsumexp lse = log sum_k exp(scale q.k).
 //
 // Replaces the forward variants of the TPU kernel in
 // storygen_tpu/ops/pallas_attention.py, reached through _flash_core:
@@ -13,14 +13,19 @@
 // 120-unit exp2 clamp and the transposed "bhds" output layout are TPU
 // workarounds and are not carried over: this is the exact online softmax.
 //
-// What bounds it on the H100: tensor-core work, 4 Sq Skv d operations per
-// head, and beside it one exp2 per logit on the special-function units. At
-// the UNet's 4096 x 4096 (attn1) and 4096 x 12288 (attn3) shapes the logits
-// are 16-48x larger than Q, K, V and O together, so a kernel that never
-// writes them to HBM is not bound by HBM. L is the same walk with half
-// the products (Q K^T only) and writes (B, H, Sq) fp32.
+// Two templates. F and M run flash_wgmma.cuh (wgmma fed by TMA, a producer
+// warpgroup, two consumer warpgroups whose exps overlap the products; its
+// note says what bounds F by head dim and what the design does). L runs
+// the mma.sync template below, as does any F / M line of family 0 (the
+// tile study's former lines).
 //
-// What the design does about it:
+// What bounds L on the H100: tensor-core work, 2 Sq Skv d operations per
+// head, and beside it one exp2 per logit on the special-function units; at
+// the UNet's 4096 x 4096 (attn1) and 4096 x 12288 (attn3) shapes the logits
+// are 16-48x larger than Q and K together, so a kernel that never writes
+// them to HBM is not bound by HBM. It writes (B, H, Sq) fp32.
+//
+// What the mma.sync template does about it:
 // - S, P and O live in registers. Each warp owns HALVES 16-row slices of
 //   the block's BQ query rows; S = Q K^T and O += P V are mma.sync m16n8k16
 //   products (bf16 in, fp32 accumulation) with ldmatrix fragment loads, and
@@ -39,7 +44,7 @@
 //   FFMA and one exp2 per logit, with m kept in the scaled log2 domain
 //   (scale > 0, checked by the launcher).
 //
-// The contract: Q, K and V are read straight from the projections'
+// The contract of both: Q, K and V are read straight from the projections'
 // (B, S, H*D) layout through batch and row strides (a split k|v view needs
 // no copy), and O is written as (B, Sq, H*D) in bf16: the head merge is
 // free. Ragged Sq and Skv (attn2's 77-token text kv): rows past Sq are not
@@ -47,29 +52,29 @@
 // reference spans of any length and `keep` (B, N) says which spans a batch
 // row may attend to. The ring walks from one tile that holds a kept row to
 // the next: a tile wholly inside dropped spans costs neither a copy nor a
-// wait. Where a span is a multiple of BK (the 512 px UNet) a flag holds
-// for a whole tile and the instantiation with STRADDLE = false does no
-// per-column work; otherwise (16 or 144 tokens at the mid block of a 256
-// or 768 px image) a tile that straddles a span boundary sets the logits
-// of its dropped columns to -inf in the S registers, as the ragged last
-// tile does past Skv. A row whose running max is still -inf takes alpha =
-// 0, and a row that kept no span writes zeros.
+// wait. Where a span is a multiple of the line's BK (the 512 px UNet at
+// BK = 64) a flag holds for a whole tile and the instantiation with
+// STRADDLE = false does no per-column work; otherwise (16 or 144 tokens at
+// the mid block of a 256 or 768 px image, 64 at BK = 128) a tile that
+// straddles a span boundary sets the logits of its dropped columns to -inf
+// in the S registers, as the ragged last tile does past Skv. A row whose
+// running max is still -inf takes alpha = 0, and a row that kept no span
+// writes zeros.
 //
-// L (template flag LSE) is this kernel without V, P V and O: the ring holds
-// K tiles only (half the bytes), so 128-row blocks fit at d80 and d160 too,
-// and the epilogue writes lse = (m + log2 l) ln 2 once per row from the
-// quad that holds it, -inf for a row that kept no span.
-//
-// Not yet: wgmma, TMA and warp specialisation.
+// L (template flag LSE) is the mma.sync kernel without V, P V and O: the
+// ring holds K tiles only (half the bytes), so 128-row blocks fit at d80
+// and d160 too, and the epilogue writes lse = (m + log2 l) ln 2 once per
+// row from the quad that holds it, -inf for a row that kept no span.
 #include <math.h>
 
+#include "flash_wgmma.cuh"
 #include "study_mma.cuh"
 
 using namespace sg_study;
 
 namespace {
 
-// rows of a K/V tile
+// rows of a K/V tile of the mma.sync template
 constexpr int BK = 64;
 
 // what an SG_BUILT line builds: F or M (O), or L (lse)
@@ -309,9 +314,9 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, void* out,
   using C = Cfg<DP, BQ, HALVES, STAGES, LSE>;
   static_assert(STAGES >= 2, "a ring of at least two stages");
   static_assert(BQ % (16 * HALVES) == 0, "whole 16-row slices per warp");
-  auto kern = flash_fwd_kernel<DP, BQ, HALVES, STAGES, MASKED, STRADDLE, LSE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+  constexpr auto kern =
+      flash_fwd_kernel<DP, BQ, HALVES, STAGES, MASKED, STRADDLE, LSE>;
+  cudaError_t err = smem_limit_once<kern>(C::BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, C::NT, C::BYTES, stream>>>(q, k, v, out, H, Sq, Skv, D, qb,
@@ -320,62 +325,131 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, void* out,
   return cudaGetLastError();
 }
 
+// The operands of one launch of F, M or L.
+struct Call {
+  const bf16 *q, *k, *v;
+  void* out;
+  int B, H, Sq, Skv, D;
+  long long qb, qr, kb, kr, vb, vr;
+  const int* keep;
+  int nref, span;
+  float sl2;  // scale * log2(e)
+  cudaStream_t stream;
+};
+
+template <int DP, int BQ, int HALVES, int STAGES, bool MASKED, bool STRADDLE,
+          bool LSE>
+cudaError_t launch(const Call& c) {
+  return launch<DP, BQ, HALVES, STAGES, MASKED, STRADDLE, LSE>(
+      c.q, c.k, c.v, c.out, c.B, c.H, c.Sq, c.Skv, c.D, c.qb, c.qr, c.kb,
+      c.kr, c.vb, c.vr, c.keep, c.nref, c.span, c.sl2, c.stream);
+}
+
+// The two templates an F / M line can name: family 0 is the mma.sync
+// template above, (BQ, BK = 64, stages, 16-row halves per warp, 0); family
+// 1 flash_wgmma.cuh's, (BQ = 64 x consumer warpgroups, BK, stages, Q / K
+// panel columns, ping-pong).
+template <int F>
+struct FwdFamily;
+
+template <>
+struct FwdFamily<0> {
+  template <int DP, int BQ, int BK_, int STAGES, int A, int B, bool MASKED,
+            bool STRADDLE>
+  static cudaError_t launch(const Call& c) {
+    static_assert(BK_ == BK && B == 0, "the mma.sync template's tile");
+    return ::launch<DP, BQ, A, STAGES, MASKED, STRADDLE, false>(c);
+  }
+};
+
+template <>
+struct FwdFamily<1> {
+  template <int DP, int BQ, int BK_, int STAGES, int A, int B, bool MASKED,
+            bool STRADDLE>
+  static cudaError_t launch(const Call& c) {
+    static_assert(BQ % 64 == 0, "64 query rows a consumer warpgroup");
+    sg_flash::FwArgs a = {};
+    a.out = static_cast<bf16*>(c.out);
+    a.keep = c.keep;
+    a.H = c.H;
+    a.Sq = c.Sq;
+    a.Skv = c.Skv;
+    a.D = c.D;
+    a.nref = c.nref;
+    a.span = c.span;
+    a.scale_log2 = c.sl2;
+    return sg_flash::flash_wg_launch<DP, BQ / 64, BK_, STAGES, A, (B != 0),
+                                     MASKED, STRADDLE>(
+        c.q, c.k, c.v, a, c.B, c.qb, c.qr, c.kb, c.kr, c.vb, c.vr, c.stream);
+  }
+};
+
 // One launch of `kind`. D a multiple of 8, scale > 0; keep == nullptr or
 // (B, nref) int32 over nref spans of `span` kv rows, nref * span == Skv.
 // The instantiations built are the SG_BUILT lines below, one per (kind,
 // 16-padded head dim, masked), mirrored by FWD_BUILT (kFwd) and LSE_BUILT
 // (kLse) in ops/flash_attention.py; any other returns
 // cudaErrorInvalidValue. A masked line builds its kernel twice: for spans
-// that are a multiple of BK and for the rest (STRADDLE), chosen here.
+// that are a multiple of its BK and for the rest (STRADDLE), chosen here.
 int dispatch(Kind kind, const void* q, const void* k, const void* v,
              void* out, int B, int H, int Sq, int Skv, int D, long long qb,
              long long qr, long long kb, long long kr, long long vb,
              long long vr, const void* keep, int nref, int span, float scale,
              void* stream) {
-  const float sl2 = scale * 1.4426950408889634f;  // scale * log2(e)
-  const bf16* Q = static_cast<const bf16*>(q);
-  const bf16* K = static_cast<const bf16*>(k);
-  const bf16* V = static_cast<const bf16*>(v);
-  const int* KEEP = static_cast<const int*>(keep);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int masked = KEEP != nullptr;
+  Call c = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), out, B, H, Sq, Skv, D, qb, qr, kb,
+            kr, vb, vr, static_cast<const int*>(keep), nref, span,
+            scale * 1.4426950408889634f, static_cast<cudaStream_t>(stream)};
+  const int masked = c.keep != nullptr;
   if (D % 8 || !(scale > 0.f) ||
       (masked && (span <= 0 || nref * span != Skv)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!masked) {
-    nref = 1;
-    span = 1;
+    c.nref = 1;
+    c.span = 1;
   }
-  const bool straddle = masked && span % BK != 0;
   const int dp = (D + 15) / 16 * 16;
-#define SG_BUILT(KIND_, DP_, MASKED_, BQ_, BK_, HALVES_, STAGES_)           \
-  if (kind == KIND_ && dp == DP_ && masked == MASKED_) {                    \
-    static_assert(BK_ == BK, "one K/V tile height");                        \
-    if (straddle)                                                           \
-      return static_cast<int>(                                              \
-          launch<DP_, BQ_, HALVES_, STAGES_, (MASKED_ != 0),                \
-                 (MASKED_ != 0), KIND_ == kLse>(                            \
-              Q, K, V, out, B, H, Sq, Skv, D, qb, qr, kb, kr, vb, vr, KEEP, \
-              nref, span, sl2, s));                                         \
-    return static_cast<int>(                                                \
-        launch<DP_, BQ_, HALVES_, STAGES_, (MASKED_ != 0), false,           \
-               KIND_ == kLse>(Q, K, V, out, B, H, Sq, Skv, D, qb, qr, kb,   \
-                              kr, vb, vr, KEEP, nref, span, sl2, s));       \
+#define SG_BUILT(KIND_, ...) SG_BUILT_##KIND_(__VA_ARGS__)
+#define SG_BUILT_kLse(DP_, MASKED_, BQ_, BK_, HALVES_, STAGES_)          \
+  if (kind == kLse && dp == DP_ && masked == MASKED_) {                   \
+    static_assert(BK_ == BK, "one K tile height");                        \
+    if (masked && span % BK_ != 0)                                        \
+      return static_cast<int>(                                            \
+          launch<DP_, BQ_, HALVES_, STAGES_, (MASKED_ != 0),              \
+                 (MASKED_ != 0), true>(c));                               \
+    return static_cast<int>(                                              \
+        launch<DP_, BQ_, HALVES_, STAGES_, (MASKED_ != 0), false, true>(  \
+            c));                                                          \
   }
-  // (kind, padded head dim, masked, BQ, BK, halves per warp, ring stages):
-  // the UNet's head dims 40 (padded to 48), 80 and 160
-  SG_BUILT(kFwd, 48, 0, 128, 64, 2, 2)
-  SG_BUILT(kFwd, 48, 1, 128, 64, 2, 2)
-  SG_BUILT(kFwd, 80, 0, 64, 64, 1, 2)
-  SG_BUILT(kFwd, 80, 1, 128, 64, 2, 2)
-  SG_BUILT(kFwd, 160, 0, 64, 64, 1, 2)
-  SG_BUILT(kFwd, 160, 1, 64, 64, 1, 2)
+#define SG_BUILT_kFwd(DP_, MASKED_, FAM_, BQ_, BK_, STAGES_, A_, B_)     \
+  if (kind == kFwd && dp == DP_ && masked == MASKED_) {                   \
+    if (masked && span % BK_ != 0)                                        \
+      return static_cast<int>(                                            \
+          FwdFamily<FAM_>::launch<DP_, BQ_, BK_, STAGES_, A_, B_,         \
+                                  (MASKED_ != 0), (MASKED_ != 0)>(c));    \
+    return static_cast<int>(                                              \
+        FwdFamily<FAM_>::launch<DP_, BQ_, BK_, STAGES_, A_, B_,           \
+                                (MASKED_ != 0), false>(c));               \
+  }
+  // F and M: (kFwd, 16-padded head dim, masked, family, BQ, BK, ring
+  // stages, then family 1's Q / K panel columns and ping-pong, or family
+  // 0's halves per warp and 0); L: (kLse, 16-padded head dim, masked, BQ,
+  // BK, halves per warp, ring stages). The UNet's head dims 40 (padded to
+  // 48), 80 and 160.
+  SG_BUILT(kFwd, 48, 0, 1, 192, 128, 2, 64, 0)
+  SG_BUILT(kFwd, 48, 1, 1, 128, 128, 3, 64, 1)
+  SG_BUILT(kFwd, 80, 0, 1, 128, 128, 2, 64, 1)
+  SG_BUILT(kFwd, 80, 1, 1, 128, 128, 2, 64, 1)
+  SG_BUILT(kFwd, 160, 0, 1, 128, 64, 2, 32, 1)
+  SG_BUILT(kFwd, 160, 1, 1, 128, 64, 2, 32, 1)
   SG_BUILT(kLse, 48, 0, 128, 64, 2, 2)
   SG_BUILT(kLse, 48, 1, 128, 64, 2, 2)
   SG_BUILT(kLse, 80, 0, 64, 64, 1, 2)
   SG_BUILT(kLse, 80, 1, 128, 64, 2, 2)
   SG_BUILT(kLse, 160, 0, 64, 64, 1, 2)
   SG_BUILT(kLse, 160, 1, 128, 64, 1, 2)
+#undef SG_BUILT_kFwd
+#undef SG_BUILT_kLse
 #undef SG_BUILT
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -29,18 +29,30 @@ from storygen_tpu_torch.ops import _build
 
 # 16-padded head dims the kernels are instantiated for: the UNet's 40, 80, 160
 _PADDED_D = (48, 80, 160)
-# rows of a K/V tile; a reference span need not be a multiple of it
+# rows of a K/V tile of the mma.sync template (kernel L, and family 0 of
+# F and M); a reference span need not be a multiple of it
 _BK = 64
-# The instantiations of kernels F and M in csrc/flash_fwd.cu (its kFwd
-# SG_BUILT lines): (16-padded head dim, masked) -> (BQ, BK, 16-row halves
-# per warp, cp.async ring stages).
+# the two templates an F / M line names: csrc/flash_fwd.cu's mma.sync
+# template and csrc/flash_wgmma.cuh's wgmma one
+MMA, WGMMA = 0, 1
+# K/V tile heights of the wgmma template (Q K^T's N)
+WG_BK = (64, 128)
+# The instantiations of kernels F and M (csrc/flash_fwd.cu's kFwd SG_BUILT
+# lines): (16-padded head dim, masked) -> (family, BQ, BK, ring stages, a,
+# b), where family WGMMA has a = Q / K panel columns (16, 32 or 64) and b =
+# ping-pong of its two consumer warpgroups (0 / 1), and family MMA a = 16-row
+# halves per warp and b = 0.
 FWD_BUILT = {
-    (48, False): (128, 64, 2, 2), (48, True): (128, 64, 2, 2),
-    (80, False): (64, 64, 1, 2), (80, True): (128, 64, 2, 2),
-    (160, False): (64, 64, 1, 2), (160, True): (64, 64, 1, 2),
+    (48, False): (WGMMA, 192, 128, 2, 64, 0),
+    (48, True): (WGMMA, 128, 128, 3, 64, 1),
+    (80, False): (WGMMA, 128, 128, 2, 64, 1),
+    (80, True): (WGMMA, 128, 128, 2, 64, 1),
+    (160, False): (WGMMA, 128, 64, 2, 32, 1),
+    (160, True): (WGMMA, 128, 64, 2, 32, 1),
 }
 # The instantiations of kernel L in csrc/flash_fwd.cu (its kLse SG_BUILT
-# lines), keyed and valued as FWD_BUILT.
+# lines, the mma.sync template): (16-padded head dim, masked) -> (BQ, BK,
+# 16-row halves per warp, cp.async ring stages).
 LSE_BUILT = {
     (48, False): (128, 64, 2, 2), (48, True): (128, 64, 2, 2),
     (80, False): (64, 64, 1, 2), (80, True): (128, 64, 2, 2),
@@ -239,15 +251,99 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def fwd_tile(d: int, masked: bool) -> Tuple[int, int, int, int]:
+def fwd_tile(d: int, masked: bool) -> Tuple[int, int, int, int, int, int]:
     """The instantiation that kernel F (M where `masked`) runs at head dim
-    d: (BQ, BK, halves, stages); its grid is (ceil(Sq / BQ), H, B).
-    ValueError if none is built."""
+    d: (family, BQ, BK, stages, a, b) as in FWD_BUILT; its grid is
+    (ceil(Sq / BQ), H, B). ValueError if none is built."""
     key = ((d + 15) // 16 * 16, bool(masked))
     if d % 8 or key not in FWD_BUILT:
         raise ValueError(f"no flash forward built for head dim {d}"
                          f"{' (masked)' if masked else ''}")
     return FWD_BUILT[key]
+
+
+def v_panel(dp: int) -> int:
+    """Columns of a V panel of the wgmma template at padded head dim dp:
+    16 or 32, whichever divides dp (P V's N) with the wider swizzle."""
+    return 32 if dp % 32 == 0 else 16
+
+
+def fwd_smem_bytes(dp: int, line: tuple) -> int:
+    """Shared memory of one block of the F / M line `line` (a FWD_BUILT
+    value) at padded head dim dp: csrc/flash_wgmma.cuh's FwCfg::BYTES
+    (family WGMMA: 1 KB of alignment, the Q panels, STAGES K and V stages
+    and the mbarriers) or csrc/flash_fwd.cu's Cfg::BYTES (family MMA)."""
+    fam, bq, bk, stages, a, _ = line
+    if fam == MMA:
+        row = 2 * dp
+        pitch = row if (row // 16) % 2 else row + 16
+
+        def al(x):
+            return -(-x // 128) * 128
+        return al(bq * pitch) + stages * 2 * al(bk * pitch)
+    kpanels, vpw = -(-dp // a), v_panel(dp)
+    q, k = kpanels * bq * 2 * a, kpanels * bk * 2 * a
+    v = dp // vpw * bk * 2 * vpw
+    return 1024 + q + stages * (k + v) + 8 * (1 + 4 * stages)
+
+
+def operand_map(shape, strides, num_heads: int, width: int,
+                rows: int) -> dict:
+    """The TMA tensor map that the wgmma template's launcher encodes for a
+    (B, S, H*D) operand with element strides `strides` (the last 1)
+    (csrc/flash_wgmma.cuh::encode_operand): the operand seen as (D, H, S,
+    B), the byte strides of its dimensions 1-3, boxes of (width, 1, rows,
+    1) swizzled over 2 width bytes. Elements past D in dimension 0 and
+    past S in dimension 2 read as zero. ValueError where TMA cannot read
+    the operand or the box breaks its rules."""
+    b, s, hd = shape
+    d = hd // num_heads
+    dims = (d, num_heads, s, b)
+    byte_strides = (2 * d, 2 * strides[1], 2 * strides[0])
+    box = (width, 1, rows, 1)
+    swizzle = 2 * width
+    if strides[2] != 1:
+        raise ValueError("the head dim must be contiguous")
+    if any(not 0 < x <= 2 ** 32 for x in dims):
+        raise ValueError(f"tensor map dims {dims} out of range")
+    if any(x % 16 or not 0 < x < 2 ** 40 for x in byte_strides):
+        raise ValueError(f"tensor map strides {byte_strides} are not "
+                         "positive multiples of 16 bytes")
+    if (any(not 0 < x <= 256 for x in box) or swizzle not in (32, 64, 128)
+            or (2 * width) % 16):
+        raise ValueError(f"box {box} breaks TMA's rules")
+    return {"dims": dims, "strides": byte_strides, "box": box,
+            "swizzle": swizzle}
+
+
+def fwd_maps(q, k, v, num_heads: int, line: tuple) -> dict:
+    """The three tensor maps of one launch of the wgmma line `line` (a
+    FWD_BUILT value of family WGMMA) on q, k, v (anything with `.shape`
+    and `.stride()`): Q and K in panels of `line`'s a columns, BQ and BK
+    rows a box; V in panels of v_panel(dp) columns, BK rows."""
+    fam, bq, bk, _, kpw, _ = line
+    if fam != WGMMA:
+        raise ValueError("the mma.sync template encodes no tensor map")
+    dp = (q.shape[2] // num_heads + 15) // 16 * 16
+    return {"q": operand_map(q.shape, q.stride(), num_heads, kpw, bq),
+            "k": operand_map(k.shape, k.stride(), num_heads, kpw, bk),
+            "v": operand_map(v.shape, v.stride(), num_heads, v_panel(dp),
+                             bk)}
+
+
+def kept_tiles(keep_row, skv: int, bk: int) -> list:
+    """The K/V tiles of `bk` rows that kernel M walks for one batch row
+    whose keep flags over N equal spans of the `skv` kv rows are
+    `keep_row`: each tile that holds a kept row, in order (the kernels'
+    next_kept; a tile across a span boundary counts if either side is
+    kept)."""
+    span = ref_span(skv, len(keep_row))
+    out = []
+    for t in range(-(-skv // bk)):
+        first, last = t * bk // span, (min(t * bk + bk, skv) - 1) // span
+        if any(bool(x) for x in keep_row[first:last + 1]):
+            out.append(t)
+    return out
 
 
 def _launch_fwd(q, k, v, num_heads, scale, keep, lib=None):

@@ -94,10 +94,10 @@ def xla_attn(q, k, v, scale: float) -> torch.Tensor:
     return fa.plain_attention(q, k, v, scale)
 
 
-# the label of the "repo" baseline: kernel F as redesigned with S, P and O
-# in mma.sync registers and K/V through a cp.async ring (earlier tables'
-# "repo" rows timed the shared-memory WMMA kernel it replaced)
-REPO = "repo (F, mma.sync)"
+# the label of the "repo" baseline: kernel F on wgmma fed by TMA
+# (csrc/flash_wgmma.cuh; the "repo (F, mma.sync)" rows of earlier tables
+# timed its mma.sync design, and "repo (F)" rows the WMMA kernel before it)
+REPO = "repo (F, wgmma)"
 
 
 def repo_attn(q, k, v, scale: float) -> torch.Tensor:
@@ -136,6 +136,28 @@ def time_ms(fn: Callable, dev: torch.device, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn: Callable, iters: int = 20, replays: int = 3) -> float:
+    """Device ms per call of `fn` (which launches on the current stream)
+    replayed from a CUDA graph of `iters` calls: the kernels back to back,
+    without the host work that sets the pace of a small kernel's mean."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
 def max_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     return (out.float() - ref.float()).abs().max().item()
 
@@ -148,20 +170,27 @@ def line(name: str, label: str, ms: float, ops: float, card: str,
 
 
 def run_candidates(name: str, cands, ref, ops: float, dev, card: str,
-                   iters: int, unit: str = "TFLOP/s") -> None:
+                   iters: int, unit: str = "TFLOP/s",
+                   graph: bool = False) -> None:
     """One line per candidate (label, fn, check_err): its time, rate and,
-    where check_err, its max error against `ref`. An instantiation that is
-    not built (ValueError) prints a FAILED line, as the JAX studies did."""
+    where check_err, its max error against `ref`; on the card, with
+    `graph`, also its device time from a CUDA graph of its calls
+    (graph_ms). An instantiation that is not built (ValueError) prints a
+    FAILED line, as the JAX studies did."""
     for label, fn, check in cands:
         try:
             with torch.no_grad():
                 err = max_err(fn(), ref) if check else None
                 ms = time_ms(fn, dev, iters)
+                alone = (graph_ms(fn) if graph and dev.type == "cuda"
+                         else None)
         except ValueError as e:
             print(f"{name:14s} {label:24s} FAILED ValueError: {e}  [{card}]",
                   flush=True)
             continue
-        print(line(name, label, ms, ops, card, err, unit), flush=True)
+        extra = "" if alone is None else f"  graph {alone:.4f} ms"
+        print(line(name, label, ms, ops, card, err, unit) + extra,
+              flush=True)
 
 
 def refused_as_value_error(fn: Callable) -> Callable:

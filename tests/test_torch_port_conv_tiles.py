@@ -63,9 +63,10 @@ def _check_tile(stride, tile):
     assert nbytes <= BLOCK_SMEM and minb * (nbytes + 1024) <= SM_SMEM
 
 
-# the widths N whose wgmma instruction conv_wgmma.cuh spells out
+# the widths N whose register-A wgmma instruction (the WgMma that
+# conv_wgmma.cuh runs) hopper.cuh spells out
 WGMMA_N = {int(n) for n in re.findall(
-    r"struct WgMma<(\d+)>", (_build.CSRC / "conv_wgmma.cuh").read_text())}
+    r"struct WgMma<(\d+)>", (_build.CSRC / "hopper.cuh").read_text())}
 
 
 def _check_wgmma_tile(tile):

@@ -149,7 +149,9 @@ def test_nvcc_command_targets_sm90a_into_build_dir():
                                       "study_int8.cu"}
     assert {p.name for p in _build.headers()} == {"study_mma.cuh",
                                                   "conv_mma.cuh",
-                                                  "conv_wgmma.cuh"}
+                                                  "conv_wgmma.cuh",
+                                                  "hopper.cuh",
+                                                  "flash_wgmma.cuh"}
     out = _build.lib_path(srcs)
     nvcc = "/usr/local/cuda/bin/nvcc"
     for src in srcs:
@@ -191,7 +193,8 @@ def test_source_hash_covers_the_shared_header(tmp_path, monkeypatch):
     "downconv.py", "study_attention.py", "study_int8.py", "flash_fwd.cu",
     "flash_bwd.cu", "geglu_matmul.cu", "conv3x3.cu", "downconv3x3.cu",
     "study_online.cu", "study_bounded.cu", "study_qk.cu", "study_int8.cu",
-    "study_mma.cuh", "conv_mma.cuh"])
+    "study_mma.cuh", "conv_mma.cuh", "conv_wgmma.cuh", "hopper.cuh",
+    "flash_wgmma.cuh"])
 def test_kernel_modules_call_no_library_kernel(name):
     src = (PORT / ("ops" if name.endswith(".py") else "csrc") / name
            ).read_text()
