@@ -15,7 +15,11 @@ stride-2 conv on kernel D):
                training), M, L, DQ and DKV also at the mid block's
                reference spans of a 256 and a 768 px image (16 and 144
                tokens, which straddle the kernels' 64-row K/V tiles), F,
-               L, DQ and DKV also at a ragged 1000 x 333 shape, F, L, DQ,
+               L, DQ and DKV also at a ragged 1000 x 333 shape, L, DQ and
+               DKV also at the training path's d 80 sites (attn1 and
+               masked attn3 L2), at an odd 999 x 333 one (DKV's lse and
+               delta by plain loads, not TMA) and on k and v read from a
+               k|v split view, F, L, DQ,
                DKV, G, C and P also at a tensor-parallel rank's shard
                shapes (tp = 2, 4 for F, G, C and P, and every level's G
                shard at tp = 8), C, P
@@ -36,17 +40,19 @@ stride-2 conv on kernel D):
                and for G (at every feed-forward site class of serving, its
                reference pass and training) its share of its bound, its
                GB/s and the time of the unfused bf16 chain of PyTorch
-               calls (a yardstick, not G's function), and for C, P, F
-               and M their share of their bound, the device time of a
-               call's kernels alone (torch.profiler) and the host's cost
-               of a call through the wrapper and of its C launcher alone;
-               then,
+               calls (a yardstick, not G's function), and for C, P, F,
+               M, DQ and DKV their share of their bound, the device time
+               of a call's kernels alone (torch.profiler) and the host's
+               cost of a call through the wrapper and of its C launcher
+               alone, DQ and DKV run twice at every case and equal bit for
+               bit; then,
                at the sites whose wgmma line splits the reduction (UNet
                L3, mid, up block 1), C run twice bit for bit, C at B3
                against its three B1 calls bit for bit and against its
                plain version, and ptxas's registers and spills of every
-               wgmma conv line and every wgmma F / M line (a spill fails
-               the phase);
+               wgmma conv line and every wgmma F / M / DQ / DKV line (a
+               spill fails the phase, and so does a wgmma that ptxas
+               serialises in F, M, DQ or DKV);
   models       in each configuration: one full-width UNet image-cycle pass
                (512 px, 3 refs) and one 512 px VAE encode and decode,
                kernel path against the plain path on the card, compared
@@ -482,6 +488,35 @@ def flash_alone(q, k, v, h, scale, keep=None):
     return call
 
 
+def bwd_alone(kernel, q, k, v, dout, lse, delta, h, scale, keep=None):
+    """Kernel DQ's (`kernel` "dq") or DKV's C launcher on this call's
+    operands, its outputs and int32 keep table made once, as a
+    callable."""
+    import torch
+    from storygen_tpu_torch.ops import _build
+    b, sq, hd = q.shape
+    skv = k.shape[1]
+    nref = 1 if keep is None else keep.shape[1]
+    keep32 = None if keep is None else keep.to(torch.int32).contiguous()
+    outs = ([torch.empty(q.shape, dtype=q.dtype, device=q.device)]
+            if kernel == "dq" else
+            [torch.empty((b, skv, hd), dtype=k.dtype, device=k.device)
+             for _ in range(2)])
+    name = f"sg_flash_{kernel}"
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+            b, h, sq, skv, hd // h, q.stride(0), q.stride(1), k.stride(0),
+            k.stride(1), v.stride(0), v.stride(1),
+            None if keep32 is None else keep32.data_ptr(), nref,
+            skv // nref, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    fn = getattr(_build.load(), name)
+
+    def call(held=(outs, keep32)):
+        _build.check(fn(*args), name)
+    return call
+
+
 def conv_alone(x, w9, bias, residual, *affine):
     """Kernel C's (P's, with fp32 a and s) C launcher on this call's
     operands, its output and split workspace made once, as a callable."""
@@ -525,16 +560,18 @@ class Case:
     gated product where PyTorch does). `yardstick`, for S3, is the bf16
     q k^T product alone (torch.bmm): S3 has no one-call equivalent, and
     the product is not S3's function (it writes the logits, S3 their
-    sums). `alone`, for C, P, F and M, is the kernel's C launcher on
+    sums). `alone`, for C, P, F, M, DQ and DKV, is the kernel's C launcher on
     operands and buffers made once: the host's cost of a call without the
     wrapper's checks and allocations; `device` names the CUDA kernels whose
     device time alone is read from a trace. `exps`, for the attention
     kernels, is the exponentials the function needs (one per kept logit),
-    the bound's third term."""
+    the bound's third term. `repeat`, for DQ and DKV, runs the kernel a
+    second time and requires the two results equal bit for bit."""
 
     def __init__(self, name, label, kern, plain, oracle, library, flops,
                  nbytes, twin=None, backward=None, unfused=None,
-                 yardstick=None, alone=None, device="sg_conv::", exps=0.0):
+                 yardstick=None, alone=None, device="sg_conv::", exps=0.0,
+                 repeat=False):
         self.name, self.label = name, label
         self.kern, self.plain, self.oracle = kern, plain, oracle
         self.library, self.flops, self.nbytes = library, flops, nbytes
@@ -543,6 +580,7 @@ class Case:
         self.yardstick = yardstick
         self.alone = alone
         self.device, self.exps = device, exps
+        self.repeat = repeat
 
 
 def _attn_cases(dev, rnd):
@@ -626,6 +664,9 @@ def _attn_cases(dev, rnd):
     bwd = [("attn1 L1", 4, 4096, 4096, 40, None),
            ("masked attn3 L1", 4, 4096, 12288, 40, KEEP),
            ("attn2 L1", 4, 4096, 77, 40, None),
+           # the training path's d 80 sites
+           ("attn1 L2", 4, 1024, 1024, 80, None),
+           ("masked attn3 L2", 4, 1024, 3072, 80, KEEP),
            ("masked attn3 L3", 4, 256, 768, 160, KEEP),
            ("attn1 mid", 4, 64, 64, 160, None),
            ("masked attn3 mid 256px", 4, 16, 48, 160, KEEP),
@@ -635,13 +676,23 @@ def _attn_cases(dev, rnd):
            # DQ and DKV are partial on both sides
            ("ragged", 2, 1000, 333, 40, None),
            ("ragged", 2, 1000, 333, 160, None),
+           # an Sq whose fp32 rows are not 16-byte aligned: DKV's lse and
+           # delta by the producer's plain loads instead of TMA
+           ("odd Sq", 2, 999, 333, 40, None),
+           # k and v as the two halves of one (B, Skv, 2 H D) tensor
+           ("masked attn3 L2 k|v split view", 4, 1024, 3072, 80, KEEP, 8,
+            True),
            # a tensor-parallel rank's heads at tp = 2 (a TP training step)
            ("attn1 L1 TP=2 shard, 4 heads", 4, 4096, 4096, 40, None, 4),
            ("masked attn3 L1 TP=2 shard, 4 heads", 4, 4096, 12288, 40, KEEP,
             4)]
-    for label, b, sq, skv, d, table, *nh in bwd:
-        h = nh[0] if nh else 8
-        q, k, v = rnd(b, sq, h * d), rnd(b, skv, h * d), rnd(b, skv, h * d)
+    for label, b, sq, skv, d, table, *rest in bwd:
+        h = rest[0] if rest else 8
+        q = rnd(b, sq, h * d)
+        if len(rest) > 1 and rest[1]:
+            k, v = rnd(b, skv, 2 * h * d).chunk(2, -1)
+        else:
+            k, v = rnd(b, skv, h * d), rnd(b, skv, h * d)
         dout = rnd(b, sq, h * d)
         sc = d ** -0.5
         keep = (torch.tensor(table, dtype=torch.bool, device=dev)
@@ -694,7 +745,9 @@ def _attn_cases(dev, rnd):
                  lambda h=h, a=f32, sc=sc, keep=keep: fa.flash_dq_plain(
                      *a, h, sc, keep),
                  sdpa_fwd_bwd, 3 * mm, 3 * qb + 2 * kvb + 2 * rowb,
-                 backward=sdpa_bwd, exps=logits),
+                 backward=sdpa_bwd, exps=logits,
+                 alone=bwd_alone("dq", *args, h, sc, keep), device="flash_",
+                 repeat=True),
             Case("flash_dkv", tag,
                  lambda h=h, a=args, sc=sc, keep=keep: fa.flash_dkv(
                      *a, h, sc, keep),
@@ -704,7 +757,9 @@ def _attn_cases(dev, rnd):
                      *a, h, sc, keep),
                  sdpa_fwd_bwd, 4 * mm,
                  2 * qb + 2 * kvb + 2 * kv_out + 2 * rowb,
-                 backward=sdpa_bwd, exps=logits)]
+                 backward=sdpa_bwd, exps=logits,
+                 alone=bwd_alone("dkv", *args, h, sc, keep), device="flash_",
+                 repeat=True)]
     return cases
 
 
@@ -905,10 +960,20 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
     dq_ms = {}  # DQ's time per backward case, for DQ+DKV's factor
     for c in kernel_cases(dev):
         with torch.no_grad():
-            outs = [o.float() for o in _as_tuple(c.kern())]
+            first = _as_tuple(c.kern())
+            again = _as_tuple(c.kern()) if c.repeat else None
+            outs = [o.float() for o in first]
             refs = [o.float() for o in _as_tuple(c.oracle())]
             twin = None if c.twin is None else c.twin().float()
         torch.cuda.synchronize()
+        repeat_line = ""
+        if again is not None:
+            # DQ and DKV own their output tiles: a second run equals the
+            # first bit for bit
+            same = all(torch.equal(x, y) for x, y in zip(first, again))
+            ok &= same
+            repeat_line = f" repeat {'equal' if same else 'DIFFERS'};"
+        del first, again
         twin_line, twin_err = "", None
         if twin is not None:
             twin_err = (outs[0] - twin).abs().max().item()
@@ -977,9 +1042,10 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
                          f"unfused {unfused_ms:.4f} ms")
         wrapper_us = alone_us = dev_ms = None
         if c.alone is not None:
-            # C, P, F and M: share of bound, the device time of the call's
-            # kernels alone (C's split reduction included), and the host's
-            # cost of a call, through the wrapper and of the C launcher
+            # C, P, F, M, DQ and DKV: share of bound, the device time of
+            # the call's kernels alone (C's split reduction included), and
+            # the host's cost of a call, through the wrapper and of the C
+            # launcher
             with torch.no_grad():
                 dev_ms = device_ms(c.kern, c.device)
                 wrapper_us, alone_us = host_us(c.kern), host_us(c.alone)
@@ -993,7 +1059,8 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
                 vs_bwd = (dq_ms[c.label] + ms) / bwd_ms
                 fwd_line += f", DQ+DKV {vs_bwd:.2f}x it"
         print(f"kernel {c.name:16s} {c.label:38s} max_abs_err {err:.3e} "
-              f"(bound {bound:.3e}) {'ok' if good else 'FAIL'};{twin_line}  "
+              f"(bound {bound:.3e}) {'ok' if good else 'FAIL'};{twin_line}"
+              f"{repeat_line}  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  "
               f"bound {b_ms:.4f} ms ({b_term}){fwd_line}  [{card}]", flush=True)
         r = results.setdefault(c.name, {
@@ -1082,19 +1149,20 @@ def conv_split_checks(dev, card: str) -> bool:
     return ok
 
 
-def conv_ptxas() -> bool:
-    """Registers and spill bytes of every wgmma conv instantiation in this
-    run's build (`<hash>/conv3x3.ptxas.txt`), and any wgmma serialisation
-    ptxas reports; False if one spills or a built wgmma line has no
-    report."""
+def wg_ptxas(stem: str, entry: str, built: set) -> bool:
+    """Registers and spill bytes of every instantiation of the wgmma
+    kernel `entry` in this run's build of csrc/<stem>.cu
+    (`<hash>/<stem>.ptxas.txt`), and any wgmma serialisation ptxas
+    reports; False if one spills, ptxas serialises a wgmma, or a line of
+    `built` (template argument tuples) has no report."""
     import re
-    from storygen_tpu_torch.ops import _build, conv
+    from storygen_tpu_torch.ops import _build
     from storygen_tpu_torch.studies.common import ptxas_summary
-    text = _build.ptxas_report("conv3x3")
+    text = _build.ptxas_report(stem)
     ok, seen = True, set()
-    for entry, regs, stack, stores, loads in ptxas_summary(text):
+    for name, regs, stack, stores, loads in ptxas_summary(text):
         # template arguments: Lb<0|1>E (bool), Li<n>E (int)
-        m = re.search(r"wg_conv_kernel[^I]*I((?:L[ib]-?\d+E)+)E", entry)
+        m = re.search(rf"{entry}[^I]*I((?:L[ib]-?\d+E)+)E", name)
         if m is None:
             continue
         args = tuple(int(v) for v in re.findall(r"L[ib](-?\d+)E",
@@ -1102,61 +1170,49 @@ def conv_ptxas() -> bool:
         seen.add(args)
         good = stores == 0 and loads == 0
         ok &= good
-        print(f"ptxas wg_conv_kernel<{', '.join(map(str, args))}>: {regs} "
+        print(f"ptxas {entry}<{', '.join(map(str, args))}>: {regs} "
               f"registers, {stack} bytes stack, {stores} bytes spill "
               f"stores, {loads} bytes spill loads {'ok' if good else 'FAIL'}",
               flush=True)
     for line in text.splitlines():
         if "serializ" in line:
-            print(f"ptxas: {line.strip()}", flush=True)
-    built = {(k[1],) + v[1:] for k, v in conv.CONV_BUILT.items()
-             if v[0] == conv.WGMMA}
+            ok = False
+            print(f"ptxas: {line.strip()} FAIL", flush=True)
     missing = built - seen
     ok &= not missing
-    print(f"ptxas conv3x3: {len(seen)} wgmma instantiations reported, "
+    print(f"ptxas {stem}: {len(seen)} wgmma instantiations reported, "
           f"{len(built)} built, missing {sorted(missing)} "
           f"{'ok' if not missing else 'FAIL'}", flush=True)
     return ok
+
+
+def conv_ptxas() -> bool:
+    """wg_ptxas of every wgmma conv instantiation in this run's build
+    (`<hash>/conv3x3.ptxas.txt`, each CONV_BUILT line of family WGMMA)."""
+    from storygen_tpu_torch.ops import conv
+    built = {(k[1],) + v[1:] for k, v in conv.CONV_BUILT.items()
+             if v[0] == conv.WGMMA}
+    return wg_ptxas("conv3x3", "wg_conv_kernel", built)
 
 
 def flash_ptxas() -> bool:
-    """Registers and spill bytes of every wgmma F / M instantiation in this
-    run's build (`<hash>/flash_fwd.ptxas.txt`: the unmasked, masked and
-    straddling kernels of each FWD_BUILT line of family WGMMA), and any
-    wgmma serialisation ptxas reports; False if one spills or a built line
-    has no report."""
-    import re
-    from storygen_tpu_torch.ops import _build, flash_attention as fa
-    from storygen_tpu_torch.studies.common import ptxas_summary
-    text = _build.ptxas_report("flash_fwd")
-    ok, seen = True, set()
-    for entry, regs, stack, stores, loads in ptxas_summary(text):
-        # template arguments: Lb<0|1>E (bool), Li<n>E (int)
-        m = re.search(r"flash_wg_kernel[^I]*I((?:L[ib]-?\d+E)+)E", entry)
-        if m is None:
-            continue
-        args = tuple(int(v) for v in re.findall(r"L[ib](-?\d+)E",
-                                                m.group(1)))
-        seen.add(args)
-        good = stores == 0 and loads == 0
-        ok &= good
-        print(f"ptxas flash_wg_kernel<{', '.join(map(str, args))}>: {regs} "
-              f"registers, {stack} bytes stack, {stores} bytes spill "
-              f"stores, {loads} bytes spill loads {'ok' if good else 'FAIL'}",
-              flush=True)
-    for line in text.splitlines():
-        if "serializ" in line:
-            print(f"ptxas: {line.strip()}", flush=True)
+    """wg_ptxas of every wgmma instantiation of F / M
+    (`flash_fwd.ptxas.txt`: the unmasked, masked and straddling kernels of
+    each FWD_BUILT line of family WGMMA) and of DQ / DKV
+    (`flash_bwd.ptxas.txt`, each BWD_BUILT line)."""
+    from storygen_tpu_torch.ops import flash_attention as fa
     # (DP, warpgroups, BK, stages, panel, ping-pong, masked, straddle)
-    built = {(dp, bq // 64, bk, st, a, b, int(masked), straddle)
-             for (dp, masked), (fam, bq, bk, st, a, b) in fa.FWD_BUILT.items()
-             if fam == fa.WGMMA for straddle in ((0, 1) if masked else (0,))}
-    missing = built - seen
-    ok &= not missing
-    print(f"ptxas flash_fwd: {len(seen)} wgmma instantiations reported, "
-          f"{len(built)} built, missing {sorted(missing)} "
-          f"{'ok' if not missing else 'FAIL'}", flush=True)
-    return ok
+    fwd = {(dp, bq // 64, bk, st, a, b, int(masked), straddle)
+           for (dp, masked), (fam, bq, bk, st, a, b) in fa.FWD_BUILT.items()
+           if fam == fa.WGMMA for straddle in ((0, 1) if masked else (0,))}
+    # (DKV, DP, warpgroups, BC, stages, panel, ping-pong, masked, straddle)
+    bwd = {(int(kernel == "dkv"), dp, br // 64, bc, st, a, b, int(masked),
+            straddle)
+           for (kernel, dp, masked), (br, bc, st, a, b)
+           in fa.BWD_BUILT.items()
+           for straddle in ((0, 1) if masked else (0,))}
+    ok = wg_ptxas("flash_fwd", "flash_wg_kernel", fwd)
+    return wg_ptxas("flash_bwd", "flash_bwd_wg_kernel", bwd) and ok
 
 
 def conv_kernels(config: str):

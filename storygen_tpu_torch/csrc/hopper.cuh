@@ -1,8 +1,9 @@
 // Hopper's own instructions (sm_90a), shared by the kernels written for
-// them: conv_wgmma.cuh (kernels C and P) and flash_wgmma.cuh (kernels F and
-// M). On the device: mbarriers, TMA tensor copies, named barriers, wgmma
-// (its shared-memory matrix descriptors, its fences, its register-A and
-// shared-A forms), setmaxnreg. On the host: the driver's tensor-map encoder,
+// them: conv_wgmma.cuh (kernels C and P), flash_wgmma.cuh (kernels F and
+// M) and flash_bwd_wgmma.cuh (kernels DQ and DKV). On the device:
+// mbarriers, TMA tensor copies, named barriers, wgmma (its shared-memory
+// matrix descriptors, its fences, its register-A and shared-A forms),
+// setmaxnreg. On the host: the tensor-map encoder cuTensorMapEncodeTiled,
 // looked up once per process, and a kernel's dynamic shared-memory limit,
 // set once per kernel, device and library.
 //
@@ -60,6 +61,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* m,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* m,
@@ -340,6 +350,36 @@ struct WgMma<256> {
 template <int N>
 struct WgMmaSS;
 
+template <>
+struct WgMmaSS<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t da,
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+template <>
+struct WgMmaSS<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
 template <>
 struct WgMmaSS<64> {
   static __device__ __forceinline__ void run(float (&d)[32], uint64_t da,

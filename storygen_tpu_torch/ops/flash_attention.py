@@ -59,21 +59,25 @@ LSE_BUILT = {
     (160, False): (64, 64, 1, 2), (160, True): (128, 64, 1, 2),
 }
 # The instantiations of kernels DQ and DKV in csrc/flash_bwd.cu (its
-# SG_BUILT lines): (kernel, 16-padded head dim, masked) -> (BR, the block's
-# own rows; BC, the rows of a streamed tile; cp.async ring stages; A
-# fragments held in registers). DQ's own rows are Q rows and its streamed
-# tiles K/V; DKV's the other way round.
+# SG_BUILT lines, csrc/flash_bwd_wgmma.cuh's template): (kernel, 16-padded
+# head dim, masked) -> (BR, the block's own rows, 64 per consumer
+# warpgroup; BC, the rows of a streamed tile; ring stages; own panel
+# columns, 16, 32 or 64; ping-pong of two consumer warpgroups, 0 / 1).
+# DQ's own rows are Q rows and its streamed tiles K/V; DKV's the other way
+# round.
 BWD_BUILT = {
-    ("dq", 48, False): (64, 64, 2, True), ("dq", 48, True): (64, 64, 2, True),
-    ("dq", 80, False): (64, 64, 2, True), ("dq", 80, True): (64, 64, 2, True),
-    ("dq", 160, False): (64, 64, 2, False),
-    ("dq", 160, True): (64, 64, 2, False),
-    ("dkv", 48, False): (64, 64, 3, True),
-    ("dkv", 48, True): (64, 64, 3, True),
-    ("dkv", 80, False): (64, 64, 2, False),
-    ("dkv", 80, True): (64, 64, 2, False),
-    ("dkv", 160, False): (64, 16, 2, False),
-    ("dkv", 160, True): (64, 16, 2, False),
+    ("dq", 48, False): (128, 128, 4, 64, 1),
+    ("dq", 48, True): (128, 128, 4, 64, 1),
+    ("dq", 80, False): (128, 64, 4, 64, 1),
+    ("dq", 80, True): (128, 128, 4, 64, 1),
+    ("dq", 160, False): (64, 64, 3, 32, 0),
+    ("dq", 160, True): (64, 64, 3, 32, 0),
+    ("dkv", 48, False): (128, 64, 4, 64, 1),
+    ("dkv", 48, True): (128, 64, 4, 64, 1),
+    ("dkv", 80, False): (128, 64, 4, 64, 1),
+    ("dkv", 80, True): (128, 64, 4, 64, 1),
+    ("dkv", 160, False): (64, 16, 4, 32, 0),
+    ("dkv", 160, True): (64, 16, 4, 32, 0),
 }
 
 
@@ -441,10 +445,11 @@ def _check_grad_inputs(q, dout, lse, delta, num_heads):
 
 
 def bwd_tile(kernel: str, d: int, masked: bool
-             ) -> Tuple[int, int, int, bool]:
+             ) -> Tuple[int, int, int, int, int]:
     """The instantiation that kernel DQ (`kernel` "dq") or DKV ("dkv") runs
-    at head dim d: (BR, BC, stages, A fragments in registers); its grid is
-    (ceil(Sq / BR), H, B) for DQ, (ceil(Skv / BR), H, B) for DKV.
+    at head dim d: (BR, BC, stages, own panel columns, ping-pong) as in
+    BWD_BUILT; its grid is (ceil(Sq / BR), H, B) for DQ, (ceil(Skv / BR),
+    H, B) for DKV.
     ValueError if none is built."""
     key = (kernel, (d + 15) // 16 * 16, bool(masked))
     if d % 8 or key not in BWD_BUILT:

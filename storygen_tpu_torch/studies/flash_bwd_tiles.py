@@ -1,16 +1,19 @@
 """Which tile of kernels DQ and DKV (csrc/flash_bwd.cu) is fastest at each
 padded head dim on the card.
 
-Builds csrc/flash_bwd.cu once per candidate (kernel, padded head dim, BR
-own rows per block, BC rows per streamed tile, cp.async ring stages, A
-fragments in registers), each into its own library whose only SG_BUILT
-lines are that candidate's two (unmasked and masked), one nvcc per
-candidate, all started together, under build/storygen_tpu_torch/bwd_tiles/,
-and prints ptxas's registers, stack and spills of each. Then times each
-candidate and the built kernel (the `flash_dq` / `flash_dkv` wrappers) on
-the UNet's 512 px training backward shapes of that head dim (batch 4, 8
-heads), with the max error against the fp32 plain version. The rate counts
-the kept kv rows only: 3 products for DQ, 4 for DKV.
+Builds csrc/flash_bwd.cu once per candidate, each into its own library
+whose only SG_BUILT lines are that candidate's two (unmasked and masked),
+one nvcc per candidate, all started together, under
+build/storygen_tpu_torch/bwd_tiles/, and prints ptxas's registers, stack
+and spills of each. A candidate is a line of csrc/flash_bwd_wgmma.cuh's
+template: (BR own rows per block, 64 per consumer warpgroup; BC rows per
+streamed tile; ring stages; own panel columns; ping-pong of the two
+consumer warpgroups). Then times each candidate and the built kernel (the
+`flash_dq` / `flash_dkv` wrappers) on the UNet's 512 px training backward
+shapes of that head dim (batch 4, 8 heads), with the max error against
+the fp32 plain version and each one's device time per call replayed from
+a CUDA graph of 20 calls. The rate counts the kept kv rows only: 3
+products for DQ, 4 for DKV.
 
 The candidates need the card and nvcc; there is no CPU mode.
 
@@ -30,24 +33,29 @@ import torch
 from storygen_tpu_torch.ops import _build, flash_attention as fa
 from storygen_tpu_torch.studies import common
 
-Tile = Tuple[int, int, int, bool]
-# (kernel, 16-padded head dim) -> candidate (BR, BC, stages, A in registers)
+Tile = Tuple[int, int, int, int, int]
+# (kernel, 16-padded head dim) -> candidates (BR, BC, stages, own panel
+# columns, ping-pong); the 2-stage lines at d 48 show what the ring's
+# depth is worth (a streamed tile stays in use from its logits to its
+# gradients one iteration later)
 CANDIDATES: Dict[Tuple[str, int], List[Tile]] = {
-    ("dq", 48): [(64, 64, 2, True), (128, 64, 2, True), (64, 128, 2, True),
-                 (64, 64, 3, True), (128, 64, 3, True), (64, 32, 2, True),
-                 (64, 64, 2, False)],
-    ("dq", 80): [(64, 64, 2, True), (128, 64, 2, True), (64, 64, 3, True),
-                 (64, 32, 2, True), (64, 64, 2, False), (128, 64, 2, False)],
-    ("dq", 160): [(64, 64, 2, False), (64, 32, 2, False), (32, 64, 2, False),
-                  (128, 64, 2, False), (64, 32, 2, True), (64, 64, 3, False)],
-    ("dkv", 48): [(64, 64, 2, True), (128, 64, 2, True), (64, 32, 2, True),
-                  (64, 64, 3, True), (128, 64, 3, True), (64, 64, 2, False),
-                  (128, 32, 2, True)],
-    ("dkv", 80): [(64, 32, 2, True), (64, 64, 2, True), (128, 32, 2, True),
-                  (64, 64, 2, False), (128, 64, 2, False), (64, 32, 3, True)],
-    ("dkv", 160): [(64, 16, 2, False), (64, 32, 2, False), (32, 16, 2, False),
-                   (32, 32, 2, False), (64, 16, 3, False),
-                   (128, 16, 2, False)],
+    ("dq", 48): [(128, 64, 4, 64, 1), (128, 64, 4, 64, 0),
+                 (128, 128, 4, 64, 1), (128, 128, 4, 64, 0),
+                 (128, 128, 3, 64, 1), (128, 64, 5, 64, 1),
+                 (128, 128, 2, 64, 1)],
+    ("dq", 80): [(128, 64, 4, 64, 1), (128, 64, 3, 64, 1),
+                 (128, 128, 3, 64, 1), (128, 128, 4, 64, 1),
+                 (128, 128, 4, 16, 1)],
+    ("dq", 160): [(64, 64, 3, 32, 0), (64, 64, 4, 32, 0),
+                  (64, 64, 2, 32, 0), (128, 64, 3, 32, 1)],
+    ("dkv", 48): [(128, 64, 4, 64, 1), (128, 64, 5, 64, 1),
+                  (128, 64, 6, 64, 1), (128, 64, 4, 64, 0),
+                  (64, 64, 4, 64, 0), (128, 64, 2, 64, 1)],
+    ("dkv", 80): [(128, 64, 4, 64, 1), (128, 64, 3, 64, 1),
+                  (128, 64, 5, 64, 1), (128, 64, 4, 16, 1)],
+    ("dkv", 160): [(64, 16, 3, 32, 0), (64, 16, 2, 32, 0),
+                   (64, 16, 4, 32, 0), (64, 16, 3, 16, 0),
+                   (64, 32, 3, 32, 0)],
 }
 # the UNet's attention sites in a 512 px stage-2 backward: (B, Sq, Skv, d,
 # keep table or None), 8 heads; attn3's table as in chip_smoke.py
@@ -80,15 +88,14 @@ def candidate_source(kernel: str, dp: int, tile: Tile) -> str:
     if first is None:
         raise ValueError("flash_bwd.cu has no SG_BUILT lines")
     body = _BUILT_LINE.sub("", src)
-    br, bc, stages, areg = tile
-    mine = "".join(f"  SG_BUILT({KINDS[kernel]}, {dp}, {m}, {br}, {bc}, "
-                   f"{stages}, {int(areg)})\n" for m in (0, 1))
+    mine = "".join(f"  SG_BUILT({KINDS[kernel]}, {dp}, {m}, "
+                   f"{', '.join(map(str, tile))})\n" for m in (0, 1))
     return body[:first.start()] + mine + body[first.start():]
 
 
 def _tag(c) -> str:
-    kernel, dp, (br, bc, stages, areg) = c
-    return f"{kernel}_{dp}_{br}_{bc}_{stages}_{int(areg)}"
+    kernel, dp, tile = c
+    return f"{kernel}_{dp}_{'_'.join(map(str, tile))}"
 
 
 def build(cands) -> Dict[tuple, Path]:
@@ -100,7 +107,7 @@ def build(cands) -> Dict[tuple, Path]:
             / _build.source_hash([_build.CSRC / "flash_bwd.cu"]))
     return common.build_candidates(
         root, {c: (f"flash_bwd_{_tag(c)}", candidate_source(*c))
-               for c in cands}, "flash_d")
+               for c in cands}, "flash_bwd_wg")
 
 
 def load(path: Path) -> ctypes.CDLL:
@@ -124,8 +131,8 @@ def main(device=None, shapes=tuple(SHAPES), iters: int = 10) -> None:
         for dp in dps:
             for masked in (False, True):
                 print(f"built {kernel} d{dp}{' masked' if masked else ''}: "
-                      f"BR, BC, stages, A in registers = "
-                      f"{fa.bwd_tile(kernel, dp, masked)}", flush=True)
+                      f"{_label(fa.bwd_tile(kernel, dp, masked))}",
+                      flush=True)
     libs = {c: load(p) for c, p in build(cands).items()}
     g = torch.Generator(device=dev).manual_seed(0)
     for name, b, sq, skv, d, table in todo:
@@ -163,15 +170,15 @@ def main(device=None, shapes=tuple(SHAPES), iters: int = 10) -> None:
 
 
 def _label(tile: Tile) -> str:
-    br, bc, stages, areg = tile
-    return f"{br}/{bc} {stages}s {'areg' if areg else 'asmem'}"
+    br, bc, stages, apw, pp = tile
+    return f"{br}/{bc} {stages}s p{apw}{' pp' if pp else ''}"
 
 
 def run(name: str, rows, refs, ops: float, dev, card: str,
         iters: int) -> None:
-    """One line per (label, fn): its time, rate and the max error of its
-    outputs against `refs`; a launch that the card refuses prints
-    FAILED."""
+    """One line per (label, fn): its time, rate, the max error of its
+    outputs against `refs` and its device time from a CUDA graph of 20
+    calls; a launch that the card refuses prints FAILED."""
     for label, fn in rows:
         try:
             with torch.no_grad():
@@ -180,10 +187,12 @@ def run(name: str, rows, refs, ops: float, dev, card: str,
                 err = max(common.max_err(o, r) for o, r in zip(outs, refs))
                 del outs
                 ms = common.time_ms(fn, dev, iters)
+                alone = common.graph_ms(fn)
         except (ValueError, RuntimeError) as e:
             print(f"{name:14s} {label:24s} FAILED {e}  [{card}]", flush=True)
             continue
-        print(common.line(name, label, ms, ops, card, err), flush=True)
+        print(common.line(name, label, ms, ops, card, err)
+              + f"  graph {alone:.4f} ms", flush=True)
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ import torch
 
 from storygen_tpu_torch.ops import _build, flash_attention as fa
 from storygen_tpu_torch.studies import flash_fwd_tiles
+from tests.torch_port_util import View
 
 
 KINDS = {"kFwd": "fwd", "kLse": "lse"}
@@ -235,19 +236,6 @@ def test_tile_study_lse_candidates_fit_a_block(dp):
     for masked in (False, True):
         bq, _, halves, stages = fa.LSE_BUILT[(dp, masked)]
         assert (bq, halves, stages) in cands
-
-
-class View:
-    """A (B, S, H*D) operand's shape and element strides, as a tensor
-    gives them (contiguous unless `strides` is given)."""
-
-    def __init__(self, shape, strides=None):
-        self.shape = tuple(shape)
-        b, s, hd = shape
-        self._strides = tuple(strides or (s * hd, hd, 1))
-
-    def stride(self, dim=None):
-        return self._strides if dim is None else self._strides[dim]
 
 
 # every F / M operand of chip_smoke.py's kernels phase: (B, Sq, Skv, head

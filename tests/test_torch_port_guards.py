@@ -151,7 +151,8 @@ def test_nvcc_command_targets_sm90a_into_build_dir():
                                                   "conv_mma.cuh",
                                                   "conv_wgmma.cuh",
                                                   "hopper.cuh",
-                                                  "flash_wgmma.cuh"}
+                                                  "flash_wgmma.cuh",
+                                                  "flash_bwd_wgmma.cuh"}
     out = _build.lib_path(srcs)
     nvcc = "/usr/local/cuda/bin/nvcc"
     for src in srcs:

@@ -1,6 +1,8 @@
 """Shared helpers of the port's parity tests (tests/test_torch_port_*.py):
 seeded numpy inputs, JAX params carried into the port's modules through
 storygen_tpu_torch/checkpoint/convert.py, and fp32 comparisons."""
+import re
+
 import jax
 import numpy as np
 import torch
@@ -223,3 +225,69 @@ def sample_both(models, *, sampler, stage, steps, eta=0.0, rfi=1,
     out_t = ts.sample(*[None if x is None else t(x) for x in inputs], 7.5,
                       3.5, step_noise=step_noise, **kw)
     return out_j, out_t
+
+
+class View:
+    """A (B, S, H*D) operand's shape and element strides, as a tensor
+    gives them (contiguous unless `strides` is given): what the flash
+    kernels' tensor-map plans (ops/flash_attention.py::operand_map) read."""
+
+    def __init__(self, shape, strides=None):
+        self.shape = tuple(shape)
+        b, s, hd = shape
+        self._strides = tuple(strides or (s * hd, hd, 1))
+
+    def stride(self, dim=None):
+        return self._strides if dim is None else self._strides[dim]
+
+
+def c_expr(expr: str) -> str:
+    """An integer expression of the kernels' CUDA sources as Python: `/`
+    divides integers (every operand here is >= 0), `c ? x : y` is a
+    conditional, `&&`, `||` and `!` the logical operators; the `a.` and
+    `C::` prefixes, casts and `reinterpret_cast<T>` drop out and
+    `sizeof(float)` is 4."""
+    e = re.sub(r"//[^\n]*", "", expr)
+    e = re.sub(r"\b(?:a\.|C::)", "", e)
+    e = re.sub(r"reinterpret_cast<\w+>", "", e)
+    e = re.sub(r"\((?:cuuint(?:32|64)_t|long long|int|unsigned)\)", "", e)
+    e = e.replace("sizeof(float)", "4")
+    e = e.replace("true", "1").replace("false", "0")
+    e = e.replace("&&", " and ").replace("||", " or ")
+    e = re.sub(r"!(?!=)", " not ", e)
+    return _c_conditional(e)
+
+
+def _c_conditional(e: str) -> str:
+    if "?" in e:
+        cond, rest = e.split("?", 1)
+        yes, no = rest.split(":", 1)
+        return (f"(({_c_conditional(yes)}) if ({_c_conditional(cond)}) "
+                f"else ({_c_conditional(no)}))")
+    return " ".join(re.sub(r"/", "//", e).split())
+
+
+def c_eval(expr: str, **names) -> int:
+    """The value of a CUDA source's integer expression (c_expr) with
+    `names` bound (bools as 0 / 1)."""
+    return eval(c_expr(expr), {"__builtins__": {}, "min": min, "max": max},
+                dict(names))
+
+
+def cuda_struct(src: str, name: str, **params):
+    """The `static constexpr int` members of the template struct `name` in
+    the CUDA source `src`, evaluated in order as the compiler would with
+    the template parameters `params`, and the messages of its
+    `static_assert`s that fail there: (members, failed)."""
+    body = re.search(r"struct %s \{(.*?)\n\};" % re.escape(name), src,
+                     re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    env = dict(params)
+    for decl in re.findall(r"static constexpr int (.*?);", body, re.S):
+        for item in re.split(r",(?![^(]*\))", decl):
+            key, expr = item.split("=", 1)
+            env[key.strip()] = c_eval(expr, **env)
+    failed = [msg for cond, msg in re.findall(
+        r'static_assert\((.*?),\s*"([^"]*)"\);', body, re.S)
+        if not c_eval(cond, **env)]
+    return {k: v for k, v in env.items() if k not in params}, failed
