@@ -39,8 +39,9 @@ stride-2 conv on kernel D):
                over it,
                and for G (at every feed-forward site class of serving, its
                reference pass and training) its share of its bound, its
-               GB/s and the time of the unfused bf16 chain of PyTorch
-               calls (a yardstick, not G's function), and for C, P, F,
+               GB/s, the device time of a call alone (torch.profiler) and
+               the time of the unfused bf16 chain of PyTorch calls (a
+               yardstick, not G's function), and for C, P, F,
                M, DQ and DKV their share of their bound, the device time
                of a call's kernels alone (torch.profiler) and the host's
                cost of a call through the wrapper and of its C launcher
@@ -49,10 +50,13 @@ stride-2 conv on kernel D):
                at the sites whose wgmma line splits the reduction (UNet
                L3, mid, up block 1), C run twice bit for bit, C at B3
                against its three B1 calls bit for bit and against its
-               plain version, and ptxas's registers and spills of every
-               wgmma conv line and every wgmma F / M / DQ / DKV line (a
-               spill fails the phase, and so does a wgmma that ptxas
-               serialises in F, M, DQ or DKV);
+               plain version; the same of G at L3, mid, mid train and a
+               ragged M (run twice, at B3 and B4 against its per-image
+               calls, and against its plain version); and ptxas's
+               registers and spills of every wgmma conv line and every
+               wgmma F / M / DQ / DKV / G line (a spill fails the phase,
+               and so does a wgmma that ptxas serialises in F, M, DQ, DKV
+               or G);
   models       in each configuration: one full-width UNet image-cycle pass
                (512 px, 3 refs) and one 512 px VAE encode and decode,
                kernel path against the plain path on the card, compared
@@ -546,6 +550,23 @@ def conv_alone(x, w9, bias, residual, *affine):
     return call
 
 
+def geglu_alone(proj, w, bias, tokens):
+    """Kernel G's C launcher on this call's operands and its output made
+    once, as a callable."""
+    import torch
+    from storygen_tpu_torch.ops import _build
+    m, (e, n) = proj.shape[0], w.shape
+    out = torch.empty((m, e), dtype=proj.dtype, device=proj.device)
+    args = (proj.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            int(bias.dtype == torch.float32), out.data_ptr(), m, n, e, tokens,
+            torch.cuda.current_stream(proj.device).cuda_stream)
+    fn = _build.load().sg_geglu_matmul
+
+    def call(out=out):
+        _build.check(fn(*args), "sg_geglu_matmul")
+    return call
+
+
 class Case:
     """One kernel at one shape: the kernel call, its plain version on the
     same bf16 inputs, the fp32 oracle, an optional library call, and the
@@ -560,7 +581,7 @@ class Case:
     gated product where PyTorch does). `yardstick`, for S3, is the bf16
     q k^T product alone (torch.bmm): S3 has no one-call equivalent, and
     the product is not S3's function (it writes the logits, S3 their
-    sums). `alone`, for C, P, F, M, DQ and DKV, is the kernel's C launcher on
+    sums). `alone`, for C, P, F, M, DQ, DKV and G, is the kernel's C launcher on
     operands and buffers made once: the host's cost of a call without the
     wrapper's checks and allocations; `device` names the CUDA kernels whose
     device time alone is read from a trace. `exps`, for the attention
@@ -779,30 +800,31 @@ def kernel_cases(dev):
     # every feed-forward site class: the serving main pass (3-row CFG
     # batch), its reference pass (6 rows), stage-2 training (batch 4); an
     # fp32 bias (the kernel reads either dtype as stored) and a ragged M
-    # under split-K
-    for label, m, n, e, bias32 in [
-            ("L1 ff", 3 * 4096, 1280, 320, False),
-            ("L2 ff", 3 * 1024, 2560, 640, False),
-            ("L3 ff", 3 * 256, 5120, 1280, False),
-            ("mid ff", 192, 5120, 1280, False),
-            ("L1 ref ff", 6 * 4096, 1280, 320, False),
-            ("L2 ref ff", 6 * 1024, 2560, 640, False),
-            ("L1 train ff", 4 * 4096, 1280, 320, False),
-            ("mid train ff", 4 * 64, 5120, 1280, False),
-            ("L1 ff fp32 bias", 3 * 4096, 1280, 320, True),
-            ("ragged", 1000, 5120, 1280, False),
+    # under a split of N (4 images of 250 rows)
+    for label, m, n, e, tokens, bias32 in [
+            ("L1 ff", 3 * 4096, 1280, 320, 4096, False),
+            ("L2 ff", 3 * 1024, 2560, 640, 1024, False),
+            ("L3 ff", 3 * 256, 5120, 1280, 256, False),
+            ("mid ff", 192, 5120, 1280, 64, False),
+            ("L1 ref ff", 6 * 4096, 1280, 320, 4096, False),
+            ("L2 ref ff", 6 * 1024, 2560, 640, 1024, False),
+            ("L1 train ff", 4 * 4096, 1280, 320, 4096, False),
+            ("mid train ff", 4 * 64, 5120, 1280, 64, False),
+            ("L1 ff fp32 bias", 3 * 4096, 1280, 320, 4096, True),
+            ("ragged", 1000, 5120, 1280, 250, False),
             # a tensor-parallel rank's inner shard at tp = 2 and 4, and
             # every level's at tp = 8 (L1's N = 160 takes the K step 32)
-            ("L1 ff TP=2 shard", 3 * 4096, 640, 320, False),
-            ("L1 ff TP=4 shard", 3 * 4096, 320, 320, False),
-            ("L1 ff TP=8 shard", 3 * 4096, 160, 320, False),
-            ("L2 ff TP=8 shard", 3 * 1024, 320, 640, False),
-            ("L3 ff TP=8 shard", 3 * 256, 640, 1280, False)]:
+            ("L1 ff TP=2 shard", 3 * 4096, 640, 320, 4096, False),
+            ("L1 ff TP=4 shard", 3 * 4096, 320, 320, 4096, False),
+            ("L1 ff TP=8 shard", 3 * 4096, 160, 320, 4096, False),
+            ("L2 ff TP=8 shard", 3 * 1024, 320, 640, 1024, False),
+            ("L3 ff TP=8 shard", 3 * 256, 640, 1280, 256, False)]:
         p, w = rnd(m, 2 * n), rnd(e, n, s=n ** -0.5)
         bias = rnd(e).float() if bias32 else rnd(e)
         cases.append(Case(
             "geglu_matmul", f"{label} ({m}, 2x{n})->{e}",
-            lambda p=p, w=w, bias=bias: geglu.geglu_matmul(p, w, bias),
+            lambda p=p, w=w, bias=bias, t=tokens: geglu.geglu_matmul(
+                p, w, bias, t),
             lambda p=p, w=w, bias=bias: geglu.geglu_matmul_plain(p, w, bias),
             lambda p=p, w=w, bias=bias: geglu.geglu_matmul_plain(
                 p.float(), w.float(), bias.float()),
@@ -810,7 +832,8 @@ def kernel_cases(dev):
             2.0 * (2 * m * n + e * n + m * e) + bias.element_size() * e,
             unfused=lambda p=p, w=w, bias=bias: F.linear(
                 p[:, :w.shape[1]] * F.gelu(p[:, w.shape[1]:]), w,
-                bias.to(p.dtype))))
+                bias.to(p.dtype)), alone=geglu_alone(p, w, bias, tokens),
+            device="geglu_wg_kernel"))
     for label, b, hw, cin, cout, bias_b, res in [
             ("UNet up L1 (B,C) bias", 3, 64, 960, 320, True, False),
             ("UNet L1 residual", 3, 64, 320, 320, False, True),
@@ -1034,18 +1057,19 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
             dq_ms[c.label] = ms
         unfused_ms = None
         if c.unfused is not None:
-            # G: its share of its bound, its HBM rate and the unfused chain
+            # G: its HBM rate and the unfused chain (its share of its
+            # bound below)
             with torch.no_grad():
                 unfused_ms = cuda_ms(c.unfused, 10)
-            fwd_line += (f"  {b_ms / ms:.1%} of bound  "
-                         f"{c.nbytes / ms / 1e6:.0f} GB/s  "
-                         f"unfused {unfused_ms:.4f} ms")
+            fwd_line += (f"  {c.nbytes / ms / 1e6:.0f} GB/s  "
+                         f"unfused {unfused_ms:.4f} ms "
+                         f"({ms / unfused_ms:.2f}x)")
         wrapper_us = alone_us = dev_ms = None
         if c.alone is not None:
-            # C, P, F, M, DQ and DKV: share of bound, the device time of
-            # the call's kernels alone (C's split reduction included), and
-            # the host's cost of a call, through the wrapper and of the C
-            # launcher
+            # C, P, F, M, DQ, DKV and G: share of bound, the device time
+            # of the call's kernels alone (C's split reduction included),
+            # and the host's cost of a call, through the wrapper and of the
+            # C launcher
             with torch.no_grad():
                 dev_ms = device_ms(c.kern, c.device)
                 wrapper_us, alone_us = host_us(c.kern), host_us(c.alone)
@@ -1091,8 +1115,10 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
         r["bound_by"] = max(r["cases"], key=lambda x: x["bound_ms"])[
             "bound_by"]
     ok &= conv_split_checks(dev, card)
+    ok &= geglu_split_checks(dev, card)
     ok &= conv_ptxas()
     ok &= flash_ptxas()
+    ok &= geglu_ptxas()
     torch.cuda.empty_cache()
     return ok
 
@@ -1146,6 +1172,57 @@ def conv_split_checks(dev, card: str) -> bool:
               f"{'equal' if sliced else 'DIFFERS'}, max_abs_err {err:.3e} "
               f"(bound {bound:.3e}) {'ok' if good else 'FAIL'} [{card}]",
               flush=True)
+    return ok
+
+
+# (label, rows per image, N, E, batches) of kernel G at the sites whose
+# line splits the N reduction, and a ragged M (250 rows an image)
+GEGLU_SPLIT_SITES = [("L3 ff", 256, 5120, 1280, (3, 4)),
+                     ("mid ff", 64, 5120, 1280, (3, 6)),
+                     ("mid train ff", 64, 5120, 1280, (4, 12)),
+                     ("ragged", 250, 5120, 1280, (4, 3))]
+
+
+def geglu_split_checks(dev, card: str) -> bool:
+    """At the split sites: kernel G run twice is equal bit for bit, G at
+    each batch equals its per-image calls bit for bit (the tile, the split
+    and each row's order of summation ignore the batch), and the batched
+    result stays within KERNEL_RTOL of the fp32 plain version."""
+    import torch
+    from storygen_tpu_torch.ops import geglu
+    g = torch.Generator(device=dev).manual_seed(2)
+    ok = True
+    for label, tokens, n, e, batches in GEGLU_SPLIT_SITES:
+        w = (torch.randn((e, n), generator=g, device=dev) * n ** -0.5).to(
+            torch.bfloat16)
+        bias = torch.randn((e,), generator=g, device=dev).to(torch.bfloat16)
+        tile = geglu.geglu_tile(tokens, n, e)
+        for b in batches:
+            m = b * tokens
+            p = torch.randn((m, 2 * n), generator=g, device=dev).to(
+                torch.bfloat16)
+            with torch.no_grad():
+                one = geglu.geglu_matmul(p, w, bias, tokens)
+                two = geglu.geglu_matmul(p, w, bias, tokens)
+                rows = torch.cat([geglu.geglu_matmul(
+                    p[i * tokens:(i + 1) * tokens].contiguous(), w, bias,
+                    tokens) for i in range(b)])
+                ref = geglu.geglu_matmul_plain(p.float(), w.float(),
+                                               bias.float())
+            torch.cuda.synchronize()
+            repeat, sliced = torch.equal(one, two), torch.equal(one, rows)
+            err = (one.float() - ref).abs().max().item()
+            bound = KERNEL_RTOL * ref.abs().max().item()
+            good = (repeat and sliced and err <= bound
+                    and bool(torch.isfinite(one.float()).all()))
+            ok &= good
+            print(f"geglu split {label} B{b} ({m}, 2x{n})->{e}: tile "
+                  f"{tile}, split {geglu.split_count(tile, n)}, repeat "
+                  f"{'equal' if repeat else 'DIFFERS'}, B{b} vs {b} x B1 "
+                  f"{'equal' if sliced else 'DIFFERS'}, max_abs_err "
+                  f"{err:.3e} (bound {bound:.3e}) "
+                  f"{'ok' if good else 'FAIL'} [{card}]", flush=True)
+            del p, one, two, rows, ref
     return ok
 
 
@@ -1213,6 +1290,15 @@ def flash_ptxas() -> bool:
            for straddle in ((0, 1) if masked else (0,))}
     ok = wg_ptxas("flash_fwd", "flash_wg_kernel", fwd)
     return wg_ptxas("flash_bwd", "flash_bwd_wg_kernel", bwd) and ok
+
+
+def geglu_ptxas() -> bool:
+    """wg_ptxas of every instantiation of G (`geglu_matmul.ptxas.txt`:
+    each GEGLU_BUILT line with a bf16 and an fp32 bias)."""
+    from storygen_tpu_torch.ops import geglu
+    built = {tile[:5] + (b32,) for tile in geglu.GEGLU_BUILT.values()
+             for b32 in (0, 1)}
+    return wg_ptxas("geglu_matmul", "geglu_wg_kernel", built)
 
 
 def conv_kernels(config: str):
@@ -3639,7 +3725,8 @@ def parallel_kernels_at_shards(dev, card: str) -> bool:
         lambda: multi_head_attention(q, k, v, 4), (b, s, 160), card)
     ok &= kernel_vs_plain(
         "parallel (b) G at a TP=2 shard: L1 ff (12288, 2x640) -> E 320",
-        lambda: route(geglu_matmul, geglu_matmul_plain)(proj, w_ff, b_ff),
+        lambda: route(geglu_matmul, geglu_matmul_plain)(proj, w_ff, b_ff,
+                                                        s),
         (b * s, 320), card)
     ok &= kernel_vs_plain(
         "parallel (b) C at a TP=2 shard: conv1 L1 64^2 320 -> Cout 160",

@@ -37,12 +37,14 @@ encodes, text encodes, the reference UNet pass, the main pass, its
 backward and the optimizer.
 
 With `host [TREE]` it times instead the host's cost of one call of
-kernels F and C (microseconds, the device's queue not full): through the
-wrapper (`flash_fwd`, `conv3x3`) and of the C launcher alone on operands
-and buffers made once, at serving shapes (F: attn1 L1 B6 4096² d40, attn2
-L1 B3 4096x77 d40, mid B6 64² d160; C: UNet L1 B3 64² 320->320, mid B3
-8² 1280->1280 with its split workspace), and the first call of each
-launcher in the process (its one-time lookups included). TREE (default:
+kernels F, C and G (microseconds, the device's queue not full): through
+the wrapper (`flash_fwd`, `conv3x3`, `geglu_matmul`) and of the C launcher
+alone on operands and buffers made once, at serving shapes (F: attn1 L1
+B6 4096² d40, attn2 L1 B3 4096x77 d40, mid B6 64² d160; C: UNet L1 B3 64²
+320->320, mid B3 8² 1280->1280 with its split workspace; G: L1 ff (12288,
+2x1280)->320, mid ff (192, 2x5120)->1280, each launcher call encoding its
+two tensor maps), and the first call of each launcher in the process (its
+one-time lookups included). TREE (default:
 this checkout) is the root of a checkout whose `storygen_tpu_torch` is
 imported and built, so that two commits are timed by one script, each in
 its own process, in turns.
@@ -116,8 +118,9 @@ HOST_CALLS = 200
 
 
 def host_costs(dev, card: str, tree: str) -> bool:
-    """Host microseconds per call of F and C through their wrappers and of
-    their C launchers alone, with `tree`'s package (first on sys.path)."""
+    """Host microseconds per call of F, C and G through their wrappers and
+    of their C launchers alone, with `tree`'s package (first on
+    sys.path)."""
     import torch
     from storygen_tpu_torch.ops import _build, conv, flash_attention as fa
     pkg = os.path.dirname(os.path.dirname(os.path.abspath(fa.__file__)))
@@ -169,6 +172,7 @@ def host_costs(dev, card: str, tree: str) -> bool:
                      lib.sg_conv3x3(*a),
                      lambda x=x, w9=w9, bias=bias: conv.conv3x3(x, w9,
                                                                 bias)))
+    rows += geglu_host_rows(dev, rnd, lib, stream)
     ok = True
     with torch.no_grad():
         for label, alone, wrapper in rows:
@@ -185,6 +189,48 @@ def host_costs(dev, card: str, tree: str) -> bool:
                   f"{w_us:.2f} / {w2_us:.2f} us a call; tree {tree} "
                   f"[{card}]", flush=True)
     return ok
+
+
+def geglu_host_rows(dev, rnd, lib, stream):
+    """Kernel G's (label, launcher alone, wrapper) at the first level and
+    the mid block (its split line) of serving. The launcher's arguments
+    follow the tree's signature: rows per image (this design, two tensor
+    maps a call), or split-K partials and counters picked by M (the
+    mma.sync design before it)."""
+    import torch
+    from storygen_tpu_torch.ops import _build, geglu
+    rows = []
+    for label, m, n, e, tokens in (("G L1 ff (12288, 2x1280)->320", 12288,
+                                    1280, 320, 4096),
+                                   ("G mid ff (192, 2x5120)->1280", 192,
+                                    5120, 1280, 64)):
+        p, w, bias = rnd(m, 2 * n), rnd(e, n), rnd(e)
+        out = torch.empty((m, e), dtype=p.dtype, device=dev)
+        keep = [p, w, bias, out]
+        if len(_build.SIGNATURES["sg_geglu_matmul"]) == 10:
+            args = (p.data_ptr(), w.data_ptr(), bias.data_ptr(), 0,
+                    out.data_ptr(), m, n, e, tokens, stream)
+            wrapper = (lambda p=p, w=w, bias=bias, t=tokens:
+                       geglu.geglu_matmul(p, w, bias, t))
+        else:
+            tile = geglu.geglu_tile(m, n, e)
+            split = tile[6]
+            part = count = None
+            if split > 1:
+                part = torch.empty((split, m, e), dtype=torch.float32,
+                                   device=dev)
+                count = geglu._tile_counters(dev, stream, -(-m // tile[0])
+                                             * -(-e // tile[1]))
+                keep += [part, count]
+            args = (p.data_ptr(), w.data_ptr(), bias.data_ptr(), 0,
+                    out.data_ptr(), None if part is None else part.data_ptr(),
+                    None if count is None else count.data_ptr(), m, n, e,
+                    stream)
+            wrapper = (lambda p=p, w=w, bias=bias:
+                       geglu.geglu_matmul(p, w, bias))
+        rows.append((label, lambda a=args, keep=keep:
+                     lib.sg_geglu_matmul(*a), wrapper))
+    return rows
 
 
 def story_frames(dev, card: str) -> bool:

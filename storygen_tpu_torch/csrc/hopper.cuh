@@ -1,7 +1,9 @@
 // Hopper's own instructions (sm_90a), shared by the kernels written for
 // them: conv_wgmma.cuh (kernels C and P), flash_wgmma.cuh (kernels F and
-// M) and flash_bwd_wgmma.cuh (kernels DQ and DKV). On the device:
-// mbarriers, TMA tensor copies, named barriers, wgmma (its shared-memory
+// M), flash_bwd_wgmma.cuh (kernels DQ and DKV) and geglu_wgmma.cuh
+// (kernel G). On the device:
+// mbarriers, TMA tensor copies, named barriers, cluster barriers and
+// loads from a cluster peer's shared memory, wgmma (its shared-memory
 // matrix descriptors, its fences, its register-A and shared-A forms),
 // setmaxnreg. On the host: the tensor-map encoder cuTensorMapEncodeTiled,
 // looked up once per process, and a kernel's dynamic shared-memory limit,
@@ -148,6 +150,35 @@ __device__ __forceinline__ void named_bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// ---- thread block clusters: a barrier of every thread of the cluster's
+// blocks (their shared-memory writes before it are seen by every block
+// after it), and loads from another block's shared memory
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the address of shared-space address `addr` in the block of cluster rank
+// `rank`
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // a warpgroup's register budget, all four warps together
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
@@ -159,12 +190,16 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 }
 
 // d (64 x N fp32, this thread's N / 2) += a (64 x 16 bf16, this warp's
-// 16 rows in mma.sync's A fragment) b (16 x N bf16 at `desc`), N-major B
+// 16 rows in mma.sync's A fragment) b (16 x N bf16 at `desc`): N-major B
+// by default (the transpose bit, TB = 1: the conv weights, V, the
+// backward's streamed tiles), K-major B with run<0> (the GEGLU weight
+// rows)
 template <int N>
 struct WgMma;
 
 template <>
 struct WgMma<48> {
+  template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[24],
                                              const uint32_t (&a)[4],
                                              uint64_t desc) {
@@ -174,17 +209,18 @@ struct WgMma<48> {
         "{"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
         "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
-        "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+        "}, {%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1));
+          "r"(1), "n"(TB));
   }
 };
 template <>
 struct WgMma<64> {
+  template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t desc) {
@@ -195,7 +231,7 @@ struct WgMma<64> {
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
         "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
         "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -203,11 +239,12 @@ struct WgMma<64> {
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1));
+          "r"(1), "n"(TB));
   }
 };
 template <>
 struct WgMma<80> {
+  template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[40],
                                              const uint32_t (&a)[4],
                                              uint64_t desc) {
@@ -219,7 +256,7 @@ struct WgMma<80> {
         "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
         "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
         "%36, %37, %38, %39"
-        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -228,11 +265,12 @@ struct WgMma<80> {
           "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1));
+          "r"(1), "n"(TB));
   }
 };
 template <>
 struct WgMma<128> {
+  template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[64],
                                              const uint32_t (&a)[4],
                                              uint64_t desc) {
@@ -246,7 +284,7 @@ struct WgMma<128> {
         "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
         "%60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -259,11 +297,12 @@ struct WgMma<128> {
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1));
+          "r"(1), "n"(TB));
   }
 };
 template <>
 struct WgMma<160> {
+  template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[80],
                                              const uint32_t (&a)[4],
                                              uint64_t desc) {
@@ -278,7 +317,7 @@ struct WgMma<160> {
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
         "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
         "%72, %73, %74, %75, %76, %77, %78, %79"
-        "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+        "}, {%80, %81, %82, %83}, %84, p, 1, 1, %86;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -294,11 +333,12 @@ struct WgMma<160> {
           "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
           "+f"(d[78]), "+f"(d[79])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1));
+          "r"(1), "n"(TB));
   }
 };
 template <>
 struct WgMma<256> {
+  template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[128],
                                              const uint32_t (&a)[4],
                                              uint64_t desc) {
@@ -317,7 +357,7 @@ struct WgMma<256> {
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
         "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
         "%120, %121, %122, %123, %124, %125, %126, %127"
-        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -341,7 +381,7 @@ struct WgMma<256> {
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1));
+          "r"(1), "n"(TB));
   }
 };
 

@@ -112,7 +112,9 @@ class FeedForward(nn.Module):
         fn = route(GegluMatmulFn.apply, geglu_matmul_plain)
         bias = out_lin.bias if self.tp is None else torch.zeros_like(
             out_lin.bias)
-        out = fn(proj.reshape(-1, proj.shape[-1]), out_lin.weight, bias)
+        # the rows per image pick G's tile and split, never the batch
+        out = fn(proj.reshape(-1, proj.shape[-1]), out_lin.weight, bias,
+                 x.shape[-2])
         if self.tp is not None:
             out = self.tp.reduce_out(out, out_lin.bias, proj.dtype)
         return out.reshape(*x.shape[:-1], out.shape[-1])

@@ -53,9 +53,8 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, dk, dv, then as sg_flash_dq
     "sg_flash_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _L, _L, _L, _L, _L, _L, _P, _I, _I, _F, _P),
-    # proj, w, bias, bias is fp32, out, split-K partials, tile counters,
-    # M, N, E, stream
-    "sg_geglu_matmul": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
+    # proj, w, bias, bias is fp32, out, M, N, E, rows per image, stream
+    "sg_geglu_matmul": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _P),
     # x, w9, bias, bias batch stride, residual, out, split workspace,
     # splits, B, H, W, Cin, Cout, stream
     "sg_conv3x3": (_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

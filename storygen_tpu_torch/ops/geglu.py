@@ -6,7 +6,8 @@ through `geglu_matmul`). From the packed projection proj (M, 2N) =
 [value | gate] it computes (value * gelu_erf(gate)) @ weight.T + bias, where
 weight is the nn.Linear weight (E, N); the gated product never reaches
 memory in the kernel. `GEGLU_BUILT` mirrors the kernel's instantiations
-and `geglu_tile` picks one per (M, N, E). The backward is plain fp32
+and `geglu_tile` picks one per (rows per image, N, E), never by the batch,
+so every row sums in one order whatever M is. The backward is plain fp32
 torch (`_bwd` of the JAX module, which runs in XLA outside any Pallas
 kernel).
 """
@@ -22,9 +23,11 @@ from storygen_tpu_torch.ops import _build
 
 
 def geglu_matmul_plain(proj: torch.Tensor, weight: torch.Tensor,
-                       bias: torch.Tensor) -> torch.Tensor:
+                       bias: torch.Tensor, tokens: Optional[int] = None
+                       ) -> torch.Tensor:
     """fp32 gate, the gated product rounded to proj's dtype (as the kernel
-    rounds its A operand), fp32 GEMM and bias, result in proj's dtype."""
+    rounds its A operand), fp32 GEMM and bias, result in proj's dtype;
+    `tokens` (the kernel's rows per image) changes nothing here."""
     n = proj.shape[-1] // 2
     value, gate = proj[..., :n].float(), proj[..., n:].float()
     gated = (value * F.gelu(gate)).to(proj.dtype).float()
@@ -33,96 +36,91 @@ def geglu_matmul_plain(proj: torch.Tensor, weight: torch.Tensor,
 
 
 # The instantiations of kernel G in csrc/geglu_matmul.cu (its SG_BUILT
-# lines, in their order): (E, m_class(M), K step) -> (BM, BE, BK, warps
-# along M, warps along E, cp.async ring stages, split-K). Of the lines of
-# one (E, M class) the first whose K step divides N runs: the K step 32
-# only where N is not a multiple of 64 (the first level at tensor
+# lines, in their order): (E, site_class(tokens), K step) -> (consumer
+# warpgroups, BE, WN, BK, TMA ring stages, split), all on the wgmma
+# template of csrc/geglu_wgmma.cuh: a block of 64 x warpgroups rows by BE
+# output columns as BE / WN products, inner steps of BK columns, the N
+# reduction split into at most `split` runs (`split_count`). Of the lines
+# of one (E, site class) the first whose K step divides N runs: the K step
+# 32 only where N is not a multiple of 64 (the first level at tensor
 # parallelism 8, N = 1280 / 8 = 160).
 GEGLU_BUILT = {
-    (320, 0, 64): (32, 320, 64, 1, 4, 3, 4),
-    (320, 1, 64): (32, 320, 64, 1, 4, 3, 1),
-    (320, 2, 64): (64, 320, 64, 2, 4, 3, 1),
-    (320, 2, 32): (128, 320, 32, 2, 4, 3, 1),
-    (640, 0, 64): (32, 320, 64, 1, 4, 3, 4),
-    (640, 1, 64): (32, 320, 64, 1, 4, 3, 2),
-    (640, 2, 64): (64, 320, 64, 2, 4, 3, 1),
-    (1280, 0, 64): (32, 128, 64, 1, 4, 3, 4),
-    (1280, 1, 64): (64, 256, 64, 2, 4, 3, 2),
-    (1280, 2, 64): (128, 256, 64, 2, 4, 3, 1),
+    (320, 0, 64): (1, 320, 160, 64, 4, 8),
+    (320, 1, 64): (1, 320, 160, 64, 4, 2),
+    (320, 2, 64): (2, 320, 160, 64, 3, 1),
+    (320, 2, 32): (2, 320, 160, 32, 6, 1),
+    (640, 0, 64): (1, 320, 160, 64, 4, 8),
+    (640, 1, 64): (1, 320, 160, 64, 4, 2),
+    (640, 2, 64): (1, 320, 160, 64, 4, 1),
+    (1280, 0, 64): (1, 256, 256, 64, 4, 4),
+    (1280, 1, 64): (1, 320, 160, 64, 4, 2),
+    (1280, 2, 64): (1, 320, 160, 64, 4, 1),
 }
 
 
-def m_class(m: int) -> int:
-    """The class of M that picks an instantiation together with E (the
-    source's m_class): 0 up to 512 rows (the mid block), 1 up to 2048 (the
-    third level), 2 above."""
-    return 0 if m <= 512 else (1 if m <= 2048 else 2)
+def site_class(tokens: int) -> int:
+    """The class of a site's rows per image that picks an instantiation
+    together with E (the source's site_class): 0 up to 128 (the mid
+    block's 64 at 512 px), 1 up to 512 (the third level's 256), 2 above.
+    The batch never enters it."""
+    return 0 if tokens <= 128 else (1 if tokens <= 512 else 2)
 
 
-def tile_key(m: int, n: int, e: int) -> Tuple[int, int, int]:
-    """The GEGLU_BUILT key that kernel G runs for proj (m, 2n) and weight
-    (e, n): the first built line of (e, m_class(m)) whose K step divides
-    n. ValueError if (e, m_class(m)) has no line, or none divides n."""
-    steps = [k[2] for k in GEGLU_BUILT if k[:2] == (e, m_class(m))]
+def tile_key(tokens: int, n: int, e: int) -> Tuple[int, int, int]:
+    """The GEGLU_BUILT key that kernel G runs for weight (e, n) at a site
+    of `tokens` rows per image: the first built line of (e,
+    site_class(tokens)) whose K step divides n. ValueError if (e, site
+    class) has no line, or none divides n."""
+    steps = [k[2] for k in GEGLU_BUILT if k[:2] == (e, site_class(tokens))]
     if not steps:
-        raise ValueError(f"no GEGLU kernel built for E={e}, M={m}")
+        raise ValueError(f"no GEGLU kernel built for E={e}, {tokens} rows "
+                         f"per image")
     for bk in steps:
         if n % bk == 0:
-            return e, m_class(m), bk
+            return e, site_class(tokens), bk
     raise ValueError(f"inner width {n} must be a multiple of the K step "
                      f"{steps[-1]}")
 
 
-def geglu_tile(m: int, n: int, e: int) -> Tuple[int, ...]:
-    """The instantiation that kernel G runs for proj (m, 2n) and weight
-    (e, n): (BM, BE, BK, WM, WE, stages, split); its grid is
-    (ceil(e / BE), ceil(m / BM), split). ValueError if none is built for
-    these widths (`tile_key`)."""
-    return GEGLU_BUILT[tile_key(m, n, e)]
+def geglu_tile(tokens: int, n: int, e: int) -> Tuple[int, ...]:
+    """The instantiation that kernel G runs for weight (e, n) at a site of
+    `tokens` rows per image: (consumer warpgroups, BE, WN, BK, stages,
+    split); its grid is (ceil(e / BE), ceil(M / (64 warpgroups)),
+    split_count(tile, n)) in clusters of the split's blocks. ValueError if
+    none is built for these widths (`tile_key`)."""
+    return GEGLU_BUILT[tile_key(tokens, n, e)]
 
 
-# Per (device, stream): the split-K tiles' arrival counters. Zeroed once;
-# every launch leaves them zeroed, and launches on one stream never overlap.
-_counters = {}
+def split_count(tile: Tuple[int, ...], n: int) -> int:
+    """How many runs of whole BK steps `tile` splits the N reduction into
+    (the source's split_count): its split (at most 8, a cluster's portable
+    size), but at least 4 steps a run. A function of the line and N alone,
+    so every batch sums in one order."""
+    bk, split = tile[3], tile[5]
+    return min(split, max(1, n // bk // 4))
 
 
-def _tile_counters(device: torch.device, stream: int, n: int
-                   ) -> torch.Tensor:
-    buf = _counters.get((device, stream))
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _counters[(device, stream)] = buf
-    return buf
-
-
-def _launch(proj, weight, bias, lib=None, tile=None) -> torch.Tensor:
+def _launch(proj, weight, bias, tokens, lib=None) -> torch.Tensor:
     """One launch of sg_geglu_matmul from `lib` (the built library if
-    None; the tile study passes one built with other SG_BUILT lines and
-    that line's `tile`)."""
+    None; the tile study passes one built with other SG_BUILT lines)."""
     m, e, n = proj.shape[0], *weight.shape
-    tile = tile or geglu_tile(m, n, e)
-    bm, be, split = tile[0], tile[1], tile[6]
-    stream = torch.cuda.current_stream(proj.device).cuda_stream
     out = torch.empty((m, e), dtype=proj.dtype, device=proj.device)
-    part = count = None
-    if split > 1:
-        part = torch.empty((split, m, e), dtype=torch.float32,
-                           device=proj.device)
-        count = _tile_counters(proj.device, stream,
-                               -(-m // bm) * -(-e // be))
     err = (lib or _build.load()).sg_geglu_matmul(
         proj.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-        int(bias.dtype == torch.float32), out.data_ptr(),
-        None if part is None else part.data_ptr(),
-        None if count is None else count.data_ptr(), m, n, e, stream)
+        int(bias.dtype == torch.float32), out.data_ptr(), m, n, e, tokens,
+        torch.cuda.current_stream(proj.device).cuda_stream)
     _build.check(err, "sg_geglu_matmul")
     return out
 
 
 def geglu_matmul(proj: torch.Tensor, weight: torch.Tensor,
-                 bias: torch.Tensor) -> torch.Tensor:
-    """proj (M, 2N), weight (E, N), bias (E) -> (M, E). Launches the CUDA
-    kernel for CUDA tensors and runs the plain version for CPU tensors."""
+                 bias: torch.Tensor, tokens: Optional[int] = None
+                 ) -> torch.Tensor:
+    """proj (M, 2N), weight (E, N), bias (E) -> (M, E); `tokens` is the
+    rows per image of the site (M if None: one image), which with E and N
+    picks the kernel's tile and split, so a row's result does not depend
+    on how many images share the call. Launches the CUDA kernel for CUDA
+    tensors and runs the plain version for CPU tensors."""
     if proj.dim() != 2 or weight.dim() != 2 or bias.dim() != 1:
         raise ValueError("proj must be (M, 2N), weight (E, N), bias (E)")
     m, n2 = proj.shape
@@ -132,6 +130,9 @@ def geglu_matmul(proj: torch.Tensor, weight: torch.Tensor,
                          f"{tuple(weight.shape)} bias {tuple(bias.shape)}")
     if not (proj.device == weight.device == bias.device):
         raise ValueError("proj, weight, bias must be on one device")
+    tokens = m if tokens is None else int(tokens)
+    if tokens < 1:
+        raise ValueError(f"rows per image must be positive, got {tokens}")
     if proj.device.type == "cpu":
         return geglu_matmul_plain(proj, weight, bias)
     if proj.device.type != "cuda":
@@ -148,7 +149,7 @@ def geglu_matmul(proj: torch.Tensor, weight: torch.Tensor,
         raise ValueError("empty projection")
     if bias.dtype not in (torch.bfloat16, torch.float32):
         bias = bias.float()  # the kernel reads a bf16 or fp32 bias as it is
-    out = _launch(proj, weight, bias.contiguous())
+    out = _launch(proj, weight, bias.contiguous(), tokens)
     geglu_matmul.launches += 1
     return out
 
@@ -187,8 +188,8 @@ class GegluMatmulFn(torch.autograd.Function):
     the weight and bias gradients when they are not needed."""
 
     @staticmethod
-    def forward(ctx, proj, weight, bias):
-        out = geglu_matmul(proj, weight, bias)
+    def forward(ctx, proj, weight, bias, tokens=None):
+        out = geglu_matmul(proj, weight, bias, tokens)
         ctx.save_for_backward(proj, weight)
         ctx.bias_dtype = bias.dtype
         return out
@@ -197,5 +198,6 @@ class GegluMatmulFn(torch.autograd.Function):
     def backward(ctx, g):
         proj, weight = ctx.saved_tensors
         dproj, dw, db = geglu_matmul_bwd_plain(proj, weight, g,
-                                               *ctx.needs_input_grad)
-        return dproj, dw, None if db is None else db.to(ctx.bias_dtype)
+                                               *ctx.needs_input_grad[:3])
+        return (dproj, dw, None if db is None else db.to(ctx.bias_dtype),
+                None)

@@ -256,5 +256,8 @@ def build_candidates(root: Path, cands: Dict[Hashable, Tuple[str, str]],
         print(f"candidate {stem}: registers {[e[1] for e in ents]}, "
               f"stack/spill stores/loads {[e[2:] for e in ents]}",
               flush=True)
+        for text in out.splitlines():
+            if "serializ" in text:
+                print(f"candidate {stem}: {text.strip()}", flush=True)
         libs[key] = lib
     return libs

@@ -290,10 +290,10 @@ def test_g_takes_the_feed_forward_shards_up_to_tensor_4(tensor):
     """Kernel G's instantiation for each SD-1.5 feed-forward shard (inner
     1280 / 2560 / 5120 over `tensor` ranks, E unchanged), up to tensor 8:
     there the first level's N = 160 is not a multiple of 64 and takes G's
-    K step of 32."""
+    K step of 32. The tile follows the rows per image of the level."""
     from storygen_tpu_torch.ops.geglu import geglu_tile
     for e in (320, 640, 1280):
         n = 4 * e // tensor
-        tile = geglu_tile(3 * (4096 // (e // 320) ** 2), n, e)
-        assert n % tile[2] == 0
-        assert tile[2] == (32 if (tensor, e) == (8, 320) else 64)
+        tile = geglu_tile(4096 // (e // 320) ** 2, n, e)
+        assert n % tile[3] == 0
+        assert tile[3] == (32 if (tensor, e) == (8, 320) else 64)
