@@ -23,8 +23,10 @@ stride-2 conv on kernel D):
                DKV, G, C and P also at a tensor-parallel rank's shard
                shapes (tp = 2, 4 for F, G, C and P, and every level's G
                shard at tp = 8), C, P
-               and D also at the tiles of 16- and 8-column images and C at
-               the input gradient's shape, and P also against kernel C run
+               and D also at the tiles of 16- and 8-column images, D at
+               an odd width and at one input column with a Cout that 8
+               does not divide, C at the input gradient's shape, and P
+               also against kernel C run
                on the prologue already applied, with CUDA-event times for
                the kernel, its plain version and, where one PyTorch call
                computes the same function, that call (timed only, as a
@@ -34,15 +36,18 @@ stride-2 conv on kernel D):
                printed), F and M also on k and v read from a k|v split
                view of one tensor, for F, M, L, DQ, DKV, C, P and D their
                rate in TFLOP/s, for F, M, C and D their factor over SDPA
-               or cuDNN, for each backward case SDPA's backward alone (its
-               forward run outside the timed calls) and DQ+DKV's factor
-               over it,
+               or cuDNN and for L over the one SDPA call that returns a
+               logsumexp (its flash kernel, or with a keep mask its
+               memory-efficient kernel on the mask as an additive bias;
+               it computes O too), for each backward case SDPA's backward
+               alone (its forward run outside the timed calls) and
+               DQ+DKV's factor over it,
                and for G (at every feed-forward site class of serving, its
                reference pass and training) its share of its bound, its
                GB/s, the device time of a call alone (torch.profiler) and
                the time of the unfused bf16 chain of PyTorch calls (a
-               yardstick, not G's function), and for C, P, F,
-               M, DQ and DKV their share of their bound, the device time
+               yardstick, not G's function), and for C, P, D, F,
+               M, L, DQ and DKV their share of their bound, the device time
                of a call's kernels alone (torch.profiler) and the host's
                cost of a call through the wrapper and of its C launcher
                alone, DQ and DKV run twice at every case and equal bit for
@@ -50,13 +55,16 @@ stride-2 conv on kernel D):
                at the sites whose wgmma line splits the reduction (UNet
                L3, mid, up block 1), C run twice bit for bit, C at B3
                against its three B1 calls bit for bit and against its
-               plain version; the same of G at L3, mid, mid train and a
-               ragged M (run twice, at B3 and B4 against its per-image
-               calls, and against its plain version); and ptxas's
-               registers and spills of every wgmma conv line and every
-               wgmma F / M / DQ / DKV / G line (a spill fails the phase,
-               and so does a wgmma that ptxas serialises in F, M, DQ, DKV
-               or G);
+               plain version; the same of D at UNet L3 and the VAE
+               encoder's 128 px site and of L at attn1 L1 and masked attn3
+               L1 (each run twice, at B3 and B4 or B4 against its
+               per-image calls, and against its plain version); the same
+               of G at L3, mid, mid train and a ragged M (run twice, at B3
+               and B4 against its per-image calls, and against its plain
+               version); and ptxas's registers and spills of every wgmma
+               conv line (C, P and D) and every F / M / L / DQ / DKV / G
+               line (a spill fails the phase, and so does a wgmma that
+               ptxas serialises);
   models       in each configuration: one full-width UNet image-cycle pass
                (512 px, 3 refs) and one 512 px VAE encode and decode,
                kernel path against the plain path on the card, compared
@@ -84,7 +92,11 @@ stride-2 conv on kernel D):
                that it launched F, G and C and nothing else; stage
                "multi-image-condition" (3 refs, 2 steps, one reference
                pass of (N+1)B rows) kernel path against plain path in
-               both configurations, P and D launched in the fused one;
+               both configurations, P and D launched in the fused one,
+               with the steps that carry the final latents' difference
+               (the encoded references, each step's reference context,
+               each CFG branch's eps and the guided eps, the latents after
+               each step);
                ref_feature_interval 2 against 1 (half the reference
                passes, half their launches); generate_story(fused=True)
                against the per-frame story on the same draws (3 frames,
@@ -299,7 +311,8 @@ PORT_KERNELS = tuple(KERNEL_META)
 # that their factor is taken over (None: DQ and DKV, whose sum is held
 # against SDPA's backward alone)
 RATED = {"flash_fwd": "SDPA", "flash_fwd_masked": "SDPA",
-         "flash_lse": None, "flash_dq": None, "flash_dkv": None,
+         "flash_lse": "SDPA's call that returns lse",
+         "flash_dq": None, "flash_dkv": None,
          "conv3x3": "cuDNN", "gnconv3x3": "cuDNN", "downconv3x3": "cuDNN"}
 STUDY_SOURCES = {"online": "storygen_tpu_torch/csrc/study_online.cu",
                  "bounded": "storygen_tpu_torch/csrc/study_bounded.cu",
@@ -550,6 +563,53 @@ def conv_alone(x, w9, bias, residual, *affine):
     return call
 
 
+def lse_alone(q, k, h, scale, keep=None):
+    """Kernel L's C launcher on this call's operands, its output and int32
+    keep table made once, as a callable."""
+    import torch
+    from storygen_tpu_torch.ops import _build
+    b, sq, hd = q.shape
+    skv = k.shape[1]
+    nref = 1 if keep is None else keep.shape[1]
+    keep32 = None if keep is None else keep.to(torch.int32).contiguous()
+    out = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), out.data_ptr(), b, h, sq, skv,
+            hd // h, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            None if keep32 is None else keep32.data_ptr(), nref, skv // nref,
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    fn = _build.load().sg_flash_lse
+
+    def call(held=(out, keep32)):
+        _build.check(fn(*args), "sg_flash_lse")
+    return call
+
+
+def down_alone(x, w9, bias, pad):
+    """Kernel D's C launcher on this call's operands (Cout a multiple of 8,
+    W >= 2), its output and split workspace made once, as a callable."""
+    import torch
+    from storygen_tpu_torch.ops import _build, conv, downconv
+    b, h, w, cin = x.shape
+    cout = w9.shape[2]
+    ho, wo = downconv.out_size(h, w, pad)
+    shape = conv.workspace_shape(False, b, ho, wo, cin, cout,
+                                 downconv.down_tile(cin, cout, wo))
+    keep = [bias.float().contiguous(),
+            torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)]
+    if shape is not None:
+        keep.append(torch.empty(shape, dtype=torch.float32, device=x.device))
+    args = (x.data_ptr(), w9.data_ptr(), keep[0].data_ptr(),
+            keep[1].data_ptr(), None if shape is None else keep[2].data_ptr(),
+            1 if shape is None else shape[0], b, h, w, cin, cout, ho, wo,
+            int(pad[0]), int(pad[2]),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    fn = _build.load().sg_downconv3x3
+
+    def call(keep=keep):
+        _build.check(fn(*args), "sg_downconv3x3")
+    return call
+
+
 def geglu_alone(proj, w, bias, tokens):
     """Kernel G's C launcher on this call's operands and its output made
     once, as a callable."""
@@ -733,6 +793,21 @@ def _attn_cases(dev, rnd):
                                                scale=sc)
             o.backward(split_heads(dout, h))
 
+        def lse_library(h=h, q=q, k=k, v=v, sc=sc, keep=keep, skv=skv):
+            """One PyTorch call that returns the row logsumexp (and
+            computes O too): SDPA's flash kernel, or with a keep mask its
+            memory-efficient kernel on the mask as an additive bias."""
+            qh, kh, vh = (split_heads(t, h) for t in (q, k, v))
+            if keep is None:
+                return torch.ops.aten._scaled_dot_product_flash_attention(
+                    qh, kh, vh, scale=sc)[1]
+            bias = torch.zeros(keep.shape[0], 1, 1, skv, dtype=q.dtype,
+                               device=q.device).masked_fill(
+                ~fa.keep_to_mask(keep, skv), float("-inf"))
+            return torch.ops.aten._scaled_dot_product_efficient_attention(
+                qh, kh, vh, bias.expand(-1, h, qh.shape[2], -1), True,
+                scale=sc)[1]
+
         def sdpa_bwd(h=h, q=q, k=k, v=v, dout=dout, sc=sc, mask=mask):
             qh, kh, vh = (split_heads(t, h).detach().requires_grad_()
                           for t in (q, k, v))
@@ -756,8 +831,9 @@ def _attn_cases(dev, rnd):
                      q, k, h, sc, keep),
                  lambda h=h, q=q, k=k, sc=sc, keep=keep: fa.flash_lse_plain(
                      q, k, h, sc, keep),
-                 lambda lse=lse: lse, sdpa_fwd_bwd, mm, qb + kvb + rowb,
-                 exps=logits),
+                 lambda lse=lse: lse, lse_library, mm, qb + kvb + rowb,
+                 exps=logits, alone=lse_alone(q, k, h, sc, keep),
+                 device="lse_wg_kernel"),
             Case("flash_dq", tag,
                  lambda h=h, a=args, sc=sc, keep=keep: fa.flash_dq(
                      *a, h, sc, keep),
@@ -939,7 +1015,10 @@ def _fused_conv_cases(dev, g, rnd):
             # the tiles for 16- and 8-column outputs
             ("UNet L2", 3, 32, 32, 640, 640, (1, 1, 1, 1)),
             ("UNet L3", 3, 16, 16, 1280, 1280, (1, 1, 1, 1)),
-            ("ragged", 2, 45, 37, 96, 160, (0, 1, 0, 1))]:
+            ("ragged", 2, 45, 37, 96, 160, (0, 1, 0, 1)),
+            # one input column and a Cout that 8 does not divide: the
+            # wrapper pads both with zeros
+            ("one column, Cout 20", 2, 9, 1, 16, 20, (1, 1, 1, 1))]:
         x = rnd(b, h, w, cin)
         w9 = rnd(9, cin, cout, s=(9 * cin) ** -0.5)
         bias = torch.randn((cout,), generator=g, device=dev)
@@ -965,7 +1044,9 @@ def _fused_conv_cases(dev, g, rnd):
                 x, w, bb, stride=2),
             2.0 * pix * 9 * cin * cout,
             2.0 * (b * h * w * cin + 9 * cin * cout + pix * cout)
-            + 4.0 * cout))
+            + 4.0 * cout,
+            alone=(down_alone(x, w9, bias, pad) if cout % 8 == 0 and w > 1
+                   else None)))
     return cases
 
 
@@ -1042,9 +1123,11 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
         b_by = "bytes" if b_term == "bytes" else "operations"
         ok &= good
         lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
-        # the rate of F, M, L, DQ, DKV, C, P and D, and the factor of F, M, C
-        # and D over SDPA or cuDNN on the same inputs; DQ+DKV's factor over
-        # SDPA's backward alone on the DKV line
+        if c.name == "flash_lse" and lib_ms is not None:
+            lib += " (computes O too)"
+        # the rate of F, M, L, DQ, DKV, C, P and D, and the factor of F, M,
+        # L, C and D over SDPA or cuDNN on the same inputs; DQ+DKV's factor
+        # over SDPA's backward alone on the DKV line
         rate = vs_lib = vs_bwd = None
         fwd_line = ""
         if c.name in RATED:
@@ -1066,7 +1149,7 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
                          f"({ms / unfused_ms:.2f}x)")
         wrapper_us = alone_us = dev_ms = None
         if c.alone is not None:
-            # C, P, F, M, DQ, DKV and G: share of bound, the device time
+            # C, P, D, F, M, L, DQ, DKV and G: share of bound, the device time
             # of the call's kernels alone (C's split reduction included),
             # and the host's cost of a call, through the wrapper and of the
             # C launcher
@@ -1115,6 +1198,7 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
         r["bound_by"] = max(r["cases"], key=lambda x: x["bound_ms"])[
             "bound_by"]
     ok &= conv_split_checks(dev, card)
+    ok &= down_lse_batch_checks(dev, card)
     ok &= geglu_split_checks(dev, card)
     ok &= conv_ptxas()
     ok &= flash_ptxas()
@@ -1172,6 +1256,88 @@ def conv_split_checks(dev, card: str) -> bool:
               f"{'equal' if sliced else 'DIFFERS'}, max_abs_err {err:.3e} "
               f"(bound {bound:.3e}) {'ok' if good else 'FAIL'} [{card}]",
               flush=True)
+    return ok
+
+
+# (label, B, H, W, Cin, Cout, pad) of kernel D, and (label, B, Sq, Skv,
+# head dim, keep table) of kernel L, whose results must not depend on the
+# batch
+DOWN_BATCH_SITES = [("UNet L3", 3, 16, 16, 1280, 1280, (1, 1, 1, 1)),
+                    ("UNet L3", 4, 16, 16, 1280, 1280, (1, 1, 1, 1)),
+                    ("VAE enc 128px", 3, 128, 128, 512, 512, (0, 1, 0, 1)),
+                    ("VAE enc 128px", 4, 128, 128, 512, 512, (0, 1, 0, 1))]
+LSE_BATCH_SITES = [("attn1 L1", 4, 4096, 4096, 40, None),
+                   ("masked attn3 L1", 4, 4096, 12288, 40, KEEP)]
+
+
+def down_lse_batch_checks(dev, card: str) -> bool:
+    """Kernels D and L hold their result whatever the batch: each run twice
+    is equal bit for bit, each equals its per-image calls bit for bit (D's
+    split plan and every output's order of summation ignore the batch; L's
+    blocks each own one image's rows), and each stays within KERNEL_RTOL
+    of its fp32 plain version."""
+    import torch
+    from storygen_tpu_torch.ops import downconv, flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    def report(name, label, one, two, rows, ref, extra):
+        repeat, sliced = torch.equal(one, two), torch.equal(one, rows)
+        same = one.float() == ref
+        err = torch.where(same, 0.0, (one.float() - ref).abs()).max().item()
+        bound = KERNEL_RTOL * ref[torch.isfinite(ref)].abs().max().item()
+        good = (repeat and sliced and err <= bound and bool(
+            (torch.isfinite(one.float()) | same).all()))
+        print(f"{name} batch {label}: {extra}repeat "
+              f"{'equal' if repeat else 'DIFFERS'}, B vs per-image calls "
+              f"{'equal' if sliced else 'DIFFERS'}, max_abs_err {err:.3e} "
+              f"(bound {bound:.3e}) {'ok' if good else 'FAIL'} [{card}]",
+              flush=True)
+        return good
+
+    ok = True
+    for label, b, h, w, cin, cout, pad in DOWN_BATCH_SITES:
+        x = randn(b, h, w, cin)
+        w9 = randn(9, cin, cout, scale=(9 * cin) ** -0.5)
+        bias = torch.randn((cout,), generator=g, device=dev)
+        ho, wo = downconv.out_size(h, w, pad)
+        with torch.no_grad():
+            one = downconv.downconv3x3(x, w9, bias, pad)
+            two = downconv.downconv3x3(x, w9, bias, pad)
+            rows = torch.cat([downconv.downconv3x3(x[i:i + 1].contiguous(),
+                                                   w9, bias, pad)
+                              for i in range(b)])
+            ref = downconv.downconv3x3_plain(x.float(), w9.float(), bias,
+                                             pad)
+        torch.cuda.synchronize()
+        ok &= report("downconv3x3", f"{label} B{b} {h}x{w}->{ho}x{wo} "
+                     f"{cin}->{cout}", one, two, rows, ref,
+                     f"splits {downconv.down_splits(cin, cout, ho, wo)}, ")
+        del x, w9, one, two, rows, ref
+    for label, b, sq, skv, d, table in LSE_BATCH_SITES:
+        heads = 8
+        q, k = randn(b, sq, heads * d), randn(b, skv, heads * d)
+        keep = (None if table is None else
+                torch.tensor(table, dtype=torch.bool, device=dev))
+        sc = d ** -0.5
+
+        def lse(i=None):
+            if i is None:
+                return fa.flash_lse(q, k, heads, sc, keep)
+            return fa.flash_lse(q[i:i + 1], k[i:i + 1], heads, sc,
+                                None if keep is None else keep[i:i + 1])
+
+        with torch.no_grad():
+            one, two = lse(), lse()
+            rows = torch.cat([lse(i) for i in range(b)])
+            ref = fa.flash_lse_plain(q.float(), k.float(), heads, sc, keep)
+        torch.cuda.synchronize()
+        ok &= report("flash_lse", f"{label} B{b} {sq}x{skv} d{d}", one, two,
+                     rows, ref, "")
+        del q, k, one, two, rows, ref
     return ok
 
 
@@ -1264,24 +1430,33 @@ def wg_ptxas(stem: str, entry: str, built: set) -> bool:
 
 
 def conv_ptxas() -> bool:
-    """wg_ptxas of every wgmma conv instantiation in this run's build
-    (`<hash>/conv3x3.ptxas.txt`, each CONV_BUILT line of family WGMMA)."""
-    from storygen_tpu_torch.ops import conv
-    built = {(k[1],) + v[1:] for k, v in conv.CONV_BUILT.items()
+    """wg_ptxas of every wgmma conv instantiation in this run's build:
+    C's and P's (`<hash>/conv3x3.ptxas.txt`, each CONV_BUILT line of
+    family WGMMA) and D's (`downconv3x3.ptxas.txt`, each DOWN_BUILT
+    line)."""
+    from storygen_tpu_torch.ops import conv, downconv
+    # (stride, prologue, TH, TW, IB, WGM, MT, BN, CK, stages)
+    built = {(1, k[1]) + v[1:] for k, v in conv.CONV_BUILT.items()
              if v[0] == conv.WGMMA}
-    return wg_ptxas("conv3x3", "wg_conv_kernel", built)
+    down = {(2, 0) + v[1:] for v in downconv.DOWN_BUILT.values()}
+    ok = wg_ptxas("conv3x3", "wg_conv_kernel", built)
+    return wg_ptxas("downconv3x3", "wg_conv_kernel", down) and ok
 
 
 def flash_ptxas() -> bool:
-    """wg_ptxas of every wgmma instantiation of F / M
+    """wg_ptxas of every instantiation of F / M and of L
     (`flash_fwd.ptxas.txt`: the unmasked, masked and straddling kernels of
-    each FWD_BUILT line of family WGMMA) and of DQ / DKV
+    each FWD_BUILT and LSE_BUILT line) and of DQ / DKV
     (`flash_bwd.ptxas.txt`, each BWD_BUILT line)."""
     from storygen_tpu_torch.ops import flash_attention as fa
     # (DP, warpgroups, BK, stages, panel, ping-pong, masked, straddle)
     fwd = {(dp, bq // 64, bk, st, a, b, int(masked), straddle)
-           for (dp, masked), (fam, bq, bk, st, a, b) in fa.FWD_BUILT.items()
-           if fam == fa.WGMMA for straddle in ((0, 1) if masked else (0,))}
+           for (dp, masked), (bq, bk, st, a, b) in fa.FWD_BUILT.items()
+           for straddle in ((0, 1) if masked else (0,))}
+    # (DP, warpgroups, BK, stages, panel, masked, straddle)
+    lse = {(dp, bq // 64, bk, st, a, int(masked), straddle)
+           for (dp, masked), (bq, bk, st, a) in fa.LSE_BUILT.items()
+           for straddle in ((0, 1) if masked else (0,))}
     # (DKV, DP, warpgroups, BC, stages, panel, ping-pong, masked, straddle)
     bwd = {(int(kernel == "dkv"), dp, br // 64, bc, st, a, b, int(masked),
             straddle)
@@ -1289,6 +1464,7 @@ def flash_ptxas() -> bool:
            in fa.BWD_BUILT.items()
            for straddle in ((0, 1) if masked else (0,))}
     ok = wg_ptxas("flash_fwd", "flash_wg_kernel", fwd)
+    ok &= wg_ptxas("flash_fwd", "lse_wg_kernel", lse)
     return wg_ptxas("flash_bwd", "flash_bwd_wg_kernel", bwd) and ok
 
 
@@ -1805,10 +1981,87 @@ def serving_samplers(pipe, dev, card: str, results: dict, frame: dict
     return ok & record_launches(results, total, "samplers")
 
 
+def recorded_sample(pipe, run):
+    """Runs `run` while recording what the sampler computes on the way to
+    its final latents: the reference latents the VAE encodes, and each UNet
+    pass in order, a reference pass as its context maps, a main pass as
+    its input latents and its three CFG branches' eps."""
+    rec = {"refs": None, "passes": []}
+    sampler = pipe.sampler
+    encode = sampler.encode_ref_latents
+
+    def encode_recorded(*args, **kwargs):
+        out = encode(*args, **kwargs)
+        rec["refs"] = out.float().clone()
+        return out
+
+    def hook(module, args, output):
+        eps, maps = output
+        if len(args) > 3 and args[3] is not None:  # (x, t, text, context)
+            rec["passes"].append(("main", args[0].float().clone(),
+                                  eps.float().clone()))
+        else:
+            rec["passes"].append(("reference", {
+                k: v.float().clone() for k, v in maps.items()}))
+
+    handle = sampler.unet.register_forward_hook(hook)
+    sampler.encode_ref_latents = encode_recorded
+    try:
+        out = run()
+    finally:
+        handle.remove()
+        del sampler.encode_ref_latents
+    return out, rec
+
+
+def mic_carrier_lines(rec_k: dict, rec_p: dict, frame: dict) -> list:
+    """Kernel path against plain path, step by step, of two
+    `recorded_sample` records of stage "multi-image-condition": the
+    encoded reference latents; per step the reference pass's context maps
+    (all together, and the map furthest off), the main pass's input
+    latents (the latents after the step before), each CFG branch's eps
+    and the guided eps."""
+    import torch
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    lines = [f"reference latents (VAE encode) rel L2 "
+             f"{rel(rec_k['refs'], rec_p['refs']):.3e}"]
+    g, gi = frame["guidance_scale"], frame["image_guidance_scale"]
+    step = 0
+    for pk, pp in zip(rec_k["passes"], rec_p["passes"]):
+        if pk[0] == "reference":
+            num = sum((pk[1][k] - pp[1][k]).norm() ** 2 for k in pp[1])
+            den = sum(pp[1][k].norm() ** 2 for k in pp[1])
+            worst = max(pp[1], key=lambda k: rel(pk[1][k], pp[1][k]))
+            lines.append(
+                f"step {step} reference context ({len(pp[1])} maps) rel L2 "
+                f"{(num / den).sqrt().item():.3e}, furthest {worst} "
+                f"{rel(pk[1][worst], pp[1][worst]):.3e}")
+            continue
+        (lat_k, eps_k), (lat_p, eps_p) = pk[1:], pp[1:]
+        bk, bp = eps_k.chunk(3), eps_p.chunk(3)
+
+        def guided(e):
+            return e[0] + gi * (e[1] - e[0]) + g * (e[2] - e[1])
+
+        branches = ", ".join(f"{n} {rel(x, y):.3e}" for n, x, y in zip(
+            ("uncond", "image", "image+text"), bk, bp))
+        lines.append(
+            f"step {step} main pass: input latents rel L2 "
+            f"{rel(lat_k, lat_p):.3e}; eps rel L2 {branches}; guided eps "
+            f"{rel(guided(bk), guided(bp)):.3e}")
+        step += 1
+    return lines
+
+
 def serving_mic(pipe, dev, card: str, results: dict, frame: dict,
                 config: str) -> bool:
     """Stage "multi-image-condition" (one reference pass of (N+1)B rows), 2
-    steps, kernel path against plain path on the same draws."""
+    steps, kernel path against plain path on the same draws; where the
+    final latents' difference comes from, step by step, on earlier
+    lines."""
     import torch
     from storygen_tpu_torch import ops
     from storygen_tpu_torch.pipeline import frame_generator
@@ -1832,6 +2085,15 @@ def serving_mic(pipe, dev, card: str, results: dict, frame: dict,
         lat_p = run()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    # the same two runs again, recorded (outside the timed runs)
+    with torch.no_grad():
+        _, rec_k = recorded_sample(pipe, run)
+        with ops.plain_path():
+            _, rec_p = recorded_sample(pipe, run)
+        for line in mic_carrier_lines(rec_k, rec_p, frame):
+            print(f"[{config}] multi-image-condition carrier: {line} "
+                  f"[{card}]", flush=True)
+    del rec_k, rec_p
     rel = ((lat_k - lat_p).norm() / lat_p.norm()).item()
     ok = (bool(torch.isfinite(lat_k).all().item()) and rel <= MODEL_REL_L2
           and tuple(lat_k.shape) == (1, 64, 64, 4))

@@ -66,12 +66,11 @@ struct Family<0> {
     c.ps = w.ps;
     c.res = w.res;
     c.out = w.out;
-    c.H = c.Ho = w.H;
-    c.W = c.Wo = w.W;
+    c.H = w.H;
+    c.W = w.W;
     c.Cin = w.Cin;
     c.Cout = w.Cout;
-    c.pt = c.pl = 1;
-    return conv_launch<1, PRO, VEC, TH, TW, BN, WM, WN, CK, STAGES, MINB>(
+    return conv_launch<PRO, VEC, TH, TW, BN, WM, WN, CK, STAGES, MINB>(
         c, w.B, s);
   }
 };
@@ -82,7 +81,7 @@ struct Family<1> {
             int BN, int CK, int STAGES>
   static cudaError_t launch(const WgArgs& w, cudaStream_t s) {
     static_assert(VEC, "TMA rows are whole 16-byte pieces");
-    return wg_launch<PRO, TH, TW, IB, WGM, MT, BN, CK, STAGES>(w, s);
+    return wg_launch<1, PRO, TH, TW, IB, WGM, MT, BN, CK, STAGES>(w, s);
   }
 };
 
@@ -145,10 +144,11 @@ WgArgs make_args(const void* x, const void* w9, const void* bias,
   c.ws = static_cast<float*>(ws);
   c.splits = splits;
   c.B = B;
-  c.H = H;
-  c.W = W;
+  c.H = c.Ho = H;
+  c.W = c.Wo = W;
   c.Cin = Cin;
   c.Cout = Cout;
+  c.pt = c.pl = 1;
   return c;
 }
 

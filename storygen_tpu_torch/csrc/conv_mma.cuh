@@ -1,32 +1,30 @@
-// The implicit-GEMM 3x3 convolution over NHWC for sm_90a on mma.sync that
-// kernel D (downconv3x3.cu) instantiates, and kernel C (conv3x3.cu) at the
-// keys that conv_wgmma.cuh does not take (Cin % 8 != 0, the conv_in; Cout
-// <= 16, the conv_out), where the card is bound by bytes; the tile study
-// also times it, P's prologue included, at every stride-1 key:
-//   out[b, oy, ox, co] = bias[b?, co] + sum_{dy, dx, ci}
-//       act(x[b, S*oy+dy-pt, S*ox+dx-pl, ci]) * w9[3*dy+dx, ci, co]
-//       (+ residual[b, oy, ox, co])
-// with stride S (1 or 2), an input index outside the image reading 0, act
-// the identity or P's prologue bf16(silu(x * a[b, ci] + s[b, ci])), fp32
-// accumulation and a bf16 result.
+// The implicit-GEMM 3x3 stride-1 SAME convolution over NHWC for sm_90a on
+// mma.sync that kernel C (conv3x3.cu) instantiates at the keys that
+// conv_wgmma.cuh does not take (Cin % 8 != 0, the conv_in; Cout <= 16, the
+// conv_out), where the card is bound by bytes; the tile study also times
+// it, P's prologue included, at every stride-1 key:
+//   out[b, y, x, co] = bias[b?, co] + sum_{dy, dx, ci}
+//       act(x[b, y+dy-1, x+dx-1, ci]) * w9[3*dy+dx, ci, co]
+//       (+ residual[b, y, x, co])
+// with an input index outside the image reading 0, act the identity or P's
+// prologue bf16(silu(x * a[b, ci] + s[b, ci])), fp32 accumulation and a
+// bf16 result.
 //
 // The GEMM view: M is a tile of TH x TW output pixels (rows of 8, 16 or
 // 32 columns), N a block of BN output channels, K = 9 Cin, walked in chunks
 // of CK input channels, each chunk nine taps deep. Per chunk a block holds
-// the tile's halo slab ((S(TH-1)+3) x (S(TW-1)+3) pixels x CK channels)
+// the tile's halo slab ((TH+2) x (TW+2) pixels x CK channels)
 // and the (9, CK, BN) slice of the weights packed as (9, Cin, Cout) bf16.
 //
 // - Tensor cores through mma.sync m16n8k16 (bf16 in, fp32 accumulators in
 //   registers). A warp owns MT 16-pixel row tiles by NTN 8-channel column
 //   tiles; WM x WN warps cover the block.
 // - A fragments straight from the slab with ldmatrix: each lane gives the
-//   address of its own pixel (S oy + dy, S ox + dx) at the k step's channel
-//   offset, so a tap shift and the stride cost an address, not a copy; no
-//   im2col exists in device or shared memory. A slab pixel is an odd number
-//   of 16-byte units wide (pitch_bytes), so the eight rows of an ldmatrix
-//   fall in eight bank groups. With stride 2 the slab stores a row's even
-//   columns, then its odd ones: the eight pixels 2 ox + dx of one ldmatrix
-//   are then neighbours there too.
+//   address of its own pixel (y + dy, x + dx) at the k step's channel
+//   offset, so a tap shift costs an address, not a copy; no im2col exists
+//   in device or shared memory. A slab pixel is an odd number of 16-byte
+//   units wide (pitch_bytes), so the eight rows of an ldmatrix fall in
+//   eight bank groups.
 // - B fragments from the weight chunk (k rows by n columns) with the
 //   transposing ldmatrix, two n tiles per x4, as the flash forward reads V.
 // - A ring of STAGES shared buffers, each the slab and the weight chunk,
@@ -47,7 +45,7 @@
 //   GroupNorm casts its result.
 // - The epilogue from registers: each lane adds the fp32 bias ((Cout) or
 //   per batch (B, Cout)) and residual to its accumulator pairs and stores
-//   bf16 pairs straight into (B, Ho, Wo, Cout). No fp32 staging tile.
+//   bf16 pairs straight into (B, H, W, Cout). No fp32 staging tile.
 #pragma once
 #include "study_mma.cuh"
 
@@ -79,11 +77,9 @@ __device__ __forceinline__ uint4 prologue8(uint4 v, const float (&a)[8],
   return p.u;
 }
 
-// The classes that pick D's instantiation (mirrored by ops/conv.py's
-// tile_key; conv_wgmma.cuh's conv_cout_class refines the first for the
-// stride-1 keys): Cout <= 16 is narrow (conv_out's 3, 4 or 8 channels),
-// and the output width falls in W <= 8, W <= 16 or wider.
-__host__ __device__ inline int cout_class(int cout) { return cout > 16; }
+// The W class of an output width, shared by every conv key (mirrored by
+// ops/conv.py's tile_key; conv_wgmma.cuh's conv_cout_class gives the Cout
+// class): W <= 8, W <= 16 or wider.
 __host__ __device__ inline int w_class(int wo) {
   return wo <= 8 ? 0 : (wo <= 16 ? 1 : 2);
 }
@@ -95,28 +91,24 @@ struct ConvArgs {
   long long bias_bstride; // 0 or Cout
   const float* pa;        // P: (B, Cin) fp32, else null
   const float* ps;
-  const bf16* res;        // (B, Ho, Wo, Cout) or null
-  bf16* out;              // (B, Ho, Wo, Cout)
-  int H, W, Cin, Cout, Ho, Wo, pt, pl;
+  const bf16* res;        // (B, H, W, Cout) or null
+  bf16* out;              // (B, H, W, Cout)
+  int H, W, Cin, Cout;
 };
 
-template <int S, int TH, int TW, int BN, int WM, int WN, int CK, int STAGES>
+template <int TH, int TW, int BN, int WM, int WN, int CK, int STAGES>
 struct ConvCfg {
   static constexpr int NT = 32 * WM * WN;      // threads
   static constexpr int MT = TH * TW / (16 * WM);  // 16-pixel tiles a warp
   static constexpr int NTN = BN / (8 * WN);    // 8-channel tiles a warp
-  static constexpr int SH = S * (TH - 1) + 3;  // slab rows and columns
-  static constexpr int SW = S * (TW - 1) + 3;
-  static constexpr int HALF = (SW + 1) / 2;    // stride 2: even columns
-  static constexpr int SWS = S == 1 ? SW : 2 * HALF;  // stored row
+  static constexpr int SH = TH + 2, SW = TW + 2;  // slab rows, columns
   static constexpr int CPP = CK / 8;           // 16-byte pieces a pixel
   static constexpr int PITCH = pitch_bytes(CK * 2);   // a slab pixel
   static constexpr int WPITCH = pitch_bytes(BN * 2);  // a weight row
-  static constexpr int SLAB = align128(SH * SWS * PITCH);
+  static constexpr int SLAB = align128(SH * SW * PITCH);
   static constexpr int WBYTES = align128(9 * CK * WPITCH);
   static constexpr int STAGE = SLAB + WBYTES;
   static constexpr int BYTES = STAGES * STAGE;
-  static_assert(S == 1 || S == 2, "stride 1 or 2");
   static_assert(TW % 8 == 0 && (TH * TW) % (16 * WM) == 0,
                 "whole 16-pixel tiles per warp, 8-pixel rows");
   static_assert(BN % (16 * WN) == 0, "pairs of 8-channel tiles per warp");
@@ -124,28 +116,21 @@ struct ConvCfg {
   static_assert(NT % CPP == 0, "a thread copies one channel group");
 };
 
-// stored index of slab pixel (sy, sx)
-template <class C, int S>
-__host__ __device__ constexpr int slab_index(int sy, int sx) {
-  return S == 1 ? sy * C::SW + sx
-                : sy * C::SWS + (sx % 2) * C::HALF + sx / 2;
-}
-
-template <int S, bool PRO, bool VEC, int TH, int TW, int BN, int WM, int WN,
+template <bool PRO, bool VEC, int TH, int TW, int BN, int WM, int WN,
           int CK, int STAGES, int MINB>
 __global__ void __launch_bounds__(32 * WM * WN, MINB)
 conv_mma_kernel(const ConvArgs a) {
-  using C = ConvCfg<S, TH, TW, BN, WM, WN, CK, STAGES>;
+  using C = ConvCfg<TH, TW, BN, WM, WN, CK, STAGES>;
   constexpr int MT = C::MT, NTN = C::NTN;
   static_assert(VEC || !PRO, "P's prologue works on 16-byte pieces");
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp % WM, wn = warp / WM;
-  const int ntw = (a.Wo + TW - 1) / TW;
+  const int ntw = (a.W + TW - 1) / TW;
   const int ox0 = (blockIdx.x % ntw) * TW, oy0 = (blockIdx.x / ntw) * TH;
   const int co0 = blockIdx.y * BN;
   const int b = blockIdx.z;
-  const int iy0 = S * oy0 - a.pt, ix0 = S * ox0 - a.pl;  // slab origin
+  const int iy0 = oy0 - 1, ix0 = ox0 - 1;  // slab origin
   const bf16* xb = a.x + (long long)b * a.H * a.W * a.Cin;
   const float* pab = PRO ? a.pa + (long long)b * a.Cin : nullptr;
   const float* psb = PRO ? a.ps + (long long)b * a.Cin : nullptr;
@@ -158,7 +143,7 @@ conv_mma_kernel(const ConvArgs a) {
     const int p = idx / C::CPP, c = idx % C::CPP;
     const int sy = p / C::SW, sx = p % C::SW;
     const int gy = iy0 + sy, gx = ix0 + sx, ci = c0 + 8 * c;
-    off = slab_index<C, S>(sy, sx) * C::PITCH + 16 * c;
+    off = (sy * C::SW + sx) * C::PITCH + 16 * c;
     const bool in =
         gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && ci < a.Cin;
     src = in ? xb + ((long long)gy * a.W + gx) * a.Cin + ci : nullptr;
@@ -185,7 +170,7 @@ conv_mma_kernel(const ConvArgs a) {
         bf16 v = __float2bfloat16(0.f);
         if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && ci < a.Cin)
           v = xb[((long long)gy * a.W + gx) * a.Cin + ci];
-        *reinterpret_cast<bf16*>(sl + slab_index<C, S>(sy, sx) * C::PITCH +
+        *reinterpret_cast<bf16*>(sl + (sy * C::SW + sx) * C::PITCH +
                                  2 * c) = v;
       }
     }
@@ -250,7 +235,7 @@ conv_mma_kernel(const ConvArgs a) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const int p = (wm * MT + mt) * 16 + lane % 8 + 8 * ((lane / 8) % 2);
-    arow[mt] = slab_index<C, S>(S * (p / TW), S * (p % TW)) * C::PITCH +
+    arow[mt] = (p / TW * C::SW + p % TW) * C::PITCH +
                16 * (lane / 16);
   }
   // and of the transposing ldmatrix of the weight chunk
@@ -298,7 +283,7 @@ conv_mma_kernel(const ConvArgs a) {
         }
       }
       // stored offset of tap (dy, dx) from the pixel's tap (0, 0)
-      const int toff = slab_index<C, S>(tap / 3, tap % 3) * C::PITCH;
+      const int toff = (tap / 3 * C::SW + tap % 3) * C::PITCH;
 #pragma unroll
       for (int kk = 0; kk < CK / 16; ++kk) {
         uint32_t af[MT][4];
@@ -319,7 +304,7 @@ conv_mma_kernel(const ConvArgs a) {
     }
   }
 
-  // epilogue: bias and residual in fp32, bf16 pairs into (B, Ho, Wo, Cout)
+  // epilogue: bias and residual in fp32, bf16 pairs into (B, H, W, Cout)
   const int grp = lane / 4, tq = lane % 4;
   const float* bb = a.bias + (long long)b * a.bias_bstride;
   const bool pairs = a.Cout % 2 == 0;
@@ -336,9 +321,9 @@ conv_mma_kernel(const ConvArgs a) {
     for (int h = 0; h < 2; ++h) {
       const int p = (wm * MT + mt) * 16 + grp + 8 * h;
       const int oy = oy0 + p / TW, ox = ox0 + p % TW;
-      if (oy >= a.Ho || ox >= a.Wo) continue;
+      if (oy >= a.H || ox >= a.W) continue;
       const long long o =
-          (((long long)b * a.Ho + oy) * a.Wo + ox) * a.Cout;
+          (((long long)b * a.H + oy) * a.W + ox) * a.Cout;
 #pragma unroll
       for (int nt = 0; nt < NTN; ++nt) {
         const int co = co0 + (wn * NTN + nt) * 8 + 2 * tq;
@@ -368,20 +353,20 @@ conv_mma_kernel(const ConvArgs a) {
     }
 }
 
-// One launch of an instantiation on the grid (ceil(Ho/TH) ceil(Wo/TW),
+// One launch of an instantiation on the grid (ceil(H/TH) ceil(W/TW),
 // ceil(Cout/BN), B); returns the launch's cudaError_t.
-template <int S, bool PRO, bool VEC, int TH, int TW, int BN, int WM, int WN,
+template <bool PRO, bool VEC, int TH, int TW, int BN, int WM, int WN,
           int CK, int STAGES, int MINB>
 cudaError_t conv_launch(const ConvArgs& a, int B, cudaStream_t stream) {
-  using C = ConvCfg<S, TH, TW, BN, WM, WN, CK, STAGES>;
+  using C = ConvCfg<TH, TW, BN, WM, WN, CK, STAGES>;
   static_assert(MINB * (C::BYTES + 1024) <= 233472,
                 "MINB blocks' shared memory fits an SM");
-  auto kern = conv_mma_kernel<S, PRO, VEC, TH, TW, BN, WM, WN, CK, STAGES,
+  auto kern = conv_mma_kernel<PRO, VEC, TH, TW, BN, WM, WN, CK, STAGES,
                               MINB>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return err;
-  const int tiles = ((a.Wo + TW - 1) / TW) * ((a.Ho + TH - 1) / TH);
+  const int tiles = ((a.W + TW - 1) / TW) * ((a.H + TH - 1) / TH);
   dim3 grid(tiles, (a.Cout + BN - 1) / BN, B);
   kern<<<grid, C::NT, C::BYTES, stream>>>(a);
   return cudaGetLastError();

@@ -1,11 +1,15 @@
-// The 3x3 stride-1 SAME convolution over NHWC on Hopper's own instructions
-// (sm_90a), instantiated by kernels C and P (conv3x3.cu) at every key with
-// Cin % 8 == 0 and Cout > 16:
+// The 3x3 convolution over NHWC on Hopper's own instructions (sm_90a),
+// with stride S = 1 (SAME, instantiated by kernels C and P, conv3x3.cu, at
+// every key with Cin % 8 == 0 and Cout > 16) or S = 2 (explicit zero
+// padding, kernel D, downconv3x3.cu):
 //   out[b, y, x, co] = bias[b?, co] + sum_{dy, dx, ci}
-//       act(x[b, y+dy-1, x+dx-1, ci]) * w9[3*dy+dx, ci, co]   (+ residual)
-// act the identity (C) or P's prologue bf16(silu(x * a[b, ci] + s[b, ci])).
+//       act(x[b, S*y+dy-pt, S*x+dx-pl, ci]) * w9[3*dy+dx, ci, co]
+//       (+ residual)
+// an input index outside the image reading 0, pt = pl = 1 at S = 1, act
+// the identity (C, D) or P's prologue bf16(silu(x * a[b, ci] + s[b, ci])).
 // It replaces _kernel of storygen_tpu/ops/pallas_conv.py:61 (fused=False
-// and fused=True), reached through the pallas_call at :295.
+// and fused=True), reached through the pallas_call at :295, and
+// _down_kernel :312 of the same file (D), reached through :423.
 //
 // What bounds it on the H100, by site class:
 // - Wide images (64x64 latents, the VAE's 128-512 px): tensor-core work,
@@ -16,10 +20,14 @@
 //   768 and 192 at batch 3): the weights' bytes. Up block 1's weights are
 //   9 x 2560 x 1280 bf16 = 59 MB, 18 us at 3.35 TB/s, against 11 us of its
 //   products; a tiling that re-reads them per M tile multiplies that time.
+// - Stride 2 (D) likewise, by its output: tensor-core work at the UNet's
+//   and the VAE encoder's 128 and 256 px sites; the input's bytes at the
+//   VAE encoder's 512 px one (201 MB at batch 3); the weights' at UNet L3
+//   (16 -> 8 columns, 1280 channels: 29.5 MB).
 //
 // What the design does:
 // - Products by wgmma.mma_async m64nNk16 (bf16 in, fp32 accumulators in
-//   registers), N = BN, the block's whole Cout tile (128 or 160 here). A,
+//   registers), N = BN, the block's whole Cout tile (64-160 here). A,
 //   the pixels, lives in registers: each warp loads its 16 rows with
 //   ldmatrix from the halo slab, so a tap shift stays an address and no
 //   im2col exists anywhere; wgmma's register-A form consumes the fragments
@@ -31,24 +39,40 @@
 //   channels: the halo slab, one 4-D box (CK, TW+2, TH+2, IB) at (c0,
 //   x0-1, y0-1, b0) of x seen as (Cin, W, H, B), whose out-of-range
 //   coordinates TMA fills with zeros, which is exactly the SAME border (and
-//   the channels past Cin); and the chunk's weights, BN / 32 boxes (32, CK,
-//   9) of w9 seen as (Cout, Cin, 9), each a 32-column panel of the (9 CK) x
-//   BN operand in the canonical N-major 64-byte-swizzled layout (8 K rows
-//   of 64 bytes a swizzle atom, the next 8 K rows 512 bytes on, the next
-//   panel 9 CK 64 bytes on). The slab's pixel rows are 2 CK bytes, swizzled
+//   the channels past Cin); at stride 2 two boxes (CK, TW+1, 2TH+1, IB),
+//   one of x's even input columns and one of its odd ones, each seen as
+//   (Cin, half-columns, H, B) with a half-column 2 Cin elements on (below);
+//   and the chunk's weights, BN / 32 boxes (32, CK, 9) of w9 seen as
+//   (Cout, Cin, 9), each a 32-column panel of the (9 CK) x BN operand in
+//   the canonical N-major 64-byte-swizzled layout (8 K rows of 64 bytes a
+//   swizzle atom, the next 8 K rows 512 bytes on, the next panel 9 CK 64
+//   bytes on). The slab's pixel rows are 2 CK bytes, swizzled
 //   by TMA over 2 CK bytes, so the eight pixels of one ldmatrix fall in
 //   eight bank groups. A block's warps share the SM's four register files,
 //   512 registers a lane each: with the producer warpgroup, 2 / 3 / 4
 //   consumer warpgroups launch at 168 / 128 / 96 registers a thread; the
 //   producer then drops to 40 by setmaxnreg and the consumers rise to 232
 //   / 152 / 104, which the accumulators (MT BN / 2) and P's prologue fit.
+// - Stride 2: tap dx of output column ox reads input column 2 ox + dx - pl,
+//   which lies in plane (dx + pl) % 2 at half-column ox + floor((dx - pl) /
+//   2). The two planes land side by side, each starting at half-column x0 -
+//   ceil(pl / 2), so the eight neighbouring output pixels of one ldmatrix
+//   read eight neighbouring half-columns of one plane at every tap, and
+//   tap dx is the plane (dx + pl % 2) % 2 at half-column offset (dx + pl %
+//   2) / 2: the stride costs an address, as the tap does. TMA's zero fill
+//   of out-of-range coordinates is the padding on every side (pad 1: the
+//   left pad is half-column -1 of the odd plane; the VAE's (0, 1): the
+//   right pad lies past the end of the even plane), and the planes need
+//   no even W: the odd plane of a W-column row has floor(W / 2)
+//   half-columns (W >= 2).
 // - Work split to the site, never to the batch: a block takes IB images'
 //   TH x TW tiles (IB = 3 whole 8x8 images at the 8-column sites, so the
 //   weights are read once per call at batch 3) by BN output channels, and
 //   where that leaves the card short of blocks the 9 Cin reduction is split
 //   into `splits` runs of whole chunks (blockIdx.z). The number of splits
-//   is a function of (H, W, Cin, Cout) alone (ops/conv.py::conv_splits),
-//   so every output sums its chunks in one order at any batch. Each split
+//   is a function of the output's (H, W), Cin and Cout alone
+//   (ops/conv.py::split_count, for C, P and D), so every output sums its
+//   chunks in one order at any batch. Each split
 //   writes fp32 partials to a workspace that the wrapper allocates; a second
 //   kernel adds them in split order, then the bias and the residual, and
 //   stores bf16 once. No float atomics.
@@ -60,7 +84,8 @@
 //   at every key, so both sum in one order (split, chunk, tap, 16-channel
 //   step).
 // - The epilogue from the accumulators: bias ((Cout) or per batch (B,
-//   Cout)) and residual in fp32, bf16 pairs straight into (B, H, W, Cout).
+//   Cout)) and residual in fp32, bf16 pairs straight into (B, Ho, Wo,
+//   Cout).
 #pragma once
 #include "conv_mma.cuh"
 #include "hopper.cuh"
@@ -69,11 +94,11 @@ namespace sg_conv {
 
 using namespace sg_hopper;
 
-// The Cout class of the stride-1 keys (mirrored by ops/conv.py's tile_key;
-// the W class is conv_mma.cuh's w_class): 0 for Cout <= 16; 2 where Cin %
-// 8 == 0 and 128 does not divide Cout > 16 (320, 960, 160: 160-column
-// tiles); else 1 (128-1280 on the wgmma lines, any wider Cout at Cin % 8
-// != 0).
+// The Cout class of the keys of C, P and D (mirrored by ops/conv.py's
+// tile_key; the W class of the output width is conv_mma.cuh's w_class): 0
+// for Cout <= 16; 2 where Cin % 8 == 0 and 128 does not divide Cout > 16
+// (320, 960, 160: 160-column tiles); else 1 (128-1280 on the wgmma lines,
+// any wider Cout at Cin % 8 != 0).
 __host__ __device__ inline int conv_cout_class(int cin, int cout) {
   if (cout <= 16) return 0;
   return cin % 8 == 0 && cout % 128 != 0 ? 2 : 1;
@@ -86,13 +111,14 @@ struct WgArgs {
   long long bias_bstride;  // 0 or Cout
   const float* pa;         // P: (B, Cin) fp32, else null
   const float* ps;
-  const bf16* res;         // (B, H, W, Cout) or null
-  bf16* out;               // (B, H, W, Cout)
-  float* ws;               // (splits, B H W, Cout) fp32 where splits > 1
+  const bf16* res;         // (B, Ho, Wo, Cout) or null
+  bf16* out;               // (B, Ho, Wo, Cout)
+  float* ws;               // (splits, B Ho Wo, Cout) fp32 where splits > 1
   int B, H, W, Cin, Cout, splits;
+  int Ho, Wo, pt, pl;      // the output's size, the top and left padding
 };
 
-template <int TH, int TW, int IB, int WGM, int MT, int BN, int CK,
+template <int S, int TH, int TW, int IB, int WGM, int MT, int BN, int CK,
           int STAGES>
 struct WgCfg {
   static constexpr int NTC = 128 * WGM;   // consumer threads
@@ -105,10 +131,14 @@ struct WgCfg {
   static constexpr int PRODUCER_REGS = 40;
   static constexpr int RISE = (REGS + (REGS - PRODUCER_REGS) / WGM) / 8 * 8;
   static constexpr int CONSUMER_REGS = RISE > 240 ? 240 : RISE;
-  static constexpr int SH = TH + 2, SW = TW + 2;  // a slab's rows, columns
+  // a slab's rows and its columns (stride 2: half-columns of each of its
+  // two planes, the even and the odd input columns)
+  static constexpr int SH = S * (TH - 1) + 3, SW = S == 1 ? TW + 2 : TW + 1;
   static constexpr int PB = 2 * CK;       // a slab pixel's bytes = swizzle
-  static constexpr int SLAB_TX = IB * SH * SW * PB;  // the slab box
-  static constexpr int SLAB = (SLAB_TX + 1023) / 1024 * 1024;
+  static constexpr int PLANE_TX = IB * SH * SW * PB;  // one plane's box
+  static constexpr int PLANE = (PLANE_TX + 1023) / 1024 * 1024;
+  static constexpr int PLANE_ROWS = PLANE / PB;  // its pixels, padded
+  static constexpr int SLAB = S * PLANE, SLAB_TX = S * PLANE_TX;
   static constexpr int PANEL = 9 * CK * 64;  // 32 columns x 9 CK rows
   static constexpr int WBYTES = BN / 32 * PANEL;
   static constexpr int STAGE = SLAB + WBYTES;
@@ -116,6 +146,7 @@ struct WgCfg {
   // the ring, 1 KB to align it to the 1024-byte swizzle period, and the
   // full and empty barriers
   static constexpr int BYTES = STAGES * STAGE + 1024 + 16 * STAGES;
+  static_assert(S == 1 || S == 2, "stride 1 or 2");
   static_assert(64 * WGM * MT == IB * TH * TW,
                 "a block's pixels fill its 64-row wgmma tiles");
   static_assert(TW % 8 == 0, "8-pixel ldmatrix rows inside a tile row");
@@ -132,13 +163,16 @@ struct WgCfg {
 
 // One block: IB images' TH x TW output tiles by BN output channels, over
 // the chunks of split blockIdx.z; WGM consumer warpgroups of MT 64-row
-// tiles each, then the producer warpgroup.
-template <bool PRO, int TH, int TW, int IB, int WGM, int MT, int BN, int CK,
-          int STAGES>
+// tiles each, then the producer warpgroup. tmx is x (stride 2: its even
+// columns, and tmx2 its odd ones).
+template <int S, bool PRO, int TH, int TW, int IB, int WGM, int MT, int BN,
+          int CK, int STAGES>
 __global__ void __launch_bounds__(128 * WGM + 128, 1)
     wg_conv_kernel(const __grid_constant__ CUtensorMap tmx,
+                   const __grid_constant__ CUtensorMap tmx2,
                    const __grid_constant__ CUtensorMap tmw, const WgArgs a) {
-  using C = WgCfg<TH, TW, IB, WGM, MT, BN, CK, STAGES>;
+  using C = WgCfg<S, TH, TW, IB, WGM, MT, BN, CK, STAGES>;
+  static_assert(S == 1 || !PRO, "P's prologue at stride 1");
   constexpr int PB = C::PB, KS = CK / 16;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -147,9 +181,12 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
   const uint32_t full = base + STAGES * C::STAGE, empty = full + 8 * STAGES;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  const int ntw = (a.W + TW - 1) / TW, tiles = ntw * ((a.H + TH - 1) / TH);
+  const int ntw = (a.Wo + TW - 1) / TW, tiles = ntw * ((a.Ho + TH - 1) / TH);
   const int t = blockIdx.x % tiles, b0 = blockIdx.x / tiles * IB;
   const int y0 = t / ntw * TH, x0 = t % ntw * TW, co0 = blockIdx.y * BN;
+  // the slab's first input row and column (stride 2: half-column)
+  const int sy0 = S * y0 - a.pt;
+  const int sx0 = S == 1 ? x0 - a.pl : x0 - (a.pl + 1) / 2;
   const int nc = (a.Cin + CK - 1) / CK;  // chunks; this split's run:
   const int k0 = blockIdx.z * nc / a.splits;
   const int nmy = (blockIdx.z + 1) * nc / a.splits - k0;
@@ -175,7 +212,9 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
         const uint32_t bar = full + 8 * s, slab = base + s * C::STAGE;
         const int c0 = (k0 + i) * CK;
         mbar_expect_tx(bar, C::TX);
-        tma_load_4d(slab, &tmx, bar, c0, x0 - 1, y0 - 1, b0);
+        tma_load_4d(slab, &tmx, bar, c0, sx0, sy0, b0);
+        if constexpr (S == 2)
+          tma_load_4d(slab + C::PLANE, &tmx2, bar, c0, sx0, sy0, b0);
 #pragma unroll
         for (int p = 0; p < BN / 32; ++p)
           tma_load_3d(slab + C::SLAB + p * C::PANEL, &tmw, bar, co0 + 32 * p,
@@ -196,9 +235,17 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
   for (int mt = 0; mt < MT; ++mt) {
     const int p = (g * MT + mt) * 64 + 16 * w + lane % 8 + 8 * ((lane / 8) % 2);
     const int q = p % (TH * TW);
-    r0[mt] = (p / (TH * TW) * C::SH + q / TW) * C::SW + q % TW;
+    r0[mt] = (p / (TH * TW) * C::SH + S * (q / TW)) * C::SW + q % TW;
   }
   const int half = lane / 16;  // the fragment's 8-channel half
+  // tap (dy, dx)'s slab row from tap (0, 0)'s; stride 2: in plane
+  // (dx + pl % 2) % 2 at half-column offset (dx + pl % 2) / 2
+  const int podd = a.pl & 1;
+  auto tap_row = [&](int tap) {
+    if constexpr (S == 1) return (tap / 3) * C::SW + tap % 3;
+    const int u = tap % 3 + podd;
+    return (tap / 3) * C::SW + (u >> 1) + (u & 1) * C::PLANE_ROWS;
+  };
 
   // P: silu(x * a + s) in place on a landed slab, inside the image and
   // below Cin (the border and the channel padding stay 0). A consumer
@@ -260,12 +307,13 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
     }
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
+      const int toff = tap_row(tap);
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         uint32_t(&af)[MT][4] = frag[(tap * KS + kk) & 1];
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          const int R = r0[mt] + (tap / 3) * C::SW + tap % 3;
+          const int R = r0[mt] + toff;
           ldsm_x4_at(af[mt], slab + R * PB + 16 * swz_unit<PB>(R, 2 * kk + half));
         }
         wg_fence();
@@ -288,7 +336,7 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
   // epilogue: acc[mt][4 j + 2 h + e] is row 16 w + lane / 4 + 8 h, column
   // 8 j + 2 (lane % 4) + e of tile mt
   const int grp = lane / 4, tq = lane % 4;
-  const long long mtot = (long long)a.B * a.H * a.W;
+  const long long mtot = (long long)a.B * a.Ho * a.Wo;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -296,8 +344,8 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
       const int p = (g * MT + mt) * 64 + 16 * w + grp + 8 * h;
       const int q = p % (TH * TW), b = b0 + p / (TH * TW);
       const int y = y0 + q / TW, x = x0 + q % TW;
-      if (b >= a.B || y >= a.H || x >= a.W) continue;
-      const long long pix = ((long long)b * a.H + y) * a.W + x;
+      if (b >= a.B || y >= a.Ho || x >= a.Wo) continue;
+      const long long pix = ((long long)b * a.Ho + y) * a.Wo + x;
       if (a.splits == 1) {
         const float* bb = a.bias + b * a.bias_bstride;
         bf16* o = a.out + pix * a.Cout;
@@ -331,10 +379,11 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
 }
 
 // The split reduction: out = (sum over s in order of ws[s]) + bias
-// (+ residual), four channels a thread.
-__global__ void __launch_bounds__(256)
+// (+ residual), four channels a thread; static, so that C's and D's
+// sources each keep their own copy.
+static __global__ void __launch_bounds__(256)
     wg_splitk_reduce(const WgArgs a) {
-  const long long mtot = (long long)a.B * a.H * a.W;
+  const long long mtot = (long long)a.B * a.Ho * a.Wo;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= mtot * a.Cout / 4) return;
   const long long e = 4 * i, pix = e / a.Cout;
@@ -346,7 +395,7 @@ __global__ void __launch_bounds__(256)
     v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
   }
   const float4 bz = *reinterpret_cast<const float4*>(
-      a.bias + pix / ((long long)a.H * a.W) * a.bias_bstride + co);
+      a.bias + pix / ((long long)a.Ho * a.Wo) * a.bias_bstride + co);
   v.x += bz.x, v.y += bz.y, v.z += bz.z, v.w += bz.w;
   if (a.res != nullptr) {
     const uint2 r = *reinterpret_cast<const uint2*>(a.res + e);
@@ -363,60 +412,73 @@ __global__ void __launch_bounds__(256)
 // ---- host side
 
 // The tensor maps of one call: x as (Cin, W, H, B) in (CK, TW+2, TH+2, IB)
-// boxes swizzled over 2 CK bytes, w9 as (Cout, Cin, 9) in (32, CK, 9)
-// boxes swizzled over 64 bytes; out-of-range elements read as zero.
-inline bool encode_maps(const WgArgs& a, int ck, int th, int tw, int ib,
-                        CUtensorMap* tmx, CUtensorMap* tmw) {
+// boxes (stride 2: plane p of x's columns p, p + 2, ..., as (Cin,
+// half-columns, H, B) in (CK, TW+1, 2TH+1, IB) boxes), swizzled over 2 CK
+// bytes; w9 as (Cout, Cin, 9) in (32, CK, 9) boxes swizzled over 64 bytes;
+// out-of-range elements read as zero.
+inline bool encode_x(const WgArgs& a, int s, int plane, int ck, int th,
+                     int tw, int ib, CUtensorMap* m) {
   const TensorMapEncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return false;
   const cuuint64_t e = sizeof(bf16);
-  const cuuint64_t xdim[4] = {(cuuint64_t)a.Cin, (cuuint64_t)a.W,
-                              (cuuint64_t)a.H, (cuuint64_t)a.B};
-  const cuuint64_t xstr[3] = {e * a.Cin, e * a.Cin * a.W,
-                              e * a.Cin * a.W * a.H};
-  const cuuint32_t xbox[4] = {(cuuint32_t)ck, (cuuint32_t)(tw + 2),
-                              (cuuint32_t)(th + 2), (cuuint32_t)ib};
+  const int cols = s == 1 ? a.W : (a.W + 1 - plane) / 2;
+  const cuuint64_t dim[4] = {(cuuint64_t)a.Cin, (cuuint64_t)cols,
+                             (cuuint64_t)a.H, (cuuint64_t)a.B};
+  const cuuint64_t str[3] = {e * a.Cin * s, e * a.Cin * a.W,
+                             e * a.Cin * a.W * a.H};
+  const cuuint32_t box[4] = {(cuuint32_t)ck,
+                             (cuuint32_t)(s == 1 ? tw + 2 : tw + 1),
+                             (cuuint32_t)(s * (th - 1) + 3), (cuuint32_t)ib};
   const cuuint32_t ones[4] = {1, 1, 1, 1};
-  if (enc(tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(a.x),
-          xdim, xstr, xbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-          swizzle_of(2 * ck), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  const cuuint64_t wdim[3] = {(cuuint64_t)a.Cout, (cuuint64_t)a.Cin, 9};
-  const cuuint64_t wstr[2] = {e * a.Cout, e * a.Cout * a.Cin};
-  const cuuint32_t wbox[3] = {32, (cuuint32_t)ck, 9};
-  return enc(tmw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-             const_cast<bf16*>(a.w9), wdim, wstr, wbox, ones,
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<bf16*>(a.x + (long long)plane * a.Cin), dim, str, box,
+             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(2 * ck),
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool encode_w(const WgArgs& a, int ck, CUtensorMap* m) {
+  const TensorMapEncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t e = sizeof(bf16);
+  const cuuint64_t dim[3] = {(cuuint64_t)a.Cout, (cuuint64_t)a.Cin, 9};
+  const cuuint64_t str[2] = {e * a.Cout, e * a.Cout * a.Cin};
+  const cuuint32_t box[3] = {32, (cuuint32_t)ck, 9};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<bf16*>(a.w9), dim, str, box, ones,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// One call of an instantiation: the grid (ceil(B / IB) tiles, ceil(Cout /
-// BN), splits), then the split reduction where splits > 1; returns the
-// launches' cudaError_t (cudaErrorInvalidValue for operands it does not
-// take: Cin or Cout not a multiple of 8, more splits than chunks, no
-// workspace).
-template <bool PRO, int TH, int TW, int IB, int WGM, int MT, int BN, int CK,
-          int STAGES>
+// One call of an instantiation: the grid (ceil(B / IB) output tiles,
+// ceil(Cout / BN), splits), then the split reduction where splits > 1;
+// returns the launches' cudaError_t (cudaErrorInvalidValue for operands it
+// does not take: Cin or Cout not a multiple of 8, more splits than chunks,
+// no workspace; at stride 2 a single input column).
+template <int S, bool PRO, int TH, int TW, int IB, int WGM, int MT, int BN,
+          int CK, int STAGES>
 cudaError_t wg_launch(const WgArgs& a, cudaStream_t stream) {
-  using C = WgCfg<TH, TW, IB, WGM, MT, BN, CK, STAGES>;
+  using C = WgCfg<S, TH, TW, IB, WGM, MT, BN, CK, STAGES>;
   if (a.Cin % 8 != 0 || a.Cout % 8 != 0 || a.splits < 1 ||
-      a.splits > (a.Cin + CK - 1) / CK || (a.splits > 1 && a.ws == nullptr))
+      a.splits > (a.Cin + CK - 1) / CK || (a.splits > 1 && a.ws == nullptr) ||
+      (S == 2 && a.W < 2))
     return cudaErrorInvalidValue;
-  CUtensorMap tmx, tmw;
-  if (!encode_maps(a, CK, TH, TW, IB, &tmx, &tmw))
+  CUtensorMap tmx, tmx2, tmw;  // tmx2: stride 2's odd plane
+  if (!encode_x(a, S, 0, CK, TH, TW, IB, &tmx) || !encode_w(a, CK, &tmw) ||
+      (S == 2 && !encode_x(a, S, 1, CK, TH, TW, IB, &tmx2)))
     return cudaErrorInvalidValue;
   constexpr auto kern =
-      wg_conv_kernel<PRO, TH, TW, IB, WGM, MT, BN, CK, STAGES>;
+      wg_conv_kernel<S, PRO, TH, TW, IB, WGM, MT, BN, CK, STAGES>;
   cudaError_t err = smem_limit_once<kern>(C::BYTES);
   if (err != cudaSuccess) return err;
-  const int tiles = ((a.W + TW - 1) / TW) * ((a.H + TH - 1) / TH);
+  const int tiles = ((a.Wo + TW - 1) / TW) * ((a.Ho + TH - 1) / TH);
   dim3 grid(tiles * ((a.B + IB - 1) / IB), (a.Cout + BN - 1) / BN, a.splits);
-  kern<<<grid, C::NT, C::BYTES, stream>>>(tmx, tmw, a);
+  kern<<<grid, C::NT, C::BYTES, stream>>>(tmx, S == 2 ? tmx2 : tmx, tmw, a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
-  const long long n4 = (long long)a.B * a.H * a.W * a.Cout / 4;
+  const long long n4 = (long long)a.B * a.Ho * a.Wo * a.Cout / 4;
   wg_splitk_reduce<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(a);
   return cudaGetLastError();
 }

@@ -71,17 +71,18 @@ using namespace sg_hopper;
 using namespace sg_study;
 
 struct FwArgs {
-  bf16* out;         // (B, Sq, H*D)
-  const int* keep;   // M: (B, nref) int32; F: null
+  bf16* out;         // F, M: (B, Sq, H*D)
+  float* lse;        // L: (B, H, Sq)
+  const int* keep;   // M, masked L: (B, nref) int32; else null
   int H, Sq, Skv, D;
   int nref, span;    // M: nref spans of `span` kv rows; F: 1, 1
   float scale_log2;  // scale * log2(e), > 0
 };
 
 // A block of WGM consumer warpgroups (64 query rows each) and a producer
-// warpgroup; K/V tiles of BK rows in a ring of STAGES stages; Q and K in
-// panels of KPW columns.
-template <int DP, int WGM, int BK, int STAGES, int KPW>
+// warpgroup; K/V tiles (L: K tiles, V = false) of BK rows in a ring of
+// STAGES stages; Q and K in panels of KPW columns.
+template <int DP, int WGM, int BK, int STAGES, int KPW, bool V = true>
 struct FwCfg {
   static constexpr int BQ = 64 * WGM;
   static constexpr int NTC = 128 * WGM;  // consumer threads
@@ -101,9 +102,10 @@ struct FwCfg {
   static constexpr int VPANEL = BK * VRB;
   static constexpr int QBYTES = KPANELS * QPANEL;
   static constexpr int KBYTES = KPANELS * KPANEL, VBYTES = VPANELS * VPANEL;
-  static constexpr int STAGE = KBYTES + VBYTES;
-  // Q's barrier, then full K, full V, empty K, empty V per stage
-  static constexpr int BARS = 8 * (1 + 4 * STAGES);
+  static constexpr int STAGE = KBYTES + (V ? VBYTES : 0);
+  // Q's barrier, then full K, full V, empty K, empty V per stage (L: full
+  // K, empty K)
+  static constexpr int BARS = 8 * (1 + (V ? 4 : 2) * STAGES);
   // 1 KB to align the buffers to the swizzles' 1024-byte period
   static constexpr int BYTES = 1024 + QBYTES + STAGES * STAGE + BARS;
   static_assert(DP == 48 || DP == 80 || DP == 160, "the UNet's head dims");
@@ -122,6 +124,61 @@ struct FwCfg {
   static_assert(BYTES <= 232448, "a block's shared memory");
 };
 
+// The K/V tiles of BK rows that a block of F, M or L walks for batch row
+// b, and the logits of a tile that no row may see. M (and masked L) walks
+// only the tiles that hold a kept row: producer and consumers find the
+// same walk from `keep`.
+template <int BK, bool MASKED, bool STRADDLE>
+struct KvWalk {
+  const int* kp;  // this batch row's keep flags (masked)
+  int span, skv, ntiles;
+  __device__ KvWalk(const FwArgs& a, int b)
+      : kp(MASKED ? a.keep + b * a.nref : a.keep),
+        span(a.span),
+        skv(a.Skv),
+        ntiles((a.Skv + BK - 1) / BK) {}
+  // the spans of tile t's first and last kv row
+  __device__ int first_span(int t) const { return t * BK / span; }
+  __device__ int last_span(int t) const {
+    return (min(t * BK + BK, skv) - 1) / span;
+  }
+  // does tile t hold a kept kv row (block-uniform)
+  __device__ bool kept(int t) const {
+    if constexpr (!STRADDLE) return kp[t / (span / BK)] != 0;
+    for (int r = first_span(t); r <= last_span(t); ++r)
+      if (kp[r]) return true;
+    return false;
+  }
+  // the first tile at or after t that holds a kept row
+  __device__ int next(int t) const {
+    if (MASKED)
+      while (t < ntiles && !kept(t)) ++t;
+    return t;
+  }
+  // -inf into this thread's S accumulators of tile t (s[4 j + 2 r + e] is
+  // column 8 j + 2 tq + e) past Skv and in dropped spans
+  __device__ void mask(float (&s)[BK / 2], int t, int tq) const {
+    const int kvalid = skv - t * BK;
+    if (kvalid < BK) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * j + 2 * tq + e % 2 >= kvalid) s[4 * j + e] = -INFINITY;
+    }
+    if (STRADDLE && first_span(t) != last_span(t)) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = t * BK + 8 * j + 2 * tq + e;
+          if (col < skv && !kp[col / span])
+            s[4 * j + e] = s[4 * j + e + 2] = -INFINITY;
+        }
+    }
+  }
+};
+
 // grid (ceil(Sq / BQ), H, B)
 template <int DP, int WGM, int BK, int STAGES, int KPW, bool PP, bool MASKED,
           bool STRADDLE>
@@ -132,7 +189,6 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
                     const FwArgs a) {
   using C = FwCfg<DP, WGM, BK, STAGES, KPW>;
   static_assert(!PP || WGM == 2, "ping-pong between two warpgroups");
-  constexpr int NS = BK / 8;      // S's 8-column accumulator tiles
   constexpr int KSTEPS = DP / 16;  // Q K^T's k steps
   constexpr int KPS = KPW / 16;    // k steps a Q / K panel holds
   extern __shared__ unsigned char smem_raw[];
@@ -145,26 +201,9 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
   auto empty_v = [&](int s) { return qbar + 8 * (1 + 3 * STAGES + s); };
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * C::BQ;
-  const int ntiles = (a.Skv + BK - 1) / BK;
-  const int* kp = MASKED ? a.keep + b * a.nref : a.keep;
-  // the spans of tile t's first and last kv row (M)
-  auto first_span = [&](int t) { return t * BK / a.span; };
-  auto last_span = [&](int t) {
-    return (min(t * BK + BK, a.Skv) - 1) / a.span;
-  };
-  // does tile t hold a kept kv row (block-uniform)
-  auto kept = [&](int t) {
-    if constexpr (!STRADDLE) return kp[t / (a.span / BK)] != 0;
-    for (int r = first_span(t); r <= last_span(t); ++r)
-      if (kp[r]) return true;
-    return false;
-  };
-  // the first tile at or after t that holds a kept row
-  auto next_kept = [&](int t) {
-    if (MASKED)
-      while (t < ntiles && !kept(t)) ++t;
-    return t;
-  };
+  const KvWalk<BK, MASKED, STRADDLE> walk(a, b);
+  const int ntiles = walk.ntiles;
+  auto next_kept = [&](int t) { return walk.next(t); };
 
   if (tid == 0) {
     mbar_init(qbar, 1);
@@ -244,26 +283,7 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
                                C::VRB));
   };
   // the logits of tile t that no row may see: past Skv, in dropped spans
-  auto mask = [&](int t) {
-    const int kvalid = a.Skv - t * BK;
-    if (kvalid < BK) {
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (8 * j + 2 * tq + e % 2 >= kvalid) s[4 * j + e] = -INFINITY;
-    }
-    if (STRADDLE && first_span(t) != last_span(t)) {
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = t * BK + 8 * j + 2 * tq + e;
-          if (col < a.Skv && !kp[col / a.span])
-            s[4 * j + e] = s[4 * j + e + 2] = -INFINITY;
-        }
-    }
-  };
+  auto mask = [&](int t) { walk.mask(s, t, tq); };
   // the online softmax of S in place: P = exp2(s scale log2(e) - m) with
   // the new running max m, and alpha = exp2(m_old - m) per row
   auto softmax = [&](float (&alpha)[2]) {
@@ -419,6 +439,186 @@ cudaError_t flash_wg_launch(const bf16* q, const bf16* k, const bf16* v,
   if (err != cudaSuccess) return err;
   dim3 grid((a.Sq + C::BQ - 1) / C::BQ, a.H, B);
   kern<<<grid, C::NT, C::BYTES, stream>>>(tq, tk, tv, a);
+  return cudaGetLastError();
+}
+
+// Kernel L: lse[b, h, i] = log sum_j exp(scale q_i . k_j) over every kv row
+// (over the kept spans where `keep` is given), -inf for a row that kept
+// none; grid (ceil(Sq / BQ), H, B). F's walk without V, P V and O: the
+// producer lands Q once and the walked K tiles into a ring of STAGES
+// stages; each consumer warpgroup issues S_{j+1} = Q K_{j+1}^T into a
+// second accumulator set before it takes the exps and row sums of S_j, so
+// the products run while the exps do. The running max m and sum l live in
+// the scaled log2 domain, and lse = (m + log2 l) ln 2.
+template <int DP, int WGM, int BK, int STAGES, int KPW, bool MASKED,
+          bool STRADDLE>
+__global__ void __launch_bounds__(128 * WGM + 128, 1)
+    lse_wg_kernel(const __grid_constant__ CUtensorMap tmq,
+                  const __grid_constant__ CUtensorMap tmk, const FwArgs a) {
+  using C = FwCfg<DP, WGM, BK, STAGES, KPW, false>;
+  constexpr int KSTEPS = DP / 16, KPS = KPW / 16;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ring = base + C::QBYTES;  // stage s: K panels
+  const uint32_t qbar = ring + STAGES * C::STAGE;
+  auto full = [&](int s) { return qbar + 8 * (1 + s); };
+  auto empty = [&](int s) { return qbar + 8 * (1 + STAGES + s); };
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * C::BQ;
+  const KvWalk<BK, MASKED, STRADDLE> walk(a, b);
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), C::NTC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * WGM) {  // the producer: one thread issues every copy
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (warp == 4 * WGM && lane == 0) {
+      mbar_expect_tx(qbar, C::QBYTES);
+#pragma unroll
+      for (int p = 0; p < C::KPANELS; ++p)
+        tma_load_4d(base + p * C::QPANEL, &tmq, qbar, p * KPW, h, q0, b);
+      int i = 0;
+      for (int t = walk.next(0); t < walk.ntiles; t = walk.next(t + 1), ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty(s), (i / STAGES + 1) & 1);
+        mbar_expect_tx(full(s), C::KBYTES);
+#pragma unroll
+        for (int p = 0; p < C::KPANELS; ++p)
+          tma_load_4d(ring + s * C::STAGE + p * C::KPANEL, &tmk, full(s),
+                      p * KPW, h, t * BK, b);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warp w of warpgroup g owns query rows 64 g + 16 w ..
+  // 64 g + 16 w + 15 of the block; s[4 j + 2 r + e] of an accumulator set
+  // is row 16 w + lane / 4 + 8 r, column 8 j + 2 (lane % 4) + e
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int g = warp / 4, w = warp % 4, grp = lane / 4, tq = lane % 4;
+  float s0[BK / 2], s1[BK / 2];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const uint32_t qrows = base + 64 * g * C::KRB;  // this group's Q rows
+  // issue S = Q K^T of walked tile i into s once its K stage has landed: k
+  // step j lies in panel j / KPS at byte 32 (j % KPS) of each row
+  auto qk = [&](float(&s)[BK / 2], int i) {
+    const int st = i % STAGES;
+    mbar_wait(full(st), (i / STAGES) & 1);
+    const uint32_t ks = ring + st * C::STAGE;
+    // s's registers settle before the fence, so that no move of them
+    // falls between the fence and the products (ptxas would serialise)
+    fence_regs(s);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < KSTEPS; ++j) {
+      const uint32_t col = 32 * (j % KPS);
+      WgMmaSS<BK>::run(
+          s,
+          smem_desc(qrows + (j / KPS) * C::QPANEL + col, 0, 8 * C::KRB,
+                    C::KRB),
+          smem_desc(ks + (j / KPS) * C::KPANEL + col, 0, 8 * C::KRB, C::KRB),
+          j > 0);
+    }
+    wg_commit();
+  };
+  // the running max and sum over the logits in s; the row max through
+  // four chains of the row's columns, so that its latency stays short
+  auto update = [&](float(&s)[BK / 2]) {
+    float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY}, neg[2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) mx[i % 4] = fmaxf(mx[i % 4], s[i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // finite: a walked tile holds a kept column, and keep is per batch
+      // row, so every query row sees it
+      const float m_new = fmaxf(
+          m[r], quad_max(fmaxf(mx[2 * r], mx[2 * r + 1])) * a.scale_log2);
+      // the row's first tile: nothing to rescale (and never -inf - -inf)
+      l[r] *= m[r] == -INFINITY ? 0.f : fast_exp2(m[r] - m_new);
+      m[r] = m_new;
+      neg[r] = -m_new;
+    }
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};  // two sums a row
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      acc[i % 4] += fast_exp2(fmaf(s[i], a.scale_log2, neg[i % 4 / 2]));
+    l[0] += acc[0] + acc[1];
+    l[1] += acc[2] + acc[3];
+  };
+  // walked tile i (tile `cur`) landed in s: the next walked tile's S
+  // issued into `nxt`, s's exps while it runs, then its wait, all on one
+  // path (ptxas serialises every wgmma where a path that issued one meets
+  // one that did not before the wait, or one is in flight across the
+  // loop's back edge); false after the last tile. Only the last walked
+  // tile can be ragged, so only it (and, with STRADDLE, a tile across a
+  // span boundary) takes the mask: a masked tile costs a select a logit.
+  int i = 0, cur = walk.next(0);
+  auto step = [&](float(&s)[BK / 2], float(&nxt)[BK / 2]) {
+    const int after = walk.next(cur + 1);
+    if (after >= walk.ntiles) {
+      walk.mask(s, cur, tq);
+      update(s);
+      return false;
+    }
+    qk(nxt, i + 1);
+    if constexpr (STRADDLE) walk.mask(s, cur, tq);
+    update(s);
+    wg_wait<0>();
+    fence_regs(nxt);
+    ++i;
+    cur = after;
+    mbar_arrive(empty(i % STAGES));
+    return true;
+  };
+
+  mbar_wait(qbar, 0);  // also where no tile is walked: the copy has landed
+  if (cur < walk.ntiles) {
+    qk(s0, 0);
+    wg_wait<0>();
+    fence_regs(s0);
+    mbar_arrive(empty(0));
+    while (step(s0, s1) && step(s1, s0)) {
+    }
+  }
+
+  // (m + log2 l) ln 2 into (B, H, Sq); l = 0: the row kept no span, -inf
+  float* lrow = a.lse + ((long long)b * a.H + h) * a.Sq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = quad_sum(l[r]);
+    const int row = q0 + 64 * g + 16 * w + grp + 8 * r;
+    if (tq == 0 && row < a.Sq)
+      lrow[row] =
+          den > 0.f ? (m[r] + log2f(den)) * 0.6931471805599453f : -INFINITY;
+  }
+}
+
+// One launch of L: q (B, Sq, H*D), k (B, Skv, H*D) with their batch and
+// row strides in elements; the two tensor maps are encoded per call.
+template <int DP, int WGM, int BK, int STAGES, int KPW, bool MASKED,
+          bool STRADDLE>
+cudaError_t lse_wg_launch(const bf16* q, const bf16* k, const FwArgs& a,
+                          int B, long long qb, long long qr, long long kb,
+                          long long kr, cudaStream_t stream) {
+  using C = FwCfg<DP, WGM, BK, STAGES, KPW, false>;
+  CUtensorMap tq, tk;
+  if (!encode_operand(&tq, q, B, a.H, a.Sq, a.D, qb, qr, KPW, C::BQ) ||
+      !encode_operand(&tk, k, B, a.H, a.Skv, a.D, kb, kr, KPW, BK))
+    return cudaErrorInvalidValue;
+  constexpr auto kern =
+      lse_wg_kernel<DP, WGM, BK, STAGES, KPW, MASKED, STRADDLE>;
+  cudaError_t err = smem_limit_once<kern>(C::BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Sq + C::BQ - 1) / C::BQ, a.H, B);
+  kern<<<grid, C::NT, C::BYTES, stream>>>(tq, tk, a);
   return cudaGetLastError();
 }
 

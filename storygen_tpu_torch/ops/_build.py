@@ -62,9 +62,10 @@ SIGNATURES = {
     # splits, B, H, W, Cin, Cout, stream
     "sg_gnconv3x3": (_P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _P),
-    # x, w9, bias, out, B, H, W, Cin, Cout, Ho, Wo, pad top, pad left, stream
-    "sg_downconv3x3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _P),
+    # x, w9, bias, out, split workspace, splits, B, H, W, Cin, Cout, Ho,
+    # Wo, pad top, pad left, stream
+    "sg_downconv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _P),
     # the attention studies (ops/study_attention.py, ops/study_int8.py):
     # q, k, v, out, BH, Sq, Skv, d, mode, bq, bk, halves, scale, stream
     "sg_study_online": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,

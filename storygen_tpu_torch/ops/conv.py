@@ -83,12 +83,12 @@ PLAN_BATCH = 3
 def tile_key(stride: int, prologue: bool, cin: int, cout: int,
              wo: int) -> Tuple[int, int, int, int, int]:
     """The key under which the conv kernels (C, P and D) pick their
-    instantiation, as csrc/conv_wgmma.cuh's conv_cout_class (D:
-    conv_mma.cuh's cout_class) and w_class do: (stride, prologue, Cin % 8
-    != 0, Cout class, W class of the output width). It holds no batch."""
+    instantiation, as csrc/conv_wgmma.cuh's conv_cout_class and
+    conv_mma.cuh's w_class do: (stride, prologue, Cin % 8 != 0, Cout
+    class, W class of the output width). It holds no batch."""
     if cout <= 16:
         coutc = 0
-    elif stride == 1 and cin % 8 == 0 and cout % 128:
+    elif cin % 8 == 0 and cout % 128:
         coutc = 2
     else:
         coutc = 1
@@ -123,7 +123,8 @@ def _ceil(a: int, b: int) -> int:
 
 def split_count(line: tuple, cin: int, cout: int, h: int, w: int) -> int:
     """How many runs of whole CK-channel chunks `line` splits the 9 Cin
-    reduction into at an (H, W, Cin, Cout) site: 1 on a mma.sync line, and
+    reduction into at a site of C, P or D with an (H, W) output, Cin and
+    Cout: 1 on a mma.sync line, and
     on a wgmma line wherever PLAN_BATCH images give half the SMs a block or
     more; else as many as fill the SMs, at least two chunks a run. A
     function of the line and the shape alone: every batch sums in one
@@ -147,8 +148,9 @@ def conv_splits(prologue: bool, cin: int, cout: int, h: int,
 def workspace_shape(prologue: bool, b: int, h: int, w: int, cin: int,
                     cout: int, line: Optional[tuple] = None
                     ) -> Optional[Tuple[int, int, int]]:
-    """The fp32 partials of a split call, (splits, B H W, Cout), or None
-    where the reduction is not split; `line` is the built one if None."""
+    """The fp32 partials of a split call, (splits, B H W, Cout) with (H, W)
+    the output's size, or None where the reduction is not split; `line` is
+    C's (P's) built one if None (D passes its own)."""
     line = conv_tile(prologue, cin, cout, w) if line is None else line
     splits = split_count(line, cin, cout, h, w)
     return None if splits == 1 else (splits, b * h * w, cout)

@@ -10,9 +10,12 @@ Downsample2D, (0, 1, 0, 1) at the VAE encoder's. Weights come packed as
 backward is plain fp32 torch, as `_downconv3x3_bwd` of the JAX module is
 plain XLA: per tap, one product with the strided input slice.
 
-Kernel D runs kernel C's implicit-GEMM template (`csrc/conv_mma.cuh`) with
-stride 2, in the instantiations listed in `DOWN_BUILT`, picked by
-`down_tile`; anything else raises ValueError.
+Kernel D runs kernel C's wgmma template (`csrc/conv_wgmma.cuh`) at stride
+2, in the instantiations listed in `DOWN_BUILT`, picked by `down_tile`;
+anything else raises ValueError. It takes C's split of the 9 Cin
+reduction at the few-pixel sites (`conv.split_count`, a function of the
+output's shape without the batch). TMA lands the even and the odd input
+columns as two planes (`plane_taps` spells out where each tap reads).
 """
 from __future__ import annotations
 
@@ -23,23 +26,50 @@ import torch.nn.functional as F
 
 from storygen_tpu_torch.ops import _build
 from storygen_tpu_torch.ops.conv import (check_kernel_operands, pick_tile,
-                                         tile_key)
+                                         split_count, tile_key,
+                                         workspace_shape)
 
 # The instantiations of kernel D in csrc/downconv3x3.cu (its SG_BUILT
-# lines), keyed and valued as ops/conv.py's CONV_BUILT: the W class is that
-# of the output width.
+# lines), keyed and valued as ops/conv.py's CONV_BUILT (family WGMMA, then
+# TH, TW, images a block, consumer warpgroups, 64-row tiles a warpgroup,
+# BN, CK, ring stages): the W class is that of the output width.
 DOWN_BUILT = {
-    (2, 0, 0, 1, 2): (8, 16, 64, 4, 2, 16, 2, 2),
-    (2, 0, 0, 1, 1): (4, 16, 64, 4, 2, 16, 2, 2),
-    (2, 0, 0, 1, 0): (8, 8, 32, 4, 2, 64, 2, 1),
+    (2, 0, 0, 1, 2): (1, 8, 32, 1, 4, 1, 128, 16, 3),
+    (2, 0, 0, 2, 2): (1, 4, 32, 1, 2, 1, 160, 16, 3),
+    (2, 0, 0, 1, 1): (1, 8, 16, 1, 2, 1, 128, 16, 4),
+    (2, 0, 0, 2, 1): (1, 8, 16, 1, 2, 1, 160, 16, 3),
+    (2, 0, 0, 1, 0): (1, 8, 8, 3, 3, 1, 64, 32, 2),
+    (2, 0, 0, 2, 0): (1, 8, 8, 3, 3, 1, 160, 16, 3),
 }
 
 
 def down_tile(cin: int, cout: int, wo: int) -> tuple:
-    """The instantiation that kernel D runs for an output `wo` columns
-    wide: (TH, TW, BN, WM, WN, CK, stages, blocks per SM). ValueError if
-    none is built."""
+    """The line that kernel D runs for an output `wo` columns wide (a
+    DOWN_BUILT value). ValueError if none is built."""
     return pick_tile(DOWN_BUILT, tile_key(2, False, cin, cout, wo))
+
+
+def down_splits(cin: int, cout: int, ho: int, wo: int) -> int:
+    """`conv.split_count` of D's line at an (ho, wo) output: the runs its 9
+    Cin reduction is split into, whatever the batch."""
+    return split_count(down_tile(cin, cout, wo), cin, cout, ho, wo)
+
+
+def plane_taps(wo: int, pl: int):
+    """Where kernel D's slab finds each input column, as a pure function of
+    the output width and the left padding: for output column ox and tap
+    dx, (plane, half-column) with the input column 2 ox + dx - pl =
+    2 * half-column + plane. The slab holds both planes from half-column
+    -ceil(pl / 2) on, and tap dx reads plane (dx + pl % 2) % 2 at
+    half-column offset (dx + pl % 2) // 2 past ox (csrc/conv_wgmma.cuh's
+    tap_row)."""
+    first = -((pl + 1) // 2)
+    out = {}
+    for ox in range(wo):
+        for dx in range(3):
+            u = dx + pl % 2
+            out[ox, dx] = (u % 2, first + ox + u // 2)
+    return out
 
 
 def out_size(h: int, w: int, pad: Sequence[int]) -> Tuple[int, int]:
@@ -74,22 +104,40 @@ def _check(x, w9, bias, pad):
         raise ValueError("all operands must be on one device")
 
 
-def _launch(x, w9, bias, pad, lib=None) -> torch.Tensor:
+def _launch(x, w9, bias, pad, lib=None, line=None) -> torch.Tensor:
     """One launch of sg_downconv3x3 from `lib` (the built library if None;
-    the tile study passes one built with other SG_BUILT lines)."""
+    the tile study passes one built with another SG_BUILT line, and that
+    line as `line`), with the split reduction's workspace where the line
+    splits it. A Cout that 8 does not divide runs on weights and bias
+    padded with zero columns (TMA reads whole 16-byte weight rows), and a
+    one-column input on a zero second column (the odd plane needs one):
+    both give the same output."""
     check_kernel_operands(x, w9)
     b, h, w, cin = x.shape
     cout = w9.shape[2]
     ho, wo = out_size(h, w, pad)
-    down_tile(cin, cout, wo)
-    bias32 = bias.float().contiguous()
-    out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
+    c8 = -(-cout // 8) * 8
+    if line is None:
+        line = down_tile(cin, c8, wo)
+    bias32 = bias.float()
+    if c8 != cout:
+        w9 = F.pad(w9, (0, c8 - cout)).contiguous()
+        bias32 = F.pad(bias32, (0, c8 - cout))
+    if w == 1:
+        x = F.pad(x, (0, 0, 0, 1)).contiguous()
+    bias32 = bias32.contiguous()
+    shape = workspace_shape(False, b, ho, wo, cin, c8, line)
+    out = torch.empty((b, ho, wo, c8), dtype=x.dtype, device=x.device)
+    ws = None if shape is None else torch.empty(
+        shape, dtype=torch.float32, device=x.device)
     err = (lib or _build.load()).sg_downconv3x3(
         x.data_ptr(), w9.data_ptr(), bias32.data_ptr(), out.data_ptr(),
-        b, h, w, cin, cout, ho, wo, int(pad[0]), int(pad[2]),
+        None if ws is None else ws.data_ptr(),
+        1 if shape is None else shape[0], b, x.shape[1], x.shape[2], cin,
+        c8, ho, wo, int(pad[0]), int(pad[2]),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "sg_downconv3x3")
-    return out
+    return out if c8 == cout else out[..., :cout].contiguous()
 
 
 def downconv3x3(x: torch.Tensor, w9: torch.Tensor, bias: torch.Tensor,

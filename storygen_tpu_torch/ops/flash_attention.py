@@ -6,8 +6,8 @@ Replaces storygen_tpu/ops/pallas_attention.py. The forward kernels
 (`_bnd2_kernel`, `_bnd_kernel`, `_online_t_kernel`, `_flash_kernel`, all
 reached through `_flash_core`) become kernel F (`flash_fwd`), their masked
 variants kernel M (`flash_fwd_masked`); the backward (`_core_bwd` ->
-`_pallas_bwd_with_out`) becomes kernels L (`flash_lse`, F's template in
-`csrc/flash_fwd.cu` without V and O), DQ (`flash_dq`) and DKV
+`_pallas_bwd_with_out`) becomes kernels L (`flash_lse`, F's walk in
+`csrc/flash_wgmma.cuh` without V, P V and O), DQ (`flash_dq`) and DKV
 (`flash_dkv`), tied together by `FlashAttentionFn`.
 
 Inputs are the projections' own layout: q (B, Sq, H*D), k/v (B, Skv, H*D),
@@ -29,34 +29,28 @@ from storygen_tpu_torch.ops import _build
 
 # 16-padded head dims the kernels are instantiated for: the UNet's 40, 80, 160
 _PADDED_D = (48, 80, 160)
-# rows of a K/V tile of the mma.sync template (kernel L, and family 0 of
-# F and M); a reference span need not be a multiple of it
-_BK = 64
-# the two templates an F / M line names: csrc/flash_fwd.cu's mma.sync
-# template and csrc/flash_wgmma.cuh's wgmma one
-MMA, WGMMA = 0, 1
-# K/V tile heights of the wgmma template (Q K^T's N)
+# K/V tile heights of the wgmma templates (Q K^T's N); a reference span
+# need not be a multiple of one
 WG_BK = (64, 128)
 # The instantiations of kernels F and M (csrc/flash_fwd.cu's kFwd SG_BUILT
-# lines): (16-padded head dim, masked) -> (family, BQ, BK, ring stages, a,
-# b), where family WGMMA has a = Q / K panel columns (16, 32 or 64) and b =
-# ping-pong of its two consumer warpgroups (0 / 1), and family MMA a = 16-row
-# halves per warp and b = 0.
+# lines, csrc/flash_wgmma.cuh's flash_wg_kernel): (16-padded head dim,
+# masked) -> (BQ, BK, ring stages, Q / K panel columns (16, 32 or 64),
+# ping-pong of its two consumer warpgroups (0 / 1)).
 FWD_BUILT = {
-    (48, False): (WGMMA, 192, 128, 2, 64, 0),
-    (48, True): (WGMMA, 128, 128, 3, 64, 1),
-    (80, False): (WGMMA, 128, 128, 2, 64, 1),
-    (80, True): (WGMMA, 128, 128, 2, 64, 1),
-    (160, False): (WGMMA, 128, 64, 2, 32, 1),
-    (160, True): (WGMMA, 128, 64, 2, 32, 1),
+    (48, False): (192, 128, 2, 64, 0),
+    (48, True): (128, 128, 3, 64, 1),
+    (80, False): (128, 128, 2, 64, 1),
+    (80, True): (128, 128, 2, 64, 1),
+    (160, False): (128, 64, 2, 32, 1),
+    (160, True): (128, 64, 2, 32, 1),
 }
-# The instantiations of kernel L in csrc/flash_fwd.cu (its kLse SG_BUILT
-# lines, the mma.sync template): (16-padded head dim, masked) -> (BQ, BK,
-# 16-row halves per warp, cp.async ring stages).
+# The instantiations of kernel L (csrc/flash_fwd.cu's kLse SG_BUILT lines,
+# csrc/flash_wgmma.cuh's lse_wg_kernel): (16-padded head dim, masked) ->
+# (BQ, BK, ring stages, Q / K panel columns).
 LSE_BUILT = {
-    (48, False): (128, 64, 2, 2), (48, True): (128, 64, 2, 2),
-    (80, False): (64, 64, 1, 2), (80, True): (128, 64, 2, 2),
-    (160, False): (64, 64, 1, 2), (160, True): (128, 64, 1, 2),
+    (48, False): (128, 128, 4, 64), (48, True): (128, 128, 4, 64),
+    (80, False): (128, 128, 3, 64), (80, True): (128, 128, 3, 64),
+    (160, False): (128, 64, 3, 32), (160, True): (128, 64, 3, 32),
 }
 # The instantiations of kernels DQ and DKV in csrc/flash_bwd.cu (its
 # SG_BUILT lines, csrc/flash_bwd_wgmma.cuh's template): (kernel, 16-padded
@@ -255,10 +249,10 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def fwd_tile(d: int, masked: bool) -> Tuple[int, int, int, int, int, int]:
+def fwd_tile(d: int, masked: bool) -> Tuple[int, int, int, int, int]:
     """The instantiation that kernel F (M where `masked`) runs at head dim
-    d: (family, BQ, BK, stages, a, b) as in FWD_BUILT; its grid is
-    (ceil(Sq / BQ), H, B). ValueError if none is built."""
+    d: (BQ, BK, stages, panel columns, ping-pong) as in FWD_BUILT; its
+    grid is (ceil(Sq / BQ), H, B). ValueError if none is built."""
     key = ((d + 15) // 16 * 16, bool(masked))
     if d % 8 or key not in FWD_BUILT:
         raise ValueError(f"no flash forward built for head dim {d}"
@@ -272,23 +266,16 @@ def v_panel(dp: int) -> int:
     return 32 if dp % 32 == 0 else 16
 
 
-def fwd_smem_bytes(dp: int, line: tuple) -> int:
+def fwd_smem_bytes(dp: int, line: tuple, v: bool = True) -> int:
     """Shared memory of one block of the F / M line `line` (a FWD_BUILT
-    value) at padded head dim dp: csrc/flash_wgmma.cuh's FwCfg::BYTES
-    (family WGMMA: 1 KB of alignment, the Q panels, STAGES K and V stages
-    and the mbarriers) or csrc/flash_fwd.cu's Cfg::BYTES (family MMA)."""
-    fam, bq, bk, stages, a, _ = line
-    if fam == MMA:
-        row = 2 * dp
-        pitch = row if (row // 16) % 2 else row + 16
-
-        def al(x):
-            return -(-x // 128) * 128
-        return al(bq * pitch) + stages * 2 * al(bk * pitch)
+    value), or with v=False of the L line `line` (an LSE_BUILT value), at
+    padded head dim dp: csrc/flash_wgmma.cuh's FwCfg::BYTES (1 KB of
+    alignment, the Q panels, STAGES K (and V) stages and the mbarriers)."""
+    bq, bk, stages, a = line[:4]
     kpanels, vpw = -(-dp // a), v_panel(dp)
     q, k = kpanels * bq * 2 * a, kpanels * bk * 2 * a
-    v = dp // vpw * bk * 2 * vpw
-    return 1024 + q + stages * (k + v) + 8 * (1 + 4 * stages)
+    vb = dp // vpw * bk * 2 * vpw if v else 0
+    return 1024 + q + stages * (k + vb) + 8 * (1 + (4 if v else 2) * stages)
 
 
 def operand_map(shape, strides, num_heads: int, width: int,
@@ -321,18 +308,19 @@ def operand_map(shape, strides, num_heads: int, width: int,
 
 
 def fwd_maps(q, k, v, num_heads: int, line: tuple) -> dict:
-    """The three tensor maps of one launch of the wgmma line `line` (a
-    FWD_BUILT value of family WGMMA) on q, k, v (anything with `.shape`
-    and `.stride()`): Q and K in panels of `line`'s a columns, BQ and BK
-    rows a box; V in panels of v_panel(dp) columns, BK rows."""
-    fam, bq, bk, _, kpw, _ = line
-    if fam != WGMMA:
-        raise ValueError("the mma.sync template encodes no tensor map")
-    dp = (q.shape[2] // num_heads + 15) // 16 * 16
-    return {"q": operand_map(q.shape, q.stride(), num_heads, kpw, bq),
-            "k": operand_map(k.shape, k.stride(), num_heads, kpw, bk),
-            "v": operand_map(v.shape, v.stride(), num_heads, v_panel(dp),
-                             bk)}
+    """The tensor maps of one launch of the F / M line `line` (a FWD_BUILT
+    value) on q, k, v (anything with `.shape` and `.stride()`), or of the
+    L line `line` (an LSE_BUILT value) where v is None: Q and K in panels
+    of `line`'s panel columns, BQ and BK rows a box; V in panels of
+    v_panel(dp) columns, BK rows."""
+    bq, bk, _, kpw = line[:4]
+    maps = {"q": operand_map(q.shape, q.stride(), num_heads, kpw, bq),
+            "k": operand_map(k.shape, k.stride(), num_heads, kpw, bk)}
+    if v is not None:
+        dp = (q.shape[2] // num_heads + 15) // 16 * 16
+        maps["v"] = operand_map(v.shape, v.stride(), num_heads, v_panel(dp),
+                                bk)
+    return maps
 
 
 def kept_tiles(keep_row, skv: int, bk: int) -> list:
@@ -391,8 +379,8 @@ def flash_fwd_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def lse_tile(d: int, masked: bool) -> Tuple[int, int, int, int]:
     """The instantiation that kernel L runs at head dim d: (BQ, BK,
-    halves, stages); its grid is (ceil(Sq / BQ), H, B). ValueError if none
-    is built."""
+    stages, panel columns) as in LSE_BUILT; its grid is (ceil(Sq / BQ), H,
+    B). ValueError if none is built."""
     key = ((d + 15) // 16 * 16, bool(masked))
     if d % 8 or key not in LSE_BUILT:
         raise ValueError(f"no flash logsumexp built for head dim {d}"

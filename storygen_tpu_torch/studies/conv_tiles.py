@@ -7,18 +7,21 @@ the key of each shape below, the study builds the source once per
 candidate, each into its own library whose only SG_BUILT line is that
 candidate's, one nvcc per candidate, all started together, under
 build/storygen_tpu_torch/conv_tiles/, and prints each one's ptxas
-registers and spills. A stride-1 candidate names its family: the wgmma
-template of csrc/conv_wgmma.cuh (TH, TW, images a block, consumer
-warpgroups, 64-row tiles a warpgroup, BN, CK, ring stages; it splits the
-reduction as ops/conv.py::split_count plans for that tile) or the mma.sync
-template of csrc/conv_mma.cuh (TH, TW, BN, warps along M and N, CK, ring
-stages, blocks per SM), so each wgmma key is timed against its mma.sync
-line too; D's candidates are mma.sync tiles. Then it times each
+registers and spills. A candidate names its family: the wgmma template of
+csrc/conv_wgmma.cuh (TH, TW, images a block, consumer warpgroups, 64-row
+tiles a warpgroup, BN, CK, ring stages; it splits the reduction as
+ops/conv.py::split_count plans for that tile), at stride 1 or 2, or the
+mma.sync template of csrc/conv_mma.cuh (TH, TW, BN, warps along M and N,
+CK, ring stages, blocks per SM), so each stride-1 wgmma key is timed
+against its mma.sync line too; D's candidates are wgmma tiles. Then it
+times each
 candidate, the built kernel (the `conv3x3` / `gnconv3x3` / `downconv3x3`
 wrappers) and cuDNN's bf16 channels_last convolution as a yardstick (not
 for P, which has no one-call counterpart), with the max error against the
-fp32 plain version. A candidate whose build the card refuses prints
-FAILED.
+fp32 plain version, and on the card each one's device time per call
+replayed from a CUDA graph of 20 calls (`common.graph_ms`), which decides
+where the host sets the mean's pace (the UNet's few-pixel sites). A
+candidate whose build the card refuses prints FAILED.
 
 On the card by default; `--device cpu` runs the plain versions only (the
 wrappers' CPU path), with host-clock times that say nothing about the card.
@@ -29,6 +32,7 @@ Usage: python -m storygen_tpu_torch.studies.conv_tiles
 from __future__ import annotations
 
 import ctypes
+import math
 import re
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
@@ -71,9 +75,8 @@ SHAPES = {
 
 Tile = Tuple[int, ...]
 M, W = conv.MMA, conv.WGMMA
-# key -> candidates: for stride 1 (family, then its tile), for D the
-# mma.sync tile (TH, TW, BN, WM, WN, CK, stages, blocks per SM). Each
-# wgmma key lists the mma.sync line it had before beside its wgmma tiles.
+# key -> candidates: (family, then its tile). Each stride-1 wgmma key
+# lists the mma.sync line it had before beside its wgmma tiles.
 # A block's warps share an SM's four register files: with the producer
 # warpgroup, 2 / 3 / 4 consumer warpgroups rise by setmaxnreg to 232 / 152
 # / 104 registers a thread, which the accumulators (MT BN / 2) must fit.
@@ -109,27 +112,36 @@ CANDIDATES: Dict[tuple, List[Tile]] = {
                       (M, 16, 16, 64, 4, 2, 16, 2, 1),
                       (M, 16, 16, 64, 8, 2, 16, 2, 1),
                       (M, 8, 16, 128, 2, 2, 16, 2, 2)],
-    (2, 0, 0, 1, 2): [(8, 16, 64, 4, 2, 16, 2, 2),
-                      (8, 16, 64, 4, 2, 32, 2, 1),
-                      (8, 16, 64, 2, 2, 16, 2, 2),
-                      (8, 16, 128, 2, 2, 16, 2, 1)],
-    (2, 0, 0, 1, 1): [(8, 16, 32, 4, 2, 16, 2, 2),
-                      (4, 16, 64, 4, 2, 16, 2, 2),
-                      (8, 16, 32, 4, 1, 16, 2, 2),
-                      (4, 16, 32, 4, 1, 16, 2, 4),
-                      (8, 16, 32, 4, 2, 32, 2, 1)],
-    (2, 0, 0, 1, 0): [(8, 8, 16, 4, 1, 16, 2, 4),
-                      (8, 8, 32, 4, 2, 16, 2, 2),
-                      (8, 8, 16, 4, 1, 32, 2, 3),
-                      (8, 8, 32, 4, 2, 32, 2, 2),
-                      (8, 8, 32, 4, 2, 64, 2, 1)],
+    # D (stride 2): a plane pair of (2 TH + 1) x (TW + 1) half-columns a
+    # chunk, twice a stride-1 slab's bytes for the same output tile
+    (2, 0, 0, 1, 2): [(W, 8, 32, 1, 2, 2, 128, 16, 3),
+                      (W, 4, 32, 1, 2, 1, 128, 32, 2),
+                      (W, 4, 32, 1, 2, 1, 128, 16, 4),
+                      (W, 6, 32, 1, 3, 1, 128, 16, 3),
+                      (W, 8, 16, 1, 2, 1, 128, 16, 4),
+                      (W, 8, 32, 1, 4, 1, 128, 16, 3)],
+    (2, 0, 0, 2, 2): [(W, 4, 32, 1, 2, 1, 160, 16, 3),
+                      (W, 6, 32, 1, 3, 1, 160, 16, 3),
+                      (W, 8, 16, 1, 2, 1, 160, 16, 3)],
+    (2, 0, 0, 1, 1): [(W, 8, 16, 1, 2, 1, 128, 16, 4),
+                      (W, 8, 16, 1, 2, 1, 128, 32, 2),
+                      (W, 16, 16, 1, 4, 1, 128, 16, 3),
+                      (W, 16, 16, 1, 2, 2, 128, 16, 3)],
+    (2, 0, 0, 2, 1): [(W, 8, 16, 1, 2, 1, 160, 16, 3),
+                      (W, 16, 16, 1, 4, 1, 160, 16, 2)],
+    (2, 0, 0, 1, 0): [(W, 8, 8, 3, 3, 1, 128, 16, 3),
+                      (W, 8, 8, 3, 3, 1, 64, 32, 2),
+                      (W, 8, 8, 2, 2, 1, 128, 16, 3),
+                      (W, 8, 8, 3, 3, 1, 128, 16, 2)],
+    (2, 0, 0, 2, 0): [(W, 8, 8, 3, 3, 1, 160, 16, 3),
+                      (W, 8, 8, 2, 2, 1, 160, 16, 3)],
 }
 SOURCES = {1: "conv3x3.cu", 2: "downconv3x3.cu"}
 EXPORTS = {1: ("sg_conv3x3", "sg_gnconv3x3"), 2: ("sg_downconv3x3",)}
 _BUILT_LINE = re.compile(r"^[ \t]*SG_BUILT\(\d[^)]*\)[ \t]*\n", re.M)
 
 
-def shared_bytes(stride: int, tile: Tile) -> int:
+def shared_bytes(tile: Tile) -> int:
     """Dynamic shared memory of a mma.sync instantiation: its ring of slab
     and weight chunks (csrc/conv_mma.cuh's ConvCfg::BYTES)."""
     th, tw, bn, _, _, ck, stages, _ = tile
@@ -140,29 +152,37 @@ def shared_bytes(stride: int, tile: Tile) -> int:
     def a128(x):
         return (x + 127) // 128 * 128
 
-    sh, sw = stride * (th - 1) + 3, stride * (tw - 1) + 3
-    sws = sw if stride == 1 else 2 * ((sw + 1) // 2)
-    return stages * (a128(sh * sws * pitch(2 * ck))
+    return stages * (a128((th + 2) * (tw + 2) * pitch(2 * ck))
                      + a128(9 * ck * pitch(2 * bn)))
 
 
-def wg_stage_bytes(tile: Tile) -> Tuple[int, int, int]:
+def slab_box(stride: int, tile: Tile) -> Tuple[int, int, int, int]:
+    """The TMA box of one plane of a wgmma instantiation's slab, (CK,
+    columns, rows, IB): (TH+2) x (TW+2) pixels at stride 1, (2 TH + 1) x
+    (TW + 1) half-columns of each of the two planes at stride 2."""
+    th, tw, ib, _, _, _, ck, _ = tile
+    if stride == 1:
+        return ck, tw + 2, th + 2, ib
+    return ck, tw + 1, 2 * th + 1, ib
+
+
+def wg_stage_bytes(tile: Tile, stride: int = 1) -> Tuple[int, int, int]:
     """A wgmma instantiation's ring stage (csrc/conv_wgmma.cuh's WgCfg): the
-    bytes of its slab box (IB images' (TH+2) x (TW+2) pixels of CK
-    channels), of its BN / 32 weight panels (9 CK rows of 64 bytes each),
-    and of the stage (the slab rounded up to the 1024-byte swizzle
-    period, then the panels)."""
-    th, tw, ib, _, _, bn, ck, _ = tile
-    slab = ib * (th + 2) * (tw + 2) * 2 * ck
-    panels = bn // 32 * 9 * ck * 64
-    return slab, panels, (slab + 1023) // 1024 * 1024 + panels
+    bytes its slab's boxes land (`stride` planes of slab_box), of its BN /
+    32 weight panels (9 CK rows of 64 bytes each), and of the stage (each
+    plane rounded up to the 1024-byte swizzle period, then the panels)."""
+    bn = tile[5]
+    plane = 2 * math.prod(slab_box(stride, tile))
+    panels = bn // 32 * 9 * tile[6] * 64
+    return (stride * plane, panels,
+            stride * ((plane + 1023) // 1024 * 1024) + panels)
 
 
-def wg_shared_bytes(tile: Tile) -> int:
+def wg_shared_bytes(tile: Tile, stride: int = 1) -> int:
     """Dynamic shared memory of a wgmma instantiation: its ring, 1 KB to
     align it, and its full and empty barriers (WgCfg::BYTES)."""
     stages = tile[7]
-    return stages * wg_stage_bytes(tile)[2] + 1024 + 16 * stages
+    return stages * wg_stage_bytes(tile, stride)[2] + 1024 + 16 * stages
 
 
 def spec(shape) -> tuple:
@@ -282,8 +302,8 @@ def main(device=None, shapes=tuple(SHAPES), iters: int = 10) -> None:
                 lib = libs[(key, tile)]
                 tag = "x".join(map(str, tile))
                 if kind == "D":
-                    call = (lambda lib=lib: downconv._launch(x, w9, bias, pad,
-                                                             lib=lib))
+                    call = (lambda lib=lib, tile=tile: downconv._launch(
+                        x, w9, bias, pad, lib=lib, line=tile))
                 else:
                     call = (lambda lib=lib, tile=tile: conv._launch(
                         "sg_gnconv3x3" if pro else "sg_conv3x3", x, w9,
@@ -291,7 +311,7 @@ def main(device=None, shapes=tuple(SHAPES), iters: int = 10) -> None:
                 rows.append((tag, common.refused_as_value_error(call), True))
         common.run_candidates(label, rows, ref,
                               2.0 * b * ho * wo * 9 * cin * cout, dev, card,
-                              iters)
+                              iters, graph=True)
         del x, w9, bias, r, a, s, ref
 
 

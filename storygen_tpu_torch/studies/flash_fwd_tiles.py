@@ -1,22 +1,20 @@
 """Which tile of kernels F and M, and of the backward's logsumexp L (all
-csrc/flash_fwd.cu), is fastest at each padded head dim on the card.
+csrc/flash_fwd.cu on csrc/flash_wgmma.cuh), is fastest at each padded head
+dim on the card.
 
 Builds csrc/flash_fwd.cu once per candidate, each into its own library
 whose only SG_BUILT lines are that candidate's, one nvcc per candidate, all
 started together, under build/storygen_tpu_torch/tiles/, and prints
-ptxas's registers and spills of each. An F / M candidate is (family, BQ,
-BK, ring stages, a, b): family 1 is csrc/flash_wgmma.cuh's wgmma kernel
-fed by TMA (BQ = 64 x consumer warpgroups, a = Q / K panel columns, b =
-ping-pong of the two consumer warpgroups), family 0 the mma.sync template
-(BK 64, a = 16-row halves per warp, b = 0), so that every key is timed
-against the line it had before the wgmma kernel. An L candidate is (BQ,
-halves, stages) of the mma.sync template. Then times each candidate, the
-built kernel (the `flash_fwd` / `flash_fwd_masked` / `flash_lse`
-wrappers) and, for F and M, SDPA as a yardstick on the UNet's 512 px
-attention shapes of that head dim, with the max error against the fp32
-plain version, and for F and M each one's device time per call replayed
-from a CUDA graph of 20 calls, which decides where the host sets the
-mean's pace (d 160). The rate counts the kept kv rows only.
+ptxas's registers and spills of each. An F / M candidate is (BQ, BK, ring
+stages, Q / K panel columns, ping-pong) of flash_wg_kernel (BQ = 64 x
+consumer warpgroups, ping-pong of its two consumer warpgroups); an L
+candidate is (BQ, BK, ring stages, Q / K panel columns) of lse_wg_kernel.
+Then times each candidate, the built kernel (the `flash_fwd` /
+`flash_fwd_masked` / `flash_lse` wrappers) and, for F and M, SDPA as a
+yardstick on the UNet's 512 px attention shapes of that head dim, with the
+max error against the fp32 plain version, and each one's device time per
+call replayed from a CUDA graph of 20 calls, which decides where the host
+sets the mean's pace (d 160). The rate counts the kept kv rows only.
 
 The candidates need the card and nvcc; there is no CPU mode.
 
@@ -36,34 +34,28 @@ import torch
 from storygen_tpu_torch.ops import _build, flash_attention as fa
 from storygen_tpu_torch.studies import common
 
-WG, MMA = fa.WGMMA, fa.MMA
-# 16-padded head dim -> F / M candidates (family, BQ, BK, stages, a, b):
-# the wgmma lines, then the mma.sync lines the keys had
-CANDIDATES: Dict[int, List[Tuple[int, int, int, int, int, int]]] = {
-    48: [(WG, 128, 128, 2, 64, 1), (WG, 128, 128, 2, 64, 0),
-         (WG, 128, 128, 3, 64, 1), (WG, 128, 64, 2, 64, 1),
-         (WG, 128, 128, 2, 16, 1), (WG, 128, 64, 3, 16, 1),
-         (WG, 192, 128, 2, 64, 0),
-         (MMA, 64, 64, 2, 1, 0), (MMA, 64, 64, 2, 2, 0),
-         (MMA, 128, 64, 2, 1, 0), (MMA, 128, 64, 2, 2, 0),
-         (MMA, 64, 64, 3, 2, 0), (MMA, 128, 64, 3, 2, 0)],
-    80: [(WG, 128, 128, 2, 16, 1), (WG, 128, 128, 2, 16, 0),
-         (WG, 128, 128, 2, 64, 1), (WG, 128, 64, 2, 16, 1),
-         (WG, 128, 64, 3, 16, 1), (WG, 128, 128, 3, 16, 1),
-         (MMA, 64, 64, 2, 1, 0), (MMA, 64, 64, 2, 2, 0),
-         (MMA, 128, 64, 2, 1, 0), (MMA, 128, 64, 2, 2, 0),
-         (MMA, 64, 64, 3, 1, 0)],
-    160: [(WG, 128, 64, 2, 32, 1), (WG, 128, 64, 2, 32, 0),
-          (WG, 128, 64, 3, 32, 1), (WG, 128, 128, 2, 32, 1),
-          (WG, 128, 64, 2, 16, 1), (WG, 192, 64, 2, 32, 0),
-          (MMA, 64, 64, 2, 1, 0), (MMA, 128, 64, 2, 1, 0),
-          (MMA, 64, 64, 3, 1, 0)],
+# 16-padded head dim -> F / M candidates (BQ, BK, stages, panel columns,
+# ping-pong)
+CANDIDATES: Dict[int, List[Tuple[int, int, int, int, int]]] = {
+    48: [(128, 128, 2, 64, 1), (128, 128, 2, 64, 0), (128, 128, 3, 64, 1),
+         (128, 64, 2, 64, 1), (128, 128, 2, 16, 1), (128, 64, 3, 16, 1),
+         (192, 128, 2, 64, 0)],
+    80: [(128, 128, 2, 16, 1), (128, 128, 2, 16, 0), (128, 128, 2, 64, 1),
+         (128, 64, 2, 16, 1), (128, 64, 3, 16, 1), (128, 128, 3, 16, 1)],
+    160: [(128, 64, 2, 32, 1), (128, 64, 2, 32, 0), (128, 64, 3, 32, 1),
+          (128, 128, 2, 32, 1), (128, 64, 2, 16, 1), (192, 64, 2, 32, 0)],
 }
-# L needs half of F's ring and no O registers: 128-row blocks at every dp
-LSE_CANDIDATES: Dict[int, List[Tuple[int, int, int]]] = {
-    48: [(64, 1, 2), (128, 1, 2), (128, 2, 2), (128, 2, 3), (64, 1, 3)],
-    80: [(64, 1, 2), (128, 1, 2), (128, 2, 2), (128, 2, 3)],
-    160: [(64, 1, 2), (128, 1, 2), (128, 2, 2), (64, 1, 3)],
+# L: a ring of K alone (half of F's bytes a stage) and no O registers, so
+# deeper rings and three consumer warpgroups fit; (BQ, BK, stages, panel
+# columns). Three warpgroups with BK 128 (two 64-register accumulator
+# sets in 152 registers) ran 2.3x slower than two.
+LSE_CANDIDATES: Dict[int, List[Tuple[int, int, int, int]]] = {
+    48: [(128, 128, 4, 64), (128, 128, 2, 64), (128, 64, 4, 64),
+         (192, 64, 4, 64), (192, 64, 6, 64), (128, 128, 6, 64)],
+    80: [(128, 128, 3, 64), (128, 64, 4, 64), (192, 64, 4, 64),
+         (128, 128, 3, 16)],
+    160: [(128, 64, 3, 32), (128, 64, 4, 32), (192, 64, 3, 32),
+          (128, 128, 2, 32)],
 }
 # the kernel of a candidate -> its SG_BUILT kind
 KINDS = {"fwd": "kFwd", "lse": "kLse"}
@@ -99,31 +91,24 @@ def padded(d: int) -> int:
 
 def label(cand) -> str:
     """A candidate's name in the study's lines."""
-    if len(cand) == 3:
-        bq, halves, stages = cand
-        return f"L bq{bq} {halves}h {stages}s"
-    fam, bq, bk, stages, a, b = cand
-    if fam == WG:
-        return f"wgmma {bq}/{bk} {stages}s p{a}{' pp' if b else ''}"
-    return f"mma bq{bq} {a}h {stages}s"
+    if len(cand) == 4:
+        bq, bk, stages, a = cand
+        return f"L {bq}/{bk} {stages}s p{a}"
+    bq, bk, stages, a, b = cand
+    return f"wgmma {bq}/{bk} {stages}s p{a}{' pp' if b else ''}"
 
 
 def candidate_source(dp: int, *cand, kind: str = "fwd") -> str:
     """flash_fwd.cu with its SG_BUILT lines replaced by the candidate's two:
-    kernel `kind` ("fwd" for F and M, `cand` = (family, BQ, BK, stages, a,
-    b); "lse" for L, `cand` = (BQ, halves, stages)), unmasked and masked at
-    16-padded head dim dp."""
+    kernel `kind` ("fwd" for F and M, `cand` = (BQ, BK, stages, panel
+    columns, ping-pong); "lse" for L, `cand` = (BQ, BK, stages, panel
+    columns)), unmasked and masked at 16-padded head dim dp."""
     src = (_build.CSRC / SOURCE).read_text()
     first = _BUILT_LINE.search(src)
     if first is None:
         raise ValueError(f"{SOURCE} has no SG_BUILT lines")
     body = _BUILT_LINE.sub("", src)
-    if kind == "fwd":
-        fam, bq, bk, stages, a, b = cand
-        args = [(m, fam, bq, bk, stages, a, b) for m in (0, 1)]
-    else:
-        bq, halves, stages = cand
-        args = [(m, bq, fa._BK, halves, stages) for m in (0, 1)]
+    args = [(m, *cand) for m in (0, 1)]
     mine = "".join(f"  SG_BUILT({KINDS[kind]}, {dp}, "
                    f"{', '.join(map(str, x))})\n" for x in args)
     return body[:first.start()] + mine + body[first.start():]
@@ -201,7 +186,7 @@ def main(device=None, shapes=tuple(SHAPES), iters: int = 10,
                 lse_ref = fa.flash_lse_plain(q.float(), k.float(), HEADS,
                                              sm, keep)
             lb = fa.lse_tile(d, keep is not None)
-            lse_here = [(f"built L {lb[0]}/{lb[2]}h/{lb[3]}s",
+            lse_here = [(f"built {label(lb)}",
                          lambda: fa.flash_lse(q, k, HEADS, sm, keep), True)]
             lse_here += [
                 (label(c[1:]),
@@ -210,7 +195,7 @@ def main(device=None, shapes=tuple(SHAPES), iters: int = 10,
                 for c in lse_cands if c[0] == padded(d) and c in lse_libs]
             common.run_candidates(label_, lse_here, lse_ref,
                                   2.0 * HEADS * sq * kept * d, dev, card,
-                                  iters)
+                                  iters, graph=True)
             del lse_ref
         del q, k, v
 

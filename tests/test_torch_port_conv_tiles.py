@@ -4,12 +4,15 @@ sources' SG_BUILT lines, the shared memory and warp layout of every built
 and candidate tile (for the wgmma lines also TMA's box rules and wgmma's
 N), the wrappers' choice and split plan at the UNet's and the VAE's conv
 sites (no batch in either), a ValueError for a key that is not built, the
-tile study's rewrite of a source, and the study's CPU path at a tiny
-shape. The kernels themselves run only on the card (chip_smoke.py)."""
+tile study's rewrite of a source, the study's CPU path at a tiny shape,
+and D's stride-2 slab: where its two planes put each tap. The kernels
+themselves run only on the card (chip_smoke.py)."""
 import math
 import re
 
+import numpy as np
 import pytest
+import torch
 
 from storygen_tpu_torch.ops import _build, conv, downconv
 from storygen_tpu_torch.studies import conv_tiles
@@ -46,20 +49,19 @@ def test_down_built_matches_the_cuda_source():
 
 def _check_tile(stride, tile):
     """The static_asserts of conv_mma.cuh's ConvCfg and conv_launch (a
-    mma.sync tile), or of conv_wgmma.cuh's WgCfg (a stride-1 line of
-    family WGMMA)."""
-    if stride == 1:
-        fam, tile = tile[0], tile[1:]
-        if fam == conv.WGMMA:
-            _check_wgmma_tile(tile)
-            return
-        assert fam == conv.MMA
+    stride-1 line of family MMA), or of conv_wgmma.cuh's WgCfg (a line of
+    family WGMMA, at stride 1 or 2)."""
+    fam, tile = tile[0], tile[1:]
+    if fam == conv.WGMMA:
+        _check_wgmma_tile(stride, tile)
+        return
+    assert fam == conv.MMA and stride == 1
     th, tw, bn, wm, wn, ck, stages, minb = tile
     nt = 32 * wm * wn
     assert tw % 8 == 0 and (th * tw) % (16 * wm) == 0
     assert bn % (16 * wn) == 0 and ck % 16 == 0 and stages >= 2
     assert nt % (ck // 8) == 0 and nt <= 1024
-    nbytes = conv_tiles.shared_bytes(stride, tile)
+    nbytes = conv_tiles.shared_bytes(tile)
     assert nbytes <= BLOCK_SMEM and minb * (nbytes + 1024) <= SM_SMEM
 
 
@@ -69,7 +71,7 @@ WGMMA_N = {int(n) for n in re.findall(
     r"struct WgMma<(\d+)>", (_build.CSRC / "hopper.cuh").read_text())}
 
 
-def _check_wgmma_tile(tile):
+def _check_wgmma_tile(stride, tile):
     th, tw, ib, wgm, mt, bn, ck, stages = tile
     # the block's pixels fill its 64-row tiles; 8-pixel ldmatrix rows
     assert 64 * wgm * mt == ib * th * tw and tw % 8 == 0
@@ -85,20 +87,23 @@ def _check_wgmma_tile(tile):
     # wgmma's N: a multiple of 8 up to 256, spelled out in the header; the
     # weights come in whole 32-column panels
     assert bn % 8 == 0 and bn <= 256 and bn % 32 == 0 and bn in WGMMA_N
-    # TMA's boxes, (CK, TW+2, TH+2, IB) of x and (32, CK, 9) of w9: every
-    # dimension <= 256; the inner one a multiple of 16 bytes and within
-    # its swizzle span (the slab's 2 CK bytes, one of 32 / 64 / 128; the
-    # weights' 64)
-    for box in ((ck, tw + 2, th + 2, ib), (32, ck, 9)):
+    # TMA's boxes, (CK, TW+2, TH+2, IB) of x (stride 2: (CK, TW+1, 2 TH
+    # + 1, IB) of each plane) and (32, CK, 9) of w9: every dimension <=
+    # 256; the inner one a multiple of 16 bytes and within its swizzle
+    # span (the slab's 2 CK bytes, one of 32 / 64 / 128; the weights' 64)
+    xbox = ((ck, tw + 2, th + 2, ib) if stride == 1
+            else (ck, tw + 1, 2 * th + 1, ib))
+    assert conv_tiles.slab_box(stride, tile) == xbox
+    for box in (xbox, (32, ck, 9)):
         assert all(1 <= d <= 256 for d in box)
     assert 2 * ck in (32, 64, 128)
     # a k step is 16 weight rows of 64 bytes: 1024 bytes, so every
-    # descriptor start keeps the swizzle's phase; panels and stages are
-    # whole 1024-byte periods
-    slab, panels, stage = conv_tiles.wg_stage_bytes(tile)
+    # descriptor start keeps the swizzle's phase; panels, planes and
+    # stages are whole 1024-byte periods
+    slab, panels, stage = conv_tiles.wg_stage_bytes(tile, stride)
     assert panels % 1024 == 0 and stage % 1024 == 0
-    assert slab == ib * (th + 2) * (tw + 2) * 2 * ck
-    assert conv_tiles.wg_shared_bytes(tile) <= BLOCK_SMEM
+    assert slab == stride * math.prod(xbox) * 2
+    assert conv_tiles.wg_shared_bytes(tile, stride) <= BLOCK_SMEM
 
 
 @pytest.mark.parametrize("key", sorted(conv.CONV_BUILT)
@@ -278,3 +283,61 @@ def test_tile_and_split_ignore_the_batch(pro, b, h, w, cin, cout):
         assert (1 if shape is None else shape[0]) == splits
         assert shape is None or shape[1] == bb * h * w
     assert conv.conv_tile(pro, cin, cout, w) == line
+
+
+@pytest.mark.parametrize("h, w, cin, cout, pad", DOWN_SITES)
+def test_down_split_plan_ignores_the_batch(h, w, cin, cout, pad):
+    """D's line and split plan depend on the output's shape, Cin and Cout
+    alone (C's split_count on D's line): the few-pixel UNet sites split
+    their reduction, the wide sites do not, and every batch takes the
+    same plan, so each output sums in one order (the smoke's batch
+    checks)."""
+    ho, wo = downconv.out_size(h, w, pad)
+    line = downconv.down_tile(cin, cout, wo)
+    splits = downconv.down_splits(cin, cout, ho, wo)
+    assert splits == conv.split_count(line, cin, cout, ho, wo)
+    assert (splits > 1) == (wo <= 16 or (wo == 32 and cout == 320))
+    for bb in (1, 3, 4, 16):
+        shape = conv.workspace_shape(False, bb, ho, wo, cin, cout, line)
+        assert (1 if shape is None else shape[0]) == splits
+        assert shape is None or shape == (splits, bb * ho * wo, cout)
+    assert downconv.down_tile(cin, cout, wo) == line
+
+
+# (H, W, pad) of D's slab check: the two paddings, an odd and a one-column
+# width, an odd height, and a left pad of 2
+SLAB_CASES = [(8, 8, (1, 1, 1, 1)), (8, 8, (0, 1, 0, 1)),
+              (7, 9, (1, 1, 1, 1)), (9, 7, (0, 1, 0, 1)),
+              (5, 1, (1, 1, 1, 1)), (6, 10, (2, 0, 2, 1))]
+
+
+@pytest.mark.parametrize("h, w, pad", SLAB_CASES)
+def test_stride2_planes_give_the_plain_taps(h, w, pad):
+    """D's slab arithmetic (`plane_taps`: tap dx of output column ox in
+    plane (dx + pl % 2) % 2 at half-column ox + (dx + pl % 2) // 2 -
+    ceil(pl / 2)) gathers each tap from x's even and odd column planes,
+    with a coordinate outside a plane or the image reading 0 as TMA's
+    fill does; the sum over taps equals downconv3x3_plain."""
+    rs = np.random.RandomState(h * 100 + w)
+    b, cin, cout = 2, 8, 16
+    x = torch.tensor(rs.randn(b, h, w, cin), dtype=torch.float32)
+    w9 = torch.tensor(rs.randn(9, cin, cout), dtype=torch.float32)
+    bias = torch.tensor(rs.randn(cout), dtype=torch.float32)
+    ho, wo = downconv.out_size(h, w, pad)
+    pt, pl = pad[0], pad[2]
+    planes = (x[:, :, 0::2], x[:, :, 1::2])
+    taps = downconv.plane_taps(wo, pl)
+    out = torch.zeros(b, ho, wo, cout) + bias
+    for oy in range(ho):
+        for ox in range(wo):
+            for dy in range(3):
+                row = 2 * oy + dy - pt
+                for dx in range(3):
+                    plane, hc = taps[ox, dx]
+                    # the plane holds input column 2 hc + plane
+                    assert 2 * hc + plane == 2 * ox + dx - pl
+                    p = planes[plane]
+                    if 0 <= row < h and 0 <= hc < p.shape[2]:
+                        out[:, oy, ox] += p[:, row, hc] @ w9[3 * dy + dx]
+    ref = downconv.downconv3x3_plain(x, w9, bias, pad)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-5)

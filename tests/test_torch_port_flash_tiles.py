@@ -1,9 +1,9 @@
-"""The tiles of kernels F, M and L (csrc/flash_fwd.cu, F and M on
+"""The tiles of kernels F, M and L (csrc/flash_fwd.cu on
 csrc/flash_wgmma.cuh), without a card: the Python tables of built
 instantiations against the source's SG_BUILT lines, each line's shared
 memory, TMA boxes and wgmma widths, the wrapper's choice at every UNet
 attention shape, the host plan (the tensor maps of every operand the smoke
-gives F and M, and M's walk over the kept tiles), and the tile study's
+gives F, M and L, and the walk over the kept tiles), and the tile study's
 rewrite of the source. The kernels themselves run only on the card
 (chip_smoke.py)."""
 import re
@@ -22,8 +22,8 @@ KINDS = {"kFwd": "fwd", "kLse": "lse"}
 def _built_lines(src: str, kind: str = "fwd"):
     """The integer arguments of every SG_BUILT invocation of kernel `kind`
     (not the macros' own definitions): "fwd" for F and M, (dp, masked,
-    family, bq, bk, stages, a, b); "lse" for L, (dp, masked, bq, bk,
-    halves, stages)."""
+    bq, bk, stages, panel columns, ping-pong); "lse" for L, (dp, masked,
+    bq, bk, stages, panel columns)."""
     out = []
     for k, args in re.findall(r"^\s*SG_BUILT\((k\w+),([^)]*)\)\s*$", src,
                               re.M):
@@ -44,17 +44,13 @@ def test_fwd_built_matches_the_cuda_source():
 
 @pytest.mark.parametrize("key", sorted(fa.FWD_BUILT))
 def test_every_instantiation_tiles_kv_by_bk(key):
-    """A wgmma line tiles kv by one of its BKs with 2 or 3 consumer
-    warpgroups (ping-pong between exactly two); an mma.sync line by L's
-    64-row tile with whole 16-row slices per warp."""
-    fam, bq, bk, stages, a, b = fa.FWD_BUILT[key]
+    """Every line tiles kv by one of the wgmma template's BKs with 2 or 3
+    consumer warpgroups (ping-pong between exactly two), Q and K in
+    panels of 16, 32 or 64 columns; the forward has no other template."""
+    bq, bk, stages, a, b = fa.FWD_BUILT[key]
     assert stages >= 2
-    if fam == fa.WGMMA:
-        assert bk in fa.WG_BK and bq in (128, 192)
-        assert a in (16, 32, 64) and b in (0, 1) and (not b or bq == 128)
-    else:
-        assert fam == fa.MMA and b == 0
-        assert bk == fa._BK and bq % (16 * a) == 0
+    assert bk in fa.WG_BK and bq in (128, 192)
+    assert a in (16, 32, 64) and b in (0, 1) and (not b or bq == 128)
 
 
 # the UNet's head dims, unpadded
@@ -72,10 +68,8 @@ def test_every_fwd_line_fits_a_block_and_tma(key):
     V's panels divide."""
     dp, _ = key
     line = fa.FWD_BUILT[key]
-    fam, bq, bk, stages, kpw, _ = line
+    bq, bk, stages, kpw, _ = line
     assert fa.fwd_smem_bytes(dp, line) <= 232448
-    if fam != fa.WGMMA:
-        return
     vpw = fa.v_panel(dp)
     for n in (bk, dp):
         assert n % 8 == 0 and n <= 256
@@ -99,7 +93,7 @@ def test_tile_choice_at_the_unet_shapes_is_built(d, masked, sq):
     tile = fa.fwd_tile(d, masked)
     assert tile in fa.FWD_BUILT.values()
     assert tile == fa.FWD_BUILT[(d + 15) // 16 * 16, masked]
-    bq = tile[1]
+    bq = tile[0]
     assert -(-sq // bq) * bq >= sq > (-(-sq // bq) - 1) * bq  # the grid rows
 
 
@@ -111,12 +105,12 @@ def test_fwd_tile_rejects_what_is_not_built(d):
 
 def test_tile_study_rewrites_only_the_built_lines():
     src = (_build.CSRC / "flash_fwd.cu").read_text()
-    new = flash_fwd_tiles.candidate_source(48, fa.WGMMA, 128, 64, 3, 16, 0)
-    assert _built_lines(new) == [(48, 0, fa.WGMMA, 128, 64, 3, 16, 0),
-                                 (48, 1, fa.WGMMA, 128, 64, 3, 16, 0)]
-    old = flash_fwd_tiles.candidate_source(48, fa.MMA, 64, fa._BK, 3, 2, 0)
-    assert _built_lines(old) == [(48, 0, fa.MMA, 64, fa._BK, 3, 2, 0),
-                                 (48, 1, fa.MMA, 64, fa._BK, 3, 2, 0)]
+    new = flash_fwd_tiles.candidate_source(48, 128, 64, 3, 16, 0)
+    assert _built_lines(new) == [(48, 0, 128, 64, 3, 16, 0),
+                                 (48, 1, 128, 64, 3, 16, 0)]
+    pp = flash_fwd_tiles.candidate_source(160, 128, 128, 2, 32, 1)
+    assert _built_lines(pp) == [(160, 0, 128, 128, 2, 32, 1),
+                                (160, 1, 128, 128, 2, 32, 1)]
     assert _built_lines(new, "lse") == []
     strip = re.compile(r"^\s*SG_BUILT\(k\w+,[^)]*\)\s*\n", re.M)
     assert strip.sub("", new) == strip.sub("", src)
@@ -124,23 +118,19 @@ def test_tile_study_rewrites_only_the_built_lines():
 
 @pytest.mark.parametrize("dp", sorted(flash_fwd_tiles.CANDIDATES))
 def test_tile_study_candidates_tile_kv_by_bk(dp):
-    """Every candidate has a ring of two stages or more and fits a block's
-    shared memory; an mma.sync one splits BQ into whole 16-row slices per
-    warp at BK 64, a wgmma one takes 2-3 consumer warpgroups and a legal
-    BK; the built line of each key is among them, and so is each key's
-    former mma.sync line (family 0 of every key's study)."""
+    """Every candidate has a ring of two stages or more, fits a block's
+    shared memory, takes 2-3 consumer warpgroups (ping-pong only with
+    two) and a legal BK and panel width; the built line of each key is
+    among them, and so is a line of each BK."""
     cands = flash_fwd_tiles.CANDIDATES[dp]
-    for fam, bq, bk, stages, a, b in cands:
+    for bq, bk, stages, a, b in cands:
         assert stages >= 2
-        assert fa.fwd_smem_bytes(dp, (fam, bq, bk, stages, a, b)) <= 232448
-        if fam == fa.MMA:
-            assert bk == fa._BK and bq % (16 * a) == 0 and b == 0
-        else:
-            assert bk in fa.WG_BK and bq in (128, 192) and a in (16, 32, 64)
-            assert not b or bq == 128
+        assert fa.fwd_smem_bytes(dp, (bq, bk, stages, a, b)) <= 232448
+        assert bk in fa.WG_BK and bq in (128, 192) and a in (16, 32, 64)
+        assert not b or bq == 128
     for masked in (False, True):
         assert fa.FWD_BUILT[(dp, masked)] in cands
-        assert any(c[0] == fa.MMA for c in cands)
+    assert {c[1] for c in cands} == set(fa.WG_BK)
 
 
 def test_tile_study_needs_the_card(monkeypatch):
@@ -153,25 +143,35 @@ def test_tile_study_needs_the_card(monkeypatch):
 
 def test_lse_built_matches_the_cuda_source():
     lines = _built_lines((_build.CSRC / "flash_fwd.cu").read_text(), "lse")
-    table = {(dp, bool(m)): (bq, bk, halves, stages)
-             for dp, m, bq, bk, halves, stages in lines}
+    table = {(dp, bool(m)): tuple(rest) for dp, m, *rest in lines}
     assert len(table) == len(lines)  # one line per (dp, masked)
     assert table == fa.LSE_BUILT
     assert set(fa.LSE_BUILT) == set(fa.FWD_BUILT)
 
 
-def _lse_bytes(dp, bq, stages):
-    """Kernel L's shared memory: the Q tile and a ring of K tiles only."""
-    row = dp * 2 if (dp * 2 // 16) % 2 else dp * 2 + 16
-    return bq * row + stages * fa._BK * row
+def _check_lse_line(dp, line):
+    """Kernel L's line at padded head dim dp: the Q panels and a ring of K
+    stages only (FwCfg<..., false>::BYTES) within a block's shared memory;
+    2-3 consumer warpgroups, whose two accumulator sets of BK / 2
+    registers each fit the registers setmaxnreg gives them; panels on the
+    swizzles' 1024-byte period, TMA boxes within TMA's rules and Q K^T's
+    N a wgmma width of WgMmaSS."""
+    bq, bk, stages, kpw = line
+    assert stages >= 2 and bk in fa.WG_BK and bq in (128, 192)
+    assert fa.fwd_smem_bytes(dp, line, v=False) <= 232448
+    wgm = bq // 64
+    regs = 512 // (wgm + 1) // 8 * 8
+    consumer = min(240, (regs + (regs - 40) // wgm) // 8 * 8)
+    assert consumer >= bk + 24  # s0 and s1, and some room
+    assert kpw in (16, 32, 64)
+    for rows in (bq, bk):
+        assert rows * 2 * kpw % 1024 == 0 and 0 < rows <= 256
+    assert f"struct WgMmaSS<{bk}>" in (_build.CSRC / "hopper.cuh").read_text()
 
 
 @pytest.mark.parametrize("key", sorted(fa.LSE_BUILT))
 def test_every_lse_instantiation_fits_a_block(key):
-    bq, bk, halves, stages = fa.LSE_BUILT[key]
-    assert bk == fa._BK
-    assert bq % (16 * halves) == 0 and stages >= 2
-    assert _lse_bytes(key[0], bq, stages) <= 232448
+    _check_lse_line(key[0], fa.LSE_BUILT[key])
 
 
 # (B, Sq, Skv, head dim, masked) of every attention site of the 512 px
@@ -191,11 +191,12 @@ BWD_SITES = [(4, 4096, 4096, 40, False), (4, 4096, 77, 40, False),
 def test_lse_tile_choice_at_the_unet_backward_sites(b, sq, skv, d, masked):
     tile = fa.lse_tile(d, masked)
     assert tile == fa.LSE_BUILT[(d + 15) // 16 * 16, masked]
-    bq = tile[0]
+    bq, bk = tile[:2]
     assert -(-sq // bq) * bq >= sq > (-(-sq // bq) - 1) * bq  # the grid rows
-    if masked:  # the 512 px spans take the aligned instantiation
+    if masked:  # the STRADDLE kernel where BK does not divide the span
         span = fa.ref_span(skv, 3)
-        assert (span % tile[1] == 0) == (sq not in (16, 144))
+        assert (span % bk != 0) == (span in (16, 144)
+                                    or (span, bk) == (64, 128))
 
 
 @pytest.mark.parametrize("b, sq, skv, d",
@@ -205,7 +206,7 @@ def test_fwd_masked_sites_straddle_where_bk_does_not_divide_the_span(
     """M's instantiation at each UNet attn3 site: the STRADDLE kernel
     exactly where the line's BK does not divide the span (16 and 144
     tokens, and the 512 px mid block's 64 under a 128-row tile)."""
-    bk = fa.fwd_tile(d, True)[2]
+    bk = fa.fwd_tile(d, True)[1]
     span = fa.ref_span(skv, 3)
     assert (span % bk != 0) == (span in (16, 144) or (span, bk) == (64, 128))
 
@@ -218,9 +219,9 @@ def test_lse_tile_rejects_what_is_not_built(d):
 
 def test_tile_study_rewrites_only_the_lse_lines():
     src = (_build.CSRC / "flash_fwd.cu").read_text()
-    new = flash_fwd_tiles.candidate_source(80, 128, 2, 3, kind="lse")
-    assert _built_lines(new, "lse") == [(80, 0, 128, fa._BK, 2, 3),
-                                        (80, 1, 128, fa._BK, 2, 3)]
+    new = flash_fwd_tiles.candidate_source(80, 128, 64, 4, 64, kind="lse")
+    assert _built_lines(new, "lse") == [(80, 0, 128, 64, 4, 64),
+                                        (80, 1, 128, 64, 4, 64)]
     assert _built_lines(new) == []
     strip = re.compile(r"^\s*SG_BUILT\(k\w+,[^)]*\)\s*\n", re.M)
     assert strip.sub("", new) == strip.sub("", src)
@@ -229,13 +230,11 @@ def test_tile_study_rewrites_only_the_lse_lines():
 @pytest.mark.parametrize("dp", sorted(flash_fwd_tiles.LSE_CANDIDATES))
 def test_tile_study_lse_candidates_fit_a_block(dp):
     cands = flash_fwd_tiles.LSE_CANDIDATES[dp]
-    for bq, halves, stages in cands:
-        assert bq % (16 * halves) == 0 and stages >= 2
-        assert _lse_bytes(dp, bq, stages) <= 232448
+    for line in cands:
+        _check_lse_line(dp, line)
     # the built tile is among the candidates it was chosen from
     for masked in (False, True):
-        bq, _, halves, stages = fa.LSE_BUILT[(dp, masked)]
-        assert (bq, halves, stages) in cands
+        assert fa.LSE_BUILT[(dp, masked)] in cands
 
 
 # every F / M operand of chip_smoke.py's kernels phase: (B, Sq, Skv, head
@@ -274,15 +273,11 @@ def test_fwd_tensor_maps_at_the_smoke_shapes(b, sq, skv, d, heads, split,
     q = View((b, sq, hd))
     kv = (View((b, skv, hd), (skv * 2 * hd, 2 * hd, 1)) if split
           else View((b, skv, hd)))
-    if line[0] != fa.WGMMA:  # a key kept on its mma.sync line: no map
-        with pytest.raises(ValueError, match="no tensor map"):
-            fa.fwd_maps(q, kv, kv, heads, line)
-        return
     maps = fa.fwd_maps(q, kv, kv, heads, line)
     dp = (d + 15) // 16 * 16
-    for name, t, rows, width in (("q", q, line[1], line[4]),
-                                 ("k", kv, line[2], line[4]),
-                                 ("v", kv, line[2], fa.v_panel(dp))):
+    for name, t, rows, width in (("q", q, line[0], line[3]),
+                                 ("k", kv, line[1], line[3]),
+                                 ("v", kv, line[1], fa.v_panel(dp))):
         m = maps[name]
         s = t.shape[1]
         assert m["dims"] == (d, heads, s, b)
@@ -314,9 +309,10 @@ SPANS = [(4096, 3), (1024, 3), (256, 3), (64, 3), (16, 3), (144, 3)]
 
 
 @pytest.mark.parametrize("span, nref", SPANS)
-@pytest.mark.parametrize("bk", sorted(set(fa.WG_BK) | {fa._BK}))
+@pytest.mark.parametrize("bk", sorted(fa.WG_BK))
 def test_kept_tile_walk_covers_the_kept_rows(span, nref, bk):
-    """M's walk over the kept tiles, for every keep row the smoke and
+    """M's (and masked L's) walk over the kept tiles, for every keep row
+    the smoke and
     training draw (and one that keeps nothing): its tiles cover every kept
     kv row of keep_to_mask, and none lies wholly in dropped spans."""
     skv = span * nref
@@ -335,3 +331,40 @@ def test_kept_tile_walk_covers_the_kept_rows(span, nref, bk):
         assert bool((covered | ~mask[i]).all())  # every kept row is walked
         if not any(row):
             assert tiles == []
+
+
+# every L operand of chip_smoke.py's kernels phase: (B, Sq, Skv, head dim,
+# heads, k|v split view), its backward cases
+SMOKE_LSE = [(4, 4096, 4096, 40, 8, False), (4, 4096, 12288, 40, 8, False),
+             (4, 4096, 77, 40, 8, False), (4, 1024, 1024, 80, 8, False),
+             (4, 1024, 3072, 80, 8, False), (4, 256, 768, 160, 8, False),
+             (4, 64, 64, 160, 8, False), (4, 16, 48, 160, 8, False),
+             (4, 144, 432, 160, 8, False), (2, 256, 768, 80, 8, False),
+             (2, 1000, 333, 40, 8, False), (2, 1000, 333, 160, 8, False),
+             (2, 999, 333, 40, 8, False), (4, 1024, 3072, 80, 8, True),
+             (4, 4096, 4096, 40, 4, False), (4, 4096, 12288, 40, 4, False)]
+
+
+@pytest.mark.parametrize("b, sq, skv, d, heads, split", SMOKE_LSE)
+@pytest.mark.parametrize("masked", [False, True])
+def test_lse_tensor_maps_at_the_smoke_shapes(b, sq, skv, d, heads, split,
+                                             masked):
+    """Kernel L's two tensor maps (lse_wg_launch: Q in boxes of BQ rows, K
+    of BK, both in the line's panels) at the smoke's shapes: (D, H, S, B)
+    with the operand's own strides, every element at the byte offset the
+    tensor gives it, and no V map."""
+    line = fa.lse_tile(d, masked)
+    hd = heads * d
+    q = View((b, sq, hd))
+    k = (View((b, skv, hd), (skv * 2 * hd, 2 * hd, 1)) if split
+         else View((b, skv, hd)))
+    maps = fa.fwd_maps(q, k, None, heads, line)
+    assert set(maps) == {"q", "k"}
+    for name, t, rows in (("q", q, line[0]), ("k", k, line[1])):
+        m = maps[name]
+        assert m["dims"] == (d, heads, t.shape[1], b)
+        assert m["box"] == (line[3], 1, rows, 1)
+        for coord in [(0, 0, 0, 0), (d - 1, heads - 1, t.shape[1] - 1, b - 1)]:
+            dd, hh, ss, bb = coord
+            want = 2 * (bb * t.stride(0) + ss * t.stride(1) + hh * d + dd)
+            assert _element_offset(m, coord) == want

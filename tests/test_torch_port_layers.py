@@ -3,6 +3,7 @@ storygen_tpu_torch in fp32 on the same seeded inputs and carried-over
 weights (atol/rtol 1e-4)."""
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -38,6 +39,37 @@ def test_group_norm(act):
     p = jm.init(RNG, jnp.asarray(x))
     tm = load(TL.GroupNorm(4, 16, 1e-5, act=act), p)
     assert_close(jm.apply(p, jnp.asarray(x)), tm(t(x)))
+
+
+# GroupNorm at a mean far above its std: the port keeps the reference's
+# (diffusers') two-pass moments, which the JAX package computes with
+# two_pass=True (its default one-pass E[x^2] - mean^2 cancels: 5e-4 off at
+# mean 30, 4e-2 at mean 300). Tolerance: the parity standard, atol and rtol
+# 1e-4. The JAX side applies x * a + s with |s| near |mean|, rounding twice
+# at that magnitude (ulp(300) = 3.05e-5): 6.2e-5 at mean 300, 6e-6 at 30.
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("mean", [30.0, 300.0])
+def test_group_norm_two_pass_at_a_large_mean(mean, act):
+    x = rand(12, (2, 16, 16, 32), 1.0) + mean
+    jm = JL.GroupNorm(4, 1e-5, act=act, two_pass=True)
+    p = jm.init(RNG, jnp.asarray(x))
+    tm = load(TL.GroupNorm(4, 32, 1e-5, act=act), p)
+    assert_close(jm.apply(p, jnp.asarray(x)), tm(t(x)))
+
+
+@pytest.mark.parametrize("mean", [30.0, 300.0])
+def test_group_norm_fold_two_pass_at_a_large_mean(mean):
+    """fold() (kernel P's prologue) against fold_affine=True: the scale a,
+    and the affine x * a + s that the prologue applies."""
+    x = rand(13, (2, 16, 16, 32), 1.0) + mean
+    jm = JL.GroupNorm(4, 1e-5, two_pass=True, fold_affine=True)
+    p = jm.init(RNG, jnp.asarray(x))
+    tm = load(TL.GroupNorm(4, 32, 1e-5), p)
+    ja, js = (np.asarray(v) for v in jm.apply(p, jnp.asarray(x)))
+    ta, ts = (v.detach().numpy() for v in tm.fold(t(x)))
+    assert_close(ja, ta)
+    xs = x.reshape(2, -1, 32)
+    assert_close(xs * ja[:, None] + js[:, None], xs * ta[:, None] + ts[:, None])
 
 
 @pytest.mark.parametrize("cin,cout,temb", [(16, 16, True), (16, 32, True),
