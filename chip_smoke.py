@@ -182,6 +182,29 @@ stride-2 conv on kernel D):
                generated PNGs (SCORER_IMAGE_REL_L2 with cuDNN's TF32
                default, SCORER_TEXT_REL_L2), its ms per image at batch 1
                and 8; each step's wall time, launches and the JSONs' keys;
+  studies      the attention studies' kernels (S1-S4, csrc/study_*.cu; S1
+               and S2 on kernel F's wgmma + TMA template, S3 and S4
+               mma.sync): drives every ported study entry point
+               (storygen_tpu_torch/studies/) at one of its own UNet shapes,
+               checking that it launched each of the eleven study wrappers
+               and kernel F (its baseline) and nothing else; prints the
+               registers and spill bytes ptxas gave every S1-S4
+               instantiation of this run's build (any spill fails the
+               phase, and so does a wgmma that ptxas serialises in an S1
+               or S2 line) and kernel F's time at each study shape, its
+               mean and its device time alone; then holds each wrapper's
+               instantiations against its plain version on the same
+               inputs at the studies' full-width shapes (attn3 L1, attn1
+               L1, attn3 L2, attn3 L3), with kernel, plain, library (SDPA,
+               for the functions that compute attention), bound (with the
+               exps where the kind computes them) and F times, the
+               kernel's own device time without its wrapper's host
+               preparation (torch.profiler) and its factor over F's,
+               beside S3 the bf16 q k^T product alone (torch.bmm, a
+               yardstick); and at attn3 L1 and attn1 L1 one line of the
+               ablation split (QK, QK_EXP, QK_PV and TB at 128 / 128, each
+               alone as a share of F alone). The earlier paths launch no
+               study kernel.
   parallel     storygen_tpu_torch/parallel/ on the one card: (a)
                scripts.train.main on stage 2 from the checkpoint folder
                and the cli tree, 2 micro-steps, with --coordinator
@@ -198,22 +221,6 @@ stride-2 conv on kernel D):
                batch 2 each against one process at batch 4 (losses, grad
                norms and attn3 updates within GRAD_REL_L2). The ranks'
                times are of two processes time-sliced on one card;
-  studies      the attention studies' kernels (S1-S4, csrc/study_*.cu):
-               drives every ported study entry point
-               (storygen_tpu_torch/studies/) at one of its own UNet shapes,
-               checking that it launched each of the eleven study wrappers
-               and kernel F (its baseline) and nothing else; prints the
-               registers and spill bytes ptxas gave every S1-S4
-               instantiation of this run's build (any spill fails the
-               phase) and kernel F's time at each study shape; then holds
-               each wrapper's instantiations against its plain version on
-               the same inputs at the studies' full-width shapes (attn3 L1,
-               attn1 L1, attn3 L2, attn3 L3), with kernel, plain, library
-               (SDPA, for the functions that compute attention), bound and
-               F times, the kernel's own device time without its
-               wrapper's host preparation (torch.profiler) and, beside S3,
-               the bf16 q k^T product alone (torch.bmm, a yardstick). The
-               earlier paths launch no study kernel.
 
 There is no CPU branch: without a CUDA device the script exits non-zero
 before printing any result. The last line is the JSON status object.
@@ -316,6 +323,7 @@ RATED = {"flash_fwd": "SDPA", "flash_fwd_masked": "SDPA",
          "conv3x3": "cuDNN", "gnconv3x3": "cuDNN", "downconv3x3": "cuDNN"}
 STUDY_SOURCES = {"online": "storygen_tpu_torch/csrc/study_online.cu",
                  "bounded": "storygen_tpu_torch/csrc/study_bounded.cu",
+                 "bnd2": "storygen_tpu_torch/csrc/study_bnd2.cu",
                  "qk": "storygen_tpu_torch/csrc/study_qk.cu",
                  "int8": "storygen_tpu_torch/csrc/study_int8.cu"}
 # each study wrapper: its kernel's source and the Pallas kernel it replaces
@@ -326,8 +334,8 @@ for _name, _src, _line in (
         ("bounded_attention", "bounded", "bench_attn_scan.py:110"),
         ("bounded_multi_attention", "bounded", "bench_attn_scan.py:204"),
         ("ablate_attention", "bounded", "bench_attn_ablate.py:37"),
-        ("bnd2_attention", "bounded", "bench_attn_bnd2.py:31"),
-        ("mh_attention", "bounded", "bench_attn_multihead.py:30"),
+        ("bnd2_attention", "bnd2", "bench_attn_bnd2.py:31"),
+        ("mh_attention", "bnd2", "bench_attn_multihead.py:30"),
         ("qk_only", "qk", "bench_attn_int8.py:48"),
         ("full_int8", "int8", "bench_attn_int8.py:90"),
         # the same _full_int8_kernel, its pallas_call in the epilogue study
@@ -336,8 +344,9 @@ for _name, _src, _line in (
                           "replaces": f"scripts/studies/{_line}"}
 STUDY_KERNELS = tuple(k for k in KERNEL_META if k not in PORT_KERNELS)
 # the CUDA kernel that each study source launches (its name in a trace)
-STUDY_ENTRIES = {STUDY_SOURCES["online"]: "online_kernel",
-                 STUDY_SOURCES["bounded"]: "bounded_kernel",
+STUDY_ENTRIES = {STUDY_SOURCES["online"]: "online_wg_kernel",
+                 STUDY_SOURCES["bounded"]: "bounded_wg_kernel",
+                 STUDY_SOURCES["bnd2"]: "bounded_wg_kernel",
                  STUDY_SOURCES["qk"]: "qk_kernel",
                  STUDY_SOURCES["int8"]: "int8_attn_kernel"}
 SERVING_KERNELS = ("flash_fwd", "geglu_matmul", "conv3x3")
@@ -439,21 +448,27 @@ def cuda_ms(fn, iters: int) -> float:
 def device_ms(fn, kernel: str, iters: int = 5):
     """Device time per call of the CUDA kernels whose name holds `kernel`,
     from a torch.profiler trace of `iters` calls after one warm-up: a
-    kernel's own time, without its wrapper's host preparation. None if
-    two traces in turn hold no such kernel."""
+    kernel's own time, without its wrapper's host preparation. Each kernel
+    name counts its mean per launch that the trace kept, times its
+    launches a call (a trace late in a long process has lost some of a
+    kernel's launches, which a sum over `iters` calls read as a shorter
+    kernel); None if three traces in turn hold no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):  # a trace that lost its kernels is taken again
+    for _ in range(3):  # a trace that lost its kernels is taken again
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(getattr(e, "device_time_total", 0.0)
-                    for e in prof.key_averages() if kernel in e.key)
-        if total:
-            return total / 1e3 / iters
+        per_call = sum(
+            e.device_time_total / e.count * max(1, round(e.count / iters))
+            for e in prof.key_averages()
+            if kernel in e.key and e.count
+            and getattr(e, "device_time_total", 0.0))
+        if per_call:
+            return per_call / 1e3
     return None
 
 
@@ -4200,13 +4215,22 @@ def study_cases(dev):
             (sa.mh_attention, "attn3 L3", dict(g=2)),
             (sa.mh_attention, "attn3 L2", dict(g=4)),
             (sa.mh_attention, "attn1 L1", dict(g=8)),
-            (sa.mh_attention, "attn3 L3", dict(g=8))):
+            (sa.mh_attention, "attn3 L3", dict(g=8)),
+            # the ablation split beside F (ABLATION_SPLIT): QK, QK_EXP,
+            # QK_PV and TB at F's BK at d 40
+            *((sa.ablate_attention, shape,
+               dict(bq=128, bk=128, do_exp=e, do_pv=p))
+              for shape in ("attn3 L1", "attn1 L1")
+              for e, p in ((False, False), (True, False), (False, True),
+                           (True, True)))):
         q, k, v = qkv(shape)
         b, h, sq, skv, d = STUDY_SHAPES[shape]
         sm = d ** -0.5
         n = float(b * h * sq * skv * d)
         pv = kw.get("do_pv", True)
         attention = pv and kw.get("do_exp", True)
+        # one exp a logit, but where the ablation edits it out
+        exps = float(b * h * sq * skv) if kw.get("do_exp", True) else 0.0
         cases.append((Case(
             w.__name__, tag(shape, **kw),
             lambda w=w, q=q, k=k, v=v, sm=sm, kw=kw: w(q, k, v, sm_scale=sm,
@@ -4216,7 +4240,8 @@ def study_cases(dev):
             (lambda q=q, k=k, v=v, sm=sm: common.sdpa(q, k, v, sm))
             if attention else None,
             (4.0 if pv else 2.0) * n,
-            2.0 * (2 * b * h * sq * d + 2 * b * h * skv * d)), KERNEL_RTOL))
+            2.0 * (2 * b * h * sq * d + 2 * b * h * skv * d), exps=exps),
+            KERNEL_RTOL))
 
     # int8 work counted at the bf16 rate it is equivalent to
     i8 = PEAK_FLOPS / PEAK_INT8
@@ -4270,17 +4295,23 @@ def study_cases(dev):
 def study_ptxas() -> bool:
     """The registers and spill bytes that ptxas gave every S1-S4
     instantiation in this run's build, one line each; False if any
-    instantiation spills or a built line has no report."""
+    instantiation spills, ptxas serialises a wgmma of S1 or S2 (wg_ptxas)
+    or a built line has no report."""
     import re
     from storygen_tpu_torch.ops import (_build, study_attention as sa,
                                         study_int8 as si)
     from storygen_tpu_torch.studies.common import ptxas_summary
-    ok = True
-    for stem, kernel, built in (("study_online", "online_kernel",
-                                 sa.ONLINE_BUILT),
-                                ("study_bounded", "bounded_kernel",
-                                 sa.BOUNDED_BUILT),
-                                ("study_qk", "qk_kernel", si.QK_BUILT),
+    # S1: online_wg_kernel<DP, WGM, BK, STAGES, KPW, MODE, HALVES>
+    ok = wg_ptxas("study_online", "online_wg_kernel",
+                  {(dp, bq // 64, bk, st, kpw, mode, halves)
+                   for (dp, bq, bk, mode, halves), (st, kpw)
+                   in sa.ONLINE_BUILT.items()})
+    # S2: bounded_wg_kernel<DP, BQ, BK, SUB, HALVES, G, KIND, STAGES, KPW>
+    for stem, bnd2 in (("study_bounded", False), ("study_bnd2", True)):
+        ok &= wg_ptxas(stem, "bounded_wg_kernel",
+                       {key + line for key, line in sa.BOUNDED_BUILT.items()
+                        if (key[6] == sa.BND2) == bnd2})
+    for stem, kernel, built in (("study_qk", "qk_kernel", si.QK_BUILT),
                                 ("study_int8", "int8_attn_kernel",
                                  si.INT8_BUILT)):
         seen = set()
@@ -4310,7 +4341,7 @@ def study_ptxas() -> bool:
 def study_f_baselines(dev, card: str) -> dict:
     """Kernel F's time at each study shape, on the studies' inputs in F's
     (B, S, H*D) layout: the product forward that each study case reads
-    against."""
+    against. {shape: (mean ms, device time alone ms or None)}."""
     import torch
     from storygen_tpu_torch.ops import flash_attention as fa
     from storygen_tpu_torch.studies import common
@@ -4319,12 +4350,41 @@ def study_f_baselines(dev, card: str) -> dict:
         q, k, v = (fa.merge_heads(t) for t in common.qkv(
             dev, b, h, sq, skv, d, seed=4))
         with torch.no_grad():
-            f_ms[shape] = cuda_ms(
-                lambda: fa.flash_fwd(q, k, v, h, d ** -0.5), 10)
+            call = lambda: fa.flash_fwd(q, k, v, h, d ** -0.5)  # noqa: E731
+            f_ms[shape] = (cuda_ms(call, 10),
+                           device_ms(call, "flash_wg_kernel"))
+        alone = f_ms[shape][1]
         print(f"study F baseline {shape} B{b} {sq}x{skv} d{d}: kernel F "
-              f"{f_ms[shape]:.4f} ms  [{card}]", flush=True)
+              f"{f_ms[shape][0]:.4f} ms (device time alone "
+              f"{'not measured' if alone is None else f'{alone:.4f} ms'})"
+              f"  [{card}]", flush=True)
         del q, k, v
     return f_ms
+
+
+# the ablation split: at each shape, the ablate_attention cases (do_exp,
+# do_pv) whose device time alone is printed as a share of F's alone
+ABLATION_SPLIT = {"QK": (False, False), "QK_EXP": (True, False),
+                  "QK_PV": (False, True), "TB": (True, True)}
+
+
+def ablation_split(splits: dict, f_ms: dict, card: str) -> None:
+    """One line a shape: QK (the products), QK_EXP (the products and the
+    exps), QK_PV (both products, no exps) and TB (all of it) alone, each
+    as a share of F alone at the same shape ("not measured" where a
+    trace lost the kernel)."""
+    for shape, alone in splits.items():
+        f_alone = f_ms[shape][1]
+        parts = []
+        for name, key in ABLATION_SPLIT.items():
+            t = alone.get(key)
+            if t is None or f_alone is None:
+                parts.append(f"{name} not measured")
+            else:
+                parts.append(f"{name} {t:.4f} ms ({t / f_alone:.0%} of F)")
+        f_txt = "not measured" if f_alone is None else f"{f_alone:.4f} ms"
+        print(f"study ablation split {shape} bq=128 bk=128, alone: "
+              f"{'  '.join(parts)}  F {f_txt}  [{card}]", flush=True)
 
 
 def phase_studies(dev, card: str, results: dict) -> bool:
@@ -4342,6 +4402,7 @@ def phase_studies(dev, card: str, results: dict) -> bool:
     torch.cuda.empty_cache()
     f_ms = study_f_baselines(dev, card)
     library_ms = {}
+    splits = {}  # shape: {(do_exp, do_pv): device time alone}
     for c, rtol in study_cases(dev):
         with torch.no_grad():
             out = c.kern().float()
@@ -4366,17 +4427,26 @@ def phase_studies(dev, card: str, results: dict) -> bool:
                 lib_ms = library_ms[key]
             yard_ms = (None if c.yardstick is None
                        else cuda_ms(c.yardstick, 5))
-        b_ms, b_by = bound_ms(c.flops, c.nbytes)
+        b_ms, b_term = bound_ms(c.flops, c.nbytes, c.exps)
+        b_by = "bytes" if b_term == "bytes" else "operations"
         lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
         if yard_ms is not None:
             lib += f" (yardstick: bf16 torch.bmm q k^T {yard_ms:.4f} ms)"
-        shape_f = f_ms[" ".join(c.label.split(" ")[:2])]
+        shape = " ".join(c.label.split(" ")[:2])
+        shape_f, f_alone = f_ms[shape]
         own = "not measured" if alone is None else f"{alone:.4f} ms"
+        vs_f = ("" if alone is None or f_alone is None
+                else f", alone {alone / f_alone:.2f}x F alone")
+        if c.name == "ablate_attention" and "bq=128 bk=128" in c.label:
+            key = ("do_exp=True" in c.label, "do_pv=True" in c.label)
+            splits.setdefault(shape, {})[key] = alone
         print(f"study {c.name:23s} {c.label:58s} max_abs_err {err:.3e} "
               f"(bound {bound:.3e}) {'ok' if good else 'FAIL'};  kernel "
               f"{ms:.4f} ms (device time alone {own})  plain "
               f"{plain_ms:.4f} ms  library {lib}  bound {b_ms:.4f} ms "
-              f"({b_by})  F {shape_f:.4f} ms  [{card}]", flush=True)
+              f"({b_term})  F {shape_f:.4f} ms (alone "
+              f"{'not measured' if f_alone is None else f'{f_alone:.4f} ms'}"
+              f"{vs_f})  [{card}]", flush=True)
         r = results.setdefault(c.name, {"name": c.name, **KERNEL_META[c.name]})
         for key, val in (("max_abs_err", 0.0), ("ms", 0.0), ("plain_ms", 0.0),
                          ("bound_ms", 0.0), ("library_ms", None),
@@ -4391,10 +4461,12 @@ def phase_studies(dev, card: str, results: dict) -> bool:
         r["cases"].append({"case": c.label, "max_abs_err": err,
                            "bound": bound, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": b_ms, "bound_by": b_by,
-                           "library_ms": lib_ms, "device_ms": alone,
-                           "f_ms": shape_f, "yardstick_ms": yard_ms})
+                           "bound_term": b_term, "library_ms": lib_ms,
+                           "device_ms": alone, "f_ms": shape_f,
+                           "f_alone_ms": f_alone, "yardstick_ms": yard_ms})
         r["bound_by"] = max(r["cases"], key=lambda x: x["bound_ms"])[
             "bound_by"]
+    ablation_split(splits, f_ms, card)
     # the summed cases have a library time only if each case has one (the
     # ablated modes compute no attention)
     for name in STUDY_KERNELS:
@@ -4440,8 +4512,10 @@ def main() -> int:
             ("cli", lambda: phase_cli(dev, card, results)),
             ("dataset", lambda: phase_dataset(dev, card, results)),
             ("quality", lambda: phase_quality(dev, card, results)),
-            ("parallel", lambda: phase_parallel(dev, card, results)),
-            ("studies", lambda: phase_studies(dev, card, results))):
+            # before `parallel`: after its NCCL group and spawned ranks the
+            # profiler lost most of the studies' kernels
+            ("studies", lambda: phase_studies(dev, card, results)),
+            ("parallel", lambda: phase_parallel(dev, card, results))):
         t0 = time.perf_counter()
         if not phase():
             failed.append(name)

@@ -21,7 +21,7 @@
 // studies/flash_bwd_tiles.py chose and rewrites for its candidates.
 #include "flash_bwd_wgmma.cuh"
 
-using sg_study::bf16;
+using sg_hopper::bf16;
 
 namespace {
 

@@ -41,7 +41,7 @@
 // alpha = 0; a row that kept no span writes zeros (F, M) or -inf (L).
 #include "flash_wgmma.cuh"
 
-using sg_study::bf16;
+using sg_hopper::bf16;
 
 namespace {
 

@@ -1,6 +1,11 @@
 // Kernels F and M (flash_fwd.cu) on Hopper's own instructions (sm_90a):
 // O = softmax(Q K^T * scale) V per head, over every kv row (F) or over the
-// kept reference spans only (M).
+// kept reference spans only (M); kernel L (below); and the template that
+// the attention studies' kernels S1 (study_online.cu) and S2
+// (study_wgmma.cuh) share with F: the ring and its producer (FwRing), the
+// walk (KvWalk, DenseWalk) and the consumers' loop (fw_consume,
+// fw_consume_ahead, fw_block), whose softmax step is a policy (FwSoftmax
+// is F's).
 //
 // Replaces, with flash_fwd.cu's dispatch, the forward variants of
 // storygen_tpu/ops/pallas_attention.py reached through _flash_core:
@@ -47,7 +52,8 @@
 //   d = 40 to 48 in shared memory only, and never reads the next head's
 //   or the next batch row's elements. Q and K land in panels of KPW
 //   columns (rows of 2 KPW bytes, swizzled over their span), V in panels
-//   of 16 (d 48, 80) or 32 (d 160) columns, which divide its N.
+//   of 16 (d 48, 80, 176) or 32 (d 96, 160) columns, which divide its N.
+//   (The studies' (BH, S, W) operands are the same map with H = 1.)
 // - Masking as the mma.sync template does it: the ragged last tile sets
 //   the logits past Skv to -inf in the S registers; M walks only the tiles
 //   that hold a kept row (producer and consumers compute the same walk
@@ -63,32 +69,44 @@
 #include <math.h>
 
 #include "hopper.cuh"
-#include "study_mma.cuh"
 
 namespace sg_flash {
 
 using namespace sg_hopper;
-using namespace sg_study;
 
 struct FwArgs {
-  bf16* out;         // F, M: (B, Sq, H*D)
+  bf16* out;         // F, M, S1, S2: (B, Sq, H*D)
   float* lse;        // L: (B, H, Sq)
   const int* keep;   // M, masked L: (B, nref) int32; else null
   int H, Sq, Skv, D;
   int nref, span;    // M: nref spans of `span` kv rows; F: 1, 1
   float scale_log2;  // scale * log2(e), > 0
+  // the studies' (S1, S2): S2 BND2's row bounds (B, Sq) fp32, S1 MODE 0's
+  // scale, S2's guard on the row sum
+  const float* bound;
+  float scale, guard;
 };
 
-// A block of WGM consumer warpgroups (64 query rows each) and a producer
-// warpgroup; K/V tiles (L: K tiles, V = false) of BK rows in a ring of
-// STAGES stages; Q and K in panels of KPW columns.
-template <int DP, int WGM, int BK, int STAGES, int KPW, bool V = true>
+// A block of WGM consumer warpgroups and a producer warpgroup; K/V tiles
+// (L and the studies' ablations: K tiles, V = false) of BK rows in a ring
+// of STAGES stages; Q and K in panels of KPW columns. Each consumer
+// warpgroup owns 64 query rows of the block's 64 WGM, or, with SPLIT = 2,
+// both warpgroups own the same 64 rows and each takes half of every
+// tile's kv rows (the max-free study's heads walked in turn). QSLOTS Q
+// buffers: a block that walks several heads lands the next head's Q while
+// the current one runs.
+template <int DP_, int WGM, int BK_, int STAGES_, int KPW, bool V_ = true,
+          int SPLIT = 1, int QSLOTS_ = 1>
 struct FwCfg {
-  static constexpr int BQ = 64 * WGM;
+  static constexpr int DP = DP_, BK = BK_, STAGES = STAGES_;
+  static constexpr bool V = V_;
+  static constexpr int QSLOTS = QSLOTS_;
+  static constexpr int BQ = 64 * WGM / SPLIT;
   static constexpr int NTC = 128 * WGM;  // consumer threads
   static constexpr int NT = NTC + 128;   // and the producer warpgroup
   // registers a thread at launch, and after setmaxnreg (conv_wgmma.cuh's
-  // pool: the producer's release is what the consumers' rise draws on)
+  // pool: the producer's release is what the consumers' rise draws on);
+  // one consumer warpgroup keeps the launch's 255 and takes no setmaxnreg
   static constexpr int REGS = 512 / (WGM + 1) / 8 * 8;
   static constexpr int PRODUCER_REGS = 40;
   static constexpr int RISE = (REGS + (REGS - PRODUCER_REGS) / WGM) / 8 * 8;
@@ -103,25 +121,110 @@ struct FwCfg {
   static constexpr int QBYTES = KPANELS * QPANEL;
   static constexpr int KBYTES = KPANELS * KPANEL, VBYTES = VPANELS * VPANEL;
   static constexpr int STAGE = KBYTES + (V ? VBYTES : 0);
-  // Q's barrier, then full K, full V, empty K, empty V per stage (L: full
-  // K, empty K)
-  static constexpr int BARS = 8 * (1 + (V ? 4 : 2) * STAGES);
+  // the second warpgroup's O and row sums, handed to the first (SPLIT 2)
+  static constexpr int HAND = SPLIT > 1 ? 128 * (DP / 2 + 2) * 4 : 0;
+  // barriers: each Q slot's full (and with several slots its empty), then
+  // full K, full V, empty K, empty V per stage (without V: full K, empty K)
+  static constexpr int QBARS = QSLOTS > 1 ? 2 * QSLOTS : 1;
+  static constexpr int BARS = 8 * (QBARS + (V ? 4 : 2) * STAGES);
   // 1 KB to align the buffers to the swizzles' 1024-byte period
-  static constexpr int BYTES = 1024 + QBYTES + STAGES * STAGE + BARS;
-  static_assert(DP == 48 || DP == 80 || DP == 160, "the UNet's head dims");
+  static constexpr int BYTES =
+      1024 + QSLOTS * QBYTES + STAGES * STAGE + HAND + BARS;
+  static_assert(DP == 48 || DP == 80 || DP == 96 || DP == 160 || DP == 176,
+                "the UNet's head dims, and the studies' with a bound column");
   static_assert(KPW == 16 || KPW == 32 || KPW == 64, "a swizzle span");
-  static_assert(BK == 64 || BK == 128, "Q K^T's N");
-  // (one consumer warpgroup would launch at 256 registers a thread, past
-  // the 255 a thread may hold)
-  static_assert(WGM >= 2 && BQ <= 256, "a TMA box of BQ rows");
+  static_assert(BK == 64 || BK == 128 || BK == 256, "a TMA box of BK rows");
+  static_assert(SPLIT == 1 || (SPLIT == 2 && WGM == 2),
+                "two warpgroups split a tile's kv rows");
+  static_assert(WGM >= 1 && BQ <= 256, "a TMA box of BQ rows");
   static_assert(QPANEL % 1024 == 0 && KPANEL % 1024 == 0 &&
                     VPANEL % 1024 == 0,
                 "every panel on a swizzle period");
   static_assert(STAGES >= 2, "a ring");
-  static_assert(WGM * CONSUMER_REGS + PRODUCER_REGS <= 512 &&
-                    REGS - PRODUCER_REGS >= WGM * (CONSUMER_REGS - REGS),
+  static_assert(WGM == 1 || (WGM * CONSUMER_REGS + PRODUCER_REGS <= 512 &&
+                             REGS - PRODUCER_REGS >=
+                                 WGM * (CONSUMER_REGS - REGS)),
                 "the consumers' increase fits the producer's release");
   static_assert(BYTES <= 232448, "a block's shared memory");
+};
+
+// The ring of a block of configuration C in shared memory from `base` (on
+// a 1024-byte boundary): Q slots, stages, the hand-over, the barriers; and
+// the producer thread's copies into it.
+template <class C>
+struct FwRing {
+  uint32_t base, ring, bars;
+  __device__ explicit FwRing(uint32_t b)
+      : base(b),
+        ring(b + C::QSLOTS * C::QBYTES),
+        bars(ring + C::STAGES * C::STAGE + C::HAND) {}
+  __device__ uint32_t q(int slot) const { return base + slot * C::QBYTES; }
+  __device__ uint32_t hand() const { return ring + C::STAGES * C::STAGE; }
+  __device__ uint32_t q_full(int slot) const { return bars + 8 * slot; }
+  __device__ uint32_t q_empty(int slot) const {
+    return bars + 8 * (C::QSLOTS + slot);
+  }
+  __device__ uint32_t full_k(int s) const { return bars + 8 * (C::QBARS + s); }
+  __device__ uint32_t full_v(int s) const {
+    return bars + 8 * (C::QBARS + C::STAGES + s);
+  }
+  __device__ uint32_t empty_k(int s) const {
+    return bars + 8 * (C::QBARS + (C::V ? 2 : 1) * C::STAGES + s);
+  }
+  __device__ uint32_t empty_v(int s) const {
+    return bars + 8 * (C::QBARS + 3 * C::STAGES + s);
+  }
+  // walked tile i's K and V stages
+  __device__ uint32_t k_stage(int i) const {
+    return ring + (i % C::STAGES) * C::STAGE;
+  }
+  __device__ uint32_t v_stage(int i) const { return k_stage(i) + C::KBYTES; }
+  // thread 0, before the block's first __syncthreads
+  __device__ void init() const {
+#pragma unroll
+    for (int s = 0; s < C::QSLOTS; ++s) {
+      mbar_init(q_full(s), 1);
+      if (C::QSLOTS > 1) mbar_init(q_empty(s), C::NTC);
+    }
+#pragma unroll
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full_k(s), 1);
+      if (C::V) mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), C::NTC);
+      if (C::V) mbar_init(empty_v(s), C::NTC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the producer: the BQ rows of Q from row q0 into slot `slot`
+  __device__ void load_q(const CUtensorMap* tmq, int slot, int h, int q0,
+                         int b) const {
+    mbar_expect_tx(q_full(slot), C::QBYTES);
+#pragma unroll
+    for (int p = 0; p < C::KPANELS; ++p)
+      tma_load_4d(q(slot) + p * C::QPANEL, tmq, q_full(slot), p * (C::KRB / 2),
+                  h, q0, b);
+  }
+  // the producer: walked tile i (kv rows from `row`) into its stage, once
+  // the consumers have released the stage's last use
+  __device__ void load_kv(const CUtensorMap* tmk, const CUtensorMap* tmv,
+                          int i, int h, int row, int b) const {
+    const int s = i % C::STAGES;
+    const uint32_t par = (i / C::STAGES + 1) & 1;  // the stage's last use
+    const uint32_t ks = ring + s * C::STAGE, vs = ks + C::KBYTES;
+    if (i >= C::STAGES) mbar_wait(empty_k(s), par);
+    mbar_expect_tx(full_k(s), C::KBYTES);
+#pragma unroll
+    for (int p = 0; p < C::KPANELS; ++p)
+      tma_load_4d(ks + p * C::KPANEL, tmk, full_k(s), p * (C::KRB / 2), h,
+                  row, b);
+    if constexpr (C::V) {
+      if (i >= C::STAGES) mbar_wait(empty_v(s), par);
+      mbar_expect_tx(full_v(s), C::VBYTES);
+#pragma unroll
+      for (int p = 0; p < C::VPANELS; ++p)
+        tma_load_4d(vs + p * C::VPANEL, tmv, full_v(s), p * C::VPW, h, row, b);
+    }
+  }
 };
 
 // The K/V tiles of BK rows that a block of F, M or L walks for batch row
@@ -179,89 +282,194 @@ struct KvWalk {
   }
 };
 
-// grid (ceil(Sq / BQ), H, B)
-template <int DP, int WGM, int BK, int STAGES, int KPW, bool PP, bool MASKED,
-          bool STRADDLE>
-__global__ void __launch_bounds__(128 * WGM + 128, 1)
-    flash_wg_kernel(const __grid_constant__ CUtensorMap tmq,
-                    const __grid_constant__ CUtensorMap tmk,
-                    const __grid_constant__ CUtensorMap tmv,
-                    const FwArgs a) {
-  using C = FwCfg<DP, WGM, BK, STAGES, KPW>;
-  static_assert(!PP || WGM == 2, "ping-pong between two warpgroups");
-  constexpr int KSTEPS = DP / 16;  // Q K^T's k steps
-  constexpr int KPS = KPW / 16;    // k steps a Q / K panel holds
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t ring = base + C::QBYTES;  // stage s: K panels, V panels
-  const uint32_t qbar = ring + STAGES * C::STAGE;
-  auto full_k = [&](int s) { return qbar + 8 * (1 + s); };
-  auto full_v = [&](int s) { return qbar + 8 * (1 + STAGES + s); };
-  auto empty_k = [&](int s) { return qbar + 8 * (1 + 2 * STAGES + s); };
-  auto empty_v = [&](int s) { return qbar + 8 * (1 + 3 * STAGES + s); };
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * C::BQ;
-  const KvWalk<BK, MASKED, STRADDLE> walk(a, b);
-  const int ntiles = walk.ntiles;
-  auto next_kept = [&](int t) { return walk.next(t); };
+// The walk of the studies (S1, S2): every tile, whole (Skv % BK == 0), no
+// logit masked.
+struct DenseWalk {
+  int ntiles;
+  __device__ int next(int t) const { return t; }
+  template <int N>
+  __device__ void mask(float (&)[N], int, int) const {}
+};
 
-  if (tid == 0) {
-    mbar_init(qbar, 1);
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full_k(s), 1);
-      mbar_init(full_v(s), 1);
-      mbar_init(empty_k(s), C::NTC);
-      mbar_init(empty_v(s), C::NTC);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (warp >= 4 * WGM) {  // the producer: one thread issues every copy
-    setmaxnreg_dec<C::PRODUCER_REGS>();
-    if (warp == 4 * WGM && lane == 0) {
-      mbar_expect_tx(qbar, C::QBYTES);
-#pragma unroll
-      for (int p = 0; p < C::KPANELS; ++p)
-        tma_load_4d(base + p * C::QPANEL, &tmq, qbar, p * KPW, h, q0, b);
-      int i = 0;
-      for (int t = next_kept(0); t < ntiles; t = next_kept(t + 1), ++i) {
-        const int s = i % STAGES;
-        const uint32_t par = (i / STAGES + 1) & 1;  // the stage's last use
-        const uint32_t ks = ring + s * C::STAGE, vs = ks + C::KBYTES;
-        if (i >= STAGES) mbar_wait(empty_k(s), par);
-        mbar_expect_tx(full_k(s), C::KBYTES);
-#pragma unroll
-        for (int p = 0; p < C::KPANELS; ++p)
-          tma_load_4d(ks + p * C::KPANEL, &tmk, full_k(s), p * KPW, h, t * BK,
-                      b);
-        if (i >= STAGES) mbar_wait(empty_v(s), par);
-        mbar_expect_tx(full_v(s), C::VBYTES);
-#pragma unroll
-        for (int p = 0; p < C::VPANELS; ++p)
-          tma_load_4d(vs + p * C::VPANEL, &tmv, full_v(s), p * C::VPW, h,
-                      t * BK, b);
-      }
-    }
-    return;
-  }
-
-  // the consumers: warp w of warpgroup g owns query rows 64 g + 16 w ..
-  // 64 g + 16 w + 15 of the block; acc[4 j + 2 r + e] of an accumulator is
-  // row 16 w + lane / 4 + 8 r, column 8 j + 2 (lane % 4) + e
-  setmaxnreg_inc<C::CONSUMER_REGS>();
-  const int g = warp / 4, w = warp % 4, grp = lane / 4, tq = lane % 4;
-  float o[DP / 2], s[BK / 2];
+// F's softmax step, the policy of fw_consume: the exact online softmax of
+// S in place, P = exp2(s scale log2(e) - m) with the new running max m
+// kept in the scaled log2 domain, alpha = exp2(m_old - m) per row to
+// rescale O and the row sum l; O / l at the end (0 where l = 0: the row
+// kept no span).
+struct FwSoftmax {
+  static constexpr bool RESCALE = true;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  uint32_t p[BK / 16][4];  // P's A fragments, one per 16 kv rows
+  float scale_log2;
+  __device__ FwSoftmax(const FwArgs& a, int, int) : scale_log2(a.scale_log2) {}
+  template <int N>
+  __device__ void step(float (&s)[N], float (&alpha)[2]) {
+    float mx[2] = {-INFINITY, -INFINITY}, neg[2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < N; ++i) mx[i % 4 / 2] = fmaxf(mx[i % 4 / 2], s[i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // finite: a walked tile holds a kept column, and keep is per batch
+      // row, so every query row sees it
+      const float m_new = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
+      // the row's first tile: nothing to rescale (and never -inf - -inf)
+      alpha[r] = m[r] == -INFINITY ? 0.f : fast_exp2(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+      neg[r] = -m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float e = fast_exp2(fmaf(s[i], scale_log2, neg[i % 4 / 2]));
+      s[i] = e;
+      l[i % 4 / 2] += e;
+    }
+  }
+  // the factor of this thread's row r (0: grp, 1: grp + 8) at the end
+  template <int R>
+  __device__ float inv(int r, const float (&)[R], const FwArgs&) const {
+    const float den = quad_sum(l[r]);
+    return den > 0.f ? 1.f / den : 0.f;
+  }
+};
 
-  const uint32_t qrows = base + 64 * g * C::KRB;  // this group's Q rows
+// The consumers' walk of F, M and the studies that share it, in one
+// consumer warpgroup g: S_i = Q K_i^T of walked tile i is issued with
+// P_{i-1} V_{i-1}; the group waits for S_i only and takes the policy's
+// softmax step on it while P V runs, then waits for P V, rescales O where
+// the policy keeps a running max, and rounds P_i. With PP, named barriers
+// order the two groups' issues (ping-pong). Q's rows at `qrows`; the group
+// takes kv rows [krow, krow + NS) of each tile (NS = BK, or BK / 2 where
+// two groups split a tile); `i0` is the ring position of the walk's first
+// tile (a block that walks several heads runs its ring on). Returns the
+// tiles walked. acc[4 j + 2 r + e] of an accumulator is row 16 w + lane / 4
+// + 8 r of the group's rows, column 8 j + 2 (lane % 4) + e.
+template <class C, int NS, bool PP, class Walk, class SM>
+__device__ __forceinline__ int fw_consume(const FwRing<C>& rg,
+                                          const Walk& walk, SM& sm,
+                                          float (&o)[C::DP / 2],
+                                          uint32_t qrows, int krow, int i0,
+                                          int g, int tq) {
+  constexpr int KSTEPS = C::DP / 16;  // Q K^T's k steps
+  constexpr int KPS = C::KRB / 32;    // k steps a Q / K panel holds
+  constexpr int STAGES = C::STAGES;
+  const int ntiles = walk.ntiles;
+  float s[NS / 2];
+  uint32_t p[NS / 16][4];  // P's A fragments, one per 16 kv rows
   // S = Q K^T against the K tile at `ks`: k step j lies in panel j / KPS
   // at byte 32 (j % KPS) of each row
   auto qk = [&](uint32_t ks) {
+#pragma unroll
+    for (int j = 0; j < KSTEPS; ++j) {
+      const uint32_t col = 32 * (j % KPS);
+      WgMmaSS<NS>::run(
+          s,
+          smem_desc(qrows + (j / KPS) * C::QPANEL + col, 0, 8 * C::KRB,
+                    C::KRB),
+          smem_desc(ks + krow * C::KRB + (j / KPS) * C::KPANEL + col, 0,
+                    8 * C::KRB, C::KRB),
+          j > 0);
+    }
+  };
+  // O += P V against the V tile at `vs`: k step kk is its kv rows 16 kk ..
+  // in every panel (LBO the panel stride)
+  auto pv = [&](uint32_t vs) {
+#pragma unroll
+    for (int kk = 0; kk < NS / 16; ++kk)
+      WgMma<C::DP>::run(o, p[kk],
+                        smem_desc(vs + (krow + 16 * kk) * C::VRB, C::VPANEL,
+                                  8 * C::VRB, C::VRB));
+  };
+  auto pack = [&] {
+#pragma unroll
+    for (int kk = 0; kk < NS / 16; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        p[kk][f] = pack_bf16(s[8 * kk + 2 * f], s[8 * kk + 2 * f + 1]);
+  };
+  auto v_stage = [&](int i) { return rg.v_stage(i0 + i); };
+
+  int cur = walk.next(0);
+  if (cur >= ntiles) return 0;
+  if (PP && g == 1) named_bar_arrive(1, C::NTC);  // group 0 issues first
+  mbar_wait(rg.full_k(i0 % STAGES), (i0 / STAGES) & 1);
+  wg_fence();
+  qk(rg.k_stage(i0));
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(s);
+  mbar_arrive(rg.empty_k(i0 % STAGES));
+  walk.mask(s, cur, tq);
+  float alpha[2];
+  sm.step(s, alpha);  // O is 0: alpha unused
+  pack();
+  int i = 1;  // tiles walked
+  for (cur = walk.next(cur + 1); cur < ntiles; cur = walk.next(cur + 1), ++i) {
+    const int si = (i0 + i) % STAGES;
+    mbar_wait(rg.full_k(si), ((i0 + i) / STAGES) & 1);
+    if (PP) named_bar_sync(1 + g, C::NTC);
+    wg_fence();
+    qk(rg.k_stage(i0 + i));
+    wg_commit();
+    mbar_wait(rg.full_v((i0 + i - 1) % STAGES), ((i0 + i - 1) / STAGES) & 1);
+    pv(v_stage(i - 1));
+    wg_commit();
+    if (PP) named_bar_arrive(2 - g, C::NTC);  // the other group's turn
+    wg_wait<1>();  // S_i; P_{i-1} V_{i-1} may still run
+    fence_regs(s);
+    mbar_arrive(rg.empty_k(si));
+    walk.mask(s, cur, tq);
+    sm.step(s, alpha);
+    wg_wait<0>();
+    fence_regs(o);
+    mbar_arrive(rg.empty_v((i0 + i - 1) % STAGES));
+    if constexpr (SM::RESCALE) {
+#pragma unroll
+      for (int j = 0; j < C::DP / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+    }
+    pack();
+  }
+  mbar_wait(rg.full_v((i0 + i - 1) % STAGES), ((i0 + i - 1) / STAGES) & 1);
+  wg_fence();
+  pv(v_stage(i - 1));
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(o);
+  mbar_arrive(rg.empty_v((i0 + i - 1) % STAGES));
+  // group 1's last turn signal (or its first, where one tile was walked)
+  if (PP && g == 0) named_bar_sync(1, C::NTC);
+  return i;
+}
+
+// fw_consume with the next tile's Q K^T in flight while the current tile's
+// softmax runs (the studies' split2): two S accumulator sets, S_{i+1}
+// issued into one before the group takes the softmax step of S_i in the
+// other, beside P_{i-1} V_{i-1}; both are waited for inside the same loop
+// step, and the last tile (nothing to issue) takes a path of its own:
+// ptxas serialises every wgmma where a product is in flight across the
+// loop's back edge, or where a path that issued one meets one that did not
+// before the wait. Every tile walked, none masked (DenseWalk).
+template <class C, class SM>
+__device__ __forceinline__ void fw_consume_ahead(const FwRing<C>& rg,
+                                                 int ntiles, SM& sm,
+                                                 float (&o)[C::DP / 2],
+                                                 uint32_t qrows) {
+  constexpr int BK = C::BK, KSTEPS = C::DP / 16, KPS = C::KRB / 32;
+  constexpr int STAGES = C::STAGES;
+  float s0[BK / 2], s1[BK / 2];
+  uint32_t p[BK / 16][4];
+  // issue S = Q K^T of walked tile i into s once its K stage has landed
+  auto qk = [&](float(&s)[BK / 2], int i) {
+    mbar_wait(rg.full_k(i % STAGES), (i / STAGES) & 1);
+    const uint32_t ks = rg.k_stage(i);
+    // s's registers settle before the fence, so that no move of them
+    // falls between the fence and the products (ptxas would serialise)
+    fence_regs(s);
+    wg_fence();
 #pragma unroll
     for (int j = 0; j < KSTEPS; ++j) {
       const uint32_t col = 32 * (j % KPS);
@@ -272,121 +480,159 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
           smem_desc(ks + (j / KPS) * C::KPANEL + col, 0, 8 * C::KRB, C::KRB),
           j > 0);
     }
+    wg_commit();
   };
-  // O += P V against the V tile at `vs`: k step kk is its kv rows 16 kk ..
-  // in every panel (LBO the panel stride)
-  auto pv = [&](uint32_t vs) {
+  // issue O += P V of walked tile i (P in p) once its V stage has landed
+  auto pv = [&](int i) {
+    mbar_wait(rg.full_v(i % STAGES), (i / STAGES) & 1);
+    const uint32_t vs = rg.v_stage(i);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      WgMma<DP>::run(o, p[kk],
-                     smem_desc(vs + 16 * kk * C::VRB, C::VPANEL, 8 * C::VRB,
-                               C::VRB));
+      WgMma<C::DP>::run(o, p[kk],
+                        smem_desc(vs + 16 * kk * C::VRB, C::VPANEL,
+                                  8 * C::VRB, C::VRB));
+    wg_commit();
   };
-  // the logits of tile t that no row may see: past Skv, in dropped spans
-  auto mask = [&](int t) { walk.mask(s, t, tq); };
-  // the online softmax of S in place: P = exp2(s scale log2(e) - m) with
-  // the new running max m, and alpha = exp2(m_old - m) per row
-  auto softmax = [&](float (&alpha)[2]) {
-    float mx[2] = {-INFINITY, -INFINITY}, neg[2];
+  auto finish = [&](float(&s)[BK / 2], const float(&alpha)[2]) {
+    if constexpr (SM::RESCALE) {
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i)
-      mx[i % 4 / 2] = fmaxf(mx[i % 4 / 2], s[i]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // finite: a walked tile holds a kept column, and keep is per batch
-      // row, so every query row sees it
-      const float m_new = fmaxf(m[r], quad_max(mx[r]) * a.scale_log2);
-      // the row's first tile: nothing to rescale (and never -inf - -inf)
-      alpha[r] = m[r] == -INFINITY ? 0.f : fast_exp2(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-      neg[r] = -m_new;
+      for (int j = 0; j < C::DP / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
     }
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      const float e = fast_exp2(fmaf(s[i], a.scale_log2, neg[i % 4 / 2]));
-      s[i] = e;
-      l[i % 4 / 2] += e;
-    }
-  };
-  auto pack = [&] {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int f = 0; f < 4; ++f)
         p[kk][f] = pack_bf16(s[8 * kk + 2 * f], s[8 * kk + 2 * f + 1]);
   };
-  auto v_stage = [&](int i) {
-    return ring + (i % STAGES) * C::STAGE + C::KBYTES;
-  };
-
-  mbar_wait(qbar, 0);  // also where no tile is walked: the copy has landed
-  int cur = next_kept(0);
-  if (cur < ntiles) {
-    if (PP && g == 1) named_bar_arrive(1, C::NTC);  // group 0 issues first
-    mbar_wait(full_k(0), 0);
-    wg_fence();
-    qk(ring);
-    wg_commit();
-    wg_wait<0>();
-    fence_regs(s);
-    mbar_arrive(empty_k(0));
-    mask(cur);
+  int i = 0;  // the walked tile whose logits are in hand
+  // s holds S_i (its K stage released), p holds P_{i-1}, not yet in a P V
+  auto step = [&](float(&s)[BK / 2], float(&nxt)[BK / 2]) {
     float alpha[2];
-    softmax(alpha);  // O is 0: alpha unused
-    pack();
-    int i = 1;  // tiles walked
-    for (cur = next_kept(cur + 1); cur < ntiles;
-         cur = next_kept(cur + 1), ++i) {
-      const int si = i % STAGES;
-      mbar_wait(full_k(si), (i / STAGES) & 1);
-      if (PP) named_bar_sync(1 + g, C::NTC);
+    if (i + 1 >= ntiles) {  // the last tile: nothing to issue ahead
       wg_fence();
-      qk(ring + si * C::STAGE);
-      wg_commit();
-      mbar_wait(full_v((i - 1) % STAGES), ((i - 1) / STAGES) & 1);
-      pv(v_stage(i - 1));
-      wg_commit();
-      if (PP) named_bar_arrive(2 - g, C::NTC);  // the other group's turn
-      wg_wait<1>();  // S_i; P_{i-1} V_{i-1} may still run
-      fence_regs(s);
-      mbar_arrive(empty_k(si));
-      mask(cur);
-      softmax(alpha);
+      pv(i - 1);
+      sm.step(s, alpha);
       wg_wait<0>();
       fence_regs(o);
-      mbar_arrive(empty_v((i - 1) % STAGES));
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        o[4 * j] *= alpha[0];
-        o[4 * j + 1] *= alpha[0];
-        o[4 * j + 2] *= alpha[1];
-        o[4 * j + 3] *= alpha[1];
-      }
-      pack();
+      mbar_arrive(rg.empty_v((i - 1) % STAGES));
+      finish(s, alpha);
+      return false;
     }
-    mbar_wait(full_v((i - 1) % STAGES), ((i - 1) / STAGES) & 1);
-    wg_fence();
-    pv(v_stage(i - 1));
-    wg_commit();
+    qk(nxt, i + 1);
+    pv(i - 1);
+    sm.step(s, alpha);
     wg_wait<0>();
+    fence_regs(nxt);
     fence_regs(o);
-    // group 1's last turn signal (or its first, where one tile was walked)
-    if (PP && g == 0) named_bar_sync(1, C::NTC);
+    mbar_arrive(rg.empty_k((i + 1) % STAGES));
+    mbar_arrive(rg.empty_v((i - 1) % STAGES));
+    finish(s, alpha);
+    ++i;
+    return true;
+  };
+
+  qk(s0, 0);
+  wg_wait<0>();
+  fence_regs(s0);
+  mbar_arrive(rg.empty_k(0));
+  float alpha[2];
+  if (ntiles == 1) {
+    sm.step(s0, alpha);  // O is 0: alpha unused
+    finish(s0, alpha);
+  } else {
+    qk(s1, 1);
+    sm.step(s0, alpha);
+    wg_wait<0>();
+    fence_regs(s1);
+    mbar_arrive(rg.empty_k(1 % STAGES));
+    finish(s0, alpha);
+    i = 1;
+    while (step(s1, s0) && step(s0, s1)) {
+    }
+  }
+  wg_fence();
+  pv(i);
+  wg_wait<0>();
+  fence_regs(o);
+  mbar_arrive(rg.empty_v(i % STAGES));
+}
+
+// The consumers' first step past the producer's branch: setmaxnreg where
+// the producer hands them its registers, else (one consumer warpgroup, at
+// the launch's 255) a barrier of the warpgroup's four warps. Either is an
+// aligned instruction, from which ptxas knows that the warpgroup has
+// converged; with neither, it serialised every wgmma (C7520).
+template <class C>
+__device__ __forceinline__ void consumers_start() {
+  if constexpr (C::NTC > 128)
+    setmaxnreg_inc<C::CONSUMER_REGS>();
+  else
+    named_bar_sync(1, 128);
+}
+
+// One block of F's form, for policy SM: the producer warpgroup lands Q (BQ
+// rows from q0 of head h, batch row b) and the walked K/V tiles, the
+// consumers walk them (fw_consume, or fw_consume_ahead with AHEAD), and O
+// times the policy's factor goes into (B, Sq, H*D) as bf16 pairs, columns
+// below D and rows below Sq only.
+template <class C, bool PP, bool AHEAD, class SM, class Walk>
+__device__ __forceinline__ void fw_block(const CUtensorMap* tmq,
+                                         const CUtensorMap* tmk,
+                                         const CUtensorMap* tmv,
+                                         const FwArgs& a, const Walk& walk,
+                                         int h, int b, int q0) {
+  static_assert(!PP || C::NTC == 256, "ping-pong between two warpgroups");
+  static_assert(C::QSLOTS == 1 && C::HAND == 0, "one head a block");
+  constexpr int WGM = C::NTC / 128;
+  extern __shared__ unsigned char smem_raw[];
+  const FwRing<C> rg((smem_addr(smem_raw) + 1023u) & ~1023u);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) rg.init();
+  __syncthreads();
+
+  if (warp >= 4 * WGM) {  // the producer: one thread issues every copy
+    if constexpr (WGM > 1) setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (warp == 4 * WGM && lane == 0) {
+      rg.load_q(tmq, 0, h, q0, b);
+      int i = 0;
+      for (int t = walk.next(0); t < walk.ntiles; t = walk.next(t + 1), ++i)
+        rg.load_kv(tmk, tmv, i, h, t * C::BK, b);
+    }
+    return;
   }
 
-  // O / l into (B, Sq, H*D); l = 0: the row kept no span, write zeros
+  // the consumers: warp w of warpgroup g owns query rows 64 g + 16 w ..
+  // 64 g + 16 w + 15 of the block
+  consumers_start<C>();
+  const int g = warp / 4, w = warp % 4, grp = lane / 4, tq = lane % 4;
+  const int row0 = q0 + 64 * g + 16 * w + grp;  // and row0 + 8
+  SM sm(a, b, row0);
+  float o[C::DP / 2];
+#pragma unroll
+  for (int i = 0; i < C::DP / 2; ++i) o[i] = 0.f;
+  const uint32_t qrows = rg.q(0) + 64 * g * C::KRB;  // this group's Q rows
+  mbar_wait(rg.q_full(0), 0);  // also where no tile is walked: it landed
+  if constexpr (AHEAD)
+    fw_consume_ahead<C>(rg, walk.ntiles, sm, o, qrows);
+  else
+    fw_consume<C, C::BK, PP>(rg, walk, sm, o, qrows, 0, 0, g, tq);
+
+  // O times the policy's factor into (B, Sq, H*D)
   const long long ors = (long long)a.H * a.D;
   bf16* ob = a.out + (long long)b * a.Sq * ors + (long long)h * a.D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float den = quad_sum(l[r]);
-    const float inv = den > 0.f ? 1.f / den : 0.f;
-    const int row = q0 + 64 * g + 16 * w + grp + 8 * r;
+    const float inv = sm.inv(r, o, a);
+    const int row = row0 + 8 * r;
     if (row < a.Sq) {
       bf16* orow = ob + row * ors;
 #pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
+      for (int j = 0; j < C::DP / 8; ++j) {
         const int c = 8 * j + 2 * tq;
         if (c < a.D)
           *reinterpret_cast<uint32_t*>(orow + c) =
@@ -394,6 +640,21 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
       }
     }
   }
+}
+
+// Kernels F and M; grid (ceil(Sq / BQ), H, B)
+template <int DP, int WGM, int BK, int STAGES, int KPW, bool PP, bool MASKED,
+          bool STRADDLE>
+__global__ void __launch_bounds__(128 * WGM + 128, 1)
+    flash_wg_kernel(const __grid_constant__ CUtensorMap tmq,
+                    const __grid_constant__ CUtensorMap tmk,
+                    const __grid_constant__ CUtensorMap tmv,
+                    const FwArgs a) {
+  using C = FwCfg<DP, WGM, BK, STAGES, KPW>;
+  const int b = blockIdx.z;
+  fw_block<C, PP, false, FwSoftmax>(&tmq, &tmk, &tmv, a,
+                                    KvWalk<BK, MASKED, STRADDLE>(a, b),
+                                    blockIdx.y, b, blockIdx.x * C::BQ);
 }
 
 // ---- host side
@@ -458,43 +719,21 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
   using C = FwCfg<DP, WGM, BK, STAGES, KPW, false>;
   constexpr int KSTEPS = DP / 16, KPS = KPW / 16;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t ring = base + C::QBYTES;  // stage s: K panels
-  const uint32_t qbar = ring + STAGES * C::STAGE;
-  auto full = [&](int s) { return qbar + 8 * (1 + s); };
-  auto empty = [&](int s) { return qbar + 8 * (1 + STAGES + s); };
+  const FwRing<C> rg((smem_addr(smem_raw) + 1023u) & ~1023u);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * C::BQ;
   const KvWalk<BK, MASKED, STRADDLE> walk(a, b);
 
-  if (tid == 0) {
-    mbar_init(qbar, 1);
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), C::NTC);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (tid == 0) rg.init();
   __syncthreads();
 
   if (warp >= 4 * WGM) {  // the producer: one thread issues every copy
     setmaxnreg_dec<C::PRODUCER_REGS>();
     if (warp == 4 * WGM && lane == 0) {
-      mbar_expect_tx(qbar, C::QBYTES);
-#pragma unroll
-      for (int p = 0; p < C::KPANELS; ++p)
-        tma_load_4d(base + p * C::QPANEL, &tmq, qbar, p * KPW, h, q0, b);
+      rg.load_q(&tmq, 0, h, q0, b);
       int i = 0;
-      for (int t = walk.next(0); t < walk.ntiles; t = walk.next(t + 1), ++i) {
-        const int s = i % STAGES;
-        if (i >= STAGES) mbar_wait(empty(s), (i / STAGES + 1) & 1);
-        mbar_expect_tx(full(s), C::KBYTES);
-#pragma unroll
-        for (int p = 0; p < C::KPANELS; ++p)
-          tma_load_4d(ring + s * C::STAGE + p * C::KPANEL, &tmk, full(s),
-                      p * KPW, h, t * BK, b);
-      }
+      for (int t = walk.next(0); t < walk.ntiles; t = walk.next(t + 1), ++i)
+        rg.load_kv(&tmk, &tmk, i, h, t * BK, b);
     }
     return;
   }
@@ -506,13 +745,13 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
   const int g = warp / 4, w = warp % 4, grp = lane / 4, tq = lane % 4;
   float s0[BK / 2], s1[BK / 2];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const uint32_t qrows = base + 64 * g * C::KRB;  // this group's Q rows
+  const uint32_t qrows = rg.q(0) + 64 * g * C::KRB;  // this group's Q rows
   // issue S = Q K^T of walked tile i into s once its K stage has landed: k
   // step j lies in panel j / KPS at byte 32 (j % KPS) of each row
   auto qk = [&](float(&s)[BK / 2], int i) {
     const int st = i % STAGES;
-    mbar_wait(full(st), (i / STAGES) & 1);
-    const uint32_t ks = ring + st * C::STAGE;
+    mbar_wait(rg.full_k(st), (i / STAGES) & 1);
+    const uint32_t ks = rg.k_stage(i);
     // s's registers settle before the fence, so that no move of them
     // falls between the fence and the products (ptxas would serialise)
     fence_regs(s);
@@ -575,16 +814,16 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
     fence_regs(nxt);
     ++i;
     cur = after;
-    mbar_arrive(empty(i % STAGES));
+    mbar_arrive(rg.empty_k(i % STAGES));
     return true;
   };
 
-  mbar_wait(qbar, 0);  // also where no tile is walked: the copy has landed
+  mbar_wait(rg.q_full(0), 0);  // also where no tile is walked: it landed
   if (cur < walk.ntiles) {
     qk(s0, 0);
     wg_wait<0>();
     fence_regs(s0);
-    mbar_arrive(empty(0));
+    mbar_arrive(rg.empty_k(0));
     while (step(s0, s1) && step(s1, s0)) {
     }
   }

@@ -1,8 +1,9 @@
-// Shared building blocks of the mma.sync kernels (the attention studies
-// study_*.cu, the flash kernels flash_fwd.cu and flash_bwd.cu, and the conv
-// template conv_mma.cuh): tile copies from HBM into shared memory through
-// cp.async, ldmatrix fragment loads and the mma.sync tensor-core products,
-// for sm_90a.
+// Shared building blocks of the mma.sync kernels (the attention studies S3
+// and S4, study_qk.cu and study_int8.cu, and the conv template conv_mma.cuh
+// at the conv_in / conv_out keys): tile copies from HBM into shared memory
+// through cp.async, ldmatrix fragment loads and the mma.sync tensor-core
+// products, for sm_90a. The scalar helpers (bf16, smem_addr, fast_exp2,
+// pack_bf16, quad_sum, quad_max) are hopper.cuh's, named here too.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k32): in a warp, lane =
 // 4 * grp + tq. A 16 x 8 fp32 (or int32) accumulator tile holds, per lane,
@@ -16,9 +17,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace sg_study {
 
-typedef __nv_bfloat16 bf16;
+using sg_hopper::bf16;
+using sg_hopper::fast_exp2;
+using sg_hopper::pack_bf16;
+using sg_hopper::quad_sum;
+using sg_hopper::smem_addr;
 
 __host__ __device__ constexpr int align128(int x) {
   return (x + 127) / 128 * 128;
@@ -37,10 +44,6 @@ __host__ __device__ constexpr int ring_stages(int stage) {
 // ldmatrix reads fall in eight different bank groups.
 __host__ __device__ constexpr int pitch_bytes(int row_bytes) {
   return (row_bytes / 16) % 2 ? row_bytes : row_bytes + 16;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // 16-byte cp.async copy into shared memory; the bytes past `src_bytes`
@@ -71,13 +74,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// 2^x on the special-function unit (2^-inf = 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Start the copy of chunk `idx` (row idx / CPR, 16-byte column idx % CPR)
@@ -210,45 +206,6 @@ __device__ __forceinline__ void mma_s8_k16(int (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(b0));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The A fragments (bf16, 16 rows x DP columns) of a warp's 16 rows that
-// start at `rows` (pitch in bytes): one x4 ldmatrix per 16-column k step.
-template <int KS>
-__device__ __forceinline__ void load_a_bf16(uint32_t (&a)[KS][4],
-                                            const unsigned char* rows,
-                                            int pitch, int lane) {
-  const unsigned char* p =
-      rows + (lane % 8 + 8 * ((lane / 8) % 2)) * pitch + 16 * (lane / 16);
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) ldsm_x4(a[kk], p + 32 * kk);
-}
-
-// S (16 x 8 NT tiles) += A K^T for a warp's A fragments against NT * 8
-// K rows starting at `krows` (bf16, pitch in bytes): B fragments come from
-// K's rows as stored (col-major B), two n tiles per x4 ldmatrix.
-template <int KS, int NT>
-__device__ __forceinline__ void qk_bf16(float (&s)[NT][4],
-                                        const uint32_t (&a)[KS][4],
-                                        const unsigned char* krows, int pitch,
-                                        int lane) {
-  const unsigned char* p =
-      krows + (lane % 8 + 8 * (lane / 16)) * pitch + 16 * ((lane / 8) % 2);
-#pragma unroll
-  for (int j = 0; j < NT; j += 2) {
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t b[4];
-      ldsm_x4(b, p + j * 8 * pitch + 32 * kk);
-      mma_bf16(s[j], a[kk], b[0], b[1]);
-      mma_bf16(s[j + 1], a[kk], b[2], b[3]);
-    }
-  }
-}
-
 // O (16 x 8 * DT tiles) += P V for a warp: P's A fragment for kv rows
 // 16 kk .. 16 kk + 15 is built from S tiles 2 kk and 2 kk + 1 (already
 // rounded to bf16 pairs in `p`), V's B fragments come from V's rows with a
@@ -339,25 +296,6 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[NT / 2][4],
   for (int kk = 0; kk < NT / 2; ++kk) pack_p16(p[kk], s[2 * kk], s[2 * kk + 1]);
 }
 
-// Sum over the four lanes of a quad (one accumulator row).
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x;
-}
-
-__device__ __forceinline__ int quad_sum(int x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return x;
-}
-
 // The value at accumulator column `col` of this lane's two rows (grp and
 // grp + 8): the lane of the quad that holds it adds it to zero, the others
 // add nothing, and the quad's sum is exact. (Picking o[col / 8] by a
@@ -397,19 +335,6 @@ __device__ __forceinline__ void store_rows(bf16* out, long long row0, int d,
       *reinterpret_cast<uint32_t*>(r1 + c) =
           pack_bf16(o[j][2] / den1, o[j][3] / den1);
     }
-  }
-}
-
-// Write the same value into all d columns of a warp's rows grp and grp + 8.
-__device__ __forceinline__ void store_broadcast(bf16* out, long long row0,
-                                                int d, float v0, float v1,
-                                                int lane) {
-  const int grp = lane / 4, tq = lane % 4;
-  bf16* r0 = out + (row0 + grp) * d;
-  bf16* r1 = out + (row0 + grp + 8) * d;
-  for (int c = 2 * tq; c < d; c += 8) {
-    *reinterpret_cast<uint32_t*>(r0 + c) = pack_bf16(v0, v0);
-    *reinterpret_cast<uint32_t*>(r1 + c) = pack_bf16(v1, v1);
   }
 }
 

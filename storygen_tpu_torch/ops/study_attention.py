@@ -1,7 +1,9 @@
 """The flash-forward formulations of the attention studies: wrappers of
-`csrc/study_online.cu` (kernel S1) and `csrc/study_bounded.cu` (kernel S2),
-their plain PyTorch versions, and the host preparation the studies do
-(scale folding, the row bounds, the extended q/k/v).
+`csrc/study_online.cu` (kernel S1) and `csrc/study_bounded.cu` /
+`csrc/study_bnd2.cu` (kernel S2, `csrc/study_wgmma.cuh`), both on kernel
+F's wgmma + TMA template (`csrc/flash_wgmma.cuh`), their plain PyTorch
+versions, and the host preparation the studies do (scale folding, the row
+bounds, the extended q/k/v).
 
 Replaces the Pallas kernels of scripts/studies/:
   variant_attention  bench_attn_variants.py _variant_kernel      S1
@@ -15,8 +17,9 @@ Replaces the Pallas kernels of scripts/studies/:
 
 Every function takes q (B, H, Sq, D), k and v (B, H, Skv, D) and returns
 (B, H, Sq, D) in q's dtype, with the study's keyword arguments; `bq` and
-`bk` are the card's tile rows (64 or 128), and each knob selects a
-compile-time instantiation. A wrapper launches its kernel for CUDA tensors
+`bk` are the card's tile rows (64 or 128: bq / 64 consumer warpgroups,
+bk the N of S = Q K^T), and each knob selects a compile-time
+instantiation. A wrapper launches its kernel for CUDA tensors
 (bfloat16 only) and runs its plain version for CPU tensors (any float
 dtype; probabilities are rounded to v's dtype before the value product, as
 on the kernel path); it counts its launches in `<wrapper>.launches`, and
@@ -33,6 +36,8 @@ from typing import Optional
 import torch
 
 from storygen_tpu_torch.ops import _build
+from storygen_tpu_torch.ops.flash_attention import (FWD_BUILT, operand_map,
+                                                   v_panel)
 
 LOG2E = 1.4426950408889634
 TILES = (64, 128)
@@ -40,39 +45,19 @@ TILES = (64, 128)
 SMEM_LIMIT = 232448
 SM_SMEM = 233472
 
-# S2's kinds (the Kind enum of csrc/study_bounded.cu)
+# S2's kinds (the Kind enum of csrc/study_wgmma.cuh)
 TB, BOUNDED, QK, QK_EXP, QK_PV, BND2 = range(6)
 # S1's modes: the scale in the kernel with exp, folded with exp, folded
 # with exp2
 SCALE_IN_KERNEL, FOLDED_EXP, FOLDED_EXP2 = range(3)
-
-
-def _tiles4(dp, *rest):
-    return {(dp, bq, bk) + rest for bq in TILES for bk in TILES}
-
-
-# The instantiations the CUDA sources build, keyed as their SG_BUILT lines:
-# (padded width, bq, bk, mode, halves) for S1 ...
-ONLINE_BUILT = frozenset(
-    _tiles4(48, SCALE_IN_KERNEL, 1)
-    | _tiles4(48, FOLDED_EXP, 1) | _tiles4(80, FOLDED_EXP, 1)
-    | _tiles4(160, FOLDED_EXP, 1)
-    | _tiles4(48, FOLDED_EXP2, 1) | _tiles4(80, FOLDED_EXP2, 1)
-    | _tiles4(160, FOLDED_EXP2, 1)
-    | _tiles4(48, FOLDED_EXP2, 2))
-# ... and (padded width, bq, bk, sub, halves, g, kind) for S2.
-BOUNDED_BUILT = frozenset(
-    _tiles4(48, 1, 1, 1, TB) | _tiles4(96, 1, 1, 1, TB)
-    | _tiles4(176, 1, 1, 1, TB)
-    | _tiles4(48, 1, 1, 1, BOUNDED) | _tiles4(96, 1, 1, 1, BOUNDED)
-    | {(dp, bq, 64, sub, 1, 1, BOUNDED) for dp in (48, 96) for bq in TILES
-       for sub in (2, 4)}
-    | {(48, t, t, 1, 1, 1, kind) for t in TILES
-       for kind in (QK, QK_EXP, QK_PV)}
-    | {(48, t, t, 1, 2, 1, TB) for t in TILES}
-    | _tiles4(48, 1, 1, 1, BND2) | _tiles4(80, 1, 1, 1, BND2)
-    | {(dp, 64, 64, 1, 1, g, BND2) for dp in (48, 80, 160)
-       for g in (2, 4, 8)})
+# The widest Q / K panel (columns) of a padded width: one panel at d 48
+# and two at d 80, as F's lines; 32 columns at the widths F has no line
+# for (96, 176: 3 and 6 panels), and at 160 as F
+_PANEL = {48: 64, 80: 64, 96: 32, 160: 32, 176: 32}
+# F's unmasked lines: (padded width, K/V tile rows) -> (ring stages, Q / K
+# panel columns)
+_F_LINES = {(dp, v[1]): (v[2], v[3]) for (dp, masked), v in FWD_BUILT.items()
+            if not masked}
 
 
 def pad16(w: int) -> int:
@@ -84,7 +69,8 @@ def pad8(w: int) -> int:
 
 
 def pitch_bytes(row_bytes: int) -> int:
-    """Shared-memory row pitch of the kernels (csrc/study_mma.cuh)."""
+    """Shared-memory row pitch of the mma.sync kernels S3 / S4
+    (csrc/study_mma.cuh)."""
     return row_bytes if (row_bytes // 16) % 2 else row_bytes + 16
 
 
@@ -93,27 +79,145 @@ def align128(x: int) -> int:
 
 
 def ring_stages(stage: int) -> int:
-    """The kernels' K/V ring depth (csrc/study_mma.cuh::ring_stages): 3
-    where two blocks of three `stage`-byte stages fit an SM (less 1 KB a
-    block), else 2."""
+    """The K/V ring depth of the mma.sync kernels S3 / S4
+    (csrc/study_mma.cuh::ring_stages): 3 where two blocks of three
+    `stage`-byte stages fit an SM (less 1 KB a block), else 2."""
     return 3 if 2 * (3 * stage + 1024) <= SM_SMEM else 2
 
 
-def online_smem(dp: int, bq: int, bk: int) -> int:
-    """S1's shared memory (csrc/study_online.cu's Cfg::BYTES): a ring of
-    K and V tiles of bk rows; Q is copied into its last stage."""
-    stage = 2 * align128(bk * pitch_bytes(2 * dp))
-    return ring_stages(stage) * stage
+def line_smem(dp: int, bq: int, rows: int, stages: int, kpw: int,
+              v: bool = True, split: int = 1, qslots: int = 1) -> int:
+    """A block's shared memory on the wgmma template
+    (csrc/flash_wgmma.cuh's FwCfg::BYTES): 1 KB of alignment, `qslots` Q
+    buffers of bq rows and the ring's `stages` stages of `rows` K rows
+    (and V rows), both in panels of `kpw` columns (V in v_panel(dp)), the
+    second warpgroup's O and row sums where two split a tile (`split`),
+    and 8 bytes a barrier."""
+    krb = 2 * kpw
+    kpanels = -(-dp // kpw)
+    stage = kpanels * rows * krb + (rows * 2 * dp if v else 0)
+    hand = 128 * (dp // 2 + 2) * 4 if split > 1 else 0
+    bars = 8 * ((2 * qslots if qslots > 1 else 1)
+                + (4 if v else 2) * stages)
+    return 1024 + qslots * kpanels * bq * krb + stages * stage + hand + bars
 
 
-def bounded_smem(dp: int, bq: int, bk: int, sub: int, g: int) -> int:
-    """S2's shared memory (csrc/study_bounded.cu's Cfg::BYTES): a ring of
-    stages of sub * bk rows of K and of V, with g > 1 also a Q slot (one
-    head's bq rows); with one head Q is copied into the last stage."""
-    pitch = pitch_bytes(2 * dp)
-    stage = (2 * align128(sub * bk * pitch)
-             + (align128(bq * pitch) if g > 1 else 0))
-    return ring_stages(stage) * stage
+def study_line(dp: int, bq: int, rows: int, v: bool = True, split: int = 1,
+               qslots: int = 1, ahead: bool = False) -> Optional[tuple]:
+    """(ring stages, Q / K panel columns) of a study instantiation whose
+    ring stage holds `rows` kv rows: F's unmasked line at (dp, rows) where
+    F has one (ops/flash_attention.py FWD_BUILT) and the line walks as F
+    does, else the deepest ring of at most 4 stages that fits a block's
+    shared memory, at the widest panel (from _PANEL[dp] down to 16
+    columns) that lets one fit; None where none does. The walks that issue
+    the next tile's Q K^T before the current tile's exps (split2, and QK /
+    QK_EXP on kernel L's walk: `ahead`, or no V) need K_{i+1} a step
+    earlier than F's, which F's two stages would expose."""
+    if (dp, rows) in _F_LINES and v and not ahead:
+        return _F_LINES[(dp, rows)]
+    for kpw in (k for k in (64, 32, 16) if k <= _PANEL[dp]):
+        for stages in (4, 3, 2):
+            if line_smem(dp, bq, rows, stages, kpw, v, split,
+                         qslots) <= SMEM_LIMIT:
+                return stages, kpw
+    return None
+
+
+def bounded_geometry(dp: int, bq: int, bk: int, sub: int, g: int,
+                     kind: int) -> dict:
+    """How an S2 instantiation runs on the template
+    (csrc/study_wgmma.cuh::S2Cfg): consumer warpgroups `wgm`, the kv rows
+    of a ring stage `rows`, V in the ring (`v`), warpgroups that split a
+    tile's kv rows (`split`), Q slots (`qslots`), and the kv rows each
+    warpgroup takes of a tile (`ns`, S = Q K^T's N)."""
+    split = 2 if g > 1 and dp > 48 else 1
+    return {"wgm": split if g > 1 else bq // 64, "rows": sub * bk,
+            "v": kind not in (QK, QK_EXP), "split": split,
+            "qslots": 2 if g > 1 else 1, "ns": bk // split}
+
+
+def _key_line(dp, bq, rows, **kw):
+    line = study_line(dp, bq, rows, **kw)
+    assert line is not None, (dp, bq, rows, kw)
+    return line
+
+
+def _online_keys():
+    yield from ((48, bq, bk, SCALE_IN_KERNEL, 1) for bq in TILES
+                for bk in TILES)
+    for mode in (FOLDED_EXP, FOLDED_EXP2):
+        yield from ((dp, bq, bk, mode, 1) for dp in (48, 80, 160)
+                    for bq in TILES for bk in TILES)
+    yield from ((48, bq, bk, FOLDED_EXP2, 2) for bq in TILES for bk in TILES)
+
+
+def _bounded_keys():
+    for dp, kind in ((48, TB), (96, TB), (176, TB), (48, BOUNDED),
+                     (96, BOUNDED), (48, BND2), (80, BND2)):
+        yield from ((dp, bq, bk, 1, 1, 1, kind) for bq in TILES
+                    for bk in TILES)
+    yield from ((dp, bq, 64, sub, 1, 1, BOUNDED) for dp in (48, 96)
+                for bq in TILES for sub in (2, 4))
+    yield from ((48, t, t, 1, 1, 1, kind) for t in TILES
+                for kind in (QK, QK_EXP, QK_PV))
+    yield from ((48, t, t, 1, 2, 1, TB) for t in TILES)
+    yield from ((dp, 64, 64, 1, 1, g, BND2) for dp in (48, 80, 160)
+                for g in (2, 4, 8))
+
+
+def _bounded_line(key):
+    dp, bq, bk, sub, halves, g, kind = key
+    geo = bounded_geometry(dp, bq, bk, sub, g, kind)
+    return _key_line(dp, bq, geo["rows"], v=geo["v"], split=geo["split"],
+                     qslots=geo["qslots"], ahead=halves == 2)
+
+
+# The instantiations the CUDA sources build, keyed as their SG_BUILT lines,
+# with the kernel-side fields of each line (ring stages, Q / K panel
+# columns; study_line's rule): (padded width, bq, bk, mode, halves) for S1
+# ...
+ONLINE_BUILT = {key: _key_line(key[0], key[1], key[2], ahead=key[4] == 2)
+                for key in _online_keys()}
+# ... and (padded width, bq, bk, sub, halves, g, kind) for S2
+# (csrc/study_bounded.cu; BND2's in csrc/study_bnd2.cu).
+BOUNDED_BUILT = {key: _bounded_line(key) for key in _bounded_keys()}
+
+
+def online_smem(dp: int, bq: int, bk: int, halves: int = 1) -> int:
+    """S1's shared memory (study_online.cu's FwCfg::BYTES): Q, and a ring
+    of K and V tiles of bk rows; where no line fits, the least a line
+    would need (2 stages, 16-column panels)."""
+    line = study_line(dp, bq, bk, ahead=halves == 2) or (2, 16)
+    return line_smem(dp, bq, bk, *line)
+
+
+def bounded_smem(dp: int, bq: int, bk: int, sub: int, g: int,
+                 kind: int = TB, halves: int = 1) -> int:
+    """S2's shared memory (study_wgmma.cuh's FwCfg::BYTES): Q (two slots
+    with g > 1), a ring of stages of sub * bk rows of K and, but for QK
+    and QK_EXP, of V, and with g > 1 at d 80 / 160 the hand-over between
+    the two warpgroups; where no line fits, the least a line would need."""
+    geo = bounded_geometry(dp, bq, bk, sub, g, kind)
+    kw = dict(v=geo["v"], split=geo["split"], qslots=geo["qslots"])
+    line = study_line(dp, 64 * geo["wgm"] // geo["split"], geo["rows"],
+                      ahead=halves == 2, **kw) or (2, 16)
+    return line_smem(dp, 64 * geo["wgm"] // geo["split"], geo["rows"],
+                     *line, **kw)
+
+
+def study_maps(bh: int, sq: int, skv: int, w: int, qrows: int, rows: int,
+               kpw: int, v: bool = True) -> dict:
+    """The tensor maps of one S1 / S2 launch on (BH, S, W) operands
+    (study_online.cu's and study_wgmma.cuh's launchers: F's
+    encode_operand with H = 1): Q boxes of `qrows` rows and K boxes of
+    `rows`, both `kpw` columns a panel, V boxes of v_panel(pad16(w))
+    columns. Columns past W read as zero."""
+    maps = {"q": operand_map((bh, sq, w), (sq * w, w, 1), 1, kpw, qrows),
+            "k": operand_map((bh, skv, w), (skv * w, w, 1), 1, kpw, rows)}
+    if v:
+        maps["v"] = operand_map((bh, skv, w), (skv * w, w, 1), 1,
+                                v_panel(pad16(w)), rows)
+    return maps
 
 
 def _require(built, key, smem: int, name: str) -> None:
@@ -285,19 +389,22 @@ def _launch_bounded(qe, ke, ve, bound, d, kind, bq, bk, sub, halves, g,
     out = torch.empty((b, h, sq, d), dtype=qe.dtype, device=qe.device)
     qf, kf, vf = _flat(qe), _flat(ke), _flat(ve)
     bnd = None if bound is None else bound.contiguous()
-    err = _build.load().sg_study_bounded(
+    # BND2 (one head or g a block) is study_bnd2.cu's, the rest
+    # study_bounded.cu's; one C signature
+    name = "sg_study_bnd2" if kind == BND2 else "sg_study_bounded"
+    err = getattr(_build.load(), name)(
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
         None if bnd is None else bnd.data_ptr(), out.data_ptr(), b * h, sq,
         ke.shape[2], w, d, kind, bq, bk, sub, halves, g, float(guard),
         cuda_stream(qe))
-    _build.check(err, "sg_study_bounded")
+    _build.check(err, name)
     return out
 
 
 def _online(wrapper, plain, q, k, v, sm_scale, bq, bk, mode, halves):
     _, _, _, _, d = _check(q, k, v, bq, bk)
     key = (pad16(d), bq, bk, mode, halves)
-    _require(ONLINE_BUILT, key, online_smem(pad16(d), bq, bk),
+    _require(ONLINE_BUILT, key, online_smem(pad16(d), bq, bk, halves),
              wrapper.__name__)
     if mode == SCALE_IN_KERNEL:
         qx = q
@@ -318,7 +425,9 @@ def variant_attention(wrapper, plain, q, k, v, *, sm_scale: float,
                       split2: bool = False) -> torch.Tensor:
     """S1: the online-softmax forward with the scale in the kernel
     (fold_scale False, exp only) or folded into q on the host, exp or exp2,
-    and split2 (two 16-row halves per warp)."""
+    and split2 (the next K/V tile's Q K^T in flight during the current
+    tile's exps, in a second accumulator set of each consumer
+    warpgroup)."""
     if use_exp2 and not fold_scale:
         raise ValueError("use_exp2 needs fold_scale (as in the study)")
     mode = (SCALE_IN_KERNEL if not fold_scale else
@@ -341,8 +450,8 @@ def _bounded(wrapper, plain, q, k, v, sm_scale, bq, bk, kind, exp2, guard,
     _, _, _, _, d = _check(q, k, v, bq, bk, bk * sub)
     dp = pad16(pad8(d + 1))
     key = (dp, bq, bk, sub, halves, 1, kind)
-    _require(BOUNDED_BUILT, key, bounded_smem(dp, bq, bk, sub, 1),
-             wrapper.__name__)
+    _require(BOUNDED_BUILT, key,
+             bounded_smem(dp, bq, bk, sub, 1, kind, halves), wrapper.__name__)
     qe, ke, ve = ext_inputs(q, k, v, sm_scale, exp2)
     if plain or q.device.type == "cpu":
         return bounded_plain(qe, ke, ve, d, kind, guard)

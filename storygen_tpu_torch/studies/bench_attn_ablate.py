@@ -2,7 +2,8 @@
 ablation.
 
 The card's counterpart of scripts/studies/bench_attn_ablate.py, on kernel
-S2 (csrc/study_bounded.cu) at the two dominant d = 40 shapes, timing
+S2 (csrc/study_bounded.cu, kernel F's wgmma + TMA template) at the two
+dominant d = 40 shapes, timing
 kernels that do progressively more work per K/V tile:
 
   qk         s = q_ext k_ext^T only (the kv sum of s is the output, so
@@ -10,8 +11,8 @@ kernels that do progressively more work per K/V tile:
   qk_exp     + exp2(s)
   qk_pv      s and the P V product (no exp; p := s)
   full_bnd   the max-free bounded kernel (q k^T + exp2 + P V)
-  full_bnd2  the same with two 16-row halves per warp whose q k^T are
-             issued before either half's exp2
+  full_bnd2  the same with the next K/V tile's q k^T in flight while the
+             current tile's exp2 run (two accumulator sets a warpgroup)
 
 The deltas separate the tensor-core q k^T, the exp2 and the P V. Only the
 full kernels compute attention, so only they print an error.

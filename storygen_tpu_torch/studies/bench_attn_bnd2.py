@@ -1,7 +1,7 @@
 """Can the row bound ride as a side input instead of extra q/k/v columns?
 
 The card's counterpart of scripts/studies/bench_attn_bnd2.py: bnd2 on
-kernel S2 (csrc/study_bounded.cu) takes plain q/k/v (no host-side concats
+kernel S2 (csrc/study_bnd2.cu) takes plain q/k/v (no host-side concats
 or padding), the mean-centred bound b = q_s . mean(k) + |q_s| max_j
 |k_j - mean(k)| (exp2 units) as an fp32 (B, H, Sq) side input, and sums
 the unrounded p in fp32 in the kernel instead of through a ones column.

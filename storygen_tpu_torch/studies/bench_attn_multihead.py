@@ -1,9 +1,10 @@
 """Do several heads per block help the small-sequence shapes on the card?
 
 The card's counterpart of scripts/studies/bench_attn_multihead.py: mh on
-kernel S2 (csrc/study_bounded.cu) is bnd2 with g heads per block (64-row
+kernel S2 (csrc/study_bnd2.cu) is bnd2 with g heads per block (64-row
 Q and K/V tiles), so the grid has g times fewer blocks, each of which
-walks its g heads in turn with 4 warps on one K/V ring.
+walks its g heads in turn on one TMA-fed K/V ring (two warpgroups that
+split each tile's kv rows at d 80 / 160, one at d 40).
 
   bnd(cur)  the port's kernel F
   mh g2/g4/g8

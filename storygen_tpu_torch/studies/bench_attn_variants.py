@@ -1,14 +1,16 @@
 """Which knobs of the online-softmax flash forward pay on the H100.
 
 The card's counterpart of scripts/studies/bench_attn_variants.py, on
-kernel S1 (csrc/study_online.cu) at the UNet's d = 40 shapes:
+kernel S1 (csrc/study_online.cu, kernel F's wgmma + TMA template) at the
+UNet's d = 40 shapes:
 
   repo          the port's kernel F (csrc/flash_fwd.cu)
   ds            the scale applied to the logits in the kernel, exp
   ds+scale      the scale folded into q on the host, exp
   ds+exp2       scale * log2(e) folded into q, exp2
-  ds+exp2+split2  + each warp owns two 16-row halves, issuing the second
-                half's q k^T before the first half's softmax
+  ds+exp2+split2  + the next K/V tile's q k^T in flight while the
+                current tile's softmax runs (two accumulator sets in each
+                consumer warpgroup)
   ds+exp2+bk128 + 128-row K/V tiles instead of 64
 
 ("ds" keeps the study's names; dimension_semantics is a TPU knob with no

@@ -221,10 +221,11 @@ def test_header_runs_wgmma_on_tma_fed_tiles():
         assert banned not in _code(SOURCE), banned
     assert "wg_launch<WGC_, BE_, WN_, BK_, STAGES_, true>" in SOURCE
     assert '#include "geglu_wgmma.cuh"' in SOURCE
-    # hopper.cuh's register-A product takes the transpose bit as TB
+    # hopper.cuh's register-A product takes the transpose bit as TB, at
+    # each of its N (48, 64, 80, 96, 128, 160, 176, 256)
     hopper = (_build.CSRC / "hopper.cuh").read_text()
     assert hopper.count("  template <int TB = 1>\n  static __device__") == \
-        hopper.count('"n"(TB)') == hopper.count("struct WgMma<") == 6
+        hopper.count('"n"(TB)') == hopper.count("struct WgMma<") == 8
 
 
 def test_tma_boxes_of_a_stage():

@@ -145,15 +145,16 @@ def test_nvcc_command_targets_sm90a_into_build_dir():
     assert {p.name for p in srcs} == {"flash_fwd.cu", "flash_bwd.cu",
                                       "geglu_matmul.cu", "conv3x3.cu",
                                       "downconv3x3.cu", "study_online.cu",
-                                      "study_bounded.cu", "study_qk.cu",
-                                      "study_int8.cu"}
+                                      "study_bounded.cu", "study_bnd2.cu",
+                                      "study_qk.cu", "study_int8.cu"}
     assert {p.name for p in _build.headers()} == {"study_mma.cuh",
                                                   "conv_mma.cuh",
                                                   "conv_wgmma.cuh",
                                                   "hopper.cuh",
                                                   "flash_wgmma.cuh",
                                                   "flash_bwd_wgmma.cuh",
-                                                  "geglu_wgmma.cuh"}
+                                                  "geglu_wgmma.cuh",
+                                                  "study_wgmma.cuh"}
     out = _build.lib_path(srcs)
     nvcc = "/usr/local/cuda/bin/nvcc"
     for src in srcs:
@@ -194,9 +195,9 @@ def test_source_hash_covers_the_shared_header(tmp_path, monkeypatch):
     "flash_attention.py", "geglu.py", "conv.py", "_build.py", "attention.py",
     "downconv.py", "study_attention.py", "study_int8.py", "flash_fwd.cu",
     "flash_bwd.cu", "geglu_matmul.cu", "conv3x3.cu", "downconv3x3.cu",
-    "study_online.cu", "study_bounded.cu", "study_qk.cu", "study_int8.cu",
-    "study_mma.cuh", "conv_mma.cuh", "conv_wgmma.cuh", "hopper.cuh",
-    "flash_wgmma.cuh", "geglu_wgmma.cuh"])
+    "study_online.cu", "study_bounded.cu", "study_bnd2.cu", "study_qk.cu",
+    "study_int8.cu", "study_mma.cuh", "conv_mma.cuh", "conv_wgmma.cuh",
+    "hopper.cuh", "flash_wgmma.cuh", "geglu_wgmma.cuh", "study_wgmma.cuh"])
 def test_kernel_modules_call_no_library_kernel(name):
     src = (PORT / ("ops" if name.endswith(".py") else "csrc") / name
            ).read_text()
@@ -204,6 +205,40 @@ def test_kernel_modules_call_no_library_kernel(name):
                    "cpp_extension", "flash_attn", "xformers", "triton.ops",
                    "cudnn", "cublas", "cutlass"):
         assert banned not in src.lower(), (name, banned)
+
+
+def _includes(name, seen=None):
+    """The csrc headers that csrc/<name> includes, directly or through
+    another header."""
+    seen = set() if seen is None else seen
+    for inc in re.findall(r'^#include "([^"]+)"',
+                          (PORT / "csrc" / name).read_text(), re.M):
+        if inc not in seen:
+            seen.add(inc)
+            _includes(inc, seen)
+    return seen
+
+
+@pytest.mark.parametrize("name", ["study_online.cu", "study_bounded.cu",
+                                  "study_bnd2.cu", "flash_fwd.cu"])
+def test_wgmma_attention_sources_hold_no_mma_sync_path(name):
+    """S1, S2 and F / M / L run wgmma fed by TMA only: neither their sources
+    nor any header they include issue mma.sync or cp.async, none but
+    hopper.cuh (whose ldsm_x4_at is the conv prologue's) holds an ldmatrix
+    or calls one, and none includes the mma.sync kernels' study_mma.cuh."""
+    files = [name] + sorted(_includes(name))
+    assert "study_mma.cuh" not in files, files
+    assert {"hopper.cuh", "flash_wgmma.cuh"} <= set(files), files
+    for f in files:
+        src = (PORT / "csrc" / f).read_text()
+        code = "\n".join(ln.split("//")[0] for ln in src.splitlines())
+        banned = ["mma.sync", "cp.async.ca", "cp.async.cg", "cp.async.commit"]
+        if f != "hopper.cuh":
+            banned += ["ldmatrix", "ldsm_"]
+        for b in banned:
+            assert b not in code, (f, b)
+    wg = "\n".join((PORT / "csrc" / f).read_text() for f in files)
+    assert "wgmma.mma_async" in wg and "cp.async.bulk.tensor" in wg
 
 
 def test_sdpa_only_as_the_studies_yardstick():

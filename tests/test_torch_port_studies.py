@@ -24,6 +24,16 @@ DTYPES = {"fp32": (jnp.float32, torch.float32, 1e-4),
           "bf16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """The plain versions' matmuls on 2 threads, as the other heavy CPU
+    test files run theirs beside tier-1's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def studies():
     """The JAX study modules. Importing one points JAX's compilation cache
@@ -208,69 +218,155 @@ def test_wrappers_reject_bad_input(case, match):
         calls[case]()
 
 
-def test_built_tables_match_the_cuda_sources():
-    """The Python tables of built instantiations list exactly the SG_BUILT
-    and SG_TILES4 lines of the CUDA sources."""
+KINDS = {"TB": sa.TB, "BOUNDED": sa.BOUNDED, "QK": sa.QK,
+         "QK_EXP": sa.QK_EXP, "QK_PV": sa.QK_PV, "BND2": sa.BND2}
+
+
+def _sg_lines(name, lead=0, kinds=None):
+    """The SG_BUILT / SG_TILES4 lines after a CUDA source's `extern "C"`,
+    as tuples of ints (kind names through `kinds`); SG_TILES4 puts the
+    four (bq, bk) tiles after its first `lead` arguments."""
     import re
 
-    from storygen_tpu_torch.ops import _build, study_int8
+    from storygen_tpu_torch.ops import _build
+    src = (_build.CSRC / name).read_text()
+    body = src[src.index('extern "C"'):]
+    out = []
+    pat = r"^\s*(SG_BUILT|SG_TILES4)\(([^)]*)\)\s*$"
+    for macro, args in re.findall(pat, body, re.M):
+        if any(a.strip().endswith("_") for a in args.split(",")):
+            continue  # a line of a macro's own definition
+        vals = tuple(kinds[a.strip()] if kinds and a.strip() in kinds
+                     else int(a) for a in args.split(","))
+        if macro == "SG_BUILT":
+            out.append(vals)
+        else:
+            out += [vals[:lead] + (bq, bk) + vals[lead:]
+                    for bq in sa.TILES for bk in sa.TILES]
+    return out
 
-    def parse(name, lead, kinds=None):
-        """SG_TILES4 puts the four (bq, bk) tiles after its first `lead`
-        arguments."""
-        src = (_build.CSRC / name).read_text()
-        body = src[src.index('extern "C"'):]
-        out = set()
-        pat = r"^\s*(SG_BUILT|SG_TILES4)\(([^)]*)\)\s*$"
-        for macro, args in re.findall(pat, body, re.M):
-            if any(a.strip().endswith("_") for a in args.split(",")):
-                continue  # a line of a macro's own definition
-            vals = tuple(kinds[a.strip()] if kinds and a.strip() in kinds
-                         else int(a) for a in args.split(","))
-            if macro == "SG_BUILT":
-                out.add(vals)
-            else:
-                out |= {vals[:lead] + (bq, bk) + vals[lead:]
-                        for bq in sa.TILES for bk in sa.TILES}
-        return out
 
-    kinds = {"TB": sa.TB, "BOUNDED": sa.BOUNDED, "QK": sa.QK,
-             "QK_EXP": sa.QK_EXP, "QK_PV": sa.QK_PV, "BND2": sa.BND2}
-    assert parse("study_online.cu", 1) == sa.ONLINE_BUILT
-    assert parse("study_bounded.cu", 1, kinds) == sa.BOUNDED_BUILT
-    assert parse("study_qk.cu", 2) == study_int8.QK_BUILT
-    assert parse("study_int8.cu", 2) == study_int8.INT8_BUILT
+def test_built_tables_match_the_cuda_sources():
+    """The Python tables of built instantiations list exactly the keys of
+    the CUDA sources' SG_BUILT and SG_TILES4 lines: S1's and S2's (the
+    wgmma lines carry two fields more, ring stages and panel columns;
+    S2's BND2 lines are study_bnd2.cu's) and S3's and S4's."""
+    from storygen_tpu_torch.ops import study_int8
+    assert {v[:5] for v in _sg_lines("study_online.cu")} == \
+        set(sa.ONLINE_BUILT)
+    bounded = (_sg_lines("study_bounded.cu", kinds=KINDS)
+               + _sg_lines("study_bnd2.cu", kinds=KINDS))
+    assert {v[:7] for v in bounded} == set(sa.BOUNDED_BUILT)
+    assert set(_sg_lines("study_qk.cu", 2)) == study_int8.QK_BUILT
+    assert set(_sg_lines("study_int8.cu", 2)) == study_int8.INT8_BUILT
+
+
+def test_study_wgmma_lines_match_the_tables():
+    """Each S1 / S2 SG_BUILT line is one table entry, key and line fields
+    (ring stages, Q / K panel columns) alike, once; S2's BND2 lines are
+    all in study_bnd2.cu and the other kinds in study_bounded.cu, so the
+    two build in parallel."""
+    online = _sg_lines("study_online.cu")
+    assert len(online) == len(sa.ONLINE_BUILT)
+    assert {v[:5]: v[5:] for v in online} == sa.ONLINE_BUILT
+    b1 = _sg_lines("study_bounded.cu", kinds=KINDS)
+    b2 = _sg_lines("study_bnd2.cu", kinds=KINDS)
+    assert len(b1) + len(b2) == len(sa.BOUNDED_BUILT)
+    assert {v[:7]: v[7:] for v in b1 + b2} == sa.BOUNDED_BUILT
+    assert all(v[6] != sa.BND2 for v in b1)
+    assert all(v[6] == sa.BND2 for v in b2)
+
+
+def test_study_lines_follow_f_or_the_smem_budget():
+    """A study line takes F's unmasked line at the same (width, ring rows)
+    where F has one and the line walks as F does, else the deepest ring of
+    at most 4 stages that fits at the widest panel that lets one fit: no
+    deeper ring and no wider panel of the same width fits a block. The
+    walks that issue the next tile's Q K^T before the current tile's exps
+    (split2; QK and QK_EXP, without V) take the budget's ring."""
+    from storygen_tpu_torch.ops.flash_attention import FWD_BUILT
+    f_lines = {(dp, v[1]): (v[2], v[3])
+               for (dp, masked), v in FWD_BUILT.items() if not masked}
+    rows = [(k[0], k[1], k[2], {}, k[4] == 2, v)
+            for k, v in sa.ONLINE_BUILT.items()]
+    for (dp, bq, bk, sub, halves, g, kind), v in sa.BOUNDED_BUILT.items():
+        geo = sa.bounded_geometry(dp, bq, bk, sub, g, kind)
+        rows.append((dp, 64 * geo["wgm"] // geo["split"], geo["rows"],
+                     dict(v=geo["v"], split=geo["split"],
+                          qslots=geo["qslots"]),
+                     halves == 2 or not geo["v"], v))
+    seen_f = ahead_at_f = 0
+    for dp, qrows, ring_rows, kw, ahead, (stages, kpw) in rows:
+        if (dp, ring_rows) in f_lines and ahead:
+            ahead_at_f += 1
+        elif (dp, ring_rows) in f_lines:
+            assert (stages, kpw) == f_lines[(dp, ring_rows)]
+            seen_f += 1
+            continue
+        assert 2 <= stages <= 4
+        fits = lambda st, kp: sa.line_smem(  # noqa: E731
+            dp, qrows, ring_rows, st, kp, **kw) <= sa.SMEM_LIMIT
+        assert fits(stages, kpw)
+        assert stages == 4 or not fits(stages + 1, kpw)
+        assert all(not fits(2, wider) for wider in (64, 32)
+                   if kpw < wider <= sa._PANEL[dp])
+    assert seen_f >= 10 and ahead_at_f == 5
 
 
 def test_ring_stages_match_the_cuda_header():
-    """The Python mirror of the K/V ring's depth is the header's rule."""
+    """The Python mirrors of the rings' depth are the headers' rules: the
+    mma.sync kernels' (S3, S4) ring_stages in study_mma.cuh, and the wgmma
+    lines' (S1, S2) shared memory FwCfg::BYTES in flash_wgmma.cuh, whose
+    stages each SG_BUILT line names."""
     from storygen_tpu_torch.ops import _build
     src = (_build.CSRC / "study_mma.cuh").read_text()
     assert "return 2 * (3 * stage + 1024) <= 233472 ? 3 : 2;" in src
     assert sa.SM_SMEM == 233472
     assert [sa.ring_stages(b) for b in (1000, 38570, 38571, 100000)] == \
         [3, 3, 2, 2]
+    fw = (_build.CSRC / "flash_wgmma.cuh").read_text()
+    for text in ("1024 + QSLOTS * QBYTES + STAGES * STAGE + HAND + BARS",
+                 "STAGE = KBYTES + (V ? VBYTES : 0)",
+                 "HAND = SPLIT > 1 ? 128 * (DP / 2 + 2) * 4 : 0",
+                 "BARS = 8 * (QBARS + (V ? 4 : 2) * STAGES)",
+                 "QBARS = QSLOTS > 1 ? 2 * QSLOTS : 1",
+                 "VPW = DP % 32 == 0 ? 32 : 16"):
+        assert text in fw, text
+    # d 48 in one 64-column panel, 4 stages of 64 kv rows at bq 64
+    assert sa.line_smem(48, 64, 64, 4, 64) == (
+        1024 + 64 * 128 + 4 * (64 * 128 + 64 * 96) + 8 * (1 + 16))
+    # g heads at d 160: two Q slots and the hand-over, 2 stages
+    assert sa.line_smem(160, 64, 64, 2, 32, split=2, qslots=2) == (
+        1024 + 2 * 5 * 64 * 64 + 2 * (5 * 64 * 64 + 64 * 320)
+        + 128 * 82 * 4 + 8 * (4 + 8))
 
 
 @pytest.mark.parametrize("table", ["online", "bounded", "qk", "int8"])
 def test_every_built_study_ring_fits_a_block(table):
-    """Each built S1-S4 instantiation's ring (two or three stages, by
-    ring_stages) fits a block's shared memory, beside S3's q_t slab; where
-    Q is copied into a stage (S1, one-head S2, S4), its tile fits one
-    stage."""
+    """Each built S1-S4 instantiation's ring fits a block's shared memory:
+    S1's and S2's wgmma lines (line_smem at the line's stages and panels,
+    at least two stages, Q in its own slots), S3's and S4's mma.sync rings
+    (two or three stages, by ring_stages) beside S3's q_t slab; where S4
+    copies Q into a stage, its tile fits one stage."""
     from storygen_tpu_torch.ops import study_int8 as si
     rows = []  # (smem, one stage's bytes, bytes beside the ring, Q tile)
-    if table in ("online", "bounded"):
-        for key in (sa.ONLINE_BUILT if table == "online"
-                    else sa.BOUNDED_BUILT):
-            dp, bq, bk = key[:3]
-            sub, g = (1, 1) if table == "online" else (key[3], key[5])
-            pitch = sa.pitch_bytes(2 * dp)
-            q = sa.align128(bq * pitch)
-            rows.append((sa.online_smem(dp, bq, bk) if table == "online"
-                         else sa.bounded_smem(dp, bq, bk, sub, g),
-                         2 * sa.align128(sub * bk * pitch)
-                         + (q if g > 1 else 0), 0, q))
+    if table == "online":
+        for (dp, bq, bk, _, halves), (st, kpw) in sa.ONLINE_BUILT.items():
+            assert st >= 2
+            smem = sa.line_smem(dp, bq, bk, st, kpw)
+            assert smem == sa.online_smem(dp, bq, bk, halves)
+            assert smem <= sa.SMEM_LIMIT
+    elif table == "bounded":
+        for key, (st, kpw) in sa.BOUNDED_BUILT.items():
+            dp, bq, bk, sub, halves, g, kind = key
+            geo = sa.bounded_geometry(dp, bq, bk, sub, g, kind)
+            assert st >= 2
+            smem = sa.line_smem(dp, 64 * geo["wgm"] // geo["split"],
+                                geo["rows"], st, kpw, v=geo["v"],
+                                split=geo["split"], qslots=geo["qslots"])
+            assert smem == sa.bounded_smem(dp, bq, bk, sub, g, kind,
+                                           halves), key
+            assert smem <= sa.SMEM_LIMIT, key
     elif table == "qk":
         for i8, dp, bq, bk in si.QK_BUILT:
             # int8 K rows dense, bf16 at an ldmatrix pitch
@@ -285,19 +381,216 @@ def test_every_built_study_ring_fits_a_block(table):
                          + sa.align128(bk * sa.pitch_bytes(2 * dv))
                          + sa.align128(bk * 4), 0,
                          sa.align128(bq * sa.pitch_bytes(dp8))))
-    assert len(rows) >= 4
     for smem, stage, beside, q in rows:
         assert smem == beside + sa.ring_stages(stage) * stage
         assert smem <= sa.SMEM_LIMIT, (table, smem)
         assert q <= stage
-    # the widest: d = 160 (176 with the extended column) at 128-row tiles
-    # takes two stages, the d = 40 tiles three; S3 / S4's small stages
-    # three
-    assert sa.online_smem(160, 128, 128) == 2 * 2 * 128 * 336
-    assert sa.bounded_smem(176, 128, 128, 1, 1) == 2 * 2 * 128 * 368
-    assert sa.online_smem(48, 64, 64) == 3 * 2 * 64 * 112
+    # the widest: d = 160 at 128-row tiles (two stages of 32-column
+    # panels), d = 160 + 1 (176) at 128-row tiles (16-column panels, the
+    # only ones that fit two stages); the d = 40 tiles four stages of 64
+    # rows; S3 / S4's small stages three
+    assert sa.online_smem(160, 128, 128) == (
+        1024 + 5 * 128 * 64 + 2 * (5 * 128 * 64 + 128 * 320) + 8 * 9)
+    assert sa.BOUNDED_BUILT[(176, 128, 128, 1, 1, 1, sa.TB)] == (2, 16)
+    assert sa.bounded_smem(176, 128, 128, 1, 1) == (
+        1024 + 11 * 128 * 32 + 2 * (11 * 128 * 32 + 128 * 352) + 8 * 9)
+    assert sa.ONLINE_BUILT[(48, 64, 64, sa.FOLDED_EXP2, 1)] == (4, 64)
     assert si.qk_smem(0, 48, 128, 128) == 48 * 272 + 3 * 128 * 112
     assert si.int8_smem(48, 48, 128, 64) == 3 * (64 * 48 + 64 * 112 + 256)
+
+
+def _consumer_registers(dp, ns, sets, kind=sa.TB, sub=1):
+    """A consumer thread's accumulator registers at its peak (fp32 O, the
+    S sets in flight, P's bf16 pairs of the P V in flight): F's loop holds
+    S_i and P_{i-1} (sets 1), split2 two S sets and P, the sub-tile loop
+    every sub-tile's S and one P, QK / QK_EXP two S sets and no O."""
+    if kind in (sa.QK, sa.QK_EXP):
+        return 2 * ns // 2
+    if sub > 1:
+        return dp // 2 + sub * ns // 2 + ns // 4
+    return dp // 2 + sets * ns // 2 + ns // 4
+
+
+def _register_budget(wgm):
+    """A consumer thread's registers: 255 with one consumer warpgroup
+    (no setmaxnreg), else FwCfg::CONSUMER_REGS after setmaxnreg."""
+    if wgm == 1:
+        return 255
+    regs = 512 // (wgm + 1) // 8 * 8
+    return min((regs + (regs - 40) // wgm) // 8 * 8, 240)
+
+
+@pytest.mark.parametrize("table", ["online", "bounded"])
+def test_every_study_line_fits_its_registers(table):
+    """Each S1 / S2 line's accumulators at their peak leave 40 registers of
+    a consumer thread's budget for addresses, the policy's row state and
+    the walk (ptxas's own count is the smoke's; a spill fails it)."""
+    rows = []
+    if table == "online":
+        for dp, bq, bk, _, halves in sa.ONLINE_BUILT:
+            rows.append((bq // 64, _consumer_registers(dp, bk, halves)))
+    else:
+        for dp, bq, bk, sub, halves, g, kind in sa.BOUNDED_BUILT:
+            geo = sa.bounded_geometry(dp, bq, bk, sub, g, kind)
+            rows.append((geo["wgm"], _consumer_registers(
+                dp, geo["ns"], halves, kind, sub)))
+    assert len(rows) >= 30
+    for wgm, regs in rows:
+        assert regs + 40 <= _register_budget(wgm), (wgm, regs)
+    assert _register_budget(1) == 255 and _register_budget(2) == 232
+
+
+# (B, H, Sq, Skv, d) of chip_smoke.py's STUDY_SHAPES
+STUDY_SHAPES = {"attn3 L1": (3, 8, 4096, 12288, 40),
+                "attn1 L1": (6, 8, 4096, 4096, 40),
+                "attn3 L2": (3, 8, 1024, 3072, 80),
+                "attn3 L3": (3, 8, 256, 768, 160)}
+
+
+def _map_checks(key, line, bh, sq, skv, w, table):
+    """study_maps of one line at (BH, Sq, Skv, W): the boxes' shapes, the
+    panels that cover the padded width and the zero-filled columns past
+    W. Returns the zero-filled column count of a Q / K row."""
+    dp, bq, bk = key[:3]
+    stages, kpw = line
+    if table == "online":
+        qrows, rows, v = bq, bk, True
+    else:
+        geo = sa.bounded_geometry(*key[:4], key[5], key[6])
+        qrows, rows, v = 64 * geo["wgm"] // geo["split"], geo["rows"], \
+            geo["v"]
+    maps = sa.study_maps(bh, sq, skv, w, qrows, rows, kpw, v)
+    assert maps["q"]["dims"] == (w, 1, sq, bh)
+    assert maps["k"]["dims"] == (w, 1, skv, bh)
+    assert maps["q"]["strides"] == (2 * w, 2 * w, 2 * sq * w)
+    assert maps["q"]["box"] == (kpw, 1, qrows, 1)
+    assert maps["k"]["box"] == (kpw, 1, rows, 1)
+    assert maps["q"]["swizzle"] == 2 * kpw
+    # panels of kpw columns cover the padded width; what lies past W is
+    # TMA's zero fill
+    panels = -(-dp // kpw)
+    assert panels * kpw >= dp >= w
+    if v:
+        vpw = sa.v_panel(dp)
+        assert maps["v"]["box"] == (vpw, 1, rows, 1)
+        assert dp % vpw == 0 and maps["v"]["swizzle"] == 2 * vpw
+    else:
+        assert "v" not in maps
+    # the walk's whole tiles, every box row read
+    assert sq % qrows == 0 and skv % rows == 0
+    return panels * kpw - w
+
+
+def _lines_at(dp):
+    """(table, key, line, HBM width) of every built S1 / S2 line at the
+    padded width dp: S1 and BND2 read q/k/v as they are (W = d), the other
+    S2 kinds the extended ones (W = pad8(d + 1))."""
+    out = []
+    for key, line in sa.ONLINE_BUILT.items():
+        if key[0] == dp:
+            out.append(("online", key, line, {48: 40}.get(dp, dp)))
+    for key, line in sa.BOUNDED_BUILT.items():
+        if key[0] == dp:
+            w = ({48: 40}.get(dp, dp) if key[6] == sa.BND2
+                 else {48: 48, 96: 88, 176: 168}[dp])
+            out.append(("bounded", key, line, w))
+    return out
+
+
+@pytest.mark.parametrize("dp", [48, 80, 96, 160, 176])
+def test_study_tensor_maps_at_every_built_width(dp):
+    """At every padded width the studies build, every line's tensor maps
+    at a small shape: boxes of its panels and rows, panels that cover the
+    width, and the columns past W that TMA fills with zeros (d 40: 24 of
+    S1's 64-column panel; the extended 88 and 168: 8 and 24 or 8)."""
+    lines = _lines_at(dp)
+    assert lines
+    zeros = set()
+    for table, key, line, w in lines:
+        g = key[5] if table == "bounded" else 1
+        zeros.add(_map_checks(key, line, 2 * g, 256, 512, w, table))
+    assert {48: {24, 16}, 80: {48}, 96: {8}, 160: {0}, 176: {24, 8}}[dp] \
+        == zeros
+
+
+@pytest.mark.parametrize("shape", list(STUDY_SHAPES))
+def test_study_tensor_maps_at_the_study_shapes(shape):
+    """Every S1 / S2 line at the width of a study shape, at that shape:
+    its tensor maps, whole tiles, and a grid whose z dimension (BH, or BH
+    / g) CUDA takes."""
+    b, h, sq, skv, d = STUDY_SHAPES[shape]
+    n = 0
+    for dp in {sa.pad16(d), sa.pad16(sa.pad8(d + 1))}:
+        for table, key, line, w in _lines_at(dp):
+            if w not in (d, sa.pad8(d + 1)):
+                continue
+            g = key[5] if table == "bounded" else 1
+            rows = key[2] * (key[3] if table == "bounded" else 1)
+            if skv % rows or (b * h) % g:
+                continue
+            assert _map_checks(key, line, b * h, sq, skv, w, table) >= 0
+            assert 0 < b * h // g <= 65535
+            n += 1
+    # attn3 L3 (d 160): S1's 8 lines, TB's 4 at 176 and mh's 3
+    assert n >= 15
+
+
+def test_study_tensor_map_rejects_what_tma_cannot_read():
+    """A width that 8 does not divide has rows that are no multiple of 16
+    bytes apart: no tensor map (the wrappers pad the extended q/k/v to 8
+    columns for this)."""
+    with pytest.raises(ValueError, match="multiples of 16"):
+        sa.study_maps(2, 256, 512, 41, 64, 64, 64)
+    with pytest.raises(ValueError, match="TMA's rules"):
+        sa.study_maps(2, 512, 512, 48, 512, 64, 64)
+
+
+def _head_walk(g: int, nt: int, stages: int) -> list:
+    """The order in which an S2 block of g heads lands and walks its K/V
+    tiles (csrc/study_wgmma.cuh::s2_start, s2_heads): (head, tile, ring
+    stage, the parity of that stage's fill the consumers wait for, Q slot,
+    the parity of that slot's fill), the ring running on across heads."""
+    return [(hd, t, (hd * nt + t) % stages, ((hd * nt + t) // stages) & 1,
+             hd % 2, (hd // 2) & 1) for hd in range(g) for t in range(nt)]
+
+
+def _kv_split(dp: int, bk: int, g: int) -> list:
+    """The kv rows of each tile that each consumer warpgroup of a g-heads
+    block takes, [(first row, rows)] (s2_heads: warpgroup w takes rows w
+    NS .. of each tile, NS = bounded_geometry's `ns`)."""
+    geo = sa.bounded_geometry(dp, 64, bk, 1, g, sa.BND2)
+    return [(w * geo["ns"], geo["ns"]) for w in range(geo["split"])]
+
+
+@pytest.mark.parametrize("g", [2, 4, 8])
+def test_mh_head_walk_and_kv_split(g):
+    """A g-heads block walks each (head, tile) once, head by head; the
+    ring runs on across heads (a stage is refilled only after the
+    consumers released its previous fill, whose parity differs), Q
+    alternates between two slots, and at d 80 / 160 two warpgroups split
+    every tile's 64 kv rows into halves whose descriptors start on a
+    swizzle period; at d 40 one warpgroup takes the tile."""
+    for dp, nt in ((48, 64), (80, 48), (160, 12)):
+        stages, kpw = sa.BOUNDED_BUILT[(dp, 64, 64, 1, 1, g, sa.BND2)]
+        walk = _head_walk(g, nt, stages)
+        assert [(hd, t) for hd, t, *_ in walk] == \
+            [(hd, t) for hd in range(g) for t in range(nt)]
+        for i, (hd, t, st, par, slot, qpar) in enumerate(walk):
+            assert st == i % stages and par == (i // stages) & 1
+            if i >= stages:  # the previous fill of this stage
+                assert walk[i - stages][2] == st
+                assert walk[i - stages][3] != par
+            assert slot == hd % 2 and qpar == (hd // 2) & 1
+        split = _kv_split(dp, 64, g)
+        assert sum(n for _, n in split) == 64
+        assert [f for f, _ in split] == [sum(n for _, n in split[:i])
+                                         for i in range(len(split))]
+        assert len(split) == (1 if dp == 48 else 2)
+        for first, ns in split:
+            assert ns % 16 == 0 and ns % 8 == 0 and ns <= 256
+            assert (first * 2 * kpw) % 1024 == 0
+        # two Q slots: the next head's Q lands while the current one runs
+        assert sa.bounded_geometry(dp, 64, 64, 1, g, sa.BND2)["qslots"] == 2
 
 
 def test_multihead_study_sweeps_only_built_lines():
