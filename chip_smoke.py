@@ -182,16 +182,17 @@ stride-2 conv on kernel D):
                generated PNGs (SCORER_IMAGE_REL_L2 with cuDNN's TF32
                default, SCORER_TEXT_REL_L2), its ms per image at batch 1
                and 8; each step's wall time, launches and the JSONs' keys;
-  studies      the attention studies' kernels (S1-S4, csrc/study_*.cu; S1
-               and S2 on kernel F's wgmma + TMA template, S3 and S4
-               mma.sync): drives every ported study entry point
+  studies      the attention studies' kernels (S1-S4, csrc/study_*.cu, all
+               on kernel F's wgmma + TMA template; S3 and S4 with int8
+               wgmma): drives every ported study entry point
                (storygen_tpu_torch/studies/) at one of its own UNet shapes,
                checking that it launched each of the eleven study wrappers
                and kernel F (its baseline) and nothing else; prints the
                registers and spill bytes ptxas gave every S1-S4
                instantiation of this run's build (any spill fails the
-               phase, and so does a wgmma that ptxas serialises in an S1
-               or S2 line) and kernel F's time at each study shape, its
+               phase, and so does a wgmma that ptxas serialises), the
+               count of int-to-float conversions and exp2s in S4's SASS,
+               and kernel F's time at each study shape, its
                mean and its device time alone; then holds each wrapper's
                instantiations against its plain version on the same
                inputs at the studies' full-width shapes (attn3 L1, attn1
@@ -341,14 +342,15 @@ for _name, _src, _line in (
         # the same _full_int8_kernel, its pallas_call in the epilogue study
         ("int8_attn_from_quant", "int8", "bench_attn_int8_epilogue.py:86")):
     KERNEL_META[_name] = {"route": "cuda", "source": STUDY_SOURCES[_src],
-                          "replaces": f"scripts/studies/{_line}"}
+                          "replaces": f"scripts/studies/{_line}",
+                          "design": "wgmma + TMA"}
 STUDY_KERNELS = tuple(k for k in KERNEL_META if k not in PORT_KERNELS)
 # the CUDA kernel that each study source launches (its name in a trace)
 STUDY_ENTRIES = {STUDY_SOURCES["online"]: "online_wg_kernel",
                  STUDY_SOURCES["bounded"]: "bounded_wg_kernel",
                  STUDY_SOURCES["bnd2"]: "bounded_wg_kernel",
-                 STUDY_SOURCES["qk"]: "qk_kernel",
-                 STUDY_SOURCES["int8"]: "int8_attn_kernel"}
+                 STUDY_SOURCES["qk"]: "qk_wg_kernel",
+                 STUDY_SOURCES["int8"]: "int8_wg_kernel"}
 SERVING_KERNELS = ("flash_fwd", "geglu_matmul", "conv3x3")
 FUSED_KERNELS = ("gnconv3x3", "downconv3x3")
 # what each path must launch (> 0); every other kernel is held to 0 (the
@@ -4249,19 +4251,28 @@ def study_cases(dev):
     b, h, sq, skv, d = STUDY_SHAPES["attn3 L1"]
     n = float(b * h * sq * skv * d)
     q_t, kf, q_t8, k8 = int8_study_inputs(q, k)
-    for int8, qt_, k_ in ((True, q_t8, k8), (False, q_t, kf)):
+    # S3 in int8 and bf16 (k's rows of whole 32-byte sectors: int8 at 64
+    # bytes, bf16 copied into 48 zero-padded columns in the call), and bf16
+    # on a view of zero-padded rows, whose padding the wrapper cannot
+    # vouch for, so that its map is D wide and its rows end mid-sector
+    kview = si.padded_rows(kf, 48)
+    for int8, qt_, k_, extra in ((True, q_t8, k8, {}), (False, q_t, kf, {}),
+                                 (False, q_t, kview, {"k": "view48"})):
         kw = dict(bq=128, bk=64, int8=int8)
         eb = 1.0 if int8 else 2.0
         cases.append((Case(
-            "qk_only", tag("attn3 L1", **kw),
+            "qk_only", tag("attn3 L1", **kw, **extra),
             lambda a=qt_, c=k_, kw=kw: si.qk_only(a, c, **kw),
             lambda a=qt_, c=k_, kw=kw: si.qk_only.plain(a, c, **kw), None,
             None, 2.0 * n * (i8 if int8 else 1.0),
             eb * b * h * d * (sq + skv) + 4.0 * b * h * sq,
             yardstick=lambda: torch.bmm(kf, q_t)),
             INT8_SUM_RTOL if int8 else KERNEL_RTOL))
+    # S4 at bq 128 (two consumer warpgroups, ping-pong) and 64 (one); one
+    # exp a logit
     for shape, kw in (("attn3 L1", dict(bq=128, bk=64)),
-                      ("attn1 L1", dict(bq=64, bk=64))):
+                      ("attn1 L1", dict(bq=64, bk=64)),
+                      ("attn1 L1", dict(bq=128, bk=128))):
         q, k, v = qkv(shape)
         b, h, sq, skv, d = STUDY_SHAPES[shape]
         sm, n = d ** -0.5, float(b * h * sq * skv * d)
@@ -4273,7 +4284,8 @@ def study_cases(dev):
                 q, k, v, sm_scale=sm, **kw), None,
             lambda q=q, k=k, v=v, sm=sm: common.sdpa(q, k, v, sm),
             2.0 * n * i8 + 2.0 * n,
-            2.0 * (2 * b * h * sq * d + 2 * b * h * skv * d)), KERNEL_RTOL))
+            2.0 * (2 * b * h * sq * d + 2 * b * h * skv * d),
+            exps=float(b * h * sq * skv)), KERNEL_RTOL))
     q, k, v = qkv("attn3 L1")
     b, h, sq, skv, d = STUDY_SHAPES["attn3 L1"]
     sm, n = d ** -0.5, float(b * h * sq * skv * d)
@@ -4288,19 +4300,17 @@ def study_cases(dev):
             *a, sm_scale=sm, **kw), None,
         lambda: common.sdpa(q, k, v, sm), 2.0 * n * i8 + 2.0 * n,
         b * h * d * (sq + skv) + 4.0 * b * h * (sq + skv)
-        + 2.0 * (b * h * skv * d + b * h * sq * d)), KERNEL_RTOL))
+        + 2.0 * (b * h * skv * d + b * h * sq * d),
+        exps=float(b * h * sq * skv)), KERNEL_RTOL))
     return cases
 
 
 def study_ptxas() -> bool:
     """The registers and spill bytes that ptxas gave every S1-S4
-    instantiation in this run's build, one line each; False if any
-    instantiation spills, ptxas serialises a wgmma of S1 or S2 (wg_ptxas)
-    or a built line has no report."""
-    import re
-    from storygen_tpu_torch.ops import (_build, study_attention as sa,
-                                        study_int8 as si)
-    from storygen_tpu_torch.studies.common import ptxas_summary
+    instantiation in this run's build, one line each (wg_ptxas); False if
+    any instantiation spills, ptxas serialises a wgmma, or a built line
+    has no report."""
+    from storygen_tpu_torch.ops import study_attention as sa, study_int8 as si
     # S1: online_wg_kernel<DP, WGM, BK, STAGES, KPW, MODE, HALVES>
     ok = wg_ptxas("study_online", "online_wg_kernel",
                   {(dp, bq // 64, bk, st, kpw, mode, halves)
@@ -4311,31 +4321,43 @@ def study_ptxas() -> bool:
         ok &= wg_ptxas(stem, "bounded_wg_kernel",
                        {key + line for key, line in sa.BOUNDED_BUILT.items()
                         if (key[6] == sa.BND2) == bnd2})
-    for stem, kernel, built in (("study_qk", "qk_kernel", si.QK_BUILT),
-                                ("study_int8", "int8_attn_kernel",
-                                 si.INT8_BUILT)):
-        seen = set()
-        for entry, regs, stack, stores, loads in ptxas_summary(
-                _build.ptxas_report(stem)):
-            # template arguments: Li<n>E (int), Lb<0|1>E (bool)
-            m = re.search(kernel + r"I((?:L[ib]-?\d+E)+)E", entry)
-            if m is None:
-                continue
-            args = tuple(int(x) for x in re.findall(r"L[ib](-?\d+)E",
-                                                     m.group(1)))
-            seen.add(args)
-            good = stores == 0 and loads == 0
-            ok &= good
-            print(f"ptxas {kernel}<{', '.join(map(str, args))}>: {regs} "
-                  f"registers, {stack} bytes stack, {stores} bytes spill "
-                  f"stores, {loads} bytes spill loads "
-                  f"{'ok' if good else 'FAIL'}", flush=True)
-        missing = built - seen
-        ok &= not missing
-        print(f"ptxas {stem}: {len(seen)} instantiations reported, "
-              f"{len(built)} built lines, missing {sorted(missing)} "
-              f"{'ok' if not missing else 'FAIL'}", flush=True)
+    # S3: qk_wg_kernel<I8, BQ, BK, STAGES, KPW>
+    ok &= wg_ptxas("study_qk", "qk_wg_kernel",
+                   {(i8, bq, bk) + line
+                    for (i8, _, bq, bk), line in si.QK_BUILT.items()})
+    # S4: int8_wg_kernel<BQ, BK, STAGES, KPW>
+    ok &= wg_ptxas("study_int8", "int8_wg_kernel",
+                   {(bq, bk) + line
+                    for (_, _, bq, bk), line in si.INT8_BUILT.items()})
     return ok
+
+
+def int8_sass() -> None:
+    """The int-to-float conversions (I2F, I2FP) and the exp2s (MUFU.EX2)
+    in the SASS of every S4 instantiation of this run's build (cuobjdump
+    -sass of the library): S4 takes one exp2 a logit, so conversions over
+    exp2s is the conversions a logit."""
+    import re
+    from pathlib import Path
+    from storygen_tpu_torch.ops import _build
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        print(f"sass int8_wg_kernel: not measured (no {tool})", flush=True)
+        return
+    out = subprocess.run([str(tool), "-sass", str(_build.lib_path(
+        _build.sources()))], capture_output=True, text=True).stdout
+    for part in re.split(r"\n\s*Function : ", out)[1:]:
+        name = part.split(None, 1)[0]
+        m = re.search(r"int8_wg_kernelI((?:Li\d+E)+)E", name)
+        if m is None:
+            continue
+        args = ", ".join(re.findall(r"Li(\d+)E", m.group(1)))
+        i2f = re.findall(r"\b(I2FP?(?:\.[A-Z0-9]+)*)\b", part)
+        ex2 = len(re.findall(r"\bMUFU\.EX2\b", part))
+        print(f"sass int8_wg_kernel<{args}>: {len(i2f)} I2F "
+              f"({', '.join(sorted(set(i2f))) or '-'}), {ex2} MUFU.EX2, "
+              f"{len(i2f) / max(ex2, 1):.3f} conversions a logit",
+              flush=True)
 
 
 def study_f_baselines(dev, card: str) -> dict:
@@ -4399,6 +4421,7 @@ def phase_studies(dev, card: str, results: dict) -> bool:
     torch.cuda.synchronize()
     ok = record_launches(results, read_launches(), "studies")
     ok &= study_ptxas()
+    int8_sass()
     torch.cuda.empty_cache()
     f_ms = study_f_baselines(dev, card)
     library_ms = {}

@@ -1,11 +1,12 @@
 // Kernels F and M (flash_fwd.cu) on Hopper's own instructions (sm_90a):
 // O = softmax(Q K^T * scale) V per head, over every kv row (F) or over the
 // kept reference spans only (M); kernel L (below); and the template that
-// the attention studies' kernels S1 (study_online.cu) and S2
-// (study_wgmma.cuh) share with F: the ring and its producer (FwRing), the
-// walk (KvWalk, DenseWalk) and the consumers' loop (fw_consume,
-// fw_consume_ahead, fw_block), whose softmax step is a policy (FwSoftmax
-// is F's).
+// the attention studies' kernels S1 (study_online.cu), S2
+// (study_wgmma.cuh), S3 (study_qk.cu) and S4 (study_int8.cu) share with
+// F: the ring and its producer (FwRing), the walk (KvWalk, DenseWalk) and
+// the consumers' loop (fw_consume, fw_consume_ahead, fw_block), whose
+// softmax step is a policy (FwSoftmax is F's); int8 Q and K (S3, S4) take
+// the s8 wgmma into int32 accumulators (FwCfg's EB).
 //
 // Replaces, with flash_fwd.cu's dispatch, the forward variants of
 // storygen_tpu/ops/pallas_attention.py reached through _flash_core:
@@ -53,7 +54,9 @@
 //   or the next batch row's elements. Q and K land in panels of KPW
 //   columns (rows of 2 KPW bytes, swizzled over their span), V in panels
 //   of 16 (d 48, 80, 176) or 32 (d 96, 160) columns, which divide its N.
-//   (The studies' (BH, S, W) operands are the same map with H = 1.)
+//   (The studies' (BH, S, W) operands are the same map with H = 1; an
+//   int8 one gives its row stride as the head stride, every stride being
+//   a multiple of 16 bytes.)
 // - Masking as the mma.sync template does it: the ragged last tile sets
 //   the logits past Skv to -inf in the S registers; M walks only the tiles
 //   that hold a kept row (producer and consumers compute the same walk
@@ -68,6 +71,8 @@
 #pragma once
 #include <math.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace sg_flash {
@@ -81,9 +86,11 @@ struct FwArgs {
   int H, Sq, Skv, D;
   int nref, span;    // M: nref spans of `span` kv rows; F: 1, 1
   float scale_log2;  // scale * log2(e), > 0
-  // the studies' (S1, S2): S2 BND2's row bounds (B, Sq) fp32, S1 MODE 0's
-  // scale, S2's guard on the row sum
+  // the studies' (S1, S2, S4): S2 BND2's and S4's row bounds (B, Sq) fp32,
+  // S4's q row scales (B, Sq) fp32, S1 MODE 0's scale, S2's and S4's guard
+  // on the row sum
   const float* bound;
+  const float* qscale;
   float scale, guard;
 };
 
@@ -94,13 +101,20 @@ struct FwArgs {
 // both warpgroups own the same 64 rows and each takes half of every
 // tile's kv rows (the max-free study's heads walked in turn). QSLOTS Q
 // buffers: a block that walks several heads lands the next head's Q while
-// the current one runs.
+// the current one runs. EB: bytes of a Q / K element, 2 (bf16, fp32
+// logits) or 1 (int8, int32 logits: the int8 studies S3 and S4, one
+// 64-byte panel, two k32 steps); an int8 walk with P V (S4) also lands
+// each tile's BK fp32 kv scales at the end of its stage (SK).
 template <int DP_, int WGM, int BK_, int STAGES_, int KPW, bool V_ = true,
-          int SPLIT = 1, int QSLOTS_ = 1>
+          int SPLIT = 1, int QSLOTS_ = 1, int EB_ = 2>
 struct FwCfg {
   static constexpr int DP = DP_, BK = BK_, STAGES = STAGES_;
   static constexpr bool V = V_;
   static constexpr int QSLOTS = QSLOTS_;
+  static constexpr int EB = EB_;
+  static constexpr bool SK = EB == 1 && V;
+  // the S accumulators' type
+  using SAcc = typename std::conditional<EB == 1, int, float>::type;
   static constexpr int BQ = 64 * WGM / SPLIT;
   static constexpr int NTC = 128 * WGM;  // consumer threads
   static constexpr int NT = NTC + 128;   // and the producer warpgroup
@@ -111,8 +125,9 @@ struct FwCfg {
   static constexpr int PRODUCER_REGS = 40;
   static constexpr int RISE = (REGS + (REGS - PRODUCER_REGS) / WGM) / 8 * 8;
   static constexpr int CONSUMER_REGS = RISE > 240 ? 240 : RISE;
-  static constexpr int KRB = 2 * KPW;  // a Q or K panel's row bytes
+  static constexpr int KRB = EB * KPW;  // a Q or K panel's row bytes
   static constexpr int KPANELS = (DP + KPW - 1) / KPW;
+  static constexpr int KSTEPS = (EB * DP + 31) / 32;  // Q K^T's k steps
   static constexpr int VPW = DP % 32 == 0 ? 32 : 16;  // a V panel's columns
   static constexpr int VRB = 2 * VPW;
   static constexpr int VPANELS = DP / VPW;
@@ -120,7 +135,9 @@ struct FwCfg {
   static constexpr int VPANEL = BK * VRB;
   static constexpr int QBYTES = KPANELS * QPANEL;
   static constexpr int KBYTES = KPANELS * KPANEL, VBYTES = VPANELS * VPANEL;
-  static constexpr int STAGE = KBYTES + (V ? VBYTES : 0);
+  // the kv scales (BK fp32) on a swizzle period of their own
+  static constexpr int SKBYTES = SK ? 1024 : 0;
+  static constexpr int STAGE = KBYTES + (V ? VBYTES : 0) + SKBYTES;
   // the second warpgroup's O and row sums, handed to the first (SPLIT 2)
   static constexpr int HAND = SPLIT > 1 ? 128 * (DP / 2 + 2) * 4 : 0;
   // barriers: each Q slot's full (and with several slots its empty), then
@@ -133,6 +150,9 @@ struct FwCfg {
   static_assert(DP == 48 || DP == 80 || DP == 96 || DP == 160 || DP == 176,
                 "the UNet's head dims, and the studies' with a bound column");
   static_assert(KPW == 16 || KPW == 32 || KPW == 64, "a swizzle span");
+  static_assert(EB == 2 || (EB == 1 && KPW == 64 && KPANELS == 1),
+                "int8 Q / K: one panel of 64-byte rows");
+  static_assert(!SK || 4 * BK <= SKBYTES, "the kv scales fit their slot");
   static_assert(BK == 64 || BK == 128 || BK == 256, "a TMA box of BK rows");
   static_assert(SPLIT == 1 || (SPLIT == 2 && WGM == 2),
                 "two warpgroups split a tile's kv rows");
@@ -179,6 +199,10 @@ struct FwRing {
     return ring + (i % C::STAGES) * C::STAGE;
   }
   __device__ uint32_t v_stage(int i) const { return k_stage(i) + C::KBYTES; }
+  // walked tile i's kv scales (SK)
+  __device__ uint32_t sk_stage(int i) const {
+    return k_stage(i) + C::KBYTES + (C::V ? C::VBYTES : 0);
+  }
   // thread 0, before the block's first __syncthreads
   __device__ void init() const {
 #pragma unroll
@@ -201,22 +225,25 @@ struct FwRing {
     mbar_expect_tx(q_full(slot), C::QBYTES);
 #pragma unroll
     for (int p = 0; p < C::KPANELS; ++p)
-      tma_load_4d(q(slot) + p * C::QPANEL, tmq, q_full(slot), p * (C::KRB / 2),
-                  h, q0, b);
+      tma_load_4d(q(slot) + p * C::QPANEL, tmq, q_full(slot),
+                  p * (C::KRB / C::EB), h, q0, b);
   }
   // the producer: walked tile i (kv rows from `row`) into its stage, once
-  // the consumers have released the stage's last use
+  // the consumers have released the stage's last use; with SK, the tile's
+  // kv scales from the (B, 1, Skv) map tms beside K, under K's barrier
   __device__ void load_kv(const CUtensorMap* tmk, const CUtensorMap* tmv,
-                          int i, int h, int row, int b) const {
+                          int i, int h, int row, int b,
+                          const CUtensorMap* tms = nullptr) const {
     const int s = i % C::STAGES;
     const uint32_t par = (i / C::STAGES + 1) & 1;  // the stage's last use
     const uint32_t ks = ring + s * C::STAGE, vs = ks + C::KBYTES;
     if (i >= C::STAGES) mbar_wait(empty_k(s), par);
-    mbar_expect_tx(full_k(s), C::KBYTES);
+    mbar_expect_tx(full_k(s), C::KBYTES + (C::SK ? 4 * C::BK : 0));
 #pragma unroll
     for (int p = 0; p < C::KPANELS; ++p)
-      tma_load_4d(ks + p * C::KPANEL, tmk, full_k(s), p * (C::KRB / 2), h,
-                  row, b);
+      tma_load_4d(ks + p * C::KPANEL, tmk, full_k(s), p * (C::KRB / C::EB),
+                  h, row, b);
+    if constexpr (C::SK) tma_load_3d(sk_stage(i), tms, full_k(s), row, 0, b);
     if constexpr (C::V) {
       if (i >= C::STAGES) mbar_wait(empty_v(s), par);
       mbar_expect_tx(full_v(s), C::VBYTES);
@@ -287,8 +314,8 @@ struct KvWalk {
 struct DenseWalk {
   int ntiles;
   __device__ int next(int t) const { return t; }
-  template <int N>
-  __device__ void mask(float (&)[N], int, int) const {}
+  template <class T, int N>
+  __device__ void mask(T (&)[N], int, int) const {}
 };
 
 // F's softmax step, the policy of fw_consume: the exact online softmax of
@@ -342,18 +369,21 @@ struct FwSoftmax {
 // two groups split a tile); `i0` is the ring position of the walk's first
 // tile (a block that walks several heads runs its ring on). Returns the
 // tiles walked. acc[4 j + 2 r + e] of an accumulator is row 16 w + lane / 4
-// + 8 r of the group's rows, column 8 j + 2 (lane % 4) + e.
+// + 8 r of the group's rows, column 8 j + 2 (lane % 4) + e. The S
+// accumulators are C::SAcc: int32 logits (int8 Q and K) go to the policy
+// with the tile's kv scales (SK), the policy leaves p's bits in place, and
+// the K stage (which holds the scales) is released after the step.
 template <class C, int NS, bool PP, class Walk, class SM>
 __device__ __forceinline__ int fw_consume(const FwRing<C>& rg,
                                           const Walk& walk, SM& sm,
                                           float (&o)[C::DP / 2],
                                           uint32_t qrows, int krow, int i0,
                                           int g, int tq) {
-  constexpr int KSTEPS = C::DP / 16;  // Q K^T's k steps
-  constexpr int KPS = C::KRB / 32;    // k steps a Q / K panel holds
+  constexpr int KSTEPS = C::KSTEPS;  // Q K^T's k steps
+  constexpr int KPS = C::KRB / 32;   // k steps a Q / K panel holds
   constexpr int STAGES = C::STAGES;
   const int ntiles = walk.ntiles;
-  float s[NS / 2];
+  typename C::SAcc s[NS / 2];
   uint32_t p[NS / 16][4];  // P's A fragments, one per 16 kv rows
   // S = Q K^T against the K tile at `ks`: k step j lies in panel j / KPS
   // at byte 32 (j % KPS) of each row
@@ -384,9 +414,22 @@ __device__ __forceinline__ int fw_consume(const FwRing<C>& rg,
     for (int kk = 0; kk < NS / 16; ++kk)
 #pragma unroll
       for (int f = 0; f < 4; ++f)
-        p[kk][f] = pack_bf16(s[8 * kk + 2 * f], s[8 * kk + 2 * f + 1]);
+        p[kk][f] = pack_bf16(acc_f(s[8 * kk + 2 * f]),
+                             acc_f(s[8 * kk + 2 * f + 1]));
   };
   auto v_stage = [&](int i) { return rg.v_stage(i0 + i); };
+  // the policy's step on walked tile i's logits; the K stage released
+  // before it, or with SK after it (the step reads the stage's scales)
+  auto take = [&](int i, float(&alpha)[2]) {
+    const int pos = i0 + i;
+    if constexpr (C::SK) {
+      sm.step(s, alpha, rg.sk_stage(pos) + 4 * krow);
+      mbar_arrive(rg.empty_k(pos % STAGES));
+    } else {
+      mbar_arrive(rg.empty_k(pos % STAGES));
+      sm.step(s, alpha);
+    }
+  };
 
   int cur = walk.next(0);
   if (cur >= ntiles) return 0;
@@ -397,10 +440,9 @@ __device__ __forceinline__ int fw_consume(const FwRing<C>& rg,
   wg_commit();
   wg_wait<0>();
   fence_regs(s);
-  mbar_arrive(rg.empty_k(i0 % STAGES));
   walk.mask(s, cur, tq);
   float alpha[2];
-  sm.step(s, alpha);  // O is 0: alpha unused
+  take(0, alpha);  // O is 0: alpha unused
   pack();
   int i = 1;  // tiles walked
   for (cur = walk.next(cur + 1); cur < ntiles; cur = walk.next(cur + 1), ++i) {
@@ -416,9 +458,8 @@ __device__ __forceinline__ int fw_consume(const FwRing<C>& rg,
     if (PP) named_bar_arrive(2 - g, C::NTC);  // the other group's turn
     wg_wait<1>();  // S_i; P_{i-1} V_{i-1} may still run
     fence_regs(s);
-    mbar_arrive(rg.empty_k(si));
     walk.mask(s, cur, tq);
-    sm.step(s, alpha);
+    take(i, alpha);
     wg_wait<0>();
     fence_regs(o);
     mbar_arrive(rg.empty_v((i0 + i - 1) % STAGES));
@@ -585,7 +626,8 @@ __device__ __forceinline__ void fw_block(const CUtensorMap* tmq,
                                          const CUtensorMap* tmk,
                                          const CUtensorMap* tmv,
                                          const FwArgs& a, const Walk& walk,
-                                         int h, int b, int q0) {
+                                         int h, int b, int q0,
+                                         const CUtensorMap* tms = nullptr) {
   static_assert(!PP || C::NTC == 256, "ping-pong between two warpgroups");
   static_assert(C::QSLOTS == 1 && C::HAND == 0, "one head a block");
   constexpr int WGM = C::NTC / 128;
@@ -601,7 +643,7 @@ __device__ __forceinline__ void fw_block(const CUtensorMap* tmq,
       rg.load_q(tmq, 0, h, q0, b);
       int i = 0;
       for (int t = walk.next(0); t < walk.ntiles; t = walk.next(t + 1), ++i)
-        rg.load_kv(tmk, tmv, i, h, t * C::BK, b);
+        rg.load_kv(tmk, tmv, i, h, t * C::BK, b, tms);
     }
     return;
   }
@@ -660,23 +702,50 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
 // ---- host side
 
 // The tensor map of a (B, S, H*D) operand with element strides (bs, rs, 1)
-// as (D, H, S, B), in boxes of (width, 1, rows, 1) swizzled over 2 width
-// bytes; out-of-range elements read as zero. Mirrored by
-// ops/flash_attention.py::operand_map.
-inline bool encode_operand(CUtensorMap* m, const bf16* x, int B, int H, int S,
+// as (D, H, S, B), in boxes of (width, 1, rows, 1) swizzled over eb width
+// bytes; out-of-range elements read as zero. Elements of eb bytes: 2
+// (bf16) or 1 (int8). The head stride hs (elements) is D unless given: a
+// (BH, S, D) int8 operand (H = 1) gives its row stride, since every
+// stride must be a multiple of 16 bytes, and D = 40 bytes is not. Mirrored
+// by ops/flash_attention.py::operand_map.
+inline bool encode_operand(CUtensorMap* m, const void* x, int B, int H, int S,
                            int D, long long bs, long long rs, int width,
-                           int rows) {
+                           int rows, int eb = 2, long long hs = 0) {
   const TensorMapEncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return false;
-  const cuuint64_t e = sizeof(bf16);
+  const cuuint64_t e = eb;
   const cuuint64_t dim[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                              (cuuint64_t)B};
-  const cuuint64_t str[3] = {e * D, e * rs, e * bs};
+  const cuuint64_t str[3] = {e * (hs ? hs : D), e * rs, e * bs};
   const cuuint32_t box[4] = {(cuuint32_t)width, 1, (cuuint32_t)rows, 1};
   const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x),
-             dim, str, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             swizzle_of(2 * width), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return enc(m,
+             eb == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             4, const_cast<void*>(x), dim, str, box, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(eb * width),
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a (P, R, C) array of type t (row and plane strides in
+// bytes, multiples of 16) in boxes of (bc, br, 1) elements, unswizzled;
+// out-of-range elements read as zero: S3's q_t (BH, D, Sq) in slabs of a
+// head's d rows (zeros past D) and BQ queries, and S4's kv scales
+// (BH, 1, Skv) fp32 in tiles of BK.
+inline bool encode_planes(CUtensorMap* m, const void* x,
+                          CUtensorMapDataType t, long long P, long long R,
+                          long long C, long long rstride, long long pstride,
+                          int bc, int br) {
+  const TensorMapEncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dim[3] = {(cuuint64_t)C, (cuuint64_t)R, (cuuint64_t)P};
+  const cuuint64_t str[2] = {(cuuint64_t)rstride, (cuuint64_t)pstride};
+  const cuuint32_t box[3] = {(cuuint32_t)bc, (cuuint32_t)br, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return enc(m, t, 3, const_cast<void*>(x), dim, str, box, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

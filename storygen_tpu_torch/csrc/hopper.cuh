@@ -1,13 +1,13 @@
 // Hopper's own instructions (sm_90a), shared by the kernels written for
 // them: conv_wgmma.cuh (kernels C, P and D), flash_wgmma.cuh (kernels F, M
-// and L, and the attention studies' S1 and S2), flash_bwd_wgmma.cuh
+// and L, and the attention studies' S1-S4), flash_bwd_wgmma.cuh
 // (kernels DQ and DKV) and geglu_wgmma.cuh (kernel G). On the device:
 // mbarriers, TMA tensor copies, named barriers, cluster barriers and
 // loads from a cluster peer's shared memory, wgmma (its shared-memory
-// matrix descriptors, its fences, its register-A and shared-A forms),
-// setmaxnreg, and the scalar helpers every kernel uses (bf16 pairs, the
-// special-function unit's exp2, sums and maxima over an accumulator row's
-// quad of lanes). On the host: the tensor-map encoder cuTensorMapEncodeTiled,
+// matrix descriptors, its fences, its register-A and shared-A forms, bf16
+// into fp32 and s8 into int32), setmaxnreg, and the scalar helpers every
+// kernel uses (bf16 pairs, the special-function unit's exp2, sums and
+// maxima over an accumulator row's quad of lanes). On the host: the tensor-map encoder cuTensorMapEncodeTiled,
 // looked up once per process, and a kernel's dynamic shared-memory limit,
 // set once per kernel, device and library.
 //
@@ -18,8 +18,9 @@
 // its own span, so the layout repeats every 8 rows):
 // - K-major (the reduction dimension contiguous, as Q and K in attention):
 //   rows of RB bytes, SBO = 8 RB from one 8-row group to the next, LBO
-//   unused; a 16-element k step lies inside one RB-byte row and is
-//   addressed by adding its 32-byte offset to the start address.
+//   unused; a k step (16 bf16 or 32 int8 elements, 32 bytes either way)
+//   lies inside one RB-byte row and is addressed by adding its 32-byte
+//   offset to the start address. 8-bit operands are K-major only.
 // - N-major (the output dimension contiguous, as V in P V and the conv
 //   weights): panels of RB / 2 columns, each holding every K row at RB
 //   bytes; LBO = the panel stride, SBO = 8 RB; transpose bit set.
@@ -53,6 +54,23 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // fast_exp2 (what __expf computes)
 __device__ __forceinline__ float fast_exp(float x) {
   return fast_exp2(x * 1.4426950408889634f);
+}
+
+// An accumulator register as the fp32 value it holds: the int32 logits of
+// the int8 kernels leave their probability's bits in place (the policy's
+// step), so one register array serves both
+__device__ __forceinline__ float acc_f(float x) { return x; }
+__device__ __forceinline__ float acc_f(int x) { return __int_as_float(x); }
+
+// two fp32 from shared-space address `addr` (8-byte aligned); volatile, so
+// that it stays behind the barrier wait that publishes them
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -157,6 +175,17 @@ __device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], uint32_t addr) {
       : "memory");
 }
 
+// the transposing ldmatrix x4 at a shared-space address (kernel S3's bf16
+// register A from its untransposed q_t slab)
+__device__ __forceinline__ void ldsm_x4_t_at(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -174,6 +203,11 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // The 16-byte unit that TMA's swizzle over PB-byte rows puts logical unit
@@ -250,7 +284,8 @@ struct WgMma<48> {
   template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[24],
                                              const uint32_t (&a)[4],
-                                             uint64_t desc) {
+                                             uint64_t desc,
+                                             int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
@@ -263,7 +298,7 @@ struct WgMma<48> {
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1), "n"(TB));
+          "r"(accumulate), "n"(TB));
   }
 };
 template <>
@@ -271,7 +306,8 @@ struct WgMma<64> {
   template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[32],
                                              const uint32_t (&a)[4],
-                                             uint64_t desc) {
+                                             uint64_t desc,
+                                             int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -287,7 +323,29 @@ struct WgMma<64> {
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1), "n"(TB));
+          "r"(accumulate), "n"(TB));
+  }
+  // the s8 form: a (64 x 32 int8, this warp's 16 rows in mma.sync's
+  // m16n8k32 A fragment) times b (32 x N int8, K-major) into int32
+  static __device__ __forceinline__ void run(int (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(accumulate));
   }
 };
 template <>
@@ -295,7 +353,8 @@ struct WgMma<80> {
   template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[40],
                                              const uint32_t (&a)[4],
-                                             uint64_t desc) {
+                                             uint64_t desc,
+                                             int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
@@ -313,7 +372,7 @@ struct WgMma<80> {
           "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1), "n"(TB));
+          "r"(accumulate), "n"(TB));
   }
 };
 template <>
@@ -321,7 +380,8 @@ struct WgMma<96> {
   template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[48],
                                              const uint32_t (&a)[4],
-                                             uint64_t desc) {
+                                             uint64_t desc,
+                                             int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
@@ -340,7 +400,7 @@ struct WgMma<96> {
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
           "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1), "n"(TB));
+          "r"(accumulate), "n"(TB));
   }
 };
 template <>
@@ -348,7 +408,8 @@ struct WgMma<128> {
   template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[64],
                                              const uint32_t (&a)[4],
-                                             uint64_t desc) {
+                                             uint64_t desc,
+                                             int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -372,7 +433,37 @@ struct WgMma<128> {
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1), "n"(TB));
+          "r"(accumulate), "n"(TB));
+  }
+  // the s8 form: a (64 x 32 int8, this warp's 16 rows in mma.sync's
+  // m16n8k32 A fragment) times b (32 x N int8, K-major) into int32
+  static __device__ __forceinline__ void run(int (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(accumulate));
   }
 };
 template <>
@@ -380,7 +471,8 @@ struct WgMma<160> {
   template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[80],
                                              const uint32_t (&a)[4],
-                                             uint64_t desc) {
+                                             uint64_t desc,
+                                             int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
@@ -408,7 +500,7 @@ struct WgMma<160> {
           "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
           "+f"(d[78]), "+f"(d[79])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1), "n"(TB));
+          "r"(accumulate), "n"(TB));
   }
 };
 template <>
@@ -416,7 +508,8 @@ struct WgMma<176> {
   template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[88],
                                              const uint32_t (&a)[4],
-                                             uint64_t desc) {
+                                             uint64_t desc,
+                                             int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %93, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n176k16.f32.bf16.bf16 "
@@ -446,7 +539,7 @@ struct WgMma<176> {
           "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
           "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1), "n"(TB));
+          "r"(accumulate), "n"(TB));
   }
 };
 template <>
@@ -454,7 +547,8 @@ struct WgMma<256> {
   template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[128],
                                              const uint32_t (&a)[4],
-                                             uint64_t desc) {
+                                             uint64_t desc,
+                                             int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
@@ -494,7 +588,7 @@ struct WgMma<256> {
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1), "n"(TB));
+          "r"(accumulate), "n"(TB));
   }
 };
 
@@ -553,6 +647,25 @@ struct WgMmaSS<64> {
           "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(accumulate));
   }
+  // the s8 form (int32 accumulators; 8-bit operands are K-major only)
+  static __device__ __forceinline__ void run(int (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
 };
 template <>
 struct WgMmaSS<128> {
@@ -580,6 +693,33 @@ struct WgMmaSS<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+  // the s8 form (int32 accumulators; 8-bit operands are K-major only)
+  static __device__ __forceinline__ void run(int (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
         : "l"(da), "l"(db), "r"(accumulate));
   }
 };

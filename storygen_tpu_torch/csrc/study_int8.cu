@@ -1,4 +1,6 @@
-// Max-free attention forward with an int8 q k^T for Hopper (sm_90a).
+// Kernel S4: max-free attention forward with an int8 q k^T, for Hopper
+// (sm_90a), as the INT8 kind of kernel S2 (study_wgmma.cuh) on kernel F's
+// wgmma + TMA template (flash_wgmma.cuh).
 //
 // Replaces scripts/studies/bench_attn_int8.py _full_int8_kernel, reached
 // through full_int8 (quantisation on the host) and through
@@ -12,192 +14,114 @@
 //         zero, as the TPU's fp32 has no subnormals)
 //   acc += p v_ext, v_ext = [v, 1] (bf16, fp32 accumulation)
 //   out = acc[:d] / max(acc[d], 1.2e-38)
-// v_ext is made in shared memory: the kernel takes v (BH, Skv, d) and
-// writes the ones column beside each tile it copies. The TPU's transposed
-// q (BH, D, Sq) and output (BH, D, Sq) are not carried over: q8 is
-// (BH, Sq, D) and out (BH, Sq, d).
+// The TPU's transposed q (BH, D, Sq) and output (BH, D, Sq) are not
+// carried over: q8 is (BH, Sq, D) and out (BH, Sq, d).
 //
-// What bounds it on the H100: the q k^T half of the work runs on the int8
-// tensor cores (1,979 TOPS), the P V half on the bf16 ones (989 TFLOP/s);
-// the dequant, bound shift and exp2 are per-logit fp32 work, and the exp2
-// alone (Sq Skv per head on the special-function units, 16 a clock per
-// SM) is a floor of its own. mma.sync m16n8k32 int8 (with an m16n8k16
-// tail: D = 40 bytes padded to 48 in shared memory), then the S
-// accumulators become the bf16 A fragments of P V in registers; O stays in
-// registers across K/V tiles (no running max, no rescale).
+// What bounds it on the H100: the exps. One exp2 a logit on the
+// special-function units (16 a clock per SM, 3.87e12 a second) against
+// 2 d int8 operations at 1,979 TOPS and 2 d bf16 ones at 989 TFLOP/s a
+// logit: at d = 40 the exps take 1.6x the products' time, as in kernel F.
+// The dequant adds three fp32 operations a logit and one conversion of
+// the int32 logit to fp32 (an I2F in the SASS, chip_smoke.py's int8_sass):
+// on the H100 it ran faster than an integer add and an fp32 add on the
+// magic number 1.5 * 2^23, so it does not share the exps' rate (PERF.md
+// §6, PR 23).
 //
-// The design is kernel F's (csrc/flash_fwd.cu), as the S1 / S2 studies'
-// is: one block per (BQ queries, head), one warp per 16 queries. The k8, v
-// and sk tiles of BK rows arrive through a ring of STAGES shared buffers
-// (ring_stages: 3 where two blocks of them fit an SM, else 2): the next
-// tile's copies start before the current tile's products, one
-// barrier per tile. A k8 tile (BK rows of 40 bytes, one contiguous run in
-// HBM) takes 16-byte cp.async copies into a dense shared tile, whose B
-// fragments come by 32-bit loads (8-byte copies into a 48-byte pitch read
-// by ldmatrix made twice the copies and ran slower). v's 80-byte rows
-// take 16-byte copies, and a plain store puts the ones column and zeros in
-// the 8 columns past them, so the row sum of the bf16 p comes out of the
-// P V products (summing p in registers took more fp32 instructions). Q is
-// copied once, in 8-byte pieces into a 48-byte pitch (ldmatrix A
-// fragments), into the ring's last stage. The work of a tile goes 32 kv
-// rows at a time (int32 logits, exp2, P V), so that few logits are live at
-// once.
-#include "study_mma.cuh"
+// The design is S2 BND2's (study_wgmma.cuh): fw_block with MaxFree<INT8>
+// as its policy, four differences:
+// - Q K^T is wgmma m64nBKk32.s32.s8.s8 with both operands K-major in
+//   shared memory: q8 and k8 land by TMA in 64-byte rows (swizzle 64B),
+//   two k32 steps. TMA needs every global stride a multiple of 16 bytes,
+//   and it reads a row that ends inside a 32-byte sector far slower
+//   (PERF.md §6, PR 23), so q8 and k8 come at a row pitch of whole sectors,
+//   64 bytes (the wrapper quantises into such a buffer, zeros past D).
+//   Q's map is D = 40 wide, its box's 64 bytes reading columns 40..63 as
+//   zeros (Q lands once); K's map is the whole 64-byte row, since what K
+//   holds past D meets Q's zeros.
+// - The policy dequantises the int32 accumulators in JAX's order without
+//   fma contraction, then F's ex2.approx.ftz; it leaves p's bits in the
+//   accumulator registers, which P V's packing reads.
+// - sq and bnd are per-row registers, loaded once; sk is a tile of BK fp32
+//   that TMA lands at the end of each ring stage beside the K tile, under
+//   K's full barrier (counted in its expect_tx), and the K stage is
+//   released after the step that reads it.
+// - The denominator is the tensor core's sum of the bf16-rounded p: v_ext
+//   = [v, 1] zero-padded to 48 columns, built by the wrapper (the Pallas
+//   kernel's own input, `ve`), makes O's column d that sum.
+// bq 128 is two consumer warpgroups, ping-pong (F's named barriers: one
+// group's products run while the other's exps do); bq 64 is one, behind
+// the warpgroup barrier before its first wgmma (consumers_start). The
+// ring's stages and panels follow ops/study_attention.py::study_line.
+#include "study_wgmma.cuh"
 
-using namespace sg_study;
+using namespace sg_flash;
 
 namespace {
 
-template <int DP8, int DV, int BQ, int BK>
-struct Cfg {
-  static constexpr int NT = 32 * BQ / 16;
-  static constexpr int P8 = pitch_bytes(DP8);
-  static constexpr int PV = pitch_bytes(DV * 2);
-  static constexpr int KTILE = align128(BK * DP8);  // dense, D <= DP8
-  static constexpr int VTILE = align128(BK * PV);
-  static constexpr int STAGE = KTILE + VTILE + align128(BK * 4);
-  static constexpr int STAGES = ring_stages(STAGE);
-  static constexpr int BYTES = STAGES * STAGE;
-  // 16 warps an SM: 128 registers a thread
-  static constexpr int MINB = 512 / NT;
-  static_assert(align128(BQ * P8) <= STAGE, "Q fits a ring stage");
-  static_assert(BYTES <= 232448, "a block's shared memory");
-  static_assert(BK % 32 == 0, "32 kv rows at a time");
-};
+template <int BQ, int BK, int STAGES, int KPW>
+using Int8Cfg = typename S2Cfg<48, BQ, BK, 1, 1, INT8, STAGES, KPW>::C;
 
-template <int DP8, int DV, int BQ, int BK>
-__global__ void __launch_bounds__(Cfg<DP8, DV, BQ, BK>::NT,
-                                  Cfg<DP8, DV, BQ, BK>::MINB)
-int8_attn_kernel(const signed char* __restrict__ q8,
-                 const signed char* __restrict__ k8,
-                 const bf16* __restrict__ v, const float* __restrict__ sq,
-                 const float* __restrict__ sk, const float* __restrict__ bnd,
-                 bf16* __restrict__ out, int Sq, int Skv, int D) {
-  using C = Cfg<DP8, DV, BQ, BK>;
-  constexpr int DT = DV / 8, STAGES = C::STAGES;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int grp = lane / 4, tq = lane % 4;
-  const long long bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int wrow = warp * 16;
-  const unsigned char* kh =
-      reinterpret_cast<const unsigned char*>(k8) + bh * Skv * D;
-  const bf16* vh = v + bh * Skv * D;
-  const float* skh = sk + bh * Skv;
-  const int ntiles = Skv / BK;
-  auto fetch = [&](int t, int stage) {
-    unsigned char* st = smem + stage * C::STAGE;
-    copy_run16<C::NT>(st, kh + (long long)t * BK * D, BK * D, tid);
-    // v's columns [0, D) by cp.async; past them a plain store of the ones
-    // column (bf16 1.0 at column D) and zeros, seen by every warp after
-    // the barrier that precedes the tile's use
-#pragma unroll 1
-    for (int idx = tid; idx < BK * (DV / 8); idx += C::NT) {
-      const int r = idx / (DV / 8), c = idx % (DV / 8);
-      unsigned char* dst = st + C::KTILE + r * C::PV + 16 * c;
-      if (8 * c < D)
-        cp_async16(dst, vh + (long long)(t * BK + r) * D + 8 * c, 16);
-      else
-        *reinterpret_cast<uint4*>(dst) =
-            make_uint4(8 * c == D ? 0x3F80u : 0u, 0u, 0u, 0u);
-    }
-    for (int i = tid; i < BK / 4; i += C::NT)
-      cp_async16(st + C::KTILE + C::VTILE + 16 * i, skh + t * BK + 4 * i,
-                 16);
-  };
-
-  // group 0: Q into the last stage; then one group per stage but the last
-  unsigned char* qs = smem + (STAGES - 1) * C::STAGE;
-  copy_rows8<BQ, DP8, C::P8, C::NT>(
-      qs, reinterpret_cast<const unsigned char*>(q8) + bh * Sq * D, q0, D,
-      tid);
-  cp_async_commit();
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ntiles) fetch(s, s);
-    cp_async_commit();
-  }
-  const long long r = bh * Sq + q0 + wrow + grp;
-  const float sq_r[2] = {sq[r], sq[r + 8]};
-  const float bnd_r[2] = {bnd[r], bnd[r + 8]};
-  cp_async_wait<STAGES - 1>();
-  __syncthreads();
-  uint32_t a[(DP8 + 31) / 32][4];
-  load_a_s8<DP8>(a, qs + wrow * C::P8, C::P8, lane);
-  float o[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-
-  int cs = 0, ls = STAGES - 1;  // ring stages of the tile in use / to fill
-  for (int t = 0; t < ntiles; ++t) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of tile t
-    // every thread's copies have landed, and every warp is done with the
-    // stage that the copies below overwrite
-    __syncthreads();
-    if (t + STAGES - 1 < ntiles) fetch(t + STAGES - 1, ls);
-    cp_async_commit();
-    ls = ls + 1 == STAGES ? 0 : ls + 1;
-    const unsigned char* st = smem + cs * C::STAGE;
-    cs = cs + 1 == STAGES ? 0 : cs + 1;
-    const float* sks = reinterpret_cast<const float*>(st + C::KTILE +
-                                                      C::VTILE);
-#pragma unroll
-    for (int c = 0; c < BK / 32; ++c) {
-      int s32[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s32[j][0] = s32[j][1] = s32[j][2] =
-          s32[j][3] = 0;
-      qk_s8_dense<DP8, 4>(s32, a, st + 32 * c * D, D, lane);
-      float s[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float skv = sks[32 * c + 8 * j + 2 * tq + e % 2];
-          // JAX's order, without contraction into an fma
-          const float x = __fsub_rn(
-              __fmul_rn(__fmul_rn(static_cast<float>(s32[j][e]), skv),
-                        sq_r[e / 2]),
-              bnd_r[e / 2]);
-          s[j][e] = fast_exp2(x);
-        }
-      uint32_t p[2][4];
-      pack_p<4>(p, s);
-      pv_bf16<2, DT>(o, p, st + C::KTILE + 32 * c * C::PV, C::PV, lane);
-    }
-  }
-
-  float den0, den1;
-  column_of<DT>(o, D, lane, den0, den1);  // the ones column
-  store_rows<DT>(out + bh * Sq * D, q0 + wrow, D, o, fmaxf(den0, 1.2e-38f),
-                 fmaxf(den1, 1.2e-38f), lane);
+// grid (Sq / BQ, 1, BH)
+template <int BQ, int BK, int STAGES, int KPW>
+__global__ void __launch_bounds__(Int8Cfg<BQ, BK, STAGES, KPW>::NT, 1)
+    int8_wg_kernel(const __grid_constant__ CUtensorMap tmq,
+                   const __grid_constant__ CUtensorMap tmk,
+                   const __grid_constant__ CUtensorMap tmv,
+                   const __grid_constant__ CUtensorMap tms, const FwArgs a) {
+  using C = Int8Cfg<BQ, BK, STAGES, KPW>;
+  fw_block<C, C::NTC == 256, false, MaxFree<INT8>>(
+      &tmq, &tmk, &tmv, a, DenseWalk{a.Skv / BK}, 0, blockIdx.z,
+      blockIdx.x * C::BQ, &tms);
 }
 
-template <int DP8, int DV, int BQ, int BK>
+// q8 (BH, Sq, P) and k8 (BH, Skv, P) int8 at row pitch P bytes (a multiple
+// of 32, columns from D on ignored); v_ext (BH, Skv, W) bf16; sq, bnd
+// (BH, Sq) and sk (BH, Skv) fp32; out (BH, Sq, d) bf16. The five tensor
+// maps are encoded per call.
+template <int BQ, int BK, int STAGES, int KPW>
 cudaError_t launch(const signed char* q8, const signed char* k8,
                    const bf16* v, const float* sq, const float* sk,
                    const float* bnd, bf16* out, int BH, int Sq, int Skv,
-                   int D, cudaStream_t stream) {
-  using C = Cfg<DP8, DV, BQ, BK>;
-  auto kern = int8_attn_kernel<DP8, DV, BQ, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+                   int D, int P, int W, cudaStream_t stream) {
+  using C = Int8Cfg<BQ, BK, STAGES, KPW>;
+  CUtensorMap tq, tk, tv, ts;
+  if (!encode_operand(&tq, q8, BH, 1, Sq, D, (long long)Sq * P, P, KPW,
+                      C::BQ, 1, P) ||
+      !encode_operand(&tk, k8, BH, 1, Skv, P, (long long)Skv * P, P, KPW,
+                      C::BK, 1, P) ||
+      !encode_operand(&tv, v, BH, 1, Skv, W, (long long)Skv * W, W, C::VPW,
+                      C::BK) ||
+      !encode_planes(&ts, sk, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, BH, 1, Skv,
+                     4LL * Skv, 4LL * Skv, C::BK, 1))
+    return cudaErrorInvalidValue;
+  FwArgs a = {};
+  a.out = out;
+  a.bound = bnd;
+  a.qscale = sq;
+  a.H = 1;
+  a.Sq = Sq;
+  a.Skv = Skv;
+  a.D = D;
+  a.nref = a.span = 1;
+  a.guard = 1.2e-38f;
+  constexpr auto kern = int8_wg_kernel<BQ, BK, STAGES, KPW>;
+  cudaError_t err = smem_limit_once<kern>(C::BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid(Sq / BQ, BH);
-  kern<<<grid, C::NT, C::BYTES, stream>>>(q8, k8, v, sq, sk, bnd, out, Sq,
-                                          Skv, D);
+  dim3 grid(Sq / C::BQ, 1, BH);
+  kern<<<grid, C::NT, C::BYTES, stream>>>(tq, tk, tv, ts, a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q8 (BH, Sq, D), k8 (BH, Skv, D) int8; v (BH, Skv, D) bf16; sq, bnd
-// (BH, Sq) and sk (BH, Skv) fp32; out (BH, Sq, D) bf16; all contiguous and
-// 16-byte aligned. D % 8 == 0, Sq % bq == 0, Skv % bk == 0. The
-// instantiations built are the SG_BUILT / SG_TILES4 lines below, keyed by
-// D padded to 16 (q8 / k8) and D + 1 padded to 16 (v_ext in shared
-// memory); any other returns cudaErrorInvalidValue.
+// q8 (BH, Sq, pad32(D)) and k8 (BH, Skv, pad32(D)) int8, contiguous, the
+// bytes from D on ignored; v_ext (BH, Skv, pad8(D + 1)) bf16 = [v, 1, 0..];
+// sq, bnd (BH, Sq) and sk (BH, Skv) fp32 (sq carrying scale * log2(e));
+// out (BH, Sq, D) bf16; every pointer 16-byte aligned. D % 8 == 0,
+// Sq % bq == 0, Skv % bk == 0. The instantiations built are the SG_BUILT
+// lines below, (q8 / k8 row bytes in shared memory, v_ext's padded width,
+// bq, bk, ring stages, Q / K panel columns), mirrored by
+// ops/study_int8.py::INT8_BUILT; any other returns cudaErrorInvalidValue.
 extern "C" int sg_study_int8(const void* q8, const void* k8, const void* v,
                              const void* sq, const void* sk, const void* bnd,
                              void* out, int BH, int Sq, int Skv, int D,
@@ -210,21 +134,19 @@ extern "C" int sg_study_int8(const void* q8, const void* k8, const void* v,
   const float* BND = static_cast<const float*>(bnd);
   bf16* O = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D % 8 || Sq % bq || Skv % bk)
+  if (D % 8 || Sq % bq || Skv % bk || BH > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int dp8 = (D + 15) / 16 * 16, dv = (D + 8 + 15) / 16 * 16;
-#define SG_BUILT(DP8_, DV_, BQ_, BK_)                                     \
-  if (dp8 == DP8_ && dv == DV_ && bq == BQ_ && bk == BK_)                 \
-    return static_cast<int>(launch<DP8_, DV_, BQ_, BK_>(                  \
-        Q, K, V, SQ, SK, BND, O, BH, Sq, Skv, D, s));
-#define SG_TILES4(DP8_, DV_)    \
-  SG_BUILT(DP8_, DV_, 64, 64)   \
-  SG_BUILT(DP8_, DV_, 64, 128)  \
-  SG_BUILT(DP8_, DV_, 128, 64)  \
-  SG_BUILT(DP8_, DV_, 128, 128)
-  // the study's d = 40 (int8 rows padded to 48 bytes, v_ext 41 -> 48)
-  SG_TILES4(48, 48)
-#undef SG_TILES4
+  const int P = (D + 31) / 32 * 32, W = (D + 1 + 7) / 8 * 8;
+  const int dk = P, dv = (W + 15) / 16 * 16;
+#define SG_BUILT(DK_, DV_, BQ_, BK_, STAGES_, KPW_)                        \
+  if (dk == DK_ && dv == DV_ && bq == BQ_ && bk == BK_)                    \
+    return static_cast<int>(launch<BQ_, BK_, STAGES_, KPW_>(               \
+        Q, K, V, SQ, SK, BND, O, BH, Sq, Skv, D, P, W, s));
+  // the study's d = 40: 64-byte int8 rows, v_ext 41 -> 48
+  SG_BUILT(64, 48, 64, 64, 4, 64)
+  SG_BUILT(64, 48, 64, 128, 4, 64)
+  SG_BUILT(64, 48, 128, 64, 4, 64)
+  SG_BUILT(64, 48, 128, 128, 4, 64)
 #undef SG_BUILT
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,7 +18,12 @@
 // - QK, QK_EXP (no P V): K tiles only (the ring without V, as kernel L's),
 //   p = s or exp2(s), out = the kv sum of p broadcast over d; two S
 //   accumulator sets, the next tile's Q K^T in flight while the current
-//   tile's sums (and exps) run (s2_sum).
+//   tile's sums (and exps) run (s2_sum over sum_walk, which kernel S3,
+//   study_qk.cu, walks too).
+// - INT8 (kernel S4, study_int8.cu): BND2 with int8 Q and K, the s8
+//   wgmma's int32 logits dequantised by the step with each tile's kv
+//   scales (landed beside K), p = exp2(((s sk) sq) - b), and v_ext's ones
+//   column for the row sum of the bf16-rounded p.
 // - SUB 2 / 4 (s2_sub): a ring stage holds SUB x BK K/V rows; every
 //   sub-tile's Q K^T is issued (a commit group each) before the first
 //   exp; sub-tile u's exps run while the later sub-tiles' products and
@@ -39,8 +44,17 @@
 
 namespace sg_flash {
 
-// S2's kinds (ops/study_attention.py mirrors them)
-enum Kind { TB = 0, BOUNDED = 1, QK = 2, QK_EXP = 3, QK_PV = 4, BND2 = 5 };
+// S2's kinds (ops/study_attention.py mirrors them), and S4's (INT8,
+// study_int8.cu)
+enum Kind {
+  TB = 0,
+  BOUNDED = 1,
+  QK = 2,
+  QK_EXP = 3,
+  QK_PV = 4,
+  BND2 = 5,
+  INT8 = 6
+};
 
 // The block configuration of an S2 instantiation: BQ / 64 consumer
 // warpgroups, or with g heads a block 64 query rows and, at d 80 / 160,
@@ -52,26 +66,32 @@ struct S2Cfg {
   static constexpr bool PV = KIND != QK && KIND != QK_EXP;
   static constexpr int SPLIT = G > 1 && DP > 48 ? 2 : 1;
   static constexpr int WGM = G > 1 ? SPLIT : BQ / 64;
-  using C =
-      FwCfg<DP, WGM, SUB * BK, STAGES, KPW, PV, SPLIT, (G > 1 ? 2 : 1)>;
+  using C = FwCfg<DP, WGM, SUB * BK, STAGES, KPW, PV, SPLIT, (G > 1 ? 2 : 1),
+                  (KIND == INT8 ? 1 : 2)>;
   static_assert(G == 1 || (BQ == 64 && SUB == 1 && KIND == BND2),
                 "g heads a block: bnd2 at 64-row tiles");
   static_assert(SUB == 1 || PV, "sub-tiles of a kind with P V");
 };
 
 // The max-free softmax step of kind KIND (fw_consume's policy); l is the
-// fp32 row sum (BND2; QK and QK_EXP's kv sum), b the row bound (BND2).
+// fp32 row sum (BND2; QK and QK_EXP's kv sum), b the row bound (BND2,
+// INT8), sq the row's q scale (INT8).
 template <int KIND>
 struct MaxFree {
   static constexpr bool RESCALE = false;
   static constexpr bool SUM = KIND == BND2 || KIND == QK || KIND == QK_EXP;
-  float b[2] = {0.f, 0.f}, l[2] = {0.f, 0.f};
+  float b[2] = {0.f, 0.f}, l[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
   // this thread's rows `row` and row + 8 of head (batch row) bh
   __device__ MaxFree(const FwArgs& a, int bh, int row) {
-    if (KIND == BND2) {
+    if (KIND == BND2 || KIND == INT8) {
       const float* br = a.bound + (long long)bh * a.Sq + row;
       b[0] = br[0];
       b[1] = br[8];
+    }
+    if (KIND == INT8) {
+      const float* sr = a.qscale + (long long)bh * a.Sq + row;
+      sq[0] = sr[0];
+      sq[1] = sr[8];
     }
   }
   __device__ float p_of(float x, int r) const {
@@ -88,6 +108,28 @@ struct MaxFree {
       if (SUM) l[i % 4 / 2] += s[i];
     }
   }
+  // INT8: the int32 logits of a tile whose kv scales (fp32, one a column)
+  // lie at shared-space address sk, dequantised in the study's order
+  // without contraction into an fma, ((s * sk) * sq) - b, then exp2; p's
+  // bits left in s.
+  template <int N>
+  __device__ void step(int (&s)[N], float (&)[2], uint32_t sk) {
+    static_assert(KIND == INT8, "int32 logits: the int8 kind");
+    const int tq = threadIdx.x % 4;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      const float2 k = lds_f2(sk + 4 * (8 * j + 2 * tq));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = __fsub_rn(
+            __fmul_rn(__fmul_rn(static_cast<float>(s[4 * j + e]),
+                                e % 2 ? k.y : k.x),
+                      sq[e / 2]),
+            b[e / 2]);
+        s[4 * j + e] = __float_as_int(fast_exp2(x));
+      }
+    }
+  }
   // 1 / the row sum of row r: l, or O's column d (the ones column of
   // v_ext). The lane of the quad that holds column d adds it to zero and
   // the others add nothing, so the quad's sum is exact (a select by a run
@@ -97,6 +139,7 @@ struct MaxFree {
   template <int R>
   __device__ float inv(int r, const float (&o)[R], const FwArgs& a) const {
     if (KIND == BND2) return 1.f / fmaxf(quad_sum(l[r]), a.guard);
+    // TB, BOUNDED, QK_PV, INT8: O's column d
     const int tq = threadIdx.x % 4;
     float x = 0.f;
 #pragma unroll
@@ -163,46 +206,32 @@ __device__ __forceinline__ void s2_store(const FwArgs& a, const SM& sm,
   }
 }
 
-// QK and QK_EXP: kernel L's walk (two S accumulator sets, the next tile's
-// Q K^T issued before the current tile's sums and waited for inside the
-// same step) with the kv sum of p; out = that sum broadcast over d.
-template <class C, int KIND>
-__device__ __forceinline__ void s2_sum(const CUtensorMap* tmq,
-                                       const CUtensorMap* tmk,
-                                       const FwArgs& a) {
-  constexpr int BK = C::BK, KSTEPS = C::DP / 16, KPS = C::KRB / 32;
-  constexpr int STAGES = C::STAGES;
-  extern __shared__ unsigned char smem_raw[];
-  const FwRing<C> rg((smem_addr(smem_raw) + 1023u) & ~1023u);
-  const int bh = blockIdx.z, q0 = blockIdx.x * C::BQ, n = a.Skv / BK;
-  if (!s2_start(rg, tmq, tmk, tmk, bh, 1, n, q0)) return;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = warp / 4, w = warp % 4, tq = lane % 4;
-  const int row0 = q0 + 64 * g + 16 * w + lane / 4;
-  const uint32_t qrows = rg.q(0) + 64 * g * C::KRB;
-  MaxFree<KIND> sm(a, bh, row0);
-  float s0[BK / 2], s1[BK / 2];
-  auto qk = [&](float(&s)[BK / 2], int i) {
+// The walk without P V (kernel L's) of QK / QK_EXP and of kernel S3
+// (study_qk.cu): two S accumulator sets (C::SAcc), the next tile's Q K^T
+// issued before the policy's step on the current tile and waited for
+// inside the same loop step, the last tile on a path of its own (ptxas
+// serialises every wgmma where a product is in flight across the loop's
+// back edge). `issue(s, ks)` issues one tile's Q K^T against the K stage
+// at ks; the walk fences, commits, waits and releases the stages.
+template <class C, class SM, class Issue>
+__device__ __forceinline__ void sum_walk(const FwRing<C>& rg, int n, SM& sm,
+                                         const Issue& issue) {
+  using Acc = typename C::SAcc;
+  constexpr int BK = C::BK, STAGES = C::STAGES;
+  Acc s0[BK / 2], s1[BK / 2];
+  auto qk = [&](Acc(&s)[BK / 2], int i) {
     mbar_wait(rg.full_k(i % STAGES), (i / STAGES) & 1);
-    const uint32_t ks = rg.k_stage(i);
+    // s's registers settle before the fence, so that no move of them
+    // falls between the fence and the products (ptxas would serialise)
     fence_regs(s);
     wg_fence();
-#pragma unroll
-    for (int j = 0; j < KSTEPS; ++j) {
-      const uint32_t col = 32 * (j % KPS);
-      WgMmaSS<BK>::run(
-          s,
-          smem_desc(qrows + (j / KPS) * C::QPANEL + col, 0, 8 * C::KRB,
-                    C::KRB),
-          smem_desc(ks + (j / KPS) * C::KPANEL + col, 0, 8 * C::KRB, C::KRB),
-          j > 0);
-    }
+    issue(s, rg.k_stage(i));
     wg_commit();
   };
   int i = 0;
   float unused[2];
   // s holds walked tile i's logits; false after the last tile
-  auto step = [&](float(&s)[BK / 2], float(&nxt)[BK / 2]) {
+  auto step = [&](Acc(&s)[BK / 2], Acc(&nxt)[BK / 2]) {
     if (i + 1 >= n) {
       sm.step(s, unused);
       return false;
@@ -215,13 +244,43 @@ __device__ __forceinline__ void s2_sum(const CUtensorMap* tmq,
     mbar_arrive(rg.empty_k(i % STAGES));
     return true;
   };
-  mbar_wait(rg.q_full(0), 0);
   qk(s0, 0);
   wg_wait<0>();
   fence_regs(s0);
   mbar_arrive(rg.empty_k(0));
   while (step(s0, s1) && step(s1, s0)) {
   }
+}
+
+// QK and QK_EXP: sum_walk with Q in shared memory and the kv sum of p;
+// out = that sum broadcast over d.
+template <class C, int KIND>
+__device__ __forceinline__ void s2_sum(const CUtensorMap* tmq,
+                                       const CUtensorMap* tmk,
+                                       const FwArgs& a) {
+  constexpr int BK = C::BK, KPS = C::KRB / 32;
+  extern __shared__ unsigned char smem_raw[];
+  const FwRing<C> rg((smem_addr(smem_raw) + 1023u) & ~1023u);
+  const int bh = blockIdx.z, q0 = blockIdx.x * C::BQ, n = a.Skv / BK;
+  if (!s2_start(rg, tmq, tmk, tmk, bh, 1, n, q0)) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = warp / 4, w = warp % 4, tq = lane % 4;
+  const int row0 = q0 + 64 * g + 16 * w + lane / 4;
+  const uint32_t qrows = rg.q(0) + 64 * g * C::KRB;
+  MaxFree<KIND> sm(a, bh, row0);
+  mbar_wait(rg.q_full(0), 0);
+  sum_walk(rg, n, sm, [&](float(&s)[BK / 2], uint32_t ks) {
+#pragma unroll
+    for (int j = 0; j < C::KSTEPS; ++j) {
+      const uint32_t col = 32 * (j % KPS);
+      WgMmaSS<BK>::run(
+          s,
+          smem_desc(qrows + (j / KPS) * C::QPANEL + col, 0, 8 * C::KRB,
+                    C::KRB),
+          smem_desc(ks + (j / KPS) * C::KPANEL + col, 0, 8 * C::KRB, C::KRB),
+          j > 0);
+    }
+  });
 
   bf16* ob = a.out + (long long)bh * a.Sq * a.D;
 #pragma unroll

@@ -77,9 +77,11 @@ SIGNATURES = {
     # the same for S2's BND2 instantiations (csrc/study_bnd2.cu)
     "sg_study_bnd2": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _I, _F, _P),
-    # q_t, k, out, BH, Sq, Skv, D, int8, bq, bk, stream
-    "sg_study_qk": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # q8, k8, v, sq, sk, bnd, out, BH, Sq, Skv, D, bq, bk, stream
+    # q_t, k, out, BH, Sq, Skv, D, k's map width, k's batch and row
+    # strides, int8, bq, bk, stream
+    "sg_study_qk": (_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _I, _I,
+                    _P),
+    # q8, k8, v_ext, sq, sk, bnd, out, BH, Sq, Skv, D, bq, bk, stream
     "sg_study_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P),
 }

@@ -278,21 +278,25 @@ def fwd_smem_bytes(dp: int, line: tuple, v: bool = True) -> int:
     return 1024 + q + stages * (k + vb) + 8 * (1 + (4 if v else 2) * stages)
 
 
-def operand_map(shape, strides, num_heads: int, width: int,
-                rows: int) -> dict:
+def operand_map(shape, strides, num_heads: int, width: int, rows: int,
+                elem: int = 2, head_stride: Optional[int] = None) -> dict:
     """The TMA tensor map that the wgmma template's launcher encodes for a
     (B, S, H*D) operand with element strides `strides` (the last 1)
     (csrc/flash_wgmma.cuh::encode_operand): the operand seen as (D, H, S,
     B), the byte strides of its dimensions 1-3, boxes of (width, 1, rows,
-    1) swizzled over 2 width bytes. Elements past D in dimension 0 and
-    past S in dimension 2 read as zero. ValueError where TMA cannot read
-    the operand or the box breaks its rules."""
+    1) swizzled over `elem` width bytes. Elements of `elem` bytes (2:
+    bf16, 1: int8); the head stride is D elements unless `head_stride` is
+    given (a one-head int8 operand gives its row stride: every stride must
+    be a multiple of 16 bytes). Elements past D in dimension 0 and past S
+    in dimension 2 read as zero. ValueError where TMA cannot read the
+    operand or the box breaks its rules."""
     b, s, hd = shape
     d = hd // num_heads
     dims = (d, num_heads, s, b)
-    byte_strides = (2 * d, 2 * strides[1], 2 * strides[0])
+    hs = d if head_stride is None else head_stride
+    byte_strides = (elem * hs, elem * strides[1], elem * strides[0])
     box = (width, 1, rows, 1)
-    swizzle = 2 * width
+    swizzle = elem * width
     if strides[2] != 1:
         raise ValueError("the head dim must be contiguous")
     if any(not 0 < x <= 2 ** 32 for x in dims):
@@ -301,7 +305,7 @@ def operand_map(shape, strides, num_heads: int, width: int,
         raise ValueError(f"tensor map strides {byte_strides} are not "
                          "positive multiples of 16 bytes")
     if (any(not 0 < x <= 256 for x in box) or swizzle not in (32, 64, 128)
-            or (2 * width) % 16):
+            or swizzle % 16):
         raise ValueError(f"box {box} breaks TMA's rules")
     return {"dims": dims, "strides": byte_strides, "box": box,
             "swizzle": swizzle}

@@ -3,7 +3,8 @@
 `csrc/study_bnd2.cu` (kernel S2, `csrc/study_wgmma.cuh`), both on kernel
 F's wgmma + TMA template (`csrc/flash_wgmma.cuh`), their plain PyTorch
 versions, and the host preparation the studies do (scale folding, the row
-bounds, the extended q/k/v).
+bounds, the extended q/k/v); and the template's lines and tensor maps
+that the int8 studies' kernels S3 and S4 (ops/study_int8.py) share.
 
 Replaces the Pallas kernels of scripts/studies/:
   variant_attention  bench_attn_variants.py _variant_kernel      S1
@@ -45,8 +46,8 @@ TILES = (64, 128)
 SMEM_LIMIT = 232448
 SM_SMEM = 233472
 
-# S2's kinds (the Kind enum of csrc/study_wgmma.cuh)
-TB, BOUNDED, QK, QK_EXP, QK_PV, BND2 = range(6)
+# S2's kinds (the Kind enum of csrc/study_wgmma.cuh), and S4's
+TB, BOUNDED, QK, QK_EXP, QK_PV, BND2, INT8 = range(7)
 # S1's modes: the scale in the kernel with exp, folded with exp, folded
 # with exp2
 SCALE_IN_KERNEL, FOLDED_EXP, FOLDED_EXP2 = range(3)
@@ -68,34 +69,24 @@ def pad8(w: int) -> int:
     return (w + 7) // 8 * 8
 
 
-def pitch_bytes(row_bytes: int) -> int:
-    """Shared-memory row pitch of the mma.sync kernels S3 / S4
-    (csrc/study_mma.cuh)."""
-    return row_bytes if (row_bytes // 16) % 2 else row_bytes + 16
-
-
-def align128(x: int) -> int:
-    return (x + 127) // 128 * 128
-
-
-def ring_stages(stage: int) -> int:
-    """The K/V ring depth of the mma.sync kernels S3 / S4
-    (csrc/study_mma.cuh::ring_stages): 3 where two blocks of three
-    `stage`-byte stages fit an SM (less 1 KB a block), else 2."""
-    return 3 if 2 * (3 * stage + 1024) <= SM_SMEM else 2
+def pad32(w: int) -> int:
+    return (w + 31) // 32 * 32
 
 
 def line_smem(dp: int, bq: int, rows: int, stages: int, kpw: int,
-              v: bool = True, split: int = 1, qslots: int = 1) -> int:
+              v: bool = True, split: int = 1, qslots: int = 1,
+              eb: int = 2) -> int:
     """A block's shared memory on the wgmma template
     (csrc/flash_wgmma.cuh's FwCfg::BYTES): 1 KB of alignment, `qslots` Q
     buffers of bq rows and the ring's `stages` stages of `rows` K rows
-    (and V rows), both in panels of `kpw` columns (V in v_panel(dp)), the
-    second warpgroup's O and row sums where two split a tile (`split`),
-    and 8 bytes a barrier."""
-    krb = 2 * kpw
+    (and V rows), both in panels of `kpw` columns of `eb`-byte elements
+    (V in v_panel(dp)), with int8 Q / K (eb 1) and V each stage's kv
+    scales on a 1 KB slot of their own, the second warpgroup's O and row
+    sums where two split a tile (`split`), and 8 bytes a barrier."""
+    krb = eb * kpw
     kpanels = -(-dp // kpw)
-    stage = kpanels * rows * krb + (rows * 2 * dp if v else 0)
+    stage = (kpanels * rows * krb + (rows * 2 * dp if v else 0)
+             + (1024 if eb == 1 and v else 0))
     hand = 128 * (dp // 2 + 2) * 4 if split > 1 else 0
     bars = 8 * ((2 * qslots if qslots > 1 else 1)
                 + (4 if v else 2) * stages)
@@ -103,7 +94,8 @@ def line_smem(dp: int, bq: int, rows: int, stages: int, kpw: int,
 
 
 def study_line(dp: int, bq: int, rows: int, v: bool = True, split: int = 1,
-               qslots: int = 1, ahead: bool = False) -> Optional[tuple]:
+               qslots: int = 1, ahead: bool = False,
+               eb: int = 2) -> Optional[tuple]:
     """(ring stages, Q / K panel columns) of a study instantiation whose
     ring stage holds `rows` kv rows: F's unmasked line at (dp, rows) where
     F has one (ops/flash_attention.py FWD_BUILT) and the line walks as F
@@ -112,13 +104,15 @@ def study_line(dp: int, bq: int, rows: int, v: bool = True, split: int = 1,
     columns) that lets one fit; None where none does. The walks that issue
     the next tile's Q K^T before the current tile's exps (split2, and QK /
     QK_EXP on kernel L's walk: `ahead`, or no V) need K_{i+1} a step
-    earlier than F's, which F's two stages would expose."""
-    if (dp, rows) in _F_LINES and v and not ahead:
+    earlier than F's, which F's two stages would expose. Int8 Q / K (`eb`
+    1: S3, S4) have no F line and one panel of 64-byte rows."""
+    if (dp, rows) in _F_LINES and v and not ahead and eb == 2:
         return _F_LINES[(dp, rows)]
-    for kpw in (k for k in (64, 32, 16) if k <= _PANEL[dp]):
+    for kpw in (k for k in (64, 32, 16) if k <= _PANEL[dp]
+                and (eb == 2 or k == 64)):
         for stages in (4, 3, 2):
             if line_smem(dp, bq, rows, stages, kpw, v, split,
-                         qslots) <= SMEM_LIMIT:
+                         qslots, eb) <= SMEM_LIMIT:
                 return stages, kpw
     return None
 
@@ -206,17 +200,25 @@ def bounded_smem(dp: int, bq: int, bk: int, sub: int, g: int,
 
 
 def study_maps(bh: int, sq: int, skv: int, w: int, qrows: int, rows: int,
-               kpw: int, v: bool = True) -> dict:
-    """The tensor maps of one S1 / S2 launch on (BH, S, W) operands
-    (study_online.cu's and study_wgmma.cuh's launchers: F's
-    encode_operand with H = 1): Q boxes of `qrows` rows and K boxes of
+               kpw: int, v: bool = True, eb: int = 2,
+               pitch: Optional[int] = None) -> dict:
+    """The tensor maps of one S1 / S2 / S4 launch on (BH, S, W) operands
+    (study_online.cu's, study_wgmma.cuh's and study_int8.cu's launchers:
+    F's encode_operand with H = 1): Q boxes of `qrows` rows and K boxes of
     `rows`, both `kpw` columns a panel, V boxes of v_panel(pad16(w))
-    columns. Columns past W read as zero."""
-    maps = {"q": operand_map((bh, sq, w), (sq * w, w, 1), 1, kpw, qrows),
-            "k": operand_map((bh, skv, w), (skv * w, w, 1), 1, kpw, rows)}
+    columns. Columns past W read as zero. Int8 Q / K (`eb` 1, S4) lie
+    `pitch` bytes a row (a multiple of 16; their head stride is the row
+    stride), K's map the whole pitch wide (what K holds past W meets Q's
+    zeros), and V is then the ones-extended pad8(w + 1) columns."""
+    p = w if pitch is None else pitch
+    maps = {"q": operand_map((bh, sq, w), (sq * p, p, 1), 1, kpw, qrows, eb,
+                             p),
+            "k": operand_map((bh, skv, w if eb == 2 else p), (skv * p, p, 1),
+                             1, kpw, rows, eb, p)}
     if v:
-        maps["v"] = operand_map((bh, skv, w), (skv * w, w, 1), 1,
-                                v_panel(pad16(w)), rows)
+        wv = w if eb == 2 else pad8(w + 1)
+        maps["v"] = operand_map((bh, skv, wv), (skv * wv, wv, 1), 1,
+                                v_panel(pad16(wv)), rows)
     return maps
 
 
@@ -291,12 +293,18 @@ def ext_inputs(q, k, v, sm_scale: float, exp2: bool):
     q_ext = q.new_zeros((b, h, sq, w))
     q_ext[..., :d] = qf.to(q.dtype)
     q_ext[..., d] = (-bound).to(q.dtype)
-    k_ext = k.new_zeros((b, h, skv, w))
-    v_ext = v.new_zeros((b, h, skv, w))
-    k_ext[..., :d], v_ext[..., :d] = k, v
-    k_ext[..., d] = 1
-    v_ext[..., d] = 1
-    return q_ext, k_ext, v_ext
+    return q_ext, ones_column(k), ones_column(v)
+
+
+def ones_column(x: torch.Tensor) -> torch.Tensor:
+    """[x, 1] zero-padded to pad8(d + 1) columns, in x's dtype: k_ext and
+    v_ext of the max-free studies (v_ext's ones column makes the value
+    product's column d the row sum of the rounded p)."""
+    d = x.shape[-1]
+    out = x.new_zeros((*x.shape[:-1], pad8(d + 1)))
+    out[..., :d] = x
+    out[..., d] = 1
+    return out
 
 
 def centred_bound(q, k, sm_scale: float):

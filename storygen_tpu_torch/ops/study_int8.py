@@ -1,6 +1,8 @@
 """The int8 attention studies: wrappers of `csrc/study_qk.cu` (kernel S3)
-and `csrc/study_int8.cu` (kernel S4), their plain PyTorch versions, and the
-per-row absmax quantisation the studies run on the host.
+and `csrc/study_int8.cu` (kernel S4), both on kernel F's wgmma + TMA
+template (`csrc/flash_wgmma.cuh`, S4 as the INT8 kind of S2 in
+`csrc/study_wgmma.cuh`), their plain PyTorch versions, and the per-row
+absmax quantisation the studies run on the host.
 
 Replaces the Pallas kernels of scripts/studies/:
   qk_only               bench_attn_int8.py _qk_kernel                S3
@@ -16,60 +18,108 @@ tensors, counting launches in `<wrapper>.launches` (`<wrapper>.plain` runs
 the plain version on any device); an instantiation that is not built
 raises ValueError on either device. The plain versions take
 the int8 product exactly (in float64, exact at these magnitudes).
-`qk_smem` and `int8_smem` mirror the kernels' shared memory: each a ring
-of `ring_stages` K tiles (S3, beside its q_t slab) or k8 / v / sk tiles
-(S4, Q copied into its last stage).
+
+TMA reads an operand whose every stride is a multiple of 16 bytes, and it
+reads rows that end inside a 32-byte sector far slower (PERF.md §6, PR
+23), so the kernels take int8 rows at a pitch of whole sectors,
+pad32(D) bytes (64 at d 40): the quantisation writes q8 and k8 straight
+into such a buffer, whose bytes past D are zero (`quant_rows(x, pitch)`),
+and a wrapper copies an int8 operand that comes at another pitch
+(`int8_rows`); S3 copies a bf16 k into a zero-padded one of whole-sector
+rows (`padded_rows`) unless it lies so already. `qk_smem` and
+`int8_smem` mirror the kernels' shared memory (FwCfg::BYTES, through
+`study_attention.line_smem`) at each built line.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from storygen_tpu_torch.ops import _build
-from storygen_tpu_torch.ops.study_attention import (LOG2E, TILES, align128,
+from storygen_tpu_torch.ops.study_attention import (LOG2E, TILES,
                                                     check_tiles, cuda_stream,
-                                                    kernel_wrapper, pad8,
-                                                    pad16, pitch_bytes,
-                                                    ring_stages)
+                                                    kernel_wrapper,
+                                                    line_smem, ones_column,
+                                                    pad8, pad16, pad32,
+                                                    study_line)
 
-# the instantiations of csrc/study_qk.cu: (int8, padded D, bq, bk) ...
-QK_BUILT = frozenset((i8, 48, bq, bk) for i8 in (0, 1) for bq in TILES
-                     for bk in TILES)
-# ... and of csrc/study_int8.cu: (padded D, padded D + 1, bq, bk)
-INT8_BUILT = frozenset((48, 48, bq, bk) for bq in TILES for bk in TILES)
+# The instantiations the CUDA sources build, keyed as their SG_BUILT lines,
+# with each line's ring stages and K panel columns (study_line's rule; int8
+# rows are one 64-byte panel): csrc/study_qk.cu's (int8, the products'
+# padded depth: 64 bytes of int8 in two k32 steps, 48 bf16 in three k16
+# ones, bq, bk) ...
+QK_BUILT = {(i8, 64 if i8 else 48, bq, bk):
+            study_line(48, bq, bk, v=False, eb=1 if i8 else 2)
+            for i8 in (0, 1) for bq in TILES for bk in TILES}
+# ... and csrc/study_int8.cu's (int8 row bytes in shared memory, v_ext's
+# padded width, bq, bk)
+INT8_BUILT = {(64, 48, bq, bk): study_line(48, bq, bk, eb=1)
+              for bq in TILES for bk in TILES}
 
 
-def qk_smem(i8: int, dp: int, bq: int, bk: int) -> int:
-    """S3's shared memory (csrc/study_qk.cu's Cfg::BYTES): the q_t slab
-    (dp rows of bq queries) and a ring of K tiles of bk rows (int8 rows
-    dense, bf16 rows at an ldmatrix pitch)."""
-    eb = 1 if i8 else 2
-    stage = align128(bk * (dp if i8 else pitch_bytes(2 * dp)))
-    return align128(dp * pitch_bytes(bq * eb)) + ring_stages(stage) * stage
+def qk_smem(i8: int, bq: int, bk: int) -> int:
+    """S3's shared memory at its built line (FwCfg::BYTES): the q_t slab in
+    the Q slot (bq rows of one panel) and a ring of K tiles of bk rows,
+    without V."""
+    stages, kpw = QK_BUILT[(i8, 64 if i8 else 48, bq, bk)]
+    return line_smem(48, bq, bk, stages, kpw, v=False, eb=1 if i8 else 2)
 
 
-def int8_smem(dp8: int, dv: int, bq: int, bk: int) -> int:
-    """S4's shared memory (csrc/study_int8.cu's Cfg::BYTES): a ring of
-    stages of bk rows of k8 (dense), v_ext and sk; Q is copied into the
-    last stage."""
-    stage = (align128(bk * dp8) + align128(bk * pitch_bytes(2 * dv))
-             + align128(bk * 4))
-    return ring_stages(stage) * stage
+def int8_smem(bq: int, bk: int) -> int:
+    """S4's shared memory at its built line (FwCfg::BYTES): Q (bq int8
+    rows of 64 bytes) and a ring of stages of bk rows of k8, v_ext and the
+    kv scales."""
+    stages, kpw = INT8_BUILT[(64, 48, bq, bk)]
+    return line_smem(48, bq, bk, stages, kpw, eb=1)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t contiguous at a 16-byte aligned address (the kernels' cp.async
-    copies)."""
+    """t contiguous at a 16-byte aligned address (TMA's)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def quant_rows(x: torch.Tensor):
+def padded_rows(t: torch.Tensor, pitch: int) -> torch.Tensor:
+    """t (..., D) with its rows `pitch` elements apart and the leading dims
+    packed, 16-byte aligned: t itself where it is laid out so, else a copy
+    into a zero buffer of `pitch` columns (a view of its first D)."""
+    want, n = [], pitch
+    for size in reversed(t.shape[:-1]):
+        want.append(n)
+        n *= size
+    if (t.stride()[:-1] == tuple(reversed(want)) and t.stride(-1) == 1
+            and t.data_ptr() % 16 == 0):
+        return t
+    buf = t.new_zeros((*t.shape[:-1], pitch))
+    buf[..., :t.shape[-1]] = t
+    return buf[..., :t.shape[-1]]
+
+
+def int8_rows(t8: torch.Tensor) -> torch.Tensor:
+    """An int8 (..., S, D) operand as the kernels read it: rows pad32(D)
+    bytes apart (whole 32-byte sectors), the leading dims packed
+    (padded_rows)."""
+    return padded_rows(t8, pad32(t8.shape[-1]))
+
+
+def quant_rows(x: torch.Tensor, pitch: Optional[int] = None):
     """Per-row absmax int8 over the last dim, in fp32 in the study's order:
     round(x / amax * 127) with amax = max|x| + 1e-12 (round half to even,
-    as jnp.round). Returns (int8 tensor, fp32 scales amax / 127)."""
+    as jnp.round). Returns (int8 tensor, fp32 scales amax / 127). With
+    `pitch`, the int8 rows are written straight into a zero buffer of
+    `pitch` bytes a row, and the first D columns of it are returned (the
+    kernels' layout, int8_rows)."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True) + 1e-12
-    return torch.round(xf / amax * 127.0).to(torch.int8), amax[..., 0] / 127.0
+    q = torch.round(xf / amax * 127.0)
+    if pitch is None:
+        return q.to(torch.int8), amax[..., 0] / 127.0
+    d = x.shape[-1]
+    buf = torch.zeros((*x.shape[:-1], pitch), dtype=torch.int8,
+                      device=x.device)
+    buf[..., :d].copy_(q)
+    return buf[..., :d], amax[..., 0] / 127.0
 
 
 def quant_heads(y: torch.Tensor, h: int, d: int):
@@ -79,6 +129,20 @@ def quant_heads(y: torch.Tensor, h: int, d: int):
 
 
 # ------------------------------------------------------------------ qk_only
+def _qk_k(k: torch.Tensor, int8: bool):
+    """S3's k as the kernel reads it, and the width of its tensor map (W
+    columns, D <= W <= the row stride): int8 at pad32(D) bytes a row
+    (int8_rows), W that pitch, what a row holds past D meeting the q_t
+    slab's zero rows; bf16 at pad16(D) columns (padded_rows), W that width
+    where the wrapper made the zero-padded copy, else D (a caller's
+    padding may hold NaNs, and 0 times a NaN is not 0)."""
+    d = k.shape[-1]
+    if int8:
+        return int8_rows(k), pad32(d)
+    kc = padded_rows(k, pad16(d))
+    return kc, d if kc is k else pad16(d)
+
+
 def qk_only_plain(q_t: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """sum_kv (k q_t), exact in float64, as (BH, 1, Sq) fp32."""
     s = torch.matmul(k.double(), q_t.double())  # (BH, Skv, Sq)
@@ -107,18 +171,20 @@ def qk_only(wrapper, plain, q_t: torch.Tensor, k: torch.Tensor, *, bq: int,
     if sq % bq or skv % bk or d % 8:
         raise ValueError(f"Sq={sq} must divide by bq={bq}, Skv={skv} by "
                          f"bk={bk}, D={d} by 8")
-    key = (int(int8), pad16(d), bq, bk)
+    key = (int(int8), pad32(d) if int8 else pad16(d), bq, bk)
     if key not in QK_BUILT:
         raise ValueError(f"qk_only: instantiation {key} is not built")
     if plain or q_t.device.type == "cpu":
         return qk_only_plain(q_t, k)
     if q_t.device.type != "cuda":
         raise ValueError(f"unsupported device {q_t.device}")
-    qc, kc = _aligned(q_t), _aligned(k)
+    qc = _aligned(q_t)
+    kc, w = _qk_k(k, int8)
     out = torch.empty((bh, 1, sq), dtype=torch.float32, device=q_t.device)
     err = _build.load().sg_study_qk(qc.data_ptr(), kc.data_ptr(),
-                                    out.data_ptr(), bh, sq, skv, d,
-                                    int(int8), bq, bk, cuda_stream(q_t))
+                                    out.data_ptr(), bh, sq, skv, d, w,
+                                    kc.stride(0), kc.stride(1), int(int8),
+                                    bq, bk, cuda_stream(q_t))
     _build.check(err, "sg_study_qk")
     wrapper.launches += 1
     return out
@@ -161,7 +227,7 @@ def _int8_attn(wrapper, plain, q8, sq_row, k8, sk_row, v, bq, bk):
     if sq % bq or skv % bk or d % 8:
         raise ValueError(f"Sq={sq} must divide by bq={bq}, Skv={skv} by "
                          f"bk={bk}, D={d} by 8")
-    key = (pad16(d), pad16(pad8(d + 1)), bq, bk)
+    key = (pad32(d), pad16(pad8(d + 1)), bq, bk)
     if key not in INT8_BUILT:
         raise ValueError(f"{wrapper.__name__}: instantiation {key} is not "
                          "built")
@@ -171,8 +237,9 @@ def _int8_attn(wrapper, plain, q8, sq_row, k8, sk_row, v, bq, bk):
     if q8.device.type != "cuda" or v.dtype != torch.bfloat16:
         raise ValueError("the kernel takes CUDA tensors and a bfloat16 v")
     out = torch.empty((b, h, sq, d), dtype=v.dtype, device=v.device)
-    ts = [_aligned(t) for t in (q8, k8, v, sq_row.float(), sk_row.float(),
-                                bound)]
+    # q8 / k8 at the int8 pitch, v_ext = [v, 1] (the Pallas kernel's `ve`)
+    ts = [int8_rows(q8), int8_rows(k8), ones_column(v)] + [
+        _aligned(t.float()) for t in (sq_row, sk_row, bound)]
     err = _build.load().sg_study_int8(
         *(t.data_ptr() for t in ts), out.data_ptr(), b * h, sq, skv, d, bq,
         bk, cuda_stream(v))
@@ -185,10 +252,11 @@ def _int8_attn(wrapper, plain, q8, sq_row, k8, sk_row, v, bq, bk):
 def full_int8(wrapper, plain, q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, *, sm_scale: float, bq: int, bk: int
               ) -> torch.Tensor:
-    """S4 with the quantisation on the host: per-row absmax int8 q and k,
-    q's scales times scale * log2(e)."""
-    q8, sq_row = quant_rows(q)
-    k8, sk_row = quant_rows(k)
+    """S4 with the quantisation on the host: per-row absmax int8 q and k
+    (written at the kernel's pitch), q's scales times scale * log2(e)."""
+    d = q.shape[-1]
+    q8, sq_row = quant_rows(q, pad32(d))
+    k8, sk_row = quant_rows(k, pad32(d))
     return _int8_attn(wrapper, plain, q8, sq_row * (sm_scale * LOG2E), k8,
                       sk_row, v, bq, bk)
 

@@ -8,11 +8,12 @@ bf16. At the two dominant d = 40 shapes it prints
     attention against the fp32 reference: max error, and the int8 mean
     relative error;
   - qk bf16 / qk int8: the bare q k^T with a kv sum (kernel S3,
-    csrc/study_qk.cu; q pre-transposed to (BH, D, Sq) as in the study),
-    in TFLOP/s and TOP/s;
+    csrc/study_qk.cu, wgmma fed by TMA; q pre-transposed to (BH, D, Sq)
+    as in the study), in TFLOP/s and TOP/s;
   - full int8 (quant in the call): per-row absmax quantisation of q and k
-    on the host, then kernel S4 (csrc/study_int8.cu): int8 q k^T, rank-1
-    dequant, bound shift, exp2, bf16 P V and the row sum of the rounded p,
+    on the host, then kernel S4 (csrc/study_int8.cu, wgmma fed by TMA):
+    int8 q k^T, rank-1 dequant, bound shift, exp2, bf16 P V and the row
+    sum of the rounded p,
 
 each at bq, bk in 64, 128.
 
@@ -26,7 +27,7 @@ import functools
 import torch
 
 from storygen_tpu_torch.ops.study_attention import TILES
-from storygen_tpu_torch.ops.study_int8 import full_int8, qk_only
+from storygen_tpu_torch.ops.study_int8 import full_int8, int8_rows, qk_only
 from storygen_tpu_torch.studies import common
 
 MAIN_SHAPES = ("attn3_L1", "attn1_L1_ref")
@@ -34,7 +35,9 @@ MAIN_SHAPES = ("attn3_L1", "attn1_L1_ref")
 
 def int8_study_inputs(q, k):
     """The study's qk inputs: bf16 q_t (BH, D, Sq), k (BH, Skv, D), and
-    int8 copies clip(round(32 x), -127, 127)."""
+    int8 copies clip(round(32 x), -127, 127), the int8 k at the kernel's
+    row pitch (int8_rows: 48 bytes at d 40, which TMA reads as it is), so
+    that the timed call copies nothing."""
     b, h, sq, d = q.shape
     q_t = q.reshape(b * h, sq, d).transpose(1, 2).contiguous()
     kf = k.reshape(b * h, k.shape[2], d).contiguous()
@@ -43,7 +46,7 @@ def int8_study_inputs(q, k):
         return torch.clamp(torch.round(x.float() * 32), -127, 127).to(
             torch.int8)
 
-    return q_t, kf, i8(q_t), i8(kf)
+    return q_t, kf, i8(q_t), int8_rows(i8(kf))
 
 
 def main(device=None, shapes=MAIN_SHAPES, iters: int = 10) -> None:

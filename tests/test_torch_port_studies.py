@@ -248,17 +248,31 @@ def _sg_lines(name, lead=0, kinds=None):
 
 def test_built_tables_match_the_cuda_sources():
     """The Python tables of built instantiations list exactly the keys of
-    the CUDA sources' SG_BUILT and SG_TILES4 lines: S1's and S2's (the
-    wgmma lines carry two fields more, ring stages and panel columns;
-    S2's BND2 lines are study_bnd2.cu's) and S3's and S4's."""
+    the CUDA sources' SG_BUILT lines: S1's and S2's (the wgmma lines carry
+    two fields more, ring stages and panel columns; S2's BND2 lines are
+    study_bnd2.cu's) and S3's and S4's (keys and line fields alike, each
+    line once), every (bq, bk) of TILES for S3 in int8 and bf16 and for
+    S4."""
     from storygen_tpu_torch.ops import study_int8
     assert {v[:5] for v in _sg_lines("study_online.cu")} == \
         set(sa.ONLINE_BUILT)
     bounded = (_sg_lines("study_bounded.cu", kinds=KINDS)
                + _sg_lines("study_bnd2.cu", kinds=KINDS))
     assert {v[:7] for v in bounded} == set(sa.BOUNDED_BUILT)
-    assert set(_sg_lines("study_qk.cu", 2)) == study_int8.QK_BUILT
-    assert set(_sg_lines("study_int8.cu", 2)) == study_int8.INT8_BUILT
+    for src, table in (("study_qk.cu", study_int8.QK_BUILT),
+                       ("study_int8.cu", study_int8.INT8_BUILT)):
+        lines = _sg_lines(src)
+        assert len(lines) == len(table)
+        assert {v[:4]: v[4:] for v in lines} == table
+    tiles = {(bq, bk) for bq in sa.TILES for bk in sa.TILES}
+    assert {(k[0], k[2], k[3]) for k in study_int8.QK_BUILT} == \
+        {(i8,) + t for i8 in (0, 1) for t in tiles}
+    assert {k[2:] for k in study_int8.INT8_BUILT} == tiles
+    # the products' padded depths: int8 two k32 steps, bf16 three k16 ones;
+    # S4's v_ext 41 -> 48 columns
+    assert {k[1] for k in study_int8.QK_BUILT if k[0]} == {64}
+    assert {k[1] for k in study_int8.QK_BUILT if not k[0]} == {48}
+    assert {k[:2] for k in study_int8.INT8_BUILT} == {(64, 48)}
 
 
 def test_study_wgmma_lines_match_the_tables():
@@ -314,19 +328,23 @@ def test_study_lines_follow_f_or_the_smem_budget():
 
 
 def test_ring_stages_match_the_cuda_header():
-    """The Python mirrors of the rings' depth are the headers' rules: the
-    mma.sync kernels' (S3, S4) ring_stages in study_mma.cuh, and the wgmma
-    lines' (S1, S2) shared memory FwCfg::BYTES in flash_wgmma.cuh, whose
-    stages each SG_BUILT line names."""
+    """The Python mirror of the rings' depth is the header's rule: every
+    study line's (S1-S4) shared memory is FwCfg::BYTES in
+    flash_wgmma.cuh, whose stages each SG_BUILT line names; int8 Q / K
+    (S3, S4) in rows of EB * KPW bytes, S4's kv scales in a 1 KB slot of
+    each stage. The mma.sync ring rule (study_mma.cuh's ring_stages) is
+    gone with S3's and S4's mma.sync rings."""
     from storygen_tpu_torch.ops import _build
-    src = (_build.CSRC / "study_mma.cuh").read_text()
-    assert "return 2 * (3 * stage + 1024) <= 233472 ? 3 : 2;" in src
+    assert "ring_stages" not in (_build.CSRC / "study_mma.cuh").read_text()
+    assert not hasattr(sa, "ring_stages")
     assert sa.SM_SMEM == 233472
-    assert [sa.ring_stages(b) for b in (1000, 38570, 38571, 100000)] == \
-        [3, 3, 2, 2]
     fw = (_build.CSRC / "flash_wgmma.cuh").read_text()
     for text in ("1024 + QSLOTS * QBYTES + STAGES * STAGE + HAND + BARS",
-                 "STAGE = KBYTES + (V ? VBYTES : 0)",
+                 "STAGE = KBYTES + (V ? VBYTES : 0) + SKBYTES",
+                 "SKBYTES = SK ? 1024 : 0",
+                 "SK = EB == 1 && V",
+                 "KRB = EB * KPW",
+                 "KSTEPS = (EB * DP + 31) / 32",
                  "HAND = SPLIT > 1 ? 128 * (DP / 2 + 2) * 4 : 0",
                  "BARS = 8 * (QBARS + (V ? 4 : 2) * STAGES)",
                  "QBARS = QSLOTS > 1 ? 2 * QSLOTS : 1",
@@ -343,13 +361,12 @@ def test_ring_stages_match_the_cuda_header():
 
 @pytest.mark.parametrize("table", ["online", "bounded", "qk", "int8"])
 def test_every_built_study_ring_fits_a_block(table):
-    """Each built S1-S4 instantiation's ring fits a block's shared memory:
-    S1's and S2's wgmma lines (line_smem at the line's stages and panels,
-    at least two stages, Q in its own slots), S3's and S4's mma.sync rings
-    (two or three stages, by ring_stages) beside S3's q_t slab; where S4
-    copies Q into a stage, its tile fits one stage."""
+    """Each built S1-S4 instantiation's ring fits a block's shared memory,
+    all on the wgmma template (line_smem at the line's stages and panels,
+    at least two stages, Q in its own slots): S3 without V, its q_t slab
+    (the products' padded depth in d rows of bq queries) inside the Q
+    slot; S4 with V and its kv scales in every stage."""
     from storygen_tpu_torch.ops import study_int8 as si
-    rows = []  # (smem, one stage's bytes, bytes beside the ring, Q tile)
     if table == "online":
         for (dp, bq, bk, _, halves), (st, kpw) in sa.ONLINE_BUILT.items():
             assert st >= 2
@@ -368,35 +385,120 @@ def test_every_built_study_ring_fits_a_block(table):
                                            halves), key
             assert smem <= sa.SMEM_LIMIT, key
     elif table == "qk":
-        for i8, dp, bq, bk in si.QK_BUILT:
-            # int8 K rows dense, bf16 at an ldmatrix pitch
+        for (i8, dk, bq, bk), (st, kpw) in si.QK_BUILT.items():
             eb = 1 if i8 else 2
-            kpitch = dp if i8 else sa.pitch_bytes(2 * dp)
-            rows.append((si.qk_smem(i8, dp, bq, bk), sa.align128(bk * kpitch),
-                         sa.align128(dp * sa.pitch_bytes(bq * eb)), 0))
+            assert st >= 2 and kpw == 64
+            smem = sa.line_smem(48, bq, bk, st, kpw, v=False, eb=eb)
+            assert smem == si.qk_smem(i8, bq, bk) <= sa.SMEM_LIMIT
+            # the slab (QkCfg::SLAB): the products' padded depth in d rows
+            # (64 int8, 48 bf16) of bq queries, inside the Q slot of bq
+            # rows of eb * kpw bytes
+            assert (64 if i8 else 48) * bq * eb <= bq * eb * kpw
+            assert dk * eb in (64, 96)
     else:
-        for dp8, dv, bq, bk in si.INT8_BUILT:
-            rows.append((si.int8_smem(dp8, dv, bq, bk),
-                         sa.align128(bk * dp8)
-                         + sa.align128(bk * sa.pitch_bytes(2 * dv))
-                         + sa.align128(bk * 4), 0,
-                         sa.align128(bq * sa.pitch_bytes(dp8))))
-    for smem, stage, beside, q in rows:
-        assert smem == beside + sa.ring_stages(stage) * stage
-        assert smem <= sa.SMEM_LIMIT, (table, smem)
-        assert q <= stage
+        for (dk, dv, bq, bk), (st, kpw) in si.INT8_BUILT.items():
+            assert st >= 2 and kpw == 64 and dk == 64
+            smem = sa.line_smem(dv, bq, bk, st, kpw, eb=1)
+            assert smem == si.int8_smem(bq, bk) <= sa.SMEM_LIMIT
+            # BK fp32 kv scales inside the stage's 1 KB slot
+            assert 4 * bk <= 1024
     # the widest: d = 160 at 128-row tiles (two stages of 32-column
     # panels), d = 160 + 1 (176) at 128-row tiles (16-column panels, the
     # only ones that fit two stages); the d = 40 tiles four stages of 64
-    # rows; S3 / S4's small stages three
+    # rows
     assert sa.online_smem(160, 128, 128) == (
         1024 + 5 * 128 * 64 + 2 * (5 * 128 * 64 + 128 * 320) + 8 * 9)
     assert sa.BOUNDED_BUILT[(176, 128, 128, 1, 1, 1, sa.TB)] == (2, 16)
     assert sa.bounded_smem(176, 128, 128, 1, 1) == (
         1024 + 11 * 128 * 32 + 2 * (11 * 128 * 32 + 128 * 352) + 8 * 9)
     assert sa.ONLINE_BUILT[(48, 64, 64, sa.FOLDED_EXP2, 1)] == (4, 64)
-    assert si.qk_smem(0, 48, 128, 128) == 48 * 272 + 3 * 128 * 112
-    assert si.int8_smem(48, 48, 128, 64) == 3 * (64 * 48 + 64 * 112 + 256)
+    # S3 bf16 at 128 / 128: Q slot, four 128-row K stages of 128-byte rows;
+    # int8 at 64 / 64: 64-byte rows
+    assert si.qk_smem(0, 128, 128) == (
+        1024 + 128 * 128 + 4 * 128 * 128 + 8 * (1 + 8))
+    assert si.qk_smem(1, 64, 64) == 1024 + 64 * 64 + 4 * 64 * 64 + 8 * 9
+    # S4 at 128 / 64: int8 Q, four stages of k8, v_ext (48 columns) and the
+    # kv scales' 1 KB
+    assert si.int8_smem(128, 64) == (
+        1024 + 128 * 64 + 4 * (64 * 64 + 64 * 96 + 1024) + 8 * (1 + 16))
+
+
+def test_int8_study_lines_follow_the_smem_budget():
+    """S3's and S4's lines are study_line's: no F line (int8 Q / K, or no
+    V), the deepest ring of at most 4 stages that fits a block at one
+    64-byte panel (64 columns: int8 rows of 64 bytes, bf16 of 128)."""
+    from storygen_tpu_torch.ops import study_int8 as si
+    rows = [(bq, bk, dict(v=False, eb=1 if i8 else 2), line)
+            for (i8, _, bq, bk), line in si.QK_BUILT.items()]
+    rows += [(bq, bk, dict(eb=1), line)
+             for (_, _, bq, bk), line in si.INT8_BUILT.items()]
+    assert len(rows) == 12
+    for bq, bk, kw, (stages, kpw) in rows:
+        assert (stages, kpw) == sa.study_line(48, bq, bk, **kw)
+        assert kpw == 64 and 2 <= stages <= 4
+        fits = sa.line_smem(48, bq, bk, stages, kpw, **kw) <= sa.SMEM_LIMIT
+        assert fits and (stages == 4 or sa.line_smem(
+            48, bq, bk, stages + 1, kpw, **kw) > sa.SMEM_LIMIT)
+    # an int8 line never takes a narrower panel (16 or 32 bytes a row)
+    assert sa.study_line(48, 128, 128, eb=1)[1] == 64
+
+
+def test_int8_tensor_maps():
+    """S4's maps on (BH, S, D) int8 at a row pitch (study_maps with 1-byte
+    elements): a 40-byte pitch is refused (TMA's strides are multiples of
+    16 bytes, the size-1 head's too), 48 and 64 are taken; Q's map is D =
+    40 wide, so its 64-byte box reads columns 40..63 as zeros, K's is the
+    whole pitch; V the ones-extended 48 bf16 columns."""
+    with pytest.raises(ValueError, match="multiples of 16"):
+        sa.study_maps(2, 256, 512, 40, 128, 64, 64, eb=1, pitch=40)
+    for pitch in (48, 64):
+        maps = sa.study_maps(2, 256, 512, 40, 128, 64, 64, eb=1, pitch=pitch)
+        assert maps["q"]["dims"] == (40, 1, 256, 2)
+        assert maps["q"]["strides"] == (pitch, pitch, 256 * pitch)
+        assert maps["q"]["box"] == (64, 1, 128, 1)
+        assert maps["q"]["swizzle"] == 64
+        assert maps["q"]["box"][0] - maps["q"]["dims"][0] == 24
+        assert maps["k"]["dims"] == (pitch, 1, 512, 2)
+        assert maps["k"]["strides"] == (pitch, pitch, 512 * pitch)
+        assert maps["v"]["dims"] == (48, 1, 512, 2)
+        assert maps["v"]["box"] == (16, 1, 64, 1)
+    # a bf16 map with an explicit head stride is F's (B, S, H*D) one
+    from storygen_tpu_torch.ops.flash_attention import operand_map
+    assert operand_map((2, 64, 40), (64 * 48, 48, 1), 1, 64, 64, 1, 48)[
+        "strides"] == (48, 48, 64 * 48)
+
+
+def test_qk_k_layouts():
+    """S3's k as the kernel reads it (study_int8._qk_k): int8 at 64 bytes a
+    row is taken as it is and read 64 wide whatever its padding holds
+    (it meets the slab's zero rows), any other int8 k (40-byte rows, a
+    48-byte pitch) is copied at 64; a bf16 k whose rows end mid-sector
+    (80 bytes) is copied into a zero-padded 48-column buffer read 48 wide,
+    one of whole sectors is taken as it is, and a padded view whose
+    padding the wrapper cannot vouch for is read D wide."""
+    from storygen_tpu_torch.ops import study_int8 as si
+    k8 = torch.arange(4 * 256 * 40, dtype=torch.int32).reshape(
+        4, 256, 40).remainder(251).sub(125).to(torch.int8)
+    kc, w = si._qk_k(k8, True)
+    assert kc.stride() == (256 * 64, 64, 1) and w == 64
+    assert torch.equal(kc, k8)
+    assert kc.untyped_storage().nbytes() == 4 * 256 * 64
+    assert torch.count_nonzero(
+        torch.as_strided(kc, (4, 256, 24), (256 * 64, 64, 1), 40)) == 0
+    for pitch in (48, 64):
+        view = torch.full((4, 256, pitch), 3, dtype=torch.int8)[..., :40]
+        got, w = si._qk_k(view, True)
+        assert (got is view) == (pitch == 64) and w == 64
+        assert got.stride() == (256 * 64, 64, 1) and torch.equal(got, view)
+    kb = torch.randn(4, 256, 40).to(torch.bfloat16)
+    kc, w = si._qk_k(kb, False)
+    assert kc.stride() == (256 * 48, 48, 1) and w == 48
+    assert torch.equal(kc, kb)
+    got, w = si._qk_k(kc, False)
+    assert got is kc and w == 40
+    k48 = torch.randn(4, 256, 48).to(torch.bfloat16)
+    got, w = si._qk_k(k48, False)
+    assert got is k48 and w == 48
 
 
 def _consumer_registers(dp, ns, sets, kind=sa.TB, sub=1):
@@ -420,21 +522,31 @@ def _register_budget(wgm):
     return min((regs + (regs - 40) // wgm) // 8 * 8, 240)
 
 
-@pytest.mark.parametrize("table", ["online", "bounded"])
+@pytest.mark.parametrize("table", ["online", "bounded", "qk", "int8"])
 def test_every_study_line_fits_its_registers(table):
-    """Each S1 / S2 line's accumulators at their peak leave 40 registers of
+    """Each S1-S4 line's accumulators at their peak leave 40 registers of
     a consumer thread's budget for addresses, the policy's row state and
-    the walk (ptxas's own count is the smoke's; a spill fails it)."""
+    the walk (ptxas's own count is the smoke's; a spill fails it). S3
+    holds two S sets (int32 or fp32) and its register A (two k32 or three
+    k16 steps of 4 registers); S4 F's one S set, P and O."""
+    from storygen_tpu_torch.ops import study_int8 as si
     rows = []
     if table == "online":
         for dp, bq, bk, _, halves in sa.ONLINE_BUILT:
             rows.append((bq // 64, _consumer_registers(dp, bk, halves)))
-    else:
+    elif table == "bounded":
         for dp, bq, bk, sub, halves, g, kind in sa.BOUNDED_BUILT:
             geo = sa.bounded_geometry(dp, bq, bk, sub, g, kind)
             rows.append((geo["wgm"], _consumer_registers(
                 dp, geo["ns"], halves, kind, sub)))
-    assert len(rows) >= 30
+    elif table == "qk":
+        for i8, dk, bq, bk in si.QK_BUILT:
+            rows.append((bq // 64, _consumer_registers(48, bk, 1, sa.QK)
+                         + 4 * (2 if i8 else 3)))
+    else:
+        for dk, dv, bq, bk in si.INT8_BUILT:
+            rows.append((bq // 64, _consumer_registers(dv, bk, 1, sa.INT8)))
+    assert len(rows) >= (30 if table in ("online", "bounded") else 4)
     for wgm, regs in rows:
         assert regs + 40 <= _register_budget(wgm), (wgm, regs)
     assert _register_budget(1) == 255 and _register_budget(2) == 232

@@ -55,8 +55,12 @@ def _untouched(fn, *args, **kw):
     return out
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
 @pytest.mark.parametrize("int8", [True, False])
-def test_qk_only(studies, int8):
+def test_qk_only(studies, int8, layout):
+    """`strided`: the torch side's k is a view of a wider buffer whose
+    columns past D hold other values (the kernel's map reads them only
+    where they meet zeros)."""
     q_t = rand(1, (BH, D, SQ))
     k = rand(2, (BH, SKV, D))
     if int8:
@@ -67,6 +71,11 @@ def test_qk_only(studies, int8):
     else:
         jq, jk = jnp.asarray(q_t, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16)
         tq, tk = (torch.from_numpy(x).to(torch.bfloat16) for x in (q_t, k))
+    if layout == "strided":
+        wide = torch.full((BH, SKV, 64), 7, dtype=tk.dtype)
+        wide[..., :D] = tk
+        tk = wide[..., :D]
+        assert tk.stride() == (SKV * 64, 64, 1)
     ref = _run_jax(studies["bench_attn_int8"].qk_only, jq, jk, bq=128,
                    bk=128, int8=int8)
     got = _untouched(si.qk_only, tq, tk, bq=64, bk=128, int8=int8)
@@ -137,6 +146,28 @@ def test_quant_heads_and_rows_match_jax_exactly(studies, dtype):
         r8.numpy(), np.asarray(jnp.round(xf / amax * 127.0).astype(jnp.int8)))
     np.testing.assert_array_equal(rs.numpy(),
                                   np.asarray(amax[..., 0] / 127.0))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_quant_rows_at_the_kernels_pitch(dtype):
+    """quant_rows with a pitch writes the same int8 rows straight into a
+    zero buffer of that many bytes a row (the kernels' pad32(D) = 64 at
+    d 40): equal to quant_rows on the first D bytes, zeros after, the
+    same scales; int8_rows takes such a tensor as it is and copies any
+    other into one."""
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    x = torch.from_numpy(rand(10, (2, 3, 96, D), 2.0)).to(td)
+    ref8, refs = si.quant_rows(x)
+    got8, gots = si.quant_rows(x, 64)
+    assert got8.shape == ref8.shape and got8.stride() == (3 * 96 * 64,
+                                                          96 * 64, 64, 1)
+    assert torch.equal(got8, ref8) and torch.equal(gots, refs)
+    pad = torch.as_strided(got8, (2, 3, 96, 64 - D), got8.stride(), D)
+    assert torch.count_nonzero(pad) == 0
+    assert si.int8_rows(got8) is got8
+    copied = si.int8_rows(ref8)
+    assert copied is not ref8 and torch.equal(copied, ref8)
+    assert copied.stride() == got8.stride()
 
 
 @pytest.mark.parametrize("case,match", [
