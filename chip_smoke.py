@@ -8,8 +8,9 @@ It takes no arguments and runs fourteen phases, all of which must pass. The
 serving and training paths run in the default conv configuration and in
 the fused-conv one (`ConvKernels(fused_prologue=True, strided=True)`: every
 resnet conv on kernel P with its GroupNorm + SiLU as prologue, every 3x3
-stride-2 conv on kernel D):
-  kernels      builds the nine CUDA kernels from storygen_tpu_torch/csrc/
+stride-2 conv on kernel D); in both, every 2x upsample and its conv run as
+kernel U, the four phase convs on the source grid:
+  kernels      builds the ten CUDA kernels from storygen_tpu_torch/csrc/
                and holds each against its plain PyTorch version at the
                512 px shapes of the main paths (serving and stage-2
                training), M, L, DQ and DKV also at the mid block's
@@ -61,10 +62,17 @@ stride-2 conv on kernel D):
                per-image calls, and against its plain version); the same
                of G at L3, mid, mid train and a ragged M (run twice, at B3
                and B4 against its per-image calls, and against its plain
-               version); and ptxas's registers and spills of every wgmma
-               conv line (C, P and D) and every F / M / L / DQ / DKV / G
-               line (a spill fails the phase, and so does a wgmma that
-               ptxas serialises);
+               version); U at the UNet's three up blocks (B3, and B6 of
+               the reference pass), the VAE decoder's three (B1) and a
+               ragged B2 5x6 source, with the parent's path (upsampling
+               copies, then C on the 2x grid) and F.interpolate + cuDNN's
+               conv2d as yardsticks, mean and device time alone, and
+               cuDNN's transposed conv as its library call; U at B3 and
+               B6 against its per-image calls bit for bit, twice bit for
+               bit and against its plain version; and ptxas's registers
+               and spills of every wgmma conv line (C, P, D and U) and
+               every F / M / L / DQ / DKV / G line (a spill fails the
+               phase, and so does a wgmma that ptxas serialises);
   models       in each configuration: one full-width UNet image-cycle pass
                (512 px, 3 refs) and one 512 px VAE encode and decode,
                kernel path against the plain path on the card, compared
@@ -82,14 +90,14 @@ stride-2 conv on kernel D):
                gradient checkpointing, 2 micro-steps per optimizer step, 3
                optimizer steps on seeded synthetic batches, checking finite
                losses, that every attn3 parameter moved and nothing else
-               did, that the seven kernels of the default configuration ran
+               did, that the eight kernels of the default configuration ran
                on that path, and P and D not;
   story_fused  a 2-prompt story in the fused configuration: every serving
                kernel, P and D ran;
   serving      the serving options at 512 px, bf16, full width: each of the
                six samplers (DDIM with eta 0.5) on one auto-regressive
                frame with 3 refs at 4 steps, its ms per denoise step, and
-               that it launched F, G and C and nothing else; stage
+               that it launched F, G, C and U and nothing else; stage
                "multi-image-condition" (3 refs, 2 steps, one reference
                pass of (N+1)B rows) kernel path against plain path in
                both configurations, P and D launched in the fused one,
@@ -107,14 +115,14 @@ stride-2 conv on kernel D):
                a port kernel that depends on the batch fails the phase);
                and 2 images per prompt with a negative prompt;
   train_fused  1 optimizer step of 2 micro-steps in the fused
-               configuration: all nine kernels ran;
+               configuration: all ten kernels ran;
   checkpoint   the full-width seeded bf16 models through
                StoryGenPipeline.save_pretrained into build/ and back
                through load_diffusers_pretrained onto the card (every
                tensor equal bit for bit, with the seconds and bytes of the
                save and the load); a 2-frame DDIM-4 story from the loaded
                pipeline equal bit for bit to the source pipeline's on the
-               same draws, launching F, G and C; and a UNet file without
+               same draws, launching F, G, C and U; and a UNet file without
                the attn3/norm4 keys loading with attn3 == attn1 and
                norm4 == norm1;
   train_more   from that folder, at 512 px, batch 4, bf16, gradient
@@ -138,7 +146,7 @@ stride-2 conv on kernel D):
                the export, a 3-frame DDIM-4 story whose PNGs, read back,
                equal the pipeline's frames for the seed; serve on
                127.0.0.1 port 0 (GET /healthz, POST /story of 2 frames);
-               each path's launches (F, G, C serving; M, L, DQ, DKV also
+               each path's launches (F, G, C, U serving; M, L, DQ, DKV also
                training) and wall time;
   dataset      the dataset-building path (data_process/, detection/,
                native/, utils/profiling): the native library's g++ build
@@ -152,7 +160,7 @@ stride-2 conv on kernel D):
                CPU (the same boxes), ms per detect; inpainting at 512 px,
                DDIM-25, a rectangular mask, from the checkpoint folder in
                both conv configurations (unmasked latents and pixels
-               exact, launches F, G, C and, fused, P, D), the masked
+               exact, launches F, G, C, U and, fused, P, D), the masked
                latents kernel path against plain path in both;
                scripts.build_dataset.main on a synthetic video (extract,
                dedup, mask with YOLOv7, inpaint, align; each inpainted
@@ -312,8 +320,13 @@ KERNEL_META = {
     "downconv3x3": {
         "route": "cuda", "source": "storygen_tpu_torch/csrc/downconv3x3.cu",
         "replaces": "storygen_tpu/ops/pallas_conv.py:312"},
+    # an XLA module, not a pallas_call: _UpsampleConv, the JAX package's
+    # 2x upsample + 3x3 conv as four phase convs on the source grid
+    "upconv3x3": {
+        "route": "cuda", "source": "storygen_tpu_torch/csrc/upconv3x3.cu",
+        "replaces": "storygen_tpu/models/layers.py:220"},
 }
-# the serving and training paths' nine kernels
+# the serving and training paths' ten kernels
 PORT_KERNELS = tuple(KERNEL_META)
 # the kernels whose rate the kernels phase prints, with the library call
 # that their factor is taken over (None: DQ and DKV, whose sum is held
@@ -321,7 +334,8 @@ PORT_KERNELS = tuple(KERNEL_META)
 RATED = {"flash_fwd": "SDPA", "flash_fwd_masked": "SDPA",
          "flash_lse": "SDPA's call that returns lse",
          "flash_dq": None, "flash_dkv": None,
-         "conv3x3": "cuDNN", "gnconv3x3": "cuDNN", "downconv3x3": "cuDNN"}
+         "conv3x3": "cuDNN", "gnconv3x3": "cuDNN", "downconv3x3": "cuDNN",
+         "upconv3x3": "cuDNN's transposed conv"}
 STUDY_SOURCES = {"online": "storygen_tpu_torch/csrc/study_online.cu",
                  "bounded": "storygen_tpu_torch/csrc/study_bounded.cu",
                  "bnd2": "storygen_tpu_torch/csrc/study_bnd2.cu",
@@ -351,7 +365,7 @@ STUDY_ENTRIES = {STUDY_SOURCES["online"]: "online_wg_kernel",
                  STUDY_SOURCES["bnd2"]: "bounded_wg_kernel",
                  STUDY_SOURCES["qk"]: "qk_wg_kernel",
                  STUDY_SOURCES["int8"]: "int8_wg_kernel"}
-SERVING_KERNELS = ("flash_fwd", "geglu_matmul", "conv3x3")
+SERVING_KERNELS = ("flash_fwd", "geglu_matmul", "conv3x3", "upconv3x3")
 FUSED_KERNELS = ("gnconv3x3", "downconv3x3")
 # what each path must launch (> 0); every other kernel is held to 0 (the
 # study kernels on every serving and training path)
@@ -412,12 +426,14 @@ def nvidia_smi_line() -> str:
 def wrappers() -> dict:
     """Every kernel's wrapper, whose `.launches` counts its launches."""
     from storygen_tpu_torch.ops import (conv, downconv, flash_attention as fa,
-                                        geglu, study_attention, study_int8)
+                                        geglu, study_attention, study_int8,
+                                        upconv)
     out = {"flash_fwd": fa.flash_fwd, "flash_fwd_masked": fa.flash_fwd_masked,
            "flash_lse": fa.flash_lse, "flash_dq": fa.flash_dq,
            "flash_dkv": fa.flash_dkv, "geglu_matmul": geglu.geglu_matmul,
            "conv3x3": conv.conv3x3, "gnconv3x3": conv.gnconv3x3,
-           "downconv3x3": downconv.downconv3x3}
+           "downconv3x3": downconv.downconv3x3,
+           "upconv3x3": upconv.upconv3x3}
     for w in study_attention.WRAPPERS + study_int8.WRAPPERS:
         out[w.__name__] = w
     return out
@@ -472,6 +488,24 @@ def device_ms(fn, kernel: str, iters: int = 5):
         if per_call:
             return per_call / 1e3
     return None
+
+
+def kernels_ms(fn, iters: int = 5):
+    """Device time per call of every kernel and copy that `fn` runs on the
+    card, from a torch.profiler trace of `iters` calls after one warm-up:
+    a path of several PyTorch calls without its host's pace; None if the
+    trace holds no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / iters / 1e3 if us else None
 
 
 def bound_ms(flops: float, nbytes: float, exps: float = 0.0):
@@ -627,6 +661,46 @@ def down_alone(x, w9, bias, pad):
     return call
 
 
+def up_alone(x, w16, bias):
+    """Kernel U's C launcher on this call's operands, its output and split
+    workspace made once, as a callable."""
+    import torch
+    from storygen_tpu_torch.ops import _build, upconv
+    b, h, w, cin = x.shape
+    cout = w16.shape[2]
+    shape = upconv.workspace_shape(b, h, w, cin, cout)
+    keep = [bias.float().contiguous(),
+            torch.empty((b, 2 * h, 2 * w, cout), dtype=x.dtype,
+                        device=x.device)]
+    if shape is not None:
+        keep.append(torch.empty(shape, dtype=torch.float32, device=x.device))
+    args = (x.data_ptr(), w16.data_ptr(), keep[0].data_ptr(),
+            keep[1].data_ptr(), None if shape is None else keep[2].data_ptr(),
+            1 if shape is None else shape[0], b, h, w, cin, cout,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    fn = _build.load().sg_upconv3x3
+
+    def call(keep=keep):
+        _build.check(fn(*args), "sg_upconv3x3")
+    return call
+
+
+def transposed_weight(w16):
+    """Kernel U's (16, Cin, Cout) phase weights as the (Cin, Cout, 4, 4)
+    weight of F.conv_transpose2d(x, ., stride=2, padding=1), the one
+    PyTorch call that computes U's function: output row 2y + a takes
+    source row y - 1 + a + r through its kernel row 3 - a - 2r (columns
+    alike), which is phase a's tap r."""
+    cin, cout = w16.shape[1:]
+    k = w16.new_empty((cin, cout, 4, 4))
+    for ph in range(4):
+        a, b = divmod(ph, 2)
+        for tap in range(4):
+            r, c = divmod(tap, 2)
+            k[:, :, 3 - a - 2 * r, 3 - b - 2 * c] = w16[4 * ph + tap]
+    return k
+
+
 def geglu_alone(proj, w, bias, tokens):
     """Kernel G's C launcher on this call's operands and its output made
     once, as a callable."""
@@ -658,9 +732,12 @@ class Case:
     gated product where PyTorch does). `yardstick`, for S3, is the bf16
     q k^T product alone (torch.bmm): S3 has no one-call equivalent, and
     the product is not S3's function (it writes the logits, S3 their
-    sums). `alone`, for C, P, F, M, DQ, DKV and G, is the kernel's C launcher on
-    operands and buffers made once: the host's cost of a call without the
-    wrapper's checks and allocations; `device` names the CUDA kernels whose
+    sums). `yardsticks`, for U, names PyTorch paths to the same output
+    timed beside it, mean and device time alone (the parent's upsampling
+    copies and kernel C on the 2x grid; F.interpolate and cuDNN's conv2d).
+    `alone`, for C, P, F, M, DQ, DKV, G and U, is the kernel's C launcher
+    on operands and buffers made once: the host's cost of a call without
+    the wrapper's checks and allocations; `device` names the CUDA kernels whose
     device time alone is read from a trace. `exps`, for the attention
     kernels, is the exponentials the function needs (one per kept logit),
     the bound's third term. `repeat`, for DQ and DKV, runs the kernel a
@@ -669,7 +746,7 @@ class Case:
     def __init__(self, name, label, kern, plain, oracle, library, flops,
                  nbytes, twin=None, backward=None, unfused=None,
                  yardstick=None, alone=None, device="sg_conv::", exps=0.0,
-                 repeat=False):
+                 repeat=False, yardsticks=None):
         self.name, self.label = name, label
         self.kern, self.plain, self.oracle = kern, plain, oracle
         self.library, self.flops, self.nbytes = library, flops, nbytes
@@ -679,6 +756,7 @@ class Case:
         self.alone = alone
         self.device, self.exps = device, exps
         self.repeat = repeat
+        self.yardsticks = yardsticks or {}
 
 
 def _attn_cases(dev, rnd):
@@ -971,7 +1049,7 @@ def kernel_cases(dev):
             2.0 * (pix * cin + 9 * cin * cout + pix * cout * (2 if res
                                                                else 1))
             + 4.0 * bias.numel(), alone=conv_alone(x, w9, bias, r)))
-    return cases + _fused_conv_cases(dev, g, rnd)
+    return cases + _fused_conv_cases(dev, g, rnd) + _up_cases(dev, g, rnd)
 
 
 def _fused_conv_cases(dev, g, rnd):
@@ -1064,6 +1142,65 @@ def _fused_conv_cases(dev, g, rnd):
             + 4.0 * cout,
             alone=(down_alone(x, w9, bias, pad) if cout % 8 == 0 and w > 1
                    else None)))
+    return cases
+
+
+# (label, B, source H, W, channels) of kernel U: the UNet's three 2x
+# upsamples (serving B3, its reference pass B6), the VAE decoder's three
+# (B1) and a ragged source
+UP_SITES = [("UNet up block 0", 3, 8, 8, 1280),
+            ("UNet up block 1", 3, 16, 16, 1280),
+            ("UNet up block 2", 3, 32, 32, 640),
+            ("VAE dec 64->128px", 1, 64, 64, 512),
+            ("VAE dec 128->256px", 1, 128, 128, 512),
+            ("VAE dec 256->512px", 1, 256, 256, 256),
+            ("UNet up block 0 ref pass", 6, 8, 8, 1280),
+            ("UNet up block 1 ref pass", 6, 16, 16, 1280),
+            ("UNet up block 2 ref pass", 6, 32, 32, 640),
+            ("ragged", 2, 5, 6, 96)]
+
+
+def _up_cases(dev, g, rnd):
+    """U at UP_SITES, with the parent's path and F.interpolate + cuDNN's
+    conv2d as yardsticks and cuDNN's transposed conv, one call of the same
+    function, as library."""
+    import torch
+    import torch.nn.functional as F
+    from storygen_tpu_torch.ops import conv, upconv
+    cases = []
+    for label, b, h, w, c in UP_SITES:
+        x = rnd(b, h, w, c)
+        weight = torch.randn((c, c, 3, 3), generator=g, device=dev) * (
+            9 * c) ** -0.5
+        w9 = conv.pack_weight(weight, torch.bfloat16)
+        w16 = upconv.phase_weight(weight, torch.bfloat16)
+        bias = torch.randn((c,), generator=g, device=dev)
+        x_cl = x.permute(0, 3, 1, 2)
+        w_cl = weight.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        k4 = transposed_weight(w16).contiguous(
+            memory_format=torch.channels_last)
+        b16 = bias.to(torch.bfloat16)
+        pix = b * h * w
+        cases.append(Case(
+            "upconv3x3", f"{label} B{b} {h}x{w}->{2 * h}x{2 * w} {c}",
+            lambda x=x, w16=w16, bias=bias: upconv.upconv3x3(x, w16, bias),
+            lambda x=x, w16=w16, bias=bias: upconv.upconv3x3_plain(
+                x, w16, bias),
+            lambda x=x, w16=w16, bias=bias: upconv.upconv3x3_plain(
+                x.float(), w16.float(), bias),
+            lambda x=x_cl, k=k4, bb=b16: F.conv_transpose2d(
+                x, k, bb, stride=2, padding=1),
+            2.0 * pix * 16 * c * c,
+            2.0 * (pix * c + 16 * c * c + 4 * pix * c) + 4.0 * c,
+            alone=up_alone(x, w16, bias),
+            yardsticks={
+                "parent's path": lambda x=x, w9=w9, bias=bias: conv.conv3x3(
+                    upconv.upsample_nearest(x), w9, bias),
+                "interpolate + cuDNN": lambda x=x_cl, w=w_cl, bb=b16:
+                    F.conv2d(F.interpolate(x, scale_factor=2,
+                                           mode="nearest"), w, bb,
+                             padding=1)}))
     return cases
 
 
@@ -1164,6 +1301,14 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
             fwd_line += (f"  {c.nbytes / ms / 1e6:.0f} GB/s  "
                          f"unfused {unfused_ms:.4f} ms "
                          f"({ms / unfused_ms:.2f}x)")
+        yard = {}  # U's yardsticks: (mean ms, device ms alone)
+        for name, fn in c.yardsticks.items():
+            with torch.no_grad():
+                yard[name] = (cuda_ms(fn, 10), kernels_ms(fn))
+            y_ms, y_dev = yard[name]
+            y_txt = "-" if y_dev is None else f"{y_dev:.4f} ms"
+            fwd_line += (f"  {name} {y_ms:.4f} ms (alone {y_txt}; kernel "
+                         f"{ms / y_ms:.2f}x it)")
         wrapper_us = alone_us = dev_ms = None
         if c.alone is not None:
             # C, P, D, F, M, L, DQ, DKV and G: share of bound, the device time
@@ -1208,7 +1353,9 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
                            "vs_library": vs_lib,
                            "sdpa_backward_ms": bwd_ms,
                            "dq_dkv_vs_sdpa_backward": vs_bwd,
-                           "unfused_ms": unfused_ms, "host_us": wrapper_us,
+                           "unfused_ms": unfused_ms,
+                           "yardsticks_ms": yard or None,
+                           "host_us": wrapper_us,
                            "host_alone_us": alone_us,
                            "device_alone_ms": dev_ms})
     for r in results.values():  # the bound of the kernel's summed cases
@@ -1216,6 +1363,7 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
             "bound_by"]
     ok &= conv_split_checks(dev, card)
     ok &= down_lse_batch_checks(dev, card)
+    ok &= upconv_split_checks(dev, card)
     ok &= geglu_split_checks(dev, card)
     ok &= conv_ptxas()
     ok &= flash_ptxas()
@@ -1358,6 +1506,56 @@ def down_lse_batch_checks(dev, card: str) -> bool:
     return ok
 
 
+# (label, batches, source side, channels) of kernel U at the UNet's 2x
+# upsamples: serving's CFG batch and its reference pass's
+UP_BATCH_SITES = [("UNet up block 0", (3, 6), 8, 1280),
+                  ("UNet up block 1", (3, 6), 16, 1280),
+                  ("UNet up block 2", (3, 6), 32, 640)]
+
+
+def upconv_split_checks(dev, card: str) -> bool:
+    """Kernel U holds its result whatever the batch: run twice it is equal
+    bit for bit, at B3 and B6 it equals its per-image calls bit for bit
+    (the line, the split plan and each output's order of summation ignore
+    the batch), and it stays within KERNEL_RTOL of its fp32 plain
+    version."""
+    import torch
+    from storygen_tpu_torch.ops import upconv
+    g = torch.Generator(device=dev).manual_seed(4)
+    ok = True
+    for label, batches, side, c in UP_BATCH_SITES:
+        weight = torch.randn((c, c, 3, 3), generator=g, device=dev) * (
+            9 * c) ** -0.5
+        w16 = upconv.phase_weight(weight, torch.bfloat16)
+        bias = torch.randn((c,), generator=g, device=dev)
+        for b in batches:
+            x = torch.randn((b, side, side, c), generator=g,
+                            device=dev).to(torch.bfloat16)
+            with torch.no_grad():
+                one = upconv.upconv3x3(x, w16, bias)
+                two = upconv.upconv3x3(x, w16, bias)
+                rows = torch.cat([upconv.upconv3x3(x[i:i + 1].contiguous(),
+                                                   w16, bias)
+                                  for i in range(b)])
+                ref = upconv.upconv3x3_plain(x.float(), w16.float(), bias)
+            torch.cuda.synchronize()
+            repeat, sliced = torch.equal(one, two), torch.equal(one, rows)
+            err = (one.float() - ref).abs().max().item()
+            bound = KERNEL_RTOL * ref.abs().max().item()
+            good = (repeat and sliced and err <= bound
+                    and bool(torch.isfinite(one.float()).all()))
+            ok &= good
+            print(f"upconv3x3 batch {label} B{b} {side}x{side}->"
+                  f"{2 * side}x{2 * side} {c}: splits "
+                  f"{upconv.up_splits(c, c, side, side)}, repeat "
+                  f"{'equal' if repeat else 'DIFFERS'}, B{b} vs {b} x B1 "
+                  f"{'equal' if sliced else 'DIFFERS'}, max_abs_err "
+                  f"{err:.3e} (bound {bound:.3e}) "
+                  f"{'ok' if good else 'FAIL'} [{card}]", flush=True)
+            del x, one, two, rows, ref
+    return ok
+
+
 # (label, rows per image, N, E, batches) of kernel G at the sites whose
 # line splits the N reduction, and a ragged M (250 rows an image)
 GEGLU_SPLIT_SITES = [("L3 ff", 256, 5120, 1280, (3, 4)),
@@ -1449,15 +1647,18 @@ def wg_ptxas(stem: str, entry: str, built: set) -> bool:
 def conv_ptxas() -> bool:
     """wg_ptxas of every wgmma conv instantiation in this run's build:
     C's and P's (`<hash>/conv3x3.ptxas.txt`, each CONV_BUILT line of
-    family WGMMA) and D's (`downconv3x3.ptxas.txt`, each DOWN_BUILT
-    line)."""
-    from storygen_tpu_torch.ops import conv, downconv
-    # (stride, prologue, TH, TW, IB, WGM, MT, BN, CK, stages)
+    family WGMMA), D's (`downconv3x3.ptxas.txt`, each DOWN_BUILT line) and
+    U's (`upconv3x3.ptxas.txt`, each UP_BUILT line)."""
+    from storygen_tpu_torch.ops import conv, downconv, upconv
+    # (stride, mode: 0 plain, 1 P's prologue, 2 U's phases, TH, TW, IB,
+    # WGM, MT, BN, CK, stages)
     built = {(1, k[1]) + v[1:] for k, v in conv.CONV_BUILT.items()
              if v[0] == conv.WGMMA}
     down = {(2, 0) + v[1:] for v in downconv.DOWN_BUILT.values()}
+    up = {(1, 2) + v[1:] for v in upconv.UP_BUILT.values()}
     ok = wg_ptxas("conv3x3", "wg_conv_kernel", built)
-    return wg_ptxas("downconv3x3", "wg_conv_kernel", down) and ok
+    ok &= wg_ptxas("downconv3x3", "wg_conv_kernel", down)
+    return wg_ptxas("upconv3x3", "wg_conv_kernel", up) and ok
 
 
 def flash_ptxas() -> bool:
@@ -1828,7 +2029,7 @@ PROMPTS = ("A little fox finds a glowing lantern in the snowy forest.",
 def record_launches(results: dict, launches: dict, path: str) -> bool:
     """Keep the launches of one path's run; True if every kernel the path
     must run launched and every other kernel did not. "launches" itself is
-    the fused training path's count, the one path that runs all nine
+    the fused training path's count, the one path that runs all ten
     serving and training kernels, and the studies path's for the study
     kernels."""
     for k, n in launches.items():
@@ -1992,7 +2193,8 @@ def serving_samplers(pipe, dev, card: str, results: dict, frame: dict
               f"{1e3 * walls[-1] / n_iters:.1f} ms per denoise step; range "
               f"[{img.min():.3f}, {img.max():.3f}]; launches F "
               f"{launches['flash_fwd']}, G {launches['geglu_matmul']}, C "
-              f"{launches['conv3x3']} {'ok' if good else 'FAIL'} [{card}]",
+              f"{launches['conv3x3']}, U {launches['upconv3x3']} "
+              f"{'ok' if good else 'FAIL'} [{card}]",
               flush=True)
     del pipe.sampler.sample
     return ok & record_launches(results, total, "samplers")
@@ -2156,7 +2358,8 @@ def serving_interval(pipe, dev, frame: dict) -> bool:
     print(f"ref_feature_interval 1 / 2 at {OPTION_STEPS} steps: {n1} / {n2} "
           f"reference passes; their launches F {l1['flash_fwd']} / "
           f"{l2['flash_fwd']}, G {l1['geglu_matmul']} / "
-          f"{l2['geglu_matmul']}, C {l1['conv3x3']} / {l2['conv3x3']}; "
+          f"{l2['geglu_matmul']}, C {l1['conv3x3']} / {l2['conv3x3']}, U "
+          f"{l1['upconv3x3']} / {l2['upconv3x3']}; "
           f"frames differ by {abs(img1 - img2).max():.4f} max abs "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     return ok
@@ -2479,7 +2682,7 @@ def phase_checkpoint(dev, card: str, results: dict) -> bool:
     StoryGenPipeline.save_pretrained and back through
     load_diffusers_pretrained (every tensor equal bit for bit); a 2-frame
     DDIM-4 story from the loaded pipeline against the source pipeline's on
-    the same draws (equal bit for bit; it launches F, G and C); and a UNet
+    the same draws (equal bit for bit; it launches F, G, C and U); and a UNet
     file without attn3/norm4 loading with attn3 == attn1, norm4 == norm1."""
     import shutil
 

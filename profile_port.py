@@ -25,7 +25,9 @@ It prints
   - for a DDIM-4 frame of each: its wall time without and with
     `torch.profiler`, the device's busy time under the profiler (the union
     of the card's kernel and copy intervals), the device's idle share
-    against each wall time, and device time by kernel, largest first;
+    against each wall time, device time by port kernel (F / M, L, DQ /
+    DKV, G, C, P, D, U, each conv's split sums with it; the rest is plain
+    torch) and by kernel, largest first;
   - for each, the wall time of 4 micro-steps after 2 warm-ups, and the
     same profile of 2 micro-steps (one that accumulates, one that updates).
 
@@ -64,6 +66,7 @@ from __future__ import annotations
 
 import collections
 import os
+import re
 import statistics
 import sys
 import time
@@ -333,6 +336,31 @@ def serving_options(dev, card: str) -> bool:
     return True
 
 
+# the conv template's kernels by (stride, mode): csrc/conv_wgmma.cuh's
+# wg_conv_kernel and its split sum wg_splitk_reduce (a tree before kernel
+# U names C's, P's and D's mode as a bool, and their split sums alike)
+CONV_MODES = {("1", "0"): "C", ("1", "1"): "P", ("2", "0"): "D",
+              ("1", "2"): "U", ("1", "false"): "C", ("1", "true"): "P",
+              ("2", "false"): "D"}
+ENTRIES = (("flash_bwd_wg_kernel", "DQ / DKV"), ("lse_wg_kernel", "L"),
+           ("flash_wg_kernel", "F / M"), ("geglu_wg_kernel", "G"),
+           ("conv_mma_kernel", "C"))
+
+
+def port_kernel(name: str) -> str:
+    """The port kernel that a trace's kernel name belongs to, or "plain
+    torch"."""
+    m = re.search(r"wg_conv_kernel<(\d+), (\w+)", name)
+    if m:
+        return CONV_MODES.get(m.groups(), "plain torch")
+    m = re.search(r"wg_splitk_reduce<(\d+), (\d+)>", name)
+    if m:
+        return CONV_MODES.get(m.groups(), "plain torch")
+    if "wg_splitk_reduce" in name:
+        return "C"  # a tree before U: C's, P's and D's split sums
+    return next((k for entry, k in ENTRIES if entry in name), "plain torch")
+
+
 def report(label: str, run, wall: float, card: str, out_name: str) -> bool:
     """Profile `run` (which returns its wall seconds) and print the
     device's busy time, idle share and time by kernel."""
@@ -365,12 +393,21 @@ def report(label: str, run, wall: float, card: str, out_name: str) -> bool:
           f"ms; device idle share {1 - busy / (1e3 * wall):.3f} unprofiled, "
           f"{1 - busy / (1e3 * wall_profiled):.3f} profiled [{card}]")
     rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+    by_port = collections.defaultdict(lambda: [0.0, 0])
+    for name, (ms, n) in rows:
+        by_port[port_kernel(name)][0] += ms
+        by_port[port_kernel(name)][1] += n
+    port = (f"{label} by port kernel: " + ", ".join(
+        f"{k} {ms:.2f} ms ({100 * ms / busy:.1f}%, n={n})"
+        for k, (ms, n) in sorted(by_port.items(), key=lambda kv: -kv[1][0]))
+        + f" [{card}]")
+    print(port)
     lines = [f"{ms:10.2f} ms {100 * ms / busy:6.1f}%  n={n:6d}  {name}"
              for name, (ms, n) in rows]
     print("\n".join(line[:140] for line in lines[:TOP]), flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", out_name), "w") as f:
-        f.write(f"{card}\n" + "\n".join(lines) + "\n")
+        f.write(f"{card}\n{port}\n" + "\n".join(lines) + "\n")
     return True
 
 

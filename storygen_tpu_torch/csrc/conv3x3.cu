@@ -81,7 +81,8 @@ struct Family<1> {
             int BN, int CK, int STAGES>
   static cudaError_t launch(const WgArgs& w, cudaStream_t s) {
     static_assert(VEC, "TMA rows are whole 16-byte pieces");
-    return wg_launch<1, PRO, TH, TW, IB, WGM, MT, BN, CK, STAGES>(w, s);
+    return wg_launch<1, PRO ? PROLOGUE : PLAIN, TH, TW, IB, WGM, MT, BN, CK,
+                     STAGES>(w, s);
   }
 };
 

@@ -10,6 +10,14 @@
 // It replaces _kernel of storygen_tpu/ops/pallas_conv.py:61 (fused=False
 // and fused=True), reached through the pallas_call at :295, and
 // _down_kernel :312 of the same file (D), reached through :423.
+// In its phase mode (MODE PHASES, kernel U, upconv3x3.cu) it computes the
+// 3x3 SAME conv of x's nearest 2x upsampling as four 2x2 convs on x's own
+// grid, one per output phase (pa, pb):
+//   out[b, 2y+pa, 2x+pb, co] = bias[co] + sum_{r, c, ci}
+//       x[b, y-1+pa+r, x-1+pb+c, ci] * w16[4*(2*pa+pb) + 2*r+c, ci, co]
+// with w16 the phase weights (sums of the 3x3 taps that land on one
+// source pixel; ops/upconv.py::phase_weight), the counterpart of
+// storygen_tpu/models/layers.py:220 (_UpsampleConv, XLA's convolutions).
 //
 // What bounds it on the H100, by site class:
 // - Wide images (64x64 latents, the VAE's 128-512 px): tensor-core work,
@@ -24,6 +32,10 @@
 //   and the VAE encoder's 128 and 256 px sites; the input's bytes at the
 //   VAE encoder's 512 px one (201 MB at batch 3); the weights' at UNet L3
 //   (16 -> 8 columns, 1280 channels: 29.5 MB).
+// - The phases (U): 2 pixels 16 Cin Cout operations a source pixel (36 on
+//   the upsampled grid), tensor-core work at every site but the UNet's
+//   first up block (8x8 -> 16x16, 1280 channels), where the phase weights'
+//   16 Cin Cout bf16 (52 MB) bind.
 //
 // What the design does:
 // - Products by wgmma.mma_async m64nNk16 (bf16 in, fp32 accumulators in
@@ -76,6 +88,17 @@
 //   writes fp32 partials to a workspace that the wrapper allocates; a second
 //   kernel adds them in split order, then the bias and the residual, and
 //   stores bf16 once. No float atomics.
+// - U's phases: C's stride-1 slab, (CK, TW+2, TH+2, IB) at (c0, x0-1,
+//   y0-1, b0) of the source, holds every pixel that the four phases of
+//   its TH x TW source pixels read, TMA's zero fill the border; phase (pa,
+//   pb)'s tap (r, c) is slab offset (pa + r, pb + c), an address as C's
+//   taps are. A block computes one phase (the lowest digit of blockIdx.x,
+//   so the four blocks of one tile run side by side and share the slab in
+//   L2), with its weights' 4 CK rows a panel (w16 seen as (Cout, Cin,
+//   16), box (32, CK, 4) at tap 4 * phase), and writes pixel (2y + pa, 2x
+//   + pb) of the (2H, 2W) output. The tiles, the split of the 4 Cin
+//   reduction (with the phases' four blocks a tile counted) and the
+//   epilogue are C's.
 // - P's prologue in place on the landed slab: after a stage's full barrier
 //   the consumer threads apply silu(x * a + s) to its pieces inside the
 //   image and below Cin (the border and the channel padding stay 0), fence
@@ -93,6 +116,10 @@
 namespace sg_conv {
 
 using namespace sg_hopper;
+
+// What a block does with its slab, the kernel's second template argument:
+// the plain taps (C, D), P's prologue applied first, or U's phases.
+constexpr int PLAIN = 0, PROLOGUE = 1, PHASES = 2;
 
 // The Cout class of the keys of C, P and D (mirrored by ops/conv.py's
 // tile_key; the W class of the output width is conv_mma.cuh's w_class): 0
@@ -118,9 +145,11 @@ struct WgArgs {
   int Ho, Wo, pt, pl;      // the output's size, the top and left padding
 };
 
-template <int S, int TH, int TW, int IB, int WGM, int MT, int BN, int CK,
-          int STAGES>
+template <int S, int MODE, int TH, int TW, int IB, int WGM, int MT, int BN,
+          int CK, int STAGES>
 struct WgCfg {
+  // the taps a block walks: 9, or U's 4 of its phase
+  static constexpr int TAPS = MODE == PHASES ? 4 : 9;
   static constexpr int NTC = 128 * WGM;   // consumer threads
   static constexpr int NT = NTC + 128;    // and the producer warpgroup
   // Registers a thread: at launch, what the block's warps leave each (an
@@ -139,7 +168,7 @@ struct WgCfg {
   static constexpr int PLANE = (PLANE_TX + 1023) / 1024 * 1024;
   static constexpr int PLANE_ROWS = PLANE / PB;  // its pixels, padded
   static constexpr int SLAB = S * PLANE, SLAB_TX = S * PLANE_TX;
-  static constexpr int PANEL = 9 * CK * 64;  // 32 columns x 9 CK rows
+  static constexpr int PANEL = TAPS * CK * 64;  // 32 columns x TAPS CK rows
   static constexpr int WBYTES = BN / 32 * PANEL;
   static constexpr int STAGE = SLAB + WBYTES;
   static constexpr int TX = SLAB_TX + WBYTES;  // bytes a stage's copies land
@@ -147,6 +176,7 @@ struct WgCfg {
   // full and empty barriers
   static constexpr int BYTES = STAGES * STAGE + 1024 + 16 * STAGES;
   static_assert(S == 1 || S == 2, "stride 1 or 2");
+  static_assert(S == 1 || MODE == PLAIN, "P's prologue, U's phases: stride 1");
   static_assert(64 * WGM * MT == IB * TH * TW,
                 "a block's pixels fill its 64-row wgmma tiles");
   static_assert(TW % 8 == 0, "8-pixel ldmatrix rows inside a tile row");
@@ -161,18 +191,18 @@ struct WgCfg {
   static_assert(BYTES <= 232448, "a block's shared memory");
 };
 
-// One block: IB images' TH x TW output tiles by BN output channels, over
-// the chunks of split blockIdx.z; WGM consumer warpgroups of MT 64-row
-// tiles each, then the producer warpgroup. tmx is x (stride 2: its even
-// columns, and tmx2 its odd ones).
-template <int S, bool PRO, int TH, int TW, int IB, int WGM, int MT, int BN,
+// One block: IB images' TH x TW output tiles (U: source tiles, in one
+// phase) by BN output channels, over the chunks of split blockIdx.z; WGM
+// consumer warpgroups of MT 64-row tiles each, then the producer
+// warpgroup. tmx is x (stride 2: its even columns, and tmx2 its odd ones).
+template <int S, int MODE, int TH, int TW, int IB, int WGM, int MT, int BN,
           int CK, int STAGES>
 __global__ void __launch_bounds__(128 * WGM + 128, 1)
     wg_conv_kernel(const __grid_constant__ CUtensorMap tmx,
                    const __grid_constant__ CUtensorMap tmx2,
                    const __grid_constant__ CUtensorMap tmw, const WgArgs a) {
-  using C = WgCfg<S, TH, TW, IB, WGM, MT, BN, CK, STAGES>;
-  static_assert(S == 1 || !PRO, "P's prologue at stride 1");
+  using C = WgCfg<S, MODE, TH, TW, IB, WGM, MT, BN, CK, STAGES>;
+  constexpr bool PRO = MODE == PROLOGUE, UP = MODE == PHASES;
   constexpr int PB = C::PB, KS = CK / 16;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -181,8 +211,12 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
   const uint32_t full = base + STAGES * C::STAGE, empty = full + 8 * STAGES;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  const int ntw = (a.Wo + TW - 1) / TW, tiles = ntw * ((a.Ho + TH - 1) / TH);
-  const int t = blockIdx.x % tiles, b0 = blockIdx.x / tiles * IB;
+  // U: the phase (pa, pb) = (ph / 2, ph % 2), and tiles of the source grid
+  const int ph = UP ? blockIdx.x % 4 : 0, pa = ph / 2, pb = ph % 2;
+  const int bx = UP ? blockIdx.x / 4 : blockIdx.x;
+  const int gh = UP ? a.H : a.Ho, gw = UP ? a.W : a.Wo;
+  const int ntw = (gw + TW - 1) / TW, tiles = ntw * ((gh + TH - 1) / TH);
+  const int t = bx % tiles, b0 = bx / tiles * IB;
   const int y0 = t / ntw * TH, x0 = t % ntw * TW, co0 = blockIdx.y * BN;
   // the slab's first input row and column (stride 2: half-column)
   const int sy0 = S * y0 - a.pt;
@@ -218,7 +252,7 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
 #pragma unroll
         for (int p = 0; p < BN / 32; ++p)
           tma_load_3d(slab + C::SLAB + p * C::PANEL, &tmw, bar, co0 + 32 * p,
-                      c0, 0);
+                      c0, C::TAPS * ph);
       }
     }
     return;
@@ -239,9 +273,11 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
   }
   const int half = lane / 16;  // the fragment's 8-channel half
   // tap (dy, dx)'s slab row from tap (0, 0)'s; stride 2: in plane
-  // (dx + pl % 2) % 2 at half-column offset (dx + pl % 2) / 2
+  // (dx + pl % 2) % 2 at half-column offset (dx + pl % 2) / 2; U: phase
+  // (pa, pb)'s tap (r, c) at (pa + r, pb + c)
   const int podd = a.pl & 1;
   auto tap_row = [&](int tap) {
+    if constexpr (UP) return (pa + tap / 2) * C::SW + pb + tap % 2;
     if constexpr (S == 1) return (tap / 3) * C::SW + tap % 3;
     const int u = tap % 3 + podd;
     return (tap / 3) * C::SW + (u >> 1) + (u & 1) * C::PLANE_ROWS;
@@ -306,7 +342,7 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
       named_bar_sync(1, C::NTC);
     }
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
+    for (int tap = 0; tap < C::TAPS; ++tap) {
       const int toff = tap_row(tap);
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
@@ -344,8 +380,10 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
       const int p = (g * MT + mt) * 64 + 16 * w + grp + 8 * h;
       const int q = p % (TH * TW), b = b0 + p / (TH * TW);
       const int y = y0 + q / TW, x = x0 + q % TW;
-      if (b >= a.B || y >= a.Ho || x >= a.Wo) continue;
-      const long long pix = ((long long)b * a.Ho + y) * a.Wo + x;
+      if (b >= a.B || y >= gh || x >= gw) continue;
+      const long long pix = ((long long)b * a.Ho + (UP ? 2 * y + pa : y)) *
+                                a.Wo +
+                            (UP ? 2 * x + pb : x);
       if (a.splits == 1) {
         const float* bb = a.bias + b * a.bias_bstride;
         bf16* o = a.out + pix * a.Cout;
@@ -379,8 +417,11 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
 }
 
 // The split reduction: out = (sum over s in order of ws[s]) + bias
-// (+ residual), four channels a thread; static, so that C's and D's
-// sources each keep their own copy.
+// (+ residual), four channels a thread; static, so that C's, D's and U's
+// sources each keep their own copy, and named by the stride and mode of
+// the kernel it completes, so that a trace tells C's, P's, D's and U's
+// apart.
+template <int S, int MODE>
 static __global__ void __launch_bounds__(256)
     wg_splitk_reduce(const WgArgs a) {
   const long long mtot = (long long)a.B * a.Ho * a.Wo;
@@ -414,8 +455,9 @@ static __global__ void __launch_bounds__(256)
 // The tensor maps of one call: x as (Cin, W, H, B) in (CK, TW+2, TH+2, IB)
 // boxes (stride 2: plane p of x's columns p, p + 2, ..., as (Cin,
 // half-columns, H, B) in (CK, TW+1, 2TH+1, IB) boxes), swizzled over 2 CK
-// bytes; w9 as (Cout, Cin, 9) in (32, CK, 9) boxes swizzled over 64 bytes;
-// out-of-range elements read as zero.
+// bytes; w9 as (Cout, Cin, 9) in (32, CK, 9) boxes (U: w16 as (Cout, Cin,
+// 16) in (32, CK, 4) boxes) swizzled over 64 bytes; out-of-range elements
+// read as zero.
 inline bool encode_x(const WgArgs& a, int s, int plane, int ck, int th,
                      int tw, int ib, CUtensorMap* m) {
   const TensorMapEncodeTiled enc = tensor_map_encoder();
@@ -437,13 +479,15 @@ inline bool encode_x(const WgArgs& a, int s, int plane, int ck, int th,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-inline bool encode_w(const WgArgs& a, int ck, CUtensorMap* m) {
+inline bool encode_w(const WgArgs& a, int ck, int taps, int box_taps,
+                     CUtensorMap* m) {
   const TensorMapEncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return false;
   const cuuint64_t e = sizeof(bf16);
-  const cuuint64_t dim[3] = {(cuuint64_t)a.Cout, (cuuint64_t)a.Cin, 9};
+  const cuuint64_t dim[3] = {(cuuint64_t)a.Cout, (cuuint64_t)a.Cin,
+                             (cuuint64_t)taps};
   const cuuint64_t str[2] = {e * a.Cout, e * a.Cout * a.Cin};
-  const cuuint32_t box[3] = {32, (cuuint32_t)ck, 9};
+  const cuuint32_t box[3] = {32, (cuuint32_t)ck, (cuuint32_t)box_taps};
   const cuuint32_t ones[3] = {1, 1, 1};
   return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
              const_cast<bf16*>(a.w9), dim, str, box, ones,
@@ -452,34 +496,40 @@ inline bool encode_w(const WgArgs& a, int ck, CUtensorMap* m) {
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// One call of an instantiation: the grid (ceil(B / IB) output tiles,
-// ceil(Cout / BN), splits), then the split reduction where splits > 1;
-// returns the launches' cudaError_t (cudaErrorInvalidValue for operands it
-// does not take: Cin or Cout not a multiple of 8, more splits than chunks,
-// no workspace; at stride 2 a single input column).
-template <int S, bool PRO, int TH, int TW, int IB, int WGM, int MT, int BN,
+// One call of an instantiation: the grid (ceil(B / IB) output tiles (U:
+// source tiles, times the four phases), ceil(Cout / BN), splits), then the
+// split reduction where splits > 1; returns the launches' cudaError_t
+// (cudaErrorInvalidValue for operands it does not take: Cin or Cout not a
+// multiple of 8, more splits than chunks, no workspace; at stride 2 a
+// single input column; U's output other than (2H, 2W)).
+template <int S, int MODE, int TH, int TW, int IB, int WGM, int MT, int BN,
           int CK, int STAGES>
 cudaError_t wg_launch(const WgArgs& a, cudaStream_t stream) {
-  using C = WgCfg<S, TH, TW, IB, WGM, MT, BN, CK, STAGES>;
+  using C = WgCfg<S, MODE, TH, TW, IB, WGM, MT, BN, CK, STAGES>;
+  constexpr bool UP = MODE == PHASES;
   if (a.Cin % 8 != 0 || a.Cout % 8 != 0 || a.splits < 1 ||
       a.splits > (a.Cin + CK - 1) / CK || (a.splits > 1 && a.ws == nullptr) ||
-      (S == 2 && a.W < 2))
+      (S == 2 && a.W < 2) || (UP && (a.Ho != 2 * a.H || a.Wo != 2 * a.W)))
     return cudaErrorInvalidValue;
   CUtensorMap tmx, tmx2, tmw;  // tmx2: stride 2's odd plane
-  if (!encode_x(a, S, 0, CK, TH, TW, IB, &tmx) || !encode_w(a, CK, &tmw) ||
+  if (!encode_x(a, S, 0, CK, TH, TW, IB, &tmx) ||
+      !encode_w(a, CK, UP ? 16 : 9, C::TAPS, &tmw) ||
       (S == 2 && !encode_x(a, S, 1, CK, TH, TW, IB, &tmx2)))
     return cudaErrorInvalidValue;
   constexpr auto kern =
-      wg_conv_kernel<S, PRO, TH, TW, IB, WGM, MT, BN, CK, STAGES>;
+      wg_conv_kernel<S, MODE, TH, TW, IB, WGM, MT, BN, CK, STAGES>;
   cudaError_t err = smem_limit_once<kern>(C::BYTES);
   if (err != cudaSuccess) return err;
-  const int tiles = ((a.Wo + TW - 1) / TW) * ((a.Ho + TH - 1) / TH);
-  dim3 grid(tiles * ((a.B + IB - 1) / IB), (a.Cout + BN - 1) / BN, a.splits);
+  const int gh = UP ? a.H : a.Ho, gw = UP ? a.W : a.Wo;
+  const int tiles = ((gw + TW - 1) / TW) * ((gh + TH - 1) / TH);
+  dim3 grid(tiles * ((a.B + IB - 1) / IB) * (UP ? 4 : 1),
+            (a.Cout + BN - 1) / BN, a.splits);
   kern<<<grid, C::NT, C::BYTES, stream>>>(tmx, S == 2 ? tmx2 : tmx, tmw, a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
   const long long n4 = (long long)a.B * a.Ho * a.Wo * a.Cout / 4;
-  wg_splitk_reduce<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(a);
+  wg_splitk_reduce<S, MODE>
+      <<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -75,7 +75,7 @@ extern "C" int sg_downconv3x3(const void* x, const void* w9, const void* bias,
     static_assert(S_ == 2 && PRO_ == 0 && NCIN_ == 0 && FAM_ == 1,       \
                   "stride 2 on the wgmma template, no prologue");        \
     return static_cast<int>(                                             \
-        wg_launch<2, false, TH_, TW_, IB_, WGM_, MT_, BN_, CK_, STAGES_>( \
+        wg_launch<2, PLAIN, TH_, TW_, IB_, WGM_, MT_, BN_, CK_, STAGES_>( \
             a, s));                                                      \
   }
   // (stride, prologue, Cin % 8 != 0, Cout class 1 / 2 for a Cout that 128

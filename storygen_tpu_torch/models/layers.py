@@ -3,11 +3,13 @@
 Counterpart of storygen_tpu/models/layers.py. Parameter names and shapes
 are the diffusers ones (OIHW conv weights, (out, in) linear weights), so a
 diffusers state dict loads directly. Every 3x3 stride-1 convolution runs
-through kernel C (`ops/conv.py`); stride-2 convolutions use F.conv2d, as
-the JAX package uses XLA's convolution there. In the fused-conv
-configuration (`configs.ConvKernels`) a resnet's convs take their
-GroupNorm + SiLU as kernel P's prologue, and stride-2 convolutions run
-kernel D (`ops/downconv.py`).
+through kernel C (`ops/conv.py`), but the one after a 2x upsampling, which
+runs in its phase form on the source grid through kernel U
+(`ops/upconv.py`), as the JAX package's `_UpsampleConv` does; stride-2
+convolutions use F.conv2d, as the JAX package uses XLA's convolution
+there. In the fused-conv configuration (`configs.ConvKernels`) a resnet's
+convs take their GroupNorm + SiLU as kernel P's prologue, and stride-2
+convolutions run kernel D (`ops/downconv.py`).
 
 A resnet sharded by parallel/tensor.py holds its rank's conv1 output
 channels (with time_emb_proj's and norm2's, whose groups it holds whole)
@@ -29,6 +31,8 @@ from storygen_tpu_torch.ops.conv import (Conv3x3Fn, GnConv3x3Fn,
                                          conv3x3_plain, gnconv3x3_plain,
                                          pack_weight)
 from storygen_tpu_torch.ops.downconv import DownConv3x3Fn, downconv3x3_plain
+from storygen_tpu_torch.ops.upconv import (UpConv3x3Fn, phase_weight,
+                                           upsample_conv_plain)
 
 Prologue = Tuple[torch.Tensor, torch.Tensor]
 
@@ -114,28 +118,33 @@ class Conv1x1(nn.Module):
 
 
 class _Packed3x3(nn.Module):
-    """A 3x3 conv's OIHW weight and bias, and the weight packed as
-    (9, Cin, Cout) for the kernels. While no gradient can flow to the
-    weight (it does not require grad, or grad mode is off), the packed
-    weight is cached and rebuilt when the weight changes; otherwise it is
-    packed at every call, differentiably."""
+    """A 3x3 conv's OIHW weight and bias, and the weight packed for the
+    kernels: as (9, Cin, Cout) (`packed_weight`) and as the (16, Cin, Cout)
+    phase weights of a 2x upsampling's conv (`phase_packed_weight`). While
+    no gradient can flow to the weight (it does not require grad, or grad
+    mode is off), each packing is cached and rebuilt when the weight
+    changes; otherwise it is packed at every call, differentiably."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
         self.bias = nn.Parameter(torch.zeros(cout))
-        self._packed = None
-        self._packed_key = None
+        self._packed = {}  # packing -> (the weight's key, the packed weight)
 
-    def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
+    def _pack(self, pack, dtype: torch.dtype) -> torch.Tensor:
         w = self.weight
         if w.requires_grad and torch.is_grad_enabled():
-            return pack_weight(w, dtype)
+            return pack(w, dtype)
         key = (w.data_ptr(), w._version, w.device, dtype)
-        if self._packed_key != key:
-            self._packed = pack_weight(w.detach(), dtype)
-            self._packed_key = key
-        return self._packed
+        if self._packed.get(pack, (None,))[0] != key:
+            self._packed[pack] = (key, pack(w.detach(), dtype))
+        return self._packed[pack][1]
+
+    def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        return self._pack(pack_weight, dtype)
+
+    def phase_packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        return self._pack(phase_weight, dtype)
 
 
 class Conv3x3(_Packed3x3):
@@ -249,13 +258,23 @@ class Downsample2D(nn.Module):
         return self.conv(x)
 
 
+class UpsampleConv(_Packed3x3):
+    """A 3x3 SAME conv of x's nearest 2x upsampling, as the four phase
+    convs on x's grid (kernel U); the parameters are the 3x3 conv's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fn = route(UpConv3x3Fn.apply, upsample_conv_plain)
+        return fn(x.contiguous(), self.packed_weight(x.dtype),
+                  self.bias.float(), self.phase_packed_weight(x.dtype))
+
+
 class Upsample2D(nn.Module):
-    """Nearest 2x upsample, then a 3x3 conv (held as `.conv`)."""
+    """Nearest 2x upsample, then a 3x3 conv (held as `.conv`), computed in
+    the phase form of the JAX package's 2x branch (`_UpsampleConv`)."""
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = Conv3x3(channels, channels)
+        self.conv = UpsampleConv(channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
         return self.conv(x)

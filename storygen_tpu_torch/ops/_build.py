@@ -66,6 +66,9 @@ SIGNATURES = {
     # Wo, pad top, pad left, stream
     "sg_downconv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _I, _I, _P),
+    # x, w16, bias, out, split workspace, splits, B, H, W, Cin, Cout (the
+    # source's size), stream
+    "sg_upconv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # the attention studies (ops/study_attention.py, ops/study_int8.py):
     # q, k, v, out, BH, Sq, Skv, d, mode, bq, bk, halves, scale, stream
     "sg_study_online": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,

@@ -121,10 +121,12 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def split_count(line: tuple, cin: int, cout: int, h: int, w: int) -> int:
+def split_count(line: tuple, cin: int, cout: int, h: int, w: int,
+                phases: int = 1) -> int:
     """How many runs of whole CK-channel chunks `line` splits the 9 Cin
     reduction into at a site of C, P or D with an (H, W) output, Cin and
-    Cout: 1 on a mma.sync line, and
+    Cout (kernel U: its 4 Cin reduction at an (H, W) source, whose tiles
+    each take `phases` 4 blocks): 1 on a mma.sync line, and
     on a wgmma line wherever PLAN_BATCH images give half the SMs a block or
     more; else as many as fill the SMs, at least two chunks a run. A
     function of the line and the shape alone: every batch sums in one
@@ -132,7 +134,7 @@ def split_count(line: tuple, cin: int, cout: int, h: int, w: int) -> int:
     fam, th, tw, ib, _, _, bn, ck, _ = line
     if fam != WGMMA:
         return 1
-    blocks = (_ceil(PLAN_BATCH, ib) * _ceil(h, th) * _ceil(w, tw)
+    blocks = (phases * _ceil(PLAN_BATCH, ib) * _ceil(h, th) * _ceil(w, tw)
               * _ceil(cout, bn))
     if blocks >= SMS // 2:
         return 1

@@ -166,23 +166,26 @@ def slab_box(stride: int, tile: Tile) -> Tuple[int, int, int, int]:
     return ck, tw + 1, 2 * th + 1, ib
 
 
-def wg_stage_bytes(tile: Tile, stride: int = 1) -> Tuple[int, int, int]:
+def wg_stage_bytes(tile: Tile, stride: int = 1,
+                   taps: int = 9) -> Tuple[int, int, int]:
     """A wgmma instantiation's ring stage (csrc/conv_wgmma.cuh's WgCfg): the
     bytes its slab's boxes land (`stride` planes of slab_box), of its BN /
-    32 weight panels (9 CK rows of 64 bytes each), and of the stage (each
-    plane rounded up to the 1024-byte swizzle period, then the panels)."""
+    32 weight panels (`taps` CK rows of 64 bytes each: 9, or kernel U's 4
+    of one phase), and of the stage (each plane rounded up to the
+    1024-byte swizzle period, then the panels)."""
     bn = tile[5]
     plane = 2 * math.prod(slab_box(stride, tile))
-    panels = bn // 32 * 9 * tile[6] * 64
+    panels = bn // 32 * taps * tile[6] * 64
     return (stride * plane, panels,
             stride * ((plane + 1023) // 1024 * 1024) + panels)
 
 
-def wg_shared_bytes(tile: Tile, stride: int = 1) -> int:
+def wg_shared_bytes(tile: Tile, stride: int = 1, taps: int = 9) -> int:
     """Dynamic shared memory of a wgmma instantiation: its ring, 1 KB to
     align it, and its full and empty barriers (WgCfg::BYTES)."""
     stages = tile[7]
-    return stages * wg_stage_bytes(tile, stride)[2] + 1024 + 16 * stages
+    return (stages * wg_stage_bytes(tile, stride, taps)[2] + 1024
+            + 16 * stages)
 
 
 def spec(shape) -> tuple:

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from storygen_tpu_torch.ops import _build, conv, downconv
+from storygen_tpu_torch.ops import _build, conv, downconv, upconv
 from storygen_tpu_torch.studies import conv_tiles
 
 # a block's dynamic shared memory, and an SM's (each block takes 1 KB more)
@@ -47,6 +47,10 @@ def test_down_built_matches_the_cuda_source():
     assert _table("downconv3x3.cu") == downconv.DOWN_BUILT
 
 
+def test_up_built_matches_the_cuda_source():
+    assert _table("upconv3x3.cu") == upconv.UP_BUILT
+
+
 def _check_tile(stride, tile):
     """The static_asserts of conv_mma.cuh's ConvCfg and conv_launch (a
     stride-1 line of family MMA), or of conv_wgmma.cuh's WgCfg (a line of
@@ -71,7 +75,9 @@ WGMMA_N = {int(n) for n in re.findall(
     r"struct WgMma<(\d+)>", (_build.CSRC / "hopper.cuh").read_text())}
 
 
-def _check_wgmma_tile(stride, tile):
+def _check_wgmma_tile(stride, tile, taps=9):
+    """WgCfg's conditions on a wgmma line whose blocks walk `taps` taps (9,
+    or kernel U's 4 of a phase)."""
     th, tw, ib, wgm, mt, bn, ck, stages = tile
     # the block's pixels fill its 64-row tiles; 8-pixel ldmatrix rows
     assert 64 * wgm * mt == ib * th * tw and tw % 8 == 0
@@ -88,22 +94,24 @@ def _check_wgmma_tile(stride, tile):
     # weights come in whole 32-column panels
     assert bn % 8 == 0 and bn <= 256 and bn % 32 == 0 and bn in WGMMA_N
     # TMA's boxes, (CK, TW+2, TH+2, IB) of x (stride 2: (CK, TW+1, 2 TH
-    # + 1, IB) of each plane) and (32, CK, 9) of w9: every dimension <=
-    # 256; the inner one a multiple of 16 bytes and within its swizzle
-    # span (the slab's 2 CK bytes, one of 32 / 64 / 128; the weights' 64)
+    # + 1, IB) of each plane) and (32, CK, taps) of the weights: every
+    # dimension <= 256; the inner one a multiple of 16 bytes and within its
+    # swizzle span (the slab's 2 CK bytes, one of 32 / 64 / 128; the
+    # weights' 64)
     xbox = ((ck, tw + 2, th + 2, ib) if stride == 1
             else (ck, tw + 1, 2 * th + 1, ib))
     assert conv_tiles.slab_box(stride, tile) == xbox
-    for box in (xbox, (32, ck, 9)):
+    for box in (xbox, (32, ck, taps)):
         assert all(1 <= d <= 256 for d in box)
     assert 2 * ck in (32, 64, 128)
     # a k step is 16 weight rows of 64 bytes: 1024 bytes, so every
     # descriptor start keeps the swizzle's phase; panels, planes and
     # stages are whole 1024-byte periods
-    slab, panels, stage = conv_tiles.wg_stage_bytes(tile, stride)
+    slab, panels, stage = conv_tiles.wg_stage_bytes(tile, stride, taps)
+    assert panels == bn // 32 * taps * ck * 64
     assert panels % 1024 == 0 and stage % 1024 == 0
     assert slab == stride * math.prod(xbox) * 2
-    assert conv_tiles.wg_shared_bytes(tile, stride) <= BLOCK_SMEM
+    assert conv_tiles.wg_shared_bytes(tile, stride, taps) <= BLOCK_SMEM
 
 
 @pytest.mark.parametrize("key", sorted(conv.CONV_BUILT)
@@ -111,6 +119,14 @@ def _check_wgmma_tile(stride, tile):
 def test_every_built_tile_fits_an_sm(key):
     table = conv.CONV_BUILT if key[0] == 1 else downconv.DOWN_BUILT
     _check_tile(key[0], table[key])
+
+
+@pytest.mark.parametrize("key", sorted(upconv.UP_BUILT))
+def test_every_up_tile_fits_an_sm(key):
+    """Kernel U's lines: the wgmma template at stride 1, each block over
+    the 4 taps of its phase (weight panels of 4 CK rows)."""
+    assert key[:3] == (1, 0, 0) and upconv.UP_BUILT[key][0] == conv.WGMMA
+    _check_wgmma_tile(1, upconv.UP_BUILT[key][1:], taps=4)
 
 
 @pytest.mark.parametrize("key", sorted(conv_tiles.CANDIDATES))
@@ -175,7 +191,10 @@ def test_down_tile_choice_at_the_sites_is_built(h, w, cin, cout, pad):
     lambda: downconv.down_tile(4, 320, 32),      # D on a 4-channel input
     lambda: downconv.down_tile(320, 8, 32),      # D with a narrow Cout
     lambda: conv.conv_tile(False, 320, 20, 64),  # wgmma: Cout % 8 != 0
-    lambda: conv.pick_tile(conv.CONV_BUILT, (3, 0, 0, 1, 2))])
+    lambda: conv.pick_tile(conv.CONV_BUILT, (3, 0, 0, 1, 2)),
+    lambda: upconv.up_tile(4, 320, 32),          # U on a 4-channel input
+    lambda: upconv.up_tile(16, 20, 8),           # U: Cout % 8 != 0
+    lambda: upconv.up_tile(320, 8, 32)])         # U with a narrow Cout
 def test_tile_choice_raises_for_an_unbuilt_key(call):
     with pytest.raises(ValueError, match="no conv kernel built"):
         call()

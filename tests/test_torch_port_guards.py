@@ -144,7 +144,8 @@ def test_nvcc_command_targets_sm90a_into_build_dir():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"flash_fwd.cu", "flash_bwd.cu",
                                       "geglu_matmul.cu", "conv3x3.cu",
-                                      "downconv3x3.cu", "study_online.cu",
+                                      "downconv3x3.cu", "upconv3x3.cu",
+                                      "study_online.cu",
                                       "study_bounded.cu", "study_bnd2.cu",
                                       "study_qk.cu", "study_int8.cu"}
     assert {p.name for p in _build.headers()} == {"study_mma.cuh",
