@@ -9,8 +9,9 @@ serving and training paths run in the default conv configuration and in
 the fused-conv one (`ConvKernels(fused_prologue=True, strided=True)`: every
 resnet conv on kernel P with its GroupNorm + SiLU as prologue, every 3x3
 stride-2 conv on kernel D); in both, every 2x upsample and its conv run as
-kernel U, the four phase convs on the source grid:
-  kernels      builds the ten CUDA kernels from storygen_tpu_torch/csrc/
+kernel U, the four phase convs on the source grid, and in training its
+input gradient as kernel UB, their adjoint at stride 2 with a 4x4 window:
+  kernels      builds the eleven CUDA kernels from storygen_tpu_torch/csrc/
                and holds each against its plain PyTorch version at the
                512 px shapes of the main paths (serving and stage-2
                training), M, L, DQ and DKV also at the mid block's
@@ -69,8 +70,16 @@ kernel U, the four phase convs on the source grid:
                conv2d as yardsticks, mean and device time alone, and
                cuDNN's transposed conv as its library call; U at B3 and
                B6 against its per-image calls bit for bit, twice bit for
-               bit and against its plain version; and ptxas's registers
-               and spills of every wgmma conv line (C, P, D and U) and
+               bit and against its plain version; UB at the training
+               path's three up blocks (B4), a ragged B2 5x6 source and a
+               one-column B2 7x1 one, with the parent's path (C on the 2x
+               grid and the fp32 2x2 sum) as yardstick, mean and device
+               time alone, and cuDNN's 4x4 stride-2 conv2d with the
+               transposed phase weights as its library call; UB at B1,
+               B2 and B4 against its per-image calls bit for bit, twice
+               bit for bit and against its plain version; and ptxas's
+               registers and spills of every wgmma conv line (C, P, D, U
+               and UB) and
                every F / M / L / DQ / DKV / G line (a spill fails the
                phase, and so does a wgmma that ptxas serialises);
   models       in each configuration: one full-width UNet image-cycle pass
@@ -90,8 +99,10 @@ kernel U, the four phase convs on the source grid:
                gradient checkpointing, 2 micro-steps per optimizer step, 3
                optimizer steps on seeded synthetic batches, checking finite
                losses, that every attn3 parameter moved and nothing else
-               did, that the eight kernels of the default configuration ran
-               on that path, and P and D not;
+               did, that the nine kernels of the default configuration ran
+               on that path, and P and D not (on every training path C's
+               and UB's launches add up to C's before UB took U's input
+               gradient from it, C_LAUNCHES_BEFORE_UB);
   story_fused  a 2-prompt story in the fused configuration: every serving
                kernel, P and D ran;
   serving      the serving options at 512 px, bf16, full width: each of the
@@ -115,7 +126,7 @@ kernel U, the four phase convs on the source grid:
                a port kernel that depends on the batch fails the phase);
                and 2 images per prompt with a negative prompt;
   train_fused  1 optimizer step of 2 micro-steps in the fused
-               configuration: all ten kernels ran;
+               configuration: all eleven kernels ran;
   checkpoint   the full-width seeded bf16 models through
                StoryGenPipeline.save_pretrained into build/ and back
                through load_diffusers_pretrained onto the card (every
@@ -133,8 +144,13 @@ kernel U, the four phase convs on the source grid:
                every optimizer step, an export and a SampleLogger PNG at
                step 2 (the VAE encoder runs fewer times than micro-steps);
                a run resumed from checkpoint 1 equal bit for bit to the
-               uninterrupted one; and the peak memory of a step with 8-bit
-               against fp32 moments;
+               uninterrupted one; that resumed run, which writes no
+               export, exported offline by scripts.export_checkpoint (its
+               own process, no card visible) equal tensor for tensor to
+               the uninterrupted run's in-loop export of step 2, and a
+               2-frame DDIM-4 story from each folder, equal bit for bit;
+               and the peak memory of a step with 8-bit against fp32
+               moments;
   cli          the entry points of storygen_tpu_torch/scripts/, called
                through their main(argv) from the checkpoint phase's folder
                at 512 px and full width: a BPE tokenizer written with
@@ -325,8 +341,14 @@ KERNEL_META = {
     "upconv3x3": {
         "route": "cuda", "source": "storygen_tpu_torch/csrc/upconv3x3.cu",
         "replaces": "storygen_tpu/models/layers.py:220"},
+    # U's input gradient: XLA's gradient of _UpsampleConv's phase convs
+    # (:265-267), no pallas_call either
+    "upconv3x3_dx": {
+        "route": "cuda",
+        "source": "storygen_tpu_torch/csrc/upconv_dx3x3.cu",
+        "replaces": "storygen_tpu/models/layers.py:265"},
 }
-# the serving and training paths' ten kernels
+# the serving and training paths' eleven kernels
 PORT_KERNELS = tuple(KERNEL_META)
 # the kernels whose rate the kernels phase prints, with the library call
 # that their factor is taken over (None: DQ and DKV, whose sum is held
@@ -335,7 +357,8 @@ RATED = {"flash_fwd": "SDPA", "flash_fwd_masked": "SDPA",
          "flash_lse": "SDPA's call that returns lse",
          "flash_dq": None, "flash_dkv": None,
          "conv3x3": "cuDNN", "gnconv3x3": "cuDNN", "downconv3x3": "cuDNN",
-         "upconv3x3": "cuDNN's transposed conv"}
+         "upconv3x3": "cuDNN's transposed conv",
+         "upconv3x3_dx": "cuDNN's 4x4 stride-2 conv"}
 STUDY_SOURCES = {"online": "storygen_tpu_torch/csrc/study_online.cu",
                  "bounded": "storygen_tpu_torch/csrc/study_bounded.cu",
                  "bnd2": "storygen_tpu_torch/csrc/study_bnd2.cu",
@@ -413,7 +436,17 @@ PATH_KERNELS = {
                            if k not in FUSED_KERNELS)))},
     # the study entry points, with kernel F as their baseline
     "studies": STUDY_KERNELS + ("flash_fwd",),
+    # the story from the offline export's folder (train_more)
+    "export": SERVING_KERNELS,
 }
+# kernel C's launches on each training path while U's input gradient ran
+# on C over the 2x grid (commit 1cc6792's run of this script): kernel UB
+# takes exactly those launches, so C's and UB's launches add up to them
+C_LAUNCHES_BEFORE_UB = {
+    "train": 1356, "train_fused": 108, "train_stage1": 316,
+    "train_coco": 452, "train_precomputed": 1008, "cli_train": 452,
+    "cli_train_latents": 386, "nccl_train": 452, "dp_train_r0": 452,
+    "dp_train_r1": 452, "quality_chain": 14768}
 
 
 def nvidia_smi_line() -> str:
@@ -433,7 +466,8 @@ def wrappers() -> dict:
            "flash_dkv": fa.flash_dkv, "geglu_matmul": geglu.geglu_matmul,
            "conv3x3": conv.conv3x3, "gnconv3x3": conv.gnconv3x3,
            "downconv3x3": downconv.downconv3x3,
-           "upconv3x3": upconv.upconv3x3}
+           "upconv3x3": upconv.upconv3x3,
+           "upconv3x3_dx": upconv.upconv3x3_dx}
     for w in study_attention.WRAPPERS + study_int8.WRAPPERS:
         out[w.__name__] = w
     return out
@@ -683,6 +717,43 @@ def up_alone(x, w16, bias):
     def call(keep=keep):
         _build.check(fn(*args), "sg_upconv3x3")
     return call
+
+
+def ub_alone(g, k16):
+    """Kernel UB's C launcher on a cotangent and the packed weights
+    (`upconv.dx_weight`), its output and split workspace made once, as a
+    callable."""
+    import torch
+    from storygen_tpu_torch.ops import _build, upconv
+    b, h2, w2, cin = g.shape
+    h, w, cout = h2 // 2, w2 // 2, k16.shape[2]
+    splits = upconv.dx_splits(cin, cout, h, w)
+    keep = [torch.empty((b, h, w, cout), dtype=g.dtype, device=g.device)]
+    if splits > 1:
+        keep.append(torch.empty((splits, b * h * w, cout),
+                                dtype=torch.float32, device=g.device))
+    args = (g.data_ptr(), k16.data_ptr(), keep[0].data_ptr(),
+            keep[1].data_ptr() if splits > 1 else None, splits, b, h, w, cin,
+            cout, torch.cuda.current_stream(g.device).cuda_stream)
+    fn = _build.load().sg_upconv_dx3x3
+
+    def call(keep=keep):
+        _build.check(fn(*args), "sg_upconv_dx3x3")
+    return call
+
+
+def parent_dx(g, w9):
+    """U's input gradient as the port computed it before kernel UB: kernel
+    C on the flipped 3x3 weight over the 2x grid, then each source pixel's
+    2x2 copies summed in fp32 (a yardstick; no port path runs it)."""
+    import torch
+    from storygen_tpu_torch.ops import conv
+    b, h2, w2, _ = g.shape
+    cin = w9.shape[1]
+    zero = torch.zeros(cin, dtype=torch.float32, device=g.device)
+    dup = conv.conv3x3(g, conv.flip_weight(w9), zero)
+    return dup.float().reshape(b, h2 // 2, 2, w2 // 2, 2, cin).sum(
+        (2, 4)).to(g.dtype)
 
 
 def transposed_weight(w16):
@@ -1049,7 +1120,8 @@ def kernel_cases(dev):
             2.0 * (pix * cin + 9 * cin * cout + pix * cout * (2 if res
                                                                else 1))
             + 4.0 * bias.numel(), alone=conv_alone(x, w9, bias, r)))
-    return cases + _fused_conv_cases(dev, g, rnd) + _up_cases(dev, g, rnd)
+    return (cases + _fused_conv_cases(dev, g, rnd) + _up_cases(dev, g, rnd)
+            + _ub_cases(dev, g, rnd))
 
 
 def _fused_conv_cases(dev, g, rnd):
@@ -1201,6 +1273,52 @@ def _up_cases(dev, g, rnd):
                     F.conv2d(F.interpolate(x, scale_factor=2,
                                            mode="nearest"), w, bb,
                              padding=1)}))
+    return cases
+
+
+# (label, B, source H, W, channels) of kernel UB, U's input gradient: the
+# training path's three up blocks (batch 4), a ragged source and a
+# one-column one
+UB_SITES = [("UNet up block 0", 4, 8, 8, 1280),
+            ("UNet up block 1", 4, 16, 16, 1280),
+            ("UNet up block 2", 4, 32, 32, 640),
+            ("ragged", 2, 5, 6, 96),
+            ("one column", 2, 7, 1, 64)]
+
+
+def _ub_cases(dev, g, rnd):
+    """UB at UB_SITES: the gradient of U's source from the (B, 2H, 2W, C)
+    cotangent, with the parent's path (kernel C on the 2x grid and the fp32
+    2x2 sum) as yardstick and cuDNN's 4x4 stride-2 conv2d of the cotangent
+    with the transposed phase weights, one call of UB's function, as
+    library. The mean holds the wrapper's packing of the weights; "alone"
+    is UB's kernels."""
+    import torch
+    import torch.nn.functional as F
+    from storygen_tpu_torch.ops import conv, upconv
+    cases = []
+    for label, b, h, w, c in UB_SITES:
+        gy = rnd(b, 2 * h, 2 * w, c)
+        weight = torch.randn((c, c, 3, 3), generator=g, device=dev) * (
+            9 * c) ** -0.5
+        w9 = conv.pack_weight(weight, torch.bfloat16)
+        w16 = upconv.phase_weight(weight, torch.bfloat16)
+        g_cl = gy.permute(0, 3, 1, 2)
+        k4 = transposed_weight(w16).contiguous(
+            memory_format=torch.channels_last)
+        pix = b * h * w
+        cases.append(Case(
+            "upconv3x3_dx", f"{label} B{b} {2 * h}x{2 * w}->{h}x{w} {c}",
+            lambda gy=gy, w16=w16: upconv.upconv3x3_dx(gy, w16),
+            lambda gy=gy, w16=w16: upconv.upconv3x3_dx_plain(gy, w16),
+            lambda gy=gy, w16=w16: upconv.upconv3x3_dx_plain(
+                gy.float(), w16.float()),
+            lambda x=g_cl, k=k4: F.conv2d(x, k, stride=2, padding=1),
+            2.0 * pix * 16 * c * c,
+            2.0 * (4 * pix * c + 16 * c * c + pix * c),
+            alone=ub_alone(gy, upconv.dx_weight(w16)),
+            yardsticks={"parent's path": lambda gy=gy, w9=w9: parent_dx(
+                gy, w9)}))
     return cases
 
 
@@ -1364,6 +1482,7 @@ def phase_kernels(dev, card: str, results: dict) -> bool:
     ok &= conv_split_checks(dev, card)
     ok &= down_lse_batch_checks(dev, card)
     ok &= upconv_split_checks(dev, card)
+    ok &= ub_split_checks(dev, card)
     ok &= geglu_split_checks(dev, card)
     ok &= conv_ptxas()
     ok &= flash_ptxas()
@@ -1556,6 +1675,54 @@ def upconv_split_checks(dev, card: str) -> bool:
     return ok
 
 
+# (label, batches, source side, channels) of kernel UB at the training
+# path's three up blocks
+UB_BATCH_SITES = [("UNet up block 0", (1, 2, 4), 8, 1280),
+                  ("UNet up block 1", (1, 2, 4), 16, 1280),
+                  ("UNet up block 2", (1, 2, 4), 32, 640)]
+
+
+def ub_split_checks(dev, card: str) -> bool:
+    """Kernel UB holds its result whatever the batch: run twice it is
+    equal bit for bit, at B1, B2 and B4 it equals its per-image calls bit
+    for bit (the line, the split plan and each output's order of
+    summation ignore the batch), and it stays within KERNEL_RTOL of its
+    fp32 plain version."""
+    import torch
+    from storygen_tpu_torch.ops import upconv
+    g = torch.Generator(device=dev).manual_seed(5)
+    ok = True
+    for label, batches, side, c in UB_BATCH_SITES:
+        weight = torch.randn((c, c, 3, 3), generator=g, device=dev) * (
+            9 * c) ** -0.5
+        w16 = upconv.phase_weight(weight, torch.bfloat16)
+        for b in batches:
+            gy = torch.randn((b, 2 * side, 2 * side, c), generator=g,
+                             device=dev).to(torch.bfloat16)
+            with torch.no_grad():
+                one = upconv.upconv3x3_dx(gy, w16)
+                two = upconv.upconv3x3_dx(gy, w16)
+                rows = torch.cat([upconv.upconv3x3_dx(
+                    gy[i:i + 1].contiguous(), w16) for i in range(b)])
+                ref = upconv.upconv3x3_dx_plain(gy.float(), w16.float())
+            torch.cuda.synchronize()
+            repeat, sliced = torch.equal(one, two), torch.equal(one, rows)
+            err = (one.float() - ref).abs().max().item()
+            bound = KERNEL_RTOL * ref.abs().max().item()
+            good = (repeat and sliced and err <= bound
+                    and bool(torch.isfinite(one.float()).all()))
+            ok &= good
+            print(f"upconv3x3_dx batch {label} B{b} {2 * side}x{2 * side}->"
+                  f"{side}x{side} {c}: splits "
+                  f"{upconv.dx_splits(c, c, side, side)}, repeat "
+                  f"{'equal' if repeat else 'DIFFERS'}, B{b} vs {b} x B1 "
+                  f"{'equal' if sliced else 'DIFFERS'}, max_abs_err "
+                  f"{err:.3e} (bound {bound:.3e}) "
+                  f"{'ok' if good else 'FAIL'} [{card}]", flush=True)
+            del gy, one, two, rows, ref
+    return ok
+
+
 # (label, rows per image, N, E, batches) of kernel G at the sites whose
 # line splits the N reduction, and a ragged M (250 rows an image)
 GEGLU_SPLIT_SITES = [("L3 ff", 256, 5120, 1280, (3, 4)),
@@ -1647,17 +1814,20 @@ def wg_ptxas(stem: str, entry: str, built: set) -> bool:
 def conv_ptxas() -> bool:
     """wg_ptxas of every wgmma conv instantiation in this run's build:
     C's and P's (`<hash>/conv3x3.ptxas.txt`, each CONV_BUILT line of
-    family WGMMA), D's (`downconv3x3.ptxas.txt`, each DOWN_BUILT line) and
-    U's (`upconv3x3.ptxas.txt`, each UP_BUILT line)."""
+    family WGMMA), D's (`downconv3x3.ptxas.txt`, each DOWN_BUILT line),
+    U's (`upconv3x3.ptxas.txt`, each UP_BUILT line) and UB's
+    (`upconv_dx3x3.ptxas.txt`, each UB_BUILT line)."""
     from storygen_tpu_torch.ops import conv, downconv, upconv
-    # (stride, mode: 0 plain, 1 P's prologue, 2 U's phases, TH, TW, IB,
-    # WGM, MT, BN, CK, stages)
+    # (stride, mode: 0 plain, 1 P's prologue, 2 U's phases, 3 UB's 4x4
+    # window, TH, TW, IB, WGM, MT, BN, CK, stages)
     built = {(1, k[1]) + v[1:] for k, v in conv.CONV_BUILT.items()
              if v[0] == conv.WGMMA}
     down = {(2, 0) + v[1:] for v in downconv.DOWN_BUILT.values()}
     up = {(1, 2) + v[1:] for v in upconv.UP_BUILT.values()}
+    ub = {(2, 3) + v[1:] for v in upconv.UB_BUILT.values()}
     ok = wg_ptxas("conv3x3", "wg_conv_kernel", built)
     ok &= wg_ptxas("downconv3x3", "wg_conv_kernel", down)
+    ok &= wg_ptxas("upconv_dx3x3", "wg_conv_kernel", ub)
     return wg_ptxas("upconv3x3", "wg_conv_kernel", up) and ok
 
 
@@ -2040,6 +2210,13 @@ def record_launches(results: dict, launches: dict, path: str) -> bool:
     good = launches_ok(launches, path)
     print(f"{path}-path launches: {json.dumps(launches)} "
           f"{'ok' if good else 'FAIL'}", flush=True)
+    if path in C_LAUNCHES_BEFORE_UB:
+        c, ub = launches["conv3x3"], launches["upconv3x3_dx"]
+        same = c + ub == C_LAUNCHES_BEFORE_UB[path]
+        good &= same
+        print(f"{path}-path: C {c} + UB {ub} = {c + ub}, C before UB "
+              f"{C_LAUNCHES_BEFORE_UB[path]} {'ok' if same else 'FAIL'}",
+              flush=True)
     return good
 
 
@@ -2585,7 +2762,8 @@ def stage2_step_vs_plain(dev, card: str, side: int = SMALL_SIDE) -> bool:
     lk, lp = out_k["loss"].item(), out_p["loss"].item()
     nk, np_ = out_k["grad_norm"].item(), out_p["grad_norm"].item()
     rel_loss, rel_norm = abs(lk - lp) / abs(lp), abs(nk - np_) / abs(np_)
-    backward = ("flash_fwd_masked", "flash_lse", "flash_dq", "flash_dkv")
+    backward = ("flash_fwd_masked", "flash_lse", "flash_dq", "flash_dkv",
+                "upconv3x3_dx")
     ran = all(launches[k] > 0 for k in backward)
     ok = (ran and math.isfinite(lk) and math.isfinite(nk)
           and rel_loss <= MODEL_REL_L2 and rel_norm <= GRAD_REL_L2)
@@ -2593,7 +2771,7 @@ def stage2_step_vs_plain(dev, card: str, side: int = SMALL_SIDE) -> bool:
           f"span {(side // 64) ** 2}): loss kernel {lk:.6f} plain {lp:.6f} "
           f"rel {rel_loss:.3e} (bound {MODEL_REL_L2:.0e}); grad norm kernel "
           f"{nk:.6f} plain {np_:.6f} rel {rel_norm:.3e} (bound "
-          f"{GRAD_REL_L2:.0e}); launches M/L/DQ/DKV "
+          f"{GRAD_REL_L2:.0e}); launches M/L/DQ/DKV/UB "
           f"{[launches[k] for k in backward]} {'ok' if ok else 'FAIL'}; "
           f"kernel path {1e3 * (t1 - t0):.1f} ms, plain path "
           f"{1e3 * (t2 - t1):.1f} ms (first calls) [{card}]", flush=True)
@@ -2849,6 +3027,87 @@ def write_latents(vae, synth, root: str) -> None:
                  input_ids=s["input_ids"], ref_input_ids=s["ref_input_ids"])
 
 
+def offline_export(dev, card: str, results: dict, ckpt: str,
+                   in_loop: str) -> bool:
+    """`scripts/export_checkpoint.py` on checkpoint 2 of a run that wrote
+    no export itself (in its own process, with no card visible: file work
+    alone), against the folder that the uninterrupted run's in-loop export
+    wrote at step 2: every tensor equal bit for bit, dtype included, and
+    every config file equal; then each folder loaded onto the card and a
+    2-frame DDIM-4 story from each on the same draws, equal bit for
+    bit."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from storygen_tpu_torch.checkpoint import hf_import
+    from storygen_tpu_torch.pipeline import StoryGenPipeline
+    out = build_dir("chip_smoke_export")
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "storygen_tpu_torch.scripts."
+           "export_checkpoint", "--base", build_dir("chip_smoke_ckpt"),
+           "--ckpt", ckpt, "--step", "2", "--stage", "stage2", "--out", out]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                         capture_output=True, text=True)
+    export_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        print(f"export_checkpoint: exit {run.returncode}\n{run.stderr[-2000:]}"
+              f" FAIL", flush=True)
+        return False
+    unequal, n = [], 0
+    for sub, fname in (("unet", "diffusion_pytorch_model.bin"),
+                       ("vae", "diffusion_pytorch_model.bin"),
+                       ("text_encoder", "pytorch_model.bin")):
+        a, b = (hf_import.load_state_dict_file(os.path.join(r, sub, fname))
+                for r in (out, in_loop))
+        n += len(b)
+        unequal += [f"{sub}.{k}" for k in sorted(set(a) | set(b))
+                    if k not in a or k not in b or a[k].dtype != b[k].dtype
+                    or not torch.equal(a[k], b[k])]
+    configs = [os.path.join(sub, name) for sub, name in (
+        ("unet", "config.json"), ("vae", "config.json"),
+        ("text_encoder", "config.json"),
+        ("scheduler", "scheduler_config.json"), ("", "model_index.json"))]
+    differ = []
+    for c in configs:
+        with open(os.path.join(out, c)) as f, \
+                open(os.path.join(in_loop, c)) as g:
+            if f.read() != g.read():
+                differ.append(c)
+    ok = not unequal and not differ
+    print(f"export_checkpoint: step 2 exported offline in {export_s:.2f} s "
+          f"(no card visible), {folder_bytes(out)} bytes; "
+          f"{n - len(unequal)}/{n} tensors equal the in-loop export's bit "
+          f"for bit, dtype included, config files differing {differ} "
+          f"{'ok' if ok else 'FAIL ' + str(unequal[:3])} [{card}]",
+          flush=True)
+    kw = dict(num_inference_steps=CKPT_STORY_STEPS, height=512, width=512,
+              guidance_scale=7.5, image_guidance_scale=3.5, seed=0)
+    frames = {}
+    for name, root in (("in-loop", in_loop), ("offline", out)):
+        b = hf_import.load_diffusers_pretrained(root, dev, torch.bfloat16)
+        pipe = StoryGenPipeline(b["unet"], b["vae"], b["text_encoder"],
+                                token_ids, b["scheduler_config"], device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        frames[name] = pipe.generate_story(list(PROMPTS[:2]), **kw)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        del pipe, b
+        torch.cuda.empty_cache()
+    same = [bool(np.array_equal(a, g))
+            for a, g in zip(frames["in-loop"], frames["offline"])]
+    good = (all(same) and len(same) == 2
+            and frames_ok(np.stack(frames["offline"]), (2, 512, 512, 3)))
+    print(f"export_checkpoint: 2-frame DDIM-{CKPT_STORY_STEPS} story from "
+          f"the offline export vs the in-loop export, same draws: frames "
+          f"equal bit for bit {same} {'ok' if good else 'FAIL'} [{card}]",
+          flush=True)
+    return ok & good & record_launches(results, launches, "export")
+
+
 def phase_train_more(dev, card: str, results: dict) -> bool:
     """Training from the checkpoint phase's folder at 512 px, batch 4,
     bf16, gradient checkpointing: stage 1 and COCO; then stage 2 in the
@@ -2925,8 +3184,10 @@ def phase_train_more(dev, card: str, results: dict) -> bool:
     del bundle, sd
     torch.cuda.empty_cache()
 
-    # resumed from checkpoint 1, in a fresh logdir and fresh models
-    rcfg = more_config("resumed", train_steps=MORE_STEPS["precomputed"], **kw)
+    # resumed from checkpoint 1, in a fresh logdir and fresh models, with
+    # no in-loop export (export_steps above its steps)
+    rcfg = more_config("resumed", train_steps=MORE_STEPS["precomputed"],
+                       **{**kw, "export_steps": 3})
     shutil.rmtree(rcfg.logdir, ignore_errors=True)
     shutil.copytree(os.path.join(trainer.checkpoint_dir(cfg), "1"),
                     os.path.join(trainer.checkpoint_dir(rcfg), "1"))
@@ -2948,6 +3209,8 @@ def phase_train_more(dev, card: str, results: dict) -> bool:
           f"{diffs[worst]:.3e} at {worst} {'ok' if same else 'FAIL'} "
           f"[{card}]", flush=True)
     del full, resumed
+    ok &= offline_export(dev, card, results, trainer.checkpoint_dir(rcfg),
+                         os.path.join(cfg.logdir, "checkpoint_2"))
 
     # peak memory of one optimizer step: 8-bit against fp32 moments
     peaks = {}

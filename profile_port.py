@@ -26,8 +26,8 @@ It prints
     `torch.profiler`, the device's busy time under the profiler (the union
     of the card's kernel and copy intervals), the device's idle share
     against each wall time, device time by port kernel (F / M, L, DQ /
-    DKV, G, C, P, D, U, each conv's split sums with it; the rest is plain
-    torch) and by kernel, largest first;
+    DKV, G, C, P, D, U, UB (U's input gradient), each conv's split sums
+    with it; the rest is plain torch) and by kernel, largest first;
   - for each, the wall time of 4 micro-steps after 2 warm-ups, and the
     same profile of 2 micro-steps (one that accumulates, one that updates).
 
@@ -340,8 +340,8 @@ def serving_options(dev, card: str) -> bool:
 # wg_conv_kernel and its split sum wg_splitk_reduce (a tree before kernel
 # U names C's, P's and D's mode as a bool, and their split sums alike)
 CONV_MODES = {("1", "0"): "C", ("1", "1"): "P", ("2", "0"): "D",
-              ("1", "2"): "U", ("1", "false"): "C", ("1", "true"): "P",
-              ("2", "false"): "D"}
+              ("1", "2"): "U", ("2", "3"): "UB", ("1", "false"): "C",
+              ("1", "true"): "P", ("2", "false"): "D"}
 ENTRIES = (("flash_bwd_wg_kernel", "DQ / DKV"), ("lse_wg_kernel", "L"),
            ("flash_wg_kernel", "F / M"), ("geglu_wg_kernel", "G"),
            ("conv_mma_kernel", "C"))

@@ -7,7 +7,9 @@ diffusers names, which the port's modules carry already),
 scheduler/scheduler_config.json and model_index.json, in the schemas of
 the JAX package's exporter, so either package loads what the other wrote.
 
-A module sharded by parallel/tensor.py is written whole: every rank of
+`write_folder` writes the same layout from state dicts and configs (the
+offline export, scripts/export_checkpoint.py). A module sharded by
+parallel/tensor.py is written whole: every rank of
 its tensor group calls `save_pretrained`, the shards are gathered into
 full tensors (a collective), and rank 0 alone writes.
 """
@@ -148,6 +150,30 @@ def _dump(root: str, sub: str, name: str, payload: dict) -> None:
         json.dump(payload, f, indent=2)
 
 
+# each module's folder: its weight file and the schema of its config.json
+FOLDERS = {
+    "unet": ("diffusion_pytorch_model.bin", diffusers_unet_config),
+    "vae": ("diffusion_pytorch_model.bin", diffusers_vae_config),
+    "text_encoder": ("pytorch_model.bin", transformers_clip_config),
+}
+
+
+def write_folder(root: str, parts: Dict[str, tuple],
+                 scheduler_config: Optional[SchedulerConfig] = None) -> None:
+    """Write the folder from state dicts: `parts` maps "unet", "vae" and
+    "text_encoder" to (state dict, config), each written as FOLDERS says,
+    then scheduler/ and model_index.json. Writes from the calling process
+    (`save_pretrained` is the one that gathers and picks rank 0)."""
+    for sub, (state, config) in parts.items():
+        fname, schema = FOLDERS[sub]
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        save_weights(state, os.path.join(root, sub, fname))
+        _dump(root, sub, "config.json", schema(config))
+    _dump(root, "scheduler", "scheduler_config.json",
+          diffusers_scheduler_config(scheduler_config or SchedulerConfig()))
+    _dump(root, "", "model_index.json", MODEL_INDEX)
+
+
 def save_pretrained(root: str, unet: Optional[nn.Module] = None,
                     vae: Optional[nn.Module] = None,
                     text_encoder: Optional[nn.Module] = None,
@@ -158,23 +184,13 @@ def save_pretrained(root: str, unet: Optional[nn.Module] = None,
     save_pretrained of its own. Sharded modules are gathered whole first;
     then only rank 0 of a process group writes."""
     from storygen_tpu_torch.parallel.multihost import is_coordinator
-    parts = [(sub, fname, module, schema, full_state_dict(module))
-             for sub, fname, module, schema in (
-                 ("unet", "diffusion_pytorch_model.bin", unet,
-                  diffusers_unet_config),
-                 ("vae", "diffusion_pytorch_model.bin", vae,
-                  diffusers_vae_config),
-                 ("text_encoder", "pytorch_model.bin", text_encoder,
-                  transformers_clip_config)) if module is not None]
+    parts = {sub: (full_state_dict(module), module.config)
+             for sub, module in (("unet", unet), ("vae", vae),
+                                 ("text_encoder", text_encoder))
+             if module is not None}
     if not is_coordinator():
         return
-    for sub, fname, module, schema, state in parts:
-        os.makedirs(os.path.join(root, sub), exist_ok=True)
-        save_weights(state, os.path.join(root, sub, fname))
-        _dump(root, sub, "config.json", schema(module.config))
-    _dump(root, "scheduler", "scheduler_config.json",
-          diffusers_scheduler_config(scheduler_config or SchedulerConfig()))
-    _dump(root, "", "model_index.json", MODEL_INDEX)
+    write_folder(root, parts, scheduler_config)
     tok = getattr(tokenizer, "tok", tokenizer)
     if hasattr(tok, "save_pretrained"):
         tok.save_pretrained(os.path.join(root, "tokenizer"))

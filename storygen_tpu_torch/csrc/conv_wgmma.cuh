@@ -18,6 +18,14 @@
 // with w16 the phase weights (sums of the 3x3 taps that land on one
 // source pixel; ops/upconv.py::phase_weight), the counterpart of
 // storygen_tpu/models/layers.py:220 (_UpsampleConv, XLA's convolutions).
+// In its mode PHASES_DX (kernel UB, upconv_dx3x3.cu) it computes U's input
+// gradient, the four phases' adjoint, as one stride-2 walk of a 4x4
+// window over the (B, 2H, 2W, Cout) cotangent g, with no bias:
+//   dx[b, r, s, ci] = sum_{ty, tx, co}
+//       g[b, 2r-1+ty, 2s-1+tx, co] * k16[4*ty+tx, co, ci]
+// with k16 the phase weights' taps flipped and transposed
+// (ops/upconv.py::dx_weight): the counterpart of XLA's gradient of the
+// JAX package's phase convs (layers.py:265-267).
 //
 // What bounds it on the H100, by site class:
 // - Wide images (64x64 latents, the VAE's 128-512 px): tensor-core work,
@@ -35,7 +43,8 @@
 // - The phases (U): 2 pixels 16 Cin Cout operations a source pixel (36 on
 //   the upsampled grid), tensor-core work at every site but the UNet's
 //   first up block (8x8 -> 16x16, 1280 channels), where the phase weights'
-//   16 Cin Cout bf16 (52 MB) bind.
+//   16 Cin Cout bf16 (52 MB) bind. UB, their gradient, alike at the
+//   training path's three up blocks (B4).
 //
 // What the design does:
 // - Products by wgmma.mma_async m64nNk16 (bf16 in, fp32 accumulators in
@@ -99,6 +108,12 @@
 //   + pb) of the (2H, 2W) output. The tiles, the split of the 4 Cin
 //   reduction (with the phases' four blocks a tile counted) and the
 //   epilogue are C's.
+// - UB's window: D's two planes at stride 2 with pl = 1, 2 TH + 2 rows
+//   and TW + 2 half-columns each; tap tx of output column s reads g's
+//   column 2s - 1 + tx, plane (tx + 1) % 2 at half-column offset (tx + 1)
+//   / 2, tap ty row 2 (r - y0) + ty of the slab: an address, as D's taps.
+//   Its weights, 16 CK rows a panel, come by TMA from k16 seen as (Cout,
+//   Cin, 16). The epilogue adds no bias; the split sum likewise.
 // - P's prologue in place on the landed slab: after a stage's full barrier
 //   the consumer threads apply silu(x * a + s) to its pieces inside the
 //   image and below Cin (the border and the channel padding stay 0), fence
@@ -118,8 +133,9 @@ namespace sg_conv {
 using namespace sg_hopper;
 
 // What a block does with its slab, the kernel's second template argument:
-// the plain taps (C, D), P's prologue applied first, or U's phases.
-constexpr int PLAIN = 0, PROLOGUE = 1, PHASES = 2;
+// the plain taps (C, D), P's prologue applied first, U's phases, or U's
+// input gradient (UB: a 4x4 window at stride 2, no bias).
+constexpr int PLAIN = 0, PROLOGUE = 1, PHASES = 2, PHASES_DX = 3;
 
 // The Cout class of the keys of C, P and D (mirrored by ops/conv.py's
 // tile_key; the W class of the output width is conv_mma.cuh's w_class): 0
@@ -148,8 +164,10 @@ struct WgArgs {
 template <int S, int MODE, int TH, int TW, int IB, int WGM, int MT, int BN,
           int CK, int STAGES>
 struct WgCfg {
-  // the taps a block walks: 9, or U's 4 of its phase
-  static constexpr int TAPS = MODE == PHASES ? 4 : 9;
+  // the taps a block walks: 9, U's 4 of its phase, or UB's 16; the
+  // window's side (3, or UB's 4)
+  static constexpr int TAPS = MODE == PHASES ? 4 : MODE == PHASES_DX ? 16 : 9;
+  static constexpr int KW = MODE == PHASES_DX ? 4 : 3;
   static constexpr int NTC = 128 * WGM;   // consumer threads
   static constexpr int NT = NTC + 128;    // and the producer warpgroup
   // Registers a thread: at launch, what the block's warps leave each (an
@@ -162,7 +180,8 @@ struct WgCfg {
   static constexpr int CONSUMER_REGS = RISE > 240 ? 240 : RISE;
   // a slab's rows and its columns (stride 2: half-columns of each of its
   // two planes, the even and the odd input columns)
-  static constexpr int SH = S * (TH - 1) + 3, SW = S == 1 ? TW + 2 : TW + 1;
+  static constexpr int SH = S * (TH - 1) + KW;
+  static constexpr int SW = S == 1 ? TW + 2 : TW + KW / 2;
   static constexpr int PB = 2 * CK;       // a slab pixel's bytes = swizzle
   static constexpr int PLANE_TX = IB * SH * SW * PB;  // one plane's box
   static constexpr int PLANE = (PLANE_TX + 1023) / 1024 * 1024;
@@ -176,7 +195,9 @@ struct WgCfg {
   // full and empty barriers
   static constexpr int BYTES = STAGES * STAGE + 1024 + 16 * STAGES;
   static_assert(S == 1 || S == 2, "stride 1 or 2");
-  static_assert(S == 1 || MODE == PLAIN, "P's prologue, U's phases: stride 1");
+  static_assert(S == 1 || MODE == PLAIN || MODE == PHASES_DX,
+                "P's prologue, U's phases: stride 1");
+  static_assert(MODE != PHASES_DX || S == 2, "UB: stride 2");
   static_assert(64 * WGM * MT == IB * TH * TW,
                 "a block's pixels fill its 64-row wgmma tiles");
   static_assert(TW % 8 == 0, "8-pixel ldmatrix rows inside a tile row");
@@ -203,6 +224,7 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
                    const __grid_constant__ CUtensorMap tmw, const WgArgs a) {
   using C = WgCfg<S, MODE, TH, TW, IB, WGM, MT, BN, CK, STAGES>;
   constexpr bool PRO = MODE == PROLOGUE, UP = MODE == PHASES;
+  constexpr bool BIAS = MODE != PHASES_DX;
   constexpr int PB = C::PB, KS = CK / 16;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -273,14 +295,15 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
   }
   const int half = lane / 16;  // the fragment's 8-channel half
   // tap (dy, dx)'s slab row from tap (0, 0)'s; stride 2: in plane
-  // (dx + pl % 2) % 2 at half-column offset (dx + pl % 2) / 2; U: phase
-  // (pa, pb)'s tap (r, c) at (pa + r, pb + c)
+  // (dx + pl % 2) % 2 at half-column offset (dx + pl % 2) / 2 (UB: dx of
+  // its 4-wide window alike); U: phase (pa, pb)'s tap (r, c) at (pa + r,
+  // pb + c)
   const int podd = a.pl & 1;
   auto tap_row = [&](int tap) {
     if constexpr (UP) return (pa + tap / 2) * C::SW + pb + tap % 2;
     if constexpr (S == 1) return (tap / 3) * C::SW + tap % 3;
-    const int u = tap % 3 + podd;
-    return (tap / 3) * C::SW + (u >> 1) + (u & 1) * C::PLANE_ROWS;
+    const int u = tap % C::KW + podd;
+    return (tap / C::KW) * C::SW + (u >> 1) + (u & 1) * C::PLANE_ROWS;
   };
 
   // P: silu(x * a + s) in place on a landed slab, inside the image and
@@ -392,9 +415,12 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
         for (int j = 0; j < BN / 8; ++j) {
           const int co = co0 + 8 * j + 2 * tq;
           if (co >= a.Cout) continue;
-          const float2 bz = *reinterpret_cast<const float2*>(bb + co);
-          float v0 = acc[mt][4 * j + 2 * h] + bz.x;
-          float v1 = acc[mt][4 * j + 2 * h + 1] + bz.y;
+          float v0 = acc[mt][4 * j + 2 * h], v1 = acc[mt][4 * j + 2 * h + 1];
+          if constexpr (BIAS) {
+            const float2 bz = *reinterpret_cast<const float2*>(bb + co);
+            v0 += bz.x;
+            v1 += bz.y;
+          }
           if (rp != nullptr) {
             const float2 r = __bfloat1622float2(
                 *reinterpret_cast<const __nv_bfloat162*>(rp + co));
@@ -417,10 +443,10 @@ __global__ void __launch_bounds__(128 * WGM + 128, 1)
 }
 
 // The split reduction: out = (sum over s in order of ws[s]) + bias
-// (+ residual), four channels a thread; static, so that C's, D's and U's
-// sources each keep their own copy, and named by the stride and mode of
-// the kernel it completes, so that a trace tells C's, P's, D's and U's
-// apart.
+// (+ residual; UB: no bias), four channels a thread; static, so that C's,
+// D's, U's and UB's sources each keep their own copy, and named by the
+// stride and mode of the kernel it completes, so that a trace tells C's,
+// P's, D's, U's and UB's apart.
 template <int S, int MODE>
 static __global__ void __launch_bounds__(256)
     wg_splitk_reduce(const WgArgs a) {
@@ -435,9 +461,11 @@ static __global__ void __launch_bounds__(256)
         *reinterpret_cast<const float4*>(a.ws + s * mtot * a.Cout + e);
     v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
   }
-  const float4 bz = *reinterpret_cast<const float4*>(
-      a.bias + pix / ((long long)a.Ho * a.Wo) * a.bias_bstride + co);
-  v.x += bz.x, v.y += bz.y, v.z += bz.z, v.w += bz.w;
+  if constexpr (MODE != PHASES_DX) {
+    const float4 bz = *reinterpret_cast<const float4*>(
+        a.bias + pix / ((long long)a.Ho * a.Wo) * a.bias_bstride + co);
+    v.x += bz.x, v.y += bz.y, v.z += bz.z, v.w += bz.w;
+  }
   if (a.res != nullptr) {
     const uint2 r = *reinterpret_cast<const uint2*>(a.res + e);
     const float2 r0 = __bfloat1622float2(
@@ -454,12 +482,13 @@ static __global__ void __launch_bounds__(256)
 
 // The tensor maps of one call: x as (Cin, W, H, B) in (CK, TW+2, TH+2, IB)
 // boxes (stride 2: plane p of x's columns p, p + 2, ..., as (Cin,
-// half-columns, H, B) in (CK, TW+1, 2TH+1, IB) boxes), swizzled over 2 CK
-// bytes; w9 as (Cout, Cin, 9) in (32, CK, 9) boxes (U: w16 as (Cout, Cin,
-// 16) in (32, CK, 4) boxes) swizzled over 64 bytes; out-of-range elements
-// read as zero.
-inline bool encode_x(const WgArgs& a, int s, int plane, int ck, int th,
-                     int tw, int ib, CUtensorMap* m) {
+// half-columns, H, B) in (CK, TW+1, 2TH+1, IB) boxes, UB's (CK, TW+2,
+// 2TH+2, IB)), i.e. (CK, sw, sh, IB), swizzled over 2 CK bytes; w9 as
+// (Cout, Cin, 9) in (32, CK, 9) boxes (U: w16 as (Cout, Cin, 16) in (32,
+// CK, 4) boxes; UB: its (Cout, Cin, 16) in (32, CK, 16) boxes) swizzled
+// over 64 bytes; out-of-range elements read as zero.
+inline bool encode_x(const WgArgs& a, int s, int plane, int ck, int sw,
+                     int sh, int ib, CUtensorMap* m) {
   const TensorMapEncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return false;
   const cuuint64_t e = sizeof(bf16);
@@ -468,9 +497,8 @@ inline bool encode_x(const WgArgs& a, int s, int plane, int ck, int th,
                              (cuuint64_t)a.H, (cuuint64_t)a.B};
   const cuuint64_t str[3] = {e * a.Cin * s, e * a.Cin * a.W,
                              e * a.Cin * a.W * a.H};
-  const cuuint32_t box[4] = {(cuuint32_t)ck,
-                             (cuuint32_t)(s == 1 ? tw + 2 : tw + 1),
-                             (cuuint32_t)(s * (th - 1) + 3), (cuuint32_t)ib};
+  const cuuint32_t box[4] = {(cuuint32_t)ck, (cuuint32_t)sw, (cuuint32_t)sh,
+                             (cuuint32_t)ib};
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
              const_cast<bf16*>(a.x + (long long)plane * a.Cin), dim, str, box,
@@ -501,20 +529,22 @@ inline bool encode_w(const WgArgs& a, int ck, int taps, int box_taps,
 // split reduction where splits > 1; returns the launches' cudaError_t
 // (cudaErrorInvalidValue for operands it does not take: Cin or Cout not a
 // multiple of 8, more splits than chunks, no workspace; at stride 2 a
-// single input column; U's output other than (2H, 2W)).
+// single input column; U's output other than (2H, 2W), UB's input other
+// than (2 Ho, 2 Wo)).
 template <int S, int MODE, int TH, int TW, int IB, int WGM, int MT, int BN,
           int CK, int STAGES>
 cudaError_t wg_launch(const WgArgs& a, cudaStream_t stream) {
   using C = WgCfg<S, MODE, TH, TW, IB, WGM, MT, BN, CK, STAGES>;
-  constexpr bool UP = MODE == PHASES;
+  constexpr bool UP = MODE == PHASES, DX = MODE == PHASES_DX;
   if (a.Cin % 8 != 0 || a.Cout % 8 != 0 || a.splits < 1 ||
       a.splits > (a.Cin + CK - 1) / CK || (a.splits > 1 && a.ws == nullptr) ||
-      (S == 2 && a.W < 2) || (UP && (a.Ho != 2 * a.H || a.Wo != 2 * a.W)))
+      (S == 2 && a.W < 2) || (UP && (a.Ho != 2 * a.H || a.Wo != 2 * a.W)) ||
+      (DX && (a.H != 2 * a.Ho || a.W != 2 * a.Wo)))
     return cudaErrorInvalidValue;
   CUtensorMap tmx, tmx2, tmw;  // tmx2: stride 2's odd plane
-  if (!encode_x(a, S, 0, CK, TH, TW, IB, &tmx) ||
-      !encode_w(a, CK, UP ? 16 : 9, C::TAPS, &tmw) ||
-      (S == 2 && !encode_x(a, S, 1, CK, TH, TW, IB, &tmx2)))
+  if (!encode_x(a, S, 0, CK, C::SW, C::SH, IB, &tmx) ||
+      !encode_w(a, CK, UP || DX ? 16 : 9, C::TAPS, &tmw) ||
+      (S == 2 && !encode_x(a, S, 1, CK, C::SW, C::SH, IB, &tmx2)))
     return cudaErrorInvalidValue;
   constexpr auto kern =
       wg_conv_kernel<S, MODE, TH, TW, IB, WGM, MT, BN, CK, STAGES>;

@@ -69,6 +69,9 @@ SIGNATURES = {
     # x, w16, bias, out, split workspace, splits, B, H, W, Cin, Cout (the
     # source's size), stream
     "sg_upconv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # g, k16, dx, split workspace, splits, B, H, W (dx's size), Cin (g's
+    # channels), Cout (dx's), stream
+    "sg_upconv_dx3x3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # the attention studies (ops/study_attention.py, ops/study_int8.py):
     # q, k, v, out, BH, Sq, Skv, d, mode, bq, bk, halves, scale, stream
     "sg_study_online": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,

@@ -163,6 +163,10 @@ def build_models(cfg: TrainConfig, device="cuda",
     return bundle
 
 
+# the stages that `train` runs (optim.STAGE_PREDICATES also names "full",
+# every UNet parameter, which no step of the JAX package trains)
+STAGES = ("stage1", "stage2", "coco")
+
 # a loaded batch (this process's rows) -> tensors on the device
 to_device = multihost.host_local_batch
 
@@ -175,7 +179,7 @@ def make_stage_step(stage: str, cfg: TrainConfig, bundle: dict,
     optimizer (optim.make_optimizer) and train step; `empty_ids` are the
     empty prompt's ids for the precomputed mode's CFG dropout; `mesh` the
     data-parallel mesh. Returns (step_fn, optimizer)."""
-    if stage not in optim.STAGE_PREDICATES:
+    if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}")
     unet, vae, clip = (bundle["unet"], bundle["vae"],
                        bundle["text_encoder"])

@@ -29,8 +29,8 @@ from storygen_tpu_torch.configs import TrainConfig
 from storygen_tpu_torch.data.datasets import PrecomputedLatentDataset
 from storygen_tpu_torch.data.tokenizer import Tokenizer
 from storygen_tpu_torch.pipeline import seeded_draws
-from storygen_tpu_torch.scripts import (compare_quality, inference,
-                                        inference_coco_val,
+from storygen_tpu_torch.scripts import (compare_quality, export_checkpoint,
+                                        inference, inference_coco_val,
                                         precompute_latents, run_chain,
                                         run_quality, run_quality_suite, serve,
                                         study_knobs, train)
@@ -40,9 +40,10 @@ from tests.torch_port_util import cli_folder
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # each JAX script's flags that the port's script does not take:
-# --platform became --device, and run_quality's --orbax_step became
-# --state_step (the trainer's torch_io states); the JAX precompute script
-# never reads its --batch
+# --platform became --device, run_quality's --orbax_step became
+# --state_step and export_checkpoint's --orbax became --ckpt (the
+# trainer's torch_io states); the JAX precompute script never reads its
+# --batch
 NOT_TAKEN = {
     "inference.py": {"--platform"},
     "precompute_latents.py": {"--batch"},
@@ -54,6 +55,7 @@ NOT_TAKEN = {
     "run_chain.py": {"--platform"},
     "compare_quality.py": set(),
     "study_knobs.py": set(),
+    "export_checkpoint.py": {"--orbax"},
 }
 # and the flags it adds: the device, the torch.distributed backend of the
 # multi-process ones, run_quality's trainer state, and run_chain's two
@@ -61,16 +63,18 @@ NOT_TAKEN = {
 # outside the repository)
 ADDED = {"train.py": {"--backend"}, "serve.py": {"--backend"},
          "run_quality.py": {"--state_step"},
-         "run_chain.py": {"--stage1_config", "--stage2_config"}}
+         "run_chain.py": {"--stage1_config", "--stage2_config"},
+         "export_checkpoint.py": {"--ckpt"}}
 # the scripts that run no model, so take no --device
-NO_DEVICE = {"compare_quality.py"}
+NO_DEVICE = {"compare_quality.py", "export_checkpoint.py"}
 SCRIPTS = {"inference.py": inference,
            "precompute_latents.py": precompute_latents, "train.py": train,
            "inference_coco_val.py": inference_coco_val, "serve.py": serve,
            "run_quality.py": run_quality,
            "run_quality_suite.py": run_quality_suite,
            "run_chain.py": run_chain, "compare_quality.py": compare_quality,
-           "study_knobs.py": study_knobs}
+           "study_knobs.py": study_knobs,
+           "export_checkpoint.py": export_checkpoint}
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -1,11 +1,11 @@
-"""The tiles of kernels C, P (csrc/conv3x3.cu) and D (csrc/downconv3x3.cu),
-without a card: the Python tables of built instantiations against the
+"""The tiles of kernels C, P (csrc/conv3x3.cu), D (csrc/downconv3x3.cu) and
+UB (csrc/upconv_dx3x3.cu, U's input gradient), without a card: the Python tables of built instantiations against the
 sources' SG_BUILT lines, the shared memory and warp layout of every built
 and candidate tile (for the wgmma lines also TMA's box rules and wgmma's
 N), the wrappers' choice and split plan at the UNet's and the VAE's conv
 sites (no batch in either), a ValueError for a key that is not built, the
 tile study's rewrite of a source, the study's CPU path at a tiny shape,
-and D's stride-2 slab: where its two planes put each tap. The kernels
+and D's and UB's stride-2 slabs: where their two planes put each tap. The kernels
 themselves run only on the card (chip_smoke.py)."""
 import math
 import re
@@ -51,6 +51,10 @@ def test_up_built_matches_the_cuda_source():
     assert _table("upconv3x3.cu") == upconv.UP_BUILT
 
 
+def test_ub_built_matches_the_cuda_source():
+    assert _table("upconv_dx3x3.cu") == upconv.UB_BUILT
+
+
 def _check_tile(stride, tile):
     """The static_asserts of conv_mma.cuh's ConvCfg and conv_launch (a
     stride-1 line of family MMA), or of conv_wgmma.cuh's WgCfg (a line of
@@ -77,7 +81,7 @@ WGMMA_N = {int(n) for n in re.findall(
 
 def _check_wgmma_tile(stride, tile, taps=9):
     """WgCfg's conditions on a wgmma line whose blocks walk `taps` taps (9,
-    or kernel U's 4 of a phase)."""
+    kernel U's 4 of a phase, or UB's 16 of its 4x4 window at stride 2)."""
     th, tw, ib, wgm, mt, bn, ck, stages = tile
     # the block's pixels fill its 64-row tiles; 8-pixel ldmatrix rows
     assert 64 * wgm * mt == ib * th * tw and tw % 8 == 0
@@ -94,13 +98,15 @@ def _check_wgmma_tile(stride, tile, taps=9):
     # weights come in whole 32-column panels
     assert bn % 8 == 0 and bn <= 256 and bn % 32 == 0 and bn in WGMMA_N
     # TMA's boxes, (CK, TW+2, TH+2, IB) of x (stride 2: (CK, TW+1, 2 TH
-    # + 1, IB) of each plane) and (32, CK, taps) of the weights: every
-    # dimension <= 256; the inner one a multiple of 16 bytes and within its
-    # swizzle span (the slab's 2 CK bytes, one of 32 / 64 / 128; the
-    # weights' 64)
+    # + 1, IB) of each plane, UB's (CK, TW+2, 2 TH + 2, IB)) and (32, CK,
+    # taps) of the weights: every dimension <= 256; the inner one a
+    # multiple of 16 bytes and within its swizzle span (the slab's 2 CK
+    # bytes, one of 32 / 64 / 128; the weights' 64)
+    window = 4 if taps == 16 else 3
+    assert taps != 16 or stride == 2
     xbox = ((ck, tw + 2, th + 2, ib) if stride == 1
-            else (ck, tw + 1, 2 * th + 1, ib))
-    assert conv_tiles.slab_box(stride, tile) == xbox
+            else (ck, tw + window // 2, 2 * th + window - 2, ib))
+    assert conv_tiles.slab_box(stride, tile, window) == xbox
     for box in (xbox, (32, ck, taps)):
         assert all(1 <= d <= 256 for d in box)
     assert 2 * ck in (32, 64, 128)
@@ -129,10 +135,25 @@ def test_every_up_tile_fits_an_sm(key):
     _check_wgmma_tile(1, upconv.UP_BUILT[key][1:], taps=4)
 
 
+@pytest.mark.parametrize("key", sorted(upconv.UB_BUILT))
+def test_every_ub_tile_fits_an_sm(key):
+    """Kernel UB's lines: the wgmma template at stride 2, each block over
+    the 16 taps of the 4x4 window (weight panels of 16 CK rows)."""
+    assert key[:3] == (2, 0, 0) and upconv.UB_BUILT[key][0] == conv.WGMMA
+    _check_wgmma_tile(2, upconv.UB_BUILT[key][1:], taps=16)
+
+
 @pytest.mark.parametrize("key", sorted(conv_tiles.CANDIDATES))
 def test_every_study_candidate_fits_an_sm(key):
     for tile in conv_tiles.CANDIDATES[key]:
         _check_tile(key[0], tile)
+
+
+@pytest.mark.parametrize("key", sorted(conv_tiles.UB_CANDIDATES))
+def test_every_ub_study_candidate_fits_an_sm(key):
+    for tile in conv_tiles.UB_CANDIDATES[key]:
+        assert tile[0] == conv.WGMMA
+        _check_wgmma_tile(2, tile[1:], taps=16)
 
 
 @pytest.mark.parametrize("key", [k for k in sorted(conv.CONV_BUILT) if k[1]])
@@ -194,7 +215,10 @@ def test_down_tile_choice_at_the_sites_is_built(h, w, cin, cout, pad):
     lambda: conv.pick_tile(conv.CONV_BUILT, (3, 0, 0, 1, 2)),
     lambda: upconv.up_tile(4, 320, 32),          # U on a 4-channel input
     lambda: upconv.up_tile(16, 20, 8),           # U: Cout % 8 != 0
-    lambda: upconv.up_tile(320, 8, 32)])         # U with a narrow Cout
+    lambda: upconv.up_tile(320, 8, 32),          # U with a narrow Cout
+    lambda: upconv.dx_tile(4, 320, 32),          # UB on a 4-channel g
+    lambda: upconv.dx_tile(16, 20, 8),           # UB: Cout % 8 != 0
+    lambda: upconv.dx_tile(320, 8, 32)])         # UB with a narrow Cout
 def test_tile_choice_raises_for_an_unbuilt_key(call):
     with pytest.raises(ValueError, match="no conv kernel built"):
         call()
@@ -211,19 +235,37 @@ def test_tile_study_rewrites_only_the_built_lines(key):
     assert strip.sub("", new) == strip.sub("", src)
 
 
+@pytest.mark.parametrize("key", sorted(conv_tiles.UB_CANDIDATES))
+def test_ub_study_rewrites_only_the_built_lines(key):
+    name = conv_tiles.UB_SOURCE
+    src = (_build.CSRC / name).read_text()
+    tile = conv_tiles.UB_CANDIDATES[key][0]
+    new = conv_tiles.candidate_source(key, tile, name)
+    assert _built_lines(new) == [key + tuple(tile)]
+    strip = re.compile(r"^\s*SG_BUILT\(\d[^)]*\)\s*\n", re.M)
+    assert strip.sub("", new) == strip.sub("", src)
+
+
 def test_tile_study_covers_every_key_of_its_shapes():
     for name in conv_tiles.SHAPES:
         key = conv_tiles.shape_key(name)
-        built = conv.CONV_BUILT if key[0] == 1 else downconv.DOWN_BUILT
-        assert key in built and key in conv_tiles.CANDIDATES
+        if conv_tiles.SHAPES[name][0] == "UB":
+            built, cands = upconv.UB_BUILT, conv_tiles.UB_CANDIDATES
+            assert conv_tiles.shape_source(name) == "upconv_dx3x3.cu"
+        else:
+            built = conv.CONV_BUILT if key[0] == 1 else downconv.DOWN_BUILT
+            cands = conv_tiles.CANDIDATES
+        assert key in built and key in cands
         # the built tile is among the candidates it was chosen from
-        assert built[key] in conv_tiles.CANDIDATES[key]
+        assert built[key] in cands[key]
+        assert conv_tiles.shape_candidates(name) == cands[key]
 
 
 def test_tile_study_runs_the_plain_path_on_the_cpu(capsys):
     shapes = [("tiny_c", "C", 1, 8, 8, 16, 24, False, True, None),
               ("tiny_p", "P", 2, 6, 10, 16, 16, True, True, None),
-              ("tiny_d", "D", 1, 9, 7, 16, 24, False, False, (0, 1, 0, 1))]
+              ("tiny_d", "D", 1, 9, 7, 16, 24, False, False, (0, 1, 0, 1)),
+              ("tiny_ub", "UB", 2, 3, 5, 16, 24, False, False, None)]
     conv_tiles.main(device="cpu", shapes=shapes, iters=1)
     out = capsys.readouterr().out
     for name, *_ in shapes:
@@ -242,7 +284,7 @@ def test_tile_study_runs_the_plain_path_on_the_cpu(capsys):
 # parallel shards, the ragged P case and the UNet's 32-column level
 SMOKE_SITES = sorted({(k == "P", b, h, w, cin, cout)
                       for k, b, h, w, cin, cout, *_ in
-                      conv_tiles.SHAPES.values() if k != "D"} | {
+                      conv_tiles.SHAPES.values() if k in ("C", "P")} | {
     (False, 3, 64, 64, 320, 160), (False, 3, 64, 64, 160, 320),
     (False, 3, 64, 64, 320, 80), (False, 3, 64, 64, 80, 320),
     (True, 3, 64, 64, 160, 320), (True, 3, 64, 64, 80, 320),
@@ -359,4 +401,61 @@ def test_stride2_planes_give_the_plain_taps(h, w, pad):
                     if 0 <= row < h and 0 <= hc < p.shape[2]:
                         out[:, oy, ox] += p[:, row, hc] @ w9[3 * dy + dx]
     ref = downconv.downconv3x3_plain(x, w9, bias, pad)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-5)
+
+
+# (B, H, W, Cin, Cout) of UB's output and cotangent channels at the
+# training path's three up blocks, a ragged and a one-column source
+UB_SITES = [(4, 8, 8, 1280, 1280), (4, 16, 16, 1280, 1280),
+            (4, 32, 32, 640, 640), (2, 5, 6, 96, 96), (2, 7, 1, 64, 64)]
+
+
+@pytest.mark.parametrize("b, h, w, cin, cout", UB_SITES)
+def test_ub_tile_and_split_ignore_the_batch(b, h, w, cin, cout):
+    """UB's line and split plan depend on its output's shape, Cin and Cout
+    alone (C's split_count on UB's line): a site whose batch-3 grid gives
+    fewer than half the SMs a block splits its 16 Cin reduction; every
+    batch takes the same plan."""
+    key = conv.tile_key(2, False, cin, cout, w)
+    line = upconv.dx_tile(cin, cout, w)
+    assert line == upconv.UB_BUILT[key]
+    splits = upconv.dx_splits(cin, cout, h, w)
+    assert splits == conv.split_count(line, cin, cout, h, w)
+    _, th, tw, ib, _, _, bn, _, _ = line
+    blocks = (math.ceil(conv.PLAN_BATCH / ib) * math.ceil(h / th)
+              * math.ceil(w / tw) * math.ceil(cout / bn))
+    assert (splits > 1) == (blocks < conv.SMS // 2)
+    assert 1 <= splits <= max(1, math.ceil(cin / line[7]) // 2)
+    for bb in (1, 2, 3, 4, 6):
+        assert upconv.dx_tile(cin, cout, w) == line
+        assert upconv.dx_splits(cin, cout, h, w) == splits
+
+
+@pytest.mark.parametrize("h, w", [(8, 8), (5, 6), (7, 1), (1, 3)])
+def test_ub_window_planes_give_the_plain_taps(h, w):
+    """UB's slab arithmetic (csrc/conv_wgmma.cuh's tap_row in mode
+    PHASES_DX): tap (ty, tx) of output pixel (r, s) reads the cotangent's
+    row 2r - 1 + ty and column 2s - 1 + tx = 2 * half-column + plane, plane
+    (tx + 1) % 2 at half-column s - 1 + (tx + 1) // 2, a coordinate outside
+    g reading 0 as TMA's fill does; gathered so through `dx_weight`'s
+    packing, the sum equals upconv3x3_dx_plain."""
+    rs = np.random.RandomState(h * 10 + w)
+    b, cin, cout = 2, 8, 16  # U's Cin and Cout: g has Cout channels
+    g = torch.tensor(rs.randn(b, 2 * h, 2 * w, cout), dtype=torch.float32)
+    w16 = torch.tensor(rs.randn(16, cin, cout), dtype=torch.float32)
+    k16 = upconv.dx_weight(w16)
+    assert k16.shape == (16, cout, cin) and k16.is_contiguous()
+    planes = (g[:, :, 0::2], g[:, :, 1::2])
+    out = torch.zeros(b, h, w, cin)
+    for r in range(h):
+        for s_ in range(w):
+            for ty in range(4):
+                row = 2 * r - 1 + ty
+                for tx in range(4):
+                    plane, hc = (tx + 1) % 2, s_ - 1 + (tx + 1) // 2
+                    assert 2 * hc + plane == 2 * s_ - 1 + tx
+                    if 0 <= row < 2 * h and 0 <= hc < w:
+                        out[:, r, s_] += (planes[plane][:, row, hc]
+                                          @ k16[4 * ty + tx])
+    ref = upconv.upconv3x3_dx_plain(g, w16)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-5)

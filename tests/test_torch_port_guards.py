@@ -46,6 +46,8 @@ def test_port_imports_no_jax_or_flax():
         "storygen_tpu_torch.ops.conv, storygen_tpu_torch.ops.geglu\n"
         "import storygen_tpu_torch.ops.downconv, "
         "storygen_tpu_torch.utils.device\n"
+        "import storygen_tpu_torch.ops.upconv, "
+        "storygen_tpu_torch.scripts.export_checkpoint\n"
         "import storygen_tpu_torch.configs, storygen_tpu_torch.data.loader\n"
         "import storygen_tpu_torch.training.losses, "
         "storygen_tpu_torch.training.optim\n"
@@ -145,7 +147,7 @@ def test_nvcc_command_targets_sm90a_into_build_dir():
     assert {p.name for p in srcs} == {"flash_fwd.cu", "flash_bwd.cu",
                                       "geglu_matmul.cu", "conv3x3.cu",
                                       "downconv3x3.cu", "upconv3x3.cu",
-                                      "study_online.cu",
+                                      "upconv_dx3x3.cu", "study_online.cu",
                                       "study_bounded.cu", "study_bnd2.cu",
                                       "study_qk.cu", "study_int8.cu"}
     assert {p.name for p in _build.headers()} == {"study_mma.cuh",
@@ -198,7 +200,8 @@ def test_source_hash_covers_the_shared_header(tmp_path, monkeypatch):
     "flash_bwd.cu", "geglu_matmul.cu", "conv3x3.cu", "downconv3x3.cu",
     "study_online.cu", "study_bounded.cu", "study_bnd2.cu", "study_qk.cu",
     "study_int8.cu", "study_mma.cuh", "conv_mma.cuh", "conv_wgmma.cuh",
-    "hopper.cuh", "flash_wgmma.cuh", "geglu_wgmma.cuh", "study_wgmma.cuh"])
+    "hopper.cuh", "flash_wgmma.cuh", "geglu_wgmma.cuh", "study_wgmma.cuh",
+    "upconv.py", "upconv3x3.cu", "upconv_dx3x3.cu"])
 def test_kernel_modules_call_no_library_kernel(name):
     src = (PORT / ("ops" if name.endswith(".py") else "csrc") / name
            ).read_text()

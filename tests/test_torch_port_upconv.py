@@ -7,6 +7,13 @@ module) on the CPU, where the wrapper runs its plain version:
   package's on the same parameters (fp32, 1e-4);
 - UpConv3x3Fn's gradients against torch autograd through F.interpolate +
   F.conv2d (fp32, 1e-5) and against jax.grad of the JAX Upsample2D (1e-4);
+- the backward's phase form: the input gradient's plain version (kernel
+  UB's) and the weight gradient's against jax.vjp of the JAX package's
+  _UpsampleConv (fp32, 1e-4, odd sizes and one column included), the
+  input gradient as the 4x4 stride-2 correlation with the transposed
+  phase weights and against autograd in float64, the weight gradient
+  against the 3x3 one on the upsampled input, and the backward's routing
+  through `upconv3x3_dx`;
 - the split plan without the batch, and the kernel's tap addressing;
 - the transposed convolution that chip_smoke.py times as U's library
   call computes U's function.
@@ -167,22 +174,29 @@ def test_upconv_gradients_match_jax_grad():
     assert_close(jp["params"]["conv"]["bias"], db)
 
 
-def test_backward_skips_the_gradients_not_needed():
+def test_backward_skips_the_gradients_not_needed(monkeypatch):
     """With a frozen weight (stage-2 training's upsamplers) only dx is
-    formed: the upsampled input for dw never exists."""
+    formed, by `upconv3x3_dx`: neither the weight gradient's tap products
+    nor an upsampled input exist; with a frozen input, no dx."""
     x = t(rand(10, (1, 3, 3, 8))).requires_grad_(True)
     weight, bias = _weights(11, 8, 8)
     w9 = conv.pack_weight(weight, torch.float32)
     w16 = upconv.phase_weight(weight, torch.float32)
     calls = []
-    real = upconv.upsample_nearest
-    try:
-        upconv.upsample_nearest = lambda v: calls.append(v) or real(v)
-        out = upconv.UpConv3x3Fn.apply(x, w9, bias, w16)
-        out.sum().backward()
-    finally:
-        upconv.upsample_nearest = real
-    assert x.grad is not None and x.grad.shape == x.shape and not calls
+    for name in ("upsample_nearest", "upconv3x3_dweight_plain",
+                 "upconv3x3_dx"):
+        real = getattr(upconv, name)
+        monkeypatch.setattr(upconv, name, lambda *a, real=real, name=name:
+                            calls.append(name) or real(*a))
+    out = upconv.UpConv3x3Fn.apply(x, w9, bias, w16)
+    out.sum().backward()
+    assert x.grad is not None and x.grad.shape == x.shape
+    assert calls == ["upconv3x3_dx"]
+    calls.clear()
+    w9 = w9.clone().requires_grad_(True)
+    out = upconv.UpConv3x3Fn.apply(x.detach(), w9, bias, w16)
+    out.sum().backward()
+    assert w9.grad is not None and calls == ["upconv3x3_dweight_plain"]
 
 
 # (Cin, Cout, source side, splits) of U at the UNet's three up blocks and
@@ -254,3 +268,140 @@ def test_cpu_wrapper_is_the_plain_version_and_checks_operands():
         upconv.upconv3x3(x, w16[:9], bias)
     with pytest.raises(ValueError):
         upconv.upconv3x3(x, w16, bias[:8])
+
+
+def _phase64(weight):
+    """phase_weight's tap sums in float64 (phase_weight sums in fp32)."""
+    k = weight.permute(2, 3, 1, 0)
+    cin, cout = k.shape[2:]
+    return torch.stack([upconv._pair(upconv._pair(k, 0, a), 1, b)
+                        for a in (0, 1) for b in (0, 1)]).reshape(
+        16, cin, cout)
+
+
+# (B, source H, W, Cin, Cout) of the backward's checks: even, odd and
+# one-column sources, Cin != Cout
+DX_SHAPES = [(2, 4, 6, 8, 16), (1, 5, 3, 8, 8), (2, 3, 1, 16, 8),
+             (1, 1, 1, 8, 8)]
+
+
+@pytest.mark.parametrize("b, h, w, cin, cout", DX_SHAPES)
+def test_backward_plain_versions_match_jax_vjp(b, h, w, cin, cout):
+    """U's input gradient (`upconv3x3_dx_plain`, kernel UB's plain version)
+    and weight gradient (`upconv3x3_dweight_plain`) against jax.vjp of the
+    JAX package's _UpsampleConv, whose gradient XLA forms from the four
+    phase convs (fp32, 1e-4)."""
+    x = rand(20 + h, (b, h, w, cin))
+    g = rand(21 + w, (b, 2 * h, 2 * w, cout))
+    jm = JL._UpsampleConv(cout)
+    p = jm.init(RNG, jnp.asarray(x))
+    _, vjp = jax.vjp(lambda pp, xx: jm.apply(pp, xx), p, jnp.asarray(x))
+    jp, jx = vjp(jnp.asarray(g))
+    weight = t(p["params"]["kernel"]).permute(3, 2, 0, 1)  # OIHW
+    w16 = upconv.phase_weight(weight, torch.float32)
+    assert_close(jx, upconv.upconv3x3_dx_plain(t(g), w16))
+    dw9 = upconv.upconv3x3_dweight_plain(t(x), t(g))
+    assert_close(jp["params"]["kernel"], dw9.reshape(3, 3, cin, cout))
+
+
+@pytest.mark.parametrize("b, h, w, cin, cout", DX_SHAPES)
+def test_dx_is_the_strided_correlation_of_the_transposed_weight(
+        b, h, w, cin, cout):
+    """In float64, F.conv2d(g, k, stride=2, padding=1) with k
+    chip_smoke.transposed_weight(w16) read as a (Cin, Cout, 4, 4) conv
+    weight (cuDNN's one call of UB's function, the smoke's library) equals
+    autograd's dx of F.conv2d(F.interpolate(x, 2), w, padding=1); so does
+    the plain input gradient, and the phase-form weight gradient autograd's
+    dw and the 3x3 one on the upsampled input, within their fp32 sums."""
+    import chip_smoke
+    rs = np.random.RandomState(b * 100 + h * 10 + w)
+    x = torch.tensor(rs.randn(b, h, w, cin)).requires_grad_(True)
+    weight = torch.tensor(rs.randn(cout, cin, 3, 3)).requires_grad_(True)
+    y = F.conv2d(F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
+                               mode="nearest"), weight, padding=1)
+    g = torch.tensor(rs.randn(*y.shape))
+    dx, dw = torch.autograd.grad(y, (x, weight), g)
+    w16 = _phase64(weight.detach())
+    gn = g.permute(0, 2, 3, 1).contiguous()
+    corr = F.conv2d(g, chip_smoke.transposed_weight(w16), stride=2,
+                    padding=1).permute(0, 2, 3, 1)
+    torch.testing.assert_close(corr, dx, atol=1e-10, rtol=1e-10)
+    # the plain versions sum in fp32
+    tol = dict(atol=1e-5 * float(dx.abs().max()), rtol=1e-5)
+    torch.testing.assert_close(upconv.upconv3x3_dx_plain(gn, w16), dx, **tol)
+    dw9 = upconv.upconv3x3_dweight_plain(x.detach(), gn).double()
+    want = conv.pack_weight(dw, torch.float64)
+    tol = dict(atol=1e-5 * float(want.abs().max()), rtol=1e-5)
+    torch.testing.assert_close(dw9, want, **tol)
+    torch.testing.assert_close(
+        dw9, conv.conv3x3_dweight_plain(
+            upconv.upsample_nearest(x.detach()), gn).double(), **tol)
+
+
+def test_backward_routes_dx_through_the_ub_wrapper(monkeypatch):
+    """UpConv3x3Fn's dx is `upconv3x3_dx(g, w16)` (kernel UB on the card,
+    its plain version here) on the saved phase weights, cast to x's
+    dtype."""
+    x = t(rand(22, (2, 3, 5, 8))).requires_grad_(True)
+    weight, bias = _weights(23, 8, 16)
+    w9 = conv.pack_weight(weight, torch.float32)
+    w16 = upconv.phase_weight(weight, torch.float32)
+    g = t(rand(24, (2, 6, 10, 16)))
+    seen = []
+    real = upconv.upconv3x3_dx
+    monkeypatch.setattr(upconv, "upconv3x3_dx",
+                        lambda gg, ww: seen.append((gg, ww)) or real(gg, ww))
+    out = upconv.UpConv3x3Fn.apply(x, w9, bias, w16)
+    out.backward(g)
+    assert len(seen) == 1 and seen[0][1] is w16
+    assert torch.equal(seen[0][0], g)
+    assert torch.equal(x.grad, upconv.upconv3x3_dx_plain(g, w16))
+
+
+def test_cpu_dx_wrapper_is_the_plain_version_and_checks_operands():
+    g = t(rand(25, (1, 4, 6, 16)))
+    weight, _ = _weights(26, 8, 16)
+    w16 = upconv.phase_weight(weight, torch.float32)
+    before = upconv.upconv3x3_dx.launches
+    got = upconv.upconv3x3_dx(g, w16)
+    assert got.shape == (1, 2, 3, 8)
+    assert torch.equal(got, upconv.upconv3x3_dx_plain(g, w16))
+    assert upconv.upconv3x3_dx.launches == before  # the CPU runs no kernel
+    with pytest.raises(ValueError):
+        upconv.upconv3x3_dx(g[:, :3], w16)  # odd cotangent height
+    with pytest.raises(ValueError):
+        upconv.upconv3x3_dx(g, w16[:9])
+    with pytest.raises(ValueError):
+        upconv.upconv3x3_dx(g[..., :8], w16)  # channels != w16's Cout
+
+
+def test_phase_weight_adjoint_is_the_transpose_of_the_tap_sums():
+    """<phase_weight(w), d> == <w, phase_weight_adjoint(d)> for any w and
+    d: the weight gradient's last step is the exact adjoint."""
+    rs = np.random.RandomState(27)
+    w = torch.tensor(rs.randn(6, 4, 3, 3))
+    d = torch.tensor(rs.randn(16, 4, 6))
+    lhs = (_phase64(w) * d).sum()
+    rhs = (conv.pack_weight(w, torch.float64)
+           * upconv.phase_weight_adjoint(d)).sum()
+    torch.testing.assert_close(lhs, rhs, atol=1e-12, rtol=1e-12)
+
+
+def test_dx_weight_packing_and_ub_plan_ignore_the_batch():
+    """UB's packing is a function of w16 alone, and its line and split
+    plan at the training path's up blocks see no batch."""
+    for cin, side in ((1280, 8), (1280, 16), (640, 32)):
+        line = upconv.dx_tile(cin, cin, side)
+        assert line == upconv.UB_BUILT[conv.tile_key(2, False, cin, cin,
+                                                      side)]
+        assert upconv.dx_splits(cin, cin, side, side) == conv.split_count(
+            line, cin, cin, side, side)
+    w16 = t(rand(28, (16, 8, 16)))
+    k16 = upconv.dx_weight(w16)
+    # tap (ty, tx) of the window: cotangent row 2r - 1 + ty lies in phase
+    # (ty + 1) % 2, which reached source row r through its tap 1 - ty // 2
+    taps = [4 * (2 * ((ty + 1) % 2) + (tx + 1) % 2) + 2 * (1 - ty // 2)
+            + 1 - tx // 2 for ty in range(4) for tx in range(4)]
+    assert sorted(taps) == list(range(16))
+    for tap, src in enumerate(taps):
+        assert torch.equal(k16[tap], w16[src].t())
