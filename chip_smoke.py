@@ -4,7 +4,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It takes no arguments and runs fourteen phases, all of which must pass. The
+It takes no arguments and runs fifteen phases, all of which must pass. The
 serving and training paths run in the default conv configuration and in
 the fused-conv one (`ConvKernels(fused_prologue=True, strided=True)`: every
 resnet conv on kernel P with its GroupNorm + SiLU as prologue, every 3x3
@@ -206,6 +206,20 @@ input gradient as kernel UB, their adjoint at stride 2 with a 4x4 window:
                generated PNGs (SCORER_IMAGE_REL_L2 with cuDNN's TF32
                default, SCORER_TEXT_REL_L2), its ms per image at batch 1
                and 8; each step's wall time, launches and the JSONs' keys;
+  bench        the timers of storygen_tpu_torch/scripts/ through their
+               run() at full width, bf16: bench (DDIM-2 frames, 2 timed
+               after the warm-up) in both conv configurations, each frame
+               also on the plain path (MODEL_REL_L2); bench_story's
+               per-frame, --reuse-latents and --fused stories (DDIM-2, 1
+               timed); bench_train at stage 2 with AdamW, full with
+               AdamW8bit, stage 2 from precomputed moments and full with
+               AdamW (batch 4, 1 + 1 steps), the two full steps' peak
+               memory, and the full AdamW8bit step's loss and attn3
+               gradients at batch 2, kernel path against plain path
+               (MODEL_REL_L2,
+               GRAD_REL_L2); every output finite, chained iterations and
+               frames distinct, each run launching exactly its path's
+               kernels (P and D only in the fused frame);
   studies      the attention studies' kernels (S1-S4, csrc/study_*.cu, all
                on kernel F's wgmma + TMA template; S3 and S4 with int8
                wgmma): drives every ported study entry point
@@ -1867,33 +1881,18 @@ def geglu_ptxas() -> bool:
 
 def conv_kernels(config: str):
     """The conv configuration of a phase: "default" or "fused"."""
-    from storygen_tpu_torch.configs import ConvKernels
-    return {"default": ConvKernels(),
-            "fused": ConvKernels(fused_prologue=True, strided=True)}[config]
+    from storygen_tpu_torch.scripts.common import CONV
+    return CONV[config]
 
 
-def full_width_models(dev, conv=None):
-    """SD-1.5 + VLCM UNet, VAE and CLIP ViT-L/14 text encoder at their
-    published widths, bf16, seeded random weights; `conv`
-    (configs.ConvKernels, the default one if None) picks the kernels of the
-    UNet's and the VAE's convs. The weights do not depend on it."""
-    import torch
-    from storygen_tpu_torch.configs import (CLIPTextConfig, ConvKernels,
-                                            UNetConfig, VAEConfig)
-    from storygen_tpu_torch.models.clip_text import CLIPTextModel
-    from storygen_tpu_torch.models.init import init_random_
-    from storygen_tpu_torch.models.unet import UNet2DConditionModel
-    from storygen_tpu_torch.models.vae import AutoencoderKL
-    conv = conv or ConvKernels()
-
-    def make(cls, seed, *args):
-        with torch.device(dev):  # allocate on the card, skip CPU init
-            module = cls(*args)
-        return init_random_(module.to(torch.bfloat16), seed).eval()
-
-    return (make(UNet2DConditionModel, 1, UNetConfig(), conv),
-            make(AutoencoderKL, 2, VAEConfig(), conv),
-            make(CLIPTextModel, 3, CLIPTextConfig()))
+def full_width_models(dev, config: str = "default"):
+    """The timers' full-width models (scripts/common.py::full_width_models:
+    SD-1.5 + VLCM UNet, VAE and CLIP ViT-L/14 text encoder at their
+    published widths, bf16, seeded random weights, the convs on `config`'s
+    kernels) as (unet, vae, clip)."""
+    from storygen_tpu_torch.scripts import common
+    b = common.full_width_models(dev, config)
+    return b["unet"], b["vae"], b["text_encoder"]
 
 
 def token_ids(prompts):
@@ -2161,7 +2160,7 @@ def phase_models(dev, card: str) -> bool:
 def models_vs_plain(dev, card: str, config: str) -> bool:
     import torch
     from storygen_tpu_torch.pipeline import StoryGenSampler
-    unet, vae, _ = full_width_models(dev, conv_kernels(config))
+    unet, vae, _ = full_width_models(dev, config)
     g = torch.Generator(device=dev).manual_seed(11)
     n, b = 3, 1
     refs = torch.randn((n * 2 * b, 64, 64, 4), generator=g, device=dev)
@@ -2230,7 +2229,7 @@ def phase_story(dev, card: str, results: dict,
     from storygen_tpu_torch.pipeline import StoryGenPipeline
     prompts = PROMPTS if config == "default" else PROMPTS[:2]
     path = "story" if config == "default" else "story_fused"
-    unet, vae, clip = full_width_models(dev, conv_kernels(config))
+    unet, vae, clip = full_width_models(dev, config)
     pipe = StoryGenPipeline(unet, vae, clip, token_ids, device=dev)
     marks = []
     decode = pipe.sampler.decode
@@ -2319,7 +2318,7 @@ def phase_serving(dev, card: str, results: dict) -> bool:
                  width=512, guidance_scale=7.5, image_guidance_scale=3.5)
     ok = True
     for config in ("default", "fused"):
-        unet, vae, clip = full_width_models(dev, conv_kernels(config))
+        unet, vae, clip = full_width_models(dev, config)
         pipe = StoryGenPipeline(unet, vae, clip, token_ids, device=dev)
         if config == "default":
             ok &= serving_samplers(pipe, dev, card, results, frame)
@@ -4296,7 +4295,7 @@ def tp_pass_rank(rank, world, dev, inputs, config):
     all-reduces."""
     import torch
     from storygen_tpu_torch.parallel import tensor as T
-    unet = full_width_models(dev, conv_kernels(config))[0]
+    unet = full_width_models(dev, config)[0]
     tp = T.shard_unet_params(unet, T.make_tp_mesh(1, world))
     torch.cuda.synchronize()
     reset_launches()
@@ -4509,7 +4508,7 @@ def parallel_tp(dev, card: str, results: dict) -> bool:
     torch.cuda.synchronize()
     one_wall = time.perf_counter() - t0
     del pipe
-    unet = full_width_models(dev, conv_kernels("fused"))[0]
+    unet = full_width_models(dev, "fused")[0]
     g, lat = torch.Generator().manual_seed(11), TP_SIDE // 8
     d = unet.config.cross_attention_dim
     inputs = {"refs": torch.randn((6, lat, lat, 4), generator=g),
@@ -4965,6 +4964,173 @@ def phase_studies(dev, card: str, results: dict) -> bool:
     torch.cuda.empty_cache()
     return ok
 
+# The timers' phase: storygen_tpu_torch/scripts/bench{,_story,_train}.py
+# through their run() at full width, with DDIM-2 frames and stories (every
+# step runs the same kernels at the same shapes) and 1 + 1 train steps
+BENCH_STEPS = 2
+# bench_train's runs: (stage, opt, precomputed); "full" with AdamW is run
+# last, for its peak memory against AdamW8bit's
+BENCH_TRAIN_RUNS = (("stage2", "fp32", False), ("full", "8bit", False),
+                    ("stage2", "fp32", True), ("full", "fp32", False))
+TRAIN_KERNELS = tuple(k for k in PORT_KERNELS if k not in FUSED_KERNELS)
+PATH_KERNELS.update({
+    "bench_frame": SERVING_KERNELS,
+    "bench_frame_fused": SERVING_KERNELS + FUSED_KERNELS,
+    "bench_story": SERVING_KERNELS,
+    "bench_story_reuse": SERVING_KERNELS,
+    "bench_story_fused": SERVING_KERNELS,
+    **{f"bench_train_{stage}_{opt}" + ("_precomputed" if pre else ""):
+       TRAIN_KERNELS for stage, opt, pre in BENCH_TRAIN_RUNS}})
+
+
+def finite(x) -> bool:
+    import torch
+    return bool(torch.isfinite(x).all().item())
+
+
+def phase_bench(dev, card: str, results: dict) -> bool:
+    """The three timers on the entry points' run(): frames (2 timed after
+    the warm-up) in both conv configurations, each also on the plain path;
+    the per-frame, reuse-latents and fused stories (1 timed); bench_train's
+    BENCH_TRAIN_RUNS at batch 4; and the full step with AdamW8bit at batch
+    2, kernel path against plain path. Each run's launches are its
+    path's."""
+    import torch
+    from storygen_tpu_torch.scripts import bench_train, common
+    ok = bench_frames(dev, card, results, "default", stories=True)
+    ok &= bench_frames(dev, card, results, "fused")
+    peaks = {}
+    for stage, opt, pre in BENCH_TRAIN_RUNS:
+        path = f"bench_train_{stage}_{opt}" + ("_precomputed" if pre else "")
+        models = common.full_width_models(dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        out = bench_train.run(models, stage=stage, opt=opt, precomputed=pre,
+                              batch=4, iters=1, device=dev)
+        launches = read_launches()
+        good = all(math.isfinite(x) for x in out["losses"])
+        print(f"{path}: losses {out['losses']} finite "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok &= good & record_launches(results, launches, path)
+        peaks[(stage, opt)] = out["peak_gib"]
+        del models
+        torch.cuda.empty_cache()
+    fp32, eight = peaks[("full", "fp32")], peaks[("full", "8bit")]
+    good = eight < fp32
+    print(f"bench_train full, peak memory of one step at batch 4: AdamW "
+          f"{fp32:.2f} GiB, AdamW8bit {eight:.2f} GiB, saved "
+          f"{fp32 - eight:.2f} GiB {'ok' if good else 'FAIL'} [{card}]",
+          flush=True)
+    ok &= good
+    return ok & bench_full_vs_plain(dev, card)
+
+
+def bench_frames(dev, card: str, results: dict, config: str,
+                 stories: bool = False) -> bool:
+    """bench.run in `config`, then its frame on the kernel path against
+    the plain path; with `stories`, bench_story.run's three stories."""
+    import torch
+    from storygen_tpu_torch.pipeline import StoryGenSampler
+    from storygen_tpu_torch.scripts import bench, bench_story, common
+    models = common.full_width_models(dev, config)
+    path = "bench_frame" + ("_fused" if config == "fused" else "")
+    torch.cuda.synchronize()
+    reset_launches()
+    line, images = bench.run(models, steps=BENCH_STEPS, iters=2, conv=config,
+                             device=dev)
+    launches = read_launches()
+    good = (all(finite(x) and tuple(x.shape) == (1, 512, 512, 3)
+                for x in images) and not torch.equal(images[0], images[1]))
+    print(f"{path}: {json.dumps(line)}; images finite and the chained "
+          f"iterations differ {'ok' if good else 'FAIL'}", flush=True)
+    ok = good & record_launches(results, launches, path)
+    sampler = StoryGenSampler(models["unet"], models["vae"], device=dev)
+    inp = bench.frame_inputs(models["unet"], 1, 512, 0, dev)
+    ok &= kernel_vs_plain(
+        f"[{config}] bench frame DDIM-{BENCH_STEPS} (the image)",
+        lambda: bench.frame(sampler, inp, inp["latents"][0],
+                            torch.zeros((), device=dev), BENCH_STEPS),
+        (1, 512, 512, 3), card)
+    for name, kw in ((("bench_story", {}),
+                      ("bench_story_reuse", {"reuse": True}),
+                      ("bench_story_fused", {"fused": True}))
+                     if stories else ()):
+        torch.cuda.synchronize()
+        reset_launches()
+        line, outs = bench_story.run(models, steps=BENCH_STEPS, stories=1,
+                                     conv=config, device=dev, **kw)
+        launches = read_launches()
+        frames = outs[0]
+        good = (finite(frames) and tuple(frames.shape) == (4, 1, 512, 512, 3)
+                and not torch.equal(frames[0], frames[1]))
+        print(f"{name}: {json.dumps(line)}; frames finite and distinct "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok &= good & record_launches(results, launches, name)
+    del models, sampler, inp, images
+    torch.cuda.empty_cache()
+    return ok
+
+
+# bench_full_vs_plain's batch: at batch 4 the plain path's reference pass
+# (12 rows of 4096-token attention in fp32) ran the card out of memory
+FULL_VS_PLAIN_BATCH = 2
+
+
+def bench_full_vs_plain(dev, card: str) -> bool:
+    """bench_train's full step with AdamW8bit at batch 2, 512 px: its loss
+    and attn3 gradients on the kernel path against the plain path, the
+    same draws on both (the optimizer keeps the gradients and moves no
+    weight)."""
+    import torch
+    from storygen_tpu_torch import ops
+    from storygen_tpu_torch.scripts import bench_train, common
+    models = common.full_width_models(dev)
+    models["unet"].gradient_checkpointing = True
+    step, opt = bench_train.make_step(models, "full", "8bit", dev)
+    kept = []
+    opt.update = kept.append
+    clip_cfg = models["text_encoder"].config
+    data = bench_train.make_batch(FULL_VS_PLAIN_BATCH, 512, False,
+                                  models["vae"].dtype,
+                                  clip_cfg.vocab_size,
+                                  clip_cfg.max_position_embeddings, dev)
+    names = [k for k in opt.params if "attn3" in k]
+
+    def run():
+        kept.clear()
+        loss = step(data, torch.Generator(device=dev).manual_seed(1))["loss"]
+        return loss.float(), [kept[0][k].float() for k in names]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_k, grads_k = run()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with ops.plain_path():
+        loss_p, grads_p = run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rel_loss = (abs(loss_k - loss_p) / abs(loss_p)).item()
+    per = [((a - p).norm() / p.norm()).item()
+           for a, p in zip(grads_k, grads_p)]
+    worst = max(range(len(per)), key=per.__getitem__)
+    good = (finite(loss_k) and all(finite(g) for g in grads_k)
+            and rel_loss <= MODEL_REL_L2 and max(per) <= GRAD_REL_L2
+            and len(names) == 16 * 5 and len(opt.params) == len(
+                list(models["unet"].parameters())))
+    print(f"bench_train full AdamW8bit B{FULL_VS_PLAIN_BATCH} 512px 3 refs: "
+          f"loss kernel "
+          f"{loss_k.item():.6f} plain {loss_p.item():.6f} rel "
+          f"{rel_loss:.3e} (bound {MODEL_REL_L2:.0e}); {len(names)} of "
+          f"{len(opt.params)} trained tensors compared, the attn3 grads: "
+          f"worst rel L2 {per[worst]:.3e} at {names[worst]} (bound "
+          f"{GRAD_REL_L2:.0e}) {'ok' if good else 'FAIL'}; kernel path "
+          f"{1e3 * (t1 - t0):.1f} ms, plain path {1e3 * (t2 - t1):.1f} ms "
+          f"(first calls) [{card}]", flush=True)
+    del models, step, opt, kept, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return good
+
 
 def main() -> int:
     import torch
@@ -5001,6 +5167,7 @@ def main() -> int:
             ("cli", lambda: phase_cli(dev, card, results)),
             ("dataset", lambda: phase_dataset(dev, card, results)),
             ("quality", lambda: phase_quality(dev, card, results)),
+            ("bench", lambda: phase_bench(dev, card, results)),
             # before `parallel`: after its NCCL group and spawned ranks the
             # profiler lost most of the studies' kernels
             ("studies", lambda: phase_studies(dev, card, results)),

@@ -8,6 +8,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 profile_port.py            # frames and micro-steps
     python3 profile_port.py options    # serving's samplers and options
+    python3 profile_port.py timers     # the three timers, a process a run
 
 The frame is the headline's: 512 px, auto-regressive with 3 reference
 frames, bf16, batch 1, guidance 7.5 / image guidance 3.5, with the
@@ -60,11 +61,26 @@ the stories twice), the wall time of
   - a 4-frame DDIM-50 story, per-frame and fused (generate_story(fused=
     True)),
 and prints each one's times, median and factor over the first variant.
+
+With `timers` it runs the port's three timers
+(storygen_tpu_torch/scripts/bench{,_story,_train}.py) through their
+main() at the JAX scripts' settings, each run in a process of its own
+(`TIMER_RUNS`, each variant in both conv configurations, in turns:
+default, fused, fused, default): `bench` (3 DDIM-50 frames after a
+warm-up), `bench_story` per-frame, --reuse-latents and --fused (3
+stories after a warm-up each), and `bench_train` at stage2 with AdamW,
+stage2 with AdamW8bit, stage2 from precomputed moments and full with
+AdamW8bit (batch 4, 5 steps after one). Each run's line, with its
+per-iteration, per-frame or per-step times on the card's timeline and on
+the host's clock and the card's name, power limit and SM clock, goes to
+chiprun_out/timers.jsonl, beside the time of a fixed Python loop on the
+host just before and after the run (`host_probe_ms`). About 30 min.
 Without a CUDA device the script exits non-zero.
 """
 from __future__ import annotations
 
 import collections
+import json
 import os
 import re
 import statistics
@@ -94,6 +110,8 @@ def main() -> int:
         return 0 if host_costs(dev, card, tree) else 1
     if sys.argv[1:] == ["options"]:
         return 0 if serving_options(dev, card) else 1
+    if sys.argv[1:] == ["timers"]:
+        return 0 if timers(dev, card) else 1
     return 0 if story_frames(dev, card) and train_micro_steps(dev, card) \
         else 1
 
@@ -243,7 +261,7 @@ def story_frames(dev, card: str) -> bool:
     from storygen_tpu_torch.pipeline import StoryGenPipeline, frame_generator
     pipes = {}
     for config in CONFIGS:
-        unet, vae, clip = cs.full_width_models(dev, cs.conv_kernels(config))
+        unet, vae, clip = cs.full_width_models(dev, config)
         pipes[config] = StoryGenPipeline(unet, vae, clip, cs.token_ids,
                                          device=dev)
     refs = np.random.RandomState(0).rand(3, 1, 512, 512, 3).astype(np.float32)
@@ -333,6 +351,82 @@ def serving_options(dev, card: str) -> bool:
     in_turns(lambda k: story(k == "fused"), "4-frame DDIM-50 story, refs up "
              "to 3, 512 px, bf16", card, "s", 1.0,
              keys=("per-frame", "fused"), rounds=2)
+    return True
+
+
+# the timers mode's runs: (label, module, flags beside --conv)
+TIMER_RUNS = (
+    ("bench: s per DDIM-50 frame (3 refs, 512 px)", "bench", ()),
+    ("bench_story per-frame: p50 s per 4-frame DDIM-50 story",
+     "bench_story", ()),
+    ("bench_story reuse-latents: p50 s per 4-frame DDIM-50 story",
+     "bench_story", ("--reuse-latents",)),
+    ("bench_story fused: p50 s per 4-frame DDIM-50 story", "bench_story",
+     ("--fused",)),
+    ("bench_train stage2 fp32: ms per step, batch 4", "bench_train", ()),
+    ("bench_train stage2 8bit: ms per step, batch 4", "bench_train",
+     ("--opt", "8bit")),
+    ("bench_train stage2 fp32 precomputed: ms per step, batch 4",
+     "bench_train", ("--precomputed",)),
+    ("bench_train full 8bit: ms per step, batch 4", "bench_train",
+     ("--stage", "full", "--opt", "8bit")))
+
+# a timer's main() in a child process; its returned line after "TIMER "
+TIMER_CALL = ("import json, sys; from storygen_tpu_torch.scripts import {} "
+              "as m; print('TIMER ' + json.dumps(m.main(sys.argv[1:])), "
+              "flush=True)")
+
+
+def timer_process(module: str, flags, conv: str) -> dict:
+    """Runs `module`'s main(flags + --conv conv) in a process of its own
+    and returns its line; raises if the process fails."""
+    import subprocess
+    proc = subprocess.run([sys.executable, "-c", TIMER_CALL.format(module),
+                           *flags, "--conv", conv],
+                          capture_output=True, text=True)
+    sys.stdout.write(proc.stdout)
+    sys.stderr.write(proc.stderr)
+    if proc.returncode:
+        raise RuntimeError(f"{module} {flags} --conv {conv}: exit "
+                           f"{proc.returncode}")
+    last = [x for x in proc.stdout.splitlines() if x.startswith("TIMER ")]
+    return json.loads(last[-1][len("TIMER "):])
+
+
+def host_probe_ms(n: int = 2_000_000) -> float:
+    """Milliseconds of a fixed pure-Python loop: the host's own pace, read
+    beside each timer run."""
+    t0 = time.perf_counter()
+    x = 0
+    for i in range(n):
+        x += i
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def timers(dev, card: str) -> bool:
+    """`profile_port.py timers`: each of TIMER_RUNS in turns, a process a
+    run; each line goes to chiprun_out/timers.jsonl with its label and
+    `host_probe_ms` just before and just after the run."""
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "timers.jsonl"), "w") as out:
+        for label, module, flags in TIMER_RUNS:
+            def run(conv: str) -> float:
+                before = host_probe_ms()
+                line = timer_process(module, flags, conv)
+                probe = [before, host_probe_ms()]
+                print(f"host probe {probe[0]:.1f}, {probe[1]:.1f} ms",
+                      flush=True)
+                out.write(json.dumps({"label": label, "host_probe_ms": probe,
+                                      **line}) + "\n")
+                out.flush()
+                if module == "bench":
+                    return 1 / line["value"]
+                if module == "bench_story":
+                    return line["value"]
+                return line["ms_per_step"]
+
+            in_turns(run, label, card, "s" if module != "bench_train"
+                     else "ms", 1.0)
     return True
 
 

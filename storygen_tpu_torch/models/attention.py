@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from storygen_tpu_torch.models.layers import Conv1x1, GroupNorm
+from storygen_tpu_torch.models.layers import Conv1x1, GroupNorm, linear
 from storygen_tpu_torch.ops import route
 from storygen_tpu_torch.ops.attention import multi_head_attention
 from storygen_tpu_torch.ops.geglu import GegluMatmulFn, geglu_matmul_plain
@@ -39,13 +39,6 @@ class LayerNorm(nn.Module):
         y = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(),
                          self.bias.float(), self.eps)
         return y.to(x.dtype)
-
-
-def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """`layer` applied in x's dtype: a trained projection keeps fp32
-    parameters while the model computes in bf16."""
-    bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
 class CrossAttention(nn.Module):
@@ -73,10 +66,10 @@ class CrossAttention(nn.Module):
                 context = self.tp.copy_in(context)
         context = x if context is None else context
         out = multi_head_attention(
-            _linear(x, self.to_q), _linear(context, self.to_k),
-            _linear(context, self.to_v), self.heads, ref_mask=ref_mask)
+            linear(x, self.to_q), linear(context, self.to_k),
+            linear(context, self.to_v), self.heads, ref_mask=ref_mask)
         if self.tp is None:
-            return _linear(out, self.to_out[0])
+            return linear(out, self.to_out[0])
         lin = self.to_out[0]  # the partial product in fp32 of out's dtype
         return self.tp.reduce_out(
             F.linear(out.float(), lin.weight.to(out.dtype).float()),
@@ -107,14 +100,14 @@ class FeedForward(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp is not None:
             x = self.tp.copy_in(x)
-        proj = self.net[0].proj(x)
+        proj = linear(x, self.net[0].proj)
         out_lin = self.net[2]
         fn = route(GegluMatmulFn.apply, geglu_matmul_plain)
         bias = out_lin.bias if self.tp is None else torch.zeros_like(
             out_lin.bias)
         # the rows per image pick G's tile and split, never the batch
-        out = fn(proj.reshape(-1, proj.shape[-1]), out_lin.weight, bias,
-                 x.shape[-2])
+        out = fn(proj.reshape(-1, proj.shape[-1]),
+                 out_lin.weight.to(proj.dtype), bias, x.shape[-2])
         if self.tp is not None:
             out = self.tp.reduce_out(out, out_lin.bias, proj.dtype)
         return out.reshape(*x.shape[:-1], out.shape[-1])

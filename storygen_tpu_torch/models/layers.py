@@ -55,6 +55,13 @@ def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
     return emb
 
 
+def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """`layer` applied in x's dtype: a trained layer keeps fp32
+    parameters while the model computes in bf16."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
 class TimestepEmbedding(nn.Module):
     """linear_1 -> SiLU -> linear_2."""
 
@@ -64,7 +71,7 @@ class TimestepEmbedding(nn.Module):
         self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
-        return self.linear_2(F.silu(self.linear_1(sample)))
+        return linear(F.silu(linear(sample, self.linear_1)), self.linear_2)
 
 
 class GroupNorm(nn.Module):
@@ -114,7 +121,8 @@ class Conv1x1(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight[:, :, 0, 0], self.bias)
+        return F.linear(x, self.weight[:, :, 0, 0].to(x.dtype),
+                        self.bias.to(x.dtype))
 
 
 class _Packed3x3(nn.Module):
@@ -191,7 +199,8 @@ class StridedConv(_Packed3x3):
                       self.bias.float(), self.pad)
         t, bo, le, ri = self.pad
         xc = F.pad(x.permute(0, 3, 1, 2), (le, ri, t, bo))
-        y = F.conv2d(xc, self.weight, self.bias, stride=2)
+        y = F.conv2d(xc, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                     stride=2)
         return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -223,7 +232,8 @@ class ResnetBlock2D(nn.Module):
         extra = None
         if temb is not None:
             t = F.silu(temb)
-            extra = self.time_emb_proj(t if tp is None else tp.copy_in(t))
+            extra = linear(t if tp is None else tp.copy_in(t),
+                           self.time_emb_proj)
         skip = self.conv_shortcut(x) if hasattr(self, "conv_shortcut") else x
         if self.fused_prologue:
             a, s = self.norm1.fold(x)

@@ -145,6 +145,12 @@ class UpBlock(nn.Module):
 
 
 class UNet2DConditionModel(nn.Module):
+    # the dtype the UNet computes in; None: its parameters' (conv_in's).
+    # A trainer that keeps the trained parameters in fp32 while the model
+    # computes in bf16, as the JAX package's module dtype does, sets it
+    # when every parameter trains (the "full" subset)
+    compute_dtype: Optional[torch.dtype] = None
+
     def __init__(self, config: UNetConfig = UNetConfig(),
                  conv: ConvKernels = ConvKernels()):
         super().__init__()
@@ -204,7 +210,7 @@ class UNet2DConditionModel(nn.Module):
         attend to (used only with an image context).
         Returns (eps (B, H, W, 4), collected context)."""
         cfg = self.config
-        dtype = self.conv_in.weight.dtype
+        dtype = self.compute_dtype or self.conv_in.weight.dtype
         b = sample.shape[0]
         ts = torch.as_tensor(timesteps, device=sample.device)
         if ts.dim() == 0:

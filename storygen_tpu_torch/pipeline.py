@@ -118,6 +118,7 @@ class StoryGenSampler:
         self.sched_cfg = sched_cfg
         self.schedule = S.make_schedule(sched_cfg, device=self.device)
 
+    @torch.no_grad()
     def encode_ref_latents(self, images: torch.Tensor,
                            noise: torch.Tensor) -> torch.Tensor:
         """(N, B, H, W, 3) -> (N, B, h, w, 4) posterior draws scaled by

@@ -1,5 +1,6 @@
-"""What the entry points share: the device flag, the tokenizer folder and
-a pipeline loaded from a diffusers folder."""
+"""What the entry points share: the device flag, the tokenizer folder, a
+pipeline loaded from a diffusers folder, and the timers' conv flag and
+seeded full-width models."""
 from __future__ import annotations
 
 import argparse
@@ -8,6 +9,7 @@ import os
 import torch
 
 from storygen_tpu_torch.checkpoint.hf_import import load_diffusers_pretrained
+from storygen_tpu_torch.configs import ConvKernels, TrainConfig
 from storygen_tpu_torch.data.tokenizer import Tokenizer
 from storygen_tpu_torch.pipeline import StoryGenPipeline
 from storygen_tpu_torch.utils.device import resolve_device
@@ -28,6 +30,31 @@ def add_process_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--process_id", type=int, default=None)
     ap.add_argument("--backend", default="nccl",
                     help="torch.distributed backend: nccl (default) or gloo")
+
+
+# the two conv configurations, by the name the timers' --conv takes: the
+# default one, and the fused one (the JAX package's STORYGEN_HALO_FUSED=1
+# STORYGEN_HALO_DOWN=1)
+CONV = {"default": ConvKernels(),
+        "fused": ConvKernels(fused_prologue=True, strided=True)}
+
+
+def add_conv_flag(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--conv", default="default", choices=tuple(CONV),
+                    help="the convs' kernels: default (GroupNorm + SiLU, "
+                         "then C; stride 2 in F.conv2d) or fused (P with "
+                         "the GroupNorm + SiLU as prologue; stride 2 on D)")
+
+
+def full_width_models(device, conv: str = "default") -> dict:
+    """trainer.build_models's bundle: the SD-1.5 + VLCM UNet, VAE and CLIP
+    text encoder at their published widths from random weights seeded 1,
+    2 and 3, bf16, on `device`, their convs on CONV[conv]'s kernels (the
+    weights do not depend on it), no block checkpointed."""
+    from storygen_tpu_torch.training import trainer
+    return trainer.build_models(
+        TrainConfig(mixed_precision="bf16", seed=1, remat=False), device,
+        conv=CONV[conv])
 
 
 def tokenizer_folder(root: str) -> str:

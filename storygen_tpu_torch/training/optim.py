@@ -40,7 +40,8 @@ from storygen_tpu_torch.configs import TrainConfig
 # stage1 finetunes self-attention only; stage2/COCO the VLCM image
 # cross-attention only (reference train_StorySalon_stage{1,2}.py and
 # train_COCO.py); "full" makes every UNet parameter trainable (the export
-# and the benchmarks name it; `trainer.train` runs the other three)
+# names it and scripts/bench_train.py trains it with the stage-2 step;
+# `trainer.train` runs the other three)
 STAGE_PREDICATES: Dict[str, Callable[[str], bool]] = {
     "stage1": lambda name: "attn1" in name,
     "stage2": lambda name: "attn3" in name,

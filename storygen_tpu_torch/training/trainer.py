@@ -163,8 +163,10 @@ def build_models(cfg: TrainConfig, device="cuda",
     return bundle
 
 
-# the stages that `train` runs (optim.STAGE_PREDICATES also names "full",
-# every UNet parameter, which no step of the JAX package trains)
+# the stages that `train` runs, those of the JAX package's train();
+# optim.STAGE_PREDICATES also names "full", every UNet parameter, which
+# the JAX package's scripts/bench_train.py trains with the stage-2 step,
+# as does the port's scripts/bench_train.py
 STAGES = ("stage1", "stage2", "coco")
 
 # a loaded batch (this process's rows) -> tensors on the device

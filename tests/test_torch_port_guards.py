@@ -25,7 +25,8 @@ from storygen_tpu_torch.models.vae import AutoencoderKL
 from storygen_tpu_torch.ops import _build
 from storygen_tpu_torch.pipeline import (StoryGenPipeline, StoryGenSampler,
                                          seeded_draws)
-from storygen_tpu_torch.scripts import (inference, inference_coco_val,
+from storygen_tpu_torch.scripts import (bench, bench_story, bench_train,
+                                        inference, inference_coco_val,
                                         precompute_latents, serve, train)
 from storygen_tpu_torch.training import trainer
 from tests.torch_port_util import tokenizer
@@ -113,6 +114,9 @@ def test_port_imports_no_jax_or_flax():
         "import storygen_tpu_torch.scripts.study_knobs, "
         "storygen_tpu_torch.scripts.make_synth_storysalon\n"
         "import storygen_tpu_torch.scripts.make_synth_coco\n"
+        "import storygen_tpu_torch.scripts.bench, "
+        "storygen_tpu_torch.scripts.bench_story\n"
+        "import storygen_tpu_torch.scripts.bench_train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'storygen_tpu', 'transformers', "
         "'tokenizers', 'regex'))\n"
@@ -301,6 +305,74 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch,
         trainer.build_models(cfg)
     assert trainer.build_models(cfg, "cpu")["unet"].config == unet.config
     _scripts_need_a_card_unless_asked_for_cpu(tmp_path)
+    _timers_need_a_card_unless_asked_for_cpu(monkeypatch)
+
+
+# each timer's main: argv, and the keyword arguments its run must get
+TIMERS = [
+    (bench, [], dict(batch=1, conv="default")),
+    (bench_story, ["--fused", "--conv", "fused"],
+     dict(reuse=False, fused=True, conv="fused")),
+    (bench_train, ["--stage", "full", "--opt", "8bit", "--precomputed"],
+     dict(stage="full", opt="8bit", precomputed=True, batch=4, iters=5,
+          remat=True, conv="default"))]
+
+
+def _timers_need_a_card_unless_asked_for_cpu(monkeypatch):
+    """The timers' main refuses without a card before it builds a model;
+    with --device cpu it builds its models there and runs at the JAX
+    script's settings (the full-width models and the run itself stand in
+    here: at 512 px and full width the CPU would take hours)."""
+    unet, vae, clip = _tiny_serving_models()
+    for script, argv, want in TIMERS:
+        assert script.parse_args(argv).device == "cuda"
+        built, ran = [], []
+        monkeypatch.setattr(script, "full_width_models", lambda dev, conv:
+                            built.append((dev, conv)) or {
+                                "unet": unet, "vae": vae,
+                                "text_encoder": clip})
+        monkeypatch.setattr(script, "run", lambda models, **kw: ran.append(
+            (models, kw)) or ({}, []))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            script.main(argv)
+        assert not built and not ran
+        script.main(argv + ["--device", "cpu"])
+        assert built == [(torch.device("cpu"), want["conv"])]
+        (models, kw), = ran
+        assert models["unet"] is unet and kw.pop("device").type == "cpu"
+        assert kw == want, script
+
+
+def test_timers_take_the_jax_scripts_flags(monkeypatch):
+    """bench.py, scripts/bench_story.py and scripts/bench_train.py's flags
+    and switches parse; the JAX-only ones (--attn, --variant,
+    --ref-encode) are refused."""
+    assert bench.parse_args(["--batch", "2"]).batch == 2
+    args = bench_story.parse_args(["--reuse-latents"])
+    assert args.reuse_latents and not args.fused
+    assert bench_story.parse_args(["--fused"]).fused
+    monkeypatch.setenv("STORY_REUSE_LATENTS", "1")
+    assert bench_story.parse_args([]).reuse_latents
+    monkeypatch.setenv("STORY_FUSED", "1")
+    with pytest.raises(SystemExit):  # two different stories
+        bench_story.parse_args([])
+    args = bench_train.parse_args(
+        ["--batch", "2", "--no-remat", "--precomputed", "--stage", "coco",
+         "--opt", "8bit", "--iters", "3"])
+    assert (args.batch, args.remat, args.precomputed, args.stage, args.opt,
+            args.iters) == (2, False, True, "coco", "8bit", 3)
+    defaults = bench_train.parse_args([])
+    assert (defaults.batch, defaults.remat, defaults.stage, defaults.opt,
+            defaults.iters, defaults.conv) == (4, True, "stage2", "fp32", 5,
+                                               "default")
+    assert bench_train.parse_args(["--remat"]).remat
+    for flag in (["--attn", "xla"], ["--variant", "bnd"],
+                 ["--ref-encode", "map"]):
+        with pytest.raises(SystemExit):
+            bench_train.parse_args(flag)
+    for script in (bench, bench_story, bench_train):
+        with pytest.raises(SystemExit):
+            script.parse_args(["--conv", "halo"])
 
 
 def _scripts_need_a_card_unless_asked_for_cpu(tmp_path):

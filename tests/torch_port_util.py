@@ -93,8 +93,9 @@ def jax_params(module, state_dict, convert, *init_args):
                    template)
 
 
-def serving_models(clip: bool = False, seed: int = 1):
-    """The tiny UNet and VAE (and CLIP text encoder) in both packages with
+def serving_models(clip: bool = False, seed: int = 1, unet=TINY_UNET):
+    """The tiny UNet (TINY_UNET, or the `unet` config's fields) and VAE
+    (and CLIP text encoder) in both packages with
     the same weights: the port's seeded random init, taken into JAX trees
     by the JAX package's diffusers import (jax.eval_shape gives the trees'
     structure, so no JAX init runs) and carried back into fresh port
@@ -125,11 +126,11 @@ def serving_models(clip: bool = False, seed: int = 1):
         return load(port_cls(cfg), params, **convert_kw), jax_mod, params
 
     out = {
-        "unet": both(UNet2DConditionModel, UNetConfig(**TINY_UNET),
-                     JUNet(config=JUNetConfig(**TINY_UNET)), seed,
+        "unet": both(UNet2DConditionModel, UNetConfig(**unet),
+                     JUNet(config=JUNetConfig(**unet)), seed,
                      hf_import.torch_to_flax_unet,
                      (jnp.zeros((1, 8, 8, 4)), jnp.asarray([0]),
-                      jnp.zeros((1, 7, TINY_UNET["cross_attention_dim"])))),
+                      jnp.zeros((1, 7, unet["cross_attention_dim"])))),
         "vae": both(AutoencoderKL, VAEConfig(**TINY_VAE),
                     JVAE(config=JVAEConfig(**TINY_VAE)), seed + 1,
                     hf_import.torch_to_flax_vae,
