@@ -1,0 +1,7 @@
+"""% of the attention work's least time in F / M, L, DQ / DKV's time
+(train)."""
+from benchmark import readers  # noqa: F401
+
+
+def read(run):
+    return readers.roofline(run, "train", "attn")

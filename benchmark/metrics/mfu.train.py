@@ -1,0 +1,6 @@
+"""% of the 989 TFLOP/s bf16 peak in the window's model FLOPs (train)."""
+from benchmark import readers  # noqa: F401
+
+
+def read(run):
+    return readers.mfu(run, "train")

@@ -1,0 +1,6 @@
+"""% of the profiled device time in kernels of no port kernel (train)."""
+from benchmark import readers  # noqa: F401
+
+
+def read(run):
+    return readers.plain_share(run, "train")
